@@ -1,0 +1,63 @@
+"""Preset runner: solve + write the reference-compatible output files
+(counterpart of cfd_julia_tpu/run.py, same files and formats).
+
+`run_preset(name, outdir, device=...)` is what
+`python -m cfd_julia_torch run <preset>` calls.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+from cfd_julia_torch import presets as presets_lib
+from cfd_julia_torch.core import precision
+from cfd_julia_torch.models import cavity as cavity_model
+from cfd_julia_torch.utils import io
+
+
+def run_preset(name: str, outdir: str = ".", dtype=None, device="cuda",
+               **overrides):
+    """Run a named preset on `device`; writes its output files and
+    metrics.json into outdir and returns the metrics dict."""
+    preset = presets_lib.with_overrides(presets_lib.get(name), **overrides)
+    device = precision.resolve_device(device)
+    os.makedirs(outdir, exist_ok=True)
+    t0 = time.perf_counter()
+    metrics = _RUNNERS[preset.family](preset, outdir, dtype, device)
+    metrics["wall_time_s"] = time.perf_counter() - t0
+    metrics["preset"] = name
+    metrics["reference"] = preset.reference
+    metrics["device"] = (torch.cuda.get_device_name(device)
+                         if device.type == "cuda" else "cpu")
+    io.write_metrics(os.path.join(outdir, "metrics.json"), metrics)
+    return metrics
+
+
+def _run_cavity(preset, outdir, dtype, device):
+    cfg = preset.cfg
+    res = cavity_model.solve(cfg, dtype, device)
+    rms = res.rms_history.cpu().numpy()   # the run's one host transfer
+    with open(os.path.join(outdir, "res_plot.txt"), "w") as f:
+        for n, v in enumerate(rms, start=1):
+            f.write(f"{n} {float(v)!r}\n")
+    io.write_field2d(os.path.join(outdir, "field_final.txt"),
+                     res.x, res.y, res.w, res.s)
+    u, v = cavity_model.centerline_velocities(res, cfg)
+    if cfg.nx == cfg.ny:
+        io.write_field_csv(os.path.join(outdir, "centerlines.txt"),
+                           "y u_centerline x v_centerline",
+                           res.y, u, res.x, v)
+    else:  # rectangular grid: centerlines have different lengths
+        io.write_field_csv(os.path.join(outdir, "centerline_u.txt"),
+                           "y u_centerline", res.y, u)
+        io.write_field_csv(os.path.join(outdir, "centerline_v.txt"),
+                           "x v_centerline", res.x, v)
+    return {"steady_rms": float(rms[-1]),
+            "psi_min": float(res.s.min())}
+
+
+_RUNNERS = {
+    "cavity": _run_cavity,
+}

@@ -1,0 +1,72 @@
+"""Reference-compatible text writers + structured metrics (counterpart of
+cfd_julia_tpu/utils/io.py; same formats).
+
+2D field dumps "x y w s" (lid_driven_cavity.jl:205-210) and column files,
+written once after the run; `write_metrics` emits a JSON record per run.
+Inputs are numpy arrays or tensors on any device.
+"""
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+
+def _np64(a):
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, dtype=np.float64)
+
+
+def _ensure_dir(path):
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+
+
+def _write_rows(f, arrays):
+    """Vectorized row formatting; repr-precision floats, space-separated."""
+    mat = np.column_stack([_np64(a).ravel() for a in arrays])
+    np.savetxt(f, mat, fmt="%.17g", delimiter=" ")
+
+
+def write_field_csv(path, header: str, *columns):
+    """Space-separated columns with a header line."""
+    _ensure_dir(path)
+    with open(path, "w") as f:
+        f.write(header + "\n")
+        _write_rows(f, columns)
+
+
+def write_field2d(path, x, y, *fields, header=None):
+    """2D field dump: `x y f1 f2 ...` per node, j-major inner loop over i
+    (lid_driven_cavity.jl:205-210)."""
+    _ensure_dir(path)
+    x = _np64(x)
+    y = _np64(y)
+    fs = [_np64(f) for f in fields]
+    # j-major: rows ordered (j, i) with i fastest, like the reference loops
+    X = np.tile(x, len(y))
+    Y = np.repeat(y, len(x))
+    cols = [X, Y] + [ff.T.ravel() for ff in fs]
+    with open(path, "w") as f:
+        if header:
+            f.write(header + "\n")
+        _write_rows(f, cols)
+
+
+def write_metrics(path, metrics: dict):
+    """Structured per-run JSON metrics record."""
+    _ensure_dir(path)
+
+    def conv(v):
+        if isinstance(v, (np.floating, np.integer)):
+            return v.item()
+        if hasattr(v, "item") and getattr(v, "ndim", 1) == 0:
+            return v.item()
+        return v
+
+    with open(path, "w") as f:
+        json.dump({k: conv(v) for k, v in metrics.items()}, f, indent=2)
+        f.write("\n")
