@@ -8,7 +8,9 @@ hand-written CUDA C++ kernel for sm_90a under `csrc/`, built with nvcc on
 first use (`ops/_cuda_build.py`) and bound with ctypes (`ops/cuda_kernels.py`).
 
 Ported so far: the lid-driven cavity (reference ch. 18) on the full-grid
-step with the Arakawa RHS kernel and the dense sine-matmul Poisson solve.
+step with the Arakawa RHS kernel and the dense sine-matmul Poisson solve;
+the iterative and multigrid 2D Poisson solvers (ch. 15-17), with the
+V-cycle's red-black smoother and fused level edges as CUDA kernels.
 
 This package imports neither JAX nor cfd_julia_tpu; importing it loads no
 GPU library and builds nothing.

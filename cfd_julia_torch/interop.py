@@ -10,12 +10,18 @@ import numpy as np
 import torch
 
 from cfd_julia_torch.core import precision
-from cfd_julia_torch.models import cavity
+from cfd_julia_torch.models import cavity, poisson2d
+from cfd_julia_torch.poisson import multigrid
 
 # JAX CavityConfig.poisson / .rhs_impl -> the port's; the other JAX variants
 # (fst, fst_half, *_bf16x*, fused*, fst_mxu, ...) are not ported yet
 _POISSON = {"auto": "auto", "matmul": "matmul"}
 _RHS_IMPL = {"auto": "auto", "xla": "torch", "pallas": "kernel"}
+# JAX MGConfig.smoother -> the port's (smoother, impl): the JAX smoother
+# implementations "pallas" / "xla" are the port's kernels / plain twins
+_MG_SMOOTHER = {"auto": ("auto", "auto"), "cheb": ("cheb", "auto"),
+                "pallas": ("auto", "kernel"), "xla": ("auto", "torch")}
+_POISSON_SOLVERS = ("jacobi", "redblack", "cg", "multigrid", "mgcg")
 
 
 def cavity_config_from_jax(cfg) -> cavity.CavityConfig:
@@ -32,14 +38,49 @@ def cavity_config_from_jax(cfg) -> cavity.CavityConfig:
         rhs_impl=_RHS_IMPL[cfg.rhs_impl])
 
 
-def state_from_numpy(w, s, dtype=None, device="cpu"):
-    """Cavity state (w, s, rms=0) from numpy fields."""
+def mg_config_from_jax(cfg) -> multigrid.MGConfig:
+    """The port's MGConfig for a cfd_julia_tpu MGConfig."""
+    if cfg.smoother not in _MG_SMOOTHER:
+        raise ValueError(f"smoother={cfg.smoother!r} is not ported; the port "
+                         f"maps {sorted(_MG_SMOOTHER)}")
+    if cfg.cycle_dtype not in ("fp32", "mixed"):
+        raise ValueError(f"cycle_dtype={cfg.cycle_dtype!r} is not ported; "
+                         "the port has fp32 and mixed")
+    if cfg.transfers not in ("auto", "conv", "matmul", "reshape"):
+        raise ValueError(f"transfers={cfg.transfers!r} is not ported")
+    smoother, impl = _MG_SMOOTHER[cfg.smoother]
+    return multigrid.MGConfig(
+        n_levels=cfg.n_levels, v1=cfg.v1, v2=cfg.v2, v3=cfg.v3, tol=cfg.tol,
+        max_cycles=cfg.max_cycles, transfers=cfg.transfers, fused=cfg.fused,
+        smoother=smoother, fmg=cfg.fmg, cycle_dtype=cfg.cycle_dtype,
+        impl=impl)
+
+
+def poisson_config_from_jax(cfg) -> poisson2d.PoissonConfig:
+    """The port's PoissonConfig for a cfd_julia_tpu PoissonConfig."""
+    if cfg.solver not in _POISSON_SOLVERS:
+        raise ValueError(f"solver={cfg.solver!r} is not ported; the port "
+                         f"has {list(_POISSON_SOLVERS)}")
+    return poisson2d.PoissonConfig(
+        nx=cfg.nx, ny=cfg.ny, solver=cfg.solver, problem=cfg.problem,
+        tol=cfg.tol, max_iter=cfg.max_iter, freq=cfg.freq,
+        mg=mg_config_from_jax(cfg.mg))
+
+
+def field_from_numpy(a, dtype=None, device="cpu"):
+    """A contiguous tensor of `dtype` on `device` from a numpy field."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
-    wt = torch.as_tensor(np.asarray(w), dtype=dtype, device=device)
-    st = torch.as_tensor(np.asarray(s), dtype=dtype, device=device)
-    return (wt.contiguous(), st.contiguous(),
-            torch.zeros((), dtype=dtype, device=device))
+    # a copy: arrays from JAX are read-only
+    return torch.as_tensor(np.array(a), dtype=dtype,
+                           device=device).contiguous()
+
+
+def state_from_numpy(w, s, dtype=None, device="cpu"):
+    """Cavity state (w, s, rms=0) from numpy fields."""
+    wt = field_from_numpy(w, dtype, device)
+    return (wt, field_from_numpy(s, dtype, device),
+            torch.zeros((), dtype=wt.dtype, device=wt.device))
 
 
 def to_numpy(t) -> np.ndarray:

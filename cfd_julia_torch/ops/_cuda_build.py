@@ -1,12 +1,14 @@
 """Build and load the port's CUDA C++ kernels.
 
-nvcc compiles every `csrc/*.cu` into one shared library with a plain C
-interface, for sm_90a, and ctypes loads it.  No PyTorch header is
-compiled, so a build takes seconds.  The library goes to
-`build/kernels/<hash of sources + flags>/` beside the package, is built on
-first use, reused from disk by later processes, and loaded once per
-process.  A missing nvcc or a failed compile raises with nvcc's output:
-there is no fallback.
+nvcc compiles each `csrc/*.cu` for sm_90a into an object, all sources at
+once in parallel, and links the objects into one shared library with a
+plain C interface, which ctypes loads.  No PyTorch header is compiled, so
+a build takes seconds.  The library goes to
+`build/kernels/<hash of sources + flags>/` beside the package, with
+nvcc's output (ptxas register and spill counts) in `nvcc.log` beside it;
+it is built on first use, reused from disk by later processes, and loaded
+once per process.  A missing nvcc or a failed compile raises with nvcc's
+output: there is no fallback.
 """
 from __future__ import annotations
 
@@ -21,18 +23,38 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libcfd_julia_torch_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+LOG_NAME = "nvcc.log"
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LINK_FLAGS = ("-shared",)
 
 _PTR = ctypes.c_void_p
-_ARAKAWA_ARGS = [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_double, ctypes.c_double, ctypes.c_double, _PTR]
+_INT = ctypes.c_int
+_DBL = ctypes.c_double
+_ARAKAWA_ARGS = [_PTR, _PTR, _PTR, _INT, _INT, _DBL, _DBL, _DBL, _PTR]
+# multigrid launchers, one per storage type (ops/cuda_kernels.py)
+_MG_ARGS = {
+    # u, f, out, work, nr, nc, 1/dx^2, 1/dy^2, sweeps, stream
+    "mg_rb_sweeps": [_PTR] * 4 + [_INT, _INT, _DBL, _DBL, _INT, _PTR],
+    # u, f, out, fc, work, nr, nc, 1/dx^2, 1/dy^2, sweeps, stream
+    "mg_smooth_residual_restrict":
+        [_PTR] * 5 + [_INT, _INT, _DBL, _DBL, _INT, _PTR],
+    # u, f, fc, nr, nc, 1/dx^2, 1/dy^2, stream
+    "mg_residual_restrict": [_PTR] * 3 + [_INT, _INT, _DBL, _DBL, _PTR],
+    # u, f, uc, out, work, partials, ssq, nr, nc, 1/dx^2, 1/dy^2, sweeps,
+    # stream
+    "mg_prolong_correct_smooth":
+        [_PTR] * 7 + [_INT, _INT, _DBL, _DBL, _INT, _PTR],
+}
 # exported C symbol -> (restype, argtypes); every pointer and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints
 SIGNATURES = {
-    "arakawa_rhs_f32": (ctypes.c_int, _ARAKAWA_ARGS),
-    "arakawa_rhs_f64": (ctypes.c_int, _ARAKAWA_ARGS),
-    "cfd_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    "arakawa_rhs_f32": (_INT, _ARAKAWA_ARGS),
+    "arakawa_rhs_f64": (_INT, _ARAKAWA_ARGS),
+    "cfd_cuda_error_string": (ctypes.c_char_p, [_INT]),
+    "mg_ssq_partials": (_INT, [_INT, _INT]),
+    **{f"{name}_{sfx}": (_INT, args) for name, args in _MG_ARGS.items()
+       for sfx in ("f32", "f64", "bf16")},
 }
 
 
@@ -50,10 +72,14 @@ def find_nvcc() -> str:
     return found
 
 
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for p in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
@@ -66,20 +92,35 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    # private temporary name + atomic rename: a process that builds at the
+    # private temporary names + atomic rename: a process that builds at the
     # same time never loads a half-written library
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+    # nvcc's link step tells objects by their .o suffix
+    objs = [out.with_name(f".{p.stem}.{os.getpid()}.o") for p in sources()]
+    log = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in ([nvcc, *COMPILE_FLAGS, "-c", "-o", str(o), str(p)]
+                             for p, o in zip(sources(), objs))]
+        results = [(cmd, proc.communicate()[0], proc.returncode)
+                   for cmd, proc in procs]
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]
+        for cmd, output, rc in results:
+            log.append(f"$ {' '.join(cmd)}\n{output}")
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed with exit code {rc}: "
+                                   f"{' '.join(cmd)}\n{output}")
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed with exit code {proc.returncode}: "
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+                f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        out.with_name(LOG_NAME).write_text("\n".join(log))
         os.replace(tmp, out)
     finally:
-        tmp.unlink(missing_ok=True)
+        for p in [tmp, *objs]:
+            p.unlink(missing_ok=True)
     return out
 
 

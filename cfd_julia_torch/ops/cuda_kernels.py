@@ -3,22 +3,77 @@ PyTorch twins (counterpart of cfd_julia_tpu/ops/pallas_kernels.py).
 
 Each wrapper takes the plain twin for tensors on the CPU; for CUDA tensors
 it launches its kernel (csrc/, built by ops/_cuda_build.py) on the current
-stream or raises — it never falls back.  `LAUNCHES` counts kernel launches
-per wrapper, so a run can show that its main path went through the kernels.
+stream or raises — it never falls back.  `LAUNCHES[name]` counts the
+wrapper's CUDA calls, one per call of the TPU function it replaces, so a
+run can show that its main path went through the kernels; one call of a
+multigrid wrapper issues several `__global__` launches (one per red-black
+half-sweep, plus the transfer or reduction passes).  CPU calls count
+nothing.
+
+Kernels (csrc/ file; TPU function replaced):
+  arakawa_rhs_fused               arakawa_rhs.cu; arakawa_rhs_fused
+  redblack_sweeps_fused           multigrid.cu;   redblack_sweeps_fused
+  smooth_residual_restrict_fused  multigrid.cu;   smooth_residual_restrict_fused
+  residual_restrict_fused         multigrid.cu;   residual_restrict_fused
+  prolong_correct_smooth_fused    multigrid.cu;   prolong_correct_smooth_fused
+
+The multigrid kernels take bf16, fp32 or fp64 fields; bf16 computes in
+fp32 and rounds once, at the output store (the TPU kernels' `_c32`
+contract), and so do the bf16 twins.
 """
 from __future__ import annotations
 
 import torch
 
 from cfd_julia_torch.ops import _cuda_build, arakawa
+from cfd_julia_torch.poisson import iterative
 
-LAUNCHES = {"arakawa_rhs": 0}
+LAUNCHES = {"arakawa_rhs": 0, "redblack_sweeps": 0,
+            "smooth_residual_restrict": 0, "residual_restrict": 0,
+            "prolong_correct_smooth": 0}
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+_MG_DTYPES = tuple(_SUFFIX)
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
+
+def _on_cpu(name: str, *tensors) -> bool:
+    """True for CPU tensors (take the twin); checks a CUDA call's
+    preconditions; raises for any other device."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors lie on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if tensors[0].numel() >= 2**31:
+        raise ValueError(f"{tensors[0].numel()} points exceed the kernel's "
+                         "int index")
+    return False
+
+
+def _launch(name: str, symbol: str, device, *args) -> None:
+    """Call a C launcher of the kernel library on `device`'s current
+    stream; raise on a launch error; count the call."""
+    lib = _cuda_build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, symbol)(*args, stream)
+    if err != 0:
+        msg = lib.cfd_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+    LAUNCHES[name] += 1
+
+
+# ------------------------------------------------------- Arakawa RHS
 
 def arakawa_rhs_fused_plain(w, s, dx: float, dy: float, re: float):
     """Plain twin of arakawa_rhs_fused: ops.arakawa.vorticity_rhs."""
@@ -38,32 +93,195 @@ def arakawa_rhs_fused(w, s, dx: float, dy: float, re: float):
         raise ValueError(
             f"arakawa_rhs_fused takes two 2-D tensors of one shape, got "
             f"{tuple(w.shape)} and {tuple(s.shape)}")
-    if w.device != s.device:
-        raise ValueError(
-            f"w and s lie on different devices: {w.device} and {s.device}")
     n_rows, n_cols = w.shape
     if n_rows < 3:
         raise ValueError(f"arakawa_rhs_fused needs >= 3 rows, got {n_rows}")
-    if w.device.type == "cpu":
+    if _on_cpu("arakawa_rhs_fused", w, s):
         return arakawa_rhs_fused_plain(w, s, dx, dy, re)
-    if w.device.type != "cuda":
-        raise ValueError(f"arakawa_rhs_fused runs on cpu or cuda, not "
-                         f"{w.device}")
-    if not (w.is_contiguous() and s.is_contiguous()):
-        raise ValueError("arakawa_rhs_fused takes contiguous tensors")
-    if w.numel() >= 2**31:
-        raise ValueError(f"{w.numel()} points exceed the kernel's int index")
-
-    lib = _cuda_build.load_library()
-    fn = lib.arakawa_rhs_f32 if w.dtype == torch.float32 else lib.arakawa_rhs_f64
     out = torch.empty_like(w)
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = fn(w.data_ptr(), s.data_ptr(), out.data_ptr(), n_rows, n_cols,
-                 float(dx), float(dy), float(re), stream)
-    if err != 0:
-        msg = lib.cfd_cuda_error_string(err).decode()
-        raise RuntimeError(f"arakawa_rhs launch failed: CUDA error {err} "
-                           f"({msg}) at shape {(n_rows, n_cols)}")
-    LAUNCHES["arakawa_rhs"] += 1
+    _launch("arakawa_rhs", f"arakawa_rhs_{_SUFFIX[w.dtype]}", w.device,
+            w.data_ptr(), s.data_ptr(), out.data_ptr(), n_rows, n_cols,
+            float(dx), float(dy), float(re))
     return out
+
+
+# ------------------------------------------------------- multigrid
+
+def _check_level(name: str, u, f, uc=None, sweeps: int = 0,
+                 node_centred: bool = True) -> None:
+    """dtype, shape and sweep-count checks of the multigrid wrappers."""
+    if u.dtype not in _MG_DTYPES or f.dtype != u.dtype or (
+            uc is not None and uc.dtype != u.dtype):
+        raise TypeError(
+            f"{name} takes fields of one dtype (bf16, fp32 or fp64), got "
+            f"{[str(t.dtype) for t in (u, f, uc) if t is not None]}")
+    if u.dim() != 2 or f.shape != u.shape:
+        raise ValueError(f"{name} takes u and f of one 2-D shape, got "
+                         f"{tuple(u.shape)} and {tuple(f.shape)}")
+    nr, nc = u.shape
+    if nr < 3 or nc < 3:
+        raise ValueError(f"{name} needs >= 3 points a side, got {(nr, nc)}")
+    if node_centred and (nr % 2 == 0 or nc % 2 == 0):
+        raise ValueError(f"{name} takes node-centred (2m+1)-point axes, "
+                         f"got {(nr, nc)}")
+    if uc is not None:
+        want = ((nr - 1) // 2 + 1, (nc - 1) // 2 + 1)
+        if tuple(uc.shape) != want:
+            raise ValueError(f"{name}: coarse field of shape "
+                             f"{tuple(uc.shape)}, expected {want}")
+    if sweeps < 0:
+        raise ValueError(f"{name}: sweeps must be >= 0, got {sweeps}")
+
+
+def _compute(t):
+    """bf16 computes in fp32 (the `_c32` contract); others as they are."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _work(u):
+    """fp32 sweep state of a bf16 call, None (NULL) otherwise."""
+    if u.dtype != torch.bfloat16:
+        return None
+    return torch.empty(u.shape, dtype=torch.float32, device=u.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _sweeps_plain(u, f, dx: float, dy: float, iters: int):
+    nx, ny = u.shape[0] - 1, u.shape[1] - 1
+    mr, mb = iterative.color_masks(nx, ny, u.dtype, u.device)
+    for _ in range(iters):
+        u = iterative.redblack_sweep(u, f, dx, dy, mr, mb)
+    return u
+
+
+def _residual_restrict_plain(u, f, dx: float, dy: float):
+    from cfd_julia_torch.poisson import multigrid
+
+    mask = iterative.interior_mask(u.shape[0] - 1, u.shape[1] - 1, u.dtype,
+                                   u.device)
+    return multigrid.restriction_reshape(
+        iterative.residual_full(f, u, dx, dy, mask))
+
+
+def redblack_sweeps_fused_plain(u, f, dx: float, dy: float, iters: int = 1):
+    """Plain twin of redblack_sweeps_fused: `iters` masked red-black
+    sweeps (poisson.iterative.redblack_sweep)."""
+    return _sweeps_plain(_compute(u), _compute(f), dx, dy, iters).to(u.dtype)
+
+
+def redblack_sweeps_fused(u, f, dx: float, dy: float, iters: int = 1):
+    """`iters` full red-black Gauss-Seidel sweeps of the 5-point operator
+    (red = (i+j) even first, interior nodes only) on an (n_rows, n_cols)
+    field; a new tensor, u is not modified (csrc/multigrid.cu,
+    mg_rb_sweeps_*: two launches per sweep)."""
+    _check_level("redblack_sweeps_fused", u, f, sweeps=iters,
+                 node_centred=False)
+    if _on_cpu("redblack_sweeps_fused", u, f):
+        return redblack_sweeps_fused_plain(u, f, dx, dy, iters)
+    out = torch.empty_like(u)
+    work = _work(u)
+    _launch("redblack_sweeps", f"mg_rb_sweeps_{_SUFFIX[u.dtype]}", u.device,
+            u.data_ptr(), f.data_ptr(), out.data_ptr(), _ptr(work),
+            *u.shape, 1.0 / dx**2, 1.0 / dy**2, iters)
+    return out
+
+
+def smooth_residual_restrict_fused_plain(u, f, dx: float, dy: float,
+                                         sweeps: int):
+    """Plain twin of smooth_residual_restrict_fused: the sweeps, then the
+    reshape restriction of the masked residual."""
+    uc, fc = _compute(u), _compute(f)
+    us = _sweeps_plain(uc, fc, dx, dy, sweeps)
+    return (us.to(u.dtype),
+            _residual_restrict_plain(us, fc, dx, dy).to(u.dtype))
+
+
+def smooth_residual_restrict_fused(u, f, dx: float, dy: float, sweeps: int):
+    """The V-cycle descend edge (mg_N.jl:74-92): `sweeps` red-black
+    sweeps, the 5-point residual, full-weighting restriction.  Returns
+    (u_smoothed, f_coarse) == (smooth(u, f, sweeps),
+    restriction(residual_full(f, smooth(u, f, sweeps)))), the coarse
+    boundary ring 0 (csrc/multigrid.cu, mg_smooth_residual_restrict_*)."""
+    _check_level("smooth_residual_restrict_fused", u, f, sweeps=sweeps)
+    if _on_cpu("smooth_residual_restrict_fused", u, f):
+        return smooth_residual_restrict_fused_plain(u, f, dx, dy, sweeps)
+    nr, nc = u.shape
+    out = torch.empty_like(u)
+    fc = u.new_empty(((nr - 1) // 2 + 1, (nc - 1) // 2 + 1))
+    work = _work(u)
+    _launch("smooth_residual_restrict",
+            f"mg_smooth_residual_restrict_{_SUFFIX[u.dtype]}", u.device,
+            u.data_ptr(), f.data_ptr(), out.data_ptr(), fc.data_ptr(),
+            _ptr(work), nr, nc, 1.0 / dx**2, 1.0 / dy**2, sweeps)
+    return out, fc
+
+
+def residual_restrict_fused_plain(u, f, dx: float, dy: float):
+    """Plain twin of residual_restrict_fused."""
+    return _residual_restrict_plain(_compute(u), _compute(f), dx,
+                                    dy).to(u.dtype)
+
+
+def residual_restrict_fused(u, f, dx: float, dy: float):
+    """restriction(residual_full(f, u)) on node-centred grids, the coarse
+    boundary ring 0 (csrc/multigrid.cu, mg_residual_restrict_*)."""
+    _check_level("residual_restrict_fused", u, f)
+    if _on_cpu("residual_restrict_fused", u, f):
+        return residual_restrict_fused_plain(u, f, dx, dy)
+    nr, nc = u.shape
+    fc = u.new_empty(((nr - 1) // 2 + 1, (nc - 1) // 2 + 1))
+    _launch("residual_restrict", f"mg_residual_restrict_{_SUFFIX[u.dtype]}",
+            u.device, u.data_ptr(), f.data_ptr(), fc.data_ptr(), nr, nc,
+            1.0 / dx**2, 1.0 / dy**2)
+    return fc
+
+
+def prolong_correct_smooth_fused_plain(u, f, uc, dx: float, dy: float,
+                                       sweeps: int, want_rms: bool = False):
+    """Plain twin of prolong_correct_smooth_fused: reshape prolongation,
+    masked add, the sweeps, and sum(r^2) of the result in the compute
+    dtype."""
+    from cfd_julia_torch.poisson import multigrid
+
+    u32, f32 = _compute(u), _compute(f)
+    mask = iterative.interior_mask(u.shape[0] - 1, u.shape[1] - 1,
+                                   u32.dtype, u.device)
+    v = u32 + multigrid.prolongation_reshape(_compute(uc)) * mask
+    v = _sweeps_plain(v, f32, dx, dy, sweeps)
+    if not want_rms:
+        return v.to(u.dtype)
+    r = iterative.residual_full(f32, v, dx, dy, mask)
+    return v.to(u.dtype), torch.sum(r * r)
+
+
+def prolong_correct_smooth_fused(u, f, uc, dx: float, dy: float,
+                                 sweeps: int, want_rms: bool = False):
+    """The V-cycle ascend edge (mg_N.jl:94-105): bilinear prolongation of
+    the coarse correction uc, added at interior nodes, then `sweeps`
+    red-black sweeps; == smooth(u + prolongation(uc) * imask, f, sweeps).
+    want_rms=True also returns sum(residual(f, u_out)^2) over the interior
+    as a 0-d fp32 tensor (fp64 for fp64 fields), summed in a fixed order
+    (csrc/multigrid.cu, mg_prolong_correct_smooth_*)."""
+    _check_level("prolong_correct_smooth_fused", u, f, uc, sweeps)
+    if _on_cpu("prolong_correct_smooth_fused", u, f, uc):
+        return prolong_correct_smooth_fused_plain(u, f, uc, dx, dy, sweeps,
+                                                  want_rms)
+    nr, nc = u.shape
+    out = torch.empty_like(u)
+    work = _work(u)
+    partials = ssq = None
+    if want_rms:
+        cdt = torch.float64 if u.dtype == torch.float64 else torch.float32
+        lib = _cuda_build.load_library()
+        partials = torch.empty(lib.mg_ssq_partials(nr, nc), dtype=cdt,
+                               device=u.device)
+        ssq = torch.empty((), dtype=cdt, device=u.device)
+    _launch("prolong_correct_smooth",
+            f"mg_prolong_correct_smooth_{_SUFFIX[u.dtype]}", u.device,
+            u.data_ptr(), f.data_ptr(), uc.data_ptr(), out.data_ptr(),
+            _ptr(work), _ptr(partials), _ptr(ssq), nr, nc, 1.0 / dx**2,
+            1.0 / dy**2, sweeps)
+    return (out, ssq) if want_rms else out

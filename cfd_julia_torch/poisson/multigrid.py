@@ -1,0 +1,419 @@
+"""Geometric multigrid V-cycle for the 2D Poisson equation (counterpart of
+cfd_julia_tpu/poisson/multigrid.py, its single-device part).
+
+Reference: 17_Poisson_Solver_Multigrid/mg.jl (2-level) and mg_N.jl
+(N-level, the general case this module implements).  Transfer operators are
+full-weighting restriction (Common.jl:21-48) and bilinear prolongation
+(Common.jl:50-76); the smoother is red-black Gauss-Seidel, as in the JAX
+package (the reference's lexicographic `gauss_seidel_mg` is serial).
+
+Dispatch, as the cavity's `rhs_impl`: `MGConfig.impl` "auto" runs the CUDA
+kernels of ops/cuda_kernels.py on a CUDA device and their plain PyTorch
+twins on the CPU; "kernel" insists on the kernels (and raises on the CPU);
+"torch" runs the twins on any device (the GPU comparison of
+chip_smoke.py).
+
+Level rule, a deliberate deviation from the TPU's: the JAX package fuses
+the level edges only on levels of >= 512 points a side on a TPU
+(`_pick_smoother`, `_use_fused`), because there a Pallas launch costs a
+DMA set-up, and only while the sweeps fit its 8-row VMEM halo.  The CUDA
+kernels have no halo budget and no such set-up, so here, unless
+`fused="off"` or `smoother="cheb"`, EVERY level edge runs fused: the
+descend edge is one `smooth_residual_restrict_fused` call for any v1, the
+ascend edge one `prolong_correct_smooth_fused` call, and the finest ascend
+edge also returns the convergence check's residual sum.  The coarsest-level
+smoother, and every smoother under `fused="off"`, is
+`redblack_sweeps_fused`.
+
+The V-cycle runs eagerly level by level; `solve` reads rms/rms0 on the
+host once per cycle to test convergence (one device sync per cycle; a
+CUDA graph of the cycle is later work).  Left out of the port:
+`cycle_dtype="bf16"` (its numerics stall at 4096², ROADMAP A.0), the
+multi-device mesh solve (ROADMAP A.8), and the TPU-only halo, tile and
+interpret options.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from cfd_julia_torch.ops import cuda_kernels
+from cfd_julia_torch.poisson.iterative import (
+    IterativeResult,
+    _record,
+    _rms_from_full,
+    chebyshev_smooth,
+    interior_mask,
+    residual_full,
+)
+
+_RESTRICT_KERNEL = ((1.0, 2.0, 1.0), (2.0, 4.0, 2.0), (1.0, 2.0, 1.0))
+_PROLONG_KERNEL = ((0.25, 0.5, 0.25), (0.5, 1.0, 0.5), (0.25, 0.5, 0.25))
+
+
+def _stencil(rows, scale, like):
+    return (torch.tensor(rows, dtype=like.dtype, device=like.device)
+            * scale)[None, None]
+
+
+def restriction(r):
+    """Full-weighting fine -> coarse transfer on node-centred grids
+    (Common.jl:21-48). r: (nxf+1, nyf+1) -> (nxf//2+1, nyf//2+1).
+
+    Interior = 3x3 full-weighting stencil at even fine nodes as a stride-2
+    convolution; boundary rows/cols are direct injection of the
+    coincident fine nodes.  In fp32 on CUDA the convolution runs in TF32
+    unless torch.backends.cudnn.allow_tf32 is False."""
+    k = _stencil(_RESTRICT_KERNEL, 1.0 / 16.0, r)
+    interior = F.conv2d(r[None, None], k, stride=2, padding=1)[0, 0, 1:-1, 1:-1]
+    mid = torch.cat([r[2:-2:2, :1], interior, r[2:-2:2, -1:]], dim=1)
+    return torch.cat([r[:1, ::2], mid, r[-1:, ::2]], dim=0)
+
+
+def prolongation(uc):
+    """Bilinear coarse -> fine transfer (Common.jl:50-76) as a transposed
+    stride-2 convolution with the bilinear kernel; in fp32 on CUDA it runs
+    in TF32 unless torch.backends.cudnn.allow_tf32 is False."""
+    k = _stencil(_PROLONG_KERNEL, 1.0, uc)
+    return F.conv_transpose2d(uc[None, None], k, stride=2, padding=1)[0, 0]
+
+
+def _restrict_matrix(nf: int, dtype, device):
+    """(nc+1, nf+1) separable full-weighting rows: interior row c holds
+    [1/4, 1/2, 1/4] at fine 2c-1..2c+1; rows 0/nc inject the coincident
+    boundary node (exact for interior-masked residuals)."""
+    nc = nf // 2
+    c = torch.arange(nc + 1, device=device)[:, None]
+    fine = torch.arange(nf + 1, device=device)[None, :]
+    d = fine - 2 * c
+    w = torch.where(d == 0, 0.5, torch.where(d.abs() == 1, 0.25, 0.0))
+    inject = (fine == 2 * c).to(dtype)
+    boundary = (c == 0) | (c == nc)
+    return torch.where(boundary, inject, w.to(dtype))
+
+
+def _prolong_matrix(nc: int, dtype, device):
+    """(nf+1, nc+1) bilinear columns: fine even row 2c copies coarse c,
+    fine odd row 2c+1 averages coarse c and c+1."""
+    nf = 2 * nc
+    fine = torch.arange(nf + 1, device=device)[:, None]
+    c = torch.arange(nc + 1, device=device)[None, :]
+    even = (fine == 2 * c).to(dtype)
+    odd = ((fine == 2 * c + 1) | (fine == 2 * c - 1)).to(dtype) * 0.5
+    return torch.where(fine % 2 == 0, even, odd)
+
+
+def restriction_matmul(r):
+    """restriction as R_x @ r @ R_y^T (full fp32 on CUDA unless
+    torch.backends.cuda.matmul.allow_tf32 is set)."""
+    mx = _restrict_matrix(r.shape[0] - 1, r.dtype, r.device)
+    my = _restrict_matrix(r.shape[1] - 1, r.dtype, r.device)
+    return mx @ r @ my.T
+
+
+def prolongation_matmul(uc):
+    px = _prolong_matrix(uc.shape[0] - 1, uc.dtype, uc.device)
+    py = _prolong_matrix(uc.shape[1] - 1, uc.dtype, uc.device)
+    return px @ uc @ py.T
+
+
+def _shift(a, di: int, dj: int):
+    """Zero-fill shift: out[i, j] = a[i+di, j+dj] (in-range) else 0."""
+    padded = F.pad(a, (max(-dj, 0), max(dj, 0), max(-di, 0), max(di, 0)))
+    i0, j0 = max(di, 0), max(dj, 0)
+    return padded[i0:i0 + a.shape[0], j0:j0 + a.shape[1]]
+
+
+def restriction_reshape(r):
+    """Full weighting via even/odd deinterleave: one reshape, then
+    elementwise combines on quarter-size grids.  Exact for interior-masked
+    residuals (zero boundary ring), like the conv form; no TF32 anywhere."""
+    nc, mc = (r.shape[0] - 1) // 2, (r.shape[1] - 1) // 2
+    q = F.pad(r, (0, 1, 0, 1)).reshape(nc + 1, 2, mc + 1, 2)
+    ee = q[:, 0, :, 0]        # r[2c,   2d]
+    eo = q[:, 0, :, 1]        # r[2c,   2d+1]
+    oe = q[:, 1, :, 0]        # r[2c+1, 2d]
+    oo = q[:, 1, :, 1]        # r[2c+1, 2d+1]
+    out = (4.0 * ee
+           + 2.0 * (oe + _shift(oe, -1, 0) + eo + _shift(eo, 0, -1))
+           + oo + _shift(oo, -1, 0) + _shift(oo, 0, -1)
+           + _shift(oo, -1, -1)) / 16.0
+    c = torch.arange(nc + 1, device=r.device)[:, None]
+    d = torch.arange(mc + 1, device=r.device)[None, :]
+    boundary = (c == 0) | (c == nc) | (d == 0) | (d == mc)
+    return torch.where(boundary, ee, out)
+
+
+def prolongation_reshape(uc):
+    """Bilinear prolongation by strided slices: fine (2c, 2d) copies coarse
+    (c, d), even/odd and odd/even nodes average two coarse neighbours,
+    odd/odd nodes four with weight 0.25.  No TF32 anywhere (the port's
+    addition; the JAX `reshape` pair uses the conv prolongation)."""
+    nc, mc = uc.shape[0] - 1, uc.shape[1] - 1
+    out = uc.new_empty((2 * nc + 1, 2 * mc + 1))
+    out[0::2, 0::2] = uc
+    out[0::2, 1::2] = 0.5 * (uc[:, :-1] + uc[:, 1:])
+    out[1::2, 0::2] = 0.5 * (uc[:-1, :] + uc[1:, :])
+    out[1::2, 1::2] = 0.25 * (uc[:-1, :-1] + uc[:-1, 1:] + uc[1:, :-1]
+                              + uc[1:, 1:])
+    return out
+
+
+_TRANSFERS = {
+    "conv": (restriction, prolongation),
+    "matmul": (restriction_matmul, prolongation_matmul),
+    "reshape": (restriction_reshape, prolongation_reshape),
+}
+
+
+def _pick_transfers(name: str):
+    """`auto` is the reshape pair on every device: O(n^2) slice arithmetic
+    whose fp32 result does not depend on the TF32 flags."""
+    return _TRANSFERS["reshape" if name == "auto" else name]
+
+
+@dataclasses.dataclass(frozen=True)
+class MGConfig:
+    n_levels: int = 0          # 0 -> auto (coarsen to 2x2 cells)
+    v1: int = 2                # pre-smoothing sweeps (mg_N.jl v1)
+    v2: int = 2                # coarsest-level sweeps (v2)
+    v3: int = 2                # post-smoothing sweeps (v3)
+    tol: float = 1e-9
+    max_cycles: int = 100
+    transfers: str = "auto"    # auto (= reshape) | conv | matmul | reshape:
+                               # the unfused edges' and FMG's transfers
+    fused: str = "auto"        # auto | on | off: fused level-edge kernels
+                               # (smooth+residual+restrict descend,
+                               # prolong+correct+smooth ascend); auto = on
+                               # at every level (see the module docstring)
+    smoother: str = "auto"     # auto (red-black GS) | cheb (Chebyshev-
+                               # Jacobi, plain PyTorch, never fused)
+    fmg: bool = False          # full-multigrid (nested-iteration) start:
+                               # coarsest-first, one V-cycle per level up
+    cycle_dtype: str = "fp32"  # fp32 | mixed: the finest level stays in
+                               # the input dtype, every coarser level runs
+                               # bf16 storage with fp32 compute in-kernel
+    impl: str = "auto"         # auto (CUDA kernels on a CUDA device, plain
+                               # twins on the CPU) | kernel | torch
+
+
+_CHOICES = {"transfers": ("auto", "conv", "matmul", "reshape"),
+            "fused": ("auto", "on", "off"),
+            "smoother": ("auto", "cheb"),
+            "impl": ("auto", "kernel", "torch")}
+
+
+def check_config(cfg: MGConfig) -> None:
+    """Raise on an unknown or unported option: a typo'd name must never
+    silently run the default."""
+    if cfg.cycle_dtype == "bf16":
+        raise NotImplementedError(
+            "cycle_dtype='bf16' is not ported: its iterative refinement "
+            "stalls at 4096^2 (ROADMAP A.0); use 'mixed' or 'fp32'")
+    if cfg.cycle_dtype not in ("fp32", "mixed"):
+        raise ValueError(f"unknown cycle_dtype {cfg.cycle_dtype!r} "
+                         "(fp32 | mixed)")
+    for field, allowed in _CHOICES.items():
+        if getattr(cfg, field) not in allowed:
+            raise ValueError(f"unknown {field} {getattr(cfg, field)!r} "
+                             f"({' | '.join(allowed)})")
+
+
+def impl_choice(name: str, device: torch.device) -> str:
+    """Resolve MGConfig.impl against the device the solve runs on."""
+    if name == "auto":
+        return "kernel" if device.type == "cuda" else "torch"
+    if name == "kernel" and device.type != "cuda":
+        raise ValueError(
+            f"impl='kernel' runs the CUDA kernels and needs a CUDA device, "
+            f"got {device}; use impl='torch' or 'auto'")
+    return name
+
+
+class _EdgeOps(NamedTuple):
+    smooth_residual_restrict: object
+    prolong_correct_smooth: object
+    residual_restrict: object
+    redblack_sweeps: object
+
+
+_OPS = {
+    "kernel": _EdgeOps(cuda_kernels.smooth_residual_restrict_fused,
+                       cuda_kernels.prolong_correct_smooth_fused,
+                       cuda_kernels.residual_restrict_fused,
+                       cuda_kernels.redblack_sweeps_fused),
+    "torch": _EdgeOps(cuda_kernels.smooth_residual_restrict_fused_plain,
+                      cuda_kernels.prolong_correct_smooth_fused_plain,
+                      cuda_kernels.residual_restrict_fused_plain,
+                      cuda_kernels.redblack_sweeps_fused_plain),
+}
+
+
+def smooth(u, f, dx: float, dy: float, iters: int, imask, impl: str):
+    """`iters` smoothing sweeps (replaces gauss_seidel_mg): red-black GS
+    through the kernel ("kernel") or its plain twin ("torch"), or the
+    Chebyshev-Jacobi smoother ("cheb", which takes the interior mask)."""
+    if impl == "cheb":
+        return chebyshev_smooth(u, f, dx, dy, iters, imask)
+    return _OPS[impl].redblack_sweeps(u, f, dx, dy, iters)
+
+
+def _build_levels(nx, ny, dx, dy, n_levels):
+    # BOTH axes must stay even at every coarsening: an anisotropic grid
+    # whose axes have different 2-adic valuations (e.g. 20x16) would
+    # otherwise produce an odd intermediate level
+    max_levels = 1
+    mx, my = nx, ny
+    while mx % 2 == 0 and my % 2 == 0 and mx > 2 and my > 2:
+        mx //= 2
+        my //= 2
+        max_levels += 1
+    # <=0 -> auto (coarsen to 2x2 cells); an explicit request deeper than
+    # the grid allows is clamped, not rejected, so a preset's pinned depth
+    # composes with `run --nx` overrides on smaller grids
+    n_levels = max_levels if n_levels <= 0 else min(n_levels, max_levels)
+    return [(nx >> l, ny >> l, dx * (1 << l), dy * (1 << l))
+            for l in range(n_levels)]
+
+
+def _fused(cfg: MGConfig) -> bool:
+    return cfg.fused != "off" and cfg.smoother != "cheb"
+
+
+def v_cycle(u, f, levels, imasks, cfg: MGConfig, impl: str,
+            want_rms: bool = False):
+    """One V-cycle over the level pyramid (mg_N.jl:53-106); `impl` is
+    "kernel" or "torch" (see impl_choice).
+
+    want_rms=True returns (u, ssq) where ssq is the sum of the squared
+    interior residual of the RETURNED u, computed by the finest ascend
+    kernel (None when that edge did not run fused, or for a single-level
+    pyramid)."""
+    n = len(levels)
+    fused = _fused(cfg)
+    sm = "cheb" if cfg.smoother == "cheb" else impl
+    ops = _OPS[impl]
+    restrict_fn, prolong_fn = _pick_transfers(cfg.transfers)
+    # cycle_dtype="mixed": the finest level stays in the input dtype, every
+    # coarser level runs bf16; the casts live on the level-0/1 edges
+    mixed = cfg.cycle_dtype == "mixed"
+
+    # descend: pre-smooth -> residual -> restrict -> next level from zero
+    fs = [f]
+    us = [u]
+    for k in range(n - 1):
+        _, _, dxk, dyk = levels[k]
+        if fused:
+            uk, fk = ops.smooth_residual_restrict(us[k], fs[k], dxk, dyk,
+                                                  cfg.v1)
+        else:
+            uk = smooth(us[k], fs[k], dxk, dyk, cfg.v1, imasks[k], sm)
+            fk = restrict_fn(residual_full(fs[k], uk, dxk, dyk, imasks[k]))
+        us[k] = uk
+        if mixed and k == 0:
+            fk = fk.to(torch.bfloat16)
+        fs.append(fk)
+        nxn, nyn, _, _ = levels[k + 1]
+        us.append(fk.new_zeros((nxn + 1, nyn + 1)))
+    _, _, dxc, dyc = levels[n - 1]
+    us[n - 1] = smooth(us[n - 1], fs[n - 1], dxc, dyc,
+                       cfg.v2 if n > 1 else cfg.v1, imasks[n - 1], sm)
+
+    # ascend: prolongate -> correct -> relax (fused: one kernel call)
+    ssq = None
+    for k in range(n - 1, 0, -1):
+        _, _, dxp, dyp = levels[k - 1]
+        uc = us[k].to(us[k - 1].dtype)    # mixed: bf16 -> fp32 edge
+        if fused:
+            fine_rms = want_rms and k == 1
+            res = ops.prolong_correct_smooth(us[k - 1], fs[k - 1], uc, dxp,
+                                             dyp, cfg.v3, want_rms=fine_rms)
+            if fine_rms:
+                us[k - 1], ssq = res
+            else:
+                us[k - 1] = res
+            continue
+        us[k - 1] = us[k - 1] + prolong_fn(uc) * imasks[k - 1]
+        us[k - 1] = smooth(us[k - 1], fs[k - 1], dxp, dyp, cfg.v3,
+                           imasks[k - 1], sm)
+    return (us[0], ssq) if want_rms else us[0]
+
+
+def fmg_start(f, u0, levels, imasks, cfg: MGConfig, impl: str):
+    """Nested-iteration start: homogenize (v = u - u0 has zero boundary,
+    A v = f - A u0 =: g), restrict g down the pyramid, then from the
+    coarsest level up: prolong the current solution and run one V-cycle
+    of the sub-pyramid.  Returns u0 + v at ~discretization accuracy."""
+    n = len(levels)
+    _, _, dx0, dy0 = levels[0]
+    g = residual_full(f, u0, dx0, dy0, imasks[0])
+    restrict_fn, prolong_fn = _pick_transfers(cfg.transfers)
+    ops = _OPS[impl]
+    gs = [g]
+    for k in range(1, n):
+        if _fused(cfg):
+            gs.append(ops.residual_restrict(torch.zeros_like(gs[k - 1]),
+                                            gs[k - 1], 1.0, 1.0))
+        else:
+            gs.append(restrict_fn(gs[k - 1] * imasks[k - 1]))
+
+    nxc, nyc, dxc, dyc = levels[n - 1]
+    v = f.new_zeros((nxc + 1, nyc + 1))
+    v = smooth(v, gs[n - 1], dxc, dyc, cfg.v2, imasks[n - 1],
+               "cheb" if cfg.smoother == "cheb" else impl)
+    for k in range(n - 2, -1, -1):
+        v = prolong_fn(v) * imasks[k]
+        v = v_cycle(v, gs[k], levels[k:], imasks[k:], cfg, impl)
+    return u0 + v
+
+
+def solve(f, u0, dx: float, dy: float, cfg: MGConfig = MGConfig(),
+          mesh=None) -> IterativeResult:
+    """V-cycles until rms/rms0 <= tol (mg_N.jl:53-106), the residual
+    history recorded once per cycle on the device; cfg.fmg starts from a
+    full-multigrid initial guess instead of u0.  f, u0: (nx+1, ny+1)
+    tensors of one dtype (fp32 or fp64) on one device.
+
+    The loop runs on the host and reads rms/rms0 once per cycle (one
+    device sync per cycle).  With fused edges the finest ascend kernel
+    returns the residual sum of the cycle's output, so no separate
+    residual pass runs per cycle."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the multi-device mesh solve is not ported yet (ROADMAP A.8)")
+    check_config(cfg)
+    impl = impl_choice(cfg.impl, f.device)
+    nx, ny = f.shape[0] - 1, f.shape[1] - 1
+    levels = _build_levels(nx, ny, dx, dy, cfg.n_levels)
+    # mixed pyramid: coarse-level masks in bf16 so the dtype flow stays
+    # bf16 through the coarse levels (an fp32 mask would upcast)
+    ldt = [f.dtype] + [torch.bfloat16 if cfg.cycle_dtype == "mixed"
+                       else f.dtype] * (len(levels) - 1)
+    imasks = [interior_mask(l[0], l[1], d, f.device)
+              for l, d in zip(levels, ldt)]
+
+    rms0 = _rms_from_full(residual_full(f, u0, dx, dy, imasks[0]), nx, ny)
+    if cfg.fmg:
+        u0 = fmg_start(f, u0, levels, imasks, cfg, impl)
+    hist = torch.full((cfg.max_cycles + 1, 3), float("nan"), dtype=f.dtype,
+                      device=f.device)
+    fused_rms = len(levels) > 1 and _fused(cfg)
+
+    u, it, rms, rel, nrec = u0, 0, rms0, rms0 / rms0, 0
+    while it < cfg.max_cycles and float(rel) > cfg.tol:
+        if fused_rms:
+            u, ssq = v_cycle(u, f, levels, imasks, cfg, impl, want_rms=True)
+            rms = torch.sqrt(ssq / ((nx - 1) * (ny - 1))).to(f.dtype)
+        else:
+            u = v_cycle(u, f, levels, imasks, cfg, impl)
+            rms = _rms_from_full(residual_full(f, u, dx, dy, imasks[0]),
+                                 nx, ny)
+        it += 1
+        rel = rms / rms0
+        _record(hist, nrec, it, rms, rel)
+        nrec += 1
+    return IterativeResult(u=u, iterations=it, rms=rms, rms0=rms0,
+                           history=hist, n_records=nrec)

@@ -1,6 +1,7 @@
 """Named reference configurations (counterpart of cfd_julia_tpu/presets.py).
 
-Ported so far: the lid-driven cavity.  Run with
+Ported so far: the lid-driven cavity and the iterative and multigrid 2D
+Poisson solvers.  Run with
 `python -m cfd_julia_torch run <preset>`; any config field can be
 overridden on the command line (e.g. --nx 1024).
 """
@@ -8,13 +9,14 @@ from __future__ import annotations
 
 import dataclasses
 
-from cfd_julia_torch.models import cavity
+from cfd_julia_torch.models import cavity, poisson2d
+from cfd_julia_torch.poisson import multigrid
 
 
 @dataclasses.dataclass(frozen=True)
 class Preset:
     name: str
-    family: str          # cavity
+    family: str          # cavity | poisson
     cfg: object
     reference: str       # reference script this mirrors
     description: str = ""
@@ -23,6 +25,46 @@ class Preset:
 PRESETS = {
     p.name: p
     for p in [
+        # --- 2D Poisson (ch. 15-17) ------------------------------------------
+        Preset("poisson_jacobi", "poisson",
+               poisson2d.PoissonConfig(nx=512, ny=512, solver="jacobi",
+                                       problem="poly", tol=1e-9,
+                                       max_iter=2_000_000, freq=10_000),
+               "15_Poisson_Solver_Gauss_Seidel/gauss_seidel.jl",
+               "the reference's 'gauss_seidel' is point Jacobi"),
+        Preset("poisson_gs_redblack", "poisson",
+               poisson2d.PoissonConfig(nx=512, ny=512, solver="redblack",
+                                       problem="poly", tol=1e-9,
+                                       max_iter=2_000_000, freq=10_000),
+               "15_... (data-parallel true Gauss-Seidel variant)",
+               "red-black GS: data-parallel true GS"),
+        Preset("poisson_cg", "poisson",
+               poisson2d.PoissonConfig(nx=512, ny=512, solver="cg",
+                                       problem="poly", tol=1e-9,
+                                       # 20 * 100_000, the reference
+                                       # main()'s cap (conjugate_gradient.jl)
+                                       max_iter=2_000_000, freq=100),
+               "16_Poisson_Solver_Conjugate_Gradient/conjugate_gradient.jl"),
+        Preset("poisson_mg2", "poisson",
+               poisson2d.PoissonConfig(nx=256, ny=256, solver="multigrid",
+                                       problem="poly",
+                                       mg=multigrid.MGConfig(
+                                           n_levels=2, tol=1e-9,
+                                           max_cycles=1000)),
+               "17_Poisson_Solver_Multigrid/mg.jl", "2-level V-cycle"),
+        Preset("poisson_mgcg", "poisson",
+               poisson2d.PoissonConfig(nx=512, ny=512, solver="mgcg",
+                                       problem="poly", tol=1e-9),
+               "16_.../conjugate_gradient.jl + 17_.../mg_N.jl",
+               "V-cycle-preconditioned flexible CG (beyond the reference)"),
+        Preset("poisson_mgN", "poisson",
+               poisson2d.PoissonConfig(nx=512, ny=512, solver="multigrid",
+                                       problem="poly",
+                                       mg=multigrid.MGConfig(
+                                           n_levels=9, tol=1e-9,
+                                           max_cycles=100)),
+               "17_Poisson_Solver_Multigrid/mg_N.jl", "9-level V-cycle"),
+        # --- 2D Navier-Stokes (ch. 18) ---------------------------------------
         Preset("cavity", "cavity", cavity.CavityConfig(),
                "18_NS2D_Lid_Driven_Cavity/lid_driven_cavity.jl",
                "Re=100, 64^2, t=10"),

@@ -14,6 +14,8 @@ import torch
 from cfd_julia_torch import presets as presets_lib
 from cfd_julia_torch.core import precision
 from cfd_julia_torch.models import cavity as cavity_model
+from cfd_julia_torch.models import poisson2d
+from cfd_julia_torch.poisson import iterative
 from cfd_julia_torch.utils import io
 
 
@@ -33,6 +35,24 @@ def run_preset(name: str, outdir: str = ".", dtype=None, device="cuda",
                          if device.type == "cuda" else "cpu")
     io.write_metrics(os.path.join(outdir, "metrics.json"), metrics)
     return metrics
+
+
+def _run_poisson(preset, outdir, dtype, device):
+    cfg = preset.cfg
+    res = poisson2d.solve(cfg, dtype, device)
+    # the reference's 'Maximum Norm' is max |RESIDUAL|
+    # (gauss_seidel.jl:51 maximum(abs.(r))), not the solution error
+    mask = iterative.interior_mask(cfg.nx, cfg.ny, res.u.dtype, device)
+    r = iterative.residual_full(res.f, res.u, cfg.dx, cfg.dy, mask)
+    io.write_residual_report(os.path.join(outdir, "output.txt"), res.rms,
+                             r.abs().max(), res.iterations)
+    io.write_residual_history(
+        os.path.join(outdir, f"{cfg.solver}_residual.txt"), res.history)
+    io.write_field2d(os.path.join(outdir, "field_final.txt"), res.x, res.y,
+                     res.f, res.u, res.u_exact)
+    return {"l2_error": float(res.l2_error),
+            "linf_error": float(res.linf_error),
+            "iterations": res.iterations, "rms_final": float(res.rms)}
 
 
 def _run_cavity(preset, outdir, dtype, device):
@@ -60,4 +80,5 @@ def _run_cavity(preset, outdir, dtype, device):
 
 _RUNNERS = {
     "cavity": _run_cavity,
+    "poisson": _run_poisson,
 }

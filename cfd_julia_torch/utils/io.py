@@ -1,9 +1,12 @@
 """Reference-compatible text writers + structured metrics (counterpart of
 cfd_julia_tpu/utils/io.py; same formats).
 
-2D field dumps "x y w s" (lid_driven_cavity.jl:205-210) and column files,
-written once after the run; `write_metrics` emits a JSON record per run.
-Inputs are numpy arrays or tensors on any device.
+`output.txt` error and residual reports (ftcs.jl:48-52,
+gauss_seidel.jl:50-52), residual histories "(it, rms, rms/rms0)"
+(gauss_seidel.jl:41-47), 2D field dumps "x y w s"
+(lid_driven_cavity.jl:205-210) and column files, written once after the
+run; `write_metrics` emits a JSON record per run.  Inputs are numpy arrays
+or tensors on any device.
 """
 from __future__ import annotations
 
@@ -23,6 +26,40 @@ def _np64(a):
 def _ensure_dir(path):
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
+
+
+def write_error_report(path, l2, linf, extra=None):
+    """`output.txt` error report (ftcs.jl:48-52)."""
+    _ensure_dir(path)
+    with open(path, "w") as f:
+        f.write("Error details:\n")
+        f.write(f"L-2 Norm={float(l2)}\n")
+        f.write(f"Maximum Norm={float(linf)}\n")
+        for k, v in (extra or {}).items():
+            f.write(f"{k}={v}\n")
+
+
+def write_residual_report(path, rms, linf, iterations):
+    """Iterative-solver `output.txt` (gauss_seidel.jl:50-52)."""
+    _ensure_dir(path)
+    with open(path, "w") as f:
+        f.write("Residual details:\n")
+        f.write(f"L-2 Norm={float(rms)}\n")
+        f.write(f"Maximum Norm={float(linf)}\n")
+        f.write(f"Iterations={int(iterations)}\n")
+
+
+def write_residual_history(path, history, n_records=None):
+    """`*_residual.txt`: `it rms rms/rms0` lines (gauss_seidel.jl:44);
+    history is the solver's NaN-padded (max_records, 3) buffer."""
+    _ensure_dir(path)
+    h = _np64(history)
+    if n_records is not None:
+        h = h[: int(n_records)]
+    h = h[~np.isnan(h[:, 0])]
+    with open(path, "w") as f:
+        for it, rms, rel in h:
+            f.write(f"{int(it)} {float(rms)!r} {float(rel)!r}\n")
 
 
 def _write_rows(f, arrays):

@@ -6,15 +6,27 @@
 
 Phases, one line each:
   0. the card (nvidia-smi name and power limit) and the fp32 matmul mode;
-  1. builds the CUDA kernels from cfd_julia_torch/csrc/ with nvcc;
-  2. each kernel against its plain PyTorch twin on seeded inputs, fp32
-     and fp64, and its time beside the twin's at the main path's shape;
-  3. the main path: the lid-driven cavity at 1024^2 (dt=2e-5, Re=100,
+  1. builds the CUDA kernels from cfd_julia_torch/csrc/ with nvcc (one
+     process per source, all started together), with ptxas's counts;
+  2. each kernel against its plain PyTorch twin on seeded inputs, and its
+     time beside the twin's at its main path's shape: the Arakawa RHS
+     in fp32 and fp64; the four multigrid kernels at 4097^2 fp32 (the
+     4096^2 solve's finest level, sweeps 2) and at 129x65 and 33x65 in
+     fp32, fp64 and bf16;
+  3. the cavity path: the lid-driven cavity at 1024^2 (dt=2e-5, Re=100,
      Jensen wall BCs, fp32) from rest, 100 steps and then on to 2000,
      checked against the fp64 anchors of benchmarks/physics_anchors.json,
      with the kernels' launch counts over that run;
   4. the user entry point `python -m cfd_julia_torch run cavity` on the
-     reference case (64^2, Re=100, t=10) against Ghia et al. (1982).
+     reference case (64^2, Re=100, t=10) against Ghia et al. (1982);
+  5. the multigrid path: the 4096^2 `poly` Poisson solve (fp32, tol 1e-5,
+     at most 20 V-cycles, 12 levels, fused edges) through
+     poisson.multigrid.solve, with an independent fp64 residual recheck,
+     the same solve on the plain twins as the reference, the kernels'
+     launch counts against the pyramid's, and seconds per solve; then the
+     fmg, cycle_dtype="mixed" and fused="off" variants, checked alike;
+  6. the user entry point `python -m cfd_julia_torch run poisson_mgN`
+     (512^2, 9 levels) against the exact solution.
 Then a JSON line with each kernel's record, and last
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 nonzero without that last line; without a GPU it fails at once.
@@ -23,6 +35,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -50,6 +64,16 @@ GHIA_V = [0.0, 0.09233, 0.10091, 0.10890, 0.12317, 0.16077, 0.17507,
 RE = 100.0
 NX = 1024
 STEPS_FIRST, STEPS_TOTAL = 100, 2000
+MG_NX = 4096
+MG_TOL = 1e-5
+MG_SWEEPS = 2
+# the multigrid kernels: LAUNCHES key -> the TPU kernel it replaces
+MG_KERNELS = {
+    "prolong_correct_smooth": "cfd_julia_tpu/ops/pallas_kernels.py:547",
+    "smooth_residual_restrict": "cfd_julia_tpu/ops/pallas_kernels.py:347",
+    "residual_restrict": "cfd_julia_tpu/ops/pallas_kernels.py:417",
+    "redblack_sweeps": "cfd_julia_tpu/ops/pallas_kernels.py:144",
+}
 
 
 def check(cond, msg):
@@ -107,7 +131,17 @@ def phase_build():
     seconds = time.perf_counter() - t0
     print(f"phase 1 build: {'loaded cached' if cached else 'compiled'} "
           f"{Path(lib._name).relative_to(REPO)} in {seconds:.3f} s "
-          f"(nvcc {' '.join(_cuda_build.NVCC_FLAGS)})")
+          f"(nvcc {' '.join(_cuda_build.COMPILE_FLAGS)} -c per source; "
+          f"{' '.join(_cuda_build.LINK_FLAGS)} link)")
+    log = Path(lib._name).with_name(_cuda_build.LOG_NAME)
+    if log.is_file():
+        text = log.read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                             text)]
+        print(f"phase 1 ptxas: {len(regs)} kernels, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
+              f"{max(spills, default=0)} bytes at most")
 
 
 def phase_kernels():
@@ -153,6 +187,111 @@ def phase_kernels():
             print(line)
             check(ok, line)
     return record
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at magnitude x (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def mg_calls(u, f, uc, dx, dy):
+    """name -> (kernel call, plain twin call) at MG_SWEEPS sweeps; the
+    ascend edge with the residual sum, as on the finest level."""
+    from cfd_julia_torch.ops import cuda_kernels as ck
+
+    return {
+        "prolong_correct_smooth": (
+            lambda: ck.prolong_correct_smooth_fused(u, f, uc, dx, dy,
+                                                    MG_SWEEPS, want_rms=True),
+            lambda: ck.prolong_correct_smooth_fused_plain(
+                u, f, uc, dx, dy, MG_SWEEPS, want_rms=True)),
+        "smooth_residual_restrict": (
+            lambda: ck.smooth_residual_restrict_fused(u, f, dx, dy,
+                                                      MG_SWEEPS),
+            lambda: ck.smooth_residual_restrict_fused_plain(u, f, dx, dy,
+                                                            MG_SWEEPS)),
+        "residual_restrict": (
+            lambda: ck.residual_restrict_fused(u, f, dx, dy),
+            lambda: ck.residual_restrict_fused_plain(u, f, dx, dy)),
+        "redblack_sweeps": (
+            lambda: ck.redblack_sweeps_fused(u, f, dx, dy, MG_SWEEPS),
+            lambda: ck.redblack_sweeps_fused_plain(u, f, dx, dy, MG_SWEEPS)),
+    }
+
+
+def compare_outputs(got, ref, dtype):
+    """(ok, text, max field error) for a kernel's outputs against its
+    twin's.  Fields: 1e-5 of max|twin| in fp32 (FMA contraction and
+    operation order), 1e-12 in fp64, one bf16 ulp of max|twin| in bf16
+    (both round an fp32 result once).  A residual sum (0-d) is held to
+    rel 1e-5 (fp32 sums, fp32 and bf16 fields) or 1e-12 (fp64)."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    ok, parts, field_err = True, [], 0.0
+    for g, r in zip(got, ref):
+        if g.dtype != r.dtype or g.shape != r.shape:
+            return False, f"dtype/shape {g.dtype}{tuple(g.shape)} vs " \
+                          f"{r.dtype}{tuple(r.shape)}", float("inf")
+        err = float((g.double() - r.double()).abs().max())
+        scale = float(r.double().abs().max())
+        if r.dim() == 0:
+            rel = 1e-12 if dtype == torch.float64 else 1e-5
+            tol, how = rel * scale, f"{rel:g}*|p|"
+            parts.append(f"ssq |k-p|={err:.3e} |p|={scale:.6e} tol={how}")
+        else:
+            if dtype == torch.bfloat16:
+                tol, how = bf16_ulp(scale), "1 bf16 ulp of max|p|"
+            else:
+                rel = 1e-12 if dtype == torch.float64 else 1e-5
+                tol, how = rel * scale, f"{rel:g}*max|p|"
+            field_err = max(field_err, err)
+            parts.append(f"{tuple(r.shape)} max|k-p|={err:.3e} "
+                         f"max|p|={scale:.3e} tol={how}")
+        ok = ok and err <= tol
+    return ok, "; ".join(parts), field_err
+
+
+def phase_mg_kernels():
+    """Each multigrid kernel vs its twin; returns the records at 4097^2
+    fp32 (the 4096^2 solve's finest level)."""
+    dev = torch.device("cuda")
+    records = {}
+    big = (MG_NX + 1, MG_NX + 1)
+    for shape in [big, (129, 65), (33, 65)]:
+        rng = np.random.default_rng(shape[0] * 7919 + shape[1])
+        coarse = ((shape[0] - 1) // 2 + 1, (shape[1] - 1) // 2 + 1)
+        arrays = [rng.standard_normal(shape), rng.standard_normal(shape),
+                  rng.standard_normal(coarse)]
+        dx, dy = 1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1)
+        dtypes = [torch.float32] if shape == big else \
+            [torch.float32, torch.float64, torch.bfloat16]
+        for dtype in dtypes:
+            u, f, uc = (torch.as_tensor(a, device=dev).to(dtype)
+                        for a in arrays)
+            for name, (kernel, plain) in mg_calls(u, f, uc, dx, dy).items():
+                got = kernel()
+                ref = plain()
+                torch.cuda.synchronize()
+                ok, text, err = compare_outputs(got, ref, dtype)
+                line = (f"phase 2 kernel {name} {shape[0]}x{shape[1]} "
+                        f"{str(dtype)[6:]} sweeps {MG_SWEEPS}: {text} "
+                        f"{'ok' if ok else 'FAIL'}")
+                if shape == big:
+                    ms, call_ms = median_ms(kernel)
+                    plain_ms, plain_call_ms = median_ms(plain)
+                    line += (f"; device time: kernel {ms:.4f} ms plain "
+                             f"{plain_ms:.4f} ms; eager call: kernel "
+                             f"{call_ms:.4f} ms plain {plain_call_ms:.4f} ms "
+                             f"(medians of 30 calls, CUDA events)")
+                    records[name] = {
+                        "name": name, "route": "cuda",
+                        "source": "cfd_julia_torch/csrc/multigrid.cu",
+                        "replaces": MG_KERNELS[name], "launches": None,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                print(line)
+                check(ok, line)
+            del u, f, uc
+    return records
 
 
 def anchor_check(psi, total_steps):
@@ -204,18 +343,17 @@ def phase_main_path():
     return launches, step, state, seconds / n
 
 
-def phase_profile(step, state, step_s, steps=20):
-    """Device time by kernel over a short steady window (torch.profiler);
-    the busy share is taken against the unprofiled step time step_s."""
+def phase_profile(label, run, units, unit_s, unit="step"):
+    """Device time by kernel over a short steady window (torch.profiler):
+    run() does `units` units of work; the busy share is taken against the
+    unprofiled time of one unit, unit_s."""
     from torch.profiler import ProfilerActivity, profile
-
-    from cfd_julia_torch.stepping import loop
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loop.run_steps(step, state, steps)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -240,14 +378,14 @@ def phase_profile(step, state, step_s, steps=20):
     busy += cur_e - cur_s
     span = spans[-1][1] - spans[0][0]
     total = sum(v[0] for v in by_name.values())
-    print(f"profile {NX}^2 {steps} steps: device busy {busy / steps:.1f} "
-          f"us/step = {100 * busy / steps / (step_s * 1e6):.1f}% of the "
-          f"unprofiled {step_s * 1e6:.1f} us/step; profiled host wall "
-          f"{wall_us / steps:.1f} us/step, busy {100 * busy / span:.1f}% of "
-          f"the kernels' span; {len(kernels) / steps:.1f} kernels/step")
+    print(f"profile {label} {units} {unit}s: device busy {busy / units:.1f} "
+          f"us/{unit} = {100 * busy / units / (unit_s * 1e6):.1f}% of the "
+          f"unprofiled {unit_s * 1e6:.1f} us/{unit}; profiled host wall "
+          f"{wall_us / units:.1f} us/{unit}, busy {100 * busy / span:.1f}% "
+          f"of the kernels' span; {len(kernels) / units:.1f} kernels/{unit}")
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-        print(f"profile   {100 * us / total:5.1f}%  {us / steps:8.2f} us/step "
-              f" {count / steps:5.1f}/step  {name[:110]}")
+        print(f"profile   {100 * us / total:5.1f}%  {us / units:8.2f} "
+              f"us/{unit} {count / units:6.1f}/{unit}  {name[:110]}")
 
 
 def phase_cli():
@@ -280,11 +418,159 @@ def phase_cli():
     check(ok, line)
 
 
+def expected_launches(n_levels, cycles, fused, fmg):
+    """Wrapper calls the pyramid implies: a fused V-cycle over m levels
+    calls each edge kernel m-1 times and the smoother once (coarsest); an
+    unfused one calls the smoother 2(m-1)+1 times.  FMG restricts its
+    right-hand side down n-1 edges (fused), smooths the coarsest level,
+    and runs one V-cycle of each sub-pyramid on the way up."""
+    e = dict.fromkeys(MG_KERNELS, 0)
+
+    def v_cycle(m):
+        if fused:
+            e["smooth_residual_restrict"] += m - 1
+            e["prolong_correct_smooth"] += m - 1
+            e["redblack_sweeps"] += 1
+        else:
+            e["redblack_sweeps"] += 2 * (m - 1) + 1
+
+    if fmg:
+        e["residual_restrict"] += n_levels - 1 if fused else 0
+        e["redblack_sweeps"] += 1
+        for k in range(n_levels - 2, -1, -1):
+            v_cycle(n_levels - k)
+    for _ in range(cycles):
+        v_cycle(n_levels)
+    return e
+
+
+def recheck_rel(u, f, u0, dx, dy):
+    """Independent fp64 residual rms(u)/rms(u0) with plain slices, not
+    the solver's own residual path, so a V-cycle that mis-tracks its rms
+    cannot certify itself."""
+    f64 = f.double()
+
+    def rms(v):
+        v = v.double()
+        lap = ((v[2:, 1:-1] - 2 * v[1:-1, 1:-1] + v[:-2, 1:-1]) / dx**2
+               + (v[1:-1, 2:] - 2 * v[1:-1, 1:-1] + v[1:-1, :-2]) / dy**2)
+        return float(torch.sqrt(torch.mean((f64[1:-1, 1:-1] - lap) ** 2)))
+
+    return rms(u) / max(rms(u0), 1e-30)
+
+
+MG_VARIANTS = [("fused", {}), ("fmg", {"fmg": True}),
+               ("mixed", {"cycle_dtype": "mixed"}), ("off", {"fused": "off"})]
+
+
+def phase_multigrid():
+    """The 4096^2 multigrid solve and its variants on the port's default
+    path (impl="auto" resolves to the CUDA kernels).  Returns
+    {variant: launch counts}, and a callable of one main-variant solve
+    with its best time."""
+    import dataclasses
+
+    from cfd_julia_torch.models import poisson2d
+    from cfd_julia_torch.ops import cuda_kernels
+    from cfd_julia_torch.poisson import multigrid
+
+    cfg = poisson2d.PoissonConfig(nx=MG_NX, ny=MG_NX, solver="multigrid",
+                                  problem="poly")
+    _, _, _, _, ue, f = poisson2d.build_problem(cfg, torch.float32, "cuda")
+    u0 = poisson2d._dirichlet_init(ue)
+    n_levels = len(multigrid._build_levels(MG_NX, MG_NX, cfg.dx, cfg.dy, 0))
+    counts, main = {}, None
+    for variant, opts in MG_VARIANTS:
+        mgc = multigrid.MGConfig(tol=MG_TOL, max_cycles=20, **opts)
+
+        def solve(mgc=mgc):
+            return multigrid.solve(f, u0, cfg.dx, cfg.dy, cfg=mgc)
+
+        cuda_kernels.reset_launch_counts()
+        res = solve()
+        torch.cuda.synchronize()
+        launches = dict(cuda_kernels.LAUNCHES)
+        twin = multigrid.solve(f, u0, cfg.dx, cfg.dy,
+                               cfg=dataclasses.replace(mgc, impl="torch"))
+        torch.cuda.synchronize()
+        check(cuda_kernels.LAUNCHES == launches,
+              f"the twin solve launched kernels: {cuda_kernels.LAUNCHES}")
+        times = []
+        solve()                                       # warm-up
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        best = min(times)
+
+        rel = float(res.rms / res.rms0)
+        rel_ind = recheck_rel(res.u, f, u0, cfg.dx, cfg.dy)
+        err = float((res.u - ue).abs().max())
+        twin_err = float((twin.u - ue).abs().max())
+        fused = variant != "off"
+        want = expected_launches(n_levels, res.iterations, fused,
+                                 variant == "fmg")
+        want["arakawa_rhs"] = 0
+        finite = bool(torch.isfinite(res.u).all())
+        ok = (rel <= MG_TOL and rel_ind <= 4 * MG_TOL and finite
+              and res.u.dtype == torch.float32
+              and abs(res.iterations - twin.iterations) <= 1
+              and err <= 1.5 * twin_err and launches == want)
+        line = (f"phase 5 multigrid {MG_NX}^2 poly fp32 {variant}: "
+                f"{res.iterations} cycles (twin {twin.iterations}, tol +-1) "
+                f"rms/rms0={rel:.3e} (tol {MG_TOL:g}) fp64 recheck "
+                f"{rel_ind:.3e} (tol {4 * MG_TOL:g}); max|u-ue|={err:.3e} "
+                f"(twin {twin_err:.3e}, tol 1.5x); {best:.6f} s/solve best "
+                f"of 3 [{', '.join(f'{t:.6f}' for t in times)}] = "
+                f"{1e3 * best / max(res.iterations, 1):.4f} ms/cycle; "
+                f"launches {launches} (pyramid of {n_levels} levels: "
+                f"{want}) {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+        counts[variant] = launches
+        if variant == "fused":
+            main = (solve, best)
+    return counts, main
+
+
+def phase_cli_poisson():
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "cfd_julia_torch", "run",
+                        "poisson_mgN", "--device", "cuda", "--outdir", tmp],
+                       cwd=REPO, check=True, capture_output=True, text=True,
+                       timeout=600)
+        seconds = time.perf_counter() - t0
+        out = Path(tmp)
+        for name in ("output.txt", "multigrid_residual.txt",
+                     "field_final.txt", "metrics.json"):
+            check((out / name).is_file(), f"CLI run wrote no {name}")
+        metrics = json.loads((out / "metrics.json").read_text())
+        cols = np.loadtxt(out / "field_final.txt")
+    # columns x y f u ue; 100 fp32 cycles reach the fp32 floor (~2e-7 on
+    # the CPU); 1e-5 is the error a 1e-5-tolerance solve leaves
+    err = float(np.abs(cols[:, 3] - cols[:, 4]).max())
+    ok = (cols.shape == (513 * 513, 5) and err < 1e-5
+          and abs(err - metrics["linf_error"]) <= 1e-7
+          and metrics["device"] == torch.cuda.get_device_name())
+    line = (f"phase 6 cli `python -m cfd_julia_torch run poisson_mgN "
+            f"--device cuda` (512^2, 9 levels, tol 1e-9, 100 cycles at "
+            f"most) on {metrics['device']}: {metrics['iterations']} cycles, "
+            f"rms {metrics['rms_final']:.3e}, max|u-ue|={err:.3e} (tol "
+            f"1e-5); solve {metrics['wall_time_s']:.2f} s, process "
+            f"{seconds:.2f} s {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also print a torch.profiler breakdown of the "
-                             "1024^2 cavity step")
+                        help="also print torch.profiler breakdowns of the "
+                             "1024^2 cavity step and the 4096^2 multigrid "
+                             "solve")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -295,16 +581,32 @@ def main(argv=None):
               "the repository", file=sys.stderr)
         return 1
 
+    from cfd_julia_torch.stepping import loop
+
     phase_card()
     phase_build()
     record = phase_kernels()
+    mg_records = phase_mg_kernels()
     launches, step, state, step_s = phase_main_path()
     if args.profile:
-        phase_profile(step, state, step_s)
+        phase_profile(f"cavity {NX}^2", lambda: loop.run_steps(step, state,
+                                                              20),
+                      20, step_s)
     phase_cli()
+    mg_counts, (mg_solve, mg_s) = phase_multigrid()
+    if args.profile:
+        phase_profile(f"multigrid {MG_NX}^2", lambda: [mg_solve()
+                                                       for _ in range(3)],
+                      3, mg_s, unit="solve")
+    phase_cli_poisson()
 
     record["launches"] = launches[record["name"]]
-    print(json.dumps({"kernels": [record]}))
+    record["path"] = f"cavity {NX}^2, {STEPS_TOTAL} steps"
+    for name, rec in mg_records.items():
+        variant = "fmg" if name == "residual_restrict" else "fused"
+        rec["launches"] = mg_counts[variant][name]
+        rec["path"] = f"multigrid {MG_NX}^2 {variant} solve"
+    print(json.dumps({"kernels": [record, *mg_records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,8 @@
 The same seeded numpy fields go through the JAX functions (the XLA form
 and the Pallas kernel in interpret mode) and the port, in fp64, where the
 only admissible difference is the order of floating-point operations.
-Tests marked `cuda` compare the CUDA kernel with its plain twin on a GPU
-and skip without one.
+The CUDA kernel itself is held against its plain twin on a GPU in
+tests/test_torch_cuda.py.
 """
 import os
 import stat
@@ -22,13 +22,6 @@ from cfd_julia_tpu.ops import pallas_kernels
 torch.set_num_threads(1)
 
 RE = 100.0
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
 
 
 def _fields(shape, seed=0):
@@ -141,7 +134,8 @@ def test_build_raises_with_nvcc_output(tmp_path, monkeypatch):
 
 
 def test_build_flags_and_disk_cache(tmp_path, monkeypatch):
-    """nvcc gets the sm_90a flags and every csrc/*.cu; a second build
+    """nvcc compiles every csrc/*.cu with the sm_90a flags into its own
+    object, all started together, then links one library; a second build
     with unchanged sources reuses the library on disk."""
     log = tmp_path / "calls.log"
     home = _fake_nvcc(
@@ -155,27 +149,18 @@ def test_build_flags_and_disk_cache(tmp_path, monkeypatch):
     second = _cuda_build.build()
     assert first == second and first.exists()
     assert first.parent.parent == tmp_path / "build"
-    calls = log.read_text().splitlines()
-    assert len(calls) == 1
-    argv = calls[0].split()
-    assert "arch=compute_90a,code=sm_90a" in argv and "-shared" in argv
+    assert (first.parent / _cuda_build.LOG_NAME).exists()
+    calls = [c.split() for c in log.read_text().splitlines()]
     cu = sorted(str(p) for p in _cuda_build.CSRC.glob("*.cu"))
-    assert cu and argv[-len(cu):] == cu
-    assert os.path.basename(argv[argv.index("-o") + 1]).startswith(".")
+    assert len(cu) >= 2 and len(calls) == len(cu) + 1
+    compiles, link = calls[:-1], calls[-1]
+    assert sorted(c[-1] for c in compiles) == cu
+    for argv in compiles:
+        assert "arch=compute_90a,code=sm_90a" in argv and "-c" in argv
+        assert argv[argv.index("-o") + 1].endswith(".o")
+    assert "-shared" in link
+    objs = [c[c.index("-o") + 1] for c in compiles]
+    assert link[-len(objs):] == objs
+    assert os.path.basename(link[link.index("-o") + 1]).startswith(".")
+    assert not any((tmp_path / "build").rglob("*.o"))
 
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
-                                       (torch.float64, 1e-12)])
-@pytest.mark.parametrize("shape", [(1025, 1025), (37, 53), (8, 8)])
-def test_cuda_kernel_matches_plain(cuda_device, shape, dtype, rel):
-    """fp32 tolerance: FMA contraction and operation order."""
-    w, s = _fields(shape, seed=4)
-    dx, dy = _spacing(shape)
-    wt, st, _ = interop.state_from_numpy(w, s, dtype, cuda_device)
-    before = cuda_kernels.LAUNCHES["arakawa_rhs"]
-    got = cuda_kernels.arakawa_rhs_fused(wt, st, dx, dy, RE)
-    torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES["arakawa_rhs"] == before + 1
-    ref = cuda_kernels.arakawa_rhs_fused_plain(wt, st, dx, dy, RE)
-    _assert_rel(interop.to_numpy(got), interop.to_numpy(ref), rel)

@@ -1,0 +1,161 @@
+"""The port's CUDA kernels on a GPU, against their plain PyTorch twins.
+
+Every test here needs an NVIDIA GPU (the kernels have no CPU mode) and
+skips without one.  The file imports neither JAX nor cfd_julia_tpu, so it
+also runs on a GPU machine without JAX, where tests/conftest.py (which
+imports JAX) is left out:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerances: fp32 1e-5 of the twin's scale (FMA contraction and operation
+order), fp64 1e-12, bf16 8e-3 of the scale (one bf16 ulp: both round an
+fp32 result once).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from cfd_julia_torch import interop
+from cfd_julia_torch.models import cavity, poisson2d
+from cfd_julia_torch.ops import cuda_kernels
+from cfd_julia_torch.poisson import multigrid
+from cfd_julia_torch.stepping import loop
+
+REL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 8e-3}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _fields(shape, seed, n=2):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape) for _ in range(n)]
+
+
+def _spacing(shape):
+    return 1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1)
+
+
+def _assert_rel(got, ref, rel):
+    got = got.double().cpu().numpy()
+    ref = ref.double().cpu().numpy()
+    assert got.shape == ref.shape
+    err = np.abs(got - ref).max()
+    assert err <= rel * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1025, 1025), (37, 53), (8, 8)])
+def test_arakawa_kernel_matches_plain(cuda_device, shape, dtype):
+    w, s = _fields(shape, seed=4)
+    dx, dy = _spacing(shape)
+    wt, st, _ = interop.state_from_numpy(w, s, dtype, cuda_device)
+    before = cuda_kernels.LAUNCHES["arakawa_rhs"]
+    got = cuda_kernels.arakawa_rhs_fused(wt, st, dx, dy, 100.0)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["arakawa_rhs"] == before + 1
+    _assert_rel(got, cuda_kernels.arakawa_rhs_fused_plain(wt, st, dx, dy,
+                                                          100.0), REL[dtype])
+
+
+@pytest.mark.cuda
+def test_cavity_kernel_step_matches_plain_step(cuda_device):
+    """5 steps with the CUDA RHS kernel vs the plain RHS on the GPU, fp64;
+    the kernel runs three times per step."""
+    cfg = cavity.CavityConfig(nx=32, ny=24, dt=1e-3)
+    rng = np.random.default_rng(2)
+    shape = (cfg.nx + 1, cfg.ny + 1)
+    w0, s0 = 0.5 * rng.standard_normal(shape), 0.01 * rng.standard_normal(shape)
+
+    def trajectory(rhs_impl):
+        c = dataclasses.replace(cfg, rhs_impl=rhs_impl)
+        step = cavity.make_step_fn(c, torch.float64, cuda_device)
+        state = interop.state_from_numpy(w0, s0, torch.float64, cuda_device)
+        (w, s, _), rms = loop.run_steps(step, state, 5)
+        return w, s, rms
+
+    ref = trajectory("torch")
+    before = cuda_kernels.LAUNCHES["arakawa_rhs"]
+    got = trajectory("kernel")
+    assert cuda_kernels.LAUNCHES["arakawa_rhs"] == before + 15
+    for g, r in zip(got, ref):
+        _assert_rel(g, r, 1e-11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape", [(129, 65), (33, 65), (5, 5)])
+def test_multigrid_kernels_match_plain(cuda_device, shape, dtype):
+    """Each multigrid kernel against its twin at sweeps 2, the residual sum
+    included (at 3x3 the sweeps solve the one interior node and the sum
+    is roundoff, so the smallest shape is 5x5)."""
+    u, f = _fields(shape, seed=17)
+    (uc,) = _fields(((shape[0] - 1) // 2 + 1, (shape[1] - 1) // 2 + 1),
+                    seed=18, n=1)
+    u, f, uc = (interop.field_from_numpy(a, dtype, cuda_device)
+                for a in (u, f, uc))
+    dx, dy = _spacing(shape)
+    calls = [
+        ("redblack_sweeps", lambda m: m(u, f, dx, dy, 2),
+         cuda_kernels.redblack_sweeps_fused,
+         cuda_kernels.redblack_sweeps_fused_plain),
+        ("smooth_residual_restrict", lambda m: m(u, f, dx, dy, 2),
+         cuda_kernels.smooth_residual_restrict_fused,
+         cuda_kernels.smooth_residual_restrict_fused_plain),
+        ("residual_restrict", lambda m: m(u, f, dx, dy),
+         cuda_kernels.residual_restrict_fused,
+         cuda_kernels.residual_restrict_fused_plain),
+        ("prolong_correct_smooth",
+         lambda m: m(u, f, uc, dx, dy, 2, want_rms=True),
+         cuda_kernels.prolong_correct_smooth_fused,
+         cuda_kernels.prolong_correct_smooth_fused_plain),
+    ]
+    for name, call, kernel, plain in calls:
+        before = cuda_kernels.LAUNCHES[name]
+        got = call(kernel)
+        torch.cuda.synchronize()
+        assert cuda_kernels.LAUNCHES[name] == before + 1, name
+        ref = call(plain)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and g.shape == r.shape, name
+            _assert_rel(g, r, REL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [dict(), dict(fmg=True),
+                                  dict(cycle_dtype="mixed"),
+                                  dict(fused="off")],
+                         ids=["fused", "fmg", "mixed", "off"])
+def test_multigrid_solve_matches_twin_solve(cuda_device, opts):
+    """The kernel solve vs the twin solve on the GPU, fp32, 128^2: cycle
+    counts within one, errors against ue within 1.5x, and the kernels
+    that the path implies actually launched."""
+    results = {}
+    for impl in ("torch", "kernel"):
+        mgc = multigrid.MGConfig(tol=1e-5, max_cycles=20, impl=impl, **opts)
+        cfg = poisson2d.PoissonConfig(nx=128, ny=128, solver="multigrid",
+                                      problem="poly", mg=mgc)
+        cuda_kernels.reset_launch_counts()
+        results[impl] = poisson2d.solve(cfg, torch.float32, cuda_device)
+        launches = dict(cuda_kernels.LAUNCHES)
+        if impl == "torch":
+            assert all(v == 0 for v in launches.values())
+    got, ref = results["kernel"], results["torch"]
+    assert float(got.rms / got.rms0) <= 1e-5
+    assert abs(got.iterations - ref.iterations) <= 1
+    assert float(got.linf_error) <= 1.5 * float(ref.linf_error) + 1e-6
+    key = "redblack_sweeps" if opts.get("fused") == "off" \
+        else "smooth_residual_restrict"
+    assert launches[key] > 0
+    if opts.get("fmg"):
+        assert launches["residual_restrict"] == 6   # 7 levels at 128^2
