@@ -10,7 +10,9 @@ first use (`ops/_cuda_build.py`) and bound with ctypes (`ops/cuda_kernels.py`).
 Ported so far: the lid-driven cavity (reference ch. 18) on the full-grid
 step with the Arakawa RHS kernel and the dense sine-matmul Poisson solve;
 the iterative and multigrid 2D Poisson solvers (ch. 15-17), with the
-V-cycle's red-black smoother and fused level edges as CUDA kernels.
+V-cycle's red-black smoother and fused level edges as CUDA kernels; the
+1D Euler Sod shock tube (ch. 09-11), with its whole WENO-5 + Riemann RHS
+as one CUDA kernel.
 
 This package imports neither JAX nor cfd_julia_tpu; importing it loads no
 GPU library and builds nothing.

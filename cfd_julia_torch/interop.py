@@ -6,11 +6,13 @@ JAX config is read through its attributes.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from cfd_julia_torch.core import precision
-from cfd_julia_torch.models import cavity, poisson2d
+from cfd_julia_torch.models import cavity, euler1d, poisson2d
 from cfd_julia_torch.poisson import multigrid
 
 # JAX CavityConfig.poisson / .rhs_impl -> the port's; the other JAX variants
@@ -36,6 +38,18 @@ def cavity_config_from_jax(cfg) -> cavity.CavityConfig:
         nx=cfg.nx, ny=cfg.ny, dt=cfg.dt, t_final=cfg.t_final, re=cfg.re,
         bc_order=cfg.bc_order, poisson=_POISSON[cfg.poisson],
         rhs_impl=_RHS_IMPL[cfg.rhs_impl])
+
+
+def euler_config_from_jax(cfg) -> euler1d.EulerConfig:
+    """The port's EulerConfig for a cfd_julia_tpu EulerConfig; its state
+    is a plain (3, nx) field (field_from_numpy)."""
+    if cfg.rhs_impl not in _RHS_IMPL:
+        raise ValueError(f"rhs_impl={cfg.rhs_impl!r} is not ported; the "
+                         f"port maps {sorted(_RHS_IMPL)}")
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(euler1d.EulerConfig)}
+    fields["rhs_impl"] = _RHS_IMPL[cfg.rhs_impl]
+    return euler1d.EulerConfig(**fields)
 
 
 def mg_config_from_jax(cfg) -> multigrid.MGConfig:

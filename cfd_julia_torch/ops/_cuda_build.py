@@ -32,6 +32,8 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DBL = ctypes.c_double
 _ARAKAWA_ARGS = [_PTR, _PTR, _PTR, _INT, _INT, _DBL, _DBL, _DBL, _PTR]
+# q, out, nx, gamma, dx, solver code, wavespeed code, stream
+_EULER_ARGS = [_PTR, _PTR, _INT, _DBL, _DBL, _INT, _INT, _PTR]
 # multigrid launchers, one per storage type (ops/cuda_kernels.py)
 _MG_ARGS = {
     # u, f, out, work, nr, nc, 1/dx^2, 1/dy^2, sweeps, stream
@@ -51,6 +53,8 @@ _MG_ARGS = {
 SIGNATURES = {
     "arakawa_rhs_f32": (_INT, _ARAKAWA_ARGS),
     "arakawa_rhs_f64": (_INT, _ARAKAWA_ARGS),
+    "euler_rhs_f32": (_INT, _EULER_ARGS),
+    "euler_rhs_f64": (_INT, _EULER_ARGS),
     "cfd_cuda_error_string": (ctypes.c_char_p, [_INT]),
     "mg_ssq_partials": (_INT, [_INT, _INT]),
     **{f"{name}_{sfx}": (_INT, args) for name, args in _MG_ARGS.items()

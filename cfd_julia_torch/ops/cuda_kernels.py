@@ -16,6 +16,7 @@ Kernels (csrc/ file; TPU function replaced):
   smooth_residual_restrict_fused  multigrid.cu;   smooth_residual_restrict_fused
   residual_restrict_fused         multigrid.cu;   residual_restrict_fused
   prolong_correct_smooth_fused    multigrid.cu;   prolong_correct_smooth_fused
+  euler_rhs_fused                 euler_rhs.cu;   euler_rhs_fused
 
 The multigrid kernels take bf16, fp32 or fp64 fields; bf16 computes in
 fp32 and rounds once, at the output store (the TPU kernels' `_c32`
@@ -25,12 +26,12 @@ from __future__ import annotations
 
 import torch
 
-from cfd_julia_torch.ops import _cuda_build, arakawa
+from cfd_julia_torch.ops import _cuda_build, arakawa, riemann, weno
 from cfd_julia_torch.poisson import iterative
 
 LAUNCHES = {"arakawa_rhs": 0, "redblack_sweeps": 0,
             "smooth_residual_restrict": 0, "residual_restrict": 0,
-            "prolong_correct_smooth": 0}
+            "prolong_correct_smooth": 0, "euler_rhs": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 _MG_DTYPES = tuple(_SUFFIX)
@@ -285,3 +286,68 @@ def prolong_correct_smooth_fused(u, f, uc, dx: float, dy: float,
             _ptr(work), _ptr(partials), _ptr(ssq), nr, nc, 1.0 / dx**2,
             1.0 / dy**2, sweeps)
     return (out, ssq) if want_rms else out
+
+
+# ------------------------------------------------------- Euler RHS
+
+# solver and wavespeed codes of csrc/euler_rhs.cu
+_EULER_SOLVER = {"roe": 0, "hllc": 1, "rusanov": 2}
+_EULER_WS = {"roe": 0, "spectral": 1}
+_RIEMANN = {"roe": riemann.roe, "hllc": riemann.hllc,
+            "rusanov": riemann.rusanov}
+
+
+def check_euler_variant(solver: str, rusanov_wavespeed: str) -> None:
+    """Raise for a flux or wavespeed name the RHS does not have."""
+    if solver not in _EULER_SOLVER:
+        raise ValueError(f"unknown solver {solver!r} "
+                         f"({' | '.join(_EULER_SOLVER)})")
+    if rusanov_wavespeed not in _EULER_WS:
+        raise ValueError(f"unknown wavespeed {rusanov_wavespeed!r} "
+                         f"({' | '.join(_EULER_WS)})")
+
+
+def euler_rhs_fused_plain(q, gamma: float, dx: float, solver: str = "hllc",
+                          rusanov_wavespeed: str = "roe"):
+    """Plain twin of euler_rhs_fused, and the torch RHS of
+    models.euler1d.make_rhs: mirror WENO-5 states (ops.weno), Euler fluxes,
+    the Riemann flux (ops.riemann), divergence."""
+    qL = weno.reconstruct_left(q, "mirror")    # (3, nx+1)
+    qR = weno.reconstruct_right(q, "mirror")   # (3, nx+1)
+    fL = riemann.flux(qL, gamma)
+    fR = riemann.flux(qR, gamma)
+    extra = {}
+    if solver == "rusanov":
+        extra["wavespeed"] = rusanov_wavespeed
+        if rusanov_wavespeed == "spectral":
+            # wavespeed2 parity: the reference evaluates the spectral
+            # radius at CELL centres, not the reconstructed interfaces
+            extra["ps"] = riemann.rusanov_wavespeed2(q, gamma)
+    f = _RIEMANN[solver](qL, qR, fL, fR, gamma, **extra)
+    return -(f[:, 1:] - f[:, :-1]) / dx
+
+
+def euler_rhs_fused(q, gamma: float, dx: float, solver: str = "hllc",
+                    rusanov_wavespeed: str = "roe"):
+    """The whole 1D Euler RHS of the (3, nx) conservative state in one
+    kernel pass (csrc/euler_rhs.cu): mirror WENO-5 interface states, Euler
+    fluxes, roe | hllc | rusanov flux (rusanov_wavespeed roe | spectral),
+    -(f[j+1] - f[j]) / dx.  q: contiguous fp32 or fp64, nx >= 3."""
+    check_euler_variant(solver, rusanov_wavespeed)
+    if q.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"euler_rhs_fused takes an fp32 or fp64 state, got "
+                        f"{q.dtype}")
+    if q.dim() != 2 or q.shape[0] != 3:
+        raise ValueError(f"euler_rhs_fused takes a (3, nx) state, got "
+                         f"{tuple(q.shape)}")
+    nx = q.shape[1]
+    if nx < 3:
+        raise ValueError(f"euler_rhs_fused needs nx >= 3 (the mirror pads "
+                         f"read u_(nx-3)), got {nx}")
+    if _on_cpu("euler_rhs_fused", q):
+        return euler_rhs_fused_plain(q, gamma, dx, solver, rusanov_wavespeed)
+    out = torch.empty_like(q)
+    _launch("euler_rhs", f"euler_rhs_{_SUFFIX[q.dtype]}", q.device,
+            q.data_ptr(), out.data_ptr(), nx, float(gamma), float(dx),
+            _EULER_SOLVER[solver], _EULER_WS[rusanov_wavespeed])
+    return out

@@ -1,7 +1,7 @@
 """Named reference configurations (counterpart of cfd_julia_tpu/presets.py).
 
-Ported so far: the lid-driven cavity and the iterative and multigrid 2D
-Poisson solvers.  Run with
+Ported so far: the 1D Euler Sod shock tube, the lid-driven cavity and the
+iterative and multigrid 2D Poisson solvers.  Run with
 `python -m cfd_julia_torch run <preset>`; any config field can be
 overridden on the command line (e.g. --nx 1024).
 """
@@ -9,14 +9,14 @@ from __future__ import annotations
 
 import dataclasses
 
-from cfd_julia_torch.models import cavity, poisson2d
+from cfd_julia_torch.models import cavity, euler1d, poisson2d
 from cfd_julia_torch.poisson import multigrid
 
 
 @dataclasses.dataclass(frozen=True)
 class Preset:
     name: str
-    family: str          # cavity | poisson
+    family: str          # euler | cavity | poisson
     cfg: object
     reference: str       # reference script this mirrors
     description: str = ""
@@ -25,6 +25,15 @@ class Preset:
 PRESETS = {
     p.name: p
     for p in [
+        # --- 1D Euler Sod (ch. 09-11) ----------------------------------------
+        Preset("euler_roe", "euler", euler1d.EulerConfig(nx=256, solver="roe"),
+               "09_Euler_1D_Roe/euler_roe.jl"),
+        Preset("euler_hllc", "euler",
+               euler1d.EulerConfig(nx=8192, solver="hllc", dt=5e-5),
+               "10_Euler_1D_HLLC/euler_hllc.jl", "high-res 'True' run"),
+        Preset("euler_rusanov", "euler",
+               euler1d.EulerConfig(nx=8192, solver="rusanov", dt=5e-5),
+               "11_Euler_1D_Rusanov/euler_rusanov.jl"),
         # --- 2D Poisson (ch. 15-17) ------------------------------------------
         Preset("poisson_jacobi", "poisson",
                poisson2d.PoissonConfig(nx=512, ny=512, solver="jacobi",

@@ -14,7 +14,7 @@ import torch
 from cfd_julia_torch import presets as presets_lib
 from cfd_julia_torch.core import precision
 from cfd_julia_torch.models import cavity as cavity_model
-from cfd_julia_torch.models import poisson2d
+from cfd_julia_torch.models import euler1d, poisson2d
 from cfd_julia_torch.poisson import iterative
 from cfd_julia_torch.utils import io
 
@@ -35,6 +35,25 @@ def run_preset(name: str, outdir: str = ".", dtype=None, device="cuda",
                          if device.type == "cuda" else "cpu")
     io.write_metrics(os.path.join(outdir, "metrics.json"), metrics)
     return metrics
+
+
+def _run_euler(preset, outdir, dtype, device):
+    cfg = preset.cfg
+    res = euler1d.solve(cfg, dtype, device)
+    rho_f, _, p_f, _ = euler1d.primitives_from_result(res, cfg.gamma)
+    mins = torch.stack([rho_f.min(), p_f.min()])
+    # the run's one host transfer of the snapshots
+    snaps = res.snapshots.cpu().numpy()
+    x = res.x.cpu().numpy()
+    # solution_{d,v,e}.txt: density / velocity / total specific energy
+    # histories of snapshots 1..ns (euler_roe.jl:187-205)
+    rho = snaps[:, 0]
+    for tag, arr in (("d", rho), ("v", snaps[:, 1] / rho),
+                     ("e", snaps[:, 2] / rho)):
+        io.write_solution_history(
+            os.path.join(outdir, f"solution_{tag}.txt"), x, arr[1:])
+    rho_min, p_min = mins.cpu().tolist()
+    return {"rho_min": rho_min, "p_min": p_min}
 
 
 def _run_poisson(preset, outdir, dtype, device):
@@ -79,6 +98,7 @@ def _run_cavity(preset, outdir, dtype, device):
 
 
 _RUNNERS = {
+    "euler": _run_euler,
     "cavity": _run_cavity,
     "poisson": _run_poisson,
 }

@@ -4,7 +4,8 @@ cfd_julia_tpu/utils/io.py; same formats).
 `output.txt` error and residual reports (ftcs.jl:48-52,
 gauss_seidel.jl:50-52), residual histories "(it, rms, rms/rms0)"
 (gauss_seidel.jl:41-47), 2D field dumps "x y w s"
-(lid_driven_cavity.jl:205-210) and column files, written once after the
+(lid_driven_cavity.jl:205-210), 1D snapshot histories "x u(t1) u(t2) ..."
+(weno_dirichlet.jl:171-180) and column files, written once after the
 run; `write_metrics` emits a JSON record per run.  Inputs are numpy arrays
 or tensors on any device.
 """
@@ -47,6 +48,15 @@ def write_residual_report(path, rms, linf, iterations):
         f.write(f"L-2 Norm={float(rms)}\n")
         f.write(f"Maximum Norm={float(linf)}\n")
         f.write(f"Iterations={int(iterations)}\n")
+
+
+def write_solution_history(path, x, snapshots):
+    """`solution_*.txt`: each row `x u(t1) u(t2) ...`
+    (weno_dirichlet.jl:171-180).  snapshots: (ns, n)."""
+    _ensure_dir(path)
+    mat = np.column_stack([_np64(x), _np64(snapshots).T])
+    with open(path, "w") as f:
+        np.savetxt(f, mat, fmt="%.17g", delimiter=" ")
 
 
 def write_residual_history(path, history, n_records=None):

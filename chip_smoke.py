@@ -12,7 +12,9 @@ Phases, one line each:
      time beside the twin's at its main path's shape: the Arakawa RHS
      in fp32 and fp64; the four multigrid kernels at 4097^2 fp32 (the
      4096^2 solve's finest level, sweeps 2) and at 129x65 and 33x65 in
-     fp32, fp64 and bf16;
+     fp32, fp64 and bf16; the Euler RHS at (3, 8192), (3, 257) and (3, 5)
+     in fp32 and fp64 for roe, hllc, rusanov/roe and rusanov/spectral, on
+     random physical states and on the Sod state after 100 steps;
   3. the cavity path: the lid-driven cavity at 1024^2 (dt=2e-5, Re=100,
      Jensen wall BCs, fp32) from rest, 100 steps and then on to 2000,
      checked against the fp64 anchors of benchmarks/physics_anchors.json,
@@ -26,7 +28,14 @@ Phases, one line each:
      launch counts against the pyramid's, and seconds per solve; then the
      fmg, cycle_dtype="mixed" and fused="off" variants, checked alike;
   6. the user entry point `python -m cfd_julia_torch run poisson_mgN`
-     (512^2, 9 levels) against the exact solution.
+     (512^2, 9 levels) against the exact solution;
+  7. the Euler path: Sod, fp32, 2000 SSP-RK3 steps at dt = 1e-4*256/nx
+     for hllc and rusanov at nx=8192 and roe at nx=256, through
+     models.euler1d.make_rhs (rhs_impl="auto": the CUDA kernel), against
+     the fp64 anchors, with the kernel's launch count, steps/s, and the
+     same run on the plain twin as the reference;
+  8. the user entry point `python -m cfd_julia_torch run euler_hllc`
+     (8192 cells, dt=5e-5, t=0.2) against the exact Sod solution.
 Then a JSON line with each kernel's record, and last
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 nonzero without that last line; without a GPU it fails at once.
@@ -67,6 +76,12 @@ STEPS_FIRST, STEPS_TOTAL = 100, 2000
 MG_NX = 4096
 MG_TOL = 1e-5
 MG_SWEEPS = 2
+# the Euler path: (solver, nx) of the anchored bench configs, at
+# dt = 1e-4 * 256 / nx for EULER_STEPS steps
+EULER_RUNS = [("hllc", 8192), ("rusanov", 8192), ("roe", 256)]
+EULER_STEPS = 2000
+EULER_VARIANTS = [("roe", "roe"), ("hllc", "roe"), ("rusanov", "roe"),
+                  ("rusanov", "spectral")]
 # the multigrid kernels: LAUNCHES key -> the TPU kernel it replaces
 MG_KERNELS = {
     "prolong_correct_smooth": "cfd_julia_tpu/ops/pallas_kernels.py:547",
@@ -81,12 +96,105 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def exact_sod(x, t, gamma=1.4, rhoL=1.0, uL=0.0, pL=1.0,
+              rhoR=0.125, uR=0.0, pR=0.1, x0=0.5):
+    """Exact solution of the Riemann problem, sampled at (x - x0)/t (Toro
+    ch. 4); a copy of tests/test_euler1d.exact_sod, which imports JAX
+    (tests/test_torch_euler1d.py holds the two equal)."""
+    aL = np.sqrt(gamma * pL / rhoL)
+    aR = np.sqrt(gamma * pR / rhoR)
+    g1 = (gamma - 1) / (2 * gamma)
+    g2 = (gamma + 1) / (2 * gamma)
+
+    def f_side(p, ps, rhos, as_):
+        if p > ps:  # shock
+            A = 2 / ((gamma + 1) * rhos)
+            B = (gamma - 1) / (gamma + 1) * ps
+            return (p - ps) * np.sqrt(A / (p + B))
+        # rarefaction
+        return 2 * as_ / (gamma - 1) * ((p / ps) ** g1 - 1)
+
+    def fp_side(p, ps, rhos, as_):
+        if p > ps:
+            A = 2 / ((gamma + 1) * rhos)
+            B = (gamma - 1) / (gamma + 1) * ps
+            return np.sqrt(A / (p + B)) * (1 - (p - ps) / (2 * (p + B)))
+        return (p / ps) ** (-g2) / (rhos * as_)
+
+    du = uR - uL
+    p = 0.5 * (pL + pR)
+    for _ in range(60):  # Newton
+        f = f_side(p, pL, rhoL, aL) + f_side(p, pR, rhoR, aR) + du
+        df = fp_side(p, pL, rhoL, aL) + fp_side(p, pR, rhoR, aR)
+        p = max(1e-8, p - f / df)
+    us = 0.5 * (uL + uR) + 0.5 * (
+        f_side(p, pR, rhoR, aR) - f_side(p, pL, rhoL, aL)
+    )
+
+    s = (np.asarray(x) - x0) / t
+    rho = np.empty_like(s)
+    u = np.empty_like(s)
+    pp = np.empty_like(s)
+    for i, si in enumerate(s):
+        if si < us:  # left of contact
+            if p > pL:  # left shock
+                SL = uL - aL * np.sqrt(g2 * p / pL + g1)
+                if si < SL:
+                    rho[i], u[i], pp[i] = rhoL, uL, pL
+                else:
+                    rho[i] = rhoL * (p / pL + (gamma - 1) / (gamma + 1)) / (
+                        (gamma - 1) / (gamma + 1) * p / pL + 1
+                    )
+                    u[i], pp[i] = us, p
+            else:  # left rarefaction
+                SHL = uL - aL
+                aSL = aL * (p / pL) ** g1
+                STL = us - aSL
+                if si < SHL:
+                    rho[i], u[i], pp[i] = rhoL, uL, pL
+                elif si > STL:
+                    rho[i] = rhoL * (p / pL) ** (1 / gamma)
+                    u[i], pp[i] = us, p
+                else:  # fan
+                    u[i] = 2 / (gamma + 1) * (aL + (gamma - 1) / 2 * uL + si)
+                    a = aL - (gamma - 1) / 2 * (u[i] - uL)
+                    rho[i] = rhoL * (a / aL) ** (2 / (gamma - 1))
+                    pp[i] = pL * (a / aL) ** (2 * gamma / (gamma - 1))
+        else:  # right of contact
+            if p > pR:  # right shock
+                SR = uR + aR * np.sqrt(g2 * p / pR + g1)
+                if si > SR:
+                    rho[i], u[i], pp[i] = rhoR, uR, pR
+                else:
+                    rho[i] = rhoR * (p / pR + (gamma - 1) / (gamma + 1)) / (
+                        (gamma - 1) / (gamma + 1) * p / pR + 1
+                    )
+                    u[i], pp[i] = us, p
+            else:  # right rarefaction
+                SHR = uR + aR
+                aSR = aR * (p / pR) ** g1
+                STR = us + aSR
+                if si > SHR:
+                    rho[i], u[i], pp[i] = rhoR, uR, pR
+                elif si < STR:
+                    rho[i] = rhoR * (p / pR) ** (1 / gamma)
+                    u[i], pp[i] = us, p
+                else:
+                    u[i] = 2 / (gamma + 1) * (-aR + (gamma - 1) / 2 * uR + si)
+                    a = aR + (gamma - 1) / 2 * (u[i] - uR)
+                    rho[i] = rhoR * (a / aR) ** (2 / (gamma - 1))
+                    pp[i] = pR * (a / aR) ** (2 * gamma / (gamma - 1))
+    return rho, u, pp
+
+
 def median_ms(fn, reps=30, warmup=5):
     """(device_ms, call_ms): medians of CUDA-event times of one call over
     `reps` calls after warm-up.  device_ms queues the call behind a
     busy-wait kernel, so its launches are all issued before the device
-    reaches them and the events time the device alone; call_ms issues it
-    to an idle device, so the host's launch overhead shows as well."""
+    reaches them and the events time the device alone (the wait, ~10 ms,
+    outlasts the enqueue of every call timed here, the Euler twin's ~190
+    launches included); call_ms issues it to an idle device, so the
+    host's launch overhead shows as well."""
     for _ in range(warmup):
         fn()
     times = {}
@@ -96,7 +204,7 @@ def median_ms(fn, reps=30, warmup=5):
         for start, end in events:
             torch.cuda.synchronize()
             if mode == "device":
-                torch.cuda._sleep(5_000_000)   # ~3 ms of clock cycles
+                torch.cuda._sleep(20_000_000)   # ~10 ms of clock cycles
             start.record()
             fn()
             end.record()
@@ -512,7 +620,8 @@ def phase_multigrid():
         fused = variant != "off"
         want = expected_launches(n_levels, res.iterations, fused,
                                  variant == "fmg")
-        want["arakawa_rhs"] = 0
+        for name in cuda_kernels.LAUNCHES:   # every non-multigrid kernel
+            want.setdefault(name, 0)
         finite = bool(torch.isfinite(res.u).all())
         ok = (rel <= MG_TOL and rel_ind <= 4 * MG_TOL and finite
               and res.u.dtype == torch.float32
@@ -565,12 +674,217 @@ def phase_cli_poisson():
     check(ok, line)
 
 
+def euler_dt(nx):
+    return 1e-4 * 256 / nx
+
+
+def euler_steps(step, q, n):
+    for _ in range(n):
+        q = step(q)
+    return q
+
+
+def euler_sod_100(nx):
+    """The Sod state after 100 fp64 hllc steps on the twin, (3, nx)."""
+    from cfd_julia_torch.models import euler1d
+    from cfd_julia_torch.stepping import ssprk3
+
+    cfg = euler1d.EulerConfig(nx=nx, solver="hllc", dt=euler_dt(nx),
+                              rhs_impl="torch")
+    _, q = euler1d.sod_initial_state(cfg, torch.float64, "cuda")
+    rhs = euler1d.make_rhs(cfg, "cuda")
+    return euler_steps(lambda v: ssprk3.ssprk3_step(rhs, v, cfg.dt), q, 100)
+
+
+def euler_random(nx, gamma=1.4):
+    """Seeded physical cells: rho, p in [0.1, 2], u in [-1.5, 1.5]."""
+    rng = np.random.default_rng(nx)
+    rho = rng.uniform(0.1, 2.0, nx)
+    u = rng.uniform(-1.5, 1.5, nx)
+    p = rng.uniform(0.1, 2.0, nx)
+    q = np.stack([rho, rho * u, p / (gamma - 1) + 0.5 * rho * u**2])
+    return torch.as_tensor(q, dtype=torch.float64, device="cuda")
+
+
+def phase_euler_kernels():
+    """euler_rhs vs its twin; returns the record at (3, 8192) fp32 hllc.
+
+    Tolerance: 1e-12 of max|twin| in fp64.  In fp32, 1e-5 of max|twin|,
+    or 4x the fp32 twin's own error against the fp64 twin where that is
+    larger: WENO-5 of random cells reconstructs interface states with
+    rho < 0 and p < 0, where the flux amplifies roundoff, so any two fp32
+    evaluations differ by that much (the kernel, with FMA contraction,
+    came to 2.6x of it at 3x257 roe on the H100)."""
+    from cfd_julia_torch.ops import cuda_kernels as ck
+
+    gamma, record = 1.4, None
+    for nx in (8192, 257, 5):
+        dx = 1.0 / nx
+        inputs = {"random": euler_random(nx), "sod100": euler_sod_100(nx)}
+        for label, q64 in inputs.items():
+            for solver, ws in EULER_VARIANTS:
+                exact = ck.euler_rhs_fused_plain(q64, gamma, dx, solver, ws)
+                for dtype in (torch.float32, torch.float64):
+                    q = q64.to(dtype).contiguous()
+                    before = ck.LAUNCHES["euler_rhs"]
+                    got = ck.euler_rhs_fused(q, gamma, dx, solver, ws)
+                    ref = ck.euler_rhs_fused_plain(q, gamma, dx, solver, ws)
+                    torch.cuda.synchronize()
+                    err = float((got.double() - ref.double()).abs().max())
+                    scale = float(ref.double().abs().max())
+                    if dtype == torch.float64:
+                        tol, how = 1e-12 * scale, "1e-12*max|p|"
+                    else:
+                        e32 = float((ref.double() - exact).abs().max())
+                        tol = max(1e-5 * scale, 4 * e32)
+                        how = (f"max(1e-5*max|p|, 4*{e32:.3e} = fp32 twin's "
+                               f"error vs fp64)")
+                    ok = (err <= tol and got.dtype == dtype
+                          and ck.LAUNCHES["euler_rhs"] == before + 1)
+                    line = (f"phase 2 kernel euler_rhs 3x{nx} "
+                            f"{str(dtype)[6:]} {solver}/{ws} {label}: "
+                            f"max|k-p|={err:.3e} max|p|={scale:.3e} "
+                            f"({err / scale:.2e} of it) tol={how} "
+                            f"{'ok' if ok else 'FAIL'}")
+                    timed = (nx == 8192 and dtype == torch.float32
+                             and solver == "hllc" and label == "sod100")
+                    if timed:
+                        ms, call_ms = median_ms(
+                            lambda: ck.euler_rhs_fused(q, gamma, dx, solver))
+                        plain_ms, plain_call_ms = median_ms(
+                            lambda: ck.euler_rhs_fused_plain(q, gamma, dx,
+                                                             solver))
+                        line += (f"; device time: kernel {ms:.4f} ms plain "
+                                 f"{plain_ms:.4f} ms; eager call: kernel "
+                                 f"{call_ms:.4f} ms plain {plain_call_ms:.4f} "
+                                 f"ms (medians of 30 calls, CUDA events)")
+                        record = {
+                            "name": "euler_rhs", "route": "cuda",
+                            "source": "cfd_julia_torch/csrc/euler_rhs.cu",
+                            "replaces":
+                                "cfd_julia_tpu/ops/pallas_kernels.py:749",
+                            "launches": None, "max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms}
+                    print(line)
+                    check(ok, line)
+    return record
+
+
+def euler_anchor_check(q, solver, nx):
+    anchor = json.loads(ANCHORS.read_text())[
+        f"euler_{solver}:{nx}:{EULER_STEPS}"]
+    rho = q[0].double()
+    got = {"rho_min": float(rho.min()),
+           "rho_l2": float(torch.sqrt(torch.mean(rho ** 2)))}
+    tol = anchor["rel_tol"]
+    rels = {k: abs(got[k] - anchor[k]) / abs(anchor[k]) for k in got}
+    text = " ".join(f"{k}={got[k]:.9g} (anchor {anchor[k]:.9g}, rel "
+                    f"{rels[k]:.2e})" for k in got) + f" tol {tol:g}"
+    return all(r <= tol for r in rels.values()), text
+
+
+# max|q_kernel - q_twin| after the 2000 fp32 steps: two fp32 evaluations
+# of one scheme differ by roundoff that the shock-capturing amplifies
+# near the discontinuities; the fp32 twin run stays within 3.3e-5 of the
+# fp64 twin run on the CPU for all three configs, the bound leaves 6x
+EULER_TWIN_TOL = 2e-4
+
+
+def phase_euler():
+    """The three anchored Euler runs on the port's default path
+    (rhs_impl="auto": the CUDA kernel), each against the same run on the
+    twin.  Returns {(solver, nx): launches}, the hllc 8192 step and state,
+    and its seconds per step."""
+    import dataclasses
+
+    from cfd_julia_torch.models import euler1d
+    from cfd_julia_torch.ops import cuda_kernels
+    from cfd_julia_torch.stepping import ssprk3
+
+    counts, main = {}, None
+    for solver, nx in EULER_RUNS:
+        cfg = euler1d.EulerConfig(nx=nx, solver=solver, dt=euler_dt(nx))
+        _, q0 = euler1d.sod_initial_state(cfg, torch.float32, "cuda")
+        results = {}
+        for impl in ("auto", "torch"):
+            rhs = euler1d.make_rhs(dataclasses.replace(cfg, rhs_impl=impl),
+                                   "cuda")
+
+            def step(q, rhs=rhs):
+                return ssprk3.ssprk3_step(rhs, q, cfg.dt)
+
+            torch.cuda.synchronize()
+            cuda_kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            q = euler_steps(step, q0, EULER_STEPS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            results[impl] = (q, seconds, dict(cuda_kernels.LAUNCHES), step)
+        q, seconds, launches, step = results["auto"]
+        q_twin, twin_s, twin_launches, _ = results["torch"]
+        ok, text = euler_anchor_check(q, solver, nx)
+        diff = float((q - q_twin).abs().max())
+        finite = bool(torch.isfinite(q).all())
+        want = dict.fromkeys(launches, 0)
+        want["euler_rhs"] = 3 * EULER_STEPS
+        ok = (ok and finite and q.dtype == torch.float32
+              and launches == want and not any(twin_launches.values())
+              and diff <= EULER_TWIN_TOL)
+        line = (f"phase 7 euler {solver} {nx} fp32 @{EULER_STEPS} steps "
+                f"(dt={cfg.dt:g}): {text}; max|q-q_twin|={diff:.3e} (tol "
+                f"{EULER_TWIN_TOL:g}); {EULER_STEPS / seconds:.2f} steps/s "
+                f"(twin {EULER_STEPS / twin_s:.2f}); launches "
+                f"{launches['euler_rhs']} euler_rhs (want "
+                f"{want['euler_rhs']}), all kernels "
+                f"{sum(launches.values())}, twin run "
+                f"{sum(twin_launches.values())}; fields "
+                f"{'finite' if finite else 'NOT finite'} "
+                f"{'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+        counts[(solver, nx)] = launches
+        if (solver, nx) == EULER_RUNS[0]:
+            main = (step, q, seconds / EULER_STEPS)
+    return counts, main
+
+
+def phase_cli_euler():
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "cfd_julia_torch", "run",
+                        "euler_hllc", "--device", "cuda", "--outdir", tmp],
+                       cwd=REPO, check=True, capture_output=True, text=True,
+                       timeout=600)
+        seconds = time.perf_counter() - t0
+        out = Path(tmp)
+        for name in ("solution_d.txt", "solution_v.txt", "solution_e.txt",
+                     "metrics.json"):
+            check((out / name).is_file(), f"CLI run wrote no {name}")
+        metrics = json.loads((out / "metrics.json").read_text())
+        cols = np.loadtxt(out / "solution_d.txt")
+    # columns: x, then the density after 200, 400, ..., 4000 steps
+    x, rho = cols[:, 0], cols[:, -1]
+    rho_e, _, _ = exact_sod(x, 0.2)
+    l1 = float(np.abs(rho - rho_e).mean())
+    ok = (cols.shape == (8192, 21) and np.isfinite(cols).all() and l1 < 3e-4
+          and metrics["p_min"] > 0
+          and metrics["device"] == torch.cuda.get_device_name())
+    line = (f"phase 8 cli `python -m cfd_julia_torch run euler_hllc --device "
+            f"cuda` (8192 cells, dt=5e-5, t=0.2, 4000 steps) on "
+            f"{metrics['device']}: density L1 vs exact Sod {l1:.3e} (tol "
+            f"3e-4), rho_min={metrics['rho_min']:.6f} "
+            f"p_min={metrics['p_min']:.6f}; solve {metrics['wall_time_s']:.2f}"
+            f" s, process {seconds:.2f} s {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also print torch.profiler breakdowns of the "
-                             "1024^2 cavity step and the 4096^2 multigrid "
-                             "solve")
+                             "1024^2 cavity step, the 4096^2 multigrid "
+                             "solve and the hllc 8192 Euler step")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -587,6 +901,7 @@ def main(argv=None):
     phase_build()
     record = phase_kernels()
     mg_records = phase_mg_kernels()
+    euler_record = phase_euler_kernels()
     launches, step, state, step_s = phase_main_path()
     if args.profile:
         phase_profile(f"cavity {NX}^2", lambda: loop.run_steps(step, state,
@@ -599,6 +914,11 @@ def main(argv=None):
                                                        for _ in range(3)],
                       3, mg_s, unit="solve")
     phase_cli_poisson()
+    euler_counts, (e_step, e_state, e_step_s) = phase_euler()
+    if args.profile:
+        phase_profile(f"euler hllc {EULER_RUNS[0][1]}",
+                      lambda: euler_steps(e_step, e_state, 20), 20, e_step_s)
+    phase_cli_euler()
 
     record["launches"] = launches[record["name"]]
     record["path"] = f"cavity {NX}^2, {STEPS_TOTAL} steps"
@@ -606,7 +926,11 @@ def main(argv=None):
         variant = "fmg" if name == "residual_restrict" else "fused"
         rec["launches"] = mg_counts[variant][name]
         rec["path"] = f"multigrid {MG_NX}^2 {variant} solve"
-    print(json.dumps({"kernels": [record, *mg_records.values()]}))
+    euler_record["launches"] = euler_counts[EULER_RUNS[0]]["euler_rhs"]
+    euler_record["path"] = (f"euler {EULER_RUNS[0][0]} {EULER_RUNS[0][1]} "
+                            f"fp32, {EULER_STEPS} steps")
+    print(json.dumps({"kernels": [record, *mg_records.values(),
+                                  euler_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

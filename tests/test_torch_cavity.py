@@ -166,7 +166,8 @@ def test_import_leaves_out_jax():
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'cfd_julia_tpu'))\n"
         "for m in ('models.cavity', 'models.poisson2d', 'poisson.multigrid',"
-        " 'poisson.iterative', 'ops.norms', 'ops.cuda_kernels'):\n"
+        " 'poisson.iterative', 'ops.norms', 'ops.cuda_kernels',"
+        " 'models.euler1d', 'ops.weno', 'ops.riemann', 'stepping.ssprk3'):\n"
         "    assert 'cfd_julia_torch.' + m in sys.modules, m\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
