@@ -47,6 +47,8 @@ _MG_ARGS = {
     # stream
     "mg_prolong_correct_smooth":
         [_PTR] * 7 + [_INT, _INT, _DBL, _DBL, _INT, _PTR],
+    # nr, nc, sweeps -> partial sums the ascend edge's residual sum writes
+    "mg_ssq_partials": [_INT, _INT, _INT],
 }
 # exported C symbol -> (restype, argtypes); every pointer and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints
@@ -56,7 +58,8 @@ SIGNATURES = {
     "euler_rhs_f32": (_INT, _EULER_ARGS),
     "euler_rhs_f64": (_INT, _EULER_ARGS),
     "cfd_cuda_error_string": (ctypes.c_char_p, [_INT]),
-    "mg_ssq_partials": (_INT, [_INT, _INT]),
+    "mg_edge_sweeps_per_pass": (_INT, []),
+    "mg_edge_work_fields": (_INT, [_INT]),
     **{f"{name}_{sfx}": (_INT, args) for name, args in _MG_ARGS.items()
        for sfx in ("f32", "f64", "bf16")},
 }

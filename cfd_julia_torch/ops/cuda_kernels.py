@@ -5,10 +5,10 @@ Each wrapper takes the plain twin for tensors on the CPU; for CUDA tensors
 it launches its kernel (csrc/, built by ops/_cuda_build.py) on the current
 stream or raises — it never falls back.  `LAUNCHES[name]` counts the
 wrapper's CUDA calls, one per call of the TPU function it replaces, so a
-run can show that its main path went through the kernels; one call of a
-multigrid wrapper issues several `__global__` launches (one per red-black
-half-sweep, plus the transfer or reduction passes).  CPU calls count
-nothing.
+run can show that its main path went through the kernels.  A level-edge
+call is one `__global__` launch for up to K = 3 sweeps (plus the residual
+sum's one-block reduction), one more a further K sweeps; a smoother call
+is one launch per red-black half-sweep.  CPU calls count nothing.
 
 Kernels (csrc/ file; TPU function replaced):
   arakawa_rhs_fused               arakawa_rhs.cu; arakawa_rhs_fused
@@ -140,10 +140,30 @@ def _compute(t):
 
 
 def _work(u):
-    """fp32 sweep state of a bf16 call, None (NULL) otherwise."""
+    """fp32 sweep state of a bf16 smoother call, None (NULL) otherwise."""
     if u.dtype != torch.bfloat16:
         return None
     return torch.empty(u.shape, dtype=torch.float32, device=u.device)
+
+
+def _compute_dtype(u):
+    return torch.float64 if u.dtype == torch.float64 else torch.float32
+
+
+def edge_sweeps_per_pass() -> int:
+    """K: the sweeps a level-edge kernel runs in one pass over its
+    shared-memory tiles (csrc/multigrid.cu); builds the CUDA library."""
+    return _cuda_build.load_library().mg_edge_sweeps_per_pass()
+
+
+def _edge_work(u, sweeps: int):
+    """Compute-type state between the passes of a level-edge call with
+    more sweeps than one pass runs (K, csrc/multigrid.cu), else None."""
+    fields = _cuda_build.load_library().mg_edge_work_fields(sweeps)
+    if fields == 0:
+        return None
+    return torch.empty((fields, *u.shape), dtype=_compute_dtype(u),
+                       device=u.device)
 
 
 def _ptr(t):
@@ -205,14 +225,15 @@ def smooth_residual_restrict_fused(u, f, dx: float, dy: float, sweeps: int):
     sweeps, the 5-point residual, full-weighting restriction.  Returns
     (u_smoothed, f_coarse) == (smooth(u, f, sweeps),
     restriction(residual_full(f, smooth(u, f, sweeps)))), the coarse
-    boundary ring 0 (csrc/multigrid.cu, mg_smooth_residual_restrict_*)."""
+    boundary ring 0 (csrc/multigrid.cu, mg_smooth_residual_restrict_*:
+    one pass over shared-memory tiles for up to 3 sweeps)."""
     _check_level("smooth_residual_restrict_fused", u, f, sweeps=sweeps)
     if _on_cpu("smooth_residual_restrict_fused", u, f):
         return smooth_residual_restrict_fused_plain(u, f, dx, dy, sweeps)
     nr, nc = u.shape
     out = torch.empty_like(u)
     fc = u.new_empty(((nr - 1) // 2 + 1, (nc - 1) // 2 + 1))
-    work = _work(u)
+    work = _edge_work(u, sweeps)
     _launch("smooth_residual_restrict",
             f"mg_smooth_residual_restrict_{_SUFFIX[u.dtype]}", u.device,
             u.data_ptr(), f.data_ptr(), out.data_ptr(), fc.data_ptr(),
@@ -265,20 +286,22 @@ def prolong_correct_smooth_fused(u, f, uc, dx: float, dy: float,
     red-black sweeps; == smooth(u + prolongation(uc) * imask, f, sweeps).
     want_rms=True also returns sum(residual(f, u_out)^2) over the interior
     as a 0-d fp32 tensor (fp64 for fp64 fields), summed in a fixed order
-    (csrc/multigrid.cu, mg_prolong_correct_smooth_*)."""
+    (csrc/multigrid.cu, mg_prolong_correct_smooth_*: one pass over
+    shared-memory tiles for up to 3 sweeps, and with the sum one
+    one-block reduction)."""
     _check_level("prolong_correct_smooth_fused", u, f, uc, sweeps)
     if _on_cpu("prolong_correct_smooth_fused", u, f, uc):
         return prolong_correct_smooth_fused_plain(u, f, uc, dx, dy, sweeps,
                                                   want_rms)
     nr, nc = u.shape
     out = torch.empty_like(u)
-    work = _work(u)
+    work = _edge_work(u, sweeps)
     partials = ssq = None
     if want_rms:
-        cdt = torch.float64 if u.dtype == torch.float64 else torch.float32
-        lib = _cuda_build.load_library()
-        partials = torch.empty(lib.mg_ssq_partials(nr, nc), dtype=cdt,
-                               device=u.device)
+        cdt = _compute_dtype(u)
+        n = getattr(_cuda_build.load_library(),
+                    f"mg_ssq_partials_{_SUFFIX[u.dtype]}")(nr, nc, sweeps)
+        partials = torch.empty(n, dtype=cdt, device=u.device)
         ssq = torch.empty((), dtype=cdt, device=u.device)
     _launch("prolong_correct_smooth",
             f"mg_prolong_correct_smooth_{_SUFFIX[u.dtype]}", u.device,

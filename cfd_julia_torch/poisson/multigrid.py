@@ -17,13 +17,16 @@ Level rule, a deliberate deviation from the TPU's: the JAX package fuses
 the level edges only on levels of >= 512 points a side on a TPU
 (`_pick_smoother`, `_use_fused`), because there a Pallas launch costs a
 DMA set-up, and only while the sweeps fit its 8-row VMEM halo.  The CUDA
-kernels have no halo budget and no such set-up, so here, unless
-`fused="off"` or `smoother="cheb"`, EVERY level edge runs fused: the
-descend edge is one `smooth_residual_restrict_fused` call for any v1, the
-ascend edge one `prolong_correct_smooth_fused` call, and the finest ascend
-edge also returns the convergence check's residual sum.  The coarsest-level
-smoother, and every smoother under `fused="off"`, is
-`redblack_sweeps_fused`.
+kernels have no such set-up, and their halo bounds only the sweeps of one
+pass: an edge runs up to K = 3 sweeps in one pass over shared-memory tiles
+(halo 2*3+2 = 8, the TPU's budget) and more sweeps as further passes of
+the same kernel.  So here, unless `fused="off"` or `smoother="cheb"`,
+EVERY level edge runs fused: the descend edge is one
+`smooth_residual_restrict_fused` call for any v1 (one launch for v1 <= 3),
+the ascend edge one `prolong_correct_smooth_fused` call (one launch, and
+one more for the residual sum that the finest ascend edge returns for the
+convergence check).  The coarsest-level smoother, and every smoother under
+`fused="off"`, is `redblack_sweeps_fused`.
 
 The V-cycle runs eagerly level by level; `solve` reads rms/rms0 on the
 host once per cycle to test convergence (one device sync per cycle; a

@@ -9,10 +9,13 @@ Phases, one line each:
   1. builds the CUDA kernels from cfd_julia_torch/csrc/ with nvcc (one
      process per source, all started together), with ptxas's counts;
   2. each kernel against its plain PyTorch twin on seeded inputs, and its
-     time beside the twin's at its main path's shape: the Arakawa RHS
-     in fp32 and fp64; the four multigrid kernels at 4097^2 fp32 (the
-     4096^2 solve's finest level, sweeps 2) and at 129x65 and 33x65 in
-     fp32, fp64 and bf16; the Euler RHS at (3, 8192), (3, 257) and (3, 5)
+     time beside the twin's and its bound (bytes over HBM rate or flops
+     over the fp32 peak) at its main path's shape: the Arakawa RHS in
+     fp32 and fp64; the four multigrid kernels at 4097^2 fp32 (the 4096^2
+     solve's finest level, sweeps 2) and at 129x65, 33x65, 5x5 and the
+     ragged 131x67 and 301x261 in fp32, fp64 and bf16, the two level-edge
+     kernels at sweeps 0, 1, 2, K+2 and 2K+1 (K sweeps a pass) with two
+     calls bitwise equal; the Euler RHS at (3, 8192), (3, 257) and (3, 5)
      in fp32 and fp64 for roe, hllc, rusanov/roe and rusanov/spectral, on
      random physical states and on the Sod state after 100 steps;
   3. the cavity path: the lid-driven cavity at 1024^2 (dt=2e-5, Re=100,
@@ -26,7 +29,8 @@ Phases, one line each:
      poisson.multigrid.solve, with an independent fp64 residual recheck,
      the same solve on the plain twins as the reference, the kernels'
      launch counts against the pyramid's, and seconds per solve; then the
-     fmg, cycle_dtype="mixed" and fused="off" variants, checked alike;
+     fmg, cycle_dtype="mixed" and fused="off" variants, checked alike
+     (--profile: device launches a solve and a level edge);
   6. the user entry point `python -m cfd_julia_torch run poisson_mgN`
      (512^2, 9 levels) against the exact solution;
   7. the Euler path: Sod, fp32, 2000 SSP-RK3 steps at dt = 1e-4*256/nx
@@ -89,6 +93,23 @@ MG_KERNELS = {
     "residual_restrict": "cfd_julia_tpu/ops/pallas_kernels.py:417",
     "redblack_sweeps": "cfd_julia_tpu/ops/pallas_kernels.py:144",
 }
+MG_EDGES = ("prolong_correct_smooth", "smooth_residual_restrict")
+# besides 4097^2: small shapes, and ragged ones that no tile size divides
+MG_SHAPES = [(129, 65), (33, 65), (5, 5), (131, 67), (301, 261)]
+
+# An H100 SXM's published peaks (NVIDIA data sheet): HBM3 at 3.35 TB/s,
+# fp32 outside the tensor cores at 67 TFLOP/s.  A card below 700 W runs
+# slower than these.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# flops a kernel needs per node, counted from its source: the 5-point
+# relaxation 12 (Laplacian 9, f - lap, / diag, +), the residual 10, the
+# restriction 19 a coarse node, the bilinear correction 3 on average, a
+# squared residual 12; the Arakawa RHS 45; the Euler RHS ~400 an
+# interface (csrc/euler_rhs.cu's count)
+FLOPS_RELAX, FLOPS_RESIDUAL, FLOPS_RESTRICT = 12, 10, 19
+FLOPS_PROLONG, FLOPS_SQ_RESIDUAL = 3, 12
+FLOPS_ARAKAWA, FLOPS_EULER_INTERFACE = 45, 400
 
 
 def check(cond, msg):
@@ -213,6 +234,23 @@ def median_ms(fn, reps=30, warmup=5):
     return times["device"], times["call"]
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops, ms):
+    """The card's least time for a call (the larger of its bytes, each
+    input read once and each output written once, over HBM's rate and its
+    flops over the fp32 peak), what sets it, and the share of it that a
+    call of `ms` reaches."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    bound_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    return {"bound_ms": bound_ms, "bound_by": by,
+            "share_of_bound": bound_ms / ms}
+
+
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -283,15 +321,18 @@ def phase_kernels():
                     lambda: cuda_kernels.arakawa_rhs_fused_plain(
                         w, s, dx, dy, RE))
                 gbs = 3 * w.numel() * w.element_size() / (ms * 1e-3) / 1e9
+                b = bound(nbytes(w, s, got), FLOPS_ARAKAWA * w.numel(), ms)
                 line += (f"; device time: kernel {ms:.4f} ms ({gbs:.0f} GB/s "
-                         f"of 3 fields) plain {plain_ms:.4f} ms; eager call: "
+                         f"of 3 fields; bound {b['bound_ms']:.4f} ms by "
+                         f"{b['bound_by']}, {100 * b['share_of_bound']:.1f}%"
+                         f" of it) plain {plain_ms:.4f} ms; eager call: "
                          f"kernel {call_ms:.4f} ms plain {plain_call_ms:.4f} "
                          f"ms (medians of 30 calls, CUDA events)")
                 record = {"name": "arakawa_rhs", "route": "cuda",
                           "source": "cfd_julia_torch/csrc/arakawa_rhs.cu",
                           "replaces": "cfd_julia_tpu/ops/pallas_kernels.py:678",
                           "launches": None, "max_abs_err": err, "ms": ms,
-                          "plain_ms": plain_ms}
+                          "plain_ms": plain_ms, **b, "library_ms": None}
             print(line)
             check(ok, line)
     return record
@@ -302,29 +343,45 @@ def bf16_ulp(x):
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
 
 
-def mg_calls(u, f, uc, dx, dy):
-    """name -> (kernel call, plain twin call) at MG_SWEEPS sweeps; the
+def mg_calls(u, f, uc, dx, dy, sweeps=MG_SWEEPS):
+    """name -> (kernel call, plain twin call) at `sweeps` sweeps; the
     ascend edge with the residual sum, as on the finest level."""
     from cfd_julia_torch.ops import cuda_kernels as ck
 
     return {
         "prolong_correct_smooth": (
             lambda: ck.prolong_correct_smooth_fused(u, f, uc, dx, dy,
-                                                    MG_SWEEPS, want_rms=True),
+                                                    sweeps, want_rms=True),
             lambda: ck.prolong_correct_smooth_fused_plain(
-                u, f, uc, dx, dy, MG_SWEEPS, want_rms=True)),
+                u, f, uc, dx, dy, sweeps, want_rms=True)),
         "smooth_residual_restrict": (
-            lambda: ck.smooth_residual_restrict_fused(u, f, dx, dy,
-                                                      MG_SWEEPS),
+            lambda: ck.smooth_residual_restrict_fused(u, f, dx, dy, sweeps),
             lambda: ck.smooth_residual_restrict_fused_plain(u, f, dx, dy,
-                                                            MG_SWEEPS)),
+                                                            sweeps)),
         "residual_restrict": (
             lambda: ck.residual_restrict_fused(u, f, dx, dy),
             lambda: ck.residual_restrict_fused_plain(u, f, dx, dy)),
         "redblack_sweeps": (
-            lambda: ck.redblack_sweeps_fused(u, f, dx, dy, MG_SWEEPS),
-            lambda: ck.redblack_sweeps_fused_plain(u, f, dx, dy, MG_SWEEPS)),
+            lambda: ck.redblack_sweeps_fused(u, f, dx, dy, sweeps),
+            lambda: ck.redblack_sweeps_fused_plain(u, f, dx, dy, sweeps)),
     }
+
+
+def mg_work(name, u, f, uc, outs, sweeps):
+    """(bytes, flops) a multigrid kernel's call needs: its inputs read once
+    and its outputs written once; FLOPS_* a node."""
+    n, nc = u.numel(), uc.numel()
+    ins = (u, f, uc) if name == "prolong_correct_smooth" else (u, f)
+    flops = {
+        "prolong_correct_smooth":
+            n * (FLOPS_PROLONG + FLOPS_RELAX * sweeps + FLOPS_SQ_RESIDUAL),
+        "smooth_residual_restrict":
+            n * (FLOPS_RELAX * sweeps + FLOPS_RESIDUAL)
+            + nc * FLOPS_RESTRICT,
+        "residual_restrict": n * FLOPS_RESIDUAL + nc * FLOPS_RESTRICT,
+        "redblack_sweeps": n * FLOPS_RELAX * sweeps,
+    }[name]
+    return nbytes(*ins, *outs), flops
 
 
 def compare_outputs(got, ref, dtype):
@@ -360,12 +417,21 @@ def compare_outputs(got, ref, dtype):
 
 
 def phase_mg_kernels():
-    """Each multigrid kernel vs its twin; returns the records at 4097^2
-    fp32 (the 4096^2 solve's finest level)."""
+    """Each multigrid kernel vs its twin, and two of its calls against
+    each other (bitwise); the level edges at every sweep count of
+    edge_sweeps().  Returns the records at 4097^2 fp32, sweeps 2 (the
+    4096^2 solve's finest level)."""
+    from cfd_julia_torch.ops import cuda_kernels as ck
+
     dev = torch.device("cuda")
+    k = ck.edge_sweeps_per_pass()
+    # K+2 runs two passes, 2K+1 three (the work buffer's ping-pong)
+    edge_sweeps = [0, 1, MG_SWEEPS, k + 2, 2 * k + 1]
+    print(f"phase 2 multigrid: level edges run K={k} sweeps a pass; held "
+          f"at sweeps {edge_sweeps}, the other kernels at {MG_SWEEPS}")
     records = {}
     big = (MG_NX + 1, MG_NX + 1)
-    for shape in [big, (129, 65), (33, 65)]:
+    for shape in [big, *MG_SHAPES]:
         rng = np.random.default_rng(shape[0] * 7919 + shape[1])
         coarse = ((shape[0] - 1) // 2 + 1, (shape[1] - 1) // 2 + 1)
         arrays = [rng.standard_normal(shape), rng.standard_normal(shape),
@@ -376,30 +442,54 @@ def phase_mg_kernels():
         for dtype in dtypes:
             u, f, uc = (torch.as_tensor(a, device=dev).to(dtype)
                         for a in arrays)
-            for name, (kernel, plain) in mg_calls(u, f, uc, dx, dy).items():
-                got = kernel()
-                ref = plain()
-                torch.cuda.synchronize()
-                ok, text, err = compare_outputs(got, ref, dtype)
+            for name in MG_KERNELS:
+                results = []
+                for sweeps in edge_sweeps if name in MG_EDGES \
+                        else [MG_SWEEPS]:
+                    kernel, plain = mg_calls(u, f, uc, dx, dy, sweeps)[name]
+                    got, again, ref = kernel(), kernel(), plain()
+                    torch.cuda.synchronize()
+                    got = got if isinstance(got, tuple) else (got,)
+                    again = again if isinstance(again, tuple) else (again,)
+                    ok, text, err = compare_outputs(got, ref, dtype)
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    results.append((sweeps, ok and same, text, err, same))
+                    if shape == big and sweeps == MG_SWEEPS:
+                        records[name], timed = mg_record(
+                            name, kernel, plain, got, u, f, uc, err)
+                bad = [r for r in results if not r[1]]
+                worst = bad[0] if bad else max(results, key=lambda r: r[3])
                 line = (f"phase 2 kernel {name} {shape[0]}x{shape[1]} "
-                        f"{str(dtype)[6:]} sweeps {MG_SWEEPS}: {text} "
-                        f"{'ok' if ok else 'FAIL'}")
+                        f"{str(dtype)[6:]} sweeps "
+                        f"{[r[0] for r in results]}: "
+                        f"{'FAIL at' if bad else 'worst'} sweeps {worst[0]}: "
+                        f"{worst[2]}; two calls bitwise equal: "
+                        f"{all(r[4] for r in results)} "
+                        f"{'FAIL' if bad else 'ok'}")
                 if shape == big:
-                    ms, call_ms = median_ms(kernel)
-                    plain_ms, plain_call_ms = median_ms(plain)
-                    line += (f"; device time: kernel {ms:.4f} ms plain "
-                             f"{plain_ms:.4f} ms; eager call: kernel "
-                             f"{call_ms:.4f} ms plain {plain_call_ms:.4f} ms "
-                             f"(medians of 30 calls, CUDA events)")
-                    records[name] = {
-                        "name": name, "route": "cuda",
-                        "source": "cfd_julia_torch/csrc/multigrid.cu",
-                        "replaces": MG_KERNELS[name], "launches": None,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                    line += "; " + timed
                 print(line)
-                check(ok, line)
+                check(not bad, line)
             del u, f, uc
     return records
+
+
+def mg_record(name, kernel, plain, got, u, f, uc, err):
+    """The timed record of a multigrid kernel at MG_SWEEPS, with its
+    bound, and a line of its times."""
+    ms, call_ms = median_ms(kernel)
+    plain_ms, plain_call_ms = median_ms(plain)
+    b = bound(*mg_work(name, u, f, uc, got, MG_SWEEPS), ms)
+    text = (f"device time: kernel {ms:.4f} ms (bound {b['bound_ms']:.4f} ms "
+            f"by {b['bound_by']}: {100 * b['share_of_bound']:.1f}% of it) "
+            f"plain {plain_ms:.4f} ms; eager call: kernel {call_ms:.4f} ms "
+            f"plain {plain_call_ms:.4f} ms (medians of 30 calls, CUDA "
+            f"events)")
+    return {"name": name, "route": "cuda",
+            "source": "cfd_julia_torch/csrc/multigrid.cu",
+            "replaces": MG_KERNELS[name], "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}, text
 
 
 def anchor_check(psi, total_steps):
@@ -494,6 +584,35 @@ def phase_profile(label, run, units, unit_s, unit="step"):
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
         print(f"profile   {100 * us / total:5.1f}%  {us / units:8.2f} "
               f"us/{unit} {count / units:6.1f}/{unit}  {name[:110]}")
+    return by_name
+
+
+def profile_edges(by_name, calls, solves):
+    """Device launches a solve and a level edge, from the profile's
+    kernels and the wrappers' calls over the same solves; fails unless a
+    descend edge is one launch, an ascend edge at most two, and kernel 4's
+    restrict_kernel stays out of the fused solve."""
+    def launches(*names):
+        return sum(count for name, (_, count) in by_name.items()
+                   if any(f"{n}<" in name for n in names))
+
+    down = launches("smooth_restrict_tile_kernel")
+    up = launches("sweep_tile_kernel", "sum_kernel")
+    n_down = calls["smooth_residual_restrict"]
+    n_up = calls["prolong_correct_smooth"]
+    line = (f"profile multigrid {MG_NX}^2 edges: "
+            f"{sum(c for _, c in by_name.values()) / solves:.1f} device "
+            f"launches a solve; descend edge {down} launches / {n_down} "
+            f"calls = {down / max(n_down, 1):.3f} a call; ascend edge {up} "
+            f"launches (sum_kernel {launches('sum_kernel')}) / {n_up} calls"
+            f" = {up / max(n_up, 1):.3f} a call; restrict_kernel "
+            f"{launches('restrict_kernel')}; rb_half_kernel "
+            f"{launches('rb_half_kernel') / solves:.1f} a solve (kernel 5, "
+            f"coarsest level)")
+    ok = (down == n_down and n_up <= up <= 2 * n_up
+          and not launches("restrict_kernel"))
+    print(line + (" ok" if ok else " FAIL"))
+    check(ok, line)
 
 
 def phase_cli():
@@ -754,17 +873,21 @@ def phase_euler_kernels():
                         plain_ms, plain_call_ms = median_ms(
                             lambda: ck.euler_rhs_fused_plain(q, gamma, dx,
                                                              solver))
-                        line += (f"; device time: kernel {ms:.4f} ms plain "
-                                 f"{plain_ms:.4f} ms; eager call: kernel "
-                                 f"{call_ms:.4f} ms plain {plain_call_ms:.4f} "
-                                 f"ms (medians of 30 calls, CUDA events)")
+                        b = bound(nbytes(q, got),
+                                  FLOPS_EULER_INTERFACE * (nx + 1), ms)
+                        line += (f"; device time: kernel {ms:.4f} ms (bound "
+                                 f"{b['bound_ms']:.6f} ms by {b['bound_by']}"
+                                 f") plain {plain_ms:.4f} ms; eager call: "
+                                 f"kernel {call_ms:.4f} ms plain "
+                                 f"{plain_call_ms:.4f} ms (medians of 30 "
+                                 f"calls, CUDA events)")
                         record = {
                             "name": "euler_rhs", "route": "cuda",
                             "source": "cfd_julia_torch/csrc/euler_rhs.cu",
                             "replaces":
                                 "cfd_julia_tpu/ops/pallas_kernels.py:749",
                             "launches": None, "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms}
+                            "plain_ms": plain_ms, **b, "library_ms": None}
                     print(line)
                     check(ok, line)
     return record
@@ -910,9 +1033,14 @@ def main(argv=None):
     phase_cli()
     mg_counts, (mg_solve, mg_s) = phase_multigrid()
     if args.profile:
-        phase_profile(f"multigrid {MG_NX}^2", lambda: [mg_solve()
-                                                       for _ in range(3)],
-                      3, mg_s, unit="solve")
+        from cfd_julia_torch.ops import cuda_kernels
+
+        cuda_kernels.reset_launch_counts()
+        by_name = phase_profile(f"multigrid {MG_NX}^2",
+                                lambda: [mg_solve() for _ in range(3)],
+                                3, mg_s, unit="solve")
+        if by_name:
+            profile_edges(by_name, dict(cuda_kernels.LAUNCHES), 3)
     phase_cli_poisson()
     euler_counts, (e_step, e_state, e_step_s) = phase_euler()
     if args.profile:

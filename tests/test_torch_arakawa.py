@@ -153,8 +153,10 @@ def test_build_flags_and_disk_cache(tmp_path, monkeypatch):
     calls = [c.split() for c in log.read_text().splitlines()]
     cu = sorted(str(p) for p in _cuda_build.CSRC.glob("*.cu"))
     assert len(cu) >= 2 and len(calls) == len(cu) + 1
-    compiles, link = calls[:-1], calls[-1]
-    assert sorted(c[-1] for c in compiles) == cu
+    # the compiles run at once and log in the order they happen to start:
+    # put them in source order, the order the link takes their objects in
+    compiles, link = sorted(calls[:-1], key=lambda c: c[-1]), calls[-1]
+    assert [c[-1] for c in compiles] == cu
     for argv in compiles:
         assert "arch=compute_90a,code=sm_90a" in argv and "-c" in argv
         assert argv[argv.index("-o") + 1].endswith(".o")

@@ -92,14 +92,23 @@ def test_cavity_kernel_step_matches_plain_step(cuda_device):
         _assert_rel(g, r, 1e-11)
 
 
+# the level edges at 0, 1, 2 sweeps and at K+2 and 2K+1 (two and three
+# passes of K = 3 sweeps, csrc/multigrid.cu kSweepsPerPass)
+EDGE_SWEEPS = [0, 1, 2, 5, 7]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("sweeps", EDGE_SWEEPS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.bfloat16])
-@pytest.mark.parametrize("shape", [(129, 65), (33, 65), (5, 5)])
-def test_multigrid_kernels_match_plain(cuda_device, shape, dtype):
-    """Each multigrid kernel against its twin at sweeps 2, the residual sum
-    included (at 3x3 the sweeps solve the one interior node and the sum
-    is roundoff, so the smallest shape is 5x5)."""
+@pytest.mark.parametrize("shape", [(129, 65), (33, 65), (5, 5), (131, 67),
+                                   (301, 261)])
+def test_multigrid_kernels_match_plain(cuda_device, shape, dtype, sweeps):
+    """Each multigrid kernel against its twin, the residual sum included,
+    and against a second call of itself, bitwise (at 3x3 the sweeps solve
+    the one interior node and the sum is roundoff, so the smallest shape
+    is 5x5; 131x67 and 301x261 end in part-filled tiles on both axes)."""
+    assert cuda_kernels.edge_sweeps_per_pass() == 3
     u, f = _fields(shape, seed=17)
     (uc,) = _fields(((shape[0] - 1) // 2 + 1, (shape[1] - 1) // 2 + 1),
                     seed=18, n=1)
@@ -107,30 +116,38 @@ def test_multigrid_kernels_match_plain(cuda_device, shape, dtype):
                 for a in (u, f, uc))
     dx, dy = _spacing(shape)
     calls = [
-        ("redblack_sweeps", lambda m: m(u, f, dx, dy, 2),
+        ("redblack_sweeps", lambda m: m(u, f, dx, dy, sweeps),
          cuda_kernels.redblack_sweeps_fused,
          cuda_kernels.redblack_sweeps_fused_plain),
-        ("smooth_residual_restrict", lambda m: m(u, f, dx, dy, 2),
+        ("smooth_residual_restrict", lambda m: m(u, f, dx, dy, sweeps),
          cuda_kernels.smooth_residual_restrict_fused,
          cuda_kernels.smooth_residual_restrict_fused_plain),
         ("residual_restrict", lambda m: m(u, f, dx, dy),
          cuda_kernels.residual_restrict_fused,
          cuda_kernels.residual_restrict_fused_plain),
         ("prolong_correct_smooth",
-         lambda m: m(u, f, uc, dx, dy, 2, want_rms=True),
+         lambda m: m(u, f, uc, dx, dy, sweeps, want_rms=True),
+         cuda_kernels.prolong_correct_smooth_fused,
+         cuda_kernels.prolong_correct_smooth_fused_plain),
+        ("prolong_correct_smooth",
+         lambda m: m(u, f, uc, dx, dy, sweeps),
          cuda_kernels.prolong_correct_smooth_fused,
          cuda_kernels.prolong_correct_smooth_fused_plain),
     ]
     for name, call, kernel, plain in calls:
         before = cuda_kernels.LAUNCHES[name]
         got = call(kernel)
+        again = call(kernel)
         torch.cuda.synchronize()
-        assert cuda_kernels.LAUNCHES[name] == before + 1, name
+        assert cuda_kernels.LAUNCHES[name] == before + 2, name
         ref = call(plain)
         got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
         ref = ref if isinstance(ref, tuple) else (ref,)
-        for g, r in zip(got, ref):
+        assert len(got) == len(ref), name
+        for g, a, r in zip(got, again, ref):
             assert g.dtype == r.dtype and g.shape == r.shape, name
+            assert torch.equal(g, a), f"{name}: two calls differ"
             _assert_rel(g, r, REL[dtype])
 
 
