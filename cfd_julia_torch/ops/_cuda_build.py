@@ -79,22 +79,23 @@ def find_nvcc() -> str:
     return found
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(csrc: Path = CSRC) -> Path:
+    """Where the library for the sources in `csrc` and the flags lives."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for p in sources() + sorted(CSRC.glob("*.cuh")):
+    for p in sources(csrc) + sorted(csrc.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
-def build() -> Path:
-    """Compile the library unless it is already on disk; return its path."""
-    out = library_path()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the library of the sources in `csrc` (the package's own by
+    default) unless it is already on disk; return its path."""
+    out = library_path(csrc)
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -103,13 +104,14 @@ def build() -> Path:
     # same time never loads a half-written library
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
     # nvcc's link step tells objects by their .o suffix
-    objs = [out.with_name(f".{p.stem}.{os.getpid()}.o") for p in sources()]
+    objs = [out.with_name(f".{p.stem}.{os.getpid()}.o")
+            for p in sources(csrc)]
     log = []
     try:
         procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True))
                  for cmd in ([nvcc, *COMPILE_FLAGS, "-c", "-o", str(o), str(p)]
-                             for p, o in zip(sources(), objs))]
+                             for p, o in zip(sources(csrc), objs))]
         results = [(cmd, proc.communicate()[0], proc.returncode)
                    for cmd, proc in procs]
         link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]

@@ -11,13 +11,17 @@ Phases, one line each:
   2. each kernel against its plain PyTorch twin on seeded inputs, and its
      time beside the twin's and its bound (bytes over HBM rate or flops
      over the fp32 peak) at its main path's shape: the Arakawa RHS in
-     fp32 and fp64; the four multigrid kernels at 4097^2 fp32 (the 4096^2
+     fp32 and fp64 at 1025^2 (timed warm in L2 and with L2 flushed) and
+     at small and ragged shapes down to 3x1, two calls bitwise equal;
+     the four multigrid kernels at 4097^2 fp32 (the 4096^2
      solve's finest level, sweeps 2) and at 129x65, 33x65, 5x5 and the
      ragged 131x67 and 301x261 in fp32, fp64 and bf16, the two level-edge
      kernels at sweeps 0, 1, 2, K+2 and 2K+1 (K sweeps a pass) with two
-     calls bitwise equal; the Euler RHS at (3, 8192), (3, 257) and (3, 5)
-     in fp32 and fp64 for roe, hllc, rusanov/roe and rusanov/spectral, on
-     random physical states and on the Sod state after 100 steps;
+     calls bitwise equal; the Euler RHS at (3, 8192), (3, 257), nx = 3,
+     4, 5 and a block's cells - 1, + 0, + 1 in fp32 and fp64 for roe,
+     hllc, rusanov/roe and rusanov/spectral, on random physical states and
+     on the Sod state after 100 steps, two calls bitwise equal, timed
+     beside an empty launch;
   3. the cavity path: the lid-driven cavity at 1024^2 (dt=2e-5, Re=100,
      Jensen wall BCs, fp32) from rest, 100 steps and then on to 2000,
      checked against the fp64 anchors of benchmarks/physics_anchors.json,
@@ -110,6 +114,8 @@ FP32_FLOP_PER_S = 67e12
 FLOPS_RELAX, FLOPS_RESIDUAL, FLOPS_RESTRICT = 12, 10, 19
 FLOPS_PROLONG, FLOPS_SQ_RESIDUAL = 3, 12
 FLOPS_ARAKAWA, FLOPS_EULER_INTERFACE = 45, 400
+# written before a cold-L2 timing: more than twice the 50 MB L2
+FLUSH_BYTES = 128 * 2**20
 
 
 def check(cond, msg):
@@ -208,14 +214,15 @@ def exact_sod(x, t, gamma=1.4, rhoL=1.0, uL=0.0, pL=1.0,
     return rho, u, pp
 
 
-def median_ms(fn, reps=30, warmup=5):
+def median_ms(fn, reps=30, warmup=5, before=None):
     """(device_ms, call_ms): medians of CUDA-event times of one call over
     `reps` calls after warm-up.  device_ms queues the call behind a
     busy-wait kernel, so its launches are all issued before the device
     reaches them and the events time the device alone (the wait, ~10 ms,
     outlasts the enqueue of every call timed here, the Euler twin's ~190
     launches included); call_ms issues it to an idle device, so the
-    host's launch overhead shows as well."""
+    host's launch overhead shows as well.  before(), if given, is queued
+    ahead of each timed call, outside the events (an L2 flush)."""
     for _ in range(warmup):
         fn()
     times = {}
@@ -226,6 +233,8 @@ def median_ms(fn, reps=30, warmup=5):
             torch.cuda.synchronize()
             if mode == "device":
                 torch.cuda._sleep(20_000_000)   # ~10 ms of clock cycles
+            if before is not None:
+                before()
             start.record()
             fn()
             end.record()
@@ -290,49 +299,68 @@ def phase_build():
               f"{max(spills, default=0)} bytes at most")
 
 
+# the Arakawa RHS besides 1025^2: small shapes, and ragged ones that no
+# block of the kernel divides (nc = 1, 2: the periodic neighbours alias)
+ARAKAWA_SHAPES = [(37, 53), (8, 8), (3, 1), (3, 2), (65, 33), (1023, 31)]
+
+
 def phase_kernels():
-    """Kernel vs plain twin; returns the main-path record (1025^2 fp32)."""
+    """Kernel vs plain twin, and two calls bitwise equal; returns the
+    main-path record (1025^2 fp32), timed with the fields warm in L2 (as
+    the cavity step finds them) and with L2 flushed."""
     from cfd_julia_torch.ops import cuda_kernels
 
     dev = torch.device("cuda")
     record = None
-    for shape in [(NX + 1, NX + 1), (37, 53), (8, 8)]:
+    for shape in [(NX + 1, NX + 1), *ARAKAWA_SHAPES]:
         rng = np.random.default_rng(shape[0] * 7919 + shape[1])
         w_np, s_np = rng.standard_normal(shape), rng.standard_normal(shape)
-        dx, dy = 1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1)
+        dx, dy = 1.0 / (shape[0] - 1), 1.0 / max(shape[1] - 1, 1)
         # fp32 tolerance: FMA contraction and operation order
         for dtype, rel in [(torch.float32, 1e-5), (torch.float64, 1e-12)]:
             w = torch.as_tensor(w_np, dtype=dtype, device=dev)
             s = torch.as_tensor(s_np, dtype=dtype, device=dev)
             got = cuda_kernels.arakawa_rhs_fused(w, s, dx, dy, RE)
+            again = cuda_kernels.arakawa_rhs_fused(w, s, dx, dy, RE)
             ref = cuda_kernels.arakawa_rhs_fused_plain(w, s, dx, dy, RE)
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             scale = float(ref.abs().max())
-            ok = err <= rel * scale
+            same = torch.equal(got, again)
+            ok = err <= rel * scale and same
             line = (f"phase 2 kernel arakawa_rhs {shape[0]}x{shape[1]} "
                     f"{str(dtype)[6:]}: max|k-p|={err:.3e} "
-                    f"max|p|={scale:.3e} tol={rel:g}*max|p| "
-                    f"{'ok' if ok else 'FAIL'}")
+                    f"max|p|={scale:.3e} tol={rel:g}*max|p|; two calls "
+                    f"bitwise equal: {same} {'ok' if ok else 'FAIL'}")
             if shape[0] == NX + 1 and dtype == torch.float32:
                 ms, call_ms = median_ms(lambda: cuda_kernels.arakawa_rhs_fused(
                     w, s, dx, dy, RE))
+                flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                                    device=dev)
+                cold_ms, _ = median_ms(
+                    lambda: cuda_kernels.arakawa_rhs_fused(w, s, dx, dy, RE),
+                    before=flush.zero_)
+                del flush
                 plain_ms, plain_call_ms = median_ms(
                     lambda: cuda_kernels.arakawa_rhs_fused_plain(
                         w, s, dx, dy, RE))
                 gbs = 3 * w.numel() * w.element_size() / (ms * 1e-3) / 1e9
                 b = bound(nbytes(w, s, got), FLOPS_ARAKAWA * w.numel(), ms)
-                line += (f"; device time: kernel {ms:.4f} ms ({gbs:.0f} GB/s "
-                         f"of 3 fields; bound {b['bound_ms']:.4f} ms by "
-                         f"{b['bound_by']}, {100 * b['share_of_bound']:.1f}%"
-                         f" of it) plain {plain_ms:.4f} ms; eager call: "
+                line += (f"; device time: kernel {ms:.4f} ms warm in L2 "
+                         f"({gbs:.0f} GB/s of 3 fields; bound "
+                         f"{b['bound_ms']:.4f} ms by {b['bound_by']}, "
+                         f"{100 * b['share_of_bound']:.1f}% of it), "
+                         f"{cold_ms:.4f} ms with L2 flushed "
+                         f"({100 * b['bound_ms'] / cold_ms:.1f}% of the "
+                         f"bound) plain {plain_ms:.4f} ms; eager call: "
                          f"kernel {call_ms:.4f} ms plain {plain_call_ms:.4f} "
                          f"ms (medians of 30 calls, CUDA events)")
                 record = {"name": "arakawa_rhs", "route": "cuda",
                           "source": "cfd_julia_torch/csrc/arakawa_rhs.cu",
                           "replaces": "cfd_julia_tpu/ops/pallas_kernels.py:678",
                           "launches": None, "max_abs_err": err, "ms": ms,
-                          "plain_ms": plain_ms, **b, "library_ms": None}
+                          "cold_ms": cold_ms, "plain_ms": plain_ms, **b,
+                          "library_ms": None}
             print(line)
             check(ok, line)
     return record
@@ -544,18 +572,32 @@ def phase_main_path():
 def phase_profile(label, run, units, unit_s, unit="step"):
     """Device time by kernel over a short steady window (torch.profiler):
     run() does `units` units of work; the busy share is taken against the
-    unprofiled time of one unit, unit_s."""
-    from torch.profiler import ProfilerActivity, profile
+    unprofiled time of one unit, unit_s.  A first run() under the profiler
+    is its warm-up and is not recorded (without it the trace can miss the
+    window's first kernels); the kernels' launch counts restart after it,
+    so they count the recorded run alone."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    from cfd_julia_torch.ops import cuda_kernels
+
+    events = []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        cuda_kernels.reset_launch_counts()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        prof.step()
+    # device events, less the profiler's own step span
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
     if not kernels:
         print("profile: no device events recorded (device time not measured)")
         return
@@ -613,6 +655,18 @@ def profile_edges(by_name, calls, solves):
           and not launches("restrict_kernel"))
     print(line + (" ok" if ok else " FAIL"))
     check(ok, line)
+
+
+def profile_rhs(by_name, kernel, steps):
+    """Fails unless the profile shows the RHS kernel `kernel` launched
+    three times a step: one __global__ launch a wrapper call, three calls a
+    step."""
+    n = sum(count for name, (_, count) in by_name.items()
+            if f"{kernel}<" in name)
+    line = (f"profile {kernel}: {n} device launches in {steps} steps = "
+            f"{n / steps:.2f} a step (want 3)")
+    print(line + (" ok" if n == 3 * steps else " FAIL"))
+    check(n == 3 * steps, line)
 
 
 def phase_cli():
@@ -825,8 +879,17 @@ def euler_random(nx, gamma=1.4):
     return torch.as_tensor(q, dtype=torch.float64, device="cuda")
 
 
+def euler_tile_cells():
+    """Cells a block of the Euler kernel owns (kCells, csrc/euler_rhs.cu)."""
+    src = (REPO / "cfd_julia_torch" / "csrc" / "euler_rhs.cu").read_text()
+    return int(re.search(r"constexpr int kCells = (\d+);", src).group(1))
+
+
 def phase_euler_kernels():
-    """euler_rhs vs its twin; returns the record at (3, 8192) fp32 hllc.
+    """euler_rhs vs its twin, and two calls bitwise equal, at the main
+    path's nx and at nx = 3, 4, 5 and a block's cells - 1, + 0, + 1 (the
+    mirror ghosts and the interfaces on block edges); returns the record at
+    (3, 8192) fp32 hllc, with the empty-launch floor beside it.
 
     Tolerance: 1e-12 of max|twin| in fp64.  In fp32, 1e-5 of max|twin|,
     or 4x the fp32 twin's own error against the fp64 twin where that is
@@ -837,9 +900,16 @@ def phase_euler_kernels():
     from cfd_julia_torch.ops import cuda_kernels as ck
 
     gamma, record = 1.4, None
-    for nx in (8192, 257, 5):
+    tile = euler_tile_cells()
+    for nx in dict.fromkeys((8192, 257, 5, 3, 4, tile - 1, tile, tile + 1)):
         dx = 1.0 / nx
         inputs = {"random": euler_random(nx), "sod100": euler_sod_100(nx)}
+        if not bool(torch.isfinite(inputs["sod100"]).all()):
+            # 100 steps of Sod on 3 cells do not stay finite (the twin
+            # on the CPU alike): random cells only there
+            print(f"phase 2 kernel euler_rhs 3x{nx}: the Sod state after "
+                  f"100 steps is not finite; random cells only")
+            del inputs["sod100"]
         for label, q64 in inputs.items():
             for solver, ws in EULER_VARIANTS:
                 exact = ck.euler_rhs_fused_plain(q64, gamma, dx, solver, ws)
@@ -847,8 +917,10 @@ def phase_euler_kernels():
                     q = q64.to(dtype).contiguous()
                     before = ck.LAUNCHES["euler_rhs"]
                     got = ck.euler_rhs_fused(q, gamma, dx, solver, ws)
+                    again = ck.euler_rhs_fused(q, gamma, dx, solver, ws)
                     ref = ck.euler_rhs_fused_plain(q, gamma, dx, solver, ws)
                     torch.cuda.synchronize()
+                    same = torch.equal(got, again)
                     err = float((got.double() - ref.double()).abs().max())
                     scale = float(ref.double().abs().max())
                     if dtype == torch.float64:
@@ -858,12 +930,13 @@ def phase_euler_kernels():
                         tol = max(1e-5 * scale, 4 * e32)
                         how = (f"max(1e-5*max|p|, 4*{e32:.3e} = fp32 twin's "
                                f"error vs fp64)")
-                    ok = (err <= tol and got.dtype == dtype
-                          and ck.LAUNCHES["euler_rhs"] == before + 1)
+                    ok = (err <= tol and got.dtype == dtype and same
+                          and ck.LAUNCHES["euler_rhs"] == before + 2)
                     line = (f"phase 2 kernel euler_rhs 3x{nx} "
                             f"{str(dtype)[6:]} {solver}/{ws} {label}: "
                             f"max|k-p|={err:.3e} max|p|={scale:.3e} "
-                            f"({err / scale:.2e} of it) tol={how} "
+                            f"({err / scale:.2e} of it) tol={how}; two "
+                            f"calls bitwise equal: {same} "
                             f"{'ok' if ok else 'FAIL'}")
                     timed = (nx == 8192 and dtype == torch.float32
                              and solver == "hllc" and label == "sod100")
@@ -873,11 +946,14 @@ def phase_euler_kernels():
                         plain_ms, plain_call_ms = median_ms(
                             lambda: ck.euler_rhs_fused_plain(q, gamma, dx,
                                                              solver))
+                        floor_ms, _ = median_ms(
+                            lambda: torch.cuda._sleep(0))
                         b = bound(nbytes(q, got),
                                   FLOPS_EULER_INTERFACE * (nx + 1), ms)
                         line += (f"; device time: kernel {ms:.4f} ms (bound "
                                  f"{b['bound_ms']:.6f} ms by {b['bound_by']}"
-                                 f") plain {plain_ms:.4f} ms; eager call: "
+                                 f"; an empty launch {floor_ms:.4f} ms) "
+                                 f"plain {plain_ms:.4f} ms; eager call: "
                                  f"kernel {call_ms:.4f} ms plain "
                                  f"{plain_call_ms:.4f} ms (medians of 30 "
                                  f"calls, CUDA events)")
@@ -887,7 +963,8 @@ def phase_euler_kernels():
                             "replaces":
                                 "cfd_julia_tpu/ops/pallas_kernels.py:749",
                             "launches": None, "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms, **b, "library_ms": None}
+                            "floor_ms": floor_ms, "plain_ms": plain_ms, **b,
+                            "library_ms": None}
                     print(line)
                     check(ok, line)
     return record
@@ -1027,15 +1104,16 @@ def main(argv=None):
     euler_record = phase_euler_kernels()
     launches, step, state, step_s = phase_main_path()
     if args.profile:
-        phase_profile(f"cavity {NX}^2", lambda: loop.run_steps(step, state,
-                                                              20),
-                      20, step_s)
+        by_name = phase_profile(f"cavity {NX}^2",
+                                lambda: loop.run_steps(step, state, 20), 20,
+                                step_s)
+        if by_name:
+            profile_rhs(by_name, "arakawa_rhs_kernel", 20)
     phase_cli()
     mg_counts, (mg_solve, mg_s) = phase_multigrid()
     if args.profile:
         from cfd_julia_torch.ops import cuda_kernels
 
-        cuda_kernels.reset_launch_counts()
         by_name = phase_profile(f"multigrid {MG_NX}^2",
                                 lambda: [mg_solve() for _ in range(3)],
                                 3, mg_s, unit="solve")
@@ -1044,8 +1122,11 @@ def main(argv=None):
     phase_cli_poisson()
     euler_counts, (e_step, e_state, e_step_s) = phase_euler()
     if args.profile:
-        phase_profile(f"euler hllc {EULER_RUNS[0][1]}",
-                      lambda: euler_steps(e_step, e_state, 20), 20, e_step_s)
+        by_name = phase_profile(f"euler hllc {EULER_RUNS[0][1]}",
+                                lambda: euler_steps(e_step, e_state, 20), 20,
+                                e_step_s)
+        if by_name:
+            profile_rhs(by_name, "euler_rhs_kernel", 20)
     phase_cli_euler()
 
     record["launches"] = launches[record["name"]]

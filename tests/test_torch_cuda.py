@@ -15,6 +15,7 @@ whichever is larger: WENO-5 of random cells reconstructs states with
 rho < 0 and p < 0, where the flux amplifies roundoff.
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -22,11 +23,16 @@ import torch
 
 from cfd_julia_torch import interop
 from cfd_julia_torch.models import cavity, euler1d, poisson2d
-from cfd_julia_torch.ops import cuda_kernels
+from cfd_julia_torch.ops import _cuda_build, cuda_kernels
 from cfd_julia_torch.poisson import multigrid
 from cfd_julia_torch.stepping import loop
 
 REL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 8e-3}
+# cells a block of the Euler kernel owns: nx = EULER_TILE +- 1 puts an
+# interface on a block edge
+EULER_TILE = int(re.search(r"constexpr int kCells = (\d+);",
+                           (_cuda_build.CSRC / "euler_rhs.cu").read_text())
+                 .group(1))
 
 
 @pytest.fixture
@@ -42,7 +48,7 @@ def _fields(shape, seed, n=2):
 
 
 def _spacing(shape):
-    return 1.0 / (shape[0] - 1), 1.0 / (shape[1] - 1)
+    return 1.0 / (shape[0] - 1), 1.0 / max(shape[1] - 1, 1)
 
 
 def _assert_rel(got, ref, rel):
@@ -55,15 +61,21 @@ def _assert_rel(got, ref, rel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(1025, 1025), (37, 53), (8, 8)])
+@pytest.mark.parametrize("shape", [(1025, 1025), (37, 53), (8, 8), (3, 1),
+                                   (3, 2), (65, 33), (1023, 31)])
 def test_arakawa_kernel_matches_plain(cuda_device, shape, dtype):
+    """The periodic RHS against its twin, and a second call bitwise; the
+    ragged shapes end in part-filled blocks on both axes, and with 1 or 2
+    columns the periodic neighbours alias."""
     w, s = _fields(shape, seed=4)
     dx, dy = _spacing(shape)
     wt, st, _ = interop.state_from_numpy(w, s, dtype, cuda_device)
     before = cuda_kernels.LAUNCHES["arakawa_rhs"]
     got = cuda_kernels.arakawa_rhs_fused(wt, st, dx, dy, 100.0)
+    again = cuda_kernels.arakawa_rhs_fused(wt, st, dx, dy, 100.0)
     torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES["arakawa_rhs"] == before + 1
+    assert cuda_kernels.LAUNCHES["arakawa_rhs"] == before + 2
+    assert torch.equal(got, again), "two calls differ"
     _assert_rel(got, cuda_kernels.arakawa_rhs_fused_plain(wt, st, dx, dy,
                                                           100.0), REL[dtype])
 
@@ -191,7 +203,8 @@ def _euler_random(nx, seed, gamma=1.4):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nx", [8192, 257, 5])
+@pytest.mark.parametrize("nx", [8192, 257, 5, 3, 4, EULER_TILE - 1,
+                                EULER_TILE, EULER_TILE + 1])
 @pytest.mark.parametrize("solver,wavespeed", [
     ("roe", "roe"), ("hllc", "roe"), ("rusanov", "roe"),
     ("rusanov", "spectral")])
@@ -203,9 +216,11 @@ def test_euler_rhs_kernel_matches_plain(cuda_device, solver, wavespeed, nx,
     args = (1.4, 1.0 / nx, solver, wavespeed)
     before = cuda_kernels.LAUNCHES["euler_rhs"]
     got = cuda_kernels.euler_rhs_fused(q, *args)
+    again = cuda_kernels.euler_rhs_fused(q, *args)
     torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES["euler_rhs"] == before + 1
+    assert cuda_kernels.LAUNCHES["euler_rhs"] == before + 2
     assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again), "two calls differ"
     ref = cuda_kernels.euler_rhs_fused_plain(q, *args).double()
     err = float((got.double() - ref).abs().max())
     scale = float(ref.abs().max())
