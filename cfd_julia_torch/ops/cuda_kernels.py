@@ -8,7 +8,8 @@ wrapper's CUDA calls, one per call of the TPU function it replaces, so a
 run can show that its main path went through the kernels.  A level-edge
 call is one `__global__` launch for up to K = 3 sweeps (plus the residual
 sum's one-block reduction), one more a further K sweeps; a smoother call
-is one launch per red-black half-sweep.  CPU calls count nothing.
+is one launch for any sweeps on a level that fits one block's shared
+memory, else as a level edge's.  CPU calls count nothing.
 
 Kernels (csrc/ file; TPU function replaced):
   arakawa_rhs_fused               arakawa_rhs.cu; arakawa_rhs_fused
@@ -139,13 +140,6 @@ def _compute(t):
     return t.float() if t.dtype == torch.bfloat16 else t
 
 
-def _work(u):
-    """fp32 sweep state of a bf16 smoother call, None (NULL) otherwise."""
-    if u.dtype != torch.bfloat16:
-        return None
-    return torch.empty(u.shape, dtype=torch.float32, device=u.device)
-
-
 def _compute_dtype(u):
     return torch.float64 if u.dtype == torch.float64 else torch.float32
 
@@ -156,9 +150,10 @@ def edge_sweeps_per_pass() -> int:
     return _cuda_build.load_library().mg_edge_sweeps_per_pass()
 
 
-def _edge_work(u, sweeps: int):
-    """Compute-type state between the passes of a level-edge call with
-    more sweeps than one pass runs (K, csrc/multigrid.cu), else None."""
+def _pass_work(u, sweeps: int):
+    """Compute-type state between the passes of a level-edge or tiled
+    smoother call with more sweeps than one pass runs (K,
+    csrc/multigrid.cu), else None."""
     fields = _cuda_build.load_library().mg_edge_work_fields(sweeps)
     if fields == 0:
         return None
@@ -197,13 +192,14 @@ def redblack_sweeps_fused(u, f, dx: float, dy: float, iters: int = 1):
     """`iters` full red-black Gauss-Seidel sweeps of the 5-point operator
     (red = (i+j) even first, interior nodes only) on an (n_rows, n_cols)
     field; a new tensor, u is not modified (csrc/multigrid.cu,
-    mg_rb_sweeps_*: two launches per sweep)."""
+    mg_rb_sweeps_*: one launch on a level that fits one block's shared
+    memory, else one pass over shared-memory tiles for up to 3 sweeps)."""
     _check_level("redblack_sweeps_fused", u, f, sweeps=iters,
                  node_centred=False)
     if _on_cpu("redblack_sweeps_fused", u, f):
         return redblack_sweeps_fused_plain(u, f, dx, dy, iters)
     out = torch.empty_like(u)
-    work = _work(u)
+    work = _pass_work(u, iters)
     _launch("redblack_sweeps", f"mg_rb_sweeps_{_SUFFIX[u.dtype]}", u.device,
             u.data_ptr(), f.data_ptr(), out.data_ptr(), _ptr(work),
             *u.shape, 1.0 / dx**2, 1.0 / dy**2, iters)
@@ -233,7 +229,7 @@ def smooth_residual_restrict_fused(u, f, dx: float, dy: float, sweeps: int):
     nr, nc = u.shape
     out = torch.empty_like(u)
     fc = u.new_empty(((nr - 1) // 2 + 1, (nc - 1) // 2 + 1))
-    work = _edge_work(u, sweeps)
+    work = _pass_work(u, sweeps)
     _launch("smooth_residual_restrict",
             f"mg_smooth_residual_restrict_{_SUFFIX[u.dtype]}", u.device,
             u.data_ptr(), f.data_ptr(), out.data_ptr(), fc.data_ptr(),
@@ -295,7 +291,7 @@ def prolong_correct_smooth_fused(u, f, uc, dx: float, dy: float,
                                                   want_rms)
     nr, nc = u.shape
     out = torch.empty_like(u)
-    work = _edge_work(u, sweeps)
+    work = _pass_work(u, sweeps)
     partials = ssq = None
     if want_rms:
         cdt = _compute_dtype(u)

@@ -26,7 +26,8 @@ EVERY level edge runs fused: the descend edge is one
 the ascend edge one `prolong_correct_smooth_fused` call (one launch, and
 one more for the residual sum that the finest ascend edge returns for the
 convergence check).  The coarsest-level smoother, and every smoother under
-`fused="off"`, is `redblack_sweeps_fused`.
+`fused="off"`, is `redblack_sweeps_fused` (one launch for up to 3 sweeps,
+and for any sweeps on a level of at most 65^2 nodes).
 
 The V-cycle runs eagerly level by level; `solve` reads rms/rms0 on the
 host once per cycle to test convergence (one device sync per cycle; a

@@ -16,8 +16,11 @@ Phases, one line each:
      the four multigrid kernels at 4097^2 fp32 (the 4096^2
      solve's finest level, sweeps 2) and at 129x65, 33x65, 5x5 and the
      ragged 131x67 and 301x261 in fp32, fp64 and bf16, the two level-edge
-     kernels at sweeps 0, 1, 2, K+2 and 2K+1 (K sweeps a pass) with two
-     calls bitwise equal; the Euler RHS at (3, 8192), (3, 257), nx = 3,
+     kernels and the smoother at sweeps 0, 1, 2, K+2 and 2K+1 (K sweeps a
+     pass) with two calls bitwise equal; the smoother also at even-sided
+     shapes and on both sides of its one-block limit, and timed at 129^2,
+     65^2 and 3x3 beside an empty launch; the Euler RHS at (3, 8192),
+     (3, 257), nx = 3,
      4, 5 and a block's cells - 1, + 0, + 1 in fp32 and fp64 for roe,
      hllc, rusanov/roe and rusanov/spectral, on random physical states and
      on the Sod state after 100 steps, two calls bitwise equal, timed
@@ -33,8 +36,10 @@ Phases, one line each:
      poisson.multigrid.solve, with an independent fp64 residual recheck,
      the same solve on the plain twins as the reference, the kernels'
      launch counts against the pyramid's, and seconds per solve; then the
-     fmg, cycle_dtype="mixed" and fused="off" variants, checked alike
-     (--profile: device launches a solve and a level edge);
+     fmg, cycle_dtype="mixed" and fused="off" variants, checked alike,
+     with mixed's error over the fused fp32 solve's printed (--profile:
+     device launches a solve, a level edge and a smoother call, for the
+     fused solve and for the fused="off" one);
   6. the user entry point `python -m cfd_julia_torch run poisson_mgN`
      (512^2, 9 levels) against the exact solution;
   7. the Euler path: Sod, fp32, 2000 SSP-RK3 steps at dt = 1e-4*256/nx
@@ -98,8 +103,16 @@ MG_KERNELS = {
     "redblack_sweeps": "cfd_julia_tpu/ops/pallas_kernels.py:144",
 }
 MG_EDGES = ("prolong_correct_smooth", "smooth_residual_restrict")
+# the kernels held at every sweep count of phase 2's list
+MG_SWEPT = (*MG_EDGES, "redblack_sweeps")
 # besides 4097^2: small shapes, and ragged ones that no tile size divides
 MG_SHAPES = [(129, 65), (33, 65), (5, 5), (131, 67), (301, 261)]
+# the smoother alone besides those: even sides, and both sides of its
+# one-block limit of 65^2 nodes (65x65 and 33x128 on it, 65x66 and 33x129
+# past it); 129^2, 65^2 and 3x3 are timed
+RB_SHAPES = [(3, 3), (4, 6), (33, 64), (65, 65), (33, 128), (65, 66),
+             (33, 129), (129, 129)]
+RB_TIMED = [(129, 129), (65, 65), (3, 3)]
 
 # An H100 SXM's published peaks (NVIDIA data sheet): HBM3 at 3.35 TB/s,
 # fp32 outside the tensor cores at 67 TFLOP/s.  A card below 700 W runs
@@ -447,19 +460,22 @@ def compare_outputs(got, ref, dtype):
 def phase_mg_kernels():
     """Each multigrid kernel vs its twin, and two of its calls against
     each other (bitwise); the level edges at every sweep count of
-    edge_sweeps().  Returns the records at 4097^2 fp32, sweeps 2 (the
-    4096^2 solve's finest level)."""
+    edge_sweeps() (the smoother too, and at RB_SHAPES alone).  Returns the
+    records at 4097^2 fp32, sweeps 2 (the 4096^2 solve's finest level);
+    the smoother's also holds its times at RB_TIMED and an empty
+    launch's."""
     from cfd_julia_torch.ops import cuda_kernels as ck
 
     dev = torch.device("cuda")
     k = ck.edge_sweeps_per_pass()
     # K+2 runs two passes, 2K+1 three (the work buffer's ping-pong)
     edge_sweeps = [0, 1, MG_SWEEPS, k + 2, 2 * k + 1]
-    print(f"phase 2 multigrid: level edges run K={k} sweeps a pass; held "
-          f"at sweeps {edge_sweeps}, the other kernels at {MG_SWEEPS}")
-    records = {}
+    print(f"phase 2 multigrid: level edges run K={k} sweeps a pass; they "
+          f"and the smoother held at sweeps {edge_sweeps}, the other kernel "
+          f"at {MG_SWEEPS}")
+    records, small = {}, {}
     big = (MG_NX + 1, MG_NX + 1)
-    for shape in [big, *MG_SHAPES]:
+    for shape in [big, *MG_SHAPES, *RB_SHAPES]:
         rng = np.random.default_rng(shape[0] * 7919 + shape[1])
         coarse = ((shape[0] - 1) // 2 + 1, (shape[1] - 1) // 2 + 1)
         arrays = [rng.standard_normal(shape), rng.standard_normal(shape),
@@ -470,9 +486,10 @@ def phase_mg_kernels():
         for dtype in dtypes:
             u, f, uc = (torch.as_tensor(a, device=dev).to(dtype)
                         for a in arrays)
-            for name in MG_KERNELS:
+            names = ["redblack_sweeps"] if shape in RB_SHAPES else MG_KERNELS
+            for name in names:
                 results = []
-                for sweeps in edge_sweeps if name in MG_EDGES \
+                for sweeps in edge_sweeps if name in MG_SWEPT \
                         else [MG_SWEEPS]:
                     kernel, plain = mg_calls(u, f, uc, dx, dy, sweeps)[name]
                     got, again, ref = kernel(), kernel(), plain()
@@ -498,7 +515,19 @@ def phase_mg_kernels():
                     line += "; " + timed
                 print(line)
                 check(not bad, line)
+                if shape in RB_TIMED and dtype == torch.float32:
+                    small[shape] = median_ms(
+                        mg_calls(u, f, uc, dx, dy)["redblack_sweeps"][0])[0]
             del u, f, uc
+    floor_ms, _ = median_ms(lambda: torch.cuda._sleep(0))
+    rb = records["redblack_sweeps"]
+    rb["small_ms"] = {f"{r}x{c}": t for (r, c), t in small.items()}
+    rb["floor_ms"] = floor_ms
+    print(f"phase 2 kernel redblack_sweeps fp32 sweeps {MG_SWEEPS}: device "
+          f"time " + ", ".join(f"{key} {t:.4f} ms"
+                               for key, t in rb["small_ms"].items())
+          + f"; an empty launch {floor_ms:.4f} ms (medians of 30 calls, "
+          f"CUDA events)")
     return records
 
 
@@ -629,30 +658,66 @@ def phase_profile(label, run, units, unit_s, unit="step"):
     return by_name
 
 
-def profile_edges(by_name, calls, solves):
-    """Device launches a solve and a level edge, from the profile's
-    kernels and the wrappers' calls over the same solves; fails unless a
-    descend edge is one launch, an ascend edge at most two, and kernel 4's
-    restrict_kernel stays out of the fused solve."""
-    def launches(*names):
-        return sum(count for name, (_, count) in by_name.items()
-                   if any(f"{n}<" in name for n in names))
+# the smoother's kernels
+RB_KERNELS = ("rb_level_kernel", "rb_tile_kernel")
 
-    down = launches("smooth_restrict_tile_kernel")
-    up = launches("sweep_tile_kernel", "sum_kernel")
+
+def kernel_sums(by_name, *names):
+    """(device us, launches) of the profile's kernels named `names`."""
+    hits = [v for name, v in by_name.items()
+            if any(f"{n}<" in name for n in names)]
+    return sum(us for us, _ in hits), sum(count for _, count in hits)
+
+
+def profile_smoother(by_name, calls, solves, label):
+    """The smoother's device launches against its wrapper calls (one each:
+    every call of the solve has MG_SWEEPS <= K sweeps), and its share of
+    the solve's device time; a line, and whether the counts hold."""
+    us, n = kernel_sums(by_name, *RB_KERNELS)
+    total = sum(v[0] for v in by_name.values())
+    n_rb = calls["redblack_sweeps"]
+    line = (f"smoother {us / solves:.2f} us/solve ({100 * us / total:.1f}% "
+            f"of the {label} solve's {total / solves:.1f} us of device time) "
+            f"in {n} launches / {n_rb} calls = {n / max(n_rb, 1):.3f} a "
+            f"call")
+    return line, n == n_rb and n_rb > 0
+
+
+def profile_edges(by_name, calls, solves):
+    """Device launches a solve, a level edge and a smoother call, from the
+    profile's kernels and the wrappers' calls over the same solves; fails
+    unless a descend edge is one launch, an ascend edge at most two, a
+    smoother call one, and kernel 4's restrict_kernel stays out of the
+    fused solve."""
+    down = kernel_sums(by_name, "smooth_restrict_tile_kernel")[1]
+    up = kernel_sums(by_name, "sweep_tile_kernel", "sum_kernel")[1]
+    n_sum = kernel_sums(by_name, "sum_kernel")[1]
+    n_restrict = kernel_sums(by_name, "restrict_kernel")[1]
     n_down = calls["smooth_residual_restrict"]
     n_up = calls["prolong_correct_smooth"]
+    rb_line, rb_ok = profile_smoother(by_name, calls, solves, "fused")
     line = (f"profile multigrid {MG_NX}^2 edges: "
             f"{sum(c for _, c in by_name.values()) / solves:.1f} device "
             f"launches a solve; descend edge {down} launches / {n_down} "
             f"calls = {down / max(n_down, 1):.3f} a call; ascend edge {up} "
-            f"launches (sum_kernel {launches('sum_kernel')}) / {n_up} calls"
+            f"launches (sum_kernel {n_sum}) / {n_up} calls"
             f" = {up / max(n_up, 1):.3f} a call; restrict_kernel "
-            f"{launches('restrict_kernel')}; rb_half_kernel "
-            f"{launches('rb_half_kernel') / solves:.1f} a solve (kernel 5, "
-            f"coarsest level)")
-    ok = (down == n_down and n_up <= up <= 2 * n_up
-          and not launches("restrict_kernel"))
+            f"{n_restrict}; {rb_line} (kernel 5, coarsest level)")
+    ok = (down == n_down and n_up <= up <= 2 * n_up and not n_restrict
+          and rb_ok)
+    print(line + (" ok" if ok else " FAIL"))
+    check(ok, line)
+
+
+def profile_off(by_name, calls, solves):
+    """fused="off": every smoother call one device launch, and no level
+    edge kernel in the solve."""
+    rb_line, ok = profile_smoother(by_name, calls, solves, "off")
+    edges = kernel_sums(by_name, "smooth_restrict_tile_kernel",
+                        "sweep_tile_kernel", "restrict_kernel")[1]
+    line = (f"profile multigrid {MG_NX}^2 off: {rb_line}; level-edge "
+            f"launches {edges}")
+    ok = ok and not edges
     print(line + (" ok" if ok else " FAIL"))
     check(ok, line)
 
@@ -747,8 +812,11 @@ MG_VARIANTS = [("fused", {}), ("fmg", {"fmg": True}),
 def phase_multigrid():
     """The 4096^2 multigrid solve and its variants on the port's default
     path (impl="auto" resolves to the CUDA kernels).  Returns
-    {variant: launch counts}, and a callable of one main-variant solve
-    with its best time."""
+    {variant: launch counts} and {variant: (a callable of one solve, its
+    best time)}.  Prints mixed's max|u - ue| over the fused fp32 solve's
+    as information: the JAX package breaks the 1.5x contract there too
+    (at 1024^2 on the CPU), so it belongs to the bf16 pyramid, and the
+    gate holds mixed to its own twin."""
     import dataclasses
 
     from cfd_julia_torch.models import poisson2d
@@ -760,7 +828,7 @@ def phase_multigrid():
     _, _, _, _, ue, f = poisson2d.build_problem(cfg, torch.float32, "cuda")
     u0 = poisson2d._dirichlet_init(ue)
     n_levels = len(multigrid._build_levels(MG_NX, MG_NX, cfg.dx, cfg.dy, 0))
-    counts, main = {}, None
+    counts, solves, errs = {}, {}, {}
     for variant, opts in MG_VARIANTS:
         mgc = multigrid.MGConfig(tol=MG_TOL, max_cycles=20, **opts)
 
@@ -809,12 +877,15 @@ def phase_multigrid():
                 f"{1e3 * best / max(res.iterations, 1):.4f} ms/cycle; "
                 f"launches {launches} (pyramid of {n_levels} levels: "
                 f"{want}) {'ok' if ok else 'FAIL'}")
+        errs[variant] = err
+        if variant == "mixed":
+            line += (f"; mixed max|u-ue| over fused fp32's "
+                     f"{err / errs['fused']:.3f}x (information, not a gate)")
         print(line)
         check(ok, line)
         counts[variant] = launches
-        if variant == "fused":
-            main = (solve, best)
-    return counts, main
+        solves[variant] = (solve, best)
+    return counts, solves
 
 
 def phase_cli_poisson():
@@ -1084,7 +1155,8 @@ def main(argv=None):
     parser.add_argument("--profile", action="store_true",
                         help="also print torch.profiler breakdowns of the "
                              "1024^2 cavity step, the 4096^2 multigrid "
-                             "solve and the hllc 8192 Euler step")
+                             "solve (fused and fused=\"off\") and the hllc "
+                             "8192 Euler step")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1110,15 +1182,19 @@ def main(argv=None):
         if by_name:
             profile_rhs(by_name, "arakawa_rhs_kernel", 20)
     phase_cli()
-    mg_counts, (mg_solve, mg_s) = phase_multigrid()
+    mg_counts, mg_solves = phase_multigrid()
     if args.profile:
         from cfd_julia_torch.ops import cuda_kernels
 
-        by_name = phase_profile(f"multigrid {MG_NX}^2",
-                                lambda: [mg_solve() for _ in range(3)],
-                                3, mg_s, unit="solve")
-        if by_name:
-            profile_edges(by_name, dict(cuda_kernels.LAUNCHES), 3)
+        for variant, check_profile in [("fused", profile_edges),
+                                       ("off", profile_off)]:
+            solve, best = mg_solves[variant]
+            by_name = phase_profile(f"multigrid {MG_NX}^2 {variant}",
+                                    lambda solve=solve: [solve()
+                                                         for _ in range(3)],
+                                    3, best, unit="solve")
+            if by_name:
+                check_profile(by_name, dict(cuda_kernels.LAUNCHES), 3)
     phase_cli_poisson()
     euler_counts, (e_step, e_state, e_step_s) = phase_euler()
     if args.profile:

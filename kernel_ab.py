@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's RHS kernels from several source trees against each other
-on one NVIDIA GPU, in turns.
+"""Time the port's kernels from several source trees against each other on
+one NVIDIA GPU, in turns.
 
     python3 kernel_ab.py [--rounds N] [--sass] DIR [DIR ...]
 
@@ -19,10 +19,16 @@ rounds):
   - euler_rhs at (3, 8192) fp32 on the Sod state after 100 steps, for
     hllc, roe, rusanov/roe and rusanov/spectral;
   - the two multigrid level edges at 4097^2 fp32, 2 sweeps, for the trees
-    that have them;
+    that have them, and the smoother (redblack_sweeps) on every level of
+    the 4096^2 pyramid (4097^2 down to 3x3), fp32, 2 sweeps;
   - the empty-launch floor (torch.cuda._sleep(0)) and, as a yardstick of
     the Arakawa RHS's bytes alone, torch.add of two 1025^2 fp32 fields,
-    beside them.
+    beside them;
+  - the 4096^2 fused="off" multigrid solve (chip_smoke's problem), where
+    every smoother is the smoother kernel: a torch.profiler window of 3
+    solves on each tree's library, in turns, with its device time a solve
+    and the smoother kernels' (every kernel whose name starts with rb_,
+    and convert_kernel) time and launches.
 Each call is also held against its plain twin (max|kernel - twin| is
 printed), and each tree's RHS kernels' ptxas registers and spills are
 printed; --sass also counts the CALL instructions (the slow paths of IEEE
@@ -36,6 +42,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
@@ -71,7 +78,7 @@ def ptxas_lines(path: Path):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1) if re.search("arakawa|euler", m.group(1)) \
+            name = m.group(1) if re.search("arakawa|euler|rb_", m.group(1)) \
                 else None
             spill = None
         elif name and "spill stores" in line:
@@ -93,7 +100,7 @@ def sass_calls(path: Path):
     for line in text.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
-            name = m.group(1) if re.search("arakawa|euler", m.group(1)) \
+            name = m.group(1) if re.search("arakawa|euler|rb_", m.group(1)) \
                 else None
             if name:
                 counts[name] = [0, 0]
@@ -126,18 +133,60 @@ def cases(dev):
             lambda solver=solver, ws=ws: ck.euler_rhs_fused_plain(
                 q, 1.4, 1.0 / nx, solver, ws),
             None, "euler_rhs_f32")
-    big = (cs.MG_NX + 1, cs.MG_NX + 1)
-    rng = np.random.default_rng(big[0] * 7919 + big[1])
-    coarse = ((big[0] - 1) // 2 + 1, (big[1] - 1) // 2 + 1)
-    u, f, uc = (torch.as_tensor(rng.standard_normal(shape),
-                                dtype=torch.float32, device=dev)
-                for shape in (big, big, coarse))
-    h = 1.0 / (big[0] - 1)
-    for name, (kernel, plain) in cs.mg_calls(u, f, uc, h, h).items():
-        if name in cs.MG_EDGES:
-            out[f"{name} 4097^2 fp32 sweeps {cs.MG_SWEEPS}"] = (
-                kernel, plain, None, f"mg_{name}_f32")
+    for n in [(cs.MG_NX >> k) + 1 for k in range(12)]:
+        rng = np.random.default_rng(n * 7919 + n)
+        coarse = ((n - 1) // 2 + 1,) * 2
+        u, f, uc = (torch.as_tensor(rng.standard_normal(shape),
+                                    dtype=torch.float32, device=dev)
+                    for shape in ((n, n), (n, n), coarse))
+        h = 1.0 / (n - 1)
+        for name, (kernel, plain) in cs.mg_calls(u, f, uc, h, h).items():
+            if (name in cs.MG_EDGES and n == cs.MG_NX + 1
+                    or name == "redblack_sweeps"):
+                symbol = "rb_sweeps" if name == "redblack_sweeps" else name
+                out[f"{name} {n}^2 fp32 sweeps {cs.MG_SWEEPS}"] = (
+                    kernel, plain, None, f"mg_{symbol}_f32")
     return out
+
+
+def off_profiles(libs, rounds):
+    """The fused="off" 4096^2 solve on each library in turns: device us a
+    solve, and the smoother kernels' us and launches a solve."""
+    from cfd_julia_torch.models import poisson2d
+    from cfd_julia_torch.poisson import multigrid
+
+    cfg = poisson2d.PoissonConfig(nx=cs.MG_NX, ny=cs.MG_NX,
+                                  solver="multigrid", problem="poly")
+    _, _, _, _, ue, f = poisson2d.build_problem(cfg, torch.float32, "cuda")
+    u0 = poisson2d._dirichlet_init(ue)
+    mgc = multigrid.MGConfig(tol=cs.MG_TOL, max_cycles=20, fused="off")
+
+    def solve():
+        return multigrid.solve(f, u0, cfg.dx, cfg.dy, cfg=mgc)
+
+    for r in range(rounds):
+        for name, lib in (libs if r % 2 == 0 else libs[::-1]):
+            with mock.patch.object(_cuda_build, "load_library",
+                                   lambda lib=lib: lib):
+                solve()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solve()
+                torch.cuda.synchronize()
+                solve_s = time.perf_counter() - t0
+                by_name = cs.phase_profile(
+                    f"ab off {name}", lambda: [solve() for _ in range(3)],
+                    3, solve_s, unit="solve")
+            if not by_name:
+                continue
+            total = sum(us for us, _ in by_name.values())
+            rb = [v for k, v in by_name.items()
+                  if re.search(r"\brb_\w*kernel<|convert_kernel<", k)]
+            print(f"ab off solve {name}: {res.iterations} cycles, device "
+                  f"{total / 3:.2f} us/solve; smoother kernels "
+                  f"{sum(us for us, _ in rb) / 3:.2f} us/solve "
+                  f"({100 * sum(us for us, _ in rb) / total:.1f}%) in "
+                  f"{sum(n for _, n in rb) / 3:.1f} launches/solve")
 
 
 def max_err(got, ref):
@@ -205,6 +254,7 @@ def main(argv=None):
             print(f"ab {label}: {name}: device ms "
                   f"{[round(x, 5) for x in ts]} median {np.median(ts):.5f}; "
                   f"max|k-p|={errs[name]:.3e}")
+    off_profiles(libs, args.rounds)
     return 0
 
 

@@ -163,6 +163,35 @@ def test_multigrid_kernels_match_plain(cuda_device, shape, dtype, sweeps):
             _assert_rel(g, r, REL[dtype])
 
 
+# the smoother takes a level of up to 65^2 nodes whole into one block,
+# else tiles: even sides, and shapes on both sides of that limit (65x65
+# and 33x128 on it, 65x66 and 33x129 past it)
+SMOOTHER_SHAPES = [(3, 3), (4, 6), (33, 64), (65, 65), (33, 128), (65, 66),
+                   (33, 129), (129, 129), (257, 257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweeps", EDGE_SWEEPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape", SMOOTHER_SHAPES)
+def test_smoother_kernel_matches_plain(cuda_device, shape, dtype, sweeps):
+    """The smoother against its twin and a second call of itself, bitwise,
+    on both of its paths."""
+    u, f = (interop.field_from_numpy(a, dtype, cuda_device)
+            for a in _fields(shape, seed=19))
+    dx, dy = _spacing(shape)
+    before = cuda_kernels.LAUNCHES["redblack_sweeps"]
+    got = cuda_kernels.redblack_sweeps_fused(u, f, dx, dy, sweeps)
+    again = cuda_kernels.redblack_sweeps_fused(u, f, dx, dy, sweeps)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["redblack_sweeps"] == before + 2
+    ref = cuda_kernels.redblack_sweeps_fused_plain(u, f, dx, dy, sweeps)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, again), "two calls differ"
+    _assert_rel(got, ref, REL[dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("opts", [dict(), dict(fmg=True),
                                   dict(cycle_dtype="mixed"),

@@ -1,4 +1,4 @@
-"""The level-edge kernels' tile schedule, emulated in PyTorch on the CPU.
+"""The multigrid kernels' schedules, emulated in PyTorch on the CPU.
 
 The CUDA kernels behind smooth_residual_restrict_fused and
 prolong_correct_smooth_fused (cfd_julia_torch/csrc/multigrid.cu) run every
@@ -14,9 +14,15 @@ plausible solve, so this file emulates that schedule tile by tile and
 holds it, in fp64, to rel 1e-12 against the plain twins (the operation
 order is the only difference), and against the JAX package's Pallas
 kernels in interpret mode wherever their 8-row GUARD admits the sweeps.
-K and the tile sizes are read from the .cu source, so the emulation
-follows the kernels; the CUDA kernels themselves are held against the
-twins on a GPU in tests/test_torch_cuda.py.
+The smoother behind redblack_sweeps_fused takes a level of at most
+kLevelNodes nodes whole into one block's shared memory as colour planes,
+and runs every half-sweep there by pair slot; a larger level goes through
+sweep-only tiles (halo 2s, rows of their own) in passes of K sweeps.  Both are emulated here too: the whole level with
+its plane addressing (the words no node owns hold NaN, so a read of one
+shows), the tiles with the edges' emulation.
+K, the tile sizes and the node limit are read from the .cu source, so the
+emulation follows the kernels; the CUDA kernels themselves are held
+against the twins on a GPU in tests/test_torch_cuda.py.
 """
 import functools
 import re
@@ -33,9 +39,10 @@ torch.set_num_threads(1)
 
 
 def _tile_constants():
-    """K, the tile width, and the tile rows of the descend kernel and of
-    the sweep kernel (the ascend edge and every pass before an edge's
-    last) by compute word size."""
+    """K, the tile width, and the tile rows of the descend kernel, of the
+    sweep kernel (the ascend edge and every pass before an edge's last)
+    and of the smoother's tile kernel by compute word size, and the most
+    nodes of a level that the smoother takes into one block."""
     src = (_cuda_build.CSRC / "multigrid.cu").read_text()
     k = re.search(r"constexpr int kSweepsPerPass = (\d+);", src)
     cols = re.search(r"constexpr int kTileCols = (\d+);", src)
@@ -45,11 +52,16 @@ def _tile_constants():
                       r"(\d+);", src)
         return {4: int(m.group(1)), 8: int(m.group(2))}
 
+    limit = re.search(r"constexpr int kLevelNodes = (\d+) \* (\d+);", src)
     return (int(k.group(1)), int(cols.group(1)), rows("restrict_rows"),
-            rows("sweep_rows"))
+            rows("sweep_rows"), rows("rb_rows"),
+            int(limit.group(1)) * int(limit.group(2)))
 
 
-K, TILE_COLS, RESTRICT_ROWS, SWEEP_ROWS = _tile_constants()
+(K, TILE_COLS, RESTRICT_ROWS, SWEEP_ROWS, RB_ROWS,
+ LEVEL_NODES) = _tile_constants()
+# the most dynamic shared memory a Hopper block may use (227 KB)
+BLOCK_SMEM_BYTES = 227 * 1024
 GUARD = 8                                 # the TPU kernels' halo rows
 # not a multiple of the tile on either axis, several tiles on both
 SHAPES = [(5, 5), (33, 65), (129, 65), (131, 67), (301, 261)]
@@ -225,6 +237,69 @@ def emulate_ascend(u, f, uc, dx, dy, sweeps, word, want_rms=False):
     return u, ssq
 
 
+def level_bytes(shape, word):
+    """Shared memory of a whole level: u and f as two colour planes each,
+    ceil(nc/2) words a row."""
+    nr, nc = shape
+    return 4 * nr * ((nc + 1) // 2) * word
+
+
+def one_block(shape):
+    """True when the smoother takes the level whole into one block."""
+    return shape[0] * shape[1] <= LEVEL_NODES
+
+
+def quot(q, d):
+    """q // d as the level kernel takes it: the high word of q times
+    quot_magic(d) = ceil(2^32 / d)."""
+    return (q * ((2**32 - 1) // d + 1)) >> 32
+
+
+def emulate_level(u, f, dx, dy, sweeps):
+    """rb_level_kernel: node q = i*nc + j at plane (i + j) % 2, word
+    i*W + j//2; half-sweep h relaxes colour h % 2 by pair slot over the
+    interior rows, reading the other plane at k -+ W, k - 1 + par and
+    k + par."""
+    nr, nc = u.shape
+    w = (nc + 1) // 2
+    planes = 2 * nr * w
+    node = torch.arange(nr * nc)
+    i = quot(node, nc)
+    j = node - i * nc
+    word = (i + j) % 2 * (nr * w) + i * w + j // 2
+    su = torch.full((planes,), float("nan"), dtype=u.dtype)
+    sf = torch.full((planes,), float("nan"), dtype=u.dtype)
+    su[word] = u.reshape(-1)
+    sf[word] = f.reshape(-1)
+    dx2i, dy2i = dx**-2, dy**-2
+    diag = -2.0 * dx2i - 2.0 * dy2i
+    q = torch.arange((nr - 2) * w)
+    qi = 1 + quot(q, w)
+    p = q - (qi - 1) * w
+    for h in range(2 * sweeps):
+        c = h % 2
+        par = (c + qi) % 2
+        col = 2 * p + par
+        ok = (col >= 1) & (col <= nc - 2)
+        k, par = (qi * w + p)[ok], par[ok]
+        mine, other = c * nr * w + k, (1 - c) * nr * w + k
+        uc = su[mine]
+        lap = ((su[other - w] - 2 * uc + su[other + w]) * dx2i
+               + (su[other - 1 + par] - 2 * uc + su[other + par]) * dy2i)
+        su[mine] = uc + (sf[mine] - lap) / diag
+    return su[word].reshape(nr, nc)
+
+
+def emulate_rb_sweeps(u, f, dx, dy, sweeps, word):
+    """redblack_sweeps_fused as the smoother of compute word size `word`
+    computes it: the whole level in one block, or tile passes."""
+    if one_block(u.shape):
+        return emulate_level(u, f, dx, dy, sweeps)
+    for s in _passes(sweeps):
+        u, _ = _sweep_pass(u, f, dx, dy, s, RB_ROWS[word])
+    return u
+
+
 # ----------------------------------------------------------------- tests
 
 def _fields(shape, seed):
@@ -250,7 +325,8 @@ def test_tile_constants_read_from_the_source():
     GUARD (2K+2 <= 8), and every admitted halo leaves owned nodes."""
     assert 2 * K + 2 <= GUARD
     assert TILE_COLS % 64 == 0
-    for rows in [*RESTRICT_ROWS.values(), *SWEEP_ROWS.values()]:
+    for rows in [*RESTRICT_ROWS.values(), *SWEEP_ROWS.values(),
+                 *RB_ROWS.values()]:
         assert rows % 8 == 0 and rows - 2 * (2 * K + 2) >= 8
 
 
@@ -354,3 +430,75 @@ def test_a_halo_one_short_is_caught(kind):
             u, f, uc, dx, dy, sweeps, True)[1]
     err = float((torch.as_tensor(got) - ref).abs().max())
     assert err > 1e-6 * float(torch.as_tensor(ref).abs().max())
+
+
+# the smoother: even-sided and ragged shapes, and shapes on both sides of
+# the one-block limit (65x65 and 33x128 on it, 65x66 and 33x129 past it)
+RB_SHAPES = [(3, 3), (4, 6), (5, 5), (33, 64), (65, 65), (33, 128),
+             (65, 66), (33, 129), (131, 67), (129, 129), (301, 261)]
+
+
+def test_level_quotients_are_exact():
+    """The level kernel's multiply-high quotient is q // d wherever
+    q * d < 2^32 (checked outright for d < 1500, q < 2^13), and every
+    level of the one-block path keeps its indices (q < nr * nc) and
+    divisors (nc, W) inside that."""
+    q = np.arange(2**13, dtype=np.uint64)
+    for d in range(2, 1500):
+        np.testing.assert_array_equal(quot(q, d), q // d)
+    assert LEVEL_NODES < 2**13 and LEVEL_NODES // 3 < 1500
+
+
+def test_smoother_one_block_levels_fit_shared_memory():
+    """Every level of the one-block path fits a block's shared memory in
+    either word size; RB_SHAPES lie on both sides of the node limit."""
+    for nc in range(3, LEVEL_NODES // 3 + 1):
+        shape = (LEVEL_NODES // nc, nc)
+        assert one_block(shape) and level_bytes(shape, 8) <= BLOCK_SMEM_BYTES
+    inside = [s for s in RB_SHAPES if one_block(s)]
+    assert (65, 65) in inside and (33, 128) in inside
+    assert (65, 66) not in inside and (33, 129) not in inside
+
+
+@WORDS
+@pytest.mark.parametrize("sweeps", SWEEPS)
+@pytest.mark.parametrize("shape", RB_SHAPES)
+def test_smoother_matches_twin(shape, sweeps, word):
+    u, f, _ = (torch.as_tensor(a) for a in _fields(shape, seed=25))
+    dx, dy = _spacing(shape)
+    got = emulate_rb_sweeps(u, f, dx, dy, sweeps, word)
+    assert bool(torch.isfinite(got).all()), "a word no node owns was read"
+    _assert_rel(got, cuda_kernels.redblack_sweeps_fused_plain(u, f, dx, dy,
+                                                              sweeps))
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_rb(shape, sweeps):
+    u, f, _ = (jnp.asarray(a) for a in _fields(shape, seed=26))
+    dx, dy = _spacing(shape)
+    return np.asarray(pallas_kernels.redblack_sweeps_fused(
+        u, f, dx, dy, sweeps, tile=16, interpret=True))
+
+
+# the TPU kernel runs GUARD // 2 sweeps a call and any count in several
+# calls; interpret mode is slow, so a few shapes, on both paths (131x67
+# and 65x66 take tiles), at every count
+@WORDS
+@pytest.mark.parametrize("sweeps", SWEEPS)
+@pytest.mark.parametrize("shape", [(4, 6), (33, 64), (131, 67), (65, 66)])
+def test_smoother_matches_pallas(shape, sweeps, word):
+    u, f, _ = (torch.as_tensor(a) for a in _fields(shape, seed=26))
+    dx, dy = _spacing(shape)
+    _assert_rel(emulate_rb_sweeps(u, f, dx, dy, sweeps, word),
+                _pallas_rb(shape, sweeps))
+
+
+def test_smoother_tiles_with_a_halo_one_short_are_caught():
+    """The smoother's tile halo (2s) is tight as well."""
+    shape, sweeps = (301, 261), 2
+    u, f, _ = (torch.as_tensor(a) for a in _fields(shape, seed=27))
+    dx, dy = _spacing(shape)
+    got, _ = _sweep_pass(u, f, dx, dy, sweeps, RB_ROWS[4],
+                         halo=2 * sweeps - 1)
+    ref = cuda_kernels.redblack_sweeps_fused_plain(u, f, dx, dy, sweeps)
+    assert float((got - ref).abs().max()) > 1e-6 * float(ref.abs().max())
