@@ -8,11 +8,13 @@ hand-written CUDA C++ kernel for sm_90a under `csrc/`, built with nvcc on
 first use (`ops/_cuda_build.py`) and bound with ctypes (`ops/cuda_kernels.py`).
 
 Ported so far: the lid-driven cavity (reference ch. 18) on the full-grid
-step with the Arakawa RHS kernel and the dense sine-matmul Poisson solve;
-the iterative and multigrid 2D Poisson solvers (ch. 15-17), with the
-V-cycle's red-black smoother and fused level edges as CUDA kernels; the
-1D Euler Sod shock tube (ch. 09-11), with its whole WENO-5 + Riemann RHS
-as one CUDA kernel.
+step with the Arakawa RHS kernel and the sine-matmul or rfft DST-I Poisson
+solve; the direct (FFT / DST-I, ch. 12-14), iterative and multigrid
+(ch. 15-17) 2D Poisson solvers, with the V-cycle's red-black smoother and
+fused level edges as CUDA kernels; the 1D Euler Sod shock tube (ch. 09-11),
+with its whole WENO-5 + Riemann RHS as one CUDA kernel; the periodic vortex
+merger and Taylor-Green solvers (ch. 19-22): fdm on the Arakawa kernel,
+hybrid, ps32 and ps23 on torch.fft (cuFFT).
 
 This package imports neither JAX nor cfd_julia_tpu; importing it loads no
 GPU library and builds nothing.

@@ -24,3 +24,19 @@ def resolve_device(name) -> torch.device:
             f"device {str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU")
     return device
+
+
+def resolve_rhs_impl(name: str, device: torch.device) -> str:
+    """Resolve a model's rhs_impl selector against the device its RHS runs
+    on: "auto" is the CUDA kernel on a CUDA device and the plain PyTorch
+    twin on the CPU (the JAX package's TPU winner tables are TPU
+    measurements and are not ported)."""
+    if name == "auto":
+        return "kernel" if device.type == "cuda" else "torch"
+    if name == "kernel" and device.type != "cuda":
+        raise ValueError(
+            f"rhs_impl='kernel' runs the CUDA kernel and needs a CUDA "
+            f"device, got {device}; use rhs_impl='torch' or 'auto'")
+    if name not in ("kernel", "torch"):
+        raise ValueError(f"unknown rhs_impl {name!r} (auto | kernel | torch)")
+    return name

@@ -12,18 +12,21 @@ import numpy as np
 import torch
 
 from cfd_julia_torch.core import precision
-from cfd_julia_torch.models import cavity, euler1d, poisson2d
+from cfd_julia_torch.models import cavity, euler1d, poisson2d, vortex
+from cfd_julia_torch.ops import spectral
 from cfd_julia_torch.poisson import multigrid
 
 # JAX CavityConfig.poisson / .rhs_impl -> the port's; the other JAX variants
-# (fst, fst_half, *_bf16x*, fused*, fst_mxu, ...) are not ported yet
-_POISSON = {"auto": "auto", "matmul": "matmul"}
+# (*_bf16x*, fused*, fst_mxu, ...) are not ported
+_POISSON = {"auto": "auto", "matmul": "matmul", "fst": "fst",
+            "fst_half": "fst_half"}
 _RHS_IMPL = {"auto": "auto", "xla": "torch", "pallas": "kernel"}
 # JAX MGConfig.smoother -> the port's (smoother, impl): the JAX smoother
 # implementations "pallas" / "xla" are the port's kernels / plain twins
 _MG_SMOOTHER = {"auto": ("auto", "auto"), "cheb": ("cheb", "auto"),
                 "pallas": ("auto", "kernel"), "xla": ("auto", "torch")}
-_POISSON_SOLVERS = ("jacobi", "redblack", "cg", "multigrid", "mgcg")
+_POISSON_SOLVERS = ("fft", "fft_spectral", "fst", "jacobi", "redblack", "cg",
+                    "multigrid", "mgcg")
 
 
 def cavity_config_from_jax(cfg) -> cavity.CavityConfig:
@@ -81,10 +84,31 @@ def poisson_config_from_jax(cfg) -> poisson2d.PoissonConfig:
         mg=mg_config_from_jax(cfg.mg))
 
 
+def vortex_config_from_jax(cfg) -> vortex.VortexConfig:
+    """The port's VortexConfig for a cfd_julia_tpu VortexConfig.  The port
+    has one transform path (torch.fft with irfft2), which both JAX
+    pair_impl values and fft_impl auto / xla map to; the MXU matmul FFT is
+    a TPU formulation and is not ported."""
+    if cfg.rhs_impl not in _RHS_IMPL:
+        raise ValueError(f"rhs_impl={cfg.rhs_impl!r} is not ported; the "
+                         f"port maps {sorted(_RHS_IMPL)}")
+    if cfg.fft_impl not in ("auto", "xla"):
+        raise ValueError(f"fft_impl={cfg.fft_impl!r} is not ported; the "
+                         "port's transforms are torch.fft")
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(vortex.VortexConfig)}
+    fields["rhs_impl"] = _RHS_IMPL[cfg.rhs_impl]
+    return vortex.VortexConfig(**fields)
+
+
 def field_from_numpy(a, dtype=None, device="cpu"):
-    """A contiguous tensor of `dtype` on `device` from a numpy field."""
+    """A contiguous tensor of `dtype` on `device` from a numpy field; a
+    complex array (a spectrum) takes the complex type of `dtype`'s
+    precision."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
+    if np.iscomplexobj(a) and not dtype.is_complex:
+        dtype = spectral.complex_for(dtype)
     # a copy: arrays from JAX are read-only
     return torch.as_tensor(np.array(a), dtype=dtype,
                            device=device).contiguous()

@@ -8,12 +8,13 @@ Per SSP-RK3 stage (lid_driven_cavity.jl:72-110):
   2. stage-combine w on the interior
   3. vorticity wall BCs from the current psi (Hoffmann 1st-order or
      Jensen 2nd-order; the moving lid adds -2/dy or -3/dy on the top wall)
-  4. psi = DST-I Poisson solve of lap(psi) = -w as four dense sine-matrix
-     products (poisson/direct.py)
+  4. psi = DST-I Poisson solve of lap(psi) = -w (poisson/direct.py): four
+     dense sine-matrix products ("matmul"), or the fast sine transform
+     through rfft ("fst", and "fst_half" at half the transform length)
 
-This is the full-grid step of the JAX package with poisson="matmul" and
-rhs_impl="pallas".  Domain [0,1]^2; the lid moves in +x at the top wall
-(j = ny).
+This is the full-grid step of the JAX package with poisson="matmul", "fst"
+or "fst_half" and rhs_impl="pallas".  Domain [0,1]^2; the lid moves in +x
+at the top wall (j = ny).
 """
 from __future__ import annotations
 
@@ -35,8 +36,10 @@ class CavityConfig:
     t_final: float = 10.0
     re: float = 100.0
     bc_order: int = 2        # 1 = Hoffmann, 2 = Jensen (reference default)
-    poisson: str = "auto"    # auto | matmul: both the interior sine-matmul
-                             # DST-I solve, on every device
+    poisson: str = "auto"    # auto (= matmul on every device) | matmul
+                             # (interior sine-matmul DST-I solve) | fst
+                             # (odd-extension rfft DST-I) | fst_half
+                             # (half-length rfft DST-I)
     rhs_impl: str = "auto"   # auto (kernel on a CUDA device, torch on the
                              # CPU) | kernel (csrc/arakawa_rhs.cu; CUDA
                              # only) | torch (ops.arakawa, any device)
@@ -63,19 +66,6 @@ class CavityResult:
     rms_history: torch.Tensor   # ||psi^n - psi^{n-1}|| per step (nt,)
 
 
-def _rhs_choice(name: str, device: torch.device) -> str:
-    """Resolve rhs_impl against the device the step runs on."""
-    if name == "auto":
-        return "kernel" if device.type == "cuda" else "torch"
-    if name == "kernel" and device.type != "cuda":
-        raise ValueError(
-            f"rhs_impl='kernel' runs the CUDA kernel and needs a CUDA "
-            f"device, got {device}; use rhs_impl='torch' or 'auto'")
-    if name not in ("kernel", "torch"):
-        raise ValueError(f"unknown rhs_impl {name!r}")
-    return name
-
-
 def assemble_with_wall_bc(w_interior, s, dx: float, dy: float,
                           order: int = 2):
     """Assemble the full (nx+1, ny+1) vorticity field from its interior
@@ -100,14 +90,15 @@ def assemble_with_wall_bc(w_interior, s, dx: float, dy: float,
 
 def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda"):
     """Cavity step on state (w, s, rms) of (nx+1, ny+1) tensors of `dtype`
-    on `device`; the Poisson matrices are built here, once."""
+    on `device`; the Poisson solve's constants are built here, once."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
     dx, dy, dt, re = cfg.dx, cfg.dy, cfg.dt, cfg.re
-    rhs_impl = _rhs_choice(cfg.rhs_impl, device)
-    if cfg.poisson not in ("auto", "matmul"):
+    rhs_impl = precision.resolve_rhs_impl(cfg.rhs_impl, device)
+    if cfg.poisson not in ("auto", "matmul", "fst", "fst_half"):
         # a typo'd variant name must never silently run the default solver
-        raise ValueError(f"unknown poisson solver {cfg.poisson!r}")
+        raise ValueError(f"unknown poisson solver {cfg.poisson!r} "
+                         "(auto | matmul | fst | fst_half)")
     if cfg.bc_order not in (1, 2):
         raise ValueError("bc_order must be 1 or 2")
 
@@ -118,8 +109,13 @@ def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda"):
         def rhs_interior(w, s):
             return arakawa.vorticity_rhs(w, s, dx, dy, re)[1:-1, 1:-1]
 
-    solve = direct.make_fst_matmul_interior(cfg.nx, cfg.ny, dx, dy, dtype,
-                                            device)
+    if cfg.poisson in ("fst", "fst_half"):
+        solve = direct.make_fst(
+            cfg.nx, cfg.ny, dx, dy, dtype, device,
+            impl="half" if cfg.poisson == "fst_half" else "rfft")
+    else:
+        solve = direct.make_fst_matmul_interior(cfg.nx, cfg.ny, dx, dy,
+                                                dtype, device)
 
     def stage_close(wt_interior, s_prev):
         """Assemble with wall BCs from the pre-stage psi, then fresh psi."""

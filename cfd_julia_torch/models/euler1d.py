@@ -77,24 +77,10 @@ def sod_initial_state(cfg: EulerConfig, dtype=None, device="cuda"):
     return x, q
 
 
-def _rhs_choice(name: str, device: torch.device) -> str:
-    """Resolve rhs_impl against the device the RHS runs on (the JAX
-    package's TPU winner table is a TPU measurement and is not ported)."""
-    if name == "auto":
-        return "kernel" if device.type == "cuda" else "torch"
-    if name == "kernel" and device.type != "cuda":
-        raise ValueError(
-            f"rhs_impl='kernel' runs the CUDA kernel and needs a CUDA "
-            f"device, got {device}; use rhs_impl='torch' or 'auto'")
-    if name not in ("kernel", "torch"):
-        raise ValueError(f"unknown rhs_impl {name!r} (auto | kernel | torch)")
-    return name
-
-
 def make_rhs(cfg: EulerConfig, device="cuda"):
     """q (3, nx) -> dq/dt on `device`: the CUDA kernel or its plain twin."""
     device = precision.resolve_device(device)
-    impl = _rhs_choice(cfg.rhs_impl, device)
+    impl = precision.resolve_rhs_impl(cfg.rhs_impl, device)
     cuda_kernels.check_euler_variant(cfg.solver, cfg.rusanov_wavespeed)
     fn = (cuda_kernels.euler_rhs_fused if impl == "kernel"
           else cuda_kernels.euler_rhs_fused_plain)

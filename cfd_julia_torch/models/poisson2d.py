@@ -10,9 +10,10 @@ Manufactured problems (exact solutions for validation):
 * ``sine16``  ue = sin(2 pi x) sin(2 pi y) + (1/256) sin(16 pi x) sin(16 pi y)
               (ipr=2, gauss_seidel.jl:97-109).
 
-Solvers ported: jacobi (= reference ch. 15 "gauss_seidel"), redblack (true
-parallel GS), cg, multigrid (N-level V-cycle) and mgcg.  fft, fft_spectral
-and fst need the FFT/DST solves, which are not ported yet (ROADMAP A.2).
+Solvers: fft (periodic, FDM eigenvalues), fft_spectral (periodic, exact
+eigenvalues), fst (Dirichlet, DST-I) — direct solves with no iterations;
+jacobi (= reference ch. 15 "gauss_seidel"), redblack (true parallel GS),
+cg, multigrid (N-level V-cycle) and mgcg.
 """
 from __future__ import annotations
 
@@ -23,15 +24,15 @@ import torch
 
 from cfd_julia_torch.core import precision
 from cfd_julia_torch.ops import norms
-from cfd_julia_torch.poisson import iterative, multigrid
+from cfd_julia_torch.poisson import direct, iterative, multigrid
 
 
 @dataclasses.dataclass(frozen=True)
 class PoissonConfig:
     nx: int = 128
     ny: int = 128
-    solver: str = "fft"      # fft | fft_spectral | fst (not ported) |
-                             # jacobi | redblack | cg | multigrid | mgcg
+    solver: str = "fft"      # fft | fft_spectral | fst | jacobi | redblack |
+                             # cg | multigrid | mgcg
     problem: str = "sine32"  # sine32 | poly | sine16
     tol: float = 1e-9
     max_iter: int = 100_000
@@ -97,15 +98,25 @@ def build_problem(cfg: PoissonConfig, dtype, device="cpu"):
 
 def solve(cfg: PoissonConfig, dtype=None, device="cuda") -> PoissonResult:
     """Build the problem on `device` and solve it with cfg.solver; the
-    result's tensors stay on `device`."""
+    result's tensors stay on `device`.  A direct solve (fft, fft_spectral,
+    fst) leaves iterations, history, rms and rms0 None."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
     x, y, X, Y, ue, f = build_problem(cfg, dtype, device)
 
     if cfg.solver in ("fft", "fft_spectral", "fst"):
-        raise NotImplementedError(
-            f"solver {cfg.solver!r} needs the FFT/DST Poisson solves, which "
-            "are not ported yet (ROADMAP A.2)")
+        if cfg.solver == "fst":
+            u = direct.solve_fst(f, cfg.dx, cfg.dy)
+        else:
+            # gauge: periodic solves are defined up to a constant; the
+            # reference MMS has zero mean so the zero-mean solve matches
+            # ue directly
+            eigen = "fdm" if cfg.solver == "fft" else "spectral"
+            u = direct.solve_fft(f, cfg.dx, cfg.dy, eigen=eigen)
+        err = u - ue
+        return PoissonResult(
+            x=x, y=y, u=u, u_exact=ue, f=f,
+            l2_error=norms.l2norm_interior(err), linf_error=norms.linf(err))
     u0 = _dirichlet_init(ue)
     if cfg.solver in ("jacobi", "redblack"):
         it_res = iterative.relax_solve(

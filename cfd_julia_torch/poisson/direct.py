@@ -1,11 +1,21 @@
-"""Direct (transform-based) Dirichlet Poisson solve on node-centred grids
-(counterpart of cfd_julia_tpu/poisson/direct.py; reference fft_d.jl:7-23).
+"""Direct (transform-based) Poisson solvers on node-centred grids
+(counterpart of cfd_julia_tpu/poisson/direct.py).
 
-The DST-I solve is four dense sine-matrix products, which on the GPU are
-plain large GEMMs (torch.matmul).  PyTorch runs eagerly, so the sine
-matrices and the eigenvalue denominator are built once by
-`make_fst_matmul_interior` and reused by every solve, where JAX built them
-once at trace time.
+Wraps ops.spectral with the reference's full-grid conventions:
+* the periodic FFT solvers take/return (nx+1, ny+1) node grids, solving on
+  the nx x ny unique nodes and wrapping the duplicated boundary
+  (fft_p.jl:92-104, fft_s.jl);
+* the FST solver takes the full grid, solves the (nx-1)x(ny-1) interior
+  with homogeneous Dirichlet boundaries and zero-fills the boundary ring
+  (fft_d.jl:70-76);
+* the sine-matmul solver is the same DST-I solve as four dense
+  sine-matrix products, which on the GPU are plain large GEMMs
+  (torch.matmul).
+
+PyTorch runs eagerly, so each `make_*` builds its eigenvalue denominator
+(and the sine matrices or transform weights) once and returns the solve
+that reuses them, where JAX built them once at trace time; `solve_*` are
+the one-off forms.
 """
 from __future__ import annotations
 
@@ -13,6 +23,45 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from cfd_julia_torch.ops import spectral
+
+
+def make_fft(nx: int, ny: int, dx: float, dy: float, dtype, device=None,
+             eigen: str = "fdm"):
+    """Build the periodic Poisson solve on an (nx+1, ny+1) node grid with
+    wrapped edges; returns solve(f) -> u of the same shape."""
+    inner = spectral.make_fft_poisson_periodic(nx, ny, dx, dy, dtype, device,
+                                               eigen)
+
+    def solve(f):
+        # circular pad: the duplicated last row and column repeat the first
+        return F.pad(inner(f[:-1, :-1])[None], (0, 1, 0, 1),
+                     mode="circular")[0]
+
+    return solve
+
+
+def solve_fft(f, dx: float, dy: float, eigen: str = "fdm"):
+    """Periodic Poisson solve; f, result: (nx+1, ny+1) with wrapped edges."""
+    nx, ny = f.shape[0] - 1, f.shape[1] - 1
+    return make_fft(nx, ny, dx, dy, f.dtype, f.device, eigen)(f)
+
+
+def make_fst(nx: int, ny: int, dx: float, dy: float, dtype, device=None,
+             impl: str = "rfft"):
+    """Build the homogeneous-Dirichlet Poisson solve via DST-I on the
+    interior of an (nx+1, ny+1) grid (impl: rfft | half, ops.spectral.dst1);
+    returns solve(f) -> u with an exactly-zero boundary ring."""
+    inner = spectral.make_fst_poisson_dirichlet(nx - 1, ny - 1, dx, dy, dtype,
+                                                device, impl)
+    return lambda f: F.pad(inner(f[1:-1, 1:-1]), (1, 1, 1, 1))
+
+
+def solve_fst(f, dx: float, dy: float, impl: str = "rfft"):
+    """One-off form of make_fst; f: (nx+1, ny+1)."""
+    nx, ny = f.shape[0] - 1, f.shape[1] - 1
+    return make_fst(nx, ny, dx, dy, f.dtype, f.device, impl)(f)
 
 
 def sine_matrix(n: int, size: int, dtype, device=None):

@@ -1,7 +1,8 @@
 """Named reference configurations (counterpart of cfd_julia_tpu/presets.py).
 
-Ported so far: the 1D Euler Sod shock tube, the lid-driven cavity and the
-iterative and multigrid 2D Poisson solvers.  Run with
+Ported so far: the 1D Euler Sod shock tube, the direct (FFT / DST),
+iterative and multigrid 2D Poisson solvers, the lid-driven cavity, and the
+periodic vortex merger / Taylor-Green solvers.  Run with
 `python -m cfd_julia_torch run <preset>`; any config field can be
 overridden on the command line (e.g. --nx 1024).
 """
@@ -9,14 +10,14 @@ from __future__ import annotations
 
 import dataclasses
 
-from cfd_julia_torch.models import cavity, euler1d, poisson2d
+from cfd_julia_torch.models import cavity, euler1d, poisson2d, vortex
 from cfd_julia_torch.poisson import multigrid
 
 
 @dataclasses.dataclass(frozen=True)
 class Preset:
     name: str
-    family: str          # euler | cavity | poisson
+    family: str          # euler | poisson | cavity | vortex
     cfg: object
     reference: str       # reference script this mirrors
     description: str = ""
@@ -34,7 +35,19 @@ PRESETS = {
         Preset("euler_rusanov", "euler",
                euler1d.EulerConfig(nx=8192, solver="rusanov", dt=5e-5),
                "11_Euler_1D_Rusanov/euler_rusanov.jl"),
-        # --- 2D Poisson (ch. 15-17) ------------------------------------------
+        # --- 2D Poisson (ch. 12-17) ------------------------------------------
+        Preset("poisson_fft", "poisson",
+               poisson2d.PoissonConfig(nx=512, ny=512, solver="fft",
+                                       problem="sine32"),
+               "12_Poisson_Solver_FFT/fft_p.jl", "FDM eigenvalues"),
+        Preset("poisson_fft_spectral", "poisson",
+               poisson2d.PoissonConfig(nx=512, ny=512, solver="fft_spectral",
+                                       problem="sine32"),
+               "13_Poisson_Solver_FFT_Spectral/fft_s.jl"),
+        Preset("poisson_fst", "poisson",
+               poisson2d.PoissonConfig(nx=128, ny=128, solver="fst",
+                                       problem="sine32"),
+               "14_Poisson_Solver_FST/fft_d.jl", "DST-I direct solve"),
         Preset("poisson_jacobi", "poisson",
                poisson2d.PoissonConfig(nx=512, ny=512, solver="jacobi",
                                        problem="poly", tol=1e-9,
@@ -73,10 +86,26 @@ PRESETS = {
                                            n_levels=9, tol=1e-9,
                                            max_cycles=100)),
                "17_Poisson_Solver_Multigrid/mg_N.jl", "9-level V-cycle"),
-        # --- 2D Navier-Stokes (ch. 18) ---------------------------------------
+        # --- 2D Navier-Stokes (ch. 18-22) ------------------------------------
         Preset("cavity", "cavity", cavity.CavityConfig(),
                "18_NS2D_Lid_Driven_Cavity/lid_driven_cavity.jl",
                "Re=100, 64^2, t=10"),
+        Preset("vortex_merger_fdm", "vortex",
+               vortex.VortexConfig(solver="fdm"),
+               "19_NS2D_Vortex_Merger/vm.jl", "128^2, Re=1000, t=20"),
+        Preset("tgv", "vortex",
+               vortex.VortexConfig(nx=64, ny=64, solver="fdm", dt=0.01,
+                                   t_final=1.0, re=10.0, ic="tgv", ns=1),
+               "19_NS2D_Vortex_Merger/tgv.jl", "Taylor-Green validation"),
+        Preset("vortex_merger_hybrid", "vortex",
+               vortex.VortexConfig(solver="hybrid"),
+               "20_NS2D_Hybrid_Solver/hybrid.jl", "semi-implicit RK3/CN"),
+        Preset("vortex_merger_ps32", "vortex",
+               vortex.VortexConfig(solver="ps32"),
+               "21_NS2D_PseudoSpectral_32_Rule/pseudospectral_32_rule.jl"),
+        Preset("vortex_merger_ps23", "vortex",
+               vortex.VortexConfig(solver="ps23"),
+               "22_NS2D_PseudoSpectral_23_Rule/pseudospectral_23_rule.jl"),
     ]
 }
 

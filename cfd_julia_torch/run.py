@@ -14,7 +14,7 @@ import torch
 from cfd_julia_torch import presets as presets_lib
 from cfd_julia_torch.core import precision
 from cfd_julia_torch.models import cavity as cavity_model
-from cfd_julia_torch.models import euler1d, poisson2d
+from cfd_julia_torch.models import euler1d, poisson2d, vortex
 from cfd_julia_torch.poisson import iterative
 from cfd_julia_torch.utils import io
 
@@ -59,19 +59,25 @@ def _run_euler(preset, outdir, dtype, device):
 def _run_poisson(preset, outdir, dtype, device):
     cfg = preset.cfg
     res = poisson2d.solve(cfg, dtype, device)
-    # the reference's 'Maximum Norm' is max |RESIDUAL|
-    # (gauss_seidel.jl:51 maximum(abs.(r))), not the solution error
-    mask = iterative.interior_mask(cfg.nx, cfg.ny, res.u.dtype, device)
-    r = iterative.residual_full(res.f, res.u, cfg.dx, cfg.dy, mask)
-    io.write_residual_report(os.path.join(outdir, "output.txt"), res.rms,
-                             r.abs().max(), res.iterations)
-    io.write_residual_history(
-        os.path.join(outdir, f"{cfg.solver}_residual.txt"), res.history)
+    m = {"l2_error": float(res.l2_error),
+         "linf_error": float(res.linf_error)}
+    if res.iterations is not None:
+        # the reference's 'Maximum Norm' is max |RESIDUAL|
+        # (gauss_seidel.jl:51 maximum(abs.(r))), not the solution error
+        mask = iterative.interior_mask(cfg.nx, cfg.ny, res.u.dtype, device)
+        r = iterative.residual_full(res.f, res.u, cfg.dx, cfg.dy, mask)
+        io.write_residual_report(os.path.join(outdir, "output.txt"), res.rms,
+                                 r.abs().max(), res.iterations)
+        io.write_residual_history(
+            os.path.join(outdir, f"{cfg.solver}_residual.txt"), res.history)
+        m["iterations"] = res.iterations
+        m["rms_final"] = float(res.rms)
+    else:   # a direct solve: no iterations, history or rms
+        io.write_error_report(os.path.join(outdir, f"output_{cfg.nx}.txt"),
+                              res.l2_error, res.linf_error)
     io.write_field2d(os.path.join(outdir, "field_final.txt"), res.x, res.y,
                      res.f, res.u, res.u_exact)
-    return {"l2_error": float(res.l2_error),
-            "linf_error": float(res.linf_error),
-            "iterations": res.iterations, "rms_final": float(res.rms)}
+    return m
 
 
 def _run_cavity(preset, outdir, dtype, device):
@@ -97,8 +103,22 @@ def _run_cavity(preset, outdir, dtype, device):
             "psi_min": float(res.s.min())}
 
 
+def _run_vortex(preset, outdir, dtype, device):
+    cfg = preset.cfg
+    res = vortex.solve(cfg, dtype, device)
+    io.write_vortex_snapshots(outdir, res.x, res.y, res.snapshots)
+    m = {"wmax_final": float(res.w.abs().max())}
+    if cfg.ic == "tgv":
+        l2, linf = vortex.tgv_error(cfg, res)
+        io.write_error_report(os.path.join(outdir, "output.txt"), l2, linf)
+        m["l2_error"] = float(l2)
+        m["linf_error"] = float(linf)
+    return m
+
+
 _RUNNERS = {
     "euler": _run_euler,
     "cavity": _run_cavity,
     "poisson": _run_poisson,
+    "vortex": _run_vortex,
 }

@@ -22,22 +22,26 @@ def run_steps(step_fn, state, nt: int):
     return state, history
 
 
-def run_steps_with_snapshots(step_fn, state, nt: int, every: int):
-    """Advance nt steps of a tensor state, stacking the state after steps
-    every, 2*every, ...
+def run_steps_with_snapshots(step_fn, state, nt: int, every: int,
+                             observe=None):
+    """Advance nt steps of a tensor state, stacking `observe(state)` after
+    steps every, 2*every, ...; `observe` defaults to the identity (the
+    spectral solvers pass the decoding of their spectrum to a real field).
 
     Returns (final_state, snapshots): snapshots has a leading axis of
     length nt // every and lies on the state's device, preallocated
-    before the loop; the nt % every leftover steps run after the last
-    snapshot."""
+    before the loop from the shape and dtype of observe(state); the
+    nt % every leftover steps run after the last snapshot."""
     if every < 1:
         raise ValueError(f"every must be >= 1, got {every}")
+    obs = observe or (lambda s: s)
     n_chunks = nt // every
-    snaps = state.new_empty((n_chunks, *state.shape))
+    first = obs(state)
+    snaps = first.new_empty((n_chunks, *first.shape))
     for c in range(n_chunks):
         for _ in range(every):
             state = step_fn(state)
-        snaps[c] = state
+        snaps[c] = obs(state)
     for _ in range(nt - n_chunks * every):
         state = step_fn(state)
     return state, snaps

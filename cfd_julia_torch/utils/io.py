@@ -4,7 +4,8 @@ cfd_julia_tpu/utils/io.py; same formats).
 `output.txt` error and residual reports (ftcs.jl:48-52,
 gauss_seidel.jl:50-52), residual histories "(it, rms, rms/rms0)"
 (gauss_seidel.jl:41-47), 2D field dumps "x y w s"
-(lid_driven_cavity.jl:205-210), 1D snapshot histories "x u(t1) u(t2) ..."
+(lid_driven_cavity.jl:205-210), vortex snapshots `vm$m.txt` (vm.jl:78-86),
+1D snapshot histories "x u(t1) u(t2) ..."
 (weno_dirichlet.jl:171-180) and column files, written once after the
 run; `write_metrics` emits a JSON record per run.  Inputs are numpy arrays
 or tensors on any device.
@@ -101,6 +102,15 @@ def write_field2d(path, x, y, *fields, header=None):
         if header:
             f.write(header + "\n")
         _write_rows(f, cols)
+
+
+def write_vortex_snapshots(outdir, x, y, snapshots):
+    """`vm$m.txt` per snapshot (vm.jl:78-86). snapshots: (ns, nx, ny)
+    unique periodic nodes; the duplicated wrap row/col is appended."""
+    snaps = _np64(snapshots)
+    for m in range(1, snaps.shape[0]):
+        w_full = np.pad(snaps[m], ((0, 1), (0, 1)), mode="wrap")
+        write_field2d(os.path.join(outdir, f"vm{m}.txt"), x, y, w_full)
 
 
 def write_metrics(path, metrics: dict):

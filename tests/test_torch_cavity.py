@@ -119,6 +119,42 @@ def test_trajectory_matches_jax_pallas_rhs():
                                _jax_trajectory(jcfg, w0, s0, 2))
 
 
+@pytest.mark.parametrize("rhs", ["xla", "pallas"])
+@pytest.mark.parametrize("poisson", ["fst", "fst_half"])
+def test_trajectory_matches_jax_fst(poisson, rhs):
+    """3 steps at 33x47 with the rfft DST-I Poisson solves (odd-extension
+    and half-length) against the JAX step with the same solver, on its XLA
+    RHS and on its Pallas RHS in interpret mode; 1e-12 of the scale."""
+    jcfg = jax_cavity.CavityConfig(nx=33, ny=47, dt=5e-4, re=100.0,
+                                   poisson=poisson, rhs_impl=rhs)
+    tcfg = interop.cavity_config_from_jax(jcfg)
+    assert tcfg.poisson == poisson
+    w0, s0 = _initial(jcfg, seed=2)
+    got = _torch_trajectory(dataclasses.replace(tcfg, rhs_impl="auto"),
+                            w0, s0, 3)
+    ref = _jax_trajectory(jcfg, w0, s0, 3)
+    for g, r in zip(got[:2], ref[:2]):
+        assert np.abs(g - r).max() <= 1e-12 * np.abs(r).max()
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-10)
+
+
+@pytest.mark.parametrize("poisson", ["fst", "fst_half"])
+def test_fst_trajectory_matches_matmul(poisson):
+    """The three Poisson variants are one solve: 20 steps from rest agree
+    within 1e-11 of the scale."""
+    base = cavity.CavityConfig(nx=24, ny=16, dt=1e-3, poisson="matmul")
+
+    def run(cfg):
+        step = cavity.make_step_fn(cfg, torch.float64, "cpu")
+        state, _ = loop.run_steps(
+            step, cavity.initial_state(cfg, torch.float64, "cpu"), 20)
+        return state[1].numpy()
+
+    ref = run(base)
+    got = run(dataclasses.replace(base, poisson=poisson))
+    assert np.abs(got - ref).max() <= 1e-11 * np.abs(ref).max()
+
+
 def _read_columns(path, skip_header):
     return np.loadtxt(path, skiprows=1 if skip_header else 0)
 
@@ -167,7 +203,8 @@ def test_import_leaves_out_jax():
         " if m.split('.')[0] in ('jax', 'jaxlib', 'cfd_julia_tpu'))\n"
         "for m in ('models.cavity', 'models.poisson2d', 'poisson.multigrid',"
         " 'poisson.iterative', 'ops.norms', 'ops.cuda_kernels',"
-        " 'models.euler1d', 'ops.weno', 'ops.riemann', 'stepping.ssprk3'):\n"
+        " 'models.euler1d', 'ops.weno', 'ops.riemann', 'stepping.ssprk3',"
+        " 'ops.spectral', 'models.vortex', 'utils.diagnostics'):\n"
         "    assert 'cfd_julia_torch.' + m in sys.modules, m\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -207,7 +244,7 @@ def test_cuda_device_raises_without_gpu():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("poisson", "fst"), ("poisson", "matmull"), ("rhs_impl", "xla"),
+    ("poisson", "fst_mxu"), ("poisson", "matmull"), ("rhs_impl", "xla"),
     ("rhs_impl", "pallas"), ("bc_order", 3),
 ])
 def test_unknown_variant_raises(field, value):
@@ -219,7 +256,7 @@ def test_unknown_variant_raises(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("poisson", "fst"), ("poisson", "fused_bf16x3"),
+    ("poisson", "fst_half_mxu"), ("poisson", "fused_bf16x3"),
     ("poisson", "matmul_bf16x3"), ("rhs_impl", "bogus"),
 ])
 def test_config_from_jax_rejects_unported(field, value):

@@ -15,6 +15,7 @@ whichever is larger: WENO-5 of random cells reconstructs states with
 rho < 0 and p < 0, where the flux amplifies roundoff.
 """
 import dataclasses
+import json
 import re
 
 import numpy as np
@@ -22,7 +23,7 @@ import pytest
 import torch
 
 from cfd_julia_torch import interop
-from cfd_julia_torch.models import cavity, euler1d, poisson2d
+from cfd_julia_torch.models import cavity, euler1d, poisson2d, vortex
 from cfd_julia_torch.ops import _cuda_build, cuda_kernels
 from cfd_julia_torch.poisson import multigrid
 from cfd_julia_torch.stepping import loop
@@ -62,11 +63,13 @@ def _assert_rel(got, ref, rel):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(1025, 1025), (37, 53), (8, 8), (3, 1),
-                                   (3, 2), (65, 33), (1023, 31)])
+                                   (3, 2), (65, 33), (1023, 31),
+                                   (2048, 2048), (130, 256)])
 def test_arakawa_kernel_matches_plain(cuda_device, shape, dtype):
     """The periodic RHS against its twin, and a second call bitwise; the
     ragged shapes end in part-filled blocks on both axes, and with 1 or 2
-    columns the periodic neighbours alias."""
+    columns the periodic neighbours alias; 2048^2 and 130x256 are periodic
+    vortex fields, with 16-byte-aligned rows."""
     w, s = _fields(shape, seed=4)
     dx, dy = _spacing(shape)
     wt, st, _ = interop.state_from_numpy(w, s, dtype, cuda_device)
@@ -102,6 +105,97 @@ def test_cavity_kernel_step_matches_plain_step(cuda_device):
     assert cuda_kernels.LAUNCHES["arakawa_rhs"] == before + 15
     for g, r in zip(got, ref):
         _assert_rel(g, r, 1e-11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(64, 64), (130, 256)])
+def test_fdm_kernel_step_matches_twin_step(cuda_device, nx, ny):
+    """3 SSP-RK3 steps of the fdm vortex solver with the CUDA RHS kernel on
+    the periodic field vs the plain RHS on the GPU, fp64; the kernel runs
+    three times a step."""
+    cfg = vortex.VortexConfig(nx=nx, ny=ny, solver="fdm", dt=1e-3, re=100.0)
+    w0 = interop.field_from_numpy(
+        np.random.default_rng(6).standard_normal((nx, ny)), torch.float64,
+        cuda_device)
+
+    def run(rhs_impl):
+        step = vortex.make_step(dataclasses.replace(cfg, rhs_impl=rhs_impl),
+                                torch.float64, cuda_device)
+        w = w0
+        for _ in range(3):
+            w = step(w)
+        return w
+
+    ref = run("torch")
+    before = cuda_kernels.LAUNCHES["arakawa_rhs"]
+    got = run("auto")
+    assert cuda_kernels.LAUNCHES["arakawa_rhs"] == before + 9
+    _assert_rel(got, ref, 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["ps23", "ps32", "hybrid"])
+def test_spectral_step_on_gpu_matches_cpu(cuda_device, solver):
+    """One half-spectrum step through cuFFT against the same step on the
+    CPU, fp64, from a generic field: 1e-11 absolute, the library's
+    operation order only."""
+    cfg = vortex.VortexConfig(nx=48, ny=40, solver=solver, dt=0.01)
+    w0 = np.random.default_rng(7).standard_normal((48, 40))
+    out = {}
+    for device in ("cpu", cuda_device):
+        H = vortex.half_init(interop.field_from_numpy(w0, torch.float64,
+                                                      device))
+        out[str(device)] = vortex.make_spectral_step_half(
+            cfg, torch.float64, device)(H).cpu()
+    got, ref = out[str(cuda_device)], out["cpu"]
+    assert got.dtype == torch.complex128 and got.shape == (48, 21)
+    assert float((got - ref).abs().max()) <= 1e-11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rhs_impl", ["auto", "torch"])
+@pytest.mark.parametrize("poisson", ["fst", "fst_half"])
+def test_cavity_fst_step_matches_matmul_step(cuda_device, poisson, rhs_impl):
+    """5 fp64 cavity steps on the GPU with the rfft DST-I Poisson solves
+    against the sine-matmul solve: one solve by three transforms, with the
+    kernel RHS and with the plain one."""
+    base = cavity.CavityConfig(nx=33, ny=47, dt=5e-4, poisson="matmul",
+                               rhs_impl=rhs_impl)
+    rng = np.random.default_rng(8)
+    shape = (base.nx + 1, base.ny + 1)
+    w0 = 0.5 * rng.standard_normal(shape)
+    s0 = 0.01 * rng.standard_normal(shape)
+
+    def run(cfg):
+        step = cavity.make_step_fn(cfg, torch.float64, cuda_device)
+        state = interop.state_from_numpy(w0, s0, torch.float64, cuda_device)
+        (w, s, _), _ = loop.run_steps(step, state, 5)
+        return s
+
+    _assert_rel(run(dataclasses.replace(base, poisson=poisson)), run(base),
+                1e-11)
+
+
+@pytest.mark.cuda
+def test_cavity_fst_half_with_plain_rhs_holds_the_anchor(cuda_device):
+    """The half-length DST-I solve with the plain PyTorch RHS at 1024^2 in
+    fp32, 100 steps from rest, against the fp64 anchor: the combination
+    the JAX package refuses on a TPU for a compiler fault there is sound
+    here, so the fault is not the algorithm's."""
+    anchor = json.loads((_cuda_build.CSRC.parents[1] / "benchmarks"
+                         / "physics_anchors.json").read_text())[
+                             "cavity:1024:100"]
+    cfg = cavity.CavityConfig(nx=1024, ny=1024, dt=2e-5, re=100.0,
+                              poisson="fst_half", rhs_impl="torch")
+    step = cavity.make_step_fn(cfg, torch.float32, cuda_device)
+    state, _ = loop.run_steps(
+        step, cavity.initial_state(cfg, torch.float32, cuda_device), 100)
+    psi = state[1].double()
+    got = {"psi_min": float(psi.min()),
+           "psi_l2": float(torch.sqrt(torch.mean(psi ** 2)))}
+    for key, value in got.items():
+        assert abs(value - anchor[key]) \
+            <= anchor["rel_tol"] * abs(anchor[key]), key
 
 
 # the level edges at 0, 1, 2 sweeps and at K+2 and 2K+1 (two and three

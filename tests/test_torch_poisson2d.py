@@ -244,11 +244,64 @@ def test_mg_config_from_jax_maps(field, value):
     assert got == dataclasses.replace(multigrid.MGConfig(), **want)
 
 
+@pytest.mark.parametrize("nx,ny", [(32, 32), (24, 40)])
+@pytest.mark.parametrize("solver", ["fft", "fft_spectral", "fst"])
+def test_direct_solvers_match_jax(solver, nx, ny):
+    """The FFT and DST-I direct solves on the sine32 problem against the
+    JAX package's: solution within 1e-12 of the scale, the same error
+    norms, and no iterative fields."""
+    jcfg = jax_poisson2d.PoissonConfig(nx=nx, ny=ny, solver=solver,
+                                       problem="sine32")
+    ref = jax_poisson2d.solve(jcfg, jnp.float64)
+    cfg = interop.poisson_config_from_jax(jcfg)
+    assert cfg.solver == solver
+    res = poisson2d.solve(cfg, torch.float64, "cpu")
+    u_ref = np.asarray(ref.u)
+    assert np.abs(res.u.numpy() - u_ref).max() <= 1e-12 * np.abs(u_ref).max()
+    # fft_spectral is exact on sine32: its error is roundoff, hence atol
+    np.testing.assert_allclose(float(res.l2_error), float(ref.l2_error),
+                               rtol=1e-9, atol=1e-13)
+    np.testing.assert_allclose(float(res.linf_error), float(ref.linf_error),
+                               rtol=1e-9, atol=1e-13)
+    assert res.iterations is None and res.history is None
+    assert res.rms is None and res.rms0 is None and ref.iterations is None
+
+
+@pytest.mark.parametrize("name", ["poisson_fft", "poisson_fft_spectral",
+                                  "poisson_fst"])
+def test_direct_presets_and_runner_match_jax(tmp_path, name):
+    """The three direct presets mirror the JAX package's, and the runner
+    writes a direct solve's files (an error report, no residual history)
+    as the JAX runner does."""
+    from cfd_julia_torch import presets
+    from cfd_julia_tpu import presets as jax_presets
+
+    ref = jax_presets.get(name)
+    assert presets.get(name).cfg == interop.poisson_config_from_jax(ref.cfg)
+    over = dict(nx=16, ny=16)
+    jm = jax_run_preset(name, outdir=str(tmp_path / "jax"), **over)
+    m = run_preset(name, outdir=str(tmp_path / "torch"),
+                   dtype=torch.float64, device="cpu", **over)
+    names = sorted(p.name for p in (tmp_path / "torch").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert names == ["field_final.txt", "metrics.json", "output_16.txt"]
+    assert "iterations" not in m and "rms_final" not in m
+    np.testing.assert_allclose(m["linf_error"], jm["linf_error"], rtol=1e-9,
+                               atol=1e-13)
+    np.testing.assert_allclose(
+        _columns(tmp_path / "torch" / "field_final.txt"),
+        _columns(tmp_path / "jax" / "field_final.txt"), rtol=0, atol=1e-12)
+    lines = (tmp_path / "torch" / "output_16.txt").read_text().splitlines()
+    ref_lines = (tmp_path / "jax" / "output_16.txt").read_text().splitlines()
+    assert [ln.split("=")[0] for ln in lines] == \
+        [ln.split("=")[0] for ln in ref_lines]
+
+
 @pytest.mark.parametrize("jcfg", [
     jax_multigrid.MGConfig(cycle_dtype="bf16"),
     jax_multigrid.MGConfig(smoother="bogus"),
-    jax_poisson2d.PoissonConfig(solver="fst"),
-    jax_poisson2d.PoissonConfig(solver="fft"),
+    jax_poisson2d.PoissonConfig(solver="sor"),
+    jax_poisson2d.PoissonConfig(solver="fft_mxu"),
 ])
 def test_config_from_jax_rejects_unported(jcfg):
     convert = (interop.mg_config_from_jax
@@ -285,10 +338,10 @@ def test_mg_mesh_and_fft_solvers_raise():
     with pytest.raises(NotImplementedError, match="A.8"):
         multigrid.solve(f, u0, dx, dy, mesh=object())
     for solver in ("fft", "fft_spectral", "fst"):
-        with pytest.raises(NotImplementedError, match="A.2"):
-            poisson2d.solve(poisson2d.PoissonConfig(nx=8, ny=8,
-                                                    solver=solver),
-                            torch.float64, "cpu")
+        res = poisson2d.solve(poisson2d.PoissonConfig(nx=8, ny=8,
+                                                      solver=solver),
+                              torch.float64, "cpu")
+        assert res.u.shape == (9, 9) and res.iterations is None
     with pytest.raises(ValueError, match="unknown solver"):
         poisson2d.solve(poisson2d.PoissonConfig(nx=8, ny=8, solver="sor"),
                         torch.float64, "cpu")
