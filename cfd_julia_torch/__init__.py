@@ -14,7 +14,10 @@ solve; the direct (FFT / DST-I, ch. 12-14), iterative and multigrid
 fused level edges as CUDA kernels; the 1D Euler Sod shock tube (ch. 09-11),
 with its whole WENO-5 + Riemann RHS as one CUDA kernel; the periodic vortex
 merger and Taylor-Green solvers (ch. 19-22): fdm on the Arakawa kernel,
-hybrid, ps32 and ps23 on torch.fft (cuFFT).
+hybrid, ps32 and ps23 on torch.fft (cuFFT).  Every time loop runs chunks
+of steps that are CUDA graphs on the GPU (stepping/loop.py), the multigrid
+solve a captured V-cycle; cavity and vortex runs checkpoint and resume
+(utils/checkpoint.py).
 
 This package imports neither JAX nor cfd_julia_tpu; importing it loads no
 GPU library and builds nothing.

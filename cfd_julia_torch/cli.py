@@ -2,6 +2,7 @@
 subcommand so far).
 
     python -m cfd_julia_torch run <preset> [--outdir DIR] [--device cuda|cpu]
+                                  [--checkpoint-every N] [--resume]
                                   [--nx N] [--t_final X] ...
 
 `run` accepts any config dataclass field of the preset as a --key value
@@ -73,7 +74,9 @@ def cmd_run(args, extra):
         i += 2
 
     metrics = run.run_preset(args.preset, outdir=args.outdir,
-                             device=args.device, **overrides)
+                             device=args.device,
+                             checkpoint_every=args.checkpoint_every,
+                             resume=args.resume, **overrides)
     print(json.dumps(metrics, indent=2))
     return 0
 
@@ -90,6 +93,13 @@ def main(argv=None):
     pr.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; raises "
                          "without a GPU — a CPU run says --device cpu)")
+    pr.add_argument("--checkpoint-every", type=int, default=0,
+                    metavar="N", dest="checkpoint_every",
+                    help="save a resumable checkpoint to "
+                         "OUTDIR/checkpoint.npz every N steps (cavity and "
+                         "vortex families)")
+    pr.add_argument("--resume", action="store_true",
+                    help="continue from OUTDIR/checkpoint.npz if present")
 
     args, extra = parser.parse_known_args(argv)
     return cmd_run(args, extra)

@@ -26,6 +26,7 @@ from cfd_julia_torch.core import precision
 from cfd_julia_torch.ops import arakawa, cuda_kernels
 from cfd_julia_torch.poisson import direct
 from cfd_julia_torch.stepping import loop
+from cfd_julia_torch.utils import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,17 +155,53 @@ def initial_state(cfg: CavityConfig, dtype=None, device="cuda"):
                                                 device=device))
 
 
-def solve(cfg: CavityConfig, dtype=None, device="cuda") -> CavityResult:
+def solve(cfg: CavityConfig, dtype=None, device="cuda",
+          checkpoint_every: int = 0, checkpoint_path: str | None = None,
+          resume: bool = False) -> CavityResult:
     """Integrate nt steps from rest (lid_driven_cavity.jl:58-118).  The
-    result's tensors, rms history included, stay on `device`."""
+    result's tensors, rms history included, stay on `device`.
+
+    checkpoint_every/checkpoint_path: save a resumable checkpoint (w, s,
+    the rms history so far, the absolute step count) every N steps, the
+    one host sync of each N steps.  resume: continue from checkpoint_path
+    if it exists, bit for bit the uninterrupted run (each step is the same
+    function of (w, s); its rms is that step's psi change, so the rms
+    entry of the state is never read)."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
+    if (checkpoint_every or resume) and not checkpoint_path:
+        raise ValueError("checkpointing requires checkpoint_path")
     step = make_step_fn(cfg, dtype, device)
-    (w, s, _), rms = loop.run_steps(step, initial_state(cfg, dtype, device),
-                                    cfg.nt)
+    state = initial_state(cfg, dtype, device)
+    done, parts = 0, []
+    if resume and checkpoint.exists(checkpoint_path):
+        (w, s, h), done = checkpoint.load_state(
+            checkpoint_path, (state[0], state[1], state[2].new_empty(0)))
+        if done is None or len(h) != done:
+            raise ValueError(
+                f"checkpoint {checkpoint_path} has no/inconsistent step "
+                f"record (step={done}, rms entries={len(h)})")
+        if done > cfg.nt:
+            raise ValueError(
+                f"checkpoint at step {done} is beyond this run's "
+                f"nt={cfg.nt}; restart without --resume")
+        state, parts = (w, s, state[2]), [h]
+    while done < cfg.nt:
+        n = cfg.nt - done
+        if checkpoint_every:
+            n = min(checkpoint_every, n)
+        state, rms = loop.run_steps(step, state, n)
+        parts.append(rms)
+        done += n
+        if checkpoint_every:
+            checkpoint.save_state(checkpoint_path,
+                                  (state[0], state[1], torch.cat(parts)),
+                                  step=done)
+    w, s, _ = state
     x = torch.linspace(0.0, 1.0, cfg.nx + 1, dtype=dtype, device=device)
     y = torch.linspace(0.0, 1.0, cfg.ny + 1, dtype=dtype, device=device)
-    return CavityResult(x=x, y=y, w=w, s=s, rms_history=rms)
+    hist = torch.cat(parts) if parts else state[2].new_empty(0)
+    return CavityResult(x=x, y=y, w=w, s=s, rms_history=hist)
 
 
 def centerline_velocities(res: CavityResult, cfg: CavityConfig):

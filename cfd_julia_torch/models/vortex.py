@@ -38,6 +38,7 @@ import torch
 from cfd_julia_torch.core import precision
 from cfd_julia_torch.ops import arakawa, cuda_kernels, spectral
 from cfd_julia_torch.stepping import loop, ssprk3
+from cfd_julia_torch.utils import checkpoint
 
 TWO_PI = 2.0 * math.pi
 
@@ -452,9 +453,16 @@ def make_step(cfg: VortexConfig, dtype=None, device="cuda"):
     return make_spectral_step_half(cfg, dtype, device)
 
 
-def solve(cfg: VortexConfig, dtype=None, device="cuda") -> VortexResult:
+def solve(cfg: VortexConfig, dtype=None, device="cuda",
+          checkpoint_every: int = 0, checkpoint_path: str | None = None,
+          resume: bool = False) -> VortexResult:
     """Integrate nt steps collecting cfg.ns snapshots (vm.jl:60-88); every
-    tensor of the result stays on `device`."""
+    tensor of the result stays on `device`.
+
+    checkpoint_every/checkpoint_path/resume: resumable checkpoints (the
+    state, the snapshots so far, the absolute step count), the cadence
+    rounded up to the snapshot interval; a resumed run reproduces the
+    uninterrupted one bit for bit, snapshots included."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
     w0 = initial_vorticity(cfg, dtype, device)
@@ -469,10 +477,57 @@ def solve(cfg: VortexConfig, dtype=None, device="cuda") -> VortexResult:
         state0 = half_init(w0)
         observe = decode = lambda H: half_decode(H, cfg.nx, cfg.ny)
 
-    state, snaps = loop.run_steps_with_snapshots(
-        step, state0, cfg.nt, every, observe=observe)
+    if not (checkpoint_every or resume):
+        state, snaps = loop.run_steps_with_snapshots(
+            step, state0, cfg.nt, every, observe=observe)
+        return VortexResult(x=x, y=y, w=decode(state),
+                            snapshots=torch.cat([w0[None], snaps]))
+
+    if not checkpoint_path:
+        raise ValueError("checkpointing requires checkpoint_path")
+    n_chunks = cfg.nt // every
+    state, done, parts = state0, 0, []
+    if resume and checkpoint.exists(checkpoint_path):
+        # the checkpoint records the ABSOLUTE step count, so a resume under
+        # another snapshot cadence or a shorter run is refused, not
+        # misread as a chunk count
+        (state, prev), step_ct = checkpoint.load_state(
+            checkpoint_path, (state0, w0.new_empty((0, *w0.shape))))
+        if step_ct is None:
+            raise ValueError(f"checkpoint {checkpoint_path} has no step "
+                             "record")
+        if step_ct % every:
+            raise ValueError(
+                f"checkpoint at step {step_ct} is incompatible with the "
+                f"current snapshot interval {every} (= nt//ns — snapshot "
+                f"times would not line up); rerun with the original "
+                f"nt/ns or restart without --resume")
+        if step_ct > cfg.nt:
+            raise ValueError(
+                f"checkpoint at step {step_ct} is beyond this run's "
+                f"nt={cfg.nt}; restart without --resume")
+        done = step_ct // every
+        if prev.shape[0] != done:
+            raise ValueError(
+                f"checkpoint snapshot count {prev.shape[0]} does not "
+                f"match its step count {step_ct} at interval {every}")
+        parts = [prev]
+    per_ckpt = max(1, -(-checkpoint_every // every)) if checkpoint_every \
+        else n_chunks
+    while done < n_chunks:
+        # the snapshot intervals up to the next checkpoint
+        k = min(per_ckpt - done % per_ckpt, n_chunks - done)
+        state, snaps = loop.run_steps_with_snapshots(
+            step, state, k * every, every, observe=observe)
+        parts.append(snaps)
+        done += k
+        checkpoint.save_state(checkpoint_path, (state, torch.cat(parts)),
+                              step=done * every)
+    rem = cfg.nt - n_chunks * every
+    if rem:
+        state = loop.advance(step, state, rem)
     return VortexResult(x=x, y=y, w=decode(state),
-                        snapshots=torch.cat([w0[None], snaps]))
+                        snapshots=torch.cat([w0[None], *parts]))
 
 
 def tgv_error(cfg: VortexConfig, res: VortexResult):

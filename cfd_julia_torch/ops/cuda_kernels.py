@@ -5,11 +5,13 @@ Each wrapper takes the plain twin for tensors on the CPU; for CUDA tensors
 it launches its kernel (csrc/, built by ops/_cuda_build.py) on the current
 stream or raises — it never falls back.  `LAUNCHES[name]` counts the
 wrapper's CUDA calls, one per call of the TPU function it replaces, so a
-run can show that its main path went through the kernels.  A level-edge
-call is one `__global__` launch for up to K = 3 sweeps (plus the residual
-sum's one-block reduction), one more a further K sweeps; a smoother call
-is one launch for any sweeps on a level that fits one block's shared
-memory, else as a level edge's.  CPU calls count nothing.
+run can show that its main path went through the kernels; under a CUDA
+graph the loop layer (stepping/loop.Graph) keeps it counting the kernels
+that ran: a capture's calls are taken back and added once per replay.  A
+level-edge call is one `__global__` launch for up to K = 3 sweeps (plus
+the residual sum's one-block reduction), one more a further K sweeps; a
+smoother call is one launch for any sweeps on a level that fits one
+block's shared memory, else as a level edge's.  CPU calls count nothing.
 
 Kernels (csrc/ file; TPU function replaced):
   arakawa_rhs_fused               arakawa_rhs.cu; arakawa_rhs_fused

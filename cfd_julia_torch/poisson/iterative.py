@@ -97,7 +97,8 @@ def chebyshev_smooth(u, f, dx: float, dy: float, iters: int, imask,
     r = residual_full(f, u, dx, dy, imask)
     d = (r / diag) / theta
     u = u + d
-    rho = torch.tensor(1.0 / sigma1, dtype=u.dtype, device=u.device)
+    # a fill, not torch.tensor: a CUDA graph capture forbids host copies
+    rho = u.new_full((), 1.0 / sigma1)
     for _ in range(iters - 1):
         z = residual_full(f, u, dx, dy, imask) / diag
         rho_n = 1.0 / (2.0 * sigma1 - rho)

@@ -29,15 +29,21 @@ convergence check).  The coarsest-level smoother, and every smoother under
 `fused="off"`, is `redblack_sweeps_fused` (one launch for up to 3 sweeps,
 and for any sweeps on a level of at most 65^2 nodes).
 
-The V-cycle runs eagerly level by level; `solve` reads rms/rms0 on the
-host once per cycle to test convergence (one device sync per cycle; a
-CUDA graph of the cycle is later work).  Left out of the port:
-`cycle_dtype="bf16"` (its numerics stall at 4096², ROADMAP A.0), the
-multi-device mesh solve (ROADMAP A.8), and the TPU-only halo, tile and
-interpret options.
+On a CUDA device `solve` captures one V-cycle, with its rms and
+rms/rms0, as a CUDA graph (the JAX package's `lax.while_loop` body) and
+replays it once a cycle; the host reads rms/rms0 once a cycle to test
+convergence, as the eager loop does.  The graph is kept per solve
+configuration (grid, dtype, device, spacing, the cycle's options), the
+four most recent ones, so repeated solves replay it; a solve copies its
+f, u0 and rms0 into the graph's static tensors.  fmg_start and the rms0
+residual run eagerly, once a solve.  graph=False keeps the eager loop.
+Left out of the port: `cycle_dtype="bf16"` (its numerics stall at 4096²,
+ROADMAP A.0), the multi-device mesh solve (ROADMAP A.10), and the
+TPU-only halo, tile and interpret options.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import NamedTuple
 
@@ -53,14 +59,16 @@ from cfd_julia_torch.poisson.iterative import (
     interior_mask,
     residual_full,
 )
-
-_RESTRICT_KERNEL = ((1.0, 2.0, 1.0), (2.0, 4.0, 2.0), (1.0, 2.0, 1.0))
-_PROLONG_KERNEL = ((0.25, 0.5, 0.25), (0.5, 1.0, 0.5), (0.25, 0.5, 0.25))
+from cfd_julia_torch.stepping import loop
 
 
-def _stencil(rows, scale, like):
-    return (torch.tensor(rows, dtype=like.dtype, device=like.device)
-            * scale)[None, None]
+def _stencil(scale, like):
+    """(1, 1, 3, 3) stencil scale * outer(v, v), v = (1, 2, 1), built by
+    device arithmetic (exact: small integers times a power of two), since
+    a CUDA graph capture forbids torch.tensor's copy from the host."""
+    v = 2.0 - (torch.arange(3, dtype=like.dtype, device=like.device)
+               - 1.0).abs()
+    return (torch.outer(v, v) * scale)[None, None]
 
 
 def restriction(r):
@@ -71,7 +79,7 @@ def restriction(r):
     convolution; boundary rows/cols are direct injection of the
     coincident fine nodes.  In fp32 on CUDA the convolution runs in TF32
     unless torch.backends.cudnn.allow_tf32 is False."""
-    k = _stencil(_RESTRICT_KERNEL, 1.0 / 16.0, r)
+    k = _stencil(1.0 / 16.0, r)
     interior = F.conv2d(r[None, None], k, stride=2, padding=1)[0, 0, 1:-1, 1:-1]
     mid = torch.cat([r[2:-2:2, :1], interior, r[2:-2:2, -1:]], dim=1)
     return torch.cat([r[:1, ::2], mid, r[-1:, ::2]], dim=0)
@@ -81,7 +89,7 @@ def prolongation(uc):
     """Bilinear coarse -> fine transfer (Common.jl:50-76) as a transposed
     stride-2 convolution with the bilinear kernel; in fp32 on CUDA it runs
     in TF32 unless torch.backends.cudnn.allow_tf32 is False."""
-    k = _stencil(_PROLONG_KERNEL, 1.0, uc)
+    k = _stencil(0.25, uc)
     return F.conv_transpose2d(uc[None, None], k, stride=2, padding=1)[0, 0]
 
 
@@ -374,20 +382,64 @@ def fmg_start(f, u0, levels, imasks, cfg: MGConfig, impl: str):
     return u0 + v
 
 
+class _CycleGraph:
+    """One V-cycle of a solve configuration captured as a CUDA graph:
+    graph.replay() advances the static u in place and leaves its rms and
+    rms/rms0 in `rms` and `rel`; load() copies a solve's f, u0 and rms0
+    into the static inputs."""
+
+    def __init__(self, cycle, f, u, rms0):
+        self.cycle = cycle        # holds the tensors the graph reads
+        self.f, self.u, self.rms0 = f.clone(), u.clone(), rms0.clone()
+        stream = torch.cuda.Stream(f.device)
+        loop.warm_up(lambda: cycle(self.u, self.f, self.rms0), stream)
+        self.graph = loop.Graph(self._captured, stream)
+        self.rms, self.rel = self.graph.out
+
+    def _captured(self):
+        u, rms, rel = self.cycle(self.u, self.f, self.rms0)
+        self.u.copy_(u)
+        return rms, rel
+
+    def load(self, f, u, rms0):
+        for dst, src in ((self.f, f), (self.u, u), (self.rms0, rms0)):
+            dst.copy_(src)
+
+
+# solve configuration -> _CycleGraph, most recently used last
+_CYCLE_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+_CYCLE_GRAPHS_KEPT = 4
+
+
+def _cycle_graph(key, cycle, f, u, rms0) -> _CycleGraph:
+    """The configuration's cached graph, loaded with this solve's inputs,
+    or a new one captured from them."""
+    graph = _CYCLE_GRAPHS.pop(key, None)
+    if graph is None:
+        graph = _CycleGraph(cycle, f, u, rms0)
+    else:
+        graph.load(f, u, rms0)
+    _CYCLE_GRAPHS[key] = graph
+    while len(_CYCLE_GRAPHS) > _CYCLE_GRAPHS_KEPT:
+        _CYCLE_GRAPHS.popitem(last=False)
+    return graph
+
+
 def solve(f, u0, dx: float, dy: float, cfg: MGConfig = MGConfig(),
-          mesh=None) -> IterativeResult:
+          mesh=None, graph: bool = True) -> IterativeResult:
     """V-cycles until rms/rms0 <= tol (mg_N.jl:53-106), the residual
     history recorded once per cycle on the device; cfg.fmg starts from a
     full-multigrid initial guess instead of u0.  f, u0: (nx+1, ny+1)
     tensors of one dtype (fp32 or fp64) on one device.
 
     The loop runs on the host and reads rms/rms0 once per cycle (one
-    device sync per cycle).  With fused edges the finest ascend kernel
-    returns the residual sum of the cycle's output, so no separate
-    residual pass runs per cycle."""
+    device sync per cycle); on a CUDA device each cycle is a replay of the
+    configuration's captured V-cycle unless graph=False.  With fused edges
+    the finest ascend kernel returns the residual sum of the cycle's
+    output, so no separate residual pass runs per cycle."""
     if mesh is not None:
         raise NotImplementedError(
-            "the multi-device mesh solve is not ported yet (ROADMAP A.8)")
+            "the multi-device mesh solve is not ported yet (ROADMAP A.10)")
     check_config(cfg)
     impl = impl_choice(cfg.impl, f.device)
     nx, ny = f.shape[0] - 1, f.shape[1] - 1
@@ -398,16 +450,10 @@ def solve(f, u0, dx: float, dy: float, cfg: MGConfig = MGConfig(),
                        else f.dtype] * (len(levels) - 1)
     imasks = [interior_mask(l[0], l[1], d, f.device)
               for l, d in zip(levels, ldt)]
-
-    rms0 = _rms_from_full(residual_full(f, u0, dx, dy, imasks[0]), nx, ny)
-    if cfg.fmg:
-        u0 = fmg_start(f, u0, levels, imasks, cfg, impl)
-    hist = torch.full((cfg.max_cycles + 1, 3), float("nan"), dtype=f.dtype,
-                      device=f.device)
     fused_rms = len(levels) > 1 and _fused(cfg)
 
-    u, it, rms, rel, nrec = u0, 0, rms0, rms0 / rms0, 0
-    while it < cfg.max_cycles and float(rel) > cfg.tol:
+    def cycle(u, f, rms0):
+        """One V-cycle: (u, rms, rms/rms0)."""
         if fused_rms:
             u, ssq = v_cycle(u, f, levels, imasks, cfg, impl, want_rms=True)
             rms = torch.sqrt(ssq / ((nx - 1) * (ny - 1))).to(f.dtype)
@@ -415,9 +461,31 @@ def solve(f, u0, dx: float, dy: float, cfg: MGConfig = MGConfig(),
             u = v_cycle(u, f, levels, imasks, cfg, impl)
             rms = _rms_from_full(residual_full(f, u, dx, dy, imasks[0]),
                                  nx, ny)
+        return u, rms, rms / rms0
+
+    rms0 = _rms_from_full(residual_full(f, u0, dx, dy, imasks[0]), nx, ny)
+    if cfg.fmg:
+        u0 = fmg_start(f, u0, levels, imasks, cfg, impl)
+    hist = torch.full((cfg.max_cycles + 1, 3), float("nan"), dtype=f.dtype,
+                      device=f.device)
+
+    graphed = None
+    u, it, rms, rel, nrec = u0, 0, rms0, rms0 / rms0, 0
+    while it < cfg.max_cycles and float(rel) > cfg.tol:
+        if graph and f.device.type == "cuda":
+            if graphed is None:
+                key = (tuple(f.shape), f.dtype, f.device, dx, dy, impl,
+                       dataclasses.replace(cfg, tol=0.0, max_cycles=0,
+                                           fmg=False))
+                graphed = _cycle_graph(key, cycle, f, u, rms0)
+            graphed.graph.replay()
+            u, rms, rel = graphed.u, graphed.rms, graphed.rel
+        else:
+            u, rms, rel = cycle(u, f, rms0)
         it += 1
-        rel = rms / rms0
         _record(hist, nrec, it, rms, rel)
         nrec += 1
+    if graphed is not None:       # the graph's static tensors stay its own
+        u, rms = u.clone(), rms.clone()
     return IterativeResult(u=u, iterations=it, rms=rms, rms0=rms0,
                            history=hist, n_records=nrec)

@@ -20,14 +20,30 @@ from cfd_julia_torch.utils import io
 
 
 def run_preset(name: str, outdir: str = ".", dtype=None, device="cuda",
+               checkpoint_every: int = 0, resume: bool = False,
                **overrides):
     """Run a named preset on `device`; writes its output files and
-    metrics.json into outdir and returns the metrics dict."""
+    metrics.json into outdir and returns the metrics dict.
+
+    checkpoint_every/resume: periodic resumable checkpoints in
+    outdir/checkpoint.npz, and a restart from it, for the long 2D
+    families (cavity, vortex)."""
     preset = presets_lib.with_overrides(presets_lib.get(name), **overrides)
     device = precision.resolve_device(device)
+    runner = _RUNNERS[preset.family]
+    kwargs = {}
+    if checkpoint_every or resume:
+        if preset.family not in ("cavity", "vortex"):
+            raise ValueError(
+                f"--checkpoint-every/--resume support the long 2D "
+                f"families (cavity, vortex); {name} is {preset.family} "
+                f"(use loop.run_steps_with_checkpoints for library-level "
+                f"runs)")
+        kwargs = {"checkpoint_every": checkpoint_every, "resume": resume,
+                  "checkpoint_path": os.path.join(outdir, "checkpoint.npz")}
     os.makedirs(outdir, exist_ok=True)
     t0 = time.perf_counter()
-    metrics = _RUNNERS[preset.family](preset, outdir, dtype, device)
+    metrics = runner(preset, outdir, dtype, device, **kwargs)
     metrics["wall_time_s"] = time.perf_counter() - t0
     metrics["preset"] = name
     metrics["reference"] = preset.reference
@@ -80,9 +96,9 @@ def _run_poisson(preset, outdir, dtype, device):
     return m
 
 
-def _run_cavity(preset, outdir, dtype, device):
+def _run_cavity(preset, outdir, dtype, device, **checkpointing):
     cfg = preset.cfg
-    res = cavity_model.solve(cfg, dtype, device)
+    res = cavity_model.solve(cfg, dtype, device, **checkpointing)
     rms = res.rms_history.cpu().numpy()   # the run's one host transfer
     with open(os.path.join(outdir, "res_plot.txt"), "w") as f:
         for n, v in enumerate(rms, start=1):
@@ -103,9 +119,9 @@ def _run_cavity(preset, outdir, dtype, device):
             "psi_min": float(res.s.min())}
 
 
-def _run_vortex(preset, outdir, dtype, device):
+def _run_vortex(preset, outdir, dtype, device, **checkpointing):
     cfg = preset.cfg
-    res = vortex.solve(cfg, dtype, device)
+    res = vortex.solve(cfg, dtype, device, **checkpointing)
     io.write_vortex_snapshots(outdir, res.x, res.y, res.snapshots)
     m = {"wmax_final": float(res.w.abs().max())}
     if cfg.ic == "tgv":

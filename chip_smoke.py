@@ -25,16 +25,23 @@ Phases, one line each:
      4, 5 and a block's cells - 1, + 0, + 1 in fp32 and fp64 for roe,
      hllc, rusanov/roe and rusanov/spectral, on random physical states and
      on the Sod state after 100 steps, two calls bitwise equal, timed
-     beside an empty launch;
+     beside an empty launch; and an empty kernel beside a CUDA graph of
+     100 of them;
   3. the cavity path: the lid-driven cavity at 1024^2 (dt=2e-5, Re=100,
      Jensen wall BCs, fp32) from rest, 100 steps and then on to 2000,
      checked against the fp64 anchors of benchmarks/physics_anchors.json,
-     with the kernels' launch counts over that run;
+     with the kernels' launch counts over that run; through the graphed
+     loop (stepping/loop.py: 50-step chunks, each a CUDA graph replay),
+     and again with graph=False: steps/s of both, max|graph - eager|
+     (bitwise equal, or within the path's twin tolerance with the eager
+     run held to the anchors) and equal launch counts.  Phases 5, 7, 9
+     and 11 run their paths the same two ways;
   4. the user entry point `python -m cfd_julia_torch run cavity` on the
      reference case (64^2, Re=100, t=10) against Ghia et al. (1982);
   5. the multigrid path: the 4096^2 `poly` Poisson solve (fp32, tol 1e-5,
      at most 20 V-cycles, 12 levels, fused edges) through
-     poisson.multigrid.solve, with an independent fp64 residual recheck,
+     poisson.multigrid.solve (each cycle a replay of the captured
+     V-cycle), with an independent fp64 residual recheck,
      the same solve on the plain twins as the reference, the kernels'
      launch counts against the pyramid's, and seconds per solve; then the
      fmg, cycle_dtype="mixed" and fused="off" variants, checked alike,
@@ -63,7 +70,12 @@ Phases, one line each:
      `run poisson_fft_spectral` against their exact solutions;
  11. the cavity of phase 3 with the rfft DST-I Poisson solves (poisson=
      "fst" and "fst_half") in place of the sine matmuls, against the same
-     anchors, with steps/s beside phase 3's (--profile: the fst step).
+     anchors, with steps/s beside phase 3's (--profile: the fst step);
+ 12. checkpoint and resume: the 1024^2 cavity stopped at 100 and 1000
+     steps (checkpoints every 500) and resumed to 2000, and ps23 at 2048^2
+     stopped at 100 and resumed to 200, each bitwise the uninterrupted
+     graphed run of phase 3 or 9 and inside its anchors; then `run cavity
+     --checkpoint-every 200` and the same with `--resume`, equal psi_min.
 Then a JSON line with each kernel's record, and last
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 nonzero without that last line; without a GPU it fails at once.
@@ -599,11 +611,45 @@ def anchor_check(psi, total_steps, label="phase 3 cavity"):
     check(all(r <= tol for r in rels.values()), line)
 
 
+def max_diff(a, b):
+    """max|a - b| over matching tensors (or tuples of tensors); inf on a
+    shape or dtype mismatch."""
+    a = a if isinstance(a, (tuple, list)) else (a,)
+    b = b if isinstance(b, (tuple, list)) else (b,)
+    worst = 0.0
+    for x, y in zip(a, b, strict=True):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return float("inf")
+        worst = max(worst, float((x.double() - y.double()).abs().max())
+                    if x.numel() else 0.0)
+    return worst
+
+
+def graph_text(diff, tol):
+    """The graph-vs-eager verdict: bitwise equal, or a difference within
+    the path's twin tolerance (the operation that differs is then named in
+    PERF.md), or FAIL."""
+    if diff == 0.0:
+        return True, "max|graph-eager|=0 (bitwise equal)"
+    ok = diff <= tol
+    return ok, (f"max|graph-eager|={diff:.3e} NOT bitwise (tol {tol:g}) "
+                f"{'within tolerance' if ok else 'FAIL'}")
+
+
+# max|graph - eager| allowed where a path's two runs are not bitwise equal,
+# of the field's scale: fp32 roundoff of 2000 steps, well inside the 1%
+# anchors
+CAVITY_GRAPH_TOL = 1e-4
+
+
 def phase_main_path(poisson="auto", label="phase 3 cavity"):
     """The headline cavity on the port's default path: rhs_impl="auto"
     resolves to the CUDA kernel on a GPU; `poisson` names the Poisson
-    solve (auto: the sine matmuls).  Returns the launch counts, the step,
-    the final state and the seconds a step."""
+    solve (auto: the sine matmuls).  The graphed loop is the main run
+    (100 steps, in which the 50-step chunk is captured, then 1900 timed
+    replays), then the same with graph=False, each with its launch counts.
+    Returns the main run's launch counts, the step, the final state, its
+    seconds a step and its rms history."""
     from cfd_julia_torch.models import cavity
     from cfd_julia_torch.ops import cuda_kernels
     from cfd_julia_torch.stepping import loop
@@ -611,30 +657,47 @@ def phase_main_path(poisson="auto", label="phase 3 cavity"):
     cfg = cavity.CavityConfig(nx=NX, ny=NX, dt=2e-5, re=RE, bc_order=2,
                               poisson=poisson)
     step = cavity.make_step_fn(cfg, torch.float32, "cuda")
-    state = cavity.initial_state(cfg, torch.float32, "cuda")
-
-    cuda_kernels.reset_launch_counts()
-    state, rms_a = loop.run_steps(step, state, STEPS_FIRST)
-    torch.cuda.synchronize()
-    anchor_check(state[1], STEPS_FIRST, label)
+    state0 = cavity.initial_state(cfg, torch.float32, "cuda")
     n = STEPS_TOTAL - STEPS_FIRST
-    t0 = time.perf_counter()
-    state, rms_b = loop.run_steps(step, state, n)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(cuda_kernels.LAUNCHES)
+    runs = {}
+    for graph in (True, False):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        first, rms_a = loop.run_steps(step, state0, STEPS_FIRST, graph=graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, rms_b = loop.run_steps(step, first, n, graph=graph)
+        torch.cuda.synchronize()
+        runs[graph] = (first, state, torch.cat([rms_a, rms_b]),
+                       time.perf_counter() - t0,
+                       dict(cuda_kernels.LAUNCHES))
+    first, state, rms, seconds, launches = runs[True]
+    e_first, e_state, e_rms, e_seconds, e_launches = runs[False]
 
+    anchor_check(first[1], STEPS_FIRST, label)
     anchor_check(state[1], STEPS_TOTAL, label)
     finite = all(bool(torch.isfinite(t).all())
-                 for t in (state[0], state[1], rms_a, rms_b))
+                 for t in (state[0], state[1], rms))
     check(finite, "cavity fields or rms history not finite")
-    print(f"{label} {NX}^2 fp32: {n} steps (from step {STEPS_FIRST}) "
-          f"in {seconds:.4f} s = {n / seconds:.2f} steps/s; "
-          f"launches {launches}; fields finite")
+    diff = max_diff((*first[:2], *state[:2], rms),
+                    (*e_first[:2], *e_state[:2], e_rms))
+    same, text = graph_text(diff, CAVITY_GRAPH_TOL * float(
+        state[1].abs().max()))
+    if diff:   # the eager run is then held to the anchors as well
+        anchor_check(e_first[1], STEPS_FIRST, label + " eager")
+        anchor_check(e_state[1], STEPS_TOTAL, label + " eager")
+    line = (f"{label} {NX}^2 fp32: {n} steps (from step {STEPS_FIRST}) "
+            f"graphed {n / seconds:.2f} steps/s ({seconds:.4f} s), eager "
+            f"(graph=False) {n / e_seconds:.2f} steps/s ({e_seconds:.4f} s); "
+            f"{text}; launches {launches}, eager run "
+            f"{'the same' if e_launches == launches else e_launches}; "
+            f"fields finite")
+    print(line)
+    check(same and e_launches == launches, line)
     check(launches["arakawa_rhs"] == 3 * STEPS_TOTAL,
           f"arakawa_rhs launched {launches['arakawa_rhs']} times, expected "
           f"3 x {STEPS_TOTAL} = {3 * STEPS_TOTAL}")
-    return launches, step, state, seconds / n
+    return launches, step, state, seconds / n, rms, e_seconds / n
 
 
 def phase_profile(label, run, units, unit_s, unit="step"):
@@ -773,18 +836,21 @@ def profile_rhs(by_name, kernel, steps):
     check(n == 3 * steps, line)
 
 
-def cli_run(preset, timeout=900):
-    """`python -m cfd_julia_torch run <preset> --device cuda` into a
-    temporary directory: its metrics, {file name: text} of what it wrote,
-    and the process's seconds."""
+def cli_run(preset, timeout=900, outdir=None, extra=()):
+    """`python -m cfd_julia_torch run <preset> --device cuda [extra]` into
+    `outdir` (a temporary directory by default): its metrics, {file name:
+    text} of what it wrote, and the process's seconds."""
     with tempfile.TemporaryDirectory() as tmp:
+        out = Path(outdir or tmp)
         t0 = time.perf_counter()
         subprocess.run([sys.executable, "-m", "cfd_julia_torch", "run",
-                        preset, "--device", "cuda", "--outdir", tmp],
+                        preset, "--device", "cuda", "--outdir", str(out),
+                        *extra],
                        cwd=REPO, check=True, capture_output=True, text=True,
                        timeout=timeout)
         seconds = time.perf_counter() - t0
-        files = {p.name: p.read_text() for p in Path(tmp).iterdir()}
+        files = {p.name: p.read_bytes().decode(errors="replace")
+                 for p in out.iterdir()}
     check("metrics.json" in files, f"CLI run {preset} wrote no metrics.json")
     metrics = json.loads(files["metrics.json"])
     check(metrics["device"] == torch.cuda.get_device_name(),
@@ -863,14 +929,29 @@ MG_VARIANTS = [("fused", {}), ("fmg", {"fmg": True}),
                ("mixed", {"cycle_dtype": "mixed"}), ("off", {"fused": "off"})]
 
 
+def best_solve_time(solve, repeats=3):
+    """(best, all) seconds of `repeats` synchronised solves after one
+    untimed solve."""
+    solve()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times), times
+
+
 def phase_multigrid():
     """The 4096^2 multigrid solve and its variants on the port's default
-    path (impl="auto" resolves to the CUDA kernels).  Returns
-    {variant: launch counts} and {variant: (a callable of one solve, its
-    best time)}.  Prints mixed's max|u - ue| over the fused fp32 solve's
-    as information: the JAX package breaks the 1.5x contract there too
-    (at 1024^2 on the CPU), so it belongs to the bf16 pyramid, and the
-    gate holds mixed to its own twin."""
+    path (impl="auto" resolves to the CUDA kernels; each cycle a replay of
+    the captured V-cycle), each beside the same solve with graph=False.
+    Returns {variant: launch counts} and {variant: (a callable of one
+    solve, its best time)}.  Prints mixed's max|u - ue| over the fused
+    fp32 solve's as information: the JAX package breaks the 1.5x contract
+    there too (at 1024^2 on the CPU), so it belongs to the bf16 pyramid,
+    and the gate holds mixed to its own twin."""
     import dataclasses
 
     from cfd_julia_torch.models import poisson2d
@@ -886,27 +967,25 @@ def phase_multigrid():
     for variant, opts in MG_VARIANTS:
         mgc = multigrid.MGConfig(tol=MG_TOL, max_cycles=20, **opts)
 
-        def solve(mgc=mgc):
-            return multigrid.solve(f, u0, cfg.dx, cfg.dy, cfg=mgc)
+        def solve(mgc=mgc, graph=True):
+            return multigrid.solve(f, u0, cfg.dx, cfg.dy, cfg=mgc,
+                                   graph=graph)
 
-        cuda_kernels.reset_launch_counts()
-        res = solve()
-        torch.cuda.synchronize()
-        launches = dict(cuda_kernels.LAUNCHES)
+        runs = {}
+        for graph in (True, False):
+            cuda_kernels.reset_launch_counts()
+            res = solve(graph=graph)
+            torch.cuda.synchronize()
+            runs[graph] = (res, dict(cuda_kernels.LAUNCHES))
+        res, launches = runs[True]
+        eager, e_launches = runs[False]
         twin = multigrid.solve(f, u0, cfg.dx, cfg.dy,
                                cfg=dataclasses.replace(mgc, impl="torch"))
         torch.cuda.synchronize()
-        check(cuda_kernels.LAUNCHES == launches,
+        check(cuda_kernels.LAUNCHES == e_launches,
               f"the twin solve launched kernels: {cuda_kernels.LAUNCHES}")
-        times = []
-        solve()                                       # warm-up
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            solve()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        best = min(times)
+        best, times = best_solve_time(solve)
+        e_best, _ = best_solve_time(lambda mgc=mgc: solve(mgc, False))
 
         rel = float(res.rms / res.rms0)
         rel_ind = recheck_rel(res.u, f, u0, cfg.dx, cfg.dy)
@@ -918,19 +997,33 @@ def phase_multigrid():
         for name in cuda_kernels.LAUNCHES:   # every non-multigrid kernel
             want.setdefault(name, 0)
         finite = bool(torch.isfinite(res.u).all())
+        # graph vs eager: the same cycles, u and history; if not bitwise,
+        # the eager solve is held to the same gates
+        diff = max_diff((res.u, res.rms, res.history.nan_to_num(0.0)),
+                        (eager.u, eager.rms, eager.history.nan_to_num(0.0)))
+        same, gtext = graph_text(diff, twin_err)
+        if diff:
+            e_err = float((eager.u - ue).abs().max())
+            gtext += f"; eager max|u-ue|={e_err:.3e}"
+            same = same and e_err <= 1.5 * twin_err
         ok = (rel <= MG_TOL and rel_ind <= 4 * MG_TOL and finite
               and res.u.dtype == torch.float32
               and abs(res.iterations - twin.iterations) <= 1
-              and err <= 1.5 * twin_err and launches == want)
+              and err <= 1.5 * twin_err and launches == want
+              and same and eager.iterations == res.iterations
+              and e_launches == launches)
         line = (f"phase 5 multigrid {MG_NX}^2 poly fp32 {variant}: "
-                f"{res.iterations} cycles (twin {twin.iterations}, tol +-1) "
-                f"rms/rms0={rel:.3e} (tol {MG_TOL:g}) fp64 recheck "
-                f"{rel_ind:.3e} (tol {4 * MG_TOL:g}); max|u-ue|={err:.3e} "
-                f"(twin {twin_err:.3e}, tol 1.5x); {best:.6f} s/solve best "
+                f"{res.iterations} cycles (twin {twin.iterations}, tol +-1; "
+                f"eager {eager.iterations}) rms/rms0={rel:.3e} (tol "
+                f"{MG_TOL:g}) fp64 recheck {rel_ind:.3e} (tol "
+                f"{4 * MG_TOL:g}); max|u-ue|={err:.3e} (twin "
+                f"{twin_err:.3e}, tol 1.5x); graphed {best:.6f} s/solve best "
                 f"of 3 [{', '.join(f'{t:.6f}' for t in times)}] = "
-                f"{1e3 * best / max(res.iterations, 1):.4f} ms/cycle; "
-                f"launches {launches} (pyramid of {n_levels} levels: "
-                f"{want}) {'ok' if ok else 'FAIL'}")
+                f"{1e3 * best / max(res.iterations, 1):.4f} ms/cycle, eager "
+                f"(graph=False) {e_best:.6f} s/solve; {gtext}; launches "
+                f"{launches} (pyramid of {n_levels} levels: {want}), eager "
+                f"run {'the same' if e_launches == launches else e_launches}"
+                f" {'ok' if ok else 'FAIL'}")
         errs[variant] = err
         if variant == "mixed":
             line += (f"; mixed max|u-ue| over fused fp32's "
@@ -1105,11 +1198,26 @@ def euler_anchor_check(q, solver, nx):
 EULER_TWIN_TOL = 2e-4
 
 
+def timed_steps(step, state, graph, n_first, n_total):
+    """n_first steps through the loop layer (the capture, when graphed),
+    then n_total - n_first timed ones between synchronisations; the state
+    and the timed seconds."""
+    from cfd_julia_torch.stepping import loop
+
+    state = loop.advance(step, state, n_first, graph=graph)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = loop.advance(step, state, n_total - n_first, graph=graph)
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0
+
+
 def phase_euler():
     """The three anchored Euler runs on the port's default path
-    (rhs_impl="auto": the CUDA kernel), each against the same run on the
-    twin.  Returns {(solver, nx): launches}, the hllc 8192 step and state,
-    and its seconds per step."""
+    (rhs_impl="auto": the CUDA kernel, graphed), each beside the same run
+    with graph=False and the graphed run on the twin.  Steps/s count steps
+    100-2000 (the first 100 capture the chunk).  Returns {(solver, nx):
+    launches}, the hllc 8192 step and state, and its seconds per step."""
     import dataclasses
 
     from cfd_julia_torch.models import euler1d
@@ -1117,11 +1225,14 @@ def phase_euler():
     from cfd_julia_torch.stepping import ssprk3
 
     counts, main = {}, None
+    n = EULER_STEPS - STEPS_FIRST
     for solver, nx in EULER_RUNS:
         cfg = euler1d.EulerConfig(nx=nx, solver=solver, dt=euler_dt(nx))
         _, q0 = euler1d.sod_initial_state(cfg, torch.float32, "cuda")
         results = {}
-        for impl in ("auto", "torch"):
+        for label, impl, graph in (("graph", "auto", True),
+                                   ("eager", "auto", False),
+                                   ("twin", "torch", True)):
             rhs = euler1d.make_rhs(dataclasses.replace(cfg, rhs_impl=impl),
                                    "cuda")
 
@@ -1130,36 +1241,42 @@ def phase_euler():
 
             torch.cuda.synchronize()
             cuda_kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            q = euler_steps(step, q0, EULER_STEPS)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            results[impl] = (q, seconds, dict(cuda_kernels.LAUNCHES), step)
-        q, seconds, launches, step = results["auto"]
-        q_twin, twin_s, twin_launches, _ = results["torch"]
+            q, seconds = timed_steps(step, q0, graph, STEPS_FIRST,
+                                     EULER_STEPS)
+            results[label] = (q, seconds, dict(cuda_kernels.LAUNCHES), step)
+        q, seconds, launches, step = results["graph"]
+        q_eager, e_seconds, e_launches, _ = results["eager"]
+        q_twin, twin_s, twin_launches, _ = results["twin"]
         ok, text = euler_anchor_check(q, solver, nx)
         diff = float((q - q_twin).abs().max())
+        same, gtext = graph_text(max_diff(q, q_eager), EULER_TWIN_TOL)
+        if not gtext.endswith("(bitwise equal)"):
+            e_ok, e_text = euler_anchor_check(q_eager, solver, nx)
+            same, gtext = same and e_ok, f"{gtext}; eager {e_text}"
         finite = bool(torch.isfinite(q).all())
         want = dict.fromkeys(launches, 0)
         want["euler_rhs"] = 3 * EULER_STEPS
         ok = (ok and finite and q.dtype == torch.float32
               and launches == want and not any(twin_launches.values())
-              and diff <= EULER_TWIN_TOL)
+              and diff <= EULER_TWIN_TOL and same and e_launches == launches)
         line = (f"phase 7 euler {solver} {nx} fp32 @{EULER_STEPS} steps "
                 f"(dt={cfg.dt:g}): {text}; max|q-q_twin|={diff:.3e} (tol "
-                f"{EULER_TWIN_TOL:g}); {EULER_STEPS / seconds:.2f} steps/s "
-                f"(twin {EULER_STEPS / twin_s:.2f}); launches "
+                f"{EULER_TWIN_TOL:g}); steps {STEPS_FIRST}-{EULER_STEPS}: "
+                f"graphed {n / seconds:.2f} steps/s, eager (graph=False) "
+                f"{n / e_seconds:.2f} steps/s, graphed twin "
+                f"{n / twin_s:.2f}; {gtext}; launches "
                 f"{launches['euler_rhs']} euler_rhs (want "
                 f"{want['euler_rhs']}), all kernels "
-                f"{sum(launches.values())}, twin run "
-                f"{sum(twin_launches.values())}; fields "
+                f"{sum(launches.values())}, eager run "
+                f"{'the same' if e_launches == launches else e_launches}, "
+                f"twin run {sum(twin_launches.values())}; fields "
                 f"{'finite' if finite else 'NOT finite'} "
                 f"{'ok' if ok else 'FAIL'}")
         print(line)
         check(ok, line)
         counts[(solver, nx)] = launches
         if (solver, nx) == EULER_RUNS[0]:
-            main = (step, q, seconds / EULER_STEPS)
+            main = (step, q, seconds / n)
     return counts, main
 
 
@@ -1195,80 +1312,97 @@ def vortex_anchor_check(w, solver):
     return all(r <= tol for r in rels.values()), text
 
 
-def vortex_run(cfg, n_first, n_total):
+def vortex_run(cfg, n_first, n_total, graph=True):
     """n_first steps from the two-Gaussian state (the warm-up: cuFFT plans
-    its transforms there), then on to n_total between synchronisations.
-    Returns the final vorticity, the timed steps' seconds, the step and
-    its state."""
+    its transforms there, and the graphed loop captures its chunk), then
+    on to n_total between synchronisations.  Returns the final vorticity,
+    the timed steps' seconds, the step, its state and the peak of
+    allocated device memory (MB) over the run."""
     from cfd_julia_torch.models import vortex
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     step = vortex.make_step(cfg, torch.float32, "cuda")
     w0 = vortex.initial_vorticity(cfg, torch.float32, "cuda")
     spectral = cfg.solver != "fdm"
     state = vortex.half_init(w0) if spectral else w0
     del w0
-    for _ in range(n_first):
-        state = step(state)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_total - n_first):
-        state = step(state)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    state, seconds = timed_steps(step, state, graph, n_first, n_total)
     w = vortex.half_decode(state, cfg.nx, cfg.ny) if spectral else state
-    return w, seconds, step, state
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return w, seconds, step, state, peak_mb
 
 
 def phase_vortex():
     """The four anchored vortex-merger runs at 2048^2 on the port's default
-    path.  Returns fdm's launch counts and {solver: (step, state, seconds a
-    step)}."""
+    path (graphed), each beside the same run with graph=False.  Returns
+    fdm's launch counts, {solver: (step, state, seconds a step)} and
+    ps23's final vorticity."""
     import dataclasses
 
     from cfd_julia_torch.models import vortex
     from cfd_julia_torch.ops import cuda_kernels
 
     n = VORTEX_TOTAL - VORTEX_FIRST
-    steps, fdm_launches = {}, None
+    steps, fdm_launches, w_ps23 = {}, None, None
     for solver in VORTEX_SOLVERS:
         cfg = vortex.VortexConfig(nx=VORTEX_NX, ny=VORTEX_NX, solver=solver,
                                   dt=1e-3, re=1000.0)
         torch.cuda.synchronize()
         cuda_kernels.reset_launch_counts()
-        w, seconds, step, state = vortex_run(cfg, VORTEX_FIRST, VORTEX_TOTAL)
+        w, seconds, step, state, peak = vortex_run(cfg, VORTEX_FIRST,
+                                                   VORTEX_TOTAL)
         launches = dict(cuda_kernels.LAUNCHES)
+        cuda_kernels.reset_launch_counts()
+        w_eager, e_seconds, _, _, e_peak = vortex_run(
+            cfg, VORTEX_FIRST, VORTEX_TOTAL, graph=False)
+        e_launches = dict(cuda_kernels.LAUNCHES)
         ok, text = vortex_anchor_check(w, solver)
+        same, gtext = graph_text(max_diff(w, w_eager), VORTEX_TWIN_TOL)
+        if not gtext.endswith("(bitwise equal)"):
+            e_ok, e_text = vortex_anchor_check(w_eager, solver)
+            same, gtext = same and e_ok, f"{gtext}; eager {e_text}"
+        del w_eager
         finite = bool(torch.isfinite(w).all())
         want = dict.fromkeys(launches, 0)
         if solver == "fdm":
             want["arakawa_rhs"] = 3 * VORTEX_TOTAL
         ok = (ok and finite and w.dtype == torch.float32
-              and w.shape == (VORTEX_NX, VORTEX_NX) and launches == want)
+              and w.shape == (VORTEX_NX, VORTEX_NX) and launches == want
+              and same and e_launches == launches)
         line = (f"phase 9 vortex {solver} {VORTEX_NX}^2 fp32 @{VORTEX_TOTAL} "
                 f"steps (dt=1e-3, Re=1000): {text}; {n} steps (from step "
-                f"{VORTEX_FIRST}) in {seconds:.4f} s = {n / seconds:.2f} "
-                f"steps/s; launches {launches['arakawa_rhs']} arakawa_rhs "
-                f"(want {want['arakawa_rhs']}), all kernels "
-                f"{sum(launches.values())}; fields "
-                f"{'finite' if finite else 'NOT finite'}")
+                f"{VORTEX_FIRST}) graphed {n / seconds:.2f} steps/s "
+                f"({seconds:.4f} s), eager (graph=False) {n / e_seconds:.2f} "
+                f"steps/s; {gtext}; peak device memory over the run: graphed "
+                f"{peak:.1f} MB, eager {e_peak:.1f} MB; launches "
+                f"{launches['arakawa_rhs']} arakawa_rhs (want "
+                f"{want['arakawa_rhs']}), all kernels "
+                f"{sum(launches.values())}, eager run "
+                f"{'the same' if e_launches == launches else e_launches}; "
+                f"fields {'finite' if finite else 'NOT finite'}")
         if solver == "fdm":
             fdm_launches = launches
-            w_twin, twin_s, _, _ = vortex_run(
+            cuda_kernels.reset_launch_counts()
+            w_twin, twin_s, _, _, _ = vortex_run(
                 dataclasses.replace(cfg, rhs_impl="torch"), VORTEX_FIRST,
                 VORTEX_TOTAL)
             diff = float((w - w_twin).abs().max())
-            twin_quiet = cuda_kernels.LAUNCHES == launches
+            twin_quiet = not any(cuda_kernels.LAUNCHES.values())
             ok = ok and diff <= VORTEX_TWIN_TOL and twin_quiet
             line += (f"; max|w-w_twin|={diff:.3e} (tol {VORTEX_TWIN_TOL:g}), "
-                     f"twin {n / twin_s:.2f} steps/s and "
+                     f"graphed twin {n / twin_s:.2f} steps/s and "
                      f"{'no' if twin_quiet else 'SOME'} kernel launches")
             del w_twin
         line += " ok" if ok else " FAIL"
         print(line)
         check(ok, line)
         steps[solver] = (step, state, seconds / n)
+        if solver == "ps23":
+            w_ps23 = w
         del w
-    return fdm_launches, steps
+    return fdm_launches, steps, w_ps23
 
 
 def phase_cli_spectral():
@@ -1351,27 +1485,128 @@ def profile_transforms(by_name, label, steps):
           f"{rest_n / steps:.1f}")
 
 
-def phase_cavity_fst(matmul_step_s, profile):
+def phase_cavity_fst(matmul_rates, profile):
     """The cavity with the rfft DST-I Poisson solves, beside the sine
-    matmuls' steps/s of phase 3 in this run."""
+    matmuls' graphed and eager steps/s of phase 3 in this run."""
     from cfd_julia_torch.stepping import loop
 
-    rates = {"matmul": 1.0 / matmul_step_s}
+    rates = {"matmul": matmul_rates}
     for poisson in ("fst", "fst_half"):
-        launches, step, state, step_s = phase_main_path(
+        _, step, state, step_s, _, e_step_s = phase_main_path(
             poisson, f"phase 11 cavity poisson={poisson}")
-        rates[poisson] = 1.0 / step_s
+        rates[poisson] = (1.0 / step_s, 1.0 / e_step_s)
         if profile and poisson == "fst":
             by_name = phase_profile(
-                f"cavity {NX}^2 poisson=fst",
+                f"cavity {NX}^2 poisson=fst (graphed)",
                 lambda: loop.run_steps(step, state, 20), 20, step_s)
             if by_name:
                 profile_rhs(by_name, "arakawa_rhs_kernel", 20)
                 profile_transforms(by_name, f"cavity {NX}^2 poisson=fst", 20)
         del step, state
-    print(f"phase 11 cavity {NX}^2 fp32 steps/s by Poisson solve, one run "
-          f"of this script: " + ", ".join(f"{k} {v:.2f}"
-                                          for k, v in rates.items()))
+    print(f"phase 11 cavity {NX}^2 fp32 steps/s by Poisson solve, graphed / "
+          f"eager, one run of this script: " + ", ".join(
+              f"{k} {g:.2f} / {e:.2f}" for k, (g, e) in rates.items()))
+
+
+def phase_empty_graph(floor_ms):
+    """An empty kernel (torch.cuda._sleep(0)) launched eagerly, beside a
+    CUDA graph of 100 of them: device time a replay and a kernel, and a
+    replay's time as the host issues it to an idle device."""
+    n = 100
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(0)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(n):
+            torch.cuda._sleep(0)
+    ms, call_ms = median_ms(graph.replay)
+    print(f"phase 2 empty launch: eager {1e3 * floor_ms:.2f} us a kernel; a "
+          f"CUDA graph of {n} empty kernels {1e3 * ms:.2f} us of device time "
+          f"a replay = {1e3 * ms / n:.3f} us a kernel, {1e3 * call_ms:.2f} us "
+          f"a replay issued to an idle device (medians of 30 replays, CUDA "
+          f"events)")
+
+
+def phase_checkpoint(cavity_ref, w_ps23):
+    """Checkpoint and resume on the card, against the uninterrupted graphed
+    runs of phases 3 and 9: the 1024^2 cavity stopped at 100 steps, then
+    at 1000 (checkpoints every 500), then resumed to 2000; ps23 at 2048^2
+    stopped at 100 steps and resumed to 200; then the CLI cavity with
+    --checkpoint-every 200 and again with --resume."""
+    import dataclasses
+
+    from cfd_julia_torch.models import cavity, vortex
+    from cfd_julia_torch.utils import checkpoint
+
+    state_ref, rms_ref = cavity_ref
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "cavity.npz")
+        cfg = cavity.CavityConfig(nx=NX, ny=NX, dt=2e-5, re=RE, bc_order=2)
+        t0 = time.perf_counter()
+        for steps in (STEPS_FIRST, 1000, STEPS_TOTAL):
+            cfg = dataclasses.replace(cfg, t_final=steps * cfg.dt)
+            check(cfg.nt == steps, f"cavity nt {cfg.nt} != {steps}")
+            res = cavity.solve(cfg, torch.float32, "cuda",
+                               checkpoint_every=500, checkpoint_path=ck,
+                               resume=True)
+            if steps == STEPS_FIRST:
+                anchor_check(res.s, STEPS_FIRST, "phase 12 cavity resumed")
+        seconds = time.perf_counter() - t0
+        anchor_check(res.s, STEPS_TOTAL, "phase 12 cavity resumed")
+        at = checkpoint.load_state(ck, (res.w, res.s, res.w.new_empty(0)))[1]
+        diff = max_diff((res.w, res.s, res.rms_history),
+                        (state_ref[0], state_ref[1], rms_ref))
+        ok = diff == 0.0 and at == STEPS_TOTAL
+        line = (f"phase 12 checkpoint cavity {NX}^2 fp32: stopped at "
+                f"{STEPS_FIRST} and 1000 steps (checkpoints every 500), "
+                f"resumed to {STEPS_TOTAL} in {seconds:.2f} s of three "
+                f"solves; checkpoint at step {at}; max|resumed - "
+                f"uninterrupted graphed run| over w, s and the rms history "
+                f"{diff:.3e} (want 0, bitwise) {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+
+        vk = str(Path(tmp) / "ps23.npz")
+        vcfg = vortex.VortexConfig(nx=VORTEX_NX, ny=VORTEX_NX,
+                                   solver="ps23", dt=1e-3, re=1000.0)
+        for steps, ns in ((VORTEX_FIRST, 1), (VORTEX_TOTAL, 2)):
+            vcfg = dataclasses.replace(vcfg, t_final=steps * vcfg.dt, ns=ns)
+            check(vcfg.nt == steps, f"vortex nt {vcfg.nt} != {steps}")
+            res = vortex.solve(vcfg, torch.float32, "cuda",
+                               checkpoint_every=VORTEX_FIRST,
+                               checkpoint_path=vk, resume=True)
+        ok, text = vortex_anchor_check(res.w, "ps23")
+        diff = max_diff(res.w, w_ps23)
+        snaps_ok = torch.equal(res.snapshots[-1], res.w) and \
+            res.snapshots.shape == (3, VORTEX_NX, VORTEX_NX)
+        ok = ok and diff == 0.0 and snaps_ok
+        line = (f"phase 12 checkpoint ps23 {VORTEX_NX}^2 fp32: stopped at "
+                f"{VORTEX_FIRST} steps, resumed to {VORTEX_TOTAL}: {text}; "
+                f"max|resumed - uninterrupted graphed run| {diff:.3e} (want "
+                f"0, bitwise); snapshots {tuple(res.snapshots.shape)} "
+                f"{'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+        del res
+
+        out = Path(tmp) / "cli"
+        m1, files, s1 = cli_run("cavity", outdir=out,
+                                extra=["--checkpoint-every", "200"])
+        m2, _, s2 = cli_run("cavity", outdir=out, extra=["--resume"])
+        at = checkpoint.load_state(
+            str(out / "checkpoint.npz"),
+            (torch.zeros(65, 65), torch.zeros(65, 65), torch.zeros(0)))[1]
+        ok = (m1["psi_min"] == m2["psi_min"] and at == 10000
+              and "checkpoint.npz" in files)
+        line = (f"phase 12 cli `run cavity --checkpoint-every 200` then "
+                f"`--resume` (64^2, 10000 steps): psi_min {m1['psi_min']!r} "
+                f"and {m2['psi_min']!r}, checkpoint at step {at}; processes "
+                f"{s1:.2f} s and {s2:.2f} s {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
 
 
 def main(argv=None):
@@ -1399,9 +1634,11 @@ def main(argv=None):
     record = phase_kernels()
     mg_records = phase_mg_kernels()
     euler_record = phase_euler_kernels()
-    launches, step, state, step_s = phase_main_path()
+    phase_empty_graph(mg_records["redblack_sweeps"]["floor_ms"])
+    launches, step, state, step_s, rms, cavity_eager_s = phase_main_path()
+    cavity_ref = ((state[0], state[1]), rms)
     if args.profile:
-        by_name = phase_profile(f"cavity {NX}^2",
+        by_name = phase_profile(f"cavity {NX}^2 (graphed)",
                                 lambda: loop.run_steps(step, state, 20), 20,
                                 step_s)
         if by_name:
@@ -1414,7 +1651,8 @@ def main(argv=None):
         for variant, check_profile in [("fused", profile_edges),
                                        ("off", profile_off)]:
             solve, best = mg_solves[variant]
-            by_name = phase_profile(f"multigrid {MG_NX}^2 {variant}",
+            by_name = phase_profile(f"multigrid {MG_NX}^2 {variant} "
+                                    f"(graphed)",
                                     lambda solve=solve: [solve()
                                                          for _ in range(3)],
                                     3, best, unit="solve")
@@ -1423,27 +1661,29 @@ def main(argv=None):
     phase_cli_poisson()
     euler_counts, (e_step, e_state, e_step_s) = phase_euler()
     if args.profile:
-        by_name = phase_profile(f"euler hllc {EULER_RUNS[0][1]}",
-                                lambda: euler_steps(e_step, e_state, 20), 20,
+        by_name = phase_profile(f"euler hllc {EULER_RUNS[0][1]} (graphed)",
+                                lambda: loop.advance(e_step, e_state, 20), 20,
                                 e_step_s)
         if by_name:
             profile_rhs(by_name, "euler_rhs_kernel", 20)
     phase_cli_euler()
     del e_step, e_state
-    fdm_launches, v_steps = phase_vortex()
+    fdm_launches, v_steps, w_ps23 = phase_vortex()
     if args.profile:
         for solver in ("ps23", "fdm"):
             v_step, v_state, v_step_s = v_steps[solver]
-            label = f"vortex {solver} {VORTEX_NX}^2"
+            label = f"vortex {solver} {VORTEX_NX}^2 (graphed)"
             by_name = phase_profile(
-                label, lambda: euler_steps(v_step, v_state, 10), 10, v_step_s)
+                label, lambda: loop.advance(v_step, v_state, 10), 10,
+                v_step_s)
             if by_name:
                 profile_transforms(by_name, label, 10)
                 if solver == "fdm":
                     profile_rhs(by_name, "arakawa_rhs_kernel", 10)
     del v_steps
     phase_cli_spectral()
-    phase_cavity_fst(step_s, args.profile)
+    phase_cavity_fst((1.0 / step_s, 1.0 / cavity_eager_s), args.profile)
+    phase_checkpoint(cavity_ref, w_ps23)
 
     record["launches"] = launches[record["name"]]
     record["path"] = f"cavity {NX}^2, {STEPS_TOTAL} steps"

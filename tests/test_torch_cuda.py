@@ -26,7 +26,7 @@ from cfd_julia_torch import interop
 from cfd_julia_torch.models import cavity, euler1d, poisson2d, vortex
 from cfd_julia_torch.ops import _cuda_build, cuda_kernels
 from cfd_julia_torch.poisson import multigrid
-from cfd_julia_torch.stepping import loop
+from cfd_julia_torch.stepping import loop, ssprk3
 
 REL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 8e-3}
 # cells a block of the Euler kernel owns: nx = EULER_TILE +- 1 puts an
@@ -377,3 +377,167 @@ def test_euler_kernel_solve_matches_twin_solve(cuda_device):
     # fp32 drifts from fp64 by < 3.3e-5 over 2000 such steps (CPU runs)
     assert float((got.q - ref.q).abs().max()) <= 2e-4
     assert float((got.snapshots - ref.snapshots).abs().max()) <= 2e-4
+
+
+# ----------------------------------------------- CUDA graphs of the loops
+
+def _graph_vs_eager(run):
+    """run(graph) twice, eager first; (eager, graphed, launches of each)."""
+    out = {}
+    for graph in (False, True):
+        cuda_kernels.reset_launch_counts()
+        out[graph] = (run(graph), dict(cuda_kernels.LAUNCHES))
+        torch.cuda.synchronize()
+    return out[False], out[True]
+
+
+def _assert_same(a, b):
+    """Bitwise equal tensors; NaN equals NaN (a solve's history pads its
+    unused rows with NaN)."""
+    a = list(a) if isinstance(a, (tuple, list)) else [a]
+    b = list(b) if isinstance(b, (tuple, list)) else [b]
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(64, 64), (130, 256)])
+@pytest.mark.parametrize("poisson", ["matmul", "fst", "fst_half"])
+def test_graphed_cavity_equals_eager(cuda_device, poisson, nx, ny):
+    """60 fp32 steps (a 50-step chunk and a 10-step remainder), twice on
+    one step function (the second run replays the cached graphs): the
+    graphed state and rms history are the eager ones bit for bit, with
+    the same kernel launches (3 a step); dt keeps 130x256 stable."""
+    cfg = cavity.CavityConfig(nx=nx, ny=ny, dt=2e-4, poisson=poisson)
+    step = cavity.make_step_fn(cfg, torch.float32, cuda_device)
+    state = cavity.initial_state(cfg, torch.float32, cuda_device)
+
+    def run(graph):
+        s, h1 = loop.run_steps(step, state, 60, graph=graph)
+        s, h2 = loop.run_steps(step, s, 60, graph=graph)
+        return (*s, h1, h2)
+
+    (eager, n_eager), (graphed, n_graph) = _graph_vs_eager(run)
+    assert all(bool(torch.isfinite(t).all()) for t in eager)
+    _assert_same(graphed, eager)
+    assert n_graph == n_eager and n_graph["arakawa_rhs"] == 3 * 120
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx", [8192, 5])
+@pytest.mark.parametrize("solver", ["hllc", "roe", "rusanov"])
+def test_graphed_euler_equals_eager(cuda_device, solver, nx):
+    """130 fp32 SSP-RK3 steps, snapshots every 60 (chunks 50, 10 and a
+    10-step leftover): graphed state and snapshots bitwise the eager ones,
+    the same 3 kernel launches a step."""
+    cfg = euler1d.EulerConfig(nx=nx, solver=solver, dt=1e-4 * 256 / max(
+        nx, 256))
+    rhs = euler1d.make_rhs(cfg, cuda_device)
+    _, q0 = euler1d.sod_initial_state(cfg, torch.float32, cuda_device)
+
+    def step(q):
+        return ssprk3.ssprk3_step(rhs, q, cfg.dt)
+
+    (eager, n_eager), (graphed, n_graph) = _graph_vs_eager(
+        lambda graph: loop.run_steps_with_snapshots(step, q0, 130, 60,
+                                                    graph=graph))
+    _assert_same(graphed, eager)
+    assert n_graph == n_eager and n_graph["euler_rhs"] == 3 * 130
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["fdm", "ps23", "ps32", "hybrid"])
+def test_graphed_vortex_equals_eager(cuda_device, solver):
+    """The 64^2 fp32 vortex merger, 70 steps with a decoded snapshot every
+    35: graphed state and snapshots bitwise the eager ones; fdm with the
+    same 3 Arakawa launches a step."""
+    cfg = vortex.VortexConfig(nx=64, ny=64, solver=solver, dt=1e-3)
+    step = vortex.make_step(cfg, torch.float32, cuda_device)
+    w0 = vortex.initial_vorticity(cfg, torch.float32, cuda_device)
+    state0, observe = w0, None
+    if solver != "fdm":
+        state0 = vortex.half_init(w0)
+        observe = lambda H: vortex.half_decode(H, cfg.nx, cfg.ny)  # noqa
+
+    (eager, n_eager), (graphed, n_graph) = _graph_vs_eager(
+        lambda graph: loop.run_steps_with_snapshots(
+            step, state0, 70, 35, observe=observe, graph=graph))
+    _assert_same(graphed, eager)
+    assert n_graph == n_eager
+    assert n_graph["arakawa_rhs"] == (3 * 70 if solver == "fdm" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [dict(), dict(fmg=True),
+                                  dict(cycle_dtype="mixed"),
+                                  dict(fused="off"),
+                                  dict(smoother="cheb", transfers="conv")],
+                         ids=["fused", "fmg", "mixed", "off", "cheb"])
+def test_graphed_multigrid_equals_eager(cuda_device, opts):
+    """The 256^2 poly solve, fp32: the captured V-cycle gives the eager
+    solve's u, cycle count, history and records bit for bit, with the
+    same kernel launches; a second solve replays the cached graph."""
+    cfg = poisson2d.PoissonConfig(nx=256, ny=256, solver="multigrid",
+                                  problem="poly")
+    _, _, _, _, ue, f = poisson2d.build_problem(cfg, torch.float32,
+                                                cuda_device)
+    u0 = poisson2d._dirichlet_init(ue)
+    mgc = multigrid.MGConfig(tol=1e-5, max_cycles=20, **opts)
+
+    def run(graph):
+        res = [multigrid.solve(f, u0, cfg.dx, cfg.dy, mgc, graph=graph)
+               for _ in range(2)]
+        for r in res[1:]:
+            assert r.iterations == res[0].iterations
+            _assert_same((r.u, r.history), (res[0].u, res[0].history))
+        r = res[0]
+        return r.u, r.rms, r.rms0, r.history, r.iterations, r.n_records
+
+    (eager, n_eager), (graphed, n_graph) = _graph_vs_eager(run)
+    _assert_same(graphed[:4], eager[:4])
+    assert graphed[4:] == eager[4:] and eager[4] > 1
+    assert n_graph == n_eager
+
+
+@pytest.mark.cuda
+def test_host_sync_inside_a_graphed_chunk_raises(cuda_device):
+    """A step that reads a value on the host cannot be captured: the
+    loop raises instead of running it eagerly, and the device stays
+    usable."""
+    q = torch.ones(8, device=cuda_device)
+
+    def step(q):
+        return q * (1.0 + 1e-3 * q.sum().item())
+
+    with pytest.raises(RuntimeError):
+        loop.advance(step, q, 10)
+    good = loop.advance(lambda q: 2.0 * q, q, 3)
+    assert torch.equal(good, 8.0 * q)
+
+
+@pytest.mark.cuda
+def test_resume_is_bitwise_on_the_gpu(cuda_device, tmp_path):
+    """The 64^2 fp32 cavity, checkpointed every 40 steps and stopped at
+    80, resumes to 150 bit for bit the uninterrupted graphed run, rms
+    history included; so does ps23 at 64^2 (30 + 30 steps)."""
+    ck = str(tmp_path / "c.npz")
+    cfg = cavity.CavityConfig(nx=64, ny=64, dt=1e-3, t_final=0.08)
+    cavity.solve(cfg, torch.float32, cuda_device, checkpoint_every=40,
+                 checkpoint_path=ck)
+    cfg = dataclasses.replace(cfg, t_final=0.15)
+    got = cavity.solve(cfg, torch.float32, cuda_device, checkpoint_path=ck,
+                       resume=True)
+    want = cavity.solve(cfg, torch.float32, cuda_device)
+    _assert_same((got.w, got.s, got.rms_history),
+                 (want.w, want.s, want.rms_history))
+    vk = str(tmp_path / "v.npz")
+    vcfg = vortex.VortexConfig(nx=64, ny=64, solver="ps23", dt=1e-3,
+                               t_final=0.03, ns=1)
+    vortex.solve(vcfg, torch.float32, cuda_device, checkpoint_every=30,
+                 checkpoint_path=vk)
+    vcfg = dataclasses.replace(vcfg, t_final=0.06, ns=2)
+    got = vortex.solve(vcfg, torch.float32, cuda_device, checkpoint_path=vk,
+                       resume=True)
+    want = vortex.solve(vcfg, torch.float32, cuda_device)
+    _assert_same((got.w, got.snapshots), (want.w, want.snapshots))

@@ -335,7 +335,7 @@ def test_mg_unported_options_raise(opts, exc, match):
 
 def test_mg_mesh_and_fft_solvers_raise():
     f, u0, dx, dy = _small()
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="A.10"):
         multigrid.solve(f, u0, dx, dy, mesh=object())
     for solver in ("fft", "fft_spectral", "fst"):
         res = poisson2d.solve(poisson2d.PoissonConfig(nx=8, ny=8,
