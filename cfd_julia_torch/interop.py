@@ -12,14 +12,15 @@ import numpy as np
 import torch
 
 from cfd_julia_torch.core import precision
-from cfd_julia_torch.models import cavity, euler1d, poisson2d, vortex
+from cfd_julia_torch.models import (burgers1d, cavity, euler1d, heat1d,
+                                    poisson2d, vortex)
 from cfd_julia_torch.ops import spectral
 from cfd_julia_torch.poisson import multigrid
 
 # JAX CavityConfig.poisson / .rhs_impl -> the port's; the other JAX variants
-# (*_bf16x*, fused*, fst_mxu, ...) are not ported
+# (the bf16 tiers *_bf16x*, fst_mxu, ...) are not ported
 _POISSON = {"auto": "auto", "matmul": "matmul", "fst": "fst",
-            "fst_half": "fst_half"}
+            "fst_half": "fst_half", "fused": "fused"}
 _RHS_IMPL = {"auto": "auto", "xla": "torch", "pallas": "kernel"}
 # JAX MGConfig.smoother -> the port's (smoother, impl): the JAX smoother
 # implementations "pallas" / "xla" are the port's kernels / plain twins
@@ -53,6 +54,23 @@ def euler_config_from_jax(cfg) -> euler1d.EulerConfig:
               for f in dataclasses.fields(euler1d.EulerConfig)}
     fields["rhs_impl"] = _RHS_IMPL[cfg.rhs_impl]
     return euler1d.EulerConfig(**fields)
+
+
+def _same_fields(cls, cfg):
+    """An instance of the port's dataclass `cls` with the fields of the JAX
+    config `cfg` (the 1D configs have the same fields in both packages)."""
+    return cls(**{f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+def heat_config_from_jax(cfg) -> heat1d.HeatConfig:
+    """The port's HeatConfig for a cfd_julia_tpu HeatConfig."""
+    return _same_fields(heat1d.HeatConfig, cfg)
+
+
+def burgers_config_from_jax(cfg) -> burgers1d.BurgersConfig:
+    """The port's BurgersConfig for a cfd_julia_tpu BurgersConfig."""
+    return _same_fields(burgers1d.BurgersConfig, cfg)
 
 
 def mg_config_from_jax(cfg) -> multigrid.MGConfig:
@@ -119,6 +137,15 @@ def state_from_numpy(w, s, dtype=None, device="cpu"):
     wt = field_from_numpy(w, dtype, device)
     return (wt, field_from_numpy(s, dtype, device),
             torch.zeros((), dtype=wt.dtype, device=wt.device))
+
+
+def cavity_fused_state_from_numpy(state, dtype=None, device="cpu"):
+    """The port's flat packed cavity state (w, s, rl, rh, cl, ch, rms) from
+    the JAX package's nested one, (w, s, (rl, rh, cl, ch), rms), as numpy
+    arrays (models/cavity_fused.py)."""
+    w, s, walls, rms = state
+    return tuple(field_from_numpy(a, dtype, device)
+                 for a in (w, s, *walls, rms))
 
 
 def to_numpy(t) -> np.ndarray:

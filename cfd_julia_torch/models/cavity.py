@@ -13,8 +13,9 @@ Per SSP-RK3 stage (lid_driven_cavity.jl:72-110):
      through rfft ("fst", and "fst_half" at half the transform length)
 
 This is the full-grid step of the JAX package with poisson="matmul", "fst"
-or "fst_half" and rhs_impl="pallas".  Domain [0,1]^2; the lid moves in +x
-at the top wall (j = ny).
+or "fst_half" and rhs_impl="pallas".  poisson="fused" is the packed,
+interior-padded step of models/cavity_fused.py, which `solve` routes (pack,
+run, decode).  Domain [0,1]^2; the lid moves in +x at the top wall (j = ny).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import dataclasses
 import torch
 
 from cfd_julia_torch.core import precision
+from cfd_julia_torch.models import cavity_fused
 from cfd_julia_torch.ops import arakawa, cuda_kernels
 from cfd_julia_torch.poisson import direct
 from cfd_julia_torch.stepping import loop
@@ -40,10 +42,12 @@ class CavityConfig:
     poisson: str = "auto"    # auto (= matmul on every device) | matmul
                              # (interior sine-matmul DST-I solve) | fst
                              # (odd-extension rfft DST-I) | fst_half
-                             # (half-length rfft DST-I)
+                             # (half-length rfft DST-I) | fused (the packed
+                             # step of models/cavity_fused; solve only)
     rhs_impl: str = "auto"   # auto (kernel on a CUDA device, torch on the
-                             # CPU) | kernel (csrc/arakawa_rhs.cu; CUDA
-                             # only) | torch (ops.arakawa, any device)
+                             # CPU) | kernel (csrc/arakawa_rhs.cu, or
+                             # csrc/cavity_stage.cu under fused; CUDA
+                             # only) | torch (plain PyTorch, any device)
 
     @property
     def dx(self) -> float:
@@ -89,6 +93,24 @@ def assemble_with_wall_bc(w_interior, s, dx: float, dy: float,
     return torch.cat([col_lo[:, None], mid, col_hi[:, None]], 1)
 
 
+# the JAX package's bf16 tiers of the TPU's matrix unit (3-pass and 1-pass)
+_BF16_TIERS = ("fused_bf16x3", "fused_bf16x1", "matmul_bf16x3",
+               "matmul_bf16x1")
+
+
+def _check_poisson(name: str) -> None:
+    """Raise for a Poisson solve the port does not run: a bf16 tier, or an
+    unknown name (a typo must never silently run the default solver)."""
+    if name in _BF16_TIERS:
+        raise ValueError(
+            f"poisson={name!r} is a bf16 tier of the TPU's matrix unit; its "
+            "H100 counterpart waits for a precision certification (ROADMAP "
+            "A.6); use 'matmul' or 'fused' (full fp32)")
+    if name not in ("auto", "matmul", "fst", "fst_half", "fused"):
+        raise ValueError(f"unknown poisson solver {name!r} "
+                         "(auto | matmul | fst | fst_half | fused)")
+
+
 def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda"):
     """Cavity step on state (w, s, rms) of (nx+1, ny+1) tensors of `dtype`
     on `device`; the Poisson solve's constants are built here, once."""
@@ -96,10 +118,13 @@ def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda"):
     device = precision.resolve_device(device)
     dx, dy, dt, re = cfg.dx, cfg.dy, cfg.dt, cfg.re
     rhs_impl = precision.resolve_rhs_impl(cfg.rhs_impl, device)
-    if cfg.poisson not in ("auto", "matmul", "fst", "fst_half"):
-        # a typo'd variant name must never silently run the default solver
-        raise ValueError(f"unknown poisson solver {cfg.poisson!r} "
-                         "(auto | matmul | fst | fst_half)")
+    _check_poisson(cfg.poisson)
+    if cfg.poisson == "fused":
+        raise ValueError(
+            "poisson='fused' selects the interior-padded fused step "
+            "(models.cavity_fused), which carries a packed state and so "
+            "cannot be built by make_step_fn; use cavity.solve (which "
+            "routes it) or cavity_fused.make_fused_step_fn directly")
     if cfg.bc_order not in (1, 2):
         raise ValueError("bc_order must be 1 or 2")
 
@@ -166,12 +191,29 @@ def solve(cfg: CavityConfig, dtype=None, device="cuda",
     one host sync of each N steps.  resume: continue from checkpoint_path
     if it exists, bit for bit the uninterrupted run (each step is the same
     function of (w, s); its rms is that step's psi change, so the rms
-    entry of the state is never read)."""
+    entry of the state is never read).
+
+    poisson="fused" runs the packed step (models/cavity_fused.py) as the
+    JAX package's solve does: pack the full-grid state, run the steps,
+    decode; once a run, or once a checkpoint interval, so checkpoints keep
+    the full-grid format."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
     if (checkpoint_every or resume) and not checkpoint_path:
         raise ValueError("checkpointing requires checkpoint_path")
-    step = make_step_fn(cfg, dtype, device)
+    _check_poisson(cfg.poisson)
+    if cfg.poisson == "fused":
+        fused = cavity_fused.make_fused_step_fn(cfg, dtype, device)
+
+        def advance(state, n):
+            packed, rms = loop.run_steps(
+                fused, cavity_fused.pack_state(cfg, state[0], state[1]), n)
+            return (*cavity_fused.decode_state(cfg, packed), packed[-1]), rms
+    else:
+        step = make_step_fn(cfg, dtype, device)
+
+        def advance(state, n):
+            return loop.run_steps(step, state, n)
     state = initial_state(cfg, dtype, device)
     done, parts = 0, []
     if resume and checkpoint.exists(checkpoint_path):
@@ -190,7 +232,7 @@ def solve(cfg: CavityConfig, dtype=None, device="cuda",
         n = cfg.nt - done
         if checkpoint_every:
             n = min(checkpoint_every, n)
-        state, rms = loop.run_steps(step, state, n)
+        state, rms = advance(state, n)
         parts.append(rms)
         done += n
         if checkpoint_every:

@@ -1,0 +1,149 @@
+"""Lid-driven cavity on a packed, interior-padded state (counterpart of
+cfd_julia_tpu/models/cavity_fused.py; same math as models/cavity.py's
+full-grid step, reference ch. 18, lid_driven_cavity.jl:58-118).
+
+* The state holds the (nx-1, ny-1) interior of w and psi in (P, Q) buffers,
+  P rounded up to a multiple of 8 and Q of 128 (`padded_extents`, as in the
+  JAX package, so both packages' states have one shape): 1024 x 1024 at the
+  1024^2 cavity, whose rows are 16-byte aligned and whose sine-matrix
+  products are 1024^3 GEMMs.  The padding is exactly zero.
+* The wall vorticity is carried as four vectors beside the interior; they
+  lag psi by one solve, as the full-grid step's walls do (the reference
+  assembles them from the pre-solve psi).
+* A stage is one launch of the CUDA kernel csrc/cavity_stage.cu (its plain
+  twin on the CPU): the RHS with the wall vectors, the SSP-RK3 combine, the
+  validity mask and the next stage's wall vectors.  The Poisson solve is
+  four fp32 (or fp64) matrix products with the zero-extended sine matrices,
+  so a step is 3 stage launches, 12 GEMMs, the scalings and the rms.
+
+The state is the flat tuple (w, s, rl, rh, cl, ch, rms), rms last, as the
+loop layer records state[-1]; the JAX package nests the walls,
+(w, s, (rl, rh, cl, ch), rms) (interop.cavity_fused_state_from_numpy maps
+one to the other).  rl / rh run over columns (the walls i = 0 / nx), cl / ch
+over rows (j = 0 / ny, the lid), in interior index space, 0 past the
+logical interior.  The JAX package's bf16 tiers of this step (fused_bf16x3,
+fused_bf16x1) are not ported: their H100 counterpart needs a precision
+certification first (ROADMAP A.6).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from cfd_julia_torch.core import precision
+from cfd_julia_torch.ops import cuda_kernels
+from cfd_julia_torch.poisson import direct
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def padded_extents(nx: int, ny: int) -> tuple[int, int]:
+    """Interior (nx-1, ny-1) padded to multiples of (8, 128)."""
+    return _round_up(nx - 1, 8), _round_up(ny - 1, 128)
+
+
+def _check(cfg) -> None:
+    if cfg.bc_order not in (1, 2):
+        raise ValueError("bc_order must be 1 or 2")
+    if cfg.nx < 3 or cfg.ny < 3:
+        raise ValueError(f"the packed cavity needs nx, ny >= 3, got "
+                         f"{(cfg.nx, cfg.ny)}")
+
+
+def make_fused_step_fn(cfg, dtype=None, device="cuda"):
+    """Step on the packed state (w, s, rl, rh, cl, ch, rms) of `dtype` on
+    `device`; the matrices are built here, once.  cfg.rhs_impl picks the
+    stage: auto (the kernel on a CUDA device, the twin on the CPU), kernel
+    or torch (the twin, any device).  The products run in full precision:
+    TF32 stays off, the JAX package's mm_precision="highest"."""
+    _check(cfg)
+    dtype = dtype or precision.default_dtype()
+    device = precision.resolve_device(device)
+    stage_fn = (cuda_kernels.cavity_fused_stage
+                if precision.resolve_rhs_impl(cfg.rhs_impl, device) == "kernel"
+                else cuda_kernels.cavity_fused_stage_plain)
+    nx, ny = cfg.nx, cfg.ny
+    dx, dy, dt, re = cfg.dx, cfg.dy, cfg.dt, cfg.re
+    m, n = nx - 1, ny - 1
+    P, Q = padded_extents(nx, ny)
+
+    def sine_padded(nn, size):
+        k = torch.arange(size, dtype=torch.int32, device=device)
+        s = direct._sine_entries(k[:, None] + 1, k[None, :] + 1, nn, dtype)
+        inside = (k[:, None] < nn - 1) & (k[None, :] < nn - 1)
+        return torch.where(inside, s, 0.0)
+
+    sx, sy = sine_padded(nx, P), sine_padded(ny, Q)
+    ai = torch.arange(P, device=device)[:, None]
+    bj = torch.arange(Q, device=device)[None, :]
+    kx, ky = (ai + 1).to(dtype), (bj + 1).to(dtype)
+    den = (2.0 / dx**2) * (torch.cos(math.pi * kx / nx) - 1.0) + (
+        2.0 / dy**2) * (torch.cos(math.pi * ky / ny) - 1.0)
+    neg_den = -torch.where((ai < m) & (bj < n), den, 1.0)
+    scale = 4.0 / (nx * ny)
+    n_nodes = float((nx + 1) * (ny + 1))
+
+    def solve_neg(wt):
+        """psi with lap(psi) = -wt on the interior (walls zero)."""
+        coeff = torch.matmul(torch.matmul(sx, wt), sy) / neg_den
+        return torch.matmul(torch.matmul(sx, coeff), sy) * scale
+
+    def stage(k, w, wt, s, walls):
+        wt, walls = stage_fn(w, wt, s, walls, k, dt, dx, dy, re, m, n,
+                             cfg.bc_order)
+        return wt, solve_neg(wt), walls
+
+    def step(state):
+        w, s, *walls, _ = state
+        sp = s
+        wt, s, walls = stage(1, w, w, s, tuple(walls))
+        wt, s, walls = stage(2, w, wt, s, walls)
+        wn, s, walls = stage(3, w, wt, s, walls)
+        rms = torch.sqrt(torch.sum((s - sp) ** 2) / n_nodes)
+        return (wn, s, *walls, rms)
+
+    return step
+
+
+def init_state(cfg, dtype=None, device="cuda"):
+    """The packed state at rest: w = psi = 0 and zero wall vectors (the
+    full-grid step's first RHS also sees the all-zero w0)."""
+    _check(cfg)
+    dtype = dtype or precision.default_dtype()
+    device = precision.resolve_device(device)
+    P, Q = padded_extents(cfg.nx, cfg.ny)
+    z = torch.zeros((P, Q), dtype=dtype, device=device)
+    return (z, torch.zeros_like(z), z.new_zeros(Q), z.new_zeros(Q),
+            z.new_zeros(P), z.new_zeros(P), z.new_zeros(()))
+
+
+def pack_state(cfg, w_full, s_full):
+    """Full-grid (w, s) -> packed state, the walls taken from w_full."""
+    m, n = cfg.nx - 1, cfg.ny - 1
+    P, Q = padded_extents(cfg.nx, cfg.ny)
+    pad = (0, Q - n, 0, P - m)
+    return (F.pad(w_full[1:-1, 1:-1], pad), F.pad(s_full[1:-1, 1:-1], pad),
+            F.pad(w_full[0, 1:-1], (0, Q - n)),
+            F.pad(w_full[-1, 1:-1], (0, Q - n)),
+            F.pad(w_full[1:-1, 0], (0, P - m)),
+            F.pad(w_full[1:-1, -1], (0, P - m)), w_full.new_zeros(()))
+
+
+def decode_state(cfg, state):
+    """Packed state -> full-grid (w, s): the walls re-attached from the
+    vectors, the lid corners from the y-walls (0 while the walls are all
+    zero, so the state at rest decodes to zero), psi's walls zero."""
+    w, s, rl, rh, cl, ch, _ = state
+    m, n = cfg.nx - 1, cfg.ny - 1
+    zero = w.new_zeros(1)
+    lid = w.new_full((1,), cuda_kernels._lid(cfg.dy, cfg.bc_order))
+    corner = torch.where(ch[:m].any(), lid, zero)
+    mid = torch.cat([rl[None, :n], w[:m, :n], rh[None, :n]], 0)
+    col_lo = torch.cat([zero, cl[:m], zero])
+    col_hi = torch.cat([corner, ch[:m], corner])
+    w_full = torch.cat([col_lo[:, None], mid, col_hi[:, None]], 1)
+    return w_full, F.pad(s[:m, :n], (1, 1, 1, 1))

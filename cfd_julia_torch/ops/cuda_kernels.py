@@ -20,6 +20,9 @@ Kernels (csrc/ file; TPU function replaced):
   residual_restrict_fused         multigrid.cu;   residual_restrict_fused
   prolong_correct_smooth_fused    multigrid.cu;   prolong_correct_smooth_fused
   euler_rhs_fused                 euler_rhs.cu;   euler_rhs_fused
+  cavity_fused_stage              cavity_stage.cu; the XLA-fused stage of
+                                  models/cavity_fused.py:153-215 (not a
+                                  Pallas kernel)
 
 The multigrid kernels take bf16, fp32 or fp64 fields; bf16 computes in
 fp32 and rounds once, at the output store (the TPU kernels' `_c32`
@@ -28,13 +31,15 @@ contract), and so do the bf16 twins.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from cfd_julia_torch.ops import _cuda_build, arakawa, riemann, weno
 from cfd_julia_torch.poisson import iterative
 
 LAUNCHES = {"arakawa_rhs": 0, "redblack_sweeps": 0,
             "smooth_residual_restrict": 0, "residual_restrict": 0,
-            "prolong_correct_smooth": 0, "euler_rhs": 0}
+            "prolong_correct_smooth": 0, "euler_rhs": 0,
+            "cavity_fused_stage": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 _MG_DTYPES = tuple(_SUFFIX)
@@ -372,3 +377,152 @@ def euler_rhs_fused(q, gamma: float, dx: float, solver: str = "hllc",
             q.data_ptr(), out.data_ptr(), nx, float(gamma), float(dx),
             _EULER_SOLVER[solver], _EULER_WS[rusanov_wavespeed])
     return out
+
+
+# ------------------------------------------------------- packed cavity stage
+
+def _shift(a, da: int, db: int):
+    """out[i, j] = a[i+da, j+db] in range, else 0: pad and slice, never a
+    roll (cavity_fused.py:55-63)."""
+    p = F.pad(a, (max(-db, 0), max(db, 0), max(-da, 0), max(da, 0)))
+    i, j = max(da, 0), max(db, 0)
+    return p[i:i + a.shape[0], j:j + a.shape[1]]
+
+
+def _vshift(v, d: int, L: int, corner: float):
+    """Wall-vector shift out[k] = v[k+d], 0 past the buffer, and `corner` at
+    the slot next to the adjacent wall: k = L-1 for d = +1, k = 0 for
+    d = -1 (cavity_fused.py:66-77)."""
+    out = F.pad(v, (max(-d, 0), max(d, 0)))[max(d, 0):max(d, 0) + v.shape[0]]
+    k = torch.arange(v.shape[0], device=v.device)
+    exposed = (k == L - 1) if d > 0 else (k == 0)
+    return torch.where(exposed, corner, out)
+
+
+def _lid(dy: float, bc_order: int) -> float:
+    """The moving lid's wall term, also the value at both lid corners."""
+    return -3.0 / dy if bc_order == 2 else -2.0 / dy
+
+
+def _cavity_wall_vectors(s, m: int, n: int, dx: float, dy: float,
+                        bc_order: int):
+    """(rl, rh, cl, ch): the wall vorticity of the padded interior psi s
+    (Hoffmann or Jensen, lid_driven_cavity.jl:24-51), rl / rh over columns
+    (the walls i = 0 / nx), cl / ch over rows (j = 0 / ny, the lid); cl and
+    ch are 0 at rows >= m (cavity_fused.py:129-151)."""
+    lid = _lid(dy, bc_order)
+    if bc_order == 1:
+        rl = -2.0 * s[0, :] / dx**2
+        rh = -2.0 * s[m - 1, :] / dx**2
+        cl = -2.0 * s[:, 0] / dy**2
+        ch = -2.0 * s[:, n - 1] / dy**2 + lid
+    else:
+        rl = (-4.0 * s[0, :] + 0.5 * s[1, :]) / dx**2
+        rh = (-4.0 * s[m - 1, :] + 0.5 * s[m - 2, :]) / dx**2
+        cl = (-4.0 * s[:, 0] + 0.5 * s[:, 1]) / dy**2
+        ch = (-4.0 * s[:, n - 1] + 0.5 * s[:, n - 2]) / dy**2 + lid
+    rows = torch.arange(s.shape[0], device=s.device) < m
+    return rl, rh, torch.where(rows, cl, 0.0), torch.where(rows, ch, 0.0)
+
+
+def _cavity_rhs(w, s, walls, m: int, n: int, dx: float, dy: float,
+                re: float, lid: float):
+    """-J(w, s) + lap(w)/re on the padded interior, w's wall values from the
+    wall vectors, psi's walls zero (cavity_fused.py:153-196)."""
+    rl, rh, cl, ch = walls
+    ai = torch.arange(w.shape[0], device=w.device)[:, None]
+    bj = torch.arange(w.shape[1], device=w.device)[None, :]
+    a_first, a_last = ai == 0, ai == m - 1
+    b_first, b_last = bj == 0, bj == n - 1
+    rlr, rhr, clc, chc = rl[None, :], rh[None, :], cl[:, None], ch[:, None]
+
+    wE = torch.where(a_last, rhr, _shift(w, 1, 0))
+    wW = torch.where(a_first, rlr, _shift(w, -1, 0))
+    wN = torch.where(b_last, chc, _shift(w, 0, 1))
+    wS = torch.where(b_first, clc, _shift(w, 0, -1))
+    # row-wall correction first, then the column-wall one: the y-walls own
+    # the corners
+    wNE = torch.where(a_last, _vshift(rh, 1, n, lid)[None, :], _shift(w, 1, 1))
+    wNE = torch.where(b_last, _vshift(ch, 1, m, lid)[:, None], wNE)
+    wSE = torch.where(a_last, _vshift(rh, -1, n, 0.0)[None, :],
+                      _shift(w, 1, -1))
+    wSE = torch.where(b_first, _vshift(cl, 1, m, 0.0)[:, None], wSE)
+    wNW = torch.where(a_first, _vshift(rl, 1, n, lid)[None, :],
+                      _shift(w, -1, 1))
+    wNW = torch.where(b_last, _vshift(ch, -1, m, lid)[:, None], wNW)
+    wSW = torch.where(a_first, _vshift(rl, -1, n, 0.0)[None, :],
+                      _shift(w, -1, -1))
+    wSW = torch.where(b_first, _vshift(cl, -1, m, 0.0)[:, None], wSW)
+
+    sE, sW = _shift(s, 1, 0), _shift(s, -1, 0)
+    sN, sS = _shift(s, 0, 1), _shift(s, 0, -1)
+    sNE, sSW = _shift(s, 1, 1), _shift(s, -1, -1)
+    sNW, sSE = _shift(s, -1, 1), _shift(s, 1, -1)
+
+    gg = 1.0 / (4.0 * dx * dy)
+    j1 = (wE - wW) * (sN - sS) - (wN - wS) * (sE - sW)
+    j2 = (wE * (sNE - sSE) - wW * (sNW - sSW)
+          - wN * (sNE - sNW) + wS * (sSE - sSW))
+    j3 = (wNE * (sN - sE) - wSW * (sW - sS)
+          - wNW * (sN - sW) + wSE * (sE - sS))
+    jac = gg * (j1 + j2 + j3) / 3.0
+    lap = (wE - 2 * w + wW) / dx**2 + (wN - 2 * w + wS) / dy**2
+    return -jac + lap / re
+
+
+def cavity_fused_stage_plain(w, wt, s, walls, stage: int, dt: float,
+                             dx: float, dy: float, re: float, m: int, n: int,
+                             bc_order: int):
+    """Plain twin of cavity_fused_stage: the JAX package's rhs, the SSP-RK3
+    combine of stage `stage` and the validity mask, then the next wall
+    vectors from s (cavity_fused.py:153-215)."""
+    r = _cavity_rhs(wt, s, walls, m, n, dx, dy, re, _lid(dy, bc_order))
+    if stage == 1:
+        raw = w + dt * r
+    elif stage == 2:
+        raw = 0.75 * w + 0.25 * wt + 0.25 * dt * r
+    else:
+        raw = (w + 2.0 * wt + 2.0 * dt * r) / 3.0
+    valid = ((torch.arange(w.shape[0], device=w.device) < m)[:, None]
+             & (torch.arange(w.shape[1], device=w.device) < n)[None, :])
+    return (torch.where(valid, raw, 0.0),
+            _cavity_wall_vectors(s, m, n, dx, dy, bc_order))
+
+
+def cavity_fused_stage(w, wt, s, walls, stage: int, dt: float, dx: float,
+                       dy: float, re: float, m: int, n: int, bc_order: int):
+    """One SSP-RK3 stage of the packed cavity in one kernel pass
+    (csrc/cavity_stage.cu): r = -J(wt, s) + lap(wt)/re on the (m, n)
+    logical interior of the (P, Q) buffers, wt's walls from the vectors
+    walls = (rl, rh, cl, ch) (lengths Q, Q, P, P); the stage's combine of
+    w (the step's start), wt and r, 0 in the padding; and the next wall
+    vectors from s.  Stage 1 takes wt = w.  Returns (wt_new, walls_new),
+    new tensors; matches cavity_fused_stage_plain."""
+    tensors = (w, wt, s, *walls)
+    if w.dtype not in (torch.float32, torch.float64) or any(
+            t.dtype != w.dtype for t in tensors):
+        raise TypeError("cavity_fused_stage takes fp32 or fp64 tensors of "
+                        f"one dtype, got {[str(t.dtype) for t in tensors]}")
+    if w.dim() != 2 or wt.shape != w.shape or s.shape != w.shape:
+        raise ValueError("cavity_fused_stage takes w, wt, s of one 2-D shape, "
+                         f"got {[tuple(t.shape) for t in (w, wt, s)]}")
+    P, Q = w.shape
+    if [tuple(v.shape) for v in walls] != [(Q,), (Q,), (P,), (P,)]:
+        raise ValueError(f"wall vectors of shapes "
+                         f"{[tuple(v.shape) for v in walls]}, expected "
+                         f"{[(Q,), (Q,), (P,), (P,)]}")
+    if not (2 <= m <= P and 2 <= n <= Q):
+        raise ValueError(f"logical interior {(m, n)} outside 2..{(P, Q)}")
+    if stage not in (1, 2, 3) or bc_order not in (1, 2):
+        raise ValueError(f"stage {stage} (1, 2, 3) or bc_order {bc_order} "
+                         "(1, 2) out of range")
+    if _on_cpu("cavity_fused_stage", *tensors):
+        return cavity_fused_stage_plain(w, wt, s, walls, stage, dt, dx, dy,
+                                        re, m, n, bc_order)
+    out = torch.empty_like(w)
+    walls_out = tuple(torch.empty_like(v) for v in walls)
+    _launch("cavity_fused_stage", f"cavity_stage_{_SUFFIX[w.dtype]}",
+            w.device, *(t.data_ptr() for t in (*tensors, out, *walls_out)),
+            P, Q, m, n, stage, bc_order, float(dt), float(dx), float(dy),
+            float(re))
+    return out, walls_out

@@ -1,8 +1,9 @@
 """Named reference configurations (counterpart of cfd_julia_tpu/presets.py).
 
-Ported so far: the 1D Euler Sod shock tube, the direct (FFT / DST),
-iterative and multigrid 2D Poisson solvers, the lid-driven cavity, and the
-periodic vortex merger / Taylor-Green solvers.  Run with
+All 29 of the JAX package's presets: the 1D heat and Burgers families, the
+1D Euler Sod shock tube, the direct (FFT / DST), iterative and multigrid 2D
+Poisson solvers, the lid-driven cavity, and the periodic vortex merger /
+Taylor-Green solvers.  Run with
 `python -m cfd_julia_torch run <preset>`; any config field can be
 overridden on the command line (e.g. --nx 1024).
 """
@@ -10,14 +11,15 @@ from __future__ import annotations
 
 import dataclasses
 
-from cfd_julia_torch.models import cavity, euler1d, poisson2d, vortex
+from cfd_julia_torch.models import (burgers1d, cavity, euler1d, heat1d,
+                                    poisson2d, vortex)
 from cfd_julia_torch.poisson import multigrid
 
 
 @dataclasses.dataclass(frozen=True)
 class Preset:
     name: str
-    family: str          # euler | poisson | cavity | vortex
+    family: str          # heat | burgers | euler | poisson | cavity | vortex
     cfg: object
     reference: str       # reference script this mirrors
     description: str = ""
@@ -26,6 +28,43 @@ class Preset:
 PRESETS = {
     p.name: p
     for p in [
+        # --- 1D heat (ch. 01-04) ---------------------------------------------
+        Preset("heat_ftcs", "heat", heat1d.HeatConfig(scheme="ftcs"),
+               "01_Heat_Equation_FTCS/ftcs.jl", "explicit FTCS, nx=80"),
+        Preset("heat_rk3", "heat", heat1d.HeatConfig(scheme="rk3"),
+               "02_Heat_Equation_RK3/rk3.jl", "SSP-RK3"),
+        Preset("heat_cn", "heat", heat1d.HeatConfig(scheme="cn"),
+               "03_Heat_Equation_CN/cn.jl", "Crank-Nicolson"),
+        Preset("heat_icp", "heat", heat1d.HeatConfig(scheme="icp"),
+               "04_Heat_Equation_ICP/icp.jl",
+               "implicit compact Pade (4th order)"),
+        # --- 1D Burgers (ch. 05-08) ------------------------------------------
+        Preset("burgers_weno_dirichlet", "burgers",
+               burgers1d.BurgersConfig(nx=400, solver="weno", bc="dirichlet"),
+               "05_Inviscid_Burgers_WENO/weno_dirichlet.jl"),
+        Preset("burgers_weno_periodic", "burgers",
+               burgers1d.BurgersConfig(nx=400, solver="weno", bc="periodic"),
+               "05_Inviscid_Burgers_WENO/weno_periodic.jl"),
+        Preset("burgers_central", "burgers",
+               burgers1d.BurgersConfig(nx=400, solver="central",
+                                       bc="dirichlet"),
+               "05_Inviscid_Burgers_WENO/weno_trial.jl",
+               "central-difference baseline"),
+        Preset("burgers_crweno_dirichlet", "burgers",
+               burgers1d.BurgersConfig(nx=1600, solver="crweno",
+                                       bc="dirichlet"),
+               "06_Inviscid_Burgers_CRWENO/crweno_dirichlet.jl"),
+        Preset("burgers_crweno_periodic", "burgers",
+               burgers1d.BurgersConfig(nx=1600, solver="crweno",
+                                       bc="periodic"),
+               "06_Inviscid_Burgers_CRWENO/crweno_periodic.jl"),
+        Preset("burgers_flux_splitting", "burgers",
+               burgers1d.BurgersConfig(nx=150, solver="flux_split"),
+               "07_Inviscid_Burgers_Flux_Splitting/"
+               "burgers_flux_splitting.jl"),
+        Preset("burgers_riemann", "burgers",
+               burgers1d.BurgersConfig(nx=200, solver="rusanov"),
+               "08_Inviscid_Burgers_Rieman/burgers_riemann.jl"),
         # --- 1D Euler Sod (ch. 09-11) ----------------------------------------
         Preset("euler_roe", "euler", euler1d.EulerConfig(nx=256, solver="roe"),
                "09_Euler_1D_Roe/euler_roe.jl"),

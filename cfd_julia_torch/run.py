@@ -14,7 +14,7 @@ import torch
 from cfd_julia_torch import presets as presets_lib
 from cfd_julia_torch.core import precision
 from cfd_julia_torch.models import cavity as cavity_model
-from cfd_julia_torch.models import euler1d, poisson2d, vortex
+from cfd_julia_torch.models import burgers1d, euler1d, heat1d, poisson2d, vortex
 from cfd_julia_torch.poisson import iterative
 from cfd_julia_torch.utils import io
 
@@ -51,6 +51,30 @@ def run_preset(name: str, outdir: str = ".", dtype=None, device="cuda",
                          if device.type == "cuda" else "cpu")
     io.write_metrics(os.path.join(outdir, "metrics.json"), metrics)
     return metrics
+
+
+def _run_heat(preset, outdir, dtype, device):
+    res = heat1d.solve(preset.cfg, dtype, device)
+    io.write_error_report(os.path.join(outdir, "output.txt"),
+                          res.l2_error, res.linf_error)
+    io.write_field_csv(os.path.join(outdir, "field_final.csv"),
+                       "x ue un uerror", res.x, res.u_exact, res.u,
+                       res.u - res.u_exact)
+    return {"l2_error": float(res.l2_error),
+            "linf_error": float(res.linf_error)}
+
+
+def _run_burgers(preset, outdir, dtype, device):
+    cfg = preset.cfg
+    res = burgers1d.solve(cfg, dtype, device)
+    fname = f"solution_{'d' if cfg.bc == 'dirichlet' else 'p'}_{cfg.nx}.txt"
+    # the reference writes snapshots 1..ns (weno_dirichlet.jl:171-180)
+    io.write_solution_history(os.path.join(outdir, fname), res.x,
+                              res.snapshots[1:])
+    u = res.u.double()
+    return {"umax": float(u.abs().max()),
+            "tv": float(torch.diff(u).abs().sum()),
+            "output": fname}
 
 
 def _run_euler(preset, outdir, dtype, device):
@@ -133,6 +157,8 @@ def _run_vortex(preset, outdir, dtype, device, **checkpointing):
 
 
 _RUNNERS = {
+    "heat": _run_heat,
+    "burgers": _run_burgers,
     "euler": _run_euler,
     "cavity": _run_cavity,
     "poisson": _run_poisson,

@@ -20,7 +20,10 @@ Phases, one line each:
      kernels and the smoother at sweeps 0, 1, 2, K+2 and 2K+1 (K sweeps a
      pass) with two calls bitwise equal; the smoother also at even-sided
      shapes and on both sides of its one-block limit, and timed at 129^2,
-     65^2 and 3x3 beside an empty launch; the Euler RHS at (3, 8192),
+     65^2 and 3x3 beside an empty launch; the packed cavity's stage kernel
+     at (nx, ny) = 1024^2, 16^2, 24x16, 33x47 and 34x130 in fp32 and fp64,
+     every stage and both wall-BC orders, two calls bitwise equal, timed
+     at 1024^2 warm and with L2 flushed; the Euler RHS at (3, 8192),
      (3, 257), nx = 3,
      4, 5 and a block's cells - 1, + 0, + 1 in fp32 and fp64 for roe,
      hllc, rusanov/roe and rusanov/spectral, on random physical states and
@@ -74,8 +77,26 @@ Phases, one line each:
  12. checkpoint and resume: the 1024^2 cavity stopped at 100 and 1000
      steps (checkpoints every 500) and resumed to 2000, and ps23 at 2048^2
      stopped at 100 and resumed to 200, each bitwise the uninterrupted
-     graphed run of phase 3 or 9 and inside its anchors; then `run cavity
-     --checkpoint-every 200` and the same with `--resume`, equal psi_min.
+     graphed run of phase 3 or 9 and inside its anchors; the packed cavity
+     of phase 13 likewise, against its uninterrupted cavity.solve run; then
+     `run cavity --checkpoint-every 200` and the same with `--resume`,
+     equal psi_min;
+ 13. the packed cavity (poisson="fused", models/cavity_fused.py) of phase
+     3's configuration: 3 launches a step of the stage kernel
+     csrc/cavity_stage.cu, 12 fp32 GEMMs; graphed and eager, each 100
+     steps and on to 2000, against both cavity anchors, bitwise equal with
+     equal launch counts (6000 stage launches, no Arakawa launch); the same
+     2000 steps through cavity.solve (bitwise the step-level run) and on
+     the stage's plain twin; max|psi_fused - psi_matmul|; steps/s beside
+     phases 3 and 11 (--profile: the fused step by kernel);
+ 14. the 1D family: CRWENO-5 periodic Burgers at nx=1600 (fp32, dt =
+     1e-4*200/1600, 2000 steps, PCR cyclic solves) against the
+     crweno:1600:2000 anchor, steps/s graphed and eager, device launches a
+     step; the 11 heat and Burgers presets through run.run_preset (heat
+     L2 under tests/test_heat1d.py's bounds, icp in fp64; Burgers in fp64,
+     finite, max|u| <= 1 + 1e-6, total variation printed; the central
+     baseline to t = 0.15, before the shock it does not survive); the
+     CLI's `run heat_cn` and `run burgers_crweno_periodic` (fp32).
 Then a JSON line with each kernel's record, and last
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 nonzero without that last line; without a GPU it fails at once.
@@ -425,6 +446,119 @@ def phase_kernels():
         if k in ("launches", "max_abs_err", "ms", "cold_ms", "plain_ms",
                  "bound_ms", "bound_by", "share_of_bound")}
     return record
+
+
+# the packed cavity's stage kernel: (nx, ny) of its phase 2 shapes, the
+# first its main path's (a 1024^2 buffer), then 16 x 128, 24 x 128, 33x47
+# (P = m = 32: no padded row) and 34x130 (40 x 256)
+STAGE_SHAPES = [(NX, NX), (16, 16), (24, 16), (33, 47), (34, 130)]
+# flops a stage needs per point: the Arakawa RHS and the combine
+FLOPS_STAGE = FLOPS_ARAKAWA + 5
+
+
+def stage_inputs(nx, ny, dtype, seed):
+    """Random interior fields of scale 1 with zero padding, and random wall
+    vectors that are zero past the logical interior, on the card."""
+    from cfd_julia_torch.models import cavity_fused
+
+    rng = np.random.default_rng(seed)
+    m, n = nx - 1, ny - 1
+    P, Q = cavity_fused.padded_extents(nx, ny)
+    fields = []
+    for _ in range(3):
+        a = np.zeros((P, Q))
+        a[:m, :n] = rng.standard_normal((m, n))
+        fields.append(torch.as_tensor(a, dtype=dtype, device="cuda"))
+    walls = []
+    for size, L in ((Q, n), (Q, n), (P, m), (P, m)):
+        v = np.zeros(size)
+        v[:L] = rng.standard_normal(L)
+        walls.append(torch.as_tensor(v, dtype=dtype, device="cuda"))
+    return (*fields, tuple(walls))
+
+
+def phase_stage_kernel():
+    """The stage kernel against its twin at every shape, dtype, stage and
+    wall-BC order, two calls bitwise equal, padding 0; each stage timed at
+    1024^2 fp32 (Jensen walls) warm and with L2 flushed beside its bound.
+    Returns the kernel's record (stage 2's time, and each stage's)."""
+    from cfd_julia_torch.ops import cuda_kernels as ck
+
+    record, stages = None, {}
+    for nx, ny in STAGE_SHAPES:
+        m, n = nx - 1, ny - 1
+        for dtype, rel in [(torch.float32, 1e-5), (torch.float64, 1e-12)]:
+            worst, all_same, all_zero = 0.0, True, True
+            for bc_order in (1, 2):
+                for stage in (1, 2, 3):
+                    w, wt, s, walls = stage_inputs(nx, ny, dtype,
+                                                   nx + 7 * stage + bc_order)
+                    wt = w if stage == 1 else wt
+                    args = (w, wt, s, walls, stage, 2e-5, 1.0 / nx, 1.0 / ny,
+                            RE, m, n, bc_order)
+                    got = ck.cavity_fused_stage(*args)
+                    again = ck.cavity_fused_stage(*args)
+                    ref = ck.cavity_fused_stage_plain(*args)
+                    torch.cuda.synchronize()
+                    outs = (got[0], *got[1])
+                    errs = [float((g - r).abs().max()) / float(r.abs().max())
+                            for g, r in zip(outs, (ref[0], *ref[1]))]
+                    worst = max(worst, *errs)
+                    all_same &= all(torch.equal(g, a) for g, a in
+                                    zip(outs, (again[0], *again[1])))
+                    all_zero &= not (got[0][m:].any() or got[0][:, n:].any())
+                    if (nx, ny) == STAGE_SHAPES[0] and bc_order == 2 and \
+                            dtype == torch.float32:
+                        stages[stage] = stage_timing(
+                            ck, args, got,
+                            float((got[0] - ref[0]).abs().max()))
+                    del w, wt, s, walls, got, again, ref
+            ok = worst <= rel and all_same and all_zero
+            P, Q = -(-m // 8) * 8, -(-n // 128) * 128
+            line = (f"phase 2 kernel cavity_fused_stage {nx}x{ny} (buffer "
+                    f"{P}x{Q}) {str(dtype)[6:]} stages 1-3, bc_order 1-2: "
+                    f"max|k-p|/max|p| over the interior and the wall "
+                    f"vectors {worst:.3e} (tol {rel:g}); two calls bitwise "
+                    f"equal: {all_same}; padding 0: {all_zero}"
+                    f" {'ok' if ok else 'FAIL'}")
+            if (nx, ny) == STAGE_SHAPES[0] and dtype == torch.float32:
+                line += "; 1024^2 fp32 device time a stage: " + ", ".join(
+                    f"stage {k} kernel {v['ms']:.4f} ms warm in L2 "
+                    f"({100 * v['share_of_bound']:.1f}% of its bound "
+                    f"{v['bound_ms']:.4f} ms by {v['bound_by']}), "
+                    f"{v['cold_ms']:.4f} ms with L2 flushed "
+                    f"({100 * v['bound_ms'] / v['cold_ms']:.1f}%), plain "
+                    f"{v['plain_ms']:.4f} ms" for k, v in stages.items()) + \
+                    " (medians of 30 calls, CUDA events)"
+            print(line)
+            check(ok, line)
+    record = {"name": "cavity_fused_stage", "route": "cuda",
+              "source": "cfd_julia_torch/csrc/cavity_stage.cu",
+              "replaces": "cfd_julia_tpu/models/cavity_fused.py:153 (the "
+                          "XLA-fused stage, not a Pallas kernel)",
+              "launches": None, **{k: v for k, v in stages[2].items()},
+              "library_ms": None,
+              "stages": {k: {kk: v[kk] for kk in ("ms", "cold_ms",
+                                                  "plain_ms", "bound_ms")}
+                         for k, v in stages.items()}}
+    return record
+
+
+def stage_timing(ck, args, got, err):
+    """Warm, L2-flushed and plain device times of one stage call and its
+    bound: w and s (and wt from stage 2) read once, the stage written
+    once, the wall vectors read and written."""
+    w, wt, s, walls, stage = args[:5]
+    ms, _ = median_ms(lambda: ck.cavity_fused_stage(*args))
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    cold_ms, _ = median_ms(lambda: ck.cavity_fused_stage(*args),
+                           before=flush.zero_)
+    del flush
+    plain_ms, _ = median_ms(lambda: ck.cavity_fused_stage_plain(*args))
+    inputs = (w, s, *walls) if stage == 1 else (w, wt, s, *walls)
+    b = bound(nbytes(*inputs, got[0], *got[1]), FLOPS_STAGE * w.numel(), ms)
+    return {"max_abs_err": err, "ms": ms, "cold_ms": cold_ms,
+            "plain_ms": plain_ms, **b}
 
 
 def bf16_ulp(x):
@@ -1506,6 +1640,245 @@ def phase_cavity_fst(matmul_rates, profile):
     print(f"phase 11 cavity {NX}^2 fp32 steps/s by Poisson solve, graphed / "
           f"eager, one run of this script: " + ", ".join(
               f"{k} {g:.2f} / {e:.2f}" for k, (g, e) in rates.items()))
+    return rates
+
+
+def phase_fused_cavity(rates, matmul_state, profile):
+    """The packed cavity (poisson="fused") of phase 3's configuration: the
+    step through the loop layer graphed (the main run) and with
+    graph=False, 100 steps and on to 2000, each with its launch counts;
+    the same 2000 steps through cavity.solve, and on the stage's plain
+    twin; psi against the matmul path's after 100 steps and phase 3's
+    after 2000.  rates: {poisson: (graphed, eager) steps/s} of phases 3 and
+    11.  Returns the main run's launch counts and the cavity.solve
+    result."""
+    import dataclasses
+
+    from cfd_julia_torch.models import cavity, cavity_fused
+    from cfd_julia_torch.ops import cuda_kernels
+    from cfd_julia_torch.stepping import loop
+
+    label = "phase 13 fused cavity"
+    cfg = cavity.CavityConfig(nx=NX, ny=NX, dt=2e-5, re=RE, bc_order=2,
+                              poisson="fused", t_final=STEPS_TOTAL * 2e-5)
+    check(cfg.nt == STEPS_TOTAL, f"fused cavity nt {cfg.nt}")
+    step = cavity_fused.make_fused_step_fn(cfg, torch.float32, "cuda")
+    packed0 = cavity_fused.init_state(cfg, torch.float32, "cuda")
+    n = STEPS_TOTAL - STEPS_FIRST
+    runs = {}
+    for graph in (True, False):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        first, rms_a = loop.run_steps(step, packed0, STEPS_FIRST, graph=graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, rms_b = loop.run_steps(step, first, n, graph=graph)
+        torch.cuda.synchronize()
+        runs[graph] = (first, state, torch.cat([rms_a, rms_b]),
+                       time.perf_counter() - t0, dict(cuda_kernels.LAUNCHES))
+    first, state, rms, seconds, launches = runs[True]
+    e_first, e_state, e_rms, e_seconds, e_launches = runs[False]
+    w1, s1 = cavity_fused.decode_state(cfg, first)
+    w, s = cavity_fused.decode_state(cfg, state)
+    anchor_check(s1, STEPS_FIRST, label)
+    anchor_check(s, STEPS_TOTAL, label)
+    finite = all(bool(torch.isfinite(x).all()) for x in (w, s, rms))
+    diff = max_diff((*first, *state, rms), (*e_first, *e_state, e_rms))
+    want = dict.fromkeys(launches, 0)
+    want["cavity_fused_stage"] = 3 * STEPS_TOTAL
+    ok = (finite and diff == 0.0 and launches == want
+          and e_launches == launches)
+    line = (f"{label} {NX}^2 fp32 (buffer {tuple(first[0].shape)}): {n} "
+            f"steps (from step {STEPS_FIRST}) graphed {n / seconds:.2f} "
+            f"steps/s ({seconds:.4f} s), eager (graph=False) "
+            f"{n / e_seconds:.2f} steps/s ({e_seconds:.4f} s); "
+            f"max|graph-eager| over the packed states and rms {diff:.3e} "
+            f"(want 0, bitwise); launches {launches} (want "
+            f"{want['cavity_fused_stage']} cavity_fused_stage and nothing "
+            f"else), eager run "
+            f"{'the same' if e_launches == launches else e_launches}; fields "
+            f"{'finite' if finite else 'NOT finite'} {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+    # the user entry point over the same 2000 steps: pack, run, decode
+    t0 = time.perf_counter()
+    res = cavity.solve(cfg, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    sdiff = max_diff((res.w, res.s, res.rms_history), (w, s, rms))
+    # the stage's plain twin on the card, graphed
+    twin = cavity_fused.make_fused_step_fn(
+        dataclasses.replace(cfg, rhs_impl="torch"), torch.float32, "cuda")
+    cuda_kernels.reset_launch_counts()
+    t_state, _ = loop.run_steps(twin, packed0, STEPS_TOTAL)
+    twin_launches = sum(cuda_kernels.LAUNCHES.values())
+    _, t_s = cavity_fused.decode_state(cfg, t_state)
+    tdiff = float((t_s - s).abs().max())
+    scale = float(s.abs().max())
+    # the full-grid matmul path after 100 steps, and phase 3's after 2000
+    mcfg = dataclasses.replace(cfg, poisson="matmul")
+    mstep = cavity.make_step_fn(mcfg, torch.float32, "cuda")
+    (_, m_s1, _), _ = loop.run_steps(
+        mstep, cavity.initial_state(mcfg, torch.float32, "cuda"),
+        STEPS_FIRST)
+    m100 = float((m_s1 - s1).abs().max())
+    m2000 = float((matmul_state[1] - s).abs().max())
+    ok = (sdiff == 0.0 and tdiff <= CAVITY_GRAPH_TOL * scale
+          and twin_launches == 0)
+    line = (f"{label}: cavity.solve(poisson='fused') over {STEPS_TOTAL} steps "
+            f"in {solve_s:.3f} s, max|solve - step-level run| {sdiff:.3e} "
+            f"(want 0); the plain-twin stage run (graphed, {twin_launches} "
+            f"kernel-wrapper launches): max|psi - psi_twin| {tdiff:.3e} "
+            f"(tol {CAVITY_GRAPH_TOL:g}*max|psi| = "
+            f"{CAVITY_GRAPH_TOL * scale:.3e}); max|psi_fused - psi_matmul| "
+            f"{m100:.3e} after {STEPS_FIRST} steps, {m2000:.3e} after "
+            f"{STEPS_TOTAL} (max|psi| {scale:.3e}) {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+    rates = {**rates, "fused": (1.0 / (seconds / n), 1.0 / (e_seconds / n))}
+    print(f"{label} {NX}^2 fp32 steps/s by Poisson solve, graphed / eager, "
+          f"one run of this script: " + ", ".join(
+              f"{k} {g:.2f} / {e:.2f}" for k, (g, e) in rates.items()))
+    if profile:
+        by_name = phase_profile(f"cavity {NX}^2 poisson=fused (graphed)",
+                                lambda: loop.run_steps(step, state, 20), 20,
+                                seconds / n)
+        if by_name:
+            profile_rhs(by_name, "cavity_stage_kernel", 20)
+    return launches, res
+
+
+# the 1D family: CRWENO-5 periodic Burgers of `bench.py`'s worker_crweno
+# (nx=1600, dt = 1e-4*200/nx, fp32), steps of its anchored window
+CRWENO_NX, CRWENO_STEPS = 1600, 2000
+# eager steps timed (~20 steps/s: ~2660 launches a step from the host)
+CRWENO_EAGER = 50
+# the heat presets' L2 bounds (tests/test_heat1d.py:14-17)
+HEAT_L2 = {"heat_ftcs": 2.1e-4, "heat_rk3": 1.5e-4, "heat_cn": 1.5e-4,
+           "heat_icp": 2e-7}
+BURGERS_PRESETS = ("burgers_weno_dirichlet", "burgers_weno_periodic",
+                   "burgers_central", "burgers_crweno_dirichlet",
+                   "burgers_crweno_periodic", "burgers_flux_splitting",
+                   "burgers_riemann")
+# Burgers presets run in fp64: in fp32 WENO's weights overshoot max|u| = 1
+# by up to 5e-6 (CPU runs of the port), past the 1 + 1e-6 gate.  The
+# central baseline oscillates from the shock on (t = 1/(2 pi)) and is not
+# finite at its preset's t = 0.25 in either package (fp64, CPU): it runs to
+# t = 0.15, where the JAX package's fp64 run reaches max|u| = 1.0000548
+BURGERS_UMAX = 1.0 + 1e-6
+CENTRAL_T, CENTRAL_UMAX = 0.15, 1.0 + 1e-4
+# the CLI runs fp32, where CRWENO-5 on an H100 overshoots max|u| = 1 by
+# 6.5e-5 after 2000 steps of phase 14's run and 9.9e-5 after the preset's
+# 2500: it is held to 1 + 1e-3, and its total variation to the fp64 run's
+# within 1e-3 of it
+CLI_UMAX, CLI_TV_REL = 1.0 + 1e-3, 1e-3
+
+
+def crweno_anchor_check(u):
+    anchor = json.loads(ANCHORS.read_text())[
+        f"crweno:{CRWENO_NX}:{CRWENO_STEPS}"]
+    u = u.double()
+    got = {"u_max": float(u.abs().max()),
+           "u_l2": float(torch.sqrt(torch.mean(u ** 2)))}
+    tol = anchor["rel_tol"]
+    rels = {k: abs(got[k] - anchor[k]) / abs(anchor[k]) for k in got}
+    text = " ".join(f"{k}={got[k]:.9g} (anchor {anchor[k]:.9g}, rel "
+                    f"{rels[k]:.2e})" for k in got) + f" tol {tol:g}"
+    return all(r <= tol for r in rels.values()), text
+
+
+def phase_1d():
+    """CRWENO-5 periodic Burgers at nx=1600 graphed (steps 100-2000 timed)
+    and eagerly (steps 10-60, bitwise the graphed run's first 60), device
+    launches a step from a profile of 10 graphed steps; then the 11 heat
+    and Burgers presets through run.run_preset on the card and two of
+    them through the CLI."""
+    from cfd_julia_torch import run
+    from cfd_julia_torch.models import burgers1d
+    from cfd_julia_torch.stepping import loop
+
+    cfg = burgers1d.BurgersConfig(nx=CRWENO_NX, solver="crweno",
+                                  bc="periodic", dt=1e-4 * 200 / CRWENO_NX)
+    step = burgers1d.make_step_fn(cfg)
+    _, u0 = burgers1d.initial_condition(cfg, torch.float32, "cuda")
+    u, seconds = timed_steps(step, u0, True, STEPS_FIRST, CRWENO_STEPS)
+    n = CRWENO_STEPS - STEPS_FIRST
+    ok, text = crweno_anchor_check(u)
+    e_u, e_seconds = timed_steps(step, u0, False, 10, 10 + CRWENO_EAGER)
+    g_u = loop.advance(step, u0, 10 + CRWENO_EAGER)
+    same = torch.equal(e_u, g_u)
+    by_name = phase_profile(f"crweno periodic {CRWENO_NX} (graphed)",
+                            lambda: loop.advance(step, u, 10), 10,
+                            seconds / n)
+    per_step = (sum(c for _, c in by_name.values()) / 10 if by_name
+                else float("nan"))
+    finite = bool(torch.isfinite(u).all())
+    ok = ok and same and finite
+    line = (f"phase 14 crweno periodic burgers {CRWENO_NX} fp32 "
+            f"@{CRWENO_STEPS} steps (dt={cfg.dt:g}, PCR): {text}; steps "
+            f"{STEPS_FIRST}-{CRWENO_STEPS} graphed {n / seconds:.2f} "
+            f"steps/s, eager (graph=False, steps 10-{10 + CRWENO_EAGER}) "
+            f"{CRWENO_EAGER / e_seconds:.2f} steps/s; eager = graphed after "
+            f"{10 + CRWENO_EAGER} steps bitwise: {same}; {per_step:.1f} "
+            f"device launches a step "
+            f"(profile of 10 graphed steps) {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+    fp64_metrics = {}
+    for name in (*HEAT_L2, *BURGERS_PRESETS):
+        fp32 = name in HEAT_L2 and name != "heat_icp"
+        dtype = torch.float32 if fp32 else torch.float64
+        over = {"t_final": CENTRAL_T} if name == "burgers_central" else {}
+        umax = CENTRAL_UMAX if over else BURGERS_UMAX
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            m = run.run_preset(name, outdir=tmp, dtype=dtype, device="cuda",
+                               **over)
+            seconds = time.perf_counter() - t0
+            fp64_metrics[name] = m
+            if name in HEAT_L2:
+                ok = m["l2_error"] < HEAT_L2[name]
+                text = (f"L2 {m['l2_error']:.4e} (bound {HEAT_L2[name]:g}), "
+                        f"Linf {m['linf_error']:.4e}")
+            else:
+                data = np.loadtxt(Path(tmp) / m["output"])
+                ok = bool(np.isfinite(data).all()) and m["umax"] <= umax
+                text = (f"{m['output']} {data.shape[0]} points x "
+                        f"{data.shape[1] - 1} snapshots, finite "
+                        f"{bool(np.isfinite(data).all())}, max|u| "
+                        f"{m['umax']:.9g} (<= 1 + {umax - 1:.0e}), total "
+                        f"variation {m['tv']:.6f}")
+        line = (f"phase 14 preset {name} ({str(dtype)[6:]}"
+                f"{', t_final ' + str(CENTRAL_T) if over else ''}, "
+                f"run.run_preset on cuda, {seconds:.3f} s): {text} "
+                f"{'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+
+    metrics, files, seconds = cli_run("heat_cn")
+    ok = (metrics["l2_error"] < HEAT_L2["heat_cn"]
+          and {"output.txt", "field_final.csv"} <= set(files))
+    line = (f"phase 14 cli `run heat_cn --device cuda`: L2 "
+            f"{metrics['l2_error']:.4e}, files {sorted(files)}, process "
+            f"{seconds:.2f} s {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+    metrics, files, seconds = cli_run("burgers_crweno_periodic")
+    tv64 = fp64_metrics["burgers_crweno_periodic"]["tv"]
+    tv_rel = abs(metrics["tv"] - tv64) / tv64
+    ok = (metrics["umax"] <= CLI_UMAX and tv_rel <= CLI_TV_REL
+          and metrics["output"] in files
+          and metrics["device"] == torch.cuda.get_device_name())
+    line = (f"phase 14 cli `run burgers_crweno_periodic --device cuda` "
+            f"(fp32): max|u| {metrics['umax']:.9g} (<= 1 + "
+            f"{CLI_UMAX - 1:.0e}), total variation {metrics['tv']:.6f} (the "
+            f"fp64 run's {tv64:.6f}, rel {tv_rel:.2e}, tol {CLI_TV_REL:g}), "
+            f"{metrics['output']}, process {seconds:.2f} s "
+            f"{'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
 
 
 def phase_empty_graph(floor_ms):
@@ -1530,12 +1903,14 @@ def phase_empty_graph(floor_ms):
           f"events)")
 
 
-def phase_checkpoint(cavity_ref, w_ps23):
+def phase_checkpoint(cavity_ref, w_ps23, fused_ref):
     """Checkpoint and resume on the card, against the uninterrupted graphed
     runs of phases 3 and 9: the 1024^2 cavity stopped at 100 steps, then
     at 1000 (checkpoints every 500), then resumed to 2000; ps23 at 2048^2
     stopped at 100 steps and resumed to 200; then the CLI cavity with
-    --checkpoint-every 200 and again with --resume."""
+    --checkpoint-every 200 and again with --resume; the packed cavity,
+    stopped and resumed as the full-grid one, against phase 13's
+    uninterrupted cavity.solve run `fused_ref`."""
     import dataclasses
 
     from cfd_julia_torch.models import cavity, vortex
@@ -1568,6 +1943,31 @@ def phase_checkpoint(cavity_ref, w_ps23):
                 f"{diff:.3e} (want 0, bitwise) {'ok' if ok else 'FAIL'}")
         print(line)
         check(ok, line)
+
+        fk = str(Path(tmp) / "fused.npz")
+        fcfg = dataclasses.replace(cfg, poisson="fused")
+        t0 = time.perf_counter()
+        for steps in (STEPS_FIRST, 1000, STEPS_TOTAL):
+            fcfg = dataclasses.replace(fcfg, t_final=steps * fcfg.dt)
+            check(fcfg.nt == steps, f"fused cavity nt {fcfg.nt} != {steps}")
+            res = cavity.solve(fcfg, torch.float32, "cuda",
+                               checkpoint_every=500, checkpoint_path=fk,
+                               resume=True)
+        seconds = time.perf_counter() - t0
+        anchor_check(res.s, STEPS_TOTAL, "phase 12 fused cavity resumed")
+        diff = max_diff((res.w, res.s, res.rms_history),
+                        (fused_ref.w, fused_ref.s, fused_ref.rms_history))
+        ok = diff == 0.0
+        line = (f"phase 12 checkpoint fused cavity {NX}^2 fp32: stopped at "
+                f"{STEPS_FIRST} and 1000 steps (checkpoints every 500, the "
+                f"full-grid format), resumed to {STEPS_TOTAL} in "
+                f"{seconds:.2f} s of three solves; max|resumed - "
+                f"uninterrupted cavity.solve run| over w, s and the rms "
+                f"history {diff:.3e} (want 0, bitwise) "
+                f"{'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+        del res
 
         vk = str(Path(tmp) / "ps23.npz")
         vcfg = vortex.VortexConfig(nx=VORTEX_NX, ny=VORTEX_NX,
@@ -1616,7 +2016,8 @@ def main(argv=None):
                              "1024^2 cavity step, the 4096^2 multigrid "
                              "solve (fused and fused=\"off\"), the hllc "
                              "8192 Euler step, the ps23 and fdm 2048^2 "
-                             "vortex steps and the fst cavity step")
+                             "vortex steps, the fst and the fused cavity "
+                             "steps")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1634,6 +2035,7 @@ def main(argv=None):
     record = phase_kernels()
     mg_records = phase_mg_kernels()
     euler_record = phase_euler_kernels()
+    stage_record = phase_stage_kernel()
     phase_empty_graph(mg_records["redblack_sweeps"]["floor_ms"])
     launches, step, state, step_s, rms, cavity_eager_s = phase_main_path()
     cavity_ref = ((state[0], state[1]), rms)
@@ -1682,8 +2084,14 @@ def main(argv=None):
                     profile_rhs(by_name, "arakawa_rhs_kernel", 10)
     del v_steps
     phase_cli_spectral()
-    phase_cavity_fst((1.0 / step_s, 1.0 / cavity_eager_s), args.profile)
-    phase_checkpoint(cavity_ref, w_ps23)
+    rates = phase_cavity_fst((1.0 / step_s, 1.0 / cavity_eager_s),
+                             args.profile)
+    fused_launches, fused_ref = phase_fused_cavity(rates, state,
+                                                   args.profile)
+    del step, state
+    phase_checkpoint(cavity_ref, w_ps23, fused_ref)
+    del fused_ref
+    phase_1d()
 
     record["launches"] = launches[record["name"]]
     record["path"] = f"cavity {NX}^2, {STEPS_TOTAL} steps"
@@ -1697,8 +2105,10 @@ def main(argv=None):
     euler_record["launches"] = euler_counts[EULER_RUNS[0]]["euler_rhs"]
     euler_record["path"] = (f"euler {EULER_RUNS[0][0]} {EULER_RUNS[0][1]} "
                             f"fp32, {EULER_STEPS} steps")
+    stage_record["launches"] = fused_launches["cavity_fused_stage"]
+    stage_record["path"] = (f"fused cavity {NX}^2, {STEPS_TOTAL} steps")
     print(json.dumps({"kernels": [record, *mg_records.values(),
-                                  euler_record]}))
+                                  euler_record, stage_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -204,7 +204,9 @@ def test_import_leaves_out_jax():
         "for m in ('models.cavity', 'models.poisson2d', 'poisson.multigrid',"
         " 'poisson.iterative', 'ops.norms', 'ops.cuda_kernels',"
         " 'models.euler1d', 'ops.weno', 'ops.riemann', 'stepping.ssprk3',"
-        " 'ops.spectral', 'models.vortex', 'utils.diagnostics'):\n"
+        " 'ops.spectral', 'models.vortex', 'utils.diagnostics',"
+        " 'models.cavity_fused', 'models.heat1d', 'models.burgers1d',"
+        " 'ops.tridiag', 'ops.crweno', 'ops.stencil', 'core.grid'):\n"
         "    assert 'cfd_julia_torch.' + m in sys.modules, m\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

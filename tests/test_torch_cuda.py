@@ -23,7 +23,8 @@ import pytest
 import torch
 
 from cfd_julia_torch import interop
-from cfd_julia_torch.models import cavity, euler1d, poisson2d, vortex
+from cfd_julia_torch.models import (burgers1d, cavity, cavity_fused,
+                                    euler1d, heat1d, poisson2d, vortex)
 from cfd_julia_torch.ops import _cuda_build, cuda_kernels
 from cfd_julia_torch.poisson import multigrid
 from cfd_julia_torch.stepping import loop, ssprk3
@@ -541,3 +542,170 @@ def test_resume_is_bitwise_on_the_gpu(cuda_device, tmp_path):
                        resume=True)
     want = vortex.solve(vcfg, torch.float32, cuda_device)
     _assert_same((got.w, got.snapshots), (want.w, want.snapshots))
+
+
+# ------------------------------------------------ the packed cavity stage
+
+# (nx, ny) of the packed cavity: 1024^2 (a 1024^2 buffer), 16^2 (16 x 128),
+# 24 x 16, 33 x 47 (P = m = 32: no padded row), 34 x 130 (40 x 256)
+STAGE_SHAPES = [(1024, 1024), (16, 16), (24, 16), (33, 47), (34, 130)]
+
+
+def _stage_inputs(nx, ny, dtype, device, seed):
+    """Random interior fields of scale 1 with zero padding, and random wall
+    vectors zero past the logical interior."""
+    rng = np.random.default_rng(seed)
+    m, n = nx - 1, ny - 1
+    P, Q = cavity_fused.padded_extents(nx, ny)
+    fields = []
+    for _ in range(3):
+        a = np.zeros((P, Q))
+        a[:m, :n] = rng.standard_normal((m, n))
+        fields.append(torch.as_tensor(a, dtype=dtype, device=device))
+    walls = []
+    for size, L in ((Q, n), (Q, n), (P, m), (P, m)):
+        v = np.zeros(size)
+        v[:L] = rng.standard_normal(L)
+        walls.append(torch.as_tensor(v, dtype=dtype, device=device))
+    return (*fields, tuple(walls))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc_order", [1, 2])
+@pytest.mark.parametrize("stage", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx,ny", STAGE_SHAPES)
+def test_cavity_stage_kernel_matches_plain(cuda_device, nx, ny, dtype, stage,
+                                           bc_order):
+    """The stage kernel against its twin (the new interior and the four
+    wall vectors), a second call bitwise, one launch a call, padding 0."""
+    w, wt, s, walls = _stage_inputs(nx, ny, dtype, cuda_device,
+                                    seed=nx + 7 * stage + bc_order)
+    if stage == 1:
+        wt = w
+    args = (w, wt, s, walls, stage, 1e-3, 1.0 / nx, 1.0 / ny, 100.0, nx - 1,
+            ny - 1, bc_order)
+    before = cuda_kernels.LAUNCHES["cavity_fused_stage"]
+    got = cuda_kernels.cavity_fused_stage(*args)
+    again = cuda_kernels.cavity_fused_stage(*args)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["cavity_fused_stage"] == before + 2
+    ref = cuda_kernels.cavity_fused_stage_plain(*args)
+    _assert_rel(got[0], ref[0], REL[dtype])
+    for g, r in zip(got[1], ref[1]):
+        _assert_rel(g, r, REL[dtype])
+    _assert_same((got[0], *got[1]), (again[0], *again[1]))
+    assert not got[0][nx - 1:].any() and not got[0][:, ny - 1:].any()
+
+
+@pytest.mark.cuda
+def test_cavity_stage_wrapper_raises_on_cuda_misuse(cuda_device):
+    """On CUDA tensors the wrapper launches or raises: a non-contiguous
+    field, tensors on two devices and a bf16 field are refused, never
+    handed to the twin."""
+    w, wt, s, walls = _stage_inputs(16, 16, torch.float32, cuda_device, 0)
+    rest = (1, 1e-3, 1 / 16, 1 / 16, 100.0, 15, 15, 2)
+    before = cuda_kernels.LAUNCHES["cavity_fused_stage"]
+    wide = torch.zeros(16, 256, device=cuda_device)[:, :128]
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.cavity_fused_stage(wide, wide, s, walls, *rest)
+    with pytest.raises(ValueError, match="different devices"):
+        cuda_kernels.cavity_fused_stage(w, wt, s.cpu(), walls, *rest)
+    with pytest.raises(TypeError):
+        cuda_kernels.cavity_fused_stage(w.bfloat16(), wt.bfloat16(),
+                                        s.bfloat16(),
+                                        tuple(v.bfloat16() for v in walls),
+                                        *rest)
+    assert cuda_kernels.LAUNCHES["cavity_fused_stage"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(64, 64), (33, 47)])
+def test_fused_cavity_kernel_matches_twin_and_matmul(cuda_device, nx, ny):
+    """fp64, 30 steps from rest through cavity.solve: the packed step on
+    the kernel against the packed step on the twin and the full-grid
+    matmul step, 3 stage launches a step and no Arakawa launch."""
+    base = cavity.CavityConfig(nx=nx, ny=ny, dt=1e-3, t_final=0.03,
+                               poisson="fused")
+    cuda_kernels.reset_launch_counts()
+    got = cavity.solve(base, torch.float64, cuda_device)
+    launches = dict(cuda_kernels.LAUNCHES)
+    assert launches["cavity_fused_stage"] == 90
+    assert launches["arakawa_rhs"] == 0
+    twin = cavity.solve(dataclasses.replace(base, rhs_impl="torch"),
+                        torch.float64, cuda_device)
+    ref = cavity.solve(dataclasses.replace(base, poisson="matmul"),
+                       torch.float64, cuda_device)
+    for other in (twin, ref):
+        _assert_rel(got.s, other.s, 1e-11)
+        _assert_rel(got.w, other.w, 1e-11)
+        _assert_rel(got.rms_history, other.rms_history, 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(64, 64), (34, 130)])
+def test_graphed_fused_cavity_equals_eager(cuda_device, nx, ny):
+    """60 fp32 packed steps, twice on one step function: the graphed state
+    and rms history are the eager ones bit for bit, 3 stage launches a
+    step either way."""
+    cfg = cavity.CavityConfig(nx=nx, ny=ny, dt=2e-4)
+    step = cavity_fused.make_fused_step_fn(cfg, torch.float32, cuda_device)
+    state = cavity_fused.init_state(cfg, torch.float32, cuda_device)
+
+    def run(graph):
+        s, h1 = loop.run_steps(step, state, 60, graph=graph)
+        s, h2 = loop.run_steps(step, s, 60, graph=graph)
+        return (*s, h1, h2)
+
+    (eager, n_eager), (graphed, n_graph) = _graph_vs_eager(run)
+    assert all(bool(torch.isfinite(t).all()) for t in eager)
+    _assert_same(graphed, eager)
+    assert n_graph == n_eager and n_graph["cavity_fused_stage"] == 3 * 120
+
+
+@pytest.mark.cuda
+def test_fused_resume_is_bitwise_on_the_gpu(cuda_device, tmp_path):
+    """The 64^2 fp32 packed cavity, checkpointed every 40 steps and stopped
+    at 80, resumes to 150 bit for bit the uninterrupted graphed run."""
+    ck = str(tmp_path / "f.npz")
+    cfg = cavity.CavityConfig(nx=64, ny=64, dt=1e-3, t_final=0.08,
+                              poisson="fused")
+    cavity.solve(cfg, torch.float32, cuda_device, checkpoint_every=40,
+                 checkpoint_path=ck)
+    cfg = dataclasses.replace(cfg, t_final=0.15)
+    got = cavity.solve(cfg, torch.float32, cuda_device, checkpoint_path=ck,
+                       resume=True)
+    want = cavity.solve(cfg, torch.float32, cuda_device)
+    _assert_same((got.w, got.s, got.rms_history),
+                 (want.w, want.s, want.rms_history))
+
+
+# ------------------------------------------------ the 1D heat / Burgers family
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,bc", [("crweno", "periodic"),
+                                       ("crweno", "dirichlet"),
+                                       ("weno", "dirichlet"),
+                                       ("flux_split", "periodic")])
+def test_burgers_on_gpu_matches_cpu_and_graphs(cuda_device, solver, bc):
+    """fp64, 60 steps with 3 snapshots: the card's run against the CPU's
+    within 1e-12 of the scale, and graphed bitwise equal to eager."""
+    cfg = burgers1d.BurgersConfig(nx=200, solver=solver, bc=bc, dt=1e-4,
+                                  t_final=0.006, ns=3)
+    step = burgers1d.make_step_fn(cfg)
+    _, u0 = burgers1d.initial_condition(cfg, torch.float64, cuda_device)
+    (eager, _), (graphed, _) = _graph_vs_eager(
+        lambda graph: loop.run_steps_with_snapshots(step, u0, cfg.nt, 20,
+                                                    graph=graph))
+    _assert_same(graphed, eager)
+    cpu = burgers1d.solve(cfg, torch.float64, "cpu")
+    _assert_rel(graphed[0], cpu.u, 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["ftcs", "rk3", "cn", "icp"])
+def test_heat_on_gpu_matches_cpu(cuda_device, scheme):
+    cfg = heat1d.HeatConfig(scheme=scheme, t_final=0.1)
+    got = heat1d.solve(cfg, torch.float64, cuda_device, keep_history=True)
+    cpu = heat1d.solve(cfg, torch.float64, "cpu", keep_history=True)
+    _assert_rel(got.history, cpu.history, 1e-12)

@@ -372,8 +372,8 @@ def test_presets_mirror_jax(name):
 
 
 def test_preset_count():
-    assert len(presets.PRESETS) == 18
-    assert set(presets.PRESETS) <= set(jax_presets.PRESETS)
+    assert len(presets.PRESETS) == 29
+    assert set(presets.PRESETS) == set(jax_presets.PRESETS)
 
 
 @pytest.mark.parametrize("name", ["tgv", "vortex_merger_ps23"])
