@@ -6,8 +6,12 @@ subcommand so far).
                                   [--nx N] [--t_final X] ...
 
 `run` accepts any config dataclass field of the preset as a --key value
-override.  --device defaults to cuda and raises without a GPU; a CPU run
-says --device cpu.
+override, e.g. `run cavity --poisson fused_bf16x3` for a precision tier of
+the cavity's Poisson products (matmul_bf16x3 | matmul_bf16x1 |
+fused_bf16x3 | fused_bf16x1: the TPU's split-bf16 arithmetic on every
+device, the CUDA kernel on a GPU and its plain twin on the CPU; fp32, the
+runs' default dtype).  --device defaults to cuda and raises without a GPU;
+a CPU run says --device cpu.
 """
 from __future__ import annotations
 

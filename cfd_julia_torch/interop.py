@@ -17,10 +17,10 @@ from cfd_julia_torch.models import (burgers1d, cavity, euler1d, heat1d,
 from cfd_julia_torch.ops import spectral
 from cfd_julia_torch.poisson import multigrid
 
-# JAX CavityConfig.poisson / .rhs_impl -> the port's; the other JAX variants
-# (the bf16 tiers *_bf16x*, fst_mxu, ...) are not ported
-_POISSON = {"auto": "auto", "matmul": "matmul", "fst": "fst",
-            "fst_half": "fst_half", "fused": "fused"}
+# JAX CavityConfig.poisson / .rhs_impl -> the port's, one to one (the bf16
+# tiers compute the TPU's split-bf16 products on every device); the other
+# JAX variants (fst_mxu, fst_half_mxu, ...) are not ported
+_POISSON = {name: name for name in cavity.POISSON}
 _RHS_IMPL = {"auto": "auto", "xla": "torch", "pallas": "kernel"}
 # JAX MGConfig.smoother -> the port's (smoother, impl): the JAX smoother
 # implementations "pallas" / "xla" are the port's kernels / plain twins

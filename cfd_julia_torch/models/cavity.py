@@ -16,6 +16,14 @@ This is the full-grid step of the JAX package with poisson="matmul", "fst"
 or "fst_half" and rhs_impl="pallas".  poisson="fused" is the packed,
 interior-padded step of models/cavity_fused.py, which `solve` routes (pack,
 run, decode).  Domain [0,1]^2; the lid moves in +x at the top wall (j = ny).
+
+The precision tiers matmul_bf16x3 / matmul_bf16x1 and fused_bf16x3 /
+fused_bf16x1 are the JAX package's TPU configurations: the sine-matrix
+products split fp32 operands into bf16 parts (3 passes, XLA's bf16_3x; or
+one bf16 pass) with fp32 accumulation, through csrc/tier_gemm.cu on the
+GPU and its plain twin on the CPU.  So a tier computes the TPU's arithmetic
+on every device (JAX's CPU backend ignores the precision and runs fp32).
+A tier takes fp32 states only and raises for any other dtype.
 """
 from __future__ import annotations
 
@@ -43,7 +51,9 @@ class CavityConfig:
                              # (interior sine-matmul DST-I solve) | fst
                              # (odd-extension rfft DST-I) | fst_half
                              # (half-length rfft DST-I) | fused (the packed
-                             # step of models/cavity_fused; solve only)
+                             # step of models/cavity_fused; solve only) |
+                             # the bf16 tiers matmul_bf16x3, matmul_bf16x1,
+                             # fused_bf16x3, fused_bf16x1 (fp32 only)
     rhs_impl: str = "auto"   # auto (kernel on a CUDA device, torch on the
                              # CPU) | kernel (csrc/arakawa_rhs.cu, or
                              # csrc/cavity_stage.cu under fused; CUDA
@@ -93,22 +103,24 @@ def assemble_with_wall_bc(w_interior, s, dx: float, dy: float,
     return torch.cat([col_lo[:, None], mid, col_hi[:, None]], 1)
 
 
-# the JAX package's bf16 tiers of the TPU's matrix unit (3-pass and 1-pass)
-_BF16_TIERS = ("fused_bf16x3", "fused_bf16x1", "matmul_bf16x3",
-               "matmul_bf16x1")
+POISSON = ("auto", "matmul", "matmul_bf16x3", "matmul_bf16x1", "fst",
+           "fst_half", "fused", "fused_bf16x3", "fused_bf16x1")
+# the packed step's names (models/cavity_fused), which solve() routes
+FUSED = ("fused", "fused_bf16x3", "fused_bf16x1")
 
 
-def _check_poisson(name: str) -> None:
-    """Raise for a Poisson solve the port does not run: a bf16 tier, or an
-    unknown name (a typo must never silently run the default solver)."""
-    if name in _BF16_TIERS:
-        raise ValueError(
-            f"poisson={name!r} is a bf16 tier of the TPU's matrix unit; its "
-            "H100 counterpart waits for a precision certification (ROADMAP "
-            "A.6); use 'matmul' or 'fused' (full fp32)")
-    if name not in ("auto", "matmul", "fst", "fst_half", "fused"):
+def _check_poisson(name: str, dtype) -> None:
+    """Raise for a Poisson solve the port does not run: an unknown name (a
+    typo must never silently run the default solver), or a bf16 tier with
+    a state that is not fp32 (a tier never runs at another precision)."""
+    if name not in POISSON:
         raise ValueError(f"unknown poisson solver {name!r} "
-                         "(auto | matmul | fst | fst_half | fused)")
+                         f"({' | '.join(POISSON)})")
+    if direct.tier_of(name) is not None and dtype != torch.float32:
+        raise ValueError(
+            f"poisson={name!r} is a bf16 precision tier of fp32 states (its "
+            f"products split fp32 operands into bf16 parts); got a {dtype} "
+            "state")
 
 
 def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda"):
@@ -118,10 +130,10 @@ def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda"):
     device = precision.resolve_device(device)
     dx, dy, dt, re = cfg.dx, cfg.dy, cfg.dt, cfg.re
     rhs_impl = precision.resolve_rhs_impl(cfg.rhs_impl, device)
-    _check_poisson(cfg.poisson)
-    if cfg.poisson == "fused":
+    _check_poisson(cfg.poisson, dtype)
+    if cfg.poisson in FUSED:
         raise ValueError(
-            "poisson='fused' selects the interior-padded fused step "
+            f"poisson={cfg.poisson!r} selects the interior-padded fused step "
             "(models.cavity_fused), which carries a packed state and so "
             "cannot be built by make_step_fn; use cavity.solve (which "
             "routes it) or cavity_fused.make_fused_step_fn directly")
@@ -140,8 +152,9 @@ def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda"):
             cfg.nx, cfg.ny, dx, dy, dtype, device,
             impl="half" if cfg.poisson == "fst_half" else "rfft")
     else:
-        solve = direct.make_fst_matmul_interior(cfg.nx, cfg.ny, dx, dy,
-                                                dtype, device)
+        solve = direct.make_fst_matmul_interior(
+            cfg.nx, cfg.ny, dx, dy, dtype, device,
+            tier=direct.tier_of(cfg.poisson))
 
     def stage_close(wt_interior, s_prev):
         """Assemble with wall BCs from the pre-stage psi, then fresh psi."""
@@ -193,16 +206,16 @@ def solve(cfg: CavityConfig, dtype=None, device="cuda",
     function of (w, s); its rms is that step's psi change, so the rms
     entry of the state is never read).
 
-    poisson="fused" runs the packed step (models/cavity_fused.py) as the
-    JAX package's solve does: pack the full-grid state, run the steps,
-    decode; once a run, or once a checkpoint interval, so checkpoints keep
-    the full-grid format."""
+    poisson="fused" (and its tiers fused_bf16x3 / fused_bf16x1) runs the
+    packed step (models/cavity_fused.py) as the JAX package's solve does:
+    pack the full-grid state, run the steps, decode; once a run, or once a
+    checkpoint interval, so checkpoints keep the full-grid format."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
     if (checkpoint_every or resume) and not checkpoint_path:
         raise ValueError("checkpointing requires checkpoint_path")
-    _check_poisson(cfg.poisson)
-    if cfg.poisson == "fused":
+    _check_poisson(cfg.poisson, dtype)
+    if cfg.poisson in FUSED:
         fused = cavity_fused.make_fused_step_fn(cfg, dtype, device)
 
         def advance(state, n):

@@ -13,17 +13,19 @@ full-grid step, reference ch. 18, lid_driven_cavity.jl:58-118).
 * A stage is one launch of the CUDA kernel csrc/cavity_stage.cu (its plain
   twin on the CPU): the RHS with the wall vectors, the SSP-RK3 combine, the
   validity mask and the next stage's wall vectors.  The Poisson solve is
-  four fp32 (or fp64) matrix products with the zero-extended sine matrices,
-  so a step is 3 stage launches, 12 GEMMs, the scalings and the rms.
+  four matrix products with the zero-extended sine matrices, so a step is 3
+  stage launches, 12 GEMMs, the scalings and the rms.  The products are
+  fp32 (or fp64) under poisson="fused" and split-bf16 under the precision
+  tiers "fused_bf16x3" / "fused_bf16x1" (JAX's mm_precision "high" /
+  "default"; poisson/direct.tier_mm: csrc/tier_gemm.cu on the GPU, its
+  twin on the CPU, fp32 states only).
 
 The state is the flat tuple (w, s, rl, rh, cl, ch, rms), rms last, as the
 loop layer records state[-1]; the JAX package nests the walls,
 (w, s, (rl, rh, cl, ch), rms) (interop.cavity_fused_state_from_numpy maps
 one to the other).  rl / rh run over columns (the walls i = 0 / nx), cl / ch
 over rows (j = 0 / ny, the lid), in interior index space, 0 past the
-logical interior.  The JAX package's bf16 tiers of this step (fused_bf16x3,
-fused_bf16x1) are not ported: their H100 counterpart needs a precision
-certification first (ROADMAP A.6).
+logical interior.
 """
 from __future__ import annotations
 
@@ -58,11 +60,13 @@ def make_fused_step_fn(cfg, dtype=None, device="cuda"):
     """Step on the packed state (w, s, rl, rh, cl, ch, rms) of `dtype` on
     `device`; the matrices are built here, once.  cfg.rhs_impl picks the
     stage: auto (the kernel on a CUDA device, the twin on the CPU), kernel
-    or torch (the twin, any device).  The products run in full precision:
-    TF32 stays off, the JAX package's mm_precision="highest"."""
+    or torch (the twin, any device).  cfg.poisson picks the products:
+    fused_bf16x3 / fused_bf16x1 their tier, any other name full precision
+    (TF32 stays off: the JAX package's mm_precision="highest")."""
     _check(cfg)
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
+    mm = direct.tier_mm(direct.tier_of(cfg.poisson), dtype)
     stage_fn = (cuda_kernels.cavity_fused_stage
                 if precision.resolve_rhs_impl(cfg.rhs_impl, device) == "kernel"
                 else cuda_kernels.cavity_fused_stage_plain)
@@ -89,8 +93,8 @@ def make_fused_step_fn(cfg, dtype=None, device="cuda"):
 
     def solve_neg(wt):
         """psi with lap(psi) = -wt on the interior (walls zero)."""
-        coeff = torch.matmul(torch.matmul(sx, wt), sy) / neg_den
-        return torch.matmul(torch.matmul(sx, coeff), sy) * scale
+        coeff = mm(mm(sx, wt), sy) / neg_den
+        return mm(mm(sx, coeff), sy) * scale
 
     def stage(k, w, wt, s, walls):
         wt, walls = stage_fn(w, wt, s, walls, k, dt, dx, dy, re, m, n,

@@ -37,6 +37,8 @@ _EULER_ARGS = [_PTR, _PTR, _INT, _DBL, _DBL, _INT, _INT, _PTR]
 # w, wt, s, rl, rh, cl, ch, out, rl_o, rh_o, cl_o, ch_o, P, Q, m, n, stage,
 # bc order, dt, dx, dy, re, stream
 _CAVITY_STAGE_ARGS = [_PTR] * 12 + [_INT] * 6 + [_DBL] * 4 + [_PTR]
+# a, b, c, M, N, K, passes, stream
+_TIER_GEMM_ARGS = [_PTR] * 3 + [_INT] * 4 + [_PTR]
 # multigrid launchers, one per storage type (ops/cuda_kernels.py)
 _MG_ARGS = {
     # u, f, out, work, nr, nc, 1/dx^2, 1/dy^2, sweeps, stream
@@ -62,6 +64,7 @@ SIGNATURES = {
     "euler_rhs_f64": (_INT, _EULER_ARGS),
     "cavity_stage_f32": (_INT, _CAVITY_STAGE_ARGS),
     "cavity_stage_f64": (_INT, _CAVITY_STAGE_ARGS),
+    "tier_gemm": (_INT, _TIER_GEMM_ARGS),
     "cfd_cuda_error_string": (ctypes.c_char_p, [_INT]),
     "mg_edge_sweeps_per_pass": (_INT, []),
     "mg_edge_work_fields": (_INT, [_INT]),

@@ -23,6 +23,10 @@ Kernels (csrc/ file; TPU function replaced):
   cavity_fused_stage              cavity_stage.cu; the XLA-fused stage of
                                   models/cavity_fused.py:153-215 (not a
                                   Pallas kernel)
+  tier_matmul                     tier_gemm.cu;   XLA's bf16_3x / default
+                                  dot of the precision tiers (direct.py:99-
+                                  102, cavity_fused.py:120; not a Pallas
+                                  kernel)
 
 The multigrid kernels take bf16, fp32 or fp64 fields; bf16 computes in
 fp32 and rounds once, at the output store (the TPU kernels' `_c32`
@@ -39,7 +43,7 @@ from cfd_julia_torch.poisson import iterative
 LAUNCHES = {"arakawa_rhs": 0, "redblack_sweeps": 0,
             "smooth_residual_restrict": 0, "residual_restrict": 0,
             "prolong_correct_smooth": 0, "euler_rhs": 0,
-            "cavity_fused_stage": 0}
+            "cavity_fused_stage": 0, "tier_gemm": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 _MG_DTYPES = tuple(_SUFFIX)
@@ -526,3 +530,61 @@ def cavity_fused_stage(w, wt, s, walls, stage: int, dt: float, dx: float,
             P, Q, m, n, stage, bc_order, float(dt), float(dx), float(dy),
             float(re))
     return out, walls_out
+
+
+# ------------------------------------------------------- precision tiers
+
+# passes of the cavity's bf16 tiers: XLA's bf16_3x ("high") and one bf16
+# pass ("default") on the TPU's matrix unit
+TIER_PASSES = {"bf16x3": 3, "bf16x1": 1}
+
+
+def _bf16_split(a):
+    """(hi, lo) as fp32: hi = bf16(a), lo = bf16(a - hi), both rounded to
+    nearest even; a - hi is exact in fp32."""
+    hi = a.to(torch.bfloat16).to(torch.float32)
+    return hi, (a - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def tier_matmul_plain(a, b, passes: int):
+    """Plain twin of tier_matmul: the operands split with `.to(bfloat16)`,
+    each pass's product taken in fp64 and rounded to fp32 (exact but for
+    that rounding: a product of two bf16 values has 16 bits), and the
+    passes summed in fp32 as hh + hl + lh (the JAX package's emulation of
+    the TPU's tiers, tests/test_poisson2d.py:375-388)."""
+    ah, al = _bf16_split(a)
+    bh, bl = _bf16_split(b)
+
+    def mm(x, y):
+        return torch.matmul(x.double(), y.double()).float()
+
+    if passes == 1:
+        return mm(ah, bh)
+    return mm(ah, bh) + mm(ah, bl) + mm(al, bh)
+
+
+def tier_matmul(a, b, passes: int):
+    """C = A @ B in a precision tier of the TPU's matrix unit, fp32 in and
+    out: passes=3 is XLA's bf16_3x (a_hi b_hi + a_hi b_lo + a_lo b_hi),
+    passes=1 one bf16 product bf16(a) bf16(b), both accumulated in fp32
+    (csrc/tier_gemm.cu: the split at the shared-memory stage, mma.sync on
+    the tensor cores).  a: (M, K), b: (K, N), fp32.  On the CPU it runs
+    the twin, so a tier computes the TPU's arithmetic on every device."""
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"tier_matmul takes fp32 operands, got {a.dtype} "
+                        f"and {b.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0] or \
+            a.numel() == 0 or b.numel() == 0:
+        raise ValueError(f"tier_matmul takes (M, K) @ (K, N) with M, N, K "
+                         f">= 1, got {tuple(a.shape)} @ {tuple(b.shape)}")
+    if passes not in (1, 3):
+        raise ValueError(f"tier_matmul: passes must be 1 or 3, got {passes}")
+    if _on_cpu("tier_matmul", a, b):
+        return tier_matmul_plain(a, b, passes)
+    (M, K), N = a.shape, b.shape[1]
+    if M * N >= 2**31 or b.numel() >= 2**31:
+        raise ValueError(f"{(M, N, K)} exceeds the kernel's int index")
+    out = a.new_empty((M, N))
+    _launch("tier_gemm", "tier_gemm", a.device, a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), M, N, K, passes)
+    return out

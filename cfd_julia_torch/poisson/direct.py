@@ -10,7 +10,11 @@ Wraps ops.spectral with the reference's full-grid conventions:
   (fft_d.jl:70-76);
 * the sine-matmul solver is the same DST-I solve as four dense
   sine-matrix products, which on the GPU are plain large GEMMs
-  (torch.matmul).
+  (torch.matmul, full fp32) or, in a precision tier of the TPU's matrix
+  unit (`tier`, the JAX package's `mm_precision`), split-bf16 products
+  (ops/cuda_kernels.tier_matmul: csrc/tier_gemm.cu on the GPU, its plain
+  twin on the CPU, so a tier computes the TPU's arithmetic on every device
+  where JAX's CPU backend ignores the precision and runs fp32).
 
 PyTorch runs eagerly, so each `make_*` builds its eigenvalue denominator
 (and the sine matrices or transform weights) once and returns the solve
@@ -24,7 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from cfd_julia_torch.ops import spectral
+from cfd_julia_torch.ops import cuda_kernels, spectral
 
 
 def make_fft(nx: int, ny: int, dx: float, dy: float, dtype, device=None,
@@ -85,15 +89,45 @@ def _sine_entries(ri, ci, n: int, dtype):
     return torch.sin(math.pi * m.to(dtype) / n)
 
 
+def tier_of(poisson: str) -> str | None:
+    """The precision tier a cavity Poisson name carries: "bf16x3" for
+    matmul_bf16x3 / fused_bf16x3, "bf16x1" for the _bf16x1 names, else
+    None (full precision)."""
+    for tier in cuda_kernels.TIER_PASSES:
+        if poisson.endswith("_" + tier):
+            return tier
+    return None
+
+
+def tier_mm(tier: str | None, dtype):
+    """The product of a precision tier: torch.matmul for tier=None (full
+    precision, JAX's mm_precision="highest"), else the split-bf16 product
+    of "bf16x3" ("high") or "bf16x1" ("default"), which takes fp32 only:
+    a tier never runs silently at another precision."""
+    if tier is None:
+        return torch.matmul
+    if tier not in cuda_kernels.TIER_PASSES:
+        raise ValueError(f"unknown precision tier {tier!r} "
+                         f"({' | '.join(cuda_kernels.TIER_PASSES)})")
+    if dtype != torch.float32:
+        raise ValueError(f"the {tier} tier splits fp32 operands into bf16 "
+                         f"parts and takes fp32 only, got {dtype}")
+    passes = cuda_kernels.TIER_PASSES[tier]
+    return lambda a, b: cuda_kernels.tier_matmul(a, b, passes)
+
+
 def make_fst_matmul_interior(nx: int, ny: int, dx: float, dy: float,
-                             dtype, device=None):
+                             dtype, device=None, tier: str | None = None):
     """Build the Dirichlet Poisson solve lap(u) = f on an (nx+1, ny+1) grid
     as four dense matmuls; returns solve(f) -> u.
 
     solve reads only f's interior (1..nx-1, 1..ny-1) and returns u with an
     exactly-zero boundary ring.  With S the unscaled interior sine matrix,
     u = S((S g S) / den) S * 4/(nx ny): S^2 = (n/2) I on the interior, and
-    FFTW's RODFT00 pair scales by 2nx * 2ny."""
+    FFTW's RODFT00 pair scales by 2nx * 2ny.  tier: None (fp32 or fp64
+    products), "bf16x3" or "bf16x1" (fp32 only; tier_mm)."""
+    mm = tier_mm(tier, dtype)
+
     def sine_interior(n):
         k = torch.arange(1, n, dtype=torch.int32, device=device)
         return _sine_entries(k[:, None], k[None, :], n, dtype)
@@ -108,15 +142,18 @@ def make_fst_matmul_interior(nx: int, ny: int, dx: float, dy: float,
     scale = 4.0 / (nx * ny)
 
     def solve(f):
-        g = f[1:nx, 1:ny]
-        coeff = torch.matmul(torch.matmul(sx, g), sy) / den
-        u = torch.matmul(torch.matmul(sx, coeff), sy) * scale
+        # the tier kernel takes contiguous operands
+        g = f[1:nx, 1:ny] if tier is None else f[1:nx, 1:ny].contiguous()
+        coeff = mm(mm(sx, g), sy) / den
+        u = mm(mm(sx, coeff), sy) * scale
         return F.pad(u, (1, 1, 1, 1))
 
     return solve
 
 
-def solve_fst_matmul_interior(f, nx: int, ny: int, dx: float, dy: float):
+def solve_fst_matmul_interior(f, nx: int, ny: int, dx: float, dy: float,
+                              tier: str | None = None):
     """One-off form of make_fst_matmul_interior (builds the matrices for
     this call); f: (nx+1, ny+1)."""
-    return make_fst_matmul_interior(nx, ny, dx, dy, f.dtype, f.device)(f)
+    return make_fst_matmul_interior(nx, ny, dx, dy, f.dtype, f.device,
+                                    tier)(f)

@@ -23,7 +23,14 @@ Phases, one line each:
      65^2 and 3x3 beside an empty launch; the packed cavity's stage kernel
      at (nx, ny) = 1024^2, 16^2, 24x16, 33x47 and 34x130 in fp32 and fp64,
      every stage and both wall-BC orders, two calls bitwise equal, timed
-     at 1024^2 warm and with L2 flushed; the Euler RHS at (3, 8192),
+     at 1024^2 warm and with L2 flushed; the tier GEMM (csrc/tier_gemm.cu,
+     the bf16 precision tiers' split-bf16 product) at 1024^3, 1023^3,
+     1x1x1, 15x17x13, 33x47x129 and 130x131x129 with 1 and 3 passes, on
+     random operands and the cavity's sine matrices, within 1e-5 of max|C|
+     of its twin, two calls bitwise equal, timed at 1024^3 beside its
+     bound (tensor-core flops over 989 TFLOP/s, or bytes), its twin, the
+     fp32 torch.matmul it stands in for and torch.mm on bf16 operands
+     split beforehand (the library yardstick); the Euler RHS at (3, 8192),
      (3, 257), nx = 3,
      4, 5 and a block's cells - 1, + 0, + 1 in fp32 and fp64 for roe,
      hllc, rusanov/roe and rusanov/spectral, on random physical states and
@@ -96,7 +103,19 @@ Phases, one line each:
      L2 under tests/test_heat1d.py's bounds, icp in fp64; Burgers in fp64,
      finite, max|u| <= 1 + 1e-6, total variation printed; the central
      baseline to t = 0.15, before the shock it does not survive); the
-     CLI's `run heat_cn` and `run burgers_crweno_periodic` (fp32).
+     CLI's `run heat_cn` and `run burgers_crweno_periodic` (fp32);
+ 15. the bf16 precision tiers (the JAX package's TPU configurations):
+     matmul_bf16x3, matmul_bf16x1, fused_bf16x3 and fused_bf16x1 in phase
+     3's configuration, 12 launches a step of the tier GEMM: graphed and
+     eager, each 100 steps and on to 2000, against both cavity anchors,
+     bitwise equal with equal launch counts (24000 tier_gemm, and 6000
+     Arakawa or stage launches); max|psi_tier - psi_fp32| of the same
+     formulation after 2000 steps (bf16x3 within 1e-4 of max|psi|, bf16x1
+     printed); steps/s beside phases 3, 11 and 13 (--profile: the
+     fused_bf16x3 step by kernel); fused_bf16x3 through cavity.solve,
+     stopped at 100 steps and resumed bitwise; then `run cavity --poisson
+     <tier>` (the four at once) on phase 4's Ghia case beside phase 4's
+     fp32 deviations, bf16x3 within 1.1x fp32's + 1e-3, bf16x1 printed.
 Then a JSON line with each kernel's record, and last
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 nonzero without that last line; without a GPU it fails at once.
@@ -176,6 +195,8 @@ VORTEX_TWIN_TOL = 1e-4
 # slower than these.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# dense bf16 on the tensor cores (the same data sheet)
+BF16_FLOP_PER_S = 989e12
 # flops a kernel needs per node, counted from its source: the 5-point
 # relaxation 12 (Laplacian 9, f - lap, / diag, +), the residual 10, the
 # restriction 19 a coarse node, the bilinear correction 3 on average, a
@@ -317,13 +338,13 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes, flops, ms):
+def bound(n_bytes, flops, ms, flop_per_s=FP32_FLOP_PER_S):
     """The card's least time for a call (the larger of its bytes, each
     input read once and each output written once, over HBM's rate and its
-    flops over the fp32 peak), what sets it, and the share of it that a
-    call of `ms` reaches."""
+    flops over the peak `flop_per_s`, fp32's by default), what sets it, and
+    the share of it that a call of `ms` reaches."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     bound_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
         (t_ops, "operations")
     return {"bound_ms": bound_ms, "bound_by": by,
@@ -561,6 +582,111 @@ def stage_timing(ck, args, got, err):
             "plain_ms": plain_ms, **b}
 
 
+# the tier GEMM (kernel 8): (M, N, K) of its paths (the fused tiers'
+# 1024^3, the matmul tiers' 1023^3, on the scalar-load path) and tiny and
+# ragged ones
+TIER_SHAPES = [(NX, NX, NX), (NX - 1, NX - 1, NX - 1), (1, 1, 1),
+               (15, 17, 13), (33, 47, 129), (130, 131, 129)]
+# kernel vs twin, of max|C|: the same split, the kernel accumulating every
+# pass in fp32 over K, the twin taking each pass in fp64
+TIER_TOL = 1e-5
+
+
+def tier_sines(n):
+    """The sine matrices the tiers multiply at the 1024^2 cavity: the
+    packed step's zero-extended one (n = 1024) or the interior one (n =
+    1023), on the card."""
+    from cfd_julia_torch.poisson import direct
+
+    k = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")
+    return torch.where((k[:, None] < NX) & (k[None, :] < NX),
+                       direct._sine_entries(k[:, None], k[None, :], NX,
+                                            torch.float32), 0.0)
+
+
+def tier_library(a, b, passes):
+    """The yardstick: the same passes as torch.mm on operands split
+    beforehand, bf16 in and fp32 out (aten::mm.dtype, CUDA only), and the
+    adds."""
+    from cfd_julia_torch.ops import cuda_kernels
+
+    ah, al = (t.bfloat16() for t in cuda_kernels._bf16_split(a))
+    bh, bl = (t.bfloat16() for t in cuda_kernels._bf16_split(b))
+
+    def mm(x, y):
+        return torch.mm(x, y, out_dtype=torch.float32)
+
+    if passes == 1:
+        return lambda: mm(ah, bh)
+    return lambda: mm(ah, bh) + mm(ah, bl) + mm(al, bh)
+
+
+def phase_tier_kernel():
+    """Kernel 8 against its twin at every shape, 1 and 3 passes, on seeded
+    random operands and on the cavity's sine matrices, two calls bitwise
+    equal; timed at 1024^3 warm in L2 beside its bound (tensor-core flops
+    or bytes), its twin, the fp32 torch.matmul it stands in for, and the
+    library yardstick.  Returns its record (3 passes)."""
+    from cfd_julia_torch.ops import cuda_kernels as ck
+
+    dev = torch.device("cuda")
+    timed = {}
+    for m, n, k in TIER_SHAPES:
+        rng = np.random.default_rng(m * 31 + n * 7 + k)
+        a = torch.as_tensor(rng.standard_normal((m, k)), dtype=torch.float32,
+                            device=dev)
+        b = torch.as_tensor(rng.standard_normal((k, n)), dtype=torch.float32,
+                            device=dev)
+        cases = [("random", a, b)]
+        if m == n == k and m >= NX - 1:
+            sine = tier_sines(m)
+            cases += [("S@g", sine, b), ("g@S", a, sine), ("S@S", sine, sine)]
+        for passes in (1, 3):
+            worst, same = 0.0, True
+            for case, x, y in cases:
+                got = ck.tier_matmul(x, y, passes)
+                again = ck.tier_matmul(x, y, passes)
+                ref = ck.tier_matmul_plain(x, y, passes)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                worst = max(worst, err / float(ref.abs().max()))
+                same &= torch.equal(got, again)
+                if (m, n, k) == TIER_SHAPES[0] and case == "random":
+                    timed[passes] = (x, y, got, err)
+            ok = worst <= TIER_TOL and same
+            line = (f"phase 2 kernel tier_gemm {m}x{n}x{k} passes {passes} "
+                    f"({', '.join(c[0] for c in cases)}): max|k-p|/max|p| "
+                    f"{worst:.3e} (tol {TIER_TOL:g}); two calls bitwise "
+                    f"equal: {same} {'ok' if ok else 'FAIL'}")
+            print(line)
+            check(ok, line)
+    records = {}
+    for passes, (a, b, got, err) in timed.items():
+        ms, _ = median_ms(lambda: ck.tier_matmul(a, b, passes))
+        plain_ms, _ = median_ms(lambda: ck.tier_matmul_plain(a, b, passes))
+        fp32_ms, _ = median_ms(lambda: torch.matmul(a, b))
+        lib_ms, _ = median_ms(tier_library(a, b, passes))
+        flops = passes * 2 * a.shape[0] * a.shape[1] * b.shape[1]
+        bd = bound(nbytes(a, b, got), flops, ms, BF16_FLOP_PER_S)
+        records[passes] = {"max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, **bd, "library_ms": lib_ms,
+                           "fp32_matmul_ms": fp32_ms}
+        print(f"phase 2 kernel tier_gemm {NX}^3 passes {passes} device time: "
+              f"kernel {ms:.4f} ms warm in L2 ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}"
+              f", {100 * bd['share_of_bound']:.1f}% of it), plain "
+              f"{plain_ms:.4f} ms, fp32 torch.matmul {fp32_ms:.4f} ms, "
+              f"library (torch.mm bf16 -> fp32 on pre-split operands + adds) "
+              f"{lib_ms:.4f} ms (medians of 30 calls, CUDA events)")
+    return {"name": "tier_gemm", "route": "cuda",
+            "source": "cfd_julia_torch/csrc/tier_gemm.cu",
+            "replaces": "cfd_julia_tpu/models/cavity_fused.py:120 and "
+                        "cfd_julia_tpu/poisson/direct.py:133 (XLA's bf16_3x "
+                        "/ default dot, not a Pallas kernel)",
+            "launches": None, **records[3], "passes": 3,
+            "passes_1": records[1]}
+
+
 def bf16_ulp(x):
     """One bf16 ulp at magnitude x (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
@@ -776,6 +902,29 @@ def graph_text(diff, tol):
 CAVITY_GRAPH_TOL = 1e-4
 
 
+def cavity_runs(step, state0):
+    """A 1024^2 cavity path through the loop layer graphed (the main run)
+    and with graph=False: 100 steps, then on to 2000 timed, the launch
+    counts set to 0 before each run and read after it.  Returns (first,
+    state, rms history, seconds of the timed steps, launches) of each."""
+    from cfd_julia_torch.ops import cuda_kernels
+    from cfd_julia_torch.stepping import loop
+
+    runs = {}
+    for graph in (True, False):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        first, rms_a = loop.run_steps(step, state0, STEPS_FIRST, graph=graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, rms_b = loop.run_steps(step, first, STEPS_TOTAL - STEPS_FIRST,
+                                      graph=graph)
+        torch.cuda.synchronize()
+        runs[graph] = (first, state, torch.cat([rms_a, rms_b]),
+                       time.perf_counter() - t0, dict(cuda_kernels.LAUNCHES))
+    return runs[True], runs[False]
+
+
 def phase_main_path(poisson="auto", label="phase 3 cavity"):
     """The headline cavity on the port's default path: rhs_impl="auto"
     resolves to the CUDA kernel on a GPU; `poisson` names the Poisson
@@ -785,28 +934,15 @@ def phase_main_path(poisson="auto", label="phase 3 cavity"):
     Returns the main run's launch counts, the step, the final state, its
     seconds a step and its rms history."""
     from cfd_julia_torch.models import cavity
-    from cfd_julia_torch.ops import cuda_kernels
-    from cfd_julia_torch.stepping import loop
 
     cfg = cavity.CavityConfig(nx=NX, ny=NX, dt=2e-5, re=RE, bc_order=2,
                               poisson=poisson)
     step = cavity.make_step_fn(cfg, torch.float32, "cuda")
     state0 = cavity.initial_state(cfg, torch.float32, "cuda")
     n = STEPS_TOTAL - STEPS_FIRST
-    runs = {}
-    for graph in (True, False):
-        torch.cuda.synchronize()
-        cuda_kernels.reset_launch_counts()
-        first, rms_a = loop.run_steps(step, state0, STEPS_FIRST, graph=graph)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, rms_b = loop.run_steps(step, first, n, graph=graph)
-        torch.cuda.synchronize()
-        runs[graph] = (first, state, torch.cat([rms_a, rms_b]),
-                       time.perf_counter() - t0,
-                       dict(cuda_kernels.LAUNCHES))
-    first, state, rms, seconds, launches = runs[True]
-    e_first, e_state, e_rms, e_seconds, e_launches = runs[False]
+    (first, state, rms, seconds, launches), \
+        (e_first, e_state, e_rms, e_seconds, e_launches) = cavity_runs(
+            step, state0)
 
     anchor_check(first[1], STEPS_FIRST, label)
     anchor_check(state[1], STEPS_TOTAL, label)
@@ -974,22 +1110,9 @@ def cli_run(preset, timeout=900, outdir=None, extra=()):
     """`python -m cfd_julia_torch run <preset> --device cuda [extra]` into
     `outdir` (a temporary directory by default): its metrics, {file name:
     text} of what it wrote, and the process's seconds."""
-    with tempfile.TemporaryDirectory() as tmp:
-        out = Path(outdir or tmp)
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-m", "cfd_julia_torch", "run",
-                        preset, "--device", "cuda", "--outdir", str(out),
-                        *extra],
-                       cwd=REPO, check=True, capture_output=True, text=True,
-                       timeout=timeout)
-        seconds = time.perf_counter() - t0
-        files = {p.name: p.read_bytes().decode(errors="replace")
-                 for p in out.iterdir()}
-    check("metrics.json" in files, f"CLI run {preset} wrote no metrics.json")
-    metrics = json.loads(files["metrics.json"])
-    check(metrics["device"] == torch.cuda.get_device_name(),
-          f"CLI run {preset} ran on {metrics['device']}")
-    return metrics, files, seconds
+    (result,), seconds = cli_runs(preset, [list(extra)], timeout,
+                                  outdir and [outdir])
+    return (*result, seconds)
 
 
 def columns(files, name, skiprows=0):
@@ -998,13 +1121,21 @@ def columns(files, name, skiprows=0):
     return np.loadtxt(files[name].splitlines(), skiprows=skiprows)
 
 
-def phase_cli():
-    metrics, files, seconds = cli_run("cavity")
+def ghia_deviations(files):
+    """max|u - Ghia| and max|v - Ghia| on the centerlines a CLI cavity run
+    wrote."""
     for name in ("res_plot.txt", "field_final.txt"):
         check(name in files, f"CLI run wrote no {name}")
     y, u, x, v = columns(files, "centerlines.txt", skiprows=1).T
-    du = float(np.abs(np.interp(GHIA_Y, y, u) - GHIA_U).max())
-    dv = float(np.abs(np.interp(GHIA_X, x, v) - GHIA_V).max())
+    return (float(np.abs(np.interp(GHIA_Y, y, u) - GHIA_U).max()),
+            float(np.abs(np.interp(GHIA_X, x, v) - GHIA_V).max()))
+
+
+def phase_cli():
+    """The reference case through the CLI against Ghia; returns (max|u -
+    Ghia|, max|v - Ghia|) for phase 15's tiers."""
+    metrics, files, seconds = cli_run("cavity")
+    du, dv = ghia_deviations(files)
     dpsi = abs(metrics["psi_min"] - (-0.103423))
     ok = (metrics["steady_rms"] < 1e-6 and du < 0.01 and dv < 0.01
           and dpsi < 2e-3)
@@ -1016,6 +1147,44 @@ def phase_cli():
             f"process {seconds:.2f} s {'ok' if ok else 'FAIL'}")
     print(line)
     check(ok, line)
+    return du, dv
+
+
+def cli_runs(preset, extras, timeout=900, outdirs=None):
+    """One `python -m cfd_julia_torch run <preset> --device cuda [extra]`
+    process for each list in `extras`, all started together on the card,
+    each into its directory of `outdirs` (temporary ones by default);
+    [(metrics, {file name: text})] in that order, and the seconds until
+    the last ended.  A failure stops the others."""
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(d) for d in outdirs] if outdirs else [
+            Path(tmp) / str(i) for i in range(len(extras))]
+        t0 = time.perf_counter()
+        procs = [(out, subprocess.Popen(
+            [sys.executable, "-m", "cfd_julia_torch", "run", preset,
+             "--device", "cuda", "--outdir", str(out), *extra], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for out, extra in zip(outs, extras)]
+        try:
+            results = []
+            for (out, proc), extra in zip(procs, extras):
+                _, err = proc.communicate(timeout=timeout)
+                check(proc.returncode == 0, f"CLI run {preset} {extra} "
+                      f"exited {proc.returncode}: {err[-2000:]}")
+                files = {p.name: p.read_bytes().decode(errors="replace")
+                         for p in out.iterdir()}
+                check("metrics.json" in files,
+                      f"CLI run {preset} {extra} wrote no metrics.json")
+                metrics = json.loads(files["metrics.json"])
+                check(metrics["device"] == torch.cuda.get_device_name(),
+                      f"CLI run {preset} ran on {metrics['device']}")
+                results.append((metrics, files))
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return results, time.perf_counter() - t0
 
 
 def expected_launches(n_levels, cycles, fused, fmg):
@@ -1650,8 +1819,8 @@ def phase_fused_cavity(rates, matmul_state, profile):
     the same 2000 steps through cavity.solve, and on the stage's plain
     twin; psi against the matmul path's after 100 steps and phase 3's
     after 2000.  rates: {poisson: (graphed, eager) steps/s} of phases 3 and
-    11.  Returns the main run's launch counts and the cavity.solve
-    result."""
+    11.  Returns the main run's launch counts, the cavity.solve result and
+    the rates with fused's added."""
     import dataclasses
 
     from cfd_julia_torch.models import cavity, cavity_fused
@@ -1665,19 +1834,9 @@ def phase_fused_cavity(rates, matmul_state, profile):
     step = cavity_fused.make_fused_step_fn(cfg, torch.float32, "cuda")
     packed0 = cavity_fused.init_state(cfg, torch.float32, "cuda")
     n = STEPS_TOTAL - STEPS_FIRST
-    runs = {}
-    for graph in (True, False):
-        torch.cuda.synchronize()
-        cuda_kernels.reset_launch_counts()
-        first, rms_a = loop.run_steps(step, packed0, STEPS_FIRST, graph=graph)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, rms_b = loop.run_steps(step, first, n, graph=graph)
-        torch.cuda.synchronize()
-        runs[graph] = (first, state, torch.cat([rms_a, rms_b]),
-                       time.perf_counter() - t0, dict(cuda_kernels.LAUNCHES))
-    first, state, rms, seconds, launches = runs[True]
-    e_first, e_state, e_rms, e_seconds, e_launches = runs[False]
+    (first, state, rms, seconds, launches), \
+        (e_first, e_state, e_rms, e_seconds, e_launches) = cavity_runs(
+            step, packed0)
     w1, s1 = cavity_fused.decode_state(cfg, first)
     w, s = cavity_fused.decode_state(cfg, state)
     anchor_check(s1, STEPS_FIRST, label)
@@ -1746,7 +1905,179 @@ def phase_fused_cavity(rates, matmul_state, profile):
                                 seconds / n)
         if by_name:
             profile_rhs(by_name, "cavity_stage_kernel", 20)
-    return launches, res
+    return launches, res, rates
+
+
+# the bf16 precision tiers of the cavity (the JAX package's TPU
+# configurations), phase 15
+TIERS = ("matmul_bf16x3", "matmul_bf16x1", "fused_bf16x3", "fused_bf16x1")
+# bf16x3's max|psi_tier - psi_fp32| of the same formulation after 2000
+# steps, of max|psi| (the JAX package's record: ~5e-6 rel_l2 after 500
+# steps, bench.py:294-305)
+TIER_FP32_TOL = 1e-4
+# bf16x3's Ghia deviation at 64^2: within 1.1x fp32's + 1e-3
+GHIA_TIER_FACTOR, GHIA_TIER_SLACK = 1.1, 1e-3
+
+
+def tier_path(tier):
+    """The 1024^2 cavity of phase 3's configuration in a precision tier:
+    graphed (the main run) and with graph=False, 100 steps and on to 2000,
+    each with its launch counts.  Returns the step, the main run's final
+    state, psi after 2000 steps, seconds a step graphed and eager, and the
+    launches."""
+    from cfd_julia_torch.models import cavity, cavity_fused
+
+    label = f"phase 15 cavity poisson={tier}"
+    cfg = cavity.CavityConfig(nx=NX, ny=NX, dt=2e-5, re=RE, bc_order=2,
+                              poisson=tier, t_final=STEPS_TOTAL * 2e-5)
+    fused = tier.startswith("fused")
+    if fused:
+        step = cavity_fused.make_fused_step_fn(cfg, torch.float32, "cuda")
+        state0 = cavity_fused.init_state(cfg, torch.float32, "cuda")
+
+        def psi(state):
+            return cavity_fused.decode_state(cfg, state)[1]
+    else:
+        step = cavity.make_step_fn(cfg, torch.float32, "cuda")
+        state0 = cavity.initial_state(cfg, torch.float32, "cuda")
+
+        def psi(state):
+            return state[1]
+    n = STEPS_TOTAL - STEPS_FIRST
+    (first, state, rms, seconds, launches), \
+        (e_first, e_state, e_rms, e_seconds, e_launches) = cavity_runs(
+            step, state0)
+    anchor_check(psi(first), STEPS_FIRST, label)
+    anchor_check(psi(state), STEPS_TOTAL, label)
+    finite = all(bool(torch.isfinite(x).all()) for x in (*state[:2], rms))
+    diff = max_diff((*first, *state, rms), (*e_first, *e_state, e_rms))
+    want = dict.fromkeys(launches, 0)
+    want["tier_gemm"] = 12 * STEPS_TOTAL
+    want["cavity_fused_stage" if fused else "arakawa_rhs"] = 3 * STEPS_TOTAL
+    ok = finite and diff == 0.0 and launches == want and e_launches == launches
+    line = (f"{label} {NX}^2 fp32: {n} steps (from step {STEPS_FIRST}) "
+            f"graphed {n / seconds:.2f} steps/s ({seconds:.4f} s), eager "
+            f"(graph=False) {n / e_seconds:.2f} steps/s ({e_seconds:.4f} s); "
+            f"max|graph-eager| over the states and rms {diff:.3e} (want 0, "
+            f"bitwise); launches "
+            f"{ {k: v for k, v in launches.items() if v} } (want "
+            f"{ {k: v for k, v in want.items() if v} } and nothing else), "
+            f"eager run "
+            f"{'the same' if e_launches == launches else e_launches}; fields "
+            f"{'finite' if finite else 'NOT finite'} {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+    return step, state, psi(state), seconds / n, e_seconds / n, launches
+
+
+def tier_resume(tier, psi_ref):
+    """The fused tier's checkpoint: cavity.solve over 2000 steps (bitwise
+    the step-level graphed run's psi `psi_ref`), then stopped at 100 steps
+    and resumed to 2000 from its checkpoint, bitwise that solve."""
+    import dataclasses
+
+    from cfd_julia_torch.models import cavity
+
+    cfg = cavity.CavityConfig(nx=NX, ny=NX, dt=2e-5, re=RE, bc_order=2,
+                              poisson=tier, t_final=STEPS_TOTAL * 2e-5)
+    ref = cavity.solve(cfg, torch.float32, "cuda")
+    sdiff = max_diff(ref.s, psi_ref)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "tier.npz")
+        t0 = time.perf_counter()
+        cavity.solve(dataclasses.replace(cfg, t_final=STEPS_FIRST * cfg.dt),
+                     torch.float32, "cuda", checkpoint_every=500,
+                     checkpoint_path=ck)
+        res = cavity.solve(cfg, torch.float32, "cuda", checkpoint_every=500,
+                           checkpoint_path=ck, resume=True)
+        seconds = time.perf_counter() - t0
+    diff = max_diff((res.w, res.s, res.rms_history),
+                    (ref.w, ref.s, ref.rms_history))
+    ok = diff == 0.0 and sdiff == 0.0
+    line = (f"phase 15 checkpoint cavity poisson={tier} {NX}^2 fp32: "
+            f"cavity.solve over {STEPS_TOTAL} steps, max|solve - step-level "
+            f"run| {sdiff:.3e} (want 0); stopped at {STEPS_FIRST} steps and "
+            f"resumed to {STEPS_TOTAL} (checkpoints every 500) in "
+            f"{seconds:.2f} s of two solves; max|resumed - uninterrupted| "
+            f"over w, s and the rms history {diff:.3e} (want 0, bitwise) "
+            f"{'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+
+def phase_tiers(rates, matmul_psi, fused_psi, ghia_fp32, profile):
+    """The four bf16 tiers at 1024^2 (tier_path), each against both anchors
+    and its fp32 formulation's psi after 2000 steps (phase 3's matmul,
+    phase 13's fused); steps/s beside phases 3, 11 and 13; the fused_bf16x3
+    checkpoint; then the 64^2 Ghia case through the CLI for each tier,
+    beside phase 4's fp32 run.  Returns fused_bf16x3's launch counts."""
+    from cfd_julia_torch.stepping import loop
+
+    rates = dict(rates)
+    main_launches = None
+    for tier in TIERS:
+        step, state, psi, step_s, e_step_s, launches = tier_path(tier)
+        rates[tier] = (1.0 / step_s, 1.0 / e_step_s)
+        ref = fused_psi if tier.startswith("fused") else matmul_psi
+        scale = float(ref.abs().max())
+        dpsi = float((psi - ref).abs().max())
+        x3 = tier.endswith("x3")
+        ok = dpsi <= TIER_FP32_TOL * scale or not x3
+        line = (f"phase 15 cavity poisson={tier}: max|psi_tier - psi_fp32| "
+                f"after {STEPS_TOTAL} steps {dpsi:.3e} = {dpsi / scale:.3e} "
+                f"of max|psi| {scale:.3e} ("
+                + (f"tol {TIER_FP32_TOL:g}" if x3 else "printed only")
+                + f") {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+        if tier == "fused_bf16x3":
+            main_launches = launches
+            tier_resume(tier, psi)
+            if profile:
+                by_name = phase_profile(
+                    f"cavity {NX}^2 poisson={tier} (graphed)",
+                    lambda: loop.run_steps(step, state, 20), 20, step_s)
+                if by_name:
+                    profile_rhs(by_name, "cavity_stage_kernel", 20)
+                    us, n = kernel_sums(by_name, "tier_gemm_kernel")
+                    total = sum(v[0] for v in by_name.values())
+                    line = (f"profile tier_gemm_kernel: {n} device launches "
+                            f"in 20 steps = {n / 20:.2f} a step (want 12), "
+                            f"{us / 20:.2f} us/step, {100 * us / total:.1f}% "
+                            f"of the step's device time")
+                    print(line + (" ok" if n == 12 * 20 else " FAIL"))
+                    check(n == 12 * 20, line)
+        del step, state
+    print(f"phase 15 cavity {NX}^2 fp32 steps/s by Poisson solve, graphed / "
+          f"eager, one run of this script: " + ", ".join(
+              f"{k} {g:.2f} / {e:.2f}" for k, (g, e) in rates.items()))
+
+    du32, dv32 = ghia_fp32
+    results, seconds = cli_runs("cavity", [["--poisson", t] for t in TIERS])
+    for tier, (metrics, files) in zip(TIERS, results):
+        du, dv = ghia_deviations(files)
+        x3 = tier.endswith("x3")
+        gate_u = GHIA_TIER_FACTOR * du32 + GHIA_TIER_SLACK
+        gate_v = GHIA_TIER_FACTOR * dv32 + GHIA_TIER_SLACK
+        ok = math.isfinite(metrics["steady_rms"]) and (
+            not x3 or (du <= gate_u and dv <= gate_v))
+        line = (f"phase 15 cli `run cavity --poisson {tier} --device cuda` "
+                f"(64^2, Re=100, t=10): max|u-ghia|={du:.5f} "
+                f"max|v-ghia|={dv:.5f} (fp32, phase 4: {du32:.5f} "
+                f"{dv32:.5f}; "
+                + (f"gate {GHIA_TIER_FACTOR:g}x fp32 + {GHIA_TIER_SLACK:g} = "
+                   f"{gate_u:.5f} {gate_v:.5f}" if x3 else
+                   "printed only; the JAX package's record: single-pass bf16 "
+                   "stalls at rms ~1e-5 with 18x fp32's deviations at "
+                   "1024^2, BASELINE.md")
+                + f"), steady_rms={metrics['steady_rms']:.3e}, psi_min="
+                f"{metrics['psi_min']:.6f}, solve "
+                f"{metrics['wall_time_s']:.2f} s {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+    print(f"phase 15 cli: the {len(TIERS)} tier runs together in "
+          f"{seconds:.2f} s (processes started at once on one card)")
+    return main_launches
 
 
 # the 1D family: CRWENO-5 periodic Burgers of `bench.py`'s worker_crweno
@@ -2016,8 +2347,8 @@ def main(argv=None):
                              "1024^2 cavity step, the 4096^2 multigrid "
                              "solve (fused and fused=\"off\"), the hllc "
                              "8192 Euler step, the ps23 and fdm 2048^2 "
-                             "vortex steps, the fst and the fused cavity "
-                             "steps")
+                             "vortex steps, the fst, the fused and the "
+                             "fused_bf16x3 cavity steps")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2036,6 +2367,7 @@ def main(argv=None):
     mg_records = phase_mg_kernels()
     euler_record = phase_euler_kernels()
     stage_record = phase_stage_kernel()
+    tier_record = phase_tier_kernel()
     phase_empty_graph(mg_records["redblack_sweeps"]["floor_ms"])
     launches, step, state, step_s, rms, cavity_eager_s = phase_main_path()
     cavity_ref = ((state[0], state[1]), rms)
@@ -2045,7 +2377,7 @@ def main(argv=None):
                                 step_s)
         if by_name:
             profile_rhs(by_name, "arakawa_rhs_kernel", 20)
-    phase_cli()
+    ghia_fp32 = phase_cli()
     mg_counts, mg_solves = phase_multigrid()
     if args.profile:
         from cfd_julia_torch.ops import cuda_kernels
@@ -2086,8 +2418,10 @@ def main(argv=None):
     phase_cli_spectral()
     rates = phase_cavity_fst((1.0 / step_s, 1.0 / cavity_eager_s),
                              args.profile)
-    fused_launches, fused_ref = phase_fused_cavity(rates, state,
-                                                   args.profile)
+    fused_launches, fused_ref, rates = phase_fused_cavity(rates, state,
+                                                          args.profile)
+    tier_launches = phase_tiers(rates, state[1], fused_ref.s, ghia_fp32,
+                                args.profile)
     del step, state
     phase_checkpoint(cavity_ref, w_ps23, fused_ref)
     del fused_ref
@@ -2107,8 +2441,12 @@ def main(argv=None):
                             f"fp32, {EULER_STEPS} steps")
     stage_record["launches"] = fused_launches["cavity_fused_stage"]
     stage_record["path"] = (f"fused cavity {NX}^2, {STEPS_TOTAL} steps")
+    tier_record["launches"] = tier_launches["tier_gemm"]
+    tier_record["path"] = (f"fused_bf16x3 cavity {NX}^2, {STEPS_TOTAL} "
+                           f"steps")
     print(json.dumps({"kernels": [record, *mg_records.values(),
-                                  euler_record, stage_record]}))
+                                  euler_record, stage_record,
+                                  tier_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

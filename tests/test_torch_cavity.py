@@ -258,13 +258,22 @@ def test_unknown_variant_raises(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("poisson", "fst_half_mxu"), ("poisson", "fused_bf16x3"),
-    ("poisson", "matmul_bf16x3"), ("rhs_impl", "bogus"),
+    ("poisson", "fst_half_mxu"), ("poisson", "fst_mxu"),
+    ("poisson", "bogus"), ("rhs_impl", "bogus"),
 ])
 def test_config_from_jax_rejects_unported(field, value):
     jcfg = dataclasses.replace(jax_cavity.CavityConfig(), **{field: value})
     with pytest.raises(ValueError, match="not ported"):
         interop.cavity_config_from_jax(jcfg)
+
+
+@pytest.mark.parametrize("tier", ["matmul_bf16x3", "matmul_bf16x1",
+                                  "fused_bf16x3", "fused_bf16x1"])
+def test_config_from_jax_maps_tiers(tier):
+    """The JAX package's bf16 tiers map one to one: the port's tier runs
+    the same split-bf16 products (ops/cuda_kernels.tier_matmul)."""
+    jcfg = dataclasses.replace(jax_cavity.CavityConfig(), poisson=tier)
+    assert interop.cavity_config_from_jax(jcfg).poisson == tier
 
 
 def test_config_from_jax_defaults():

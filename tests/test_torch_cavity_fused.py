@@ -20,6 +20,7 @@ import torch
 from cfd_julia_torch import cli, interop
 from cfd_julia_torch.models import cavity, cavity_fused
 from cfd_julia_torch.ops import cuda_kernels
+from cfd_julia_torch.poisson import direct
 from cfd_julia_torch.stepping import loop
 from cfd_julia_torch.utils import checkpoint
 from cfd_julia_tpu.models import cavity as jax_cavity
@@ -246,15 +247,21 @@ def test_make_step_fn_rejects_fused_names():
 @pytest.mark.parametrize("tier", ["fused_bf16x3", "fused_bf16x1",
                                   "matmul_bf16x3", "matmul_bf16x1"])
 def test_bf16_tiers_raise(tier):
-    """The TPU's bf16 tiers never run as fp32 in silence: both entry points
-    raise, naming the certification they wait for; interop refuses them."""
+    """A bf16 tier takes fp32 states only: with an fp64 or bf16 state both
+    entry points raise naming the tier, and make_fused_step_fn and the
+    Poisson solve refuse it too; it never runs at another precision."""
     cfg = cavity.CavityConfig(nx=16, ny=16, poisson=tier)
-    with pytest.raises(ValueError, match="A.6"):
-        cavity.make_step_fn(cfg, F64, "cpu")
-    with pytest.raises(ValueError, match="A.6"):
-        cavity.solve(cfg, F64, "cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        interop.cavity_config_from_jax(jax_cavity.CavityConfig(poisson=tier))
+    for dtype in (F64, torch.bfloat16):
+        if tier.startswith("matmul"):
+            with pytest.raises(ValueError, match=tier):
+                cavity.make_step_fn(cfg, dtype, "cpu")
+        with pytest.raises(ValueError, match=tier):
+            cavity.solve(cfg, dtype, "cpu")
+        with pytest.raises(ValueError, match="fp32"):
+            cavity_fused.make_fused_step_fn(cfg, dtype, "cpu")
+    with pytest.raises(ValueError, match="fp32"):
+        direct.make_fst_matmul_interior(16, 16, 1 / 16, 1 / 16, F64, "cpu",
+                                        tier=tier.rpartition("_")[2])
 
 
 def test_invalid_bc_order_rejected():

@@ -26,7 +26,7 @@ from cfd_julia_torch import interop
 from cfd_julia_torch.models import (burgers1d, cavity, cavity_fused,
                                     euler1d, heat1d, poisson2d, vortex)
 from cfd_julia_torch.ops import _cuda_build, cuda_kernels
-from cfd_julia_torch.poisson import multigrid
+from cfd_julia_torch.poisson import direct, multigrid
 from cfd_julia_torch.stepping import loop, ssprk3
 
 REL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 8e-3}
@@ -709,3 +709,127 @@ def test_heat_on_gpu_matches_cpu(cuda_device, scheme):
     got = heat1d.solve(cfg, torch.float64, cuda_device, keep_history=True)
     cpu = heat1d.solve(cfg, torch.float64, "cpu", keep_history=True)
     _assert_rel(got.history, cpu.history, 1e-12)
+
+
+# ------------------------------------------------ the bf16 precision tiers
+
+# (M, N, K): the path's 1024^3 (fused) and 1023^3 (matmul, the scalar-load
+# path) and tiny / ragged shapes
+TIER_SHAPES = [(1024, 1024, 1024), (1023, 1023, 1023), (1, 1, 1),
+               (15, 17, 13), (33, 47, 129), (130, 131, 129), (136, 68, 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("shape", TIER_SHAPES)
+def test_tier_gemm_matches_plain(cuda_device, shape, passes):
+    """The split-bf16 kernel against its twin within 1e-5 of max|C| (the
+    same split; the kernel accumulates every pass in fp32, the twin takes
+    each pass in fp64), a second call bitwise, one launch a call."""
+    m, n, k = shape
+    a_np, b_np = _fields((m, k), seed=m + n)[0], _fields((k, n), seed=k)[0]
+    a = torch.as_tensor(a_np, dtype=torch.float32, device=cuda_device)
+    b = torch.as_tensor(b_np, dtype=torch.float32, device=cuda_device)
+    before = cuda_kernels.LAUNCHES["tier_gemm"]
+    got = cuda_kernels.tier_matmul(a, b, passes)
+    again = cuda_kernels.tier_matmul(a, b, passes)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["tier_gemm"] == before + 2
+    _assert_rel(got, cuda_kernels.tier_matmul_plain(a, b, passes), 1e-5)
+    _assert_same(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("n", [1024, 1023])
+def test_tier_gemm_on_sine_matrices(cuda_device, n, passes):
+    """The path's operands: the sine matrix of a 1024^2 cavity (the packed
+    step's zero-extended one at 1024, the interior one at 1023) times a
+    field and times itself."""
+    k = torch.arange(1, n + 1, dtype=torch.int32, device=cuda_device)
+    s = torch.where((k[:, None] < 1024) & (k[None, :] < 1024),
+                    direct._sine_entries(k[:, None], k[None, :], 1024,
+                                         torch.float32), 0.0)
+    g = torch.as_tensor(_fields((n, n), seed=9)[0], dtype=torch.float32,
+                        device=cuda_device)
+    for a, b in ((s, g), (g, s), (s, s)):
+        _assert_rel(cuda_kernels.tier_matmul(a, b, passes),
+                    cuda_kernels.tier_matmul_plain(a, b, passes), 1e-5)
+
+
+@pytest.mark.cuda
+def test_tier_gemm_graph_capture(cuda_device):
+    """tier_matmul captured into a CUDA graph (stepping/loop.py's chunks
+    hold 12 a step): replays bitwise the eager call on new inputs."""
+    a = torch.randn(300, 260, device=cuda_device)
+    b = torch.randn(260, 200, device=cuda_device)
+    cuda_kernels.tier_matmul(a, b, 3)   # build and warm up
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = cuda_kernels.tier_matmul(a, b, 3)
+    for seed in (1, 2):
+        torch.manual_seed(seed)
+        a.copy_(torch.randn_like(a))
+        b.copy_(torch.randn_like(b))
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_same(out, cuda_kernels.tier_matmul(a, b, 3))
+
+
+@pytest.mark.cuda
+def test_tier_gemm_wrapper_raises_on_cuda_misuse(cuda_device):
+    """On CUDA tensors the wrapper launches or raises: a non-contiguous
+    operand, operands on two devices and fp64 are refused, never handed to
+    the twin."""
+    a = torch.zeros(64, 64, device=cuda_device)
+    before = cuda_kernels.LAUNCHES["tier_gemm"]
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.tier_matmul(a.t(), a, 3)
+    with pytest.raises(ValueError, match="different devices"):
+        cuda_kernels.tier_matmul(a, a.cpu(), 3)
+    with pytest.raises(TypeError):
+        cuda_kernels.tier_matmul(a.double(), a.double(), 1)
+    assert cuda_kernels.LAUNCHES["tier_gemm"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["matmul_bf16x3", "matmul_bf16x1",
+                                  "fused_bf16x3", "fused_bf16x1"])
+def test_graphed_tier_cavity_equals_eager(cuda_device, tier):
+    """60 fp32 steps of a tier at 64^2, twice on one step function: the
+    graphed state and rms history are the eager ones bit for bit, with 12
+    tier_gemm launches a step either way."""
+    cfg = cavity.CavityConfig(nx=64, ny=64, dt=1e-3, poisson=tier)
+    if tier.startswith("fused"):
+        step = cavity_fused.make_fused_step_fn(cfg, torch.float32,
+                                               cuda_device)
+        state = cavity_fused.init_state(cfg, torch.float32, cuda_device)
+    else:
+        step = cavity.make_step_fn(cfg, torch.float32, cuda_device)
+        state = cavity.initial_state(cfg, torch.float32, cuda_device)
+
+    def run(graph):
+        s, h1 = loop.run_steps(step, state, 60, graph=graph)
+        s, h2 = loop.run_steps(step, s, 60, graph=graph)
+        return (*s, h1, h2)
+
+    (eager, n_eager), (graphed, n_graph) = _graph_vs_eager(run)
+    assert all(bool(torch.isfinite(t).all()) for t in eager)
+    _assert_same(graphed, eager)
+    assert n_graph == n_eager and n_graph["tier_gemm"] == 12 * 120
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["matmul_bf16x3", "fused_bf16x3"])
+def test_tier_cavity_on_gpu_matches_cpu_twin(cuda_device, tier):
+    """100 fp32 steps of bf16x3 at 64^2 through cavity.solve on the kernel
+    and on the CPU (the twin): within 1e-4 of max|psi|, the bound the smoke
+    run holds bf16x3 to against fp32."""
+    cfg = cavity.CavityConfig(nx=64, ny=64, dt=1e-3, t_final=0.1,
+                              poisson=tier)
+    got = cavity.solve(cfg, torch.float32, cuda_device)
+    cpu = cavity.solve(cfg, torch.float32, "cpu")
+    _assert_rel(got.s, cpu.s, 1e-4)
+    _assert_rel(got.w, cpu.w, 1e-4)
