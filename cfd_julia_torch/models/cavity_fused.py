@@ -17,8 +17,9 @@ full-grid step, reference ch. 18, lid_driven_cavity.jl:58-118).
   stage launches, 12 GEMMs, the scalings and the rms.  The products are
   fp32 (or fp64) under poisson="fused" and split-bf16 under the precision
   tiers "fused_bf16x3" / "fused_bf16x1" (JAX's mm_precision "high" /
-  "default"; poisson/direct.tier_mm: csrc/tier_gemm.cu on the GPU, its
-  twin on the CPU, fp32 states only).
+  "default"; poisson/direct.sine_products: csrc/tier_gemm.cu on the GPU,
+  the sine matrices split once when the step is built, its twin on the
+  CPU, fp32 states only).
 
 The state is the flat tuple (w, s, rl, rh, cl, ch, rms), rms last, as the
 loop layer records state[-1]; the JAX package nests the walls,
@@ -66,7 +67,6 @@ def make_fused_step_fn(cfg, dtype=None, device="cuda"):
     _check(cfg)
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
-    mm = direct.tier_mm(direct.tier_of(cfg.poisson), dtype)
     stage_fn = (cuda_kernels.cavity_fused_stage
                 if precision.resolve_rhs_impl(cfg.rhs_impl, device) == "kernel"
                 else cuda_kernels.cavity_fused_stage_plain)
@@ -90,11 +90,13 @@ def make_fused_step_fn(cfg, dtype=None, device="cuda"):
     neg_den = -torch.where((ai < m) & (bj < n), den, 1.0)
     scale = 4.0 / (nx * ny)
     n_nodes = float((nx + 1) * (ny + 1))
+    left, right = direct.sine_products(direct.tier_of(cfg.poisson), sx, sy,
+                                       (P, Q))
 
     def solve_neg(wt):
         """psi with lap(psi) = -wt on the interior (walls zero)."""
-        coeff = mm(mm(sx, wt), sy) / neg_den
-        return mm(mm(sx, coeff), sy) * scale
+        coeff = right(left(wt)) / neg_den
+        return right(left(coeff)) * scale
 
     def stage(k, w, wt, s, walls):
         wt, walls = stage_fn(w, wt, s, walls, k, dt, dx, dy, re, m, n,

@@ -37,8 +37,12 @@ _EULER_ARGS = [_PTR, _PTR, _INT, _DBL, _DBL, _INT, _INT, _PTR]
 # w, wt, s, rl, rh, cl, ch, out, rl_o, rh_o, cl_o, ch_o, P, Q, m, n, stage,
 # bc order, dt, dx, dy, re, stream
 _CAVITY_STAGE_ARGS = [_PTR] * 12 + [_INT] * 6 + [_DBL] * 4 + [_PTR]
-# a, b, c, M, N, K, passes, stream
-_TIER_GEMM_ARGS = [_PTR] * 3 + [_INT] * 4 + [_PTR]
+# x, rows, cols, ld, transpose, out, out_rows, kp, passes, stream
+_TIER_SPLIT_ARGS = [_PTR] + [_INT] * 4 + [_PTR] + [_INT] * 3 + [_PTR]
+# map, base, rows, kp, role (0 A, 1 B)
+_TIER_ENCODE_ARGS = [_PTR, _PTR, _INT, _INT, _INT]
+# map_a, map_b, c, M, N, ldc, k-blocks, a_lo, b_lo, passes, stream
+_TIER_GEMM_ARGS = [_PTR] * 3 + [_INT] * 7 + [_PTR]
 # multigrid launchers, one per storage type (ops/cuda_kernels.py)
 _MG_ARGS = {
     # u, f, out, work, nr, nc, 1/dx^2, 1/dy^2, sweeps, stream
@@ -64,7 +68,9 @@ SIGNATURES = {
     "euler_rhs_f64": (_INT, _EULER_ARGS),
     "cavity_stage_f32": (_INT, _CAVITY_STAGE_ARGS),
     "cavity_stage_f64": (_INT, _CAVITY_STAGE_ARGS),
-    "tier_gemm": (_INT, _TIER_GEMM_ARGS),
+    "tier_split": (_INT, _TIER_SPLIT_ARGS),
+    "tier_encode": (_INT, _TIER_ENCODE_ARGS),
+    "tier_gemm_tn": (_INT, _TIER_GEMM_ARGS),
     "cfd_cuda_error_string": (ctypes.c_char_p, [_INT]),
     "mg_edge_sweeps_per_pass": (_INT, []),
     "mg_edge_work_fields": (_INT, [_INT]),

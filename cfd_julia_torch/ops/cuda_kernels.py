@@ -23,16 +23,18 @@ Kernels (csrc/ file; TPU function replaced):
   cavity_fused_stage              cavity_stage.cu; the XLA-fused stage of
                                   models/cavity_fused.py:153-215 (not a
                                   Pallas kernel)
-  tier_matmul                     tier_gemm.cu;   XLA's bf16_3x / default
-                                  dot of the precision tiers (direct.py:99-
+  tier_split, tier_matmul,        tier_gemm.cu;   XLA's bf16_3x / default
+  TierPlan                        dot of the precision tiers (direct.py:99-
                                   102, cavity_fused.py:120; not a Pallas
-                                  kernel)
+                                  kernel): the operand split and the GEMM
 
 The multigrid kernels take bf16, fp32 or fp64 fields; bf16 computes in
 fp32 and rounds once, at the output store (the TPU kernels' `_c32`
 contract), and so do the bf16 twins.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +45,7 @@ from cfd_julia_torch.poisson import iterative
 LAUNCHES = {"arakawa_rhs": 0, "redblack_sweeps": 0,
             "smooth_residual_restrict": 0, "residual_restrict": 0,
             "prolong_correct_smooth": 0, "euler_rhs": 0,
-            "cavity_fused_stage": 0, "tier_gemm": 0}
+            "cavity_fused_stage": 0, "tier_split": 0, "tier_gemm": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 _MG_DTYPES = tuple(_SUFFIX)
@@ -537,6 +539,11 @@ def cavity_fused_stage(w, wt, s, walls, stage: int, dt: float, dx: float,
 # passes of the cavity's bf16 tiers: XLA's bf16_3x ("high") and one bf16
 # pass ("default") on the TPU's matrix unit
 TIER_PASSES = {"bf16x3": 3, "bf16x1": 1}
+# csrc/tier_gemm.cu's tile: rows of C a block (an A operand's planes are
+# padded to a multiple of it), columns of C a block (a B operand's) and k a
+# ring stage (K's); the split pass takes multiples of TIER_BN
+TIER_BM, TIER_BN, TIER_BK = 128, 64, 64
+_TMA_MAP_BYTES = 128   # sizeof(CUtensorMap)
 
 
 def _bf16_split(a):
@@ -563,12 +570,179 @@ def tier_matmul_plain(a, b, passes: int):
     return mm(ah, bh) + mm(ah, bl) + mm(al, bh)
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _planes(passes: int) -> int:
+    return 2 if passes == 3 else 1
+
+
+def tier_split_plain(x, transpose: bool, out_rows: int, kp: int,
+                     passes: int):
+    """Plain twin of tier_split: `_bf16_split` of x (of x.T for transpose)
+    as bf16 planes, hi and, for 3 passes, lo, zero-padded: (planes,
+    out_rows, kp)."""
+    src = x.t() if transpose else x
+    out = torch.zeros((_planes(passes), out_rows, kp), dtype=torch.bfloat16,
+                      device=x.device)
+    for p, part in zip(range(out.shape[0]), _bf16_split(src)):
+        out[p, :src.shape[0], :src.shape[1]] = part
+    return out
+
+
+def tier_split(x, transpose: bool, out_rows: int, kp: int, passes: int,
+               out=None):
+    """The split pass of the tier GEMM (csrc/tier_gemm.cu `tier_split`):
+    x's bf16 hi (and lo) planes, K-major and zero-padded, into `out`
+    (bf16, (planes, out_rows, kp), contiguous) or a new buffer.  An A
+    operand (M, K) is written as it is (transpose=False), a B operand
+    (K, N) transposed, as (N, K).  x: fp32 (rows, cols) whose rows may be
+    strided (x[1:-1, 1:-1] is read in place); out_rows and kp multiples of
+    TIER_BN, at least x's extents.  Matches tier_split_plain bitwise."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tier_split takes an fp32 operand, got {x.dtype}")
+    if x.dim() != 2 or x.numel() == 0 or passes not in (1, 3):
+        raise ValueError(f"tier_split takes a non-empty 2-D operand and 1 "
+                         f"or 3 passes, got {tuple(x.shape)}, {passes}")
+    rows, cols = x.shape
+    need = (cols, rows) if transpose else (rows, cols)
+    if out_rows < need[0] or kp < need[1] or out_rows % TIER_BN or \
+            kp % TIER_BN:
+        raise ValueError(f"tier_split: planes ({out_rows}, {kp}) do not "
+                         f"hold {need} in multiples of {TIER_BN}")
+    shape = (_planes(passes), out_rows, kp)
+    if out is not None and (out.dtype != torch.bfloat16 or
+                            tuple(out.shape) != shape or
+                            out.device != x.device or
+                            not out.is_contiguous()):
+        raise ValueError(f"tier_split writes a contiguous bf16 {shape} "
+                         f"buffer on {x.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    if x.device.type == "cpu":
+        planes = tier_split_plain(x, transpose, out_rows, kp, passes)
+        return planes if out is None else out.copy_(planes)
+    if x.device.type != "cuda":
+        raise ValueError(f"tier_split runs on cpu or cuda, not {x.device}")
+    ld = x.stride(0) if rows > 1 else cols
+    if (cols > 1 and x.stride(1) != 1) or ld < cols or \
+            max(rows, cols, ld, out_rows, kp) >= 2**31:
+        raise ValueError(f"tier_split reads rows of contiguous values with "
+                         f"an int row stride, got strides {x.stride()}")
+    if out is None:
+        out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    _launch("tier_split", "tier_split", x.device, x.data_ptr(), rows, cols,
+            ld, int(transpose), out.data_ptr(), out_rows, kp, passes)
+    return out
+
+
+def _tma_map(planes, role: str):
+    """The TMA descriptor of an A or B operand's split buffer (planes,
+    rows, kp), encoded on the host (csrc/tier_gemm.cu `tier_encode`, which
+    knows its kernel's boxes), as a ctypes buffer."""
+    desc = ctypes.create_string_buffer(_TMA_MAP_BYTES)
+    err = _cuda_build.load_library().tier_encode(
+        ctypes.addressof(desc), planes.data_ptr(),
+        planes.shape[0] * planes.shape[1], planes.shape[2], "AB".index(role))
+    if err != 0:
+        raise RuntimeError(f"tier_encode failed: CUDA error {err} for "
+                           f"planes {tuple(planes.shape)}")
+    return desc
+
+
+def _tier_gemm(map_a, map_b, a_lo: int, b_lo: int, m: int, n: int, kp: int,
+               passes: int, device):
+    """C (m, n) fp32 from split planes through their descriptors (the lo
+    planes from rows a_lo of A's and b_lo of B's): one tier_gemm launch."""
+    out = torch.empty((m, n), dtype=torch.float32, device=device)
+    _launch("tier_gemm", "tier_gemm_tn", device, ctypes.addressof(map_a),
+            ctypes.addressof(map_b), out.data_ptr(), m, n, n, kp // TIER_BK,
+            a_lo, b_lo, passes)
+    return out
+
+
+class TierPlan:
+    """A tier product with one operand fixed: const @ x (side "left") or
+    x @ const ("right") for fp32 fields x of one shape, as a solver
+    multiplies by its sine matrices.  On the GPU the constant is split,
+    padded and laid out once, here, with its TMA descriptor; the field's
+    planes go to a scratch buffer allocated here, whose address (and
+    descriptor) is the same at every call and CUDA-graph replay.  A call is
+    one tier_split launch (the field, read in place through its row stride)
+    and one tier_gemm launch; a_planes and b_planes hold the operands'
+    planes.  On the CPU a call is the twin, tier_matmul_plain, on the fp32
+    operands."""
+
+    def __init__(self, const, passes: int, side: str, shape):
+        if const.dtype != torch.float32 or const.dim() != 2:
+            raise TypeError(f"TierPlan takes a 2-D fp32 constant, got "
+                            f"{const.dtype} {tuple(const.shape)}")
+        if passes not in (1, 3) or side not in ("left", "right"):
+            raise ValueError(f"TierPlan: passes 1 or 3 and side left or "
+                             f"right, got {passes}, {side!r}")
+        rows, cols = self.shape = tuple(shape)
+        if side == "left":
+            (m, k), n = const.shape, cols
+            inner = rows
+        else:
+            (m, k), n = (rows, cols), const.shape[1]
+            inner = const.shape[0]
+        if inner != k or min(m, n, k) < 1:
+            raise ValueError(f"TierPlan {side}: {tuple(const.shape)} and "
+                             f"fields {self.shape} do not multiply")
+        self.const, self.passes, self.side = const, passes, side
+        self.mnk = (m, n, k)
+        if const.device.type == "cpu":
+            return
+        if m * n >= 2**31:
+            raise ValueError(f"{(m, n, k)} exceeds the kernel's int index")
+        mp, np_, kp = (_round_up(m, TIER_BM), _round_up(n, TIER_BN),
+                       _round_up(k, TIER_BK))
+        scratch = (_planes(passes), np_ if side == "left" else mp, kp)
+        self._field = torch.empty(scratch, dtype=torch.bfloat16,
+                                  device=const.device)
+        if side == "left":
+            self.a_planes = tier_split(const, False, mp, kp, passes)
+            self.b_planes = self._field
+        else:
+            self.a_planes = self._field
+            self.b_planes = tier_split(const, True, np_, kp, passes)
+        self._map_a = _tma_map(self.a_planes, "A")
+        self._map_b = _tma_map(self.b_planes, "B")
+        self._lo = (mp, np_)
+
+    def split(self, x) -> None:
+        """x's planes into the scratch buffer (one tier_split launch)."""
+        tier_split(x, self.side == "left", self._field.shape[1],
+                   self._field.shape[2], self.passes, out=self._field)
+
+    def gemm(self):
+        """The product from the planes in place (one tier_gemm launch)."""
+        m, n, _ = self.mnk
+        return _tier_gemm(self._map_a, self._map_b, *self._lo, m, n,
+                          self.a_planes.shape[2], self.passes,
+                          self.const.device)
+
+    def __call__(self, x):
+        if tuple(x.shape) != self.shape or x.device != self.const.device:
+            raise ValueError(f"TierPlan takes fields {self.shape} on "
+                             f"{self.const.device}, got {tuple(x.shape)} on "
+                             f"{x.device}")
+        if x.device.type == "cpu":
+            return (tier_matmul_plain(self.const, x, self.passes)
+                    if self.side == "left" else
+                    tier_matmul_plain(x, self.const, self.passes))
+        self.split(x)
+        return self.gemm()
+
+
 def tier_matmul(a, b, passes: int):
     """C = A @ B in a precision tier of the TPU's matrix unit, fp32 in and
-    out: passes=3 is XLA's bf16_3x (a_hi b_hi + a_hi b_lo + a_lo b_hi),
-    passes=1 one bf16 product bf16(a) bf16(b), both accumulated in fp32
-    (csrc/tier_gemm.cu: the split at the shared-memory stage, mma.sync on
-    the tensor cores).  a: (M, K), b: (K, N), fp32.  On the CPU it runs
+    out: passes=3 is XLA's bf16_3x (a_lo b_hi + a_hi b_lo + a_hi b_hi),
+    passes=1 one bf16 product bf16(a) bf16(b), both accumulated in fp32.
+    a: (M, K), b: (K, N), fp32.  On the GPU both operands are split
+    (tier_split, two launches) and multiplied (tier_gemm, one launch);
+    TierPlan splits a constant operand once instead.  On the CPU it runs
     the twin, so a tier computes the TPU's arithmetic on every device."""
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"tier_matmul takes fp32 operands, got {a.dtype} "
@@ -581,10 +755,12 @@ def tier_matmul(a, b, passes: int):
         raise ValueError(f"tier_matmul: passes must be 1 or 3, got {passes}")
     if _on_cpu("tier_matmul", a, b):
         return tier_matmul_plain(a, b, passes)
-    (M, K), N = a.shape, b.shape[1]
-    if M * N >= 2**31 or b.numel() >= 2**31:
-        raise ValueError(f"{(M, N, K)} exceeds the kernel's int index")
-    out = a.new_empty((M, N))
-    _launch("tier_gemm", "tier_gemm", a.device, a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), M, N, K, passes)
-    return out
+    (m, k), n = a.shape, b.shape[1]
+    if m * n >= 2**31 or b.numel() >= 2**31:
+        raise ValueError(f"{(m, n, k)} exceeds the kernel's int index")
+    mp, np_, kp = (_round_up(m, TIER_BM), _round_up(n, TIER_BN),
+                   _round_up(k, TIER_BK))
+    pa = tier_split(a, False, mp, kp, passes)
+    pb = tier_split(b, True, np_, kp, passes)
+    return _tier_gemm(_tma_map(pa, "A"), _tma_map(pb, "B"), mp, np_, m, n, kp,
+                      passes, a.device)

@@ -12,9 +12,10 @@ Wraps ops.spectral with the reference's full-grid conventions:
   sine-matrix products, which on the GPU are plain large GEMMs
   (torch.matmul, full fp32) or, in a precision tier of the TPU's matrix
   unit (`tier`, the JAX package's `mm_precision`), split-bf16 products
-  (ops/cuda_kernels.tier_matmul: csrc/tier_gemm.cu on the GPU, its plain
-  twin on the CPU, so a tier computes the TPU's arithmetic on every device
-  where JAX's CPU backend ignores the precision and runs fp32).
+  (ops/cuda_kernels.TierPlan: csrc/tier_gemm.cu on the GPU, the sine
+  matrices split once at build; its plain twin on the CPU, so a tier
+  computes the TPU's arithmetic on every device where JAX's CPU backend
+  ignores the precision and runs fp32).
 
 PyTorch runs eagerly, so each `make_*` builds its eigenvalue denominator
 (and the sine matrices or transform weights) once and returns the solve
@@ -99,21 +100,24 @@ def tier_of(poisson: str) -> str | None:
     return None
 
 
-def tier_mm(tier: str | None, dtype):
-    """The product of a precision tier: torch.matmul for tier=None (full
-    precision, JAX's mm_precision="highest"), else the split-bf16 product
-    of "bf16x3" ("high") or "bf16x1" ("default"), which takes fp32 only:
-    a tier never runs silently at another precision."""
+def sine_products(tier: str | None, sx, sy, shape):
+    """(left, right) of a sine-matrix Poisson solve on fields of `shape`:
+    left(g) = sx @ g and right(h) = h @ sy.  tier=None: torch.matmul (full
+    precision, JAX's mm_precision="highest"); "bf16x3" ("high") or "bf16x1"
+    ("default"): the split-bf16 products, one cuda_kernels.TierPlan each,
+    which split sx and sy once, here; fp32 only, so a tier never runs
+    silently at another precision."""
     if tier is None:
-        return torch.matmul
+        return (lambda g: torch.matmul(sx, g)), (lambda h: torch.matmul(h, sy))
     if tier not in cuda_kernels.TIER_PASSES:
         raise ValueError(f"unknown precision tier {tier!r} "
                          f"({' | '.join(cuda_kernels.TIER_PASSES)})")
-    if dtype != torch.float32:
+    if sx.dtype != torch.float32:
         raise ValueError(f"the {tier} tier splits fp32 operands into bf16 "
-                         f"parts and takes fp32 only, got {dtype}")
+                         f"parts and takes fp32 only, got {sx.dtype}")
     passes = cuda_kernels.TIER_PASSES[tier]
-    return lambda a, b: cuda_kernels.tier_matmul(a, b, passes)
+    return (cuda_kernels.TierPlan(sx, passes, "left", shape),
+            cuda_kernels.TierPlan(sy, passes, "right", shape))
 
 
 def make_fst_matmul_interior(nx: int, ny: int, dx: float, dy: float,
@@ -125,9 +129,7 @@ def make_fst_matmul_interior(nx: int, ny: int, dx: float, dy: float,
     exactly-zero boundary ring.  With S the unscaled interior sine matrix,
     u = S((S g S) / den) S * 4/(nx ny): S^2 = (n/2) I on the interior, and
     FFTW's RODFT00 pair scales by 2nx * 2ny.  tier: None (fp32 or fp64
-    products), "bf16x3" or "bf16x1" (fp32 only; tier_mm)."""
-    mm = tier_mm(tier, dtype)
-
+    products), "bf16x3" or "bf16x1" (fp32 only; sine_products)."""
     def sine_interior(n):
         k = torch.arange(1, n, dtype=torch.int32, device=device)
         return _sine_entries(k[:, None], k[None, :], n, dtype)
@@ -140,12 +142,12 @@ def make_fst_matmul_interior(nx: int, ny: int, dx: float, dy: float,
         2.0 / dy**2
     ) * (torch.cos(math.pi * ky[None, :] / ny) - 1.0)
     scale = 4.0 / (nx * ny)
+    left, right = sine_products(tier, sx, sy, (nx - 1, ny - 1))
 
     def solve(f):
-        # the tier kernel takes contiguous operands
-        g = f[1:nx, 1:ny] if tier is None else f[1:nx, 1:ny].contiguous()
-        coeff = mm(mm(sx, g), sy) / den
-        u = mm(mm(sx, coeff), sy) * scale
+        # the interior is read in place (a tier's split takes strided rows)
+        coeff = right(left(f[1:nx, 1:ny])) / den
+        u = right(left(coeff)) * scale
         return F.pad(u, (1, 1, 1, 1))
 
     return solve

@@ -24,11 +24,15 @@ Phases, one line each:
      at (nx, ny) = 1024^2, 16^2, 24x16, 33x47 and 34x130 in fp32 and fp64,
      every stage and both wall-BC orders, two calls bitwise equal, timed
      at 1024^2 warm and with L2 flushed; the tier GEMM (csrc/tier_gemm.cu,
-     the bf16 precision tiers' split-bf16 product) at 1024^3, 1023^3,
-     1x1x1, 15x17x13, 33x47x129 and 130x131x129 with 1 and 3 passes, on
-     random operands and the cavity's sine matrices, within 1e-5 of max|C|
-     of its twin, two calls bitwise equal, timed at 1024^3 beside its
-     bound (tensor-core flops over 989 TFLOP/s, or bytes), its twin, the
+     the bf16 precision tiers' split-bf16 product: the split pass
+     tier_split and the wgmma GEMM) at 1024^3, 1023^3, 1x1x1, 15x17x13,
+     33x47x129 and 130x131x129 with 1 and 3 passes, on random operands and
+     the cavity's sine matrices, as tier_matmul and through TierPlans (the
+     constant on either side split once, a strided field), within 1e-5 of
+     max|C| of its twin, two calls bitwise equal; the split pass bitwise
+     _bf16_split in both roles; timed at 1024^3: the split pass, the GEMM
+     on split planes, a plan's product and tier_matmul, each beside its
+     bound (tensor-core flops over 989 TFLOP/s, or bytes), the twins, the
      fp32 torch.matmul it stands in for and torch.mm on bf16 operands
      split beforehand (the library yardstick); the Euler RHS at (3, 8192),
      (3, 257), nx = 3,
@@ -106,10 +110,11 @@ Phases, one line each:
      CLI's `run heat_cn` and `run burgers_crweno_periodic` (fp32);
  15. the bf16 precision tiers (the JAX package's TPU configurations):
      matmul_bf16x3, matmul_bf16x1, fused_bf16x3 and fused_bf16x1 in phase
-     3's configuration, 12 launches a step of the tier GEMM: graphed and
-     eager, each 100 steps and on to 2000, against both cavity anchors,
-     bitwise equal with equal launch counts (24000 tier_gemm, and 6000
-     Arakawa or stage launches); max|psi_tier - psi_fp32| of the same
+     3's configuration, 12 launches a step of the tier GEMM and of the
+     split pass: graphed and eager, each 100 steps and on to 2000, against
+     both cavity anchors, bitwise equal with equal launch counts (24000
+     tier_gemm, 24000 tier_split, and 6000 Arakawa or stage launches);
+     max|psi_tier - psi_fp32| of the same
      formulation after 2000 steps (bf16x3 within 1e-4 of max|psi|, bf16x1
      printed); steps/s beside phases 3, 11 and 13 (--profile: the
      fused_bf16x3 step by kernel); fused_bf16x3 through cavity.solve,
@@ -621,22 +626,58 @@ def tier_library(a, b, passes):
     return lambda: mm(ah, bh) + mm(ah, bl) + mm(al, bh)
 
 
+def tier_split_check(ck, x, transpose, passes):
+    """tier_split of x (an operand read in place through its row stride)
+    against _bf16_split, bitwise on the operand and 0 in the pad; the
+    largest |kernel - reference| (0 when equal)."""
+    rows, cols = (x.shape[1], x.shape[0]) if transpose else x.shape
+    out_rows = -(-rows // (ck.TIER_BN if transpose else ck.TIER_BM)) * (
+        ck.TIER_BN if transpose else ck.TIER_BM)
+    kp = -(-cols // ck.TIER_BK) * ck.TIER_BK
+    got = ck.tier_split(x, transpose, out_rows, kp, passes).float()
+    ref = torch.zeros_like(got)
+    for p, part in zip(range(got.shape[0]),
+                       ck._bf16_split(x.t() if transpose else x)):
+        ref[p, :rows, :cols] = part
+    return float((got - ref).abs().max()), torch.equal(got, ref)
+
+
+def tier_record_of(name, source, times, bd, err, plain_ms, lib_ms):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": "cfd_julia_tpu/models/cavity_fused.py:120 and "
+                        "cfd_julia_tpu/poisson/direct.py:133 (XLA's bf16_3x "
+                        "/ default dot, not a Pallas kernel)",
+            "launches": None, "max_abs_err": err, "ms": times,
+            "plain_ms": plain_ms, **bd, "library_ms": lib_ms}
+
+
 def phase_tier_kernel():
     """Kernel 8 against its twin at every shape, 1 and 3 passes, on seeded
     random operands and on the cavity's sine matrices, two calls bitwise
-    equal; timed at 1024^3 warm in L2 beside its bound (tensor-core flops
-    or bytes), its twin, the fp32 torch.matmul it stands in for, and the
-    library yardstick.  Returns its record (3 passes)."""
+    equal, both as tier_matmul (both operands split a call) and through a
+    TierPlan (the constant split once, the field read in place through its
+    row stride); the split pass bitwise against _bf16_split in both roles.
+    Timed at 1024^3 warm in L2: the split pass (the field of sx @ g, B
+    role), the GEMM on split planes, a plan's product (split + GEMM: a
+    Poisson solve's product), tier_matmul on raw operands, each beside its
+    bound (bytes over HBM's rate, or tensor-core flops), the twins, the
+    fp32 torch.matmul the tiers stand in for and the library yardstick.
+    Returns the GEMM's and the split pass's records (3 passes)."""
     from cfd_julia_torch.ops import cuda_kernels as ck
 
     dev = torch.device("cuda")
     timed = {}
+    worst_split = 0.0
     for m, n, k in TIER_SHAPES:
         rng = np.random.default_rng(m * 31 + n * 7 + k)
         a = torch.as_tensor(rng.standard_normal((m, k)), dtype=torch.float32,
                             device=dev)
         b = torch.as_tensor(rng.standard_normal((k, n)), dtype=torch.float32,
                             device=dev)
+        # the field read in place: the interior of a larger array
+        wide = torch.as_tensor(rng.standard_normal((k + 2, n + 2)),
+                               dtype=torch.float32, device=dev)
+        g = wide[1:-1, 1:-1]
         cases = [("random", a, b)]
         if m == n == k and m >= NX - 1:
             sine = tier_sines(m)
@@ -651,40 +692,103 @@ def phase_tier_kernel():
                 err = float((got - ref).abs().max())
                 worst = max(worst, err / float(ref.abs().max()))
                 same &= torch.equal(got, again)
-                if (m, n, k) == TIER_SHAPES[0] and case == "random":
-                    timed[passes] = (x, y, got, err)
+                if (m, n, k) == TIER_SHAPES[0] and case == "S@g":
+                    timed[passes] = (x, y, err)
+            # plans: the constant on either side, the field strided
+            plans = [("left", a, g, (k, n)), ("right", b, a, (m, k))]
+            for side, const, field, shape in plans:
+                plan = ck.TierPlan(const, passes, side, shape)
+                got, again = plan(field), plan(field)
+                ref = (ck.tier_matmul_plain(const, field, passes)
+                       if side == "left" else
+                       ck.tier_matmul_plain(field, const, passes))
+                torch.cuda.synchronize()
+                worst = max(worst, float((got - ref).abs().max())
+                            / float(ref.abs().max()))
+                same &= torch.equal(got, again)
             ok = worst <= TIER_TOL and same
             line = (f"phase 2 kernel tier_gemm {m}x{n}x{k} passes {passes} "
-                    f"({', '.join(c[0] for c in cases)}): max|k-p|/max|p| "
-                    f"{worst:.3e} (tol {TIER_TOL:g}); two calls bitwise "
-                    f"equal: {same} {'ok' if ok else 'FAIL'}")
+                    f"(tier_matmul: {', '.join(c[0] for c in cases)}; "
+                    f"TierPlan left and right, strided field): "
+                    f"max|k-p|/max|p| {worst:.3e} (tol {TIER_TOL:g}); two "
+                    f"calls bitwise equal: {same} {'ok' if ok else 'FAIL'}")
             print(line)
             check(ok, line)
+            for x, role in ((a, "A"), (b, "B"), (g, "B"), (g, "A")):
+                err, equal = tier_split_check(ck, x, role == "B", passes)
+                worst_split = max(worst_split, err)
+                line = (f"phase 2 kernel tier_split {tuple(x.shape)} "
+                        f"stride {x.stride(0)} role {role} passes {passes}: "
+                        f"bitwise _bf16_split, 0 in the pad: {equal} "
+                        f"{'ok' if equal else 'FAIL'}")
+                if not equal:
+                    print(line)
+                check(equal, line)
+    print(f"phase 2 kernel tier_split: bitwise _bf16_split at every shape, "
+          f"role, stride and pass count ok")
     records = {}
-    for passes, (a, b, got, err) in timed.items():
-        ms, _ = median_ms(lambda: ck.tier_matmul(a, b, passes))
-        plain_ms, _ = median_ms(lambda: ck.tier_matmul_plain(a, b, passes))
-        fp32_ms, _ = median_ms(lambda: torch.matmul(a, b))
-        lib_ms, _ = median_ms(tier_library(a, b, passes))
-        flops = passes * 2 * a.shape[0] * a.shape[1] * b.shape[1]
-        bd = bound(nbytes(a, b, got), flops, ms, BF16_FLOP_PER_S)
-        records[passes] = {"max_abs_err": err, "ms": ms,
-                           "plain_ms": plain_ms, **bd, "library_ms": lib_ms,
-                           "fp32_matmul_ms": fp32_ms}
-        print(f"phase 2 kernel tier_gemm {NX}^3 passes {passes} device time: "
-              f"kernel {ms:.4f} ms warm in L2 ({flops / ms / 1e9:.1f} "
-              f"TFLOP/s; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}"
-              f", {100 * bd['share_of_bound']:.1f}% of it), plain "
-              f"{plain_ms:.4f} ms, fp32 torch.matmul {fp32_ms:.4f} ms, "
-              f"library (torch.mm bf16 -> fp32 on pre-split operands + adds) "
-              f"{lib_ms:.4f} ms (medians of 30 calls, CUDA events)")
-    return {"name": "tier_gemm", "route": "cuda",
-            "source": "cfd_julia_torch/csrc/tier_gemm.cu",
-            "replaces": "cfd_julia_tpu/models/cavity_fused.py:120 and "
-                        "cfd_julia_tpu/poisson/direct.py:133 (XLA's bf16_3x "
-                        "/ default dot, not a Pallas kernel)",
-            "launches": None, **records[3], "passes": 3,
-            "passes_1": records[1]}
+    for passes, (sine, g, err) in timed.items():
+        m, k = sine.shape
+        n = g.shape[1]
+        plan = ck.TierPlan(sine, passes, "left", (k, n))
+        plan.split(g)
+        planes = plan.a_planes.shape[0]
+        gemm_ms, _ = median_ms(plan.gemm)
+        product_ms, _ = median_ms(lambda: plan(g))
+        raw_ms, _ = median_ms(lambda: ck.tier_matmul(sine, g, passes))
+        split_ms, _ = median_ms(lambda: plan.split(g))
+        kp = plan.b_planes.shape[2]
+        split_plain_ms, _ = median_ms(lambda: ck.tier_split_plain(
+            g, True, plan.b_planes.shape[1], kp, passes))
+        plain_ms, _ = median_ms(lambda: ck.tier_matmul_plain(sine, g, passes))
+        fp32_ms, _ = median_ms(lambda: torch.matmul(sine, g))
+        lib_ms, _ = median_ms(tier_library(sine, g, passes))
+        flops = passes * 2 * m * n * k
+        out = plan.gemm()
+        # the GEMM: the bf16 planes in once, C out once; the product and
+        # tier_matmul: the fp32 operands in, C out
+        gemm_bd = bound(nbytes(plan.a_planes, plan.b_planes, out), flops,
+                        gemm_ms, BF16_FLOP_PER_S)
+        product_bd = bound(nbytes(g, out), flops, product_ms, BF16_FLOP_PER_S)
+        raw_bd = bound(nbytes(sine, g, out), flops, raw_ms, BF16_FLOP_PER_S)
+        # a subtraction an element for the lo plane
+        split_bd = bound(nbytes(g, plan.b_planes),
+                         g.numel() * (planes - 1), split_ms)
+        records[passes] = {
+            "gemm": tier_record_of(
+                "tier_gemm", "cfd_julia_torch/csrc/tier_gemm.cu", gemm_ms,
+                gemm_bd, err, plain_ms, lib_ms)
+            | {"passes": passes, "product_ms": product_ms,
+               "product_bound_ms": product_bd["bound_ms"],
+               "raw_ms": raw_ms, "raw_bound_ms": raw_bd["bound_ms"],
+               "fp32_matmul_ms": fp32_ms},
+            "split": tier_record_of(
+                "tier_split", "cfd_julia_torch/csrc/tier_gemm.cu", split_ms,
+                split_bd, 0.0, split_plain_ms, None) | {"passes": passes}}
+        l2_mb = (m // ck.TIER_BM) * (n // ck.TIER_BN) * planes * (
+            ck.TIER_BM + ck.TIER_BN) * kp * 2 / 1e6
+        print(f"phase 2 kernel tier_gemm {NX}^3 passes {passes} device time "
+              f"(S@g, the packed step's product): GEMM on split planes "
+              f"{gemm_ms:.4f} ms warm in L2 ({flops / gemm_ms / 1e9:.1f} "
+              f"TFLOP/s; bound {gemm_bd['bound_ms']:.4f} ms by "
+              f"{gemm_bd['bound_by']}, {100 * gemm_bd['share_of_bound']:.1f}"
+              f"% of it; {l2_mb:.1f} MB of panels from L2 a call); "
+              f"TierPlan product (split + GEMM) {product_ms:.4f} ms (bound "
+              f"{product_bd['bound_ms']:.4f}); tier_matmul on raw operands "
+              f"(2 splits + GEMM) {raw_ms:.4f} ms (bound "
+              f"{raw_bd['bound_ms']:.4f}); plain {plain_ms:.4f} ms, fp32 "
+              f"torch.matmul {fp32_ms:.4f} ms, library (torch.mm bf16 -> "
+              f"fp32 on pre-split operands + adds) {lib_ms:.4f} ms (medians "
+              f"of 30 calls, CUDA events)")
+        print(f"phase 2 kernel tier_split {n}^2 role B passes {passes} "
+              f"device time: {split_ms:.4f} ms (bound "
+              f"{split_bd['bound_ms']:.4f} ms by {split_bd['bound_by']}, "
+              f"{100 * split_bd['share_of_bound']:.1f}% of it), plain "
+              f"{split_plain_ms:.4f} ms")
+    gemm, split = records[3]["gemm"], records[3]["split"]
+    gemm["passes_1"] = records[1]["gemm"]
+    split["passes_1"] = records[1]["split"]
+    return gemm, split
 
 
 def bf16_ulp(x):
@@ -1952,7 +2056,7 @@ def tier_path(tier):
     finite = all(bool(torch.isfinite(x).all()) for x in (*state[:2], rms))
     diff = max_diff((*first, *state, rms), (*e_first, *e_state, e_rms))
     want = dict.fromkeys(launches, 0)
-    want["tier_gemm"] = 12 * STEPS_TOTAL
+    want["tier_gemm"] = want["tier_split"] = 12 * STEPS_TOTAL
     want["cavity_fused_stage" if fused else "arakawa_rhs"] = 3 * STEPS_TOTAL
     ok = finite and diff == 0.0 and launches == want and e_launches == launches
     line = (f"{label} {NX}^2 fp32: {n} steps (from step {STEPS_FIRST}) "
@@ -2039,14 +2143,18 @@ def phase_tiers(rates, matmul_psi, fused_psi, ghia_fp32, profile):
                     lambda: loop.run_steps(step, state, 20), 20, step_s)
                 if by_name:
                     profile_rhs(by_name, "cavity_stage_kernel", 20)
-                    us, n = kernel_sums(by_name, "tier_gemm_kernel")
                     total = sum(v[0] for v in by_name.values())
-                    line = (f"profile tier_gemm_kernel: {n} device launches "
-                            f"in 20 steps = {n / 20:.2f} a step (want 12), "
-                            f"{us / 20:.2f} us/step, {100 * us / total:.1f}% "
-                            f"of the step's device time")
-                    print(line + (" ok" if n == 12 * 20 else " FAIL"))
-                    check(n == 12 * 20, line)
+                    for kernels in (("tier_gemm_kernel",),
+                                    ("split_cols_kernel",
+                                     "split_rows_kernel")):
+                        us, n = kernel_sums(by_name, *kernels)
+                        line = (f"profile {' + '.join(kernels)}: {n} device "
+                                f"launches in 20 steps = {n / 20:.2f} a step "
+                                f"(want 12), {us / 20:.2f} us/step, "
+                                f"{100 * us / total:.1f}% of the step's "
+                                f"device time")
+                        print(line + (" ok" if n == 12 * 20 else " FAIL"))
+                        check(n == 12 * 20, line)
         del step, state
     print(f"phase 15 cavity {NX}^2 fp32 steps/s by Poisson solve, graphed / "
           f"eager, one run of this script: " + ", ".join(
@@ -2367,7 +2475,7 @@ def main(argv=None):
     mg_records = phase_mg_kernels()
     euler_record = phase_euler_kernels()
     stage_record = phase_stage_kernel()
-    tier_record = phase_tier_kernel()
+    tier_record, split_record = phase_tier_kernel()
     phase_empty_graph(mg_records["redblack_sweeps"]["floor_ms"])
     launches, step, state, step_s, rms, cavity_eager_s = phase_main_path()
     cavity_ref = ((state[0], state[1]), rms)
@@ -2441,12 +2549,12 @@ def main(argv=None):
                             f"fp32, {EULER_STEPS} steps")
     stage_record["launches"] = fused_launches["cavity_fused_stage"]
     stage_record["path"] = (f"fused cavity {NX}^2, {STEPS_TOTAL} steps")
-    tier_record["launches"] = tier_launches["tier_gemm"]
-    tier_record["path"] = (f"fused_bf16x3 cavity {NX}^2, {STEPS_TOTAL} "
-                           f"steps")
+    for rec in (tier_record, split_record):
+        rec["launches"] = tier_launches[rec["name"]]
+        rec["path"] = f"fused_bf16x3 cavity {NX}^2, {STEPS_TOTAL} steps"
     print(json.dumps({"kernels": [record, *mg_records.values(),
                                   euler_record, stage_record,
-                                  tier_record]}))
+                                  tier_record, split_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

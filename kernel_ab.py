@@ -2,7 +2,7 @@
 """Time the port's kernels from several source trees against each other on
 one NVIDIA GPU, in turns.
 
-    python3 kernel_ab.py [--rounds N] [--sass] DIR [DIR ...]
+    python3 kernel_ab.py [--rounds N] [--sass] [--only REGEX] DIR [DIR ...]
 
 Each DIR holds kernel sources like cfd_julia_torch/csrc/ (*.cu, *.cuh): a
 copy of an earlier commit's, say, made with
@@ -21,6 +21,13 @@ rounds):
   - the two multigrid level edges at 4097^2 fp32, 2 sweeps, for the trees
     that have them, and the smoother (redblack_sweeps) on every level of
     the 4096^2 pyramid (4097^2 down to 3x3), fp32, 2 sweeps;
+  - the tier GEMM (csrc/tier_gemm.cu) at 1024^3 and 1023^3 (the fused
+    and matmul tiers' shapes), 1 and 3 passes, on the cavity's sine
+    matrix and a random field: a product as the Poisson solve makes it
+    (`tier product`: a TierPlan call, the field's split and the GEMM; on
+    a tree with the earlier ABI, whose one kernel split both operands in
+    its main loop, that kernel), the GEMM alone on split planes, the split
+    pass alone in both roles, and tier_matmul on raw operands;
   - the empty-launch floor (torch.cuda._sleep(0)) and, as a yardstick of
     the Arakawa RHS's bytes alone, torch.add of two 1025^2 fp32 fields,
     beside them;
@@ -30,9 +37,10 @@ rounds):
     and the smoother kernels' (every kernel whose name starts with rb_,
     and convert_kernel) time and launches.
 Each call is also held against its plain twin (max|kernel - twin| is
-printed), and each tree's RHS kernels' ptxas registers and spills are
-printed; --sass also counts the CALL instructions (the slow paths of IEEE
-division, reciprocal and square root) in their SASS (cuobjdump).
+printed), and each tree's RHS and tier kernels' ptxas registers and
+spills are printed; --sass also counts the CALL instructions (the slow
+paths of IEEE division, reciprocal and square root) in their SASS
+(cuobjdump).
 """
 from __future__ import annotations
 
@@ -71,15 +79,104 @@ def has(lib, symbol):
     return getattr(lib, symbol, None) is not None
 
 
+# the tier GEMM's C ABI before the split pass (a, b, c, M, N, K, passes,
+# stream: fp32 operands split inside the kernel's main loop), for timing
+# a tree that has it
+_LEGACY_TIER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p]
+
+
+def legacy_tier(a, b, passes):
+    """C = A @ B through the earlier tier_gemm entry of the library in
+    use."""
+    fn = _cuda_build.load_library().tier_gemm
+    fn.restype, fn.argtypes = ctypes.c_int, _LEGACY_TIER_ARGS
+    (m, k), n = a.shape, b.shape[1]
+    out = a.new_empty((m, n))
+    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, passes,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tier_gemm failed: CUDA error {err}")
+    return out
+
+
+def per_library(make):
+    """A call that builds its object with make() once per kernel library
+    (a TierPlan splits its constant with the library in use) and calls
+    it."""
+    built = {}
+
+    def call():
+        key = id(_cuda_build.load_library())
+        if key not in built:
+            built[key] = make()
+        return built[key]()
+    return call
+
+
+def tier_cases(dev):
+    """label -> [(call, plain, before, symbol), ...]: the alternatives, the
+    first whose symbol a library has is timed on it."""
+    out = {}
+    for n in (cs.NX, cs.NX - 1):
+        sine = cs.tier_sines(n)
+        rng = np.random.default_rng(n)
+        g = torch.as_tensor(rng.standard_normal((n, n)), dtype=torch.float32,
+                            device=dev)
+        for passes in (1, 3):
+            tag = f"{n}^3 passes {passes}"
+
+            def plain(passes=passes):
+                return ck.tier_matmul_plain(sine, g, passes)
+
+            def plan(passes=passes):
+                return ck.TierPlan(sine, passes, "left", (n, n))
+
+            out[f"tier product S@g {tag}"] = [
+                (per_library(lambda plan=plan: lambda p=plan(): p(g)),
+                 plain, None, "tier_gemm_tn"),
+                (lambda passes=passes: legacy_tier(sine, g, passes), plain,
+                 None, "tier_gemm")]
+
+            def gemm_only(plan=plan):
+                p = plan()
+                p.split(g)
+                return p.gemm
+
+            out[f"tier gemm on split planes {tag}"] = [
+                (per_library(gemm_only), plain, None, "tier_gemm_tn")]
+            out[f"tier_matmul raw operands {tag}"] = [
+                (lambda passes=passes: ck.tier_matmul(sine, g, passes),
+                 plain, None, "tier_gemm_tn"),
+                (lambda passes=passes: legacy_tier(sine, g, passes), plain,
+                 None, "tier_gemm")]
+            kp = ck._round_up(n, ck.TIER_BK)
+            for role, transpose, rows in (("A", False, ck.TIER_BM),
+                                          ("B", True, ck.TIER_BN)):
+                out[f"tier_split {role} {n}^2 passes {passes}"] = [(
+                    lambda transpose=transpose, rows=rows, passes=passes:
+                    ck.tier_split(g, transpose, ck._round_up(n, rows), kp,
+                                  passes),
+                    lambda transpose=transpose, rows=rows, passes=passes:
+                    ck.tier_split_plain(g, transpose, ck._round_up(n, rows),
+                                        kp, passes),
+                    None, "tier_split")]
+    return out
+
+
+# the kernels whose registers and SASS are reported
+KERNELS = "arakawa|euler|rb_|tier|split"
+
+
 def ptxas_lines(path: Path):
-    """(kernel, registers, spill stores) of the RHS kernels in nvcc.log."""
+    """(kernel, registers, spill stores) of the RHS and tier kernels in
+    nvcc.log."""
     text = path.with_name(_cuda_build.LOG_NAME).read_text()
     out, name = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1) if re.search("arakawa|euler|rb_", m.group(1)) \
-                else None
+            name = m.group(1) if re.search(KERNELS, m.group(1)) else None
             spill = None
         elif name and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
@@ -100,8 +197,7 @@ def sass_calls(path: Path):
     for line in text.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
-            name = m.group(1) if re.search("arakawa|euler|rb_", m.group(1)) \
-                else None
+            name = m.group(1) if re.search(KERNELS, m.group(1)) else None
             if name:
                 counts[name] = [0, 0]
         elif name:
@@ -201,6 +297,7 @@ def main(argv=None):
     parser.add_argument("dirs", nargs="+", type=Path)
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--sass", action="store_true")
+    parser.add_argument("--only", default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: needs an NVIDIA GPU", file=sys.stderr)
@@ -238,13 +335,22 @@ def main(argv=None):
         print(f"yardstick torch.add of two 1025^2 fp32 fields {label}: "
               f"device ms {t:.5f}")
     del a, b, c, flush
-    for label, (call, plain, before, symbol) in cases(dev).items():
-        times = {name: [] for name, lib in libs if has(lib, symbol)}
+    only = re.compile(args.only) if args.only else None
+    all_cases = {label: [case] for label, case in cases(dev).items()}
+    all_cases.update(tier_cases(dev))
+    for label, alternatives in all_cases.items():
+        if only and not only.search(label):
+            continue
+        chosen = {name: next(((c, p, b) for c, p, b, symbol in alternatives
+                              if has(lib, symbol)), None)
+                  for name, lib in libs}
+        times = {name: [] for name, c in chosen.items() if c is not None}
         errs = {}
         for r in range(args.rounds):
             for name, lib in (libs if r % 2 == 0 else libs[::-1]):
                 if name not in times:
                     continue
+                call, plain, before = chosen[name]
                 with mock.patch.object(_cuda_build, "load_library",
                                        lambda lib=lib: lib):
                     if r == 0:
@@ -254,7 +360,8 @@ def main(argv=None):
             print(f"ab {label}: {name}: device ms "
                   f"{[round(x, 5) for x in ts]} median {np.median(ts):.5f}; "
                   f"max|k-p|={errs[name]:.3e}")
-    off_profiles(libs, args.rounds)
+    if not only or only.search("off"):
+        off_profiles(libs, args.rounds)
     return 0
 
 

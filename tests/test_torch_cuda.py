@@ -758,6 +758,66 @@ def test_tier_gemm_on_sine_matrices(cuda_device, n, passes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("shape", [(1024, 1024), (1023, 1023), (1, 1),
+                                   (15, 17), (33, 129), (130, 131)])
+def test_tier_split_matches_plain(cuda_device, shape, transpose, passes):
+    """The split pass bitwise equal to its twin (which is _bf16_split,
+    zero-padded): pad zeros written, B transposed, and an operand read in
+    place through its row stride (the interior of a larger field, rows
+    not 16-byte aligned) as well as a contiguous one."""
+    rows, cols = shape
+    full = torch.as_tensor(_fields((rows + 2, cols + 2), seed=rows + cols)[0],
+                           dtype=torch.float32, device=cuda_device)
+    need = (cols, rows) if transpose else (rows, cols)
+    out_rows = -(-need[0] // 128) * 128
+    kp = -(-need[1] // 64) * 64
+    for x in (full[1:-1, 1:-1], full[1:-1, 1:-1].contiguous()):
+        before = cuda_kernels.LAUNCHES["tier_split"]
+        got = cuda_kernels.tier_split(x, transpose, out_rows, kp, passes)
+        torch.cuda.synchronize()
+        assert cuda_kernels.LAUNCHES["tier_split"] == before + 1
+        ref = cuda_kernels.tier_split_plain(x, transpose, out_rows, kp,
+                                            passes)
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+        hi, lo = cuda_kernels._bf16_split(x.t() if transpose else x)
+        assert torch.equal(got[0, :need[0], :need[1]].float(), hi)
+        if passes == 3:
+            assert torch.equal(got[1, :need[0], :need[1]].float(), lo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("shape", TIER_SHAPES)
+def test_tier_plan_matches_twin(cuda_device, shape, side, passes):
+    """A TierPlan (the constant split once) against the twin within 1e-5
+    of max|C|, a field read through its row stride, two calls bitwise,
+    one tier_split and one tier_gemm launch a call."""
+    m, n, k = shape
+    const_shape, field_shape = (((m, k), (k, n)) if side == "left"
+                                else ((k, n), (m, k)))
+    const = torch.as_tensor(_fields(const_shape, seed=m + 2 * n)[0],
+                            dtype=torch.float32, device=cuda_device)
+    full = torch.as_tensor(
+        _fields((field_shape[0] + 1, field_shape[1] + 1), seed=k)[0],
+        dtype=torch.float32, device=cuda_device)
+    field = full[1:, 1:]
+    plan = cuda_kernels.TierPlan(const, passes, side, field_shape)
+    before = dict(cuda_kernels.LAUNCHES)
+    got = plan(field)
+    again = plan(field)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["tier_split"] == before["tier_split"] + 2
+    assert cuda_kernels.LAUNCHES["tier_gemm"] == before["tier_gemm"] + 2
+    a, b = (const, field) if side == "left" else (field, const)
+    _assert_rel(got, cuda_kernels.tier_matmul_plain(a, b, passes), 1e-5)
+    _assert_same(got, again)
+
+
+@pytest.mark.cuda
 def test_tier_gemm_graph_capture(cuda_device):
     """tier_matmul captured into a CUDA graph (stepping/loop.py's chunks
     hold 12 a step): replays bitwise the eager call on new inputs."""
@@ -780,18 +840,28 @@ def test_tier_gemm_graph_capture(cuda_device):
 
 @pytest.mark.cuda
 def test_tier_gemm_wrapper_raises_on_cuda_misuse(cuda_device):
-    """On CUDA tensors the wrapper launches or raises: a non-contiguous
+    """On CUDA tensors the wrappers launch or raise: a non-contiguous
     operand, operands on two devices and fp64 are refused, never handed to
-    the twin."""
+    the twin; the split pass refuses columns that are not contiguous, and
+    a plan a field of another shape or device."""
     a = torch.zeros(64, 64, device=cuda_device)
-    before = cuda_kernels.LAUNCHES["tier_gemm"]
+    before = dict(cuda_kernels.LAUNCHES)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_kernels.tier_matmul(a.t(), a, 3)
     with pytest.raises(ValueError, match="different devices"):
         cuda_kernels.tier_matmul(a, a.cpu(), 3)
     with pytest.raises(TypeError):
         cuda_kernels.tier_matmul(a.double(), a.double(), 1)
-    assert cuda_kernels.LAUNCHES["tier_gemm"] == before
+    with pytest.raises(ValueError, match="row stride"):
+        cuda_kernels.tier_split(a.t(), False, 128, 64, 3)
+    with pytest.raises(TypeError):
+        cuda_kernels.tier_split(a.double(), False, 128, 64, 3)
+    assert cuda_kernels.LAUNCHES == before
+    plan = cuda_kernels.TierPlan(a, 3, "left", (64, 64))
+    with pytest.raises(ValueError):
+        plan(torch.zeros(64, 32, device=cuda_device))
+    with pytest.raises(ValueError):
+        plan(a.cpu())
 
 
 @pytest.mark.cuda
@@ -800,7 +870,7 @@ def test_tier_gemm_wrapper_raises_on_cuda_misuse(cuda_device):
 def test_graphed_tier_cavity_equals_eager(cuda_device, tier):
     """60 fp32 steps of a tier at 64^2, twice on one step function: the
     graphed state and rms history are the eager ones bit for bit, with 12
-    tier_gemm launches a step either way."""
+    tier_gemm and 12 tier_split launches a step either way."""
     cfg = cavity.CavityConfig(nx=64, ny=64, dt=1e-3, poisson=tier)
     if tier.startswith("fused"):
         step = cavity_fused.make_fused_step_fn(cfg, torch.float32,
@@ -818,7 +888,8 @@ def test_graphed_tier_cavity_equals_eager(cuda_device, tier):
     (eager, n_eager), (graphed, n_graph) = _graph_vs_eager(run)
     assert all(bool(torch.isfinite(t).all()) for t in eager)
     _assert_same(graphed, eager)
-    assert n_graph == n_eager and n_graph["tier_gemm"] == 12 * 120
+    assert n_graph == n_eager
+    assert n_graph["tier_gemm"] == n_graph["tier_split"] == 12 * 120
 
 
 @pytest.mark.cuda

@@ -11,10 +11,13 @@ each tier's error:
 * the twin against a numpy emulation written as the JAX package's own
   (tests/test_poisson2d.py:375-388): 1e-6 of max|C| (the same split; only
   the order of fp64 sums differs before the fp32 rounding);
-* csrc/tier_gemm.cu's schedule (tiles, the split at the shared-memory
-  store, ldmatrix / mma.sync fragments, edge predicates) emulated in numpy
-  against the twin: 1e-6 of max|C| (fp64 accumulation of the same bf16
-  parts);
+* csrc/tier_gemm.cu emulated in numpy: the split pass bitwise equal to
+  _bf16_split (zero pad, B transposed, strided operands), and the GEMM's
+  schedule (k-block promotion, the wgmma accumulators' layout, the
+  epilogue's masks) against the twin: 1e-6 of max|C| (exact products of
+  the same bf16 parts, summed in fp32 as the kernel orders them); a plan
+  on the CPU is the twin bitwise; the tiles fit the card and the 128-byte
+  swizzle maps a ring stage one to one;
 * the 512^2 DST solve of tier bf16x3 within rel 5e-5 (the JAX package's
   bound, tests/test_poisson2d.py:363-428), bf16x1 more than 20x further
   off: that test's recipe (fp64 denominators) against the exact solve, and
@@ -145,143 +148,245 @@ def test_tier_matmul_refuses_bad_arguments(args, err):
         cuda_kernels.tier_matmul(*args)
 
 
-# ------------------------------------------- the kernel's schedule, emulated
+# ------------------------------------------- the kernels' schedule, emulated
 
 def _kernel_constants():
+    """csrc/tier_gemm.cu's tile and launch constants."""
     src = (_cuda_build.CSRC / "tier_gemm.cu").read_text()
-    return [int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
-            for name in ("kBM", "kBN", "kBK", "kThreads")]
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                src).group(1))
+            for name in ("kBM", "kBN", "kBK", "kStages", "kConsumers",
+                         "kChunk", "kSplitTile", "kSplitThreads")}
 
 
-def _ldmatrix(tile, rows, cols, trans):
-    """ldmatrix.x4 (.trans) on a 2-D tile: lane l gives the address of row
-    l % 8 of matrix l // 8 at (rows[l], cols[l] .. +7); the four registers
-    of each lane, as (32, 4, 2) values."""
-    lanes = np.arange(32)
-    out = np.empty((32, 4, 2), tile.dtype)
-    for q in range(4):
-        mat = np.stack([tile[rows[8 * q + i], cols[8 * q + i]:
-                             cols[8 * q + i] + 8] for i in range(8)])
-        r, c = lanes // 4, 2 * (lanes % 4)
-        out[:, q] = (np.stack([mat[c, r], mat[c + 1, r]], -1) if trans
-                     else np.stack([mat[r, c], mat[r, c + 1]], -1))
+def _bf16_bits(x):
+    """bf16 (round to nearest even) of fp32 values, as uint16 bits."""
+    return np.asarray(x, np.float32).astype(ml_dtypes.bfloat16).view(
+        np.uint16)
+
+
+def _split_chunk(v):
+    """The kernel's split8 on (..., 8) fp32 values: hi and lo bits."""
+    hi = _bf16_bits(v)
+    back = hi.view(ml_dtypes.bfloat16).astype(np.float32)
+    return hi, _bf16_bits(v - back)
+
+
+def _emulate_split(flat, offset, ld, rows, cols, transpose, out_rows, kp,
+                   passes):
+    """tier_split's kernels in numpy, on an operand read in place: element
+    (r, c) at flat[offset + r * ld + c].  A role (split_rows_kernel): a
+    thread per 16-byte chunk of an output row; B role (split_cols_kernel):
+    a block per 64 x 64 tile, loaded [k][n] with zeros past the operand,
+    written transposed in chunks of 8 k.  Returns (planes, out_rows, kp)
+    bits."""
+    c = _kernel_constants()
+    chunk, tile = c["kChunk"], c["kSplitTile"]
+    out = np.full((2 if passes == 3 else 1, out_rows, kp), 0xFFFF,
+                  np.uint16)   # every element must be written
+
+    def read(r, col):
+        inside = (r < rows) & (col < cols)
+        idx = offset + np.where(inside, r, 0) * ld + np.where(inside, col, 0)
+        return np.where(inside, flat[idx], np.float32(0))
+
+    if not transpose:
+        q = np.arange(out_rows * (kp // chunk))
+        r = q // (kp // chunk)
+        c0 = (q % (kp // chunk)) * chunk
+        v = read(r[:, None], c0[:, None] + np.arange(chunk))
+        hi, lo = _split_chunk(v)
+        for p, bits in enumerate((hi, lo)[:out.shape[0]]):
+            out[p, r[:, None], c0[:, None] + np.arange(chunk)] = bits
+        return out
+    assert out_rows % tile == 0 and kp % tile == 0
+    for n0 in range(0, out_rows, tile):
+        for k0 in range(0, kp, tile):
+            i = np.arange(tile * tile)
+            smem = read(k0 + i // tile, n0 + i % tile).reshape(tile, tile)
+            i = np.arange(tile * (tile // chunk))
+            nn, kc = i // (tile // chunk), (i % (tile // chunk)) * chunk
+            v = smem[kc[:, None] + np.arange(chunk), nn[:, None]]
+            hi, lo = _split_chunk(v)
+            cols_out = k0 + kc[:, None] + np.arange(chunk)
+            for p, bits in enumerate((hi, lo)[:out.shape[0]]):
+                out[p, n0 + nn[:, None], cols_out] = bits
     return out
 
 
-def _mma(acc, a, b0, b1):
-    """mma.sync m16n8k16 row.col: the per-lane fragments of A (16 x 16)
-    and B (16 x 8) assembled, D = A B + C spread back over the lanes."""
-    lanes = np.arange(32)
-    g, t = lanes // 4, 2 * (lanes % 4)
-    A = np.zeros((16, 16))
-    B = np.zeros((16, 8))
-    for reg, (dr, dc) in enumerate([(0, 0), (8, 0), (0, 8), (8, 8)]):
-        A[g + dr, t + dc] = a[:, reg, 0]
-        A[g + dr, t + dc + 1] = a[:, reg, 1]
-    for reg, dk in ((b0, 0), (b1, 8)):
-        B[t + dk, g] = reg[:, 0]
-        B[t + dk + 1, g] = reg[:, 1]
-    D = A @ B
-    acc[:, 0] += D[g, t]
-    acc[:, 1] += D[g, t + 1]
-    acc[:, 2] += D[g + 8, t]
-    acc[:, 3] += D[g + 8, t + 1]
+# (M, N, K): the path's 1024^3 (fused) and 1023^3 (matmul) and tiny /
+# ragged ones
+SPLIT_SHAPES = [(1, 1, 1), (15, 17, 13), (33, 47, 129), (130, 131, 129),
+                (1023, 1023, 1023), (1024, 1024, 1024)]
 
 
-def _emulate_kernel(a, b, passes):
-    """csrc/tier_gemm.cu's tier_gemm_kernel in numpy: a block per
-    (kBM, kBN) tile of C, the k-tiles' float4 groups split into hi / lo
-    shared-memory tiles (0 past the edges), each warp's 32 x 32 by
-    ldmatrix fragments and m16n8k16 products, the predicated epilogue;
-    accumulation in fp64.  Returns C and how often each entry was stored."""
-    BM, BN, BK, T = _kernel_constants()
-    M, K = a.shape
-    N = b.shape[1]
-    parts = [_split(a), _split(b)]
-    C = np.zeros((M, N))
+@pytest.mark.parametrize("role", ["A", "B"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_pass_emulation_is_bf16_split(shape, role):
+    """The split pass, emulated, bitwise equal to _bf16_split on the
+    operand and 0 in the pad, every element written; the B operand
+    transposed; the operand read in place through its row stride (the
+    interior of a larger field, as the matmul tiers' solve reads it);
+    equal to the twin tier_split_plain bitwise, for 1 and 3 passes."""
+    m, n, k = shape
+    rows, cols = (m, k) if role == "A" else (k, n)
+    full = np.random.default_rng(m + 3 * k).standard_normal(
+        (rows + 2, cols + 3)).astype(np.float32)
+    x = full[1:-1, 2:-1]
+    transpose = role == "B"
+    out_rows = -(-(n if transpose else m) //
+                 (cuda_kernels.TIER_BN if transpose else cuda_kernels.TIER_BM))
+    out_rows *= cuda_kernels.TIER_BN if transpose else cuda_kernels.TIER_BM
+    kp = -(-k // cuda_kernels.TIER_BK) * cuda_kernels.TIER_BK
+    got = _emulate_split(full.reshape(-1), full.shape[1] + 2, full.shape[1],
+                         rows, cols, transpose, out_rows, kp, 3)
+    hi, lo = cuda_kernels._bf16_split(torch.from_numpy(x.T if transpose
+                                                       else x))
+    valid = (slice(None, cols if transpose else rows),
+             slice(None, rows if transpose else cols))
+    for p, ref in enumerate((hi, lo)):
+        assert (got[p][valid] == _bf16_bits(ref.numpy())).all()
+        pad = np.ones(got[p].shape, bool)
+        pad[valid] = False
+        assert (got[p][pad] == 0).all()
+    for passes in (1, 3):
+        plain = cuda_kernels.tier_split_plain(torch.from_numpy(x), transpose,
+                                              out_rows, kp, passes)
+        assert plain.dtype == torch.bfloat16
+        assert (plain.view(torch.int16).numpy().view(np.uint16)
+                == got[:plain.shape[0]]).all()
+
+
+def _emulate_gemm(a, b, passes):
+    """tier_gemm_tn in numpy: the operands' planes from the split pass, a
+    block per (kBM, kBN) tile of C, two warpgroups of 64 rows; each 64-k
+    block's passes (lo hi, hi lo, hi hi) in k16 slices into a fresh fp32
+    set (each slice's product exact, then rounded into the set), promoted
+    into the fp32 sums once the k-block is done; the accumulators spread
+    over the warpgroup's threads as wgmma m64n64 lays them out and stored
+    with the epilogue's masks.  Returns C and how often each entry was
+    stored."""
+    c = _kernel_constants()
+    BM, BN, BK = c["kBM"], c["kBN"], c["kBK"]
+    (M, K), N = a.shape, b.shape[1]
+    mp, np_, kp = (-(-M // BM) * BM, -(-N // BN) * BN, -(-K // BK) * BK)
+
+    def planes(x, transpose, out_rows):
+        bits = _emulate_split(x.reshape(-1), 0, x.shape[1], *x.shape,
+                              transpose, out_rows, kp, passes)
+        return [p.view(ml_dtypes.bfloat16).astype(np.float64) for p in bits]
+
+    pa, pb = planes(a, False, mp), planes(b, True, np_)
+    order = [(1, 0), (0, 1), (0, 0)] if passes == 3 else [(0, 0)]
+    C = np.zeros((M, N), np.float32)
     stores = np.zeros((M, N), int)
-    lanes = np.arange(32)
-    a_row, a_col = lanes & 15, (lanes >> 4) * 8
-    b_row, b_col = (lanes & 7) + ((lanes >> 3) & 1) * 8, (lanes >> 4) * 8
-    # (A part, B part) of each mma, in the kernel's order: lo terms first
-    pairs = [(0, 0)] if passes == 1 else [(1, 0), (0, 1), (0, 0)]
-    for m0 in range(0, M, BM):
-        for n0 in range(0, N, BN):
-            acc = np.zeros((T // 32, 2, 4, 32, 4))
-            for k0 in range(0, K, BK):
-                sa = np.zeros((2, BM, BK))
-                sb = np.zeros((2, BK, BN))
-                for (src, dst, rows, cols, r0, c0) in (
-                        (parts[0], sa, M, K, m0, k0),
-                        (parts[1], sb, K, N, k0, n0)):
-                    width = dst.shape[2]
-                    g = np.arange(dst.shape[1] * width // 4)
-                    assert len(g) % T == 0      # whole groups a thread
-                    r, c = g // (width // 4), (g % (width // 4)) * 4
-                    for e in range(4):
-                        inside = (r0 + r < rows) & (c0 + c + e < cols)
-                        for p in range(2):
-                            dst[p, r, c + e] = np.where(
-                                inside, src[p][np.minimum(r0 + r, rows - 1),
-                                               np.minimum(c0 + c + e,
-                                                          cols - 1)], 0.0)
-                for warp in range(T // 32):
-                    wm, wn = (warp & 3) * 32, (warp >> 2) * 32
-                    for kk in range(0, BK, 16):
-                        bf = {p: [None] * 4 for p in range(2)}
-                        for p in range(2):
-                            for j in range(2):
-                                r = _ldmatrix(sb[p], kk + b_row,
-                                              wn + j * 16 + b_col, True)
-                                bf[p][2 * j] = (r[:, 0], r[:, 1])
-                                bf[p][2 * j + 1] = (r[:, 2], r[:, 3])
-                        for i in range(2):
-                            af = [_ldmatrix(sa[p], wm + i * 16 + a_row,
-                                            kk + a_col, False)
-                                  for p in range(2)]
-                            for j in range(4):
-                                for pa, pb in pairs:
-                                    _mma(acc[warp, i, j], af[pa], *bf[pb][j])
-            g, q2 = lanes >> 2, (lanes & 3) * 2
-            for warp in range(T // 32):
-                wm, wn = (warp & 3) * 32, (warp >> 2) * 32
-                for i in range(2):
-                    for h in range(2):
-                        row = m0 + wm + i * 16 + g + h * 8
-                        for j in range(4):
-                            for e in range(2):
-                                col = n0 + wn + j * 8 + q2 + e
-                                ok = (row < M) & (col < N)
-                                C[row[ok], col[ok]] = acc[warp, i, j][ok,
-                                                                      2 * h + e]
-                                np.add.at(stores, (row[ok], col[ok]), 1)
+    t = np.arange(c["kConsumers"])
+    wg, w, lane = t >> 7, (t >> 5) & 3, t & 31
+    for m0 in range(0, mp, BM):
+        for n0 in range(0, np_, BN):
+            acc = np.zeros((BM, BN), np.float32)
+            for k0 in range(0, kp, BK):
+                part = np.zeros((BM, BN), np.float32)
+                for ia, ib in order:
+                    for j in range(k0, k0 + BK, 16):
+                        prod = pa[ia][m0:m0 + BM, j:j + 16] @ \
+                            pb[ib][n0:n0 + BN, j:j + 16].T
+                        part = (part + prod).astype(np.float32)
+                acc = acc + part
+            for i in range(BN // 8):
+                for h in range(2):
+                    for e in range(2):
+                        r = wg * 64 + w * 16 + (lane >> 2) + 8 * h
+                        col = 8 * i + 2 * (lane & 3) + e
+                        row, cc = m0 + r, n0 + col
+                        ok = (row < M) & (cc < N)
+                        C[row[ok], cc[ok]] = acc[r[ok], col[ok]]
+                        np.add.at(stores, (row[ok], cc[ok]), 1)
     return C, stores
 
 
 @pytest.mark.parametrize("passes", [1, 3])
-@pytest.mark.parametrize("shape", [(15, 17, 13), (33, 47, 129),
+@pytest.mark.parametrize("shape", [(1, 1, 1), (15, 17, 13), (33, 47, 129),
                                    (130, 131, 129), (136, 68, 36)])
-def test_kernel_schedule_emulation_matches_twin(shape, passes):
-    """Every entry of C stored once, and equal to the twin within 1e-6 of
-    max|C|: one block and many, k-tiles cut by the edge, 136 x 68 x 36 on
-    the float4 path's shapes (K, N multiples of 4)."""
+def test_gemm_schedule_emulation_matches_twin(shape, passes):
+    """The k-block promotion order and the epilogue's fragment map: every
+    entry of C stored once, and C within 1e-6 of max|C| of the twin: one
+    block and many, k-blocks cut by the zero pad, 136 x 68 x 36 with a
+    second row and column of blocks."""
     a, b = _operands(*shape, seed=11 * passes + shape[2])
-    got, stores = _emulate_kernel(a, b, passes)
+    got, stores = _emulate_gemm(a, b, passes)
     assert (stores == 1).all()
     ref = cuda_kernels.tier_matmul_plain(torch.from_numpy(a),
                                          torch.from_numpy(b), passes)
     assert _rel(got, ref.numpy()) <= 1e-6
 
 
-def test_kernel_tiles_fit_the_launch():
-    """The tile constants the emulation reads make whole float4 groups a
-    thread and whole 32 x 32 warp tiles, and two buffers fit the 227 KB a
-    block may use."""
-    BM, BN, BK, T = _kernel_constants()
-    assert T == 256 and (BM // 32) * (BN // 32) == T // 32
-    assert BK % 16 == 0 and (BM * BK // 4) % T == 0 and (BK * BN // 4) % T == 0
-    smem = 2 * 2 * 2 * (BM * (BK + 8) + BK * (BN + 8))
-    assert smem <= 232448
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_plan_on_cpu_is_the_twin(side, passes):
+    """A TierPlan on the CPU is tier_matmul_plain of its constant and the
+    field bitwise, the field read as given (a strided interior)."""
+    rng = np.random.default_rng(passes)
+    const = torch.from_numpy(rng.standard_normal((37, 37)).astype(np.float32))
+    full = torch.from_numpy(rng.standard_normal((39, 41)).astype(np.float32))
+    field = full[1:-1, 2:-2]
+    plan = cuda_kernels.TierPlan(const, passes, side, tuple(field.shape))
+    ref = (cuda_kernels.tier_matmul_plain(const, field, passes)
+           if side == "left" else
+           cuda_kernels.tier_matmul_plain(field, const, passes))
+    assert torch.equal(plan(field), ref)
+    with pytest.raises(ValueError):
+        plan(full)
+
+
+def test_kernel_tiles_fit_the_card():
+    """The tile constants the emulations read: two warpgroups of 64 rows
+    and a 64-column wgmma tile a block, 128-byte k rows (the swizzle's
+    width), a ring that fits the 232,448 B a block may use for 3 passes,
+    and one wave of at most 132 blocks at 1024^2."""
+    c = _kernel_constants()
+    assert c["kConsumers"] == 2 * 128 and c["kBM"] == 2 * 64
+    assert c["kBN"] == 64 and c["kBK"] * 2 == 128 and 3 <= c["kStages"] <= 4
+    stage = 2 * (c["kBM"] + c["kBN"]) * c["kBK"] * 2
+    assert 1024 + c["kStages"] * (stage + 16) <= 232448
+    assert (1024 // c["kBM"]) * (1024 // c["kBN"]) <= 132
+    assert c["kSplitTile"] % c["kChunk"] == 0
+    assert (cuda_kernels.TIER_BM, cuda_kernels.TIER_BN,
+            cuda_kernels.TIER_BK) == (c["kBM"], c["kBN"], c["kBK"])
+
+
+def _tma_sw128(row, k):
+    """Byte offset where TMA's 128-byte swizzle puts bf16 element (row, k)
+    of a tile of 128-byte rows (1024-byte aligned): the 16-byte chunk
+    k // 8 goes to chunk (k // 8) ^ (row % 8)."""
+    return row * 128 + (((k // 8) ^ (row % 8)) << 4) + (k % 8) * 2
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_swizzle_is_a_bijection_and_matches_the_descriptors(passes):
+    """On a ring stage (A's and B's planes), the swizzled byte offsets of
+    every element are distinct and fill the stage; wgmma's view through a
+    descriptor (start + 32 j for the k16 slice j, rows 128 B apart in
+    8-row groups of 1024 B, the swizzle XOR applied to the address) finds
+    each element where TMA put it."""
+    c = _kernel_constants()
+    planes = 2 if passes == 3 else 1
+    row, k = np.meshgrid(np.arange(c["kBM"]), np.arange(c["kBK"]),
+                         indexing="ij")
+    a_tile = _tma_sw128(row, k)
+    b_tile = _tma_sw128(row[:c["kBN"]], k[:c["kBN"]])
+    a_bytes, b_bytes = c["kBM"] * c["kBK"] * 2, c["kBN"] * c["kBK"] * 2
+    offsets = [a_tile + p * a_bytes for p in range(planes)] + \
+        [b_tile + planes * a_bytes + p * b_bytes for p in range(planes)]
+    flat = np.concatenate([o.ravel() for o in offsets])
+    assert len(np.unique(flat)) == flat.size
+    assert flat.min() == 0 and flat.max() == planes * (a_bytes + b_bytes) - 2
+    assert (flat % 2 == 0).all()
+    for j in range(c["kBK"] // 16):
+        for kk in range(16):
+            linear = row[:, 0] * 128 + 32 * j + 2 * kk
+            swizzled = linear ^ (((linear >> 7) & 7) << 4)
+            assert (swizzled == _tma_sw128(row[:, 0], 16 * j + kk)).all()
 
 
 # ------------------------------------------------------- the DST solve
