@@ -23,27 +23,64 @@
 //
 // What bounds it: device memory.  Stage 1 reads w and s and writes out, 3 x
 // 1024^2 x 4 B = 12.6 MB in fp32 (3.76 us at 3.35 TB/s); stages 2 and 3 also
-// read wt (16.8 MB, 5.0 us).  The wall vectors are 16 KB.
+// read wt (16.8 MB, 5.0 us).  The wall vectors are 16 KB.  The whole call
+// is a few DRAM latencies long, so what decides its time is how many bytes
+// are in flight at once and how many warps the SMs hold to overlap them.
+// The scalar kernel this replaces (one column a thread, 8 rows) made 7.5
+// scalar loads a point, each behind a wall branch, and loaded the step-start
+// w0 under a per-row branch after the previous row's store, one round trip
+// a row.
 //
-// Design: kernel 1's register window down a column (csrc/arakawa_rhs.cu).
-// Each thread owns one column b of the (P, Q) buffer (threadIdx.x on the
-// contiguous axis) and kRows rows; it loads W and s at columns b-1, b, b+1
-// of rows a0-1 .. a0+kRows, then computes its rows from registers.  Threads
-// of padding points store 0.  The threads of row 0, row m-1, column 0 and
-// column n-1 also write rl, rh, cl and ch from the psi values in their
-// window; a thread of column 0 or n-1 writes cl or ch for every row of the
-// buffer (0 at rows >= m), so each vector is written whole, by one thread an
-// entry.  The wall vectors are read from one set of buffers and written to
-// another.
+// Design.  A warp is a walker: lane l owns the kVec = 16 / sizeof(T)
+// adjacent columns c = c0 + l kVec (4 in fp32, 2 in fp64) of kRows output
+// rows a0 .. a0+kRows-1, so a warp covers 32 kVec columns (a 512-byte row
+// segment).  It reads each row of its window, a0-1 .. a0+kRows, as one
+// 16-byte load of wt and one of s a lane, plus the step-start rows of w
+// (stages 2-3), every one of them issued before any arithmetic and none
+// under a branch.  A lane takes its columns c-1 and c+kVec from the lanes
+// beside it (__shfl_up_sync / __shfl_down_sync); lane 0 and the others load
+// the warp's two outer halo columns c0-1 and c0+32 kVec (one address each,
+// so lanes 1..31 share one sector).  `out` is stored 16 bytes a lane.
+//
+// A walker whose whole window, halo included, lies inside rows [0, m) x
+// columns [0, n) (a warp-uniform test) takes the interior path: raw loads,
+// no wall logic, no mask, no wall-vector writes.  The others (the first and
+// last column segments and row walkers, and the padding) take the edge
+// path: the same loads at clamped addresses, then each value of the window
+// replaced by its wall value by its logical row (the warp's: a branch) and
+// column (the lane's, classified once: selects on wall vectors loaded with
+// the window), the output masked, and the next wall vectors written: rl_o /
+// rh_o by the lanes of rows 0 / m-1, cl_o / ch_o at every buffer row by the
+// lane of column 0 / n-1 (0 at rows >= m), so each vector is written whole,
+// by one thread an entry.  The wall vectors are read from one set of buffers
+// and written to another.
+//
+// Geometry, from ptxas and the card (H100, kernel_ab.py; PERF.md row 7):
+// kRows = 2, kWalkers = 4.  fp32 takes 95-96 registers, no spills: 5 blocks
+// of 128 threads a SM (20 warps), so the 1024 blocks of a 1024^2 buffer run
+// in 1.55 waves of 660; fp64 128 registers, 4 blocks a SM, 2048 blocks.
+// Walkers of 4 and 8 rows (128-136 and 254 registers), blocks of 64 and 256
+// threads, register caps that fit the grid in one wave (64 or 80 registers:
+// spills), a shared-memory tile filled by cp.async, and walkers that share
+// their boundary rows through shared memory all timed slower; the time is
+// in moving the window (a copy with the same loads takes ~93% of it), not in
+// the arithmetic.  cavity_stage_constant() exports the constants for the
+// tests that emulate the walk.
 //
 // Numerics: the plain twin's expression in its order
-// (ops/cuda_kernels.cavity_fused_stage_plain, JAX's order).  Divisions by
-// constants of the launch (3, dx^2, dy^2, re) go through div_rn.cuh with
-// reciprocals made on the host, as in kernel 1.
+// (ops/cuda_kernels.cavity_fused_stage_plain, JAX's order), as the scalar
+// kernel computed it.  Divisions by constants of the launch (3, dx^2, dy^2,
+// re) go through div_rn.cuh with reciprocals made on the host, as in
+// kernel 1.  The compiler fuses products into FMAs by the code around an
+// expression, so a new value can differ from the scalar kernel's by a
+// rounding (kernel_ab.py prints max|new - old|, PERF.md row 7 records it);
+// the wall vectors are bitwise the scalar kernel's.
 //
 // C ABI (bound with ctypes by cfd_julia_torch/ops/cuda_kernels.py): the
 // launcher runs on the caller's stream, allocates nothing, does not
-// synchronise, and returns cudaGetLastError() of the launch.
+// synchronise, and returns cudaGetLastError() of the launch; it refuses
+// (cudaErrorInvalidValue) a shape out of range, Q not a multiple of kVec, or
+// w, wt, s, out not 16-byte aligned.
 
 #include <cuda_runtime.h>
 
@@ -51,9 +88,13 @@
 
 namespace {
 
-constexpr int kBlockX = 32;  // columns a block: axis 1, contiguous
-constexpr int kBlockY = 4;   // column walkers a block, stacked along axis 0
-constexpr int kRows = 8;     // output rows a walker computes
+constexpr int kWarp = 32;      // lanes a walker
+constexpr int kVecBytes = 16;  // a lane's columns of a row: one 16-byte load
+constexpr int kRows = 2;       // output rows a walker computes
+constexpr int kWalkers = 4;    // walkers a block, stacked along axis 0
+
+template <typename T>
+constexpr int kVec = kVecBytes / static_cast<int>(sizeof(T));
 
 template <typename T>
 struct Consts {
@@ -62,36 +103,36 @@ struct Consts {
   T c;       // dt, dt/4 or 2 dt: the stage's factor of r
 };
 
+// one row of a lane's window: slot j is column c-1+j, j in [0, kVec+1]
 template <typename T>
 struct Row {
-  T w[3], s[3];
+  T w[kVec<T> + 2], s[kVec<T> + 2];
 };
 
-// wt extended by its walls: W(g, c) for g in [-1, m], c in [-1, n]
-template <typename T>
-__device__ __forceinline__ T wall_w(const T* __restrict__ wt,
-                                    const T* __restrict__ rl,
-                                    const T* __restrict__ rh,
-                                    const T* __restrict__ cl,
-                                    const T* __restrict__ ch, int g, int c,
-                                    int m, int n, int Q, T lid) {
-  const bool gin = g >= 0 && g < m, cin = c >= 0 && c < n;
-  if (gin && cin) return wt[g * Q + c];
-  if (g == -1 || g == m) {
-    if (cin) return g < 0 ? rl[c] : rh[c];
-    return c == n ? lid : T(0);
-  }
-  if (gin) {
-    if (c == -1) return cl[g];
-    if (c == n) return ch[g];
-  }
-  return T(0);  // beyond the walls: read only for padding points
+__device__ __forceinline__ void load_vec(const float* __restrict__ p,
+                                         float (&v)[4]) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
 }
 
-template <typename T>
-__device__ __forceinline__ T psi(const T* __restrict__ s, int g, int c, int P,
-                                 int Q) {
-  return (g >= 0 && g < P && c >= 0 && c < Q) ? s[g * Q + c] : T(0);
+__device__ __forceinline__ void load_vec(const double* __restrict__ p,
+                                         double (&v)[2]) {
+  const double2 x = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = x.x;
+  v[1] = x.y;
+}
+
+__device__ __forceinline__ void store_vec(float* __restrict__ p,
+                                          const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store_vec(double* __restrict__ p,
+                                          const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
 }
 
 // the wall vorticity of psi values s0 (next to the wall) and s1 (one further)
@@ -101,8 +142,195 @@ __device__ __forceinline__ T wall_value(T s0, T s1, T h2, T rh2, int order) {
                     : div_rn(T(-4) * s0 + T(0.5) * s1, h2, rh2);
 }
 
+// the stage's new value at slot j of the centre row C, between rows W (a-1)
+// and E (a+1); w0 the step's start there
 template <typename T, int kStage>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+__device__ __forceinline__ T stage_value(const Row<T>& W, const Row<T>& C,
+                                         const Row<T>& E, int j, T w0,
+                                         const Consts<T>& k) {
+  // E/W step along axis 0, N/S along axis 1 (slots j-1, j, j+1 are
+  // columns b-1, b, b+1), as in ops/arakawa.py
+  const T wc = C.w[j];
+  const T wE = E.w[j], wW = W.w[j];
+  const T wN = C.w[j + 1], wS = C.w[j - 1];
+  const T wNE = E.w[j + 1], wSW = W.w[j - 1];
+  const T wNW = W.w[j + 1], wSE = E.w[j - 1];
+  const T sE = E.s[j], sW = W.s[j];
+  const T sN = C.s[j + 1], sS = C.s[j - 1];
+  const T sNE = E.s[j + 1], sSW = W.s[j - 1];
+  const T sNW = W.s[j + 1], sSE = E.s[j - 1];
+
+  const T j1 = (wE - wW) * (sN - sS) - (wN - wS) * (sE - sW);
+  const T j2 = wE * (sNE - sSE) - wW * (sNW - sSW)
+             - wN * (sNE - sNW) + wS * (sSE - sSW);
+  const T j3 = wNE * (sN - sE) - wSW * (sW - sS)
+             - wNW * (sN - sW) + wSE * (sE - sS);
+  const T jac = div_rn(k.gg * (j1 + j2 + j3), T(3), k.r3);
+  const T lap = div_rn(wE - T(2) * wc + wW, k.dx2, k.rdx2)
+              + div_rn(wN - T(2) * wc + wS, k.dy2, k.rdy2);
+  const T rhs = -jac + div_rn(lap, k.re, k.rre);
+  if constexpr (kStage == 1)
+    return wc + k.c * rhs;  // wt is w
+  else if constexpr (kStage == 2)
+    return T(0.75) * w0 + T(0.25) * wc + k.c * rhs;
+  else
+    return div_rn(w0 + T(2) * wc + k.c * rhs, T(3), k.r3);
+}
+
+// One walker: rows a0 .. a0+kRows-1 of the columns c0 .. c0+32 kVec-1.
+// kEdge: the window may leave the logical interior (wall logic, masks and
+// the wall vectors); otherwise it lies inside rows [0, m) x columns [0, n).
+template <typename T, int kStage, bool kEdge>
+__device__ __forceinline__ void walk(
+    const T* __restrict__ w, const T* __restrict__ wt,
+    const T* __restrict__ s, const T* __restrict__ rl,
+    const T* __restrict__ rh, const T* __restrict__ cl,
+    const T* __restrict__ ch, T* __restrict__ out, T* __restrict__ rl_o,
+    T* __restrict__ rh_o, T* __restrict__ cl_o, T* __restrict__ ch_o, int P,
+    int Q, int m, int n, int order, const Consts<T>& k, int a0, int c0) {
+  constexpr int V = kVec<T>;
+  constexpr int kSeg = kWarp * V;
+  const int lane = threadIdx.x;
+  const int c = c0 + lane * V;
+  // lane 0 loads the halo column left of the segment, the others the one
+  // right of it (lane 31's); addresses clamped into the buffer on the edge
+  const int hc = lane == 0 ? c0 - 1 : c0 + kSeg;
+  const int cv = kEdge ? min(c, Q - V) : c;
+  const int hcv = kEdge ? min(max(hc, 0), Q - 1) : hc;
+
+  // every load of the walker, before any arithmetic
+  T wv[kRows + 2][V], sv[kRows + 2][V], wh[kRows + 2], sh[kRows + 2];
+  T w0v[kRows][V];  // stages 2-3; stage 1 reads wt's own rows instead
+#pragma unroll
+  for (int q = 0; q < kRows + 2; ++q) {
+    const int g = a0 - 1 + q;
+    const int gv = kEdge ? min(max(g, 0), P - 1) : g;
+    load_vec(wt + gv * Q + cv, wv[q]);
+    load_vec(s + gv * Q + cv, sv[q]);
+    wh[q] = __ldg(wt + gv * Q + hcv);
+    sh[q] = __ldg(s + gv * Q + hcv);
+  }
+  if constexpr (kStage != 1) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      load_vec(w + (kEdge ? min(a0 + r, P - 1) : a0 + r) * Q + cv, w0v[r]);
+  }
+  // the edge path's wall values: cl, ch at the window's rows, rl, rh at the
+  // lane's slot columns
+  T clv[kEdge ? kRows + 2 : 1], chv[kEdge ? kRows + 2 : 1];
+  T rlv[kEdge ? V + 2 : 1], rhv[kEdge ? V + 2 : 1];
+  if constexpr (kEdge) {
+#pragma unroll
+    for (int q = 0; q < kRows + 2; ++q) {
+      const int gv = min(max(a0 - 1 + q, 0), P - 1);
+      clv[q] = __ldg(cl + gv);
+      chv[q] = __ldg(ch + gv);
+    }
+#pragma unroll
+    for (int j = 0; j < V + 2; ++j) {
+      const int cj = min(max(c - 1 + j, 0), Q - 1);
+      rlv[j] = __ldg(rl + cj);
+      rhv[j] = __ldg(rh + cj);
+    }
+  }
+
+  // the edge path's columns, once a lane: slot j is column cj = c-1+j;
+  // inside the logical interior, the wall column -1 or n, inside the buffer
+  bool cin[V + 2], cwl[V + 2], cwr[V + 2], cbuf[V + 2];
+#pragma unroll
+  for (int j = 0; j < V + 2; ++j) {
+    const int cj = c - 1 + j;
+    cin[j] = cj >= 0 && cj < n;
+    cwl[j] = cj == -1;
+    cwr[j] = cj == n;
+    cbuf[j] = cj >= 0 && cj < Q;
+  }
+
+  // the window's rows with the columns of the lanes beside
+  Row<T> rows[kRows + 2];
+#pragma unroll
+  for (int q = 0; q < kRows + 2; ++q) {
+    const T wl = __shfl_up_sync(0xffffffffu, wv[q][V - 1], 1);
+    const T wr = __shfl_down_sync(0xffffffffu, wv[q][0], 1);
+    const T sl = __shfl_up_sync(0xffffffffu, sv[q][V - 1], 1);
+    const T sr = __shfl_down_sync(0xffffffffu, sv[q][0], 1);
+    Row<T>& R = rows[q];
+    R.w[0] = lane == 0 ? wh[q] : wl;
+    R.s[0] = lane == 0 ? sh[q] : sl;
+    R.w[V + 1] = lane == kWarp - 1 ? wh[q] : wr;
+    R.s[V + 1] = lane == kWarp - 1 ? sh[q] : sr;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      R.w[e + 1] = wv[q][e];
+      R.s[e + 1] = sv[q][e];
+    }
+    if constexpr (kEdge) {
+      // W(g, cj), wt extended by its walls: the row's kind is the warp's,
+      // the column's the lane's (the y-walls own the corners)
+      const int g = a0 - 1 + q;
+      if (g >= 0 && g < m) {
+#pragma unroll
+        for (int j = 0; j < V + 2; ++j)
+          R.w[j] = cin[j] ? R.w[j]
+                          : cwl[j] ? clv[q] : cwr[j] ? chv[q] : T(0);
+      } else if (g == -1 || g == m) {
+#pragma unroll
+        for (int j = 0; j < V + 2; ++j)
+          R.w[j] = cin[j] ? (g < 0 ? rlv[j] : rhv[j])
+                          : cwr[j] ? k.lid : T(0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V + 2; ++j) R.w[j] = T(0);  // beyond the walls
+      }
+      // psi: the buffer, 0 past its edge
+      const bool grow = g >= 0 && g < P;
+#pragma unroll
+      for (int j = 0; j < V + 2; ++j)
+        R.s[j] = grow && cbuf[j] ? R.s[j] : T(0);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int a = a0 + r;
+    if (kEdge && a >= P) break;
+    const Row<T>& W = rows[r];
+    const Row<T>& C = rows[r + 1];
+    const Row<T>& E = rows[r + 2];
+    T res[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      T w0 = T(0);
+      if constexpr (kStage != 1) w0 = w0v[r][e];
+      res[e] = stage_value<T, kStage>(W, C, E, e + 1, w0, k);
+      if (kEdge && !(a < m && cin[e + 1])) res[e] = T(0);
+    }
+    if (!kEdge || c < Q) store_vec(out + a * Q + c, res);
+
+    if constexpr (kEdge) {
+      // the next stage's wall vectors, from this stage's (pre-solve) psi
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int b = c + e, j = e + 1;
+        if (b >= Q) break;
+        if (a == 0) rl_o[b] = wall_value(C.s[j], E.s[j], k.dx2, k.rdx2, order);
+        if (a == m - 1)
+          rh_o[b] = wall_value(C.s[j], W.s[j], k.dx2, k.rdx2, order);
+        if (cwl[j - 1])  // b == 0
+          cl_o[a] = a < m ? wall_value(C.s[j], C.s[j + 1], k.dy2, k.rdy2,
+                                       order)
+                          : T(0);
+        if (cwr[j + 1])  // b == n - 1
+          ch_o[a] = a < m ? wall_value(C.s[j], C.s[j - 1], k.dy2, k.rdy2,
+                                       order) + k.lid
+                          : T(0);
+      }
+    }
+  }
+}
+
+template <typename T, int kStage>
+__global__ void __launch_bounds__(kWarp * kWalkers)
 cavity_stage_kernel(const T* __restrict__ w, const T* __restrict__ wt,
                     const T* __restrict__ s, const T* __restrict__ rl,
                     const T* __restrict__ rh, const T* __restrict__ cl,
@@ -110,75 +338,22 @@ cavity_stage_kernel(const T* __restrict__ w, const T* __restrict__ wt,
                     T* __restrict__ rl_o, T* __restrict__ rh_o,
                     T* __restrict__ cl_o, T* __restrict__ ch_o, int P, int Q,
                     int m, int n, int order, Consts<T> k) {
-  const int b = blockIdx.x * kBlockX + threadIdx.x;
-  const int a0 = (blockIdx.y * kBlockY + threadIdx.y) * kRows;
-  if (b >= Q || a0 >= P) return;
+  constexpr int kSeg = kWarp * kVec<T>;
+  const int c0 = blockIdx.x * kSeg;
+  const int a0 = (blockIdx.y * kWalkers + threadIdx.y) * kRows;
+  if (a0 >= P) return;  // the whole warp
+  const bool interior = a0 >= 1 && a0 + kRows <= m - 1 && c0 >= 1 &&
+                        c0 + kSeg <= n - 1;
+  if (interior)
+    walk<T, kStage, false>(w, wt, s, rl, rh, cl, ch, out, rl_o, rh_o, cl_o,
+                           ch_o, P, Q, m, n, order, k, a0, c0);
+  else
+    walk<T, kStage, true>(w, wt, s, rl, rh, cl, ch, out, rl_o, rh_o, cl_o,
+                          ch_o, P, Q, m, n, order, k, a0, c0);
+}
 
-  // rows[q] is row a0-1+q at columns b-1, b, b+1
-  Row<T> rows[kRows + 2];
-#pragma unroll
-  for (int q = 0; q < kRows + 2; ++q) {
-    const int g = a0 - 1 + q;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      rows[q].w[d] = wall_w(wt, rl, rh, cl, ch, g, b - 1 + d, m, n, Q, k.lid);
-      rows[q].s[d] = psi(s, g, b - 1 + d, P, Q);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int a = a0 + r;
-    if (a >= P) break;
-    const Row<T>& W = rows[r];
-    const Row<T>& C = rows[r + 1];
-    const Row<T>& E = rows[r + 2];
-
-    // the next stage's wall vectors, from this stage's (pre-solve) psi
-    if (a == 0) rl_o[b] = wall_value(C.s[1], E.s[1], k.dx2, k.rdx2, order);
-    if (a == m - 1) rh_o[b] = wall_value(C.s[1], W.s[1], k.dx2, k.rdx2, order);
-    if (b == 0)
-      cl_o[a] = a < m ? wall_value(C.s[1], C.s[2], k.dy2, k.rdy2, order)
-                      : T(0);
-    if (b == n - 1)
-      ch_o[a] = a < m ? wall_value(C.s[1], C.s[0], k.dy2, k.rdy2, order) +
-                            k.lid
-                      : T(0);
-
-    T res = T(0);
-    if (a < m && b < n) {
-      // E/W step along axis 0, N/S along axis 1 (columns [0], [1], [2] are
-      // b-1, b, b+1), as in ops/arakawa.py
-      const T wc = C.w[1];
-      const T wE = E.w[1], wW = W.w[1];
-      const T wN = C.w[2], wS = C.w[0];
-      const T wNE = E.w[2], wSW = W.w[0];
-      const T wNW = W.w[2], wSE = E.w[0];
-      const T sE = E.s[1], sW = W.s[1];
-      const T sN = C.s[2], sS = C.s[0];
-      const T sNE = E.s[2], sSW = W.s[0];
-      const T sNW = W.s[2], sSE = E.s[0];
-
-      const T j1 = (wE - wW) * (sN - sS) - (wN - wS) * (sE - sW);
-      const T j2 = wE * (sNE - sSE) - wW * (sNW - sSW)
-                 - wN * (sNE - sNW) + wS * (sSE - sSW);
-      const T j3 = wNE * (sN - sE) - wSW * (sW - sS)
-                 - wNW * (sN - sW) + wSE * (sE - sS);
-      const T jac = div_rn(k.gg * (j1 + j2 + j3), T(3), k.r3);
-      const T lap = div_rn(wE - T(2) * wc + wW, k.dx2, k.rdx2)
-                  + div_rn(wN - T(2) * wc + wS, k.dy2, k.rdy2);
-      const T rhs = -jac + div_rn(lap, k.re, k.rre);
-      if constexpr (kStage == 1) {
-        res = wc + k.c * rhs;  // wt is w
-      } else {
-        const T w0 = w[a * Q + b];
-        if constexpr (kStage == 2)
-          res = T(0.75) * w0 + T(0.25) * wc + k.c * rhs;
-        else
-          res = div_rn(w0 + T(2) * wc + k.c * rhs, T(3), k.r3);
-      }
-    }
-    out[a * Q + b] = res;
-  }
+bool aligned(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % kVecBytes == 0;
 }
 
 template <typename T>
@@ -187,12 +362,13 @@ int launch(const T* w, const T* wt, const T* s, const T* rl, const T* rh,
            T* ch_o, int P, int Q, int m, int n, int stage, int order,
            double dt, double dx, double dy, double re, void* stream) {
   if (P <= 0 || Q <= 0 || m < 2 || n < 2 || m > P || n > Q ||
-      (order != 1 && order != 2) || stage < 1 || stage > 3)
+      Q % kVec<T> != 0 || !aligned(w) || !aligned(wt) || !aligned(s) ||
+      !aligned(out) || (order != 1 && order != 2) || stage < 1 || stage > 3)
     return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kSeg = kWarp * kVec<T>;
   const int walkers = (P + kRows - 1) / kRows;
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((Q + kBlockX - 1) / kBlockX,
-                  (walkers + kBlockY - 1) / kBlockY);
+  const dim3 block(kWarp, kWalkers);
+  const dim3 grid((Q + kSeg - 1) / kSeg, (walkers + kWalkers - 1) / kWalkers);
   Consts<T> k;
   k.gg = static_cast<T>(1.0 / (4.0 * dx * dy));
   k.dx2 = static_cast<T>(dx * dx);
@@ -234,3 +410,15 @@ int launch(const T* w, const T* wt, const T* s, const T* rl, const T* rh,
 
 CAVITY_STAGE_LAUNCHER(cavity_stage_f32, float)
 CAVITY_STAGE_LAUNCHER(cavity_stage_f64, double)
+
+// the walk's geometry, for the tests that emulate it: 0 rows a walker,
+// 1 walkers a block, 2 bytes a lane loads of a row, 3 lanes a walker
+extern "C" int cavity_stage_constant(int which) {
+  switch (which) {
+    case 0: return kRows;
+    case 1: return kWalkers;
+    case 2: return kVecBytes;
+    case 3: return kWarp;
+    default: return -1;
+  }
+}

@@ -68,6 +68,7 @@ SIGNATURES = {
     "euler_rhs_f64": (_INT, _EULER_ARGS),
     "cavity_stage_f32": (_INT, _CAVITY_STAGE_ARGS),
     "cavity_stage_f64": (_INT, _CAVITY_STAGE_ARGS),
+    "cavity_stage_constant": (_INT, [_INT]),
     "tier_split": (_INT, _TIER_SPLIT_ARGS),
     "tier_encode": (_INT, _TIER_ENCODE_ARGS),
     "tier_gemm_tn": (_INT, _TIER_GEMM_ARGS),

@@ -495,6 +495,19 @@ def cavity_fused_stage_plain(w, wt, s, walls, stage: int, dt: float,
             _cavity_wall_vectors(s, m, n, dx, dy, bc_order))
 
 
+# the stage kernel's walk (csrc/cavity_stage.cu): rows a walker, walkers a
+# block, bytes a lane loads of a row, lanes a walker
+CAVITY_STAGE_CONSTANTS = ("rows", "walkers", "vec_bytes", "lanes")
+
+
+def cavity_stage_geometry() -> dict:
+    """The stage kernel's walk constants, as the library exports them
+    (cavity_stage_constant); builds the CUDA library."""
+    lib = _cuda_build.load_library()
+    return {name: lib.cavity_stage_constant(i)
+            for i, name in enumerate(CAVITY_STAGE_CONSTANTS)}
+
+
 def cavity_fused_stage(w, wt, s, walls, stage: int, dt: float, dx: float,
                        dy: float, re: float, m: int, n: int, bc_order: int):
     """One SSP-RK3 stage of the packed cavity in one kernel pass

@@ -21,10 +21,11 @@ Phases, one line each:
      pass) with two calls bitwise equal; the smoother also at even-sided
      shapes and on both sides of its one-block limit, and timed at 129^2,
      65^2 and 3x3 beside an empty launch; the packed cavity's stage kernel
-     at (nx, ny) = 1024^2, 16^2, 24x16, 33x47 and 34x130 in fp32 and fp64,
-     every stage and both wall-BC orders, two calls bitwise equal, timed
-     at 1024^2 warm and with L2 flushed; the tier GEMM (csrc/tier_gemm.cu,
-     the bf16 precision tiers' split-bf16 product: the split pass
+     at (nx, ny) = 1024^2, 16^2, 24x16, 33x47, 34x130, 9x129, 1025^2 and
+     3x3 in fp32 and fp64, every stage and both wall-BC orders, two calls
+     bitwise equal, timed at 1024^2 warm and with L2 flushed; the tier
+     GEMM (csrc/tier_gemm.cu, the bf16 precision tiers' split-bf16
+     product: the split pass
      tier_split and the wgmma GEMM) at 1024^3, 1023^3, 1x1x1, 15x17x13,
      33x47x129 and 130x131x129 with 1 and 3 passes, on random operands and
      the cavity's sine matrices, as tier_matmul and through TierPlans (the
@@ -99,7 +100,8 @@ Phases, one line each:
      equal launch counts (6000 stage launches, no Arakawa launch); the same
      2000 steps through cavity.solve (bitwise the step-level run) and on
      the stage's plain twin; max|psi_fused - psi_matmul|; steps/s beside
-     phases 3 and 11 (--profile: the fused step by kernel);
+     phases 3 and 11 (--profile: the fused step by kernel, and each
+     stage's device us inside it beside its bound);
  14. the 1D family: CRWENO-5 periodic Burgers at nx=1600 (fp32, dt =
      1e-4*200/1600, 2000 steps, PCR cyclic solves) against the
      crweno:1600:2000 anchor, steps/s graphed and eager, device launches a
@@ -117,7 +119,8 @@ Phases, one line each:
      max|psi_tier - psi_fp32| of the same
      formulation after 2000 steps (bf16x3 within 1e-4 of max|psi|, bf16x1
      printed); steps/s beside phases 3, 11 and 13 (--profile: the
-     fused_bf16x3 step by kernel); fused_bf16x3 through cavity.solve,
+     fused_bf16x3 step by kernel, each stage's us beside its bound);
+     fused_bf16x3 through cavity.solve,
      stopped at 100 steps and resumed bitwise; then `run cavity --poisson
      <tier>` (the four at once) on phase 4's Ghia case beside phase 4's
      fp32 deviations, bf16x3 within 1.1x fp32's + 1e-3, bf16x1 printed.
@@ -476,8 +479,11 @@ def phase_kernels():
 
 # the packed cavity's stage kernel: (nx, ny) of its phase 2 shapes, the
 # first its main path's (a 1024^2 buffer), then 16 x 128, 24 x 128, 33x47
-# (P = m = 32: no padded row) and 34x130 (40 x 256)
-STAGE_SHAPES = [(NX, NX), (16, 16), (24, 16), (33, 47), (34, 130)]
+# (P = m = 32: no padded row), 34x130 (40 x 256), 9x129 (P = m = 8, n = Q =
+# 128: the walls past the buffer on both axes), 1025^2 (m = n = P = Q =
+# 1024) and 3x3 (m = n = 2)
+STAGE_SHAPES = [(NX, NX), (16, 16), (24, 16), (33, 47), (34, 130), (9, 129),
+                (NX + 1, NX + 1), (3, 3)]
 # flops a stage needs per point: the Arakawa RHS and the combine
 FLOPS_STAGE = FLOPS_ARAKAWA + 5
 
@@ -536,8 +542,7 @@ def phase_stage_kernel():
                     if (nx, ny) == STAGE_SHAPES[0] and bc_order == 2 and \
                             dtype == torch.float32:
                         stages[stage] = stage_timing(
-                            ck, args, got,
-                            float((got[0] - ref[0]).abs().max()))
+                            ck, args, float((got[0] - ref[0]).abs().max()))
                     del w, wt, s, walls, got, again, ref
             ok = worst <= rel and all_same and all_zero
             P, Q = -(-m // 8) * 8, -(-n // 128) * 128
@@ -570,19 +575,25 @@ def phase_stage_kernel():
     return record
 
 
-def stage_timing(ck, args, got, err):
+def stage_bound(stage, P, Q, itemsize, ms):
+    """The stage kernel's bound on a (P, Q) buffer: w and s (and wt from
+    stage 2) read once, the stage written once, the four wall vectors read
+    and written; and the share of it a call of `ms` reaches."""
+    fields = (3 if stage == 1 else 4) * P * Q
+    return bound((fields + 4 * (P + Q)) * itemsize, FLOPS_STAGE * P * Q, ms)
+
+
+def stage_timing(ck, args, err):
     """Warm, L2-flushed and plain device times of one stage call and its
-    bound: w and s (and wt from stage 2) read once, the stage written
-    once, the wall vectors read and written."""
-    w, wt, s, walls, stage = args[:5]
+    bound (stage_bound)."""
+    w, stage = args[0], args[4]
     ms, _ = median_ms(lambda: ck.cavity_fused_stage(*args))
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     cold_ms, _ = median_ms(lambda: ck.cavity_fused_stage(*args),
                            before=flush.zero_)
     del flush
     plain_ms, _ = median_ms(lambda: ck.cavity_fused_stage_plain(*args))
-    inputs = (w, s, *walls) if stage == 1 else (w, wt, s, *walls)
-    b = bound(nbytes(*inputs, got[0], *got[1]), FLOPS_STAGE * w.numel(), ms)
+    b = stage_bound(stage, *w.shape, w.element_size(), ms)
     return {"max_abs_err": err, "ms": ms, "cold_ms": cold_ms,
             "plain_ms": plain_ms, **b}
 
@@ -1196,6 +1207,23 @@ def profile_off(by_name, calls, solves):
     ok = ok and not edges
     print(line + (" ok" if ok else " FAIL"))
     check(ok, line)
+
+
+def profile_stages(by_name, steps):
+    """The stage kernel's device us a step by stage inside the profiled
+    1024^2 step, with its launches and each stage's share of its bound
+    (stage_bound) on the step's own clock."""
+    parts = []
+    for stage in (1, 2, 3):
+        hits = [v for name, v in by_name.items()
+                if re.search(rf"cavity_stage_kernel<float, {stage}>", name)]
+        us = sum(u for u, _ in hits) / steps
+        n = sum(c for _, c in hits)
+        b = stage_bound(stage, NX, NX, 4, max(us, 1e-9) * 1e-3)
+        parts.append(f"stage {stage} {us:.2f} us in {n} launches "
+                     f"({100 * b['share_of_bound']:.1f}% of its bound "
+                     f"{1e3 * b['bound_ms']:.2f} us)")
+    print("profile cavity_stage_kernel by stage, a step: " + "; ".join(parts))
 
 
 def profile_rhs(by_name, kernel, steps):
@@ -2009,6 +2037,7 @@ def phase_fused_cavity(rates, matmul_state, profile):
                                 seconds / n)
         if by_name:
             profile_rhs(by_name, "cavity_stage_kernel", 20)
+            profile_stages(by_name, 20)
     return launches, res, rates
 
 
@@ -2143,6 +2172,7 @@ def phase_tiers(rates, matmul_psi, fused_psi, ghia_fp32, profile):
                     lambda: loop.run_steps(step, state, 20), 20, step_s)
                 if by_name:
                     profile_rhs(by_name, "cavity_stage_kernel", 20)
+                    profile_stages(by_name, 20)
                     total = sum(v[0] for v in by_name.values())
                     for kernels in (("tier_gemm_kernel",),
                                     ("split_cols_kernel",

@@ -28,6 +28,11 @@ rounds):
     a tree with the earlier ABI, whose one kernel split both operands in
     its main loop, that kernel), the GEMM alone on split planes, the split
     pass alone in both roles, and tier_matmul on raw operands;
+  - the packed cavity's stage kernel (csrc/cavity_stage.cu) at 1024^2
+    fp32 on chip_smoke.stage_inputs with Jensen walls, stages 1, 2 and 3,
+    warm and L2-flushed, and stage 2 in fp64; besides max|kernel - twin|
+    it prints max|this tree - the first tree| over the new interior and
+    over the four wall vectors;
   - the empty-launch floor (torch.cuda._sleep(0)) and, as a yardstick of
     the Arakawa RHS's bytes alone, torch.add of two 1025^2 fp32 fields,
     beside them;
@@ -37,10 +42,11 @@ rounds):
     and the smoother kernels' (every kernel whose name starts with rb_,
     and convert_kernel) time and launches.
 Each call is also held against its plain twin (max|kernel - twin| is
-printed), and each tree's RHS and tier kernels' ptxas registers and
-spills are printed; --sass also counts the CALL instructions (the slow
-paths of IEEE division, reciprocal and square root) in their SASS
-(cuobjdump).
+printed), and each tree's RHS, stage and tier kernels' ptxas registers
+and spills are printed; --sass also counts the CALL instructions (the
+slow paths of IEEE division, reciprocal and square root) in their SASS
+(cuobjdump).  A tree that does not build is reported with nvcc's output
+and left out; the first tree must build.
 """
 from __future__ import annotations
 
@@ -165,12 +171,12 @@ def tier_cases(dev):
 
 
 # the kernels whose registers and SASS are reported
-KERNELS = "arakawa|euler|rb_|tier|split"
+KERNELS = "arakawa|euler|rb_|tier|split|cavity_stage"
 
 
 def ptxas_lines(path: Path):
-    """(kernel, registers, spill stores) of the RHS and tier kernels in
-    nvcc.log."""
+    """(kernel, registers, spill stores) of the RHS, stage and tier kernels
+    in nvcc.log."""
     text = path.with_name(_cuda_build.LOG_NAME).read_text()
     out, name = [], None
     for line in text.splitlines():
@@ -188,8 +194,8 @@ def ptxas_lines(path: Path):
 
 
 def sass_calls(path: Path):
-    """{kernel: (CALL instructions, MUFU.RCP instructions)} of the RHS
-    kernels in the library's SASS."""
+    """{kernel: (CALL instructions, MUFU.RCP instructions)} of the RHS,
+    stage and tier kernels in the library's SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(path)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
@@ -245,6 +251,31 @@ def cases(dev):
     return out
 
 
+def stage_cases(dev):
+    """label -> [(call, plain, before, symbol)]: the stage kernel at the
+    packed cavity's 1024^2 buffer, Jensen walls."""
+    flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    m = n = cs.NX - 1
+    out = {}
+    for dtype, stages, temps in ((torch.float32, (1, 2, 3), ("warm", "cold")),
+                                 (torch.float64, (2,), ("warm",))):
+        sfx = str(dtype)[6:]
+        for stage in stages:
+            w, wt, s, walls = cs.stage_inputs(cs.NX, cs.NX, dtype,
+                                              cs.NX + 7 * stage + 2)
+            wt = w if stage == 1 else wt
+            args = (w, wt, s, walls, stage, 2e-5, 1.0 / cs.NX, 1.0 / cs.NX,
+                    cs.RE, m, n, 2)
+            for temp in temps:
+                out[f"cavity_fused_stage {cs.NX}^2 {sfx} stage {stage} "
+                    f"{temp}"] = [(
+                        lambda args=args: ck.cavity_fused_stage(*args),
+                        lambda args=args: ck.cavity_fused_stage_plain(*args),
+                        flush.zero_ if temp == "cold" else None,
+                        f"cavity_stage_{ck._SUFFIX[dtype]}")]
+    return out
+
+
 def off_profiles(libs, rounds):
     """The fused="off" 4096^2 solve on each library in turns: device us a
     solve, and the smoother kernels' us and launches a solve."""
@@ -285,11 +316,16 @@ def off_profiles(libs, rounds):
                   f"{sum(n for _, n in rb) / 3:.1f} launches/solve")
 
 
+def flat(x):
+    """The tensors of a call's result, nested tuples flattened."""
+    if isinstance(x, (tuple, list)):
+        return [t for part in x for t in flat(part)]
+    return [x]
+
+
 def max_err(got, ref):
-    got = got if isinstance(got, tuple) else (got,)
-    ref = ref if isinstance(ref, tuple) else (ref,)
     return max(float((g.double() - r.double()).abs().max())
-               for g, r in zip(got, ref))
+               for g, r in zip(flat(got), flat(ref)))
 
 
 def main(argv=None):
@@ -306,9 +342,20 @@ def main(argv=None):
     dirs = [d.resolve() for d in args.dirs]
     # one build per distinct library (two builds of one library would share
     # their temporary files)
-    unique = list({_cuda_build.library_path(d): d for d in dirs}.values())
-    with ThreadPoolExecutor(len(unique)) as pool:
-        list(pool.map(_cuda_build.build, unique))
+    by_path = {_cuda_build.library_path(d): d for d in dirs}
+
+    def try_build(d):
+        try:
+            return _cuda_build.build(d)
+        except RuntimeError as err:
+            print(f"build {d}: FAILED, left out\n{err}")
+            return None
+
+    with ThreadPoolExecutor(len(by_path)) as pool:
+        built = dict(zip(by_path, pool.map(try_build, by_path.values())))
+    if built[_cuda_build.library_path(dirs[0])] is None:
+        return 1
+    dirs = [d for d in dirs if built[_cuda_build.library_path(d)]]
     paths = [_cuda_build.library_path(d) for d in dirs]
     libs = [(str(d.relative_to(cs.REPO)) if d.is_relative_to(cs.REPO)
              else str(d), bind(p)) for d, p in zip(dirs, paths)]
@@ -338,6 +385,7 @@ def main(argv=None):
     only = re.compile(args.only) if args.only else None
     all_cases = {label: [case] for label, case in cases(dev).items()}
     all_cases.update(tier_cases(dev))
+    all_cases.update(stage_cases(dev))
     for label, alternatives in all_cases.items():
         if only and not only.search(label):
             continue
@@ -345,7 +393,7 @@ def main(argv=None):
                               if has(lib, symbol)), None)
                   for name, lib in libs}
         times = {name: [] for name, c in chosen.items() if c is not None}
-        errs = {}
+        errs, first, vs_first = {}, None, {}
         for r in range(args.rounds):
             for name, lib in (libs if r % 2 == 0 else libs[::-1]):
                 if name not in times:
@@ -354,12 +402,23 @@ def main(argv=None):
                 with mock.patch.object(_cuda_build, "load_library",
                                        lambda lib=lib: lib):
                     if r == 0:
-                        errs[name] = max_err(call(), plain())
+                        got = flat(call())
+                        errs[name] = max_err(got, plain())
+                        first = first or got
+                        # the result's first tensor, and the rest (the
+                        # stage's wall vectors)
+                        vs_first[name] = (
+                            max_err(got[:1], first[:1]),
+                            max_err(got[1:], first[1:]) if len(got) > 1
+                            else None)
                     times[name].append(cs.median_ms(call, before=before)[0])
         for name, ts in times.items():
+            out_d, rest_d = vs_first[name]
             print(f"ab {label}: {name}: device ms "
                   f"{[round(x, 5) for x in ts]} median {np.median(ts):.5f}; "
-                  f"max|k-p|={errs[name]:.3e}")
+                  f"max|k-p|={errs[name]:.3e}; max|k-first tree| "
+                  f"{out_d:.3e}" + ("" if rest_d is None else
+                                    f", wall vectors {rest_d:.3e}"))
     if not only or only.search("off"):
         off_profiles(libs, args.rounds)
     return 0

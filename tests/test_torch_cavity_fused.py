@@ -115,7 +115,8 @@ def _random_packed(cfg, seed):
 
 @pytest.mark.parametrize("stage", [1, 2, 3])
 @pytest.mark.parametrize("bc_order", [1, 2])
-@pytest.mark.parametrize("shape", [(16, 16), (33, 47), (34, 130)])
+@pytest.mark.parametrize("shape", [(16, 16), (33, 47), (34, 130),
+                                   (9, 129)])
 def test_stage_twin_matches_jax(shape, bc_order, stage):
     """One stage through the port's stage wrapper (its twin on the CPU)
     against JAX's rhs, the stage combine and the validity mask, and the

@@ -547,8 +547,18 @@ def test_resume_is_bitwise_on_the_gpu(cuda_device, tmp_path):
 # ------------------------------------------------ the packed cavity stage
 
 # (nx, ny) of the packed cavity: 1024^2 (a 1024^2 buffer), 16^2 (16 x 128),
-# 24 x 16, 33 x 47 (P = m = 32: no padded row), 34 x 130 (40 x 256)
-STAGE_SHAPES = [(1024, 1024), (16, 16), (24, 16), (33, 47), (34, 130)]
+# 24 x 16, 33 x 47 (P = m = 32: no padded row), 34 x 130 (40 x 256), 9 x 129
+# (P = m = 8, n = Q = 128), 1025^2 (m = n = P = Q = 1024), 3 x 3 (m = n = 2)
+STAGE_SHAPES = [(1024, 1024), (16, 16), (24, 16), (33, 47), (34, 130),
+                (9, 129), (1025, 1025), (3, 3)]
+# the stage kernel's walk constants as its source states them (the CPU
+# emulation, tests/test_torch_stage_tiling.py, reads the same)
+STAGE_CONSTANTS = {
+    name: int(re.search(rf"constexpr int {key} = (\d+);",
+                        (_cuda_build.CSRC / "cavity_stage.cu").read_text())
+              .group(1))
+    for name, key in (("rows", "kRows"), ("walkers", "kWalkers"),
+                      ("vec_bytes", "kVecBytes"), ("lanes", "kWarp"))}
 
 
 def _stage_inputs(nx, ny, dtype, device, seed):
@@ -596,6 +606,93 @@ def test_cavity_stage_kernel_matches_plain(cuda_device, nx, ny, dtype, stage,
         _assert_rel(g, r, REL[dtype])
     _assert_same((got[0], *got[1]), (again[0], *again[1]))
     assert not got[0][nx - 1:].any() and not got[0][:, ny - 1:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,Q,m,n", [(13, 128, 11, 100), (13, 128, 13, 128),
+                                     (5, 264, 2, 2), (21, 72, 20, 70)])
+def test_cavity_stage_kernel_on_raw_buffers(cuda_device, P, Q, m, n, dtype):
+    """Buffers the packed layout does not make but the kernel takes (the
+    CPU emulation's raw shapes): a last walker past the buffer's end, m = P
+    with n = Q, m = n = 2, Q not a multiple of a warp's columns; every
+    stage against the twin, a second call bitwise, padding 0."""
+    rng = np.random.default_rng(P * Q + m)
+    for stage in (1, 2, 3):
+        fields = []
+        for _ in range(3):
+            a = np.zeros((P, Q))
+            a[:m, :n] = rng.standard_normal((m, n))
+            fields.append(torch.as_tensor(a, dtype=dtype, device=cuda_device))
+        walls = []
+        for size, L in ((Q, n), (Q, n), (P, m), (P, m)):
+            v = np.zeros(size)
+            v[:L] = rng.standard_normal(L)
+            walls.append(torch.as_tensor(v, dtype=dtype, device=cuda_device))
+        w, wt, s = fields
+        if stage == 1:
+            wt = w
+        args = (w, wt, s, tuple(walls), stage, 1e-3, 1.0 / (m + 1),
+                1.0 / (n + 1), 100.0, m, n, 2)
+        got = cuda_kernels.cavity_fused_stage(*args)
+        again = cuda_kernels.cavity_fused_stage(*args)
+        ref = cuda_kernels.cavity_fused_stage_plain(*args)
+        for g, r in zip((got[0], *got[1]), (ref[0], *ref[1])):
+            _assert_rel(g, r, REL[dtype])
+        _assert_same((got[0], *got[1]), (again[0], *again[1]))
+        assert not got[0][m:].any() and not got[0][:, n:].any()
+
+
+@pytest.mark.cuda
+def test_cavity_stage_constants_match_the_emulation(cuda_device):
+    """The walk the library was built with is the one the CPU emulation
+    replays."""
+    assert cuda_kernels.cavity_stage_geometry() == STAGE_CONSTANTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_cavity_stage_graph_capture(cuda_device, stage):
+    """The stage kernel captured in a CUDA graph (the loop layer's chunks
+    hold 3 a step) replays bitwise the eager call on new inputs, one
+    launch a replay."""
+    nx, ny = 34, 130
+    w, wt, s, walls = _stage_inputs(nx, ny, torch.float32, cuda_device, 5)
+    if stage == 1:
+        wt = w
+    args = (w, wt, s, walls, stage, 1e-3, 1 / nx, 1 / ny, 100.0, nx - 1,
+            ny - 1, 2)
+    cuda_kernels.cavity_fused_stage(*args)   # build and warm up
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = cuda_kernels.cavity_fused_stage(*args)
+    for seed in (1, 2):
+        fresh = _stage_inputs(nx, ny, torch.float32, cuda_device, seed)
+        for dst, src in zip((w, wt, s, *walls),
+                            (fresh[0], fresh[1], fresh[2], *fresh[3])):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = cuda_kernels.cavity_fused_stage(*args)
+        _assert_same((out[0], *out[1]), (want[0], *want[1]))
+
+
+@pytest.mark.cuda
+def test_cavity_stage_refuses_misaligned_rows(cuda_device):
+    """The kernel reads rows as 16-byte vectors: a field whose storage
+    starts off a 16-byte boundary is refused with a launch error, never
+    read."""
+    w, wt, s, walls = _stage_inputs(16, 16, torch.float32, cuda_device, 0)
+    shifted = torch.zeros(w.numel() + 1, device=cuda_device)[1:].view(
+        w.shape)
+    shifted.copy_(w)
+    before = cuda_kernels.LAUNCHES["cavity_fused_stage"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_kernels.cavity_fused_stage(shifted, wt, s, walls, 2, 1e-3,
+                                        1 / 16, 1 / 16, 100.0, 15, 15, 2)
+    assert cuda_kernels.LAUNCHES["cavity_fused_stage"] == before
 
 
 @pytest.mark.cuda
