@@ -123,12 +123,21 @@ def _check_poisson(name: str, dtype) -> None:
             "state")
 
 
-def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda"):
+def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda", re=None):
     """Cavity step on state (w, s, rms) of (nx+1, ny+1) tensors of `dtype`
-    on `device`; the Poisson solve's constants are built here, once."""
+    on `device`; the Poisson solve's constants are built here, once.
+
+    `re` overrides cfg.re: a float, or a 0-d tensor on `device` (the JAX
+    package's traced re), which the kernel RHS reads from device memory.
+    The step is then differentiable in re, and in the state, with
+    torch.autograd (run it eagerly: loop.advance(..., graph=False)); the
+    kernel RHS differentiates through its backward kernel, the "matmul"
+    and "fst*" solves through cuBLAS and cuFFT.  The bf16 tiers (kernel 8)
+    have no backward and raise for an re or a state that requires grad."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
-    dx, dy, dt, re = cfg.dx, cfg.dy, cfg.dt, cfg.re
+    dx, dy, dt = cfg.dx, cfg.dy, cfg.dt
+    re = cfg.re if re is None else re
     rhs_impl = precision.resolve_rhs_impl(cfg.rhs_impl, device)
     _check_poisson(cfg.poisson, dtype)
     if cfg.poisson in FUSED:
@@ -139,6 +148,12 @@ def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda"):
             "routes it) or cavity_fused.make_fused_step_fn directly")
     if cfg.bc_order not in (1, 2):
         raise ValueError("bc_order must be 1 or 2")
+    if direct.tier_of(cfg.poisson) is not None and isinstance(
+            re, torch.Tensor) and re.requires_grad:
+        raise ValueError(
+            f"poisson={cfg.poisson!r} runs the bf16 tier GEMM, which has no "
+            "backward: an re that requires grad needs poisson='matmul', "
+            "'fst' or 'fst_half'")
 
     if rhs_impl == "kernel":
         def rhs_interior(w, s):

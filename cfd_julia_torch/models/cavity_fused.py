@@ -104,6 +104,11 @@ def make_fused_step_fn(cfg, dtype=None, device="cuda"):
         return wt, solve_neg(wt), walls
 
     def step(state):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in state):
+            raise ValueError(
+                "the packed cavity step (kernel 7, csrc/cavity_stage.cu) has "
+                "no backward: differentiate the full-grid step "
+                "(cavity.make_step_fn, poisson='matmul' or 'fst')")
         w, s, *walls, _ = state
         sp = s
         wt, s, walls = stage(1, w, w, s, tuple(walls))

@@ -144,7 +144,9 @@ def fdm_rhs(w, dx, dy, re, impl: str = "torch", poisson=None):
     Jacobian+Laplacian CUDA kernel (ops.cuda_kernels), "torch" its plain
     twin ops.arakawa.vorticity_rhs.  `poisson`: a solve built once by
     spectral.make_fft_poisson_periodic for w's grid; built for this call
-    when not given."""
+    when not given.  w: (nx, ny), or (B, nx, ny) for a batch of members
+    (one kernel launch for all); re: a float, or a tensor with one Re a
+    member (ops.arakawa.members), which may require grad."""
     if impl not in ("kernel", "torch"):
         raise ValueError(f"unknown fdm rhs impl {impl!r} (kernel | torch)")
     if poisson is None:
@@ -156,15 +158,18 @@ def fdm_rhs(w, dx, dy, re, impl: str = "torch", poisson=None):
     return arakawa.vorticity_rhs(w, s, dx, dy, re)
 
 
-def make_fdm_rhs(cfg: VortexConfig, dtype=None, device="cuda"):
-    """w (nx, ny) -> dw/dt on `device` for the fdm solver, with the Poisson
-    eigenvalues built once and cfg.rhs_impl resolved against the device."""
+def make_fdm_rhs(cfg: VortexConfig, dtype=None, device="cuda", re=None):
+    """w (nx, ny), or (B, nx, ny), -> dw/dt on `device` for the fdm
+    solver, with the Poisson eigenvalues built once and cfg.rhs_impl
+    resolved against the device.  `re` overrides cfg.re: a float or a
+    tensor on `device` of one Re a member (models/ensemble.py)."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
     impl = precision.resolve_rhs_impl(cfg.rhs_impl, device)
     poisson = spectral.make_fft_poisson_periodic(
         cfg.nx, cfg.ny, cfg.dx, cfg.dy, dtype, device, eigen="fdm")
-    return lambda w: fdm_rhs(w, cfg.dx, cfg.dy, cfg.re, impl, poisson)
+    re = cfg.re if re is None else re
+    return lambda w: fdm_rhs(w, cfg.dx, cfg.dy, re, impl, poisson)
 
 
 # ------------------------------------------------- spectral formulations

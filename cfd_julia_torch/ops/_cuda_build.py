@@ -32,6 +32,11 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DBL = ctypes.c_double
 _ARAKAWA_ARGS = [_PTR, _PTR, _PTR, _INT, _INT, _DBL, _DBL, _DBL, _PTR]
+# w, s, out, re (device, or null for the host re), batch, nr, nc, dx, dy,
+# re, stream
+_ARAKAWA_BATCHED_ARGS = [_PTR] * 4 + [_INT] * 3 + [_DBL] * 3 + [_PTR]
+# w, s, g, re, gw, gs, partials, gre, batch, nr, nc, dx, dy, stream
+_ARAKAWA_BACKWARD_ARGS = [_PTR] * 8 + [_INT] * 3 + [_DBL] * 2 + [_PTR]
 # q, out, nx, gamma, dx, solver code, wavespeed code, stream
 _EULER_ARGS = [_PTR, _PTR, _INT, _DBL, _DBL, _INT, _INT, _PTR]
 # w, wt, s, rl, rh, cl, ch, out, rl_o, rh_o, cl_o, ch_o, P, Q, m, n, stage,
@@ -64,6 +69,11 @@ _MG_ARGS = {
 SIGNATURES = {
     "arakawa_rhs_f32": (_INT, _ARAKAWA_ARGS),
     "arakawa_rhs_f64": (_INT, _ARAKAWA_ARGS),
+    "arakawa_rhs_batched_f32": (_INT, _ARAKAWA_BATCHED_ARGS),
+    "arakawa_rhs_batched_f64": (_INT, _ARAKAWA_BATCHED_ARGS),
+    "arakawa_rhs_backward_f32": (_INT, _ARAKAWA_BACKWARD_ARGS),
+    "arakawa_rhs_backward_f64": (_INT, _ARAKAWA_BACKWARD_ARGS),
+    "arakawa_rhs_backward_partials": (_INT, [_INT, _INT]),
     "euler_rhs_f32": (_INT, _EULER_ARGS),
     "euler_rhs_f64": (_INT, _EULER_ARGS),
     "cavity_stage_f32": (_INT, _CAVITY_STAGE_ARGS),

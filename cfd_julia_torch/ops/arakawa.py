@@ -7,7 +7,9 @@ the interior block, where the shifts never wrap.  This module is also the
 plain twin of the CUDA kernel in csrc/arakawa_rhs.cu (see
 ops/cuda_kernels.py).
 
-Array convention: field[i, j], axis 0 = x, axis 1 = y.
+Array convention: field[..., i, j], axis -2 = x, axis -1 = y; leading
+axes are a batch (the members of an ensemble), each member periodic on
+its own.
 """
 from __future__ import annotations
 
@@ -15,8 +17,17 @@ import torch
 
 
 def _sh(u, di: int, dj: int):
-    """u_{i+di, j+dj} with periodic wrap."""
-    return torch.roll(u, (-di, -dj), (0, 1))
+    """u_{i+di, j+dj} with periodic wrap over the last two axes."""
+    return torch.roll(u, (-di, -dj), (-2, -1))
+
+
+def members(re):
+    """re as it divides a (..., nr, nc) field: a float or a 0-d tensor as
+    it is, a tensor of the batch's shape (one Re a member) with two unit
+    axes appended."""
+    if isinstance(re, torch.Tensor) and re.dim() > 0:
+        return re[..., None, None]
+    return re
 
 
 def jacobian(w, s, dx: float, dy: float):
@@ -54,7 +65,8 @@ def laplacian(w, dx: float, dy: float):
     )
 
 
-def vorticity_rhs(w, s, dx: float, dy: float, re: float):
+def vorticity_rhs(w, s, dx: float, dy: float, re):
     """r = -J(w, s) + (1/re) laplacian(w), periodic; slice the interior
-    for bounded domains."""
-    return -jacobian(w, s, dx, dy) + laplacian(w, dx, dy) / re
+    for bounded domains.  re: a float, a 0-d tensor, or one value a member
+    of w's leading axes (`members`)."""
+    return -jacobian(w, s, dx, dy) + laplacian(w, dx, dy) / members(re)

@@ -14,7 +14,14 @@ smoother call is one launch for any sweeps on a level that fits one
 block's shared memory, else as a level edge's.  CPU calls count nothing.
 
 Kernels (csrc/ file; TPU function replaced):
-  arakawa_rhs_fused               arakawa_rhs.cu; arakawa_rhs_fused
+  arakawa_rhs_fused               arakawa_rhs.cu; arakawa_rhs_fused (any
+                                  batch, one Re a member from device
+                                  memory: the vmapped XLA RHS of
+                                  models/ensemble.py)
+  arakawa_rhs_backward            arakawa_rhs.cu; none (the JAX package
+                                  differentiates its XLA RHS): the adjoint
+                                  of arakawa_rhs_fused, its autograd
+                                  backward
   redblack_sweeps_fused           multigrid.cu;   redblack_sweeps_fused
   smooth_residual_restrict_fused  multigrid.cu;   smooth_residual_restrict_fused
   residual_restrict_fused         multigrid.cu;   residual_restrict_fused
@@ -38,11 +45,13 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from cfd_julia_torch.ops import _cuda_build, arakawa, riemann, weno
 from cfd_julia_torch.poisson import iterative
 
-LAUNCHES = {"arakawa_rhs": 0, "redblack_sweeps": 0,
+LAUNCHES = {"arakawa_rhs": 0, "arakawa_rhs_backward": 0,
+            "redblack_sweeps": 0,
             "smooth_residual_restrict": 0, "residual_restrict": 0,
             "prolong_correct_smooth": 0, "euler_rhs": 0,
             "cavity_fused_stage": 0, "tier_split": 0, "tier_gemm": 0}
@@ -90,34 +99,170 @@ def _launch(name: str, symbol: str, device, *args) -> None:
 
 # ------------------------------------------------------- Arakawa RHS
 
-def arakawa_rhs_fused_plain(w, s, dx: float, dy: float, re: float):
+def arakawa_rhs_fused_plain(w, s, dx: float, dy: float, re):
     """Plain twin of arakawa_rhs_fused: ops.arakawa.vorticity_rhs."""
     return arakawa.vorticity_rhs(w, s, dx, dy, re)
 
 
-def arakawa_rhs_fused(w, s, dx: float, dy: float, re: float):
-    """Periodic vorticity RHS -J(w,s) + lap(w)/re over the whole (n_rows,
-    n_cols) array, in one kernel pass (csrc/arakawa_rhs.cu); matches
-    ops.arakawa.vorticity_rhs.  w, s: contiguous fp32 or fp64 tensors of
-    one shape on one device, n_rows >= 3."""
+def arakawa_rhs_backward_plain(w, s, g, dx: float, dy: float, re):
+    """Plain twin of arakawa_rhs_backward: the adjoint of the RHS by the
+    Jacobian's antisymmetry on the periodic grid (csrc/arakawa_rhs.cu),
+    on the twin's jacobian and laplacian:
+      gw = -J(s, g) + lap(g)/re,  gs = -J(g, w),
+      gre = -sum g lap(w) / re^2 over each member's last two axes."""
+    gw = -arakawa.jacobian(s, g, dx, dy) + \
+        arakawa.laplacian(g, dx, dy) / arakawa.members(re)
+    gs = -arakawa.jacobian(g, w, dx, dy)
+    gre = -(g * arakawa.laplacian(w, dx, dy)).sum((-2, -1)) / re**2
+    return gw, gs, gre
+
+
+def _check_arakawa(name: str, w, s, re) -> None:
     if w.dtype not in (torch.float32, torch.float64) or s.dtype != w.dtype:
-        raise TypeError(
-            f"arakawa_rhs_fused takes two fp32 or two fp64 tensors, got "
-            f"{w.dtype} and {s.dtype}")
-    if w.dim() != 2 or s.shape != w.shape:
-        raise ValueError(
-            f"arakawa_rhs_fused takes two 2-D tensors of one shape, got "
-            f"{tuple(w.shape)} and {tuple(s.shape)}")
-    n_rows, n_cols = w.shape
-    if n_rows < 3:
-        raise ValueError(f"arakawa_rhs_fused needs >= 3 rows, got {n_rows}")
+        raise TypeError(f"{name} takes two fp32 or two fp64 tensors, got "
+                        f"{w.dtype} and {s.dtype}")
+    if w.dim() < 2 or s.shape != w.shape:
+        raise ValueError(f"{name} takes two (..., n_rows, n_cols) tensors of "
+                         f"one shape, got {tuple(w.shape)} and "
+                         f"{tuple(s.shape)}")
+    if w.shape[-2] < 3:
+        raise ValueError(f"{name} needs >= 3 rows, got {w.shape[-2]}")
+    if isinstance(re, torch.Tensor):
+        if re.device != w.device or not re.is_floating_point():
+            raise ValueError(f"{name}: re must be a floating tensor on "
+                             f"{w.device}, got {re.dtype} on {re.device}")
+        try:
+            fits = torch.broadcast_shapes(re.shape, w.shape[:-2]) == \
+                w.shape[:-2]
+        except RuntimeError:
+            fits = False
+        if not fits:
+            raise ValueError(f"{name}: re of shape {tuple(re.shape)} does "
+                             f"not broadcast to the batch "
+                             f"{tuple(w.shape[:-2])}")
+
+
+def _member_re(re, w):
+    """A (members,) tensor of w's dtype, contiguous, from a tensor re that
+    broadcasts over w's leading axes; differentiable."""
+    lead = w.shape[:-2]
+    re = re.to(w.dtype)
+    if tuple(re.shape) != tuple(lead):
+        re = re.expand(lead)
+    return re.reshape(-1).contiguous()
+
+
+def _arakawa_launch(w, s, dx: float, dy: float, re):
+    """Kernel 1 on contiguous (B, nr, nc) CUDA fields: re a float (the
+    2-D entry for B = 1, else the batched one with a host Re) or a (B,)
+    device tensor (the batched entry, each member's Re read there)."""
+    batch, nr, nc = w.shape
+    out = torch.empty_like(w)
+    sfx = _SUFFIX[w.dtype]
+    if isinstance(re, torch.Tensor):
+        _launch("arakawa_rhs", f"arakawa_rhs_batched_{sfx}", w.device,
+                w.data_ptr(), s.data_ptr(), out.data_ptr(), re.data_ptr(),
+                batch, nr, nc, float(dx), float(dy), 0.0)
+    elif batch == 1:
+        _launch("arakawa_rhs", f"arakawa_rhs_{sfx}", w.device, w.data_ptr(),
+                s.data_ptr(), out.data_ptr(), nr, nc, float(dx), float(dy),
+                float(re))
+    else:
+        _launch("arakawa_rhs", f"arakawa_rhs_batched_{sfx}", w.device,
+                w.data_ptr(), s.data_ptr(), out.data_ptr(), None, batch, nr,
+                nc, float(dx), float(dy), float(re))
+    return out
+
+
+class _ArakawaRHS(torch.autograd.Function):
+    """Kernel 1 with its backward kernel: forward arakawa_rhs, backward
+    arakawa_rhs_backward, on (B, nr, nc) CUDA fields; re a float (no
+    gradient) or a (B,) tensor."""
+
+    @staticmethod
+    def forward(ctx, w, s, re, dx, dy):
+        ctx.dx, ctx.dy = dx, dy
+        ctx.re = None if isinstance(re, torch.Tensor) else re
+        ctx.save_for_backward(w, s, *((re,) if ctx.re is None else ()))
+        return _arakawa_launch(w, s, dx, dy, re)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        w, s, *re = ctx.saved_tensors
+        re = re[0] if re else ctx.re
+        want_re = ctx.re is None and ctx.needs_input_grad[2]
+        gw, gs, gre = arakawa_rhs_backward(w, s, g.contiguous(), ctx.dx,
+                                           ctx.dy, re, re_grad=want_re)
+        return gw, gs, gre, None, None
+
+
+def arakawa_rhs_fused(w, s, dx: float, dy: float, re):
+    """Periodic vorticity RHS -J(w,s) + lap(w)/re over the last two axes
+    of (..., n_rows, n_cols) fields, in one kernel pass
+    (csrc/arakawa_rhs.cu) for any batch; matches ops.arakawa.vorticity_rhs.
+    w, s: fp32 or fp64 tensors of one shape on one device, n_rows >= 3.
+    re: a float, or a tensor on w's device broadcast over the leading axes
+    (a 0-d tensor, or one Re a member), read by the kernel from device
+    memory (so a CUDA graph may capture the call and the values change
+    between replays).  Differentiable on the GPU through the backward
+    kernel (arakawa_rhs_backward) in w, s and a tensor re; on the CPU
+    autograd differentiates the twin."""
+    _check_arakawa("arakawa_rhs_fused", w, s, re)
     if _on_cpu("arakawa_rhs_fused", w, s):
         return arakawa_rhs_fused_plain(w, s, dx, dy, re)
-    out = torch.empty_like(w)
-    _launch("arakawa_rhs", f"arakawa_rhs_{_SUFFIX[w.dtype]}", w.device,
-            w.data_ptr(), s.data_ptr(), out.data_ptr(), n_rows, n_cols,
-            float(dx), float(dy), float(re))
-    return out
+    shape = w.shape
+    w3, s3 = w.reshape(-1, *shape[-2:]), s.reshape(-1, *shape[-2:])
+    if isinstance(re, torch.Tensor):
+        re = _member_re(re, w)
+    tracked = torch.is_grad_enabled() and (
+        w.requires_grad or s.requires_grad
+        or (isinstance(re, torch.Tensor) and re.requires_grad))
+    if tracked:
+        out = _ArakawaRHS.apply(w3, s3, re, dx, dy)
+    else:
+        out = _arakawa_launch(w3, s3, dx, dy, re)
+    return out.reshape(shape)
+
+
+def arakawa_rhs_backward(w, s, g, dx: float, dy: float, re,
+                         re_grad: bool = True):
+    """The adjoint of arakawa_rhs_fused for upstream gradient g: (gw, gs,
+    gre), gw = -J(s, g) + lap(g)/re, gs = -J(g, w) (ops.arakawa's J and
+    lap), gre = -sum g lap(w) / re^2 over each member's last two axes (of
+    shape w.shape[:-2]), or None with re_grad=False.  One launch of the
+    backward kernel (csrc/arakawa_rhs.cu) and, for gre, a one-block
+    launch that adds the blocks' partial sums in a fixed order: no
+    atomics, the same result every run.  re: a float or a tensor
+    broadcast over the leading axes.  Matches
+    arakawa_rhs_backward_plain."""
+    _check_arakawa("arakawa_rhs_backward", w, s, re)
+    if g.shape != w.shape or g.dtype != w.dtype:
+        raise ValueError(f"arakawa_rhs_backward: g of {g.dtype} "
+                         f"{tuple(g.shape)}, want {w.dtype} "
+                         f"{tuple(w.shape)}")
+    if _on_cpu("arakawa_rhs_backward", w, s, g):
+        gw, gs, gre = arakawa_rhs_backward_plain(w, s, g, dx, dy, re)
+        return gw, gs, gre if re_grad else None
+    shape = w.shape
+    nr, nc = shape[-2:]
+    w3, s3, g3 = (t.reshape(-1, nr, nc) for t in (w, s, g))
+    batch = w3.shape[0]
+    re_b = (_member_re(re, w) if isinstance(re, torch.Tensor) else
+            torch.full((batch,), float(re), dtype=w.dtype, device=w.device))
+    gw, gs = torch.empty_like(w3), torch.empty_like(w3)
+    partials = gre = None
+    if re_grad:
+        n = _cuda_build.load_library().arakawa_rhs_backward_partials(nr, nc)
+        partials = torch.empty(batch * n, dtype=torch.float64,
+                               device=w.device)
+        gre = torch.empty(batch, dtype=w.dtype, device=w.device)
+    _launch("arakawa_rhs_backward",
+            f"arakawa_rhs_backward_{_SUFFIX[w.dtype]}", w.device,
+            *(t.data_ptr() for t in (w3, s3, g3, re_b, gw, gs)),
+            _ptr(partials), _ptr(gre), batch, nr, nc, float(dx), float(dy))
+    return (gw.reshape(shape), gs.reshape(shape),
+            None if gre is None else gre.reshape(shape[:-2]))
 
 
 # ------------------------------------------------------- multigrid
@@ -559,6 +704,16 @@ TIER_BM, TIER_BN, TIER_BK = 128, 64, 64
 _TMA_MAP_BYTES = 128   # sizeof(CUtensorMap)
 
 
+def _refuse_tier_grad(*tensors) -> None:
+    """The tier GEMM has no backward: raise for an operand that requires
+    grad under grad mode, on every device (the CPU twin would otherwise
+    differentiate arithmetic that the GPU path cannot)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError("the bf16 tier product (kernel 8, csrc/"
+                         "tier_gemm.cu) has no backward; an operand "
+                         "requires grad")
+
+
 def _bf16_split(a):
     """(hi, lo) as fp32: hi = bf16(a), lo = bf16(a - hi), both rounded to
     nearest even; a - hi is exact in fp32."""
@@ -737,6 +892,7 @@ class TierPlan:
                           self.const.device)
 
     def __call__(self, x):
+        _refuse_tier_grad(x)
         if tuple(x.shape) != self.shape or x.device != self.const.device:
             raise ValueError(f"TierPlan takes fields {self.shape} on "
                              f"{self.const.device}, got {tuple(x.shape)} on "
@@ -766,6 +922,7 @@ def tier_matmul(a, b, passes: int):
                          f">= 1, got {tuple(a.shape)} @ {tuple(b.shape)}")
     if passes not in (1, 3):
         raise ValueError(f"tier_matmul: passes must be 1 or 3, got {passes}")
+    _refuse_tier_grad(a, b)
     if _on_cpu("tier_matmul", a, b):
         return tier_matmul_plain(a, b, passes)
     (m, k), n = a.shape, b.shape[1]

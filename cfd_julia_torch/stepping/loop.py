@@ -23,6 +23,13 @@ A capture records its launches once, so a host synchronisation inside it
 (`.item()`, `float(t)`, boolean-mask indexing) raises instead of running
 slowly; nothing falls back to eager steps.
 
+A graph replays launches and records no autograd graph, so the graphed
+runner refuses a state, or a step's output, that requires grad (a
+gradient through the run, or through an Re tensor the step closes over):
+it raises a ValueError naming graph=False, never capturing or silently
+detaching one.  The eager runner (graph=False, and every CPU run) is
+differentiable: torch.autograd follows its steps as they run.
+
 Graphs are kept per step function (weakly, as `jax.jit` keeps a program
 per static step function), so a second run of the same step replays the
 graphs of the first.  Each keeps one static state: a replay reads it,
@@ -66,6 +73,17 @@ def _chunk_plan(nt: int, every: int, chunk: int) -> list[list[int]]:
         plan.append([chunk] * (m // chunk) + ([m % chunk] if m % chunk
                                               else []))
     return plan
+
+
+def refuse_grad(tensors, what: str) -> None:
+    """Raise if grad mode is on and a tensor of `tensors` (a tensor or a
+    tuple) requires grad: a CUDA graph cannot carry it."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in _leaves(tensors)):
+        raise ValueError(
+            f"{what} requires grad, and a CUDA graph records no autograd "
+            "graph: run with graph=False to differentiate through the steps "
+            "(or under torch.no_grad() to replay graphs)")
 
 
 def warm_up(fn, stream) -> None:
@@ -129,7 +147,9 @@ class _ChunkGraphs:
         """Advance the static state by n steps; the chunk's history."""
         if n not in self.graphs:
             if not self.graphs:
-                warm_up(lambda: step_fn(self.view()), self.stream)
+                warm_up(lambda: refuse_grad(step_fn(self.view()),
+                                            "the step's output"),
+                        self.stream)
             self.graphs[n] = Graph(lambda: self._chunk(step_fn, n),
                                    self.stream, self.pool)
         graph = self.graphs[n]
@@ -171,7 +191,13 @@ class _Graphed:
     """Runs chunks as replays of the step function's cached graphs."""
 
     def __init__(self, step_fn, state, history: bool):
-        key = (isinstance(state, tuple), history,
+        refuse_grad(state, "the state")
+        # grad mode is part of the key: a step that closes over an Re
+        # tensor which requires grad gives an output that requires grad
+        # under grad mode only, so a graph captured under torch.no_grad()
+        # is never replayed with grad mode on (the warm-up of the graphs
+        # for grad mode refuses that step)
+        key = (isinstance(state, tuple), history, torch.is_grad_enabled(),
                tuple((t.shape, t.stride(), t.dtype, t.device)
                      for t in _leaves(state)))
         try:

@@ -14,6 +14,13 @@ Phases, one line each:
      fp32 and fp64 at 1025^2 and at 2048^2 (the cavity's and the fdm
      vortex solver's shapes, each timed warm in L2 and with L2 flushed)
      and at small and ragged shapes down to 3x1, two calls bitwise equal;
+     batched with one device Re a member at (8, 2048, 2048) (the
+     ensemble's, eight distinct Re), (2, 3, 1) and (3, 17, 33) in fp32 and
+     fp64, two calls bitwise equal, a batch of one with a 0-d Re tensor
+     bitwise the float Re call; its backward kernel (the adjoint: the
+     field gradients and each member's d/d re) at 1025^2, 2048^2 and the
+     batched shapes against its plain version, two calls bitwise equal;
+     the batched forward and the backward timed beside their bounds;
      the four multigrid kernels at 4097^2 fp32 (the 4096^2
      solve's finest level, sweeps 2) and at 129x65, 33x65, 5x5 and the
      ragged 131x67 and 301x261 in fp32, fp64 and bf16, the two level-edge
@@ -123,7 +130,23 @@ Phases, one line each:
      fused_bf16x3 through cavity.solve,
      stopped at 100 steps and resumed bitwise; then `run cavity --poisson
      <tier>` (the four at once) on phase 4's Ghia case beside phase 4's
-     fp32 deviations, bf16x3 within 1.1x fp32's + 1e-3, bf16x1 printed.
+     fp32 deviations, bf16x3 within 1.1x fp32's + 1e-3, bf16x1 printed;
+ 16. the Reynolds ensemble (models/ensemble.py): the fdm vortex merger at
+     2048^2 (fp32, dt=1e-3) for 8 members, Re 600 to 10000, 100 steps and
+     on to 200, graphed and eager (bitwise equal, 600 batched Arakawa
+     launches: 3 a step for the whole batch), vortex_fdm_re_sweep bitwise
+     the step-level run, the Re=1000 member against fdm:2048:200, every
+     member against its own single run through phase 9's path, member-steps/s
+     beside phase 9's fdm steps/s, peak memory; then gradients in fp64
+     through torch.autograd: (a) d(1e6 mean psi^2)/dRe of the 1024^2
+     cavity (dt=2e-5, 50 steps from rest, matmul, the kernel RHS and its
+     backward kernel) against the plain RHS's autograd (rel 1e-9) and
+     central FD (h=0.5, rtol 1e-4), with as many backward launches as
+     forward ones; (b) each member's d mean(w_b^2)/d re_b of the 2048^2 fdm
+     ensemble (4 members, 10 steps) in one backward pass against the plain
+     RHS's autograd (rel 1e-9) and FD for Re=1000 (h=1, rtol 1e-4);
+     (c) ps23 at 2048^2, 10 steps: the directional derivative of sum(w^2)
+     w.r.t. the initial field against FD (rtol 1e-6); peak memory of each.
 Then a JSON line with each kernel's record, and last
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 nonzero without that last line; without a GPU it fails at once.
@@ -475,6 +498,178 @@ def phase_kernels():
         if k in ("launches", "max_abs_err", "ms", "cold_ms", "plain_ms",
                  "bound_ms", "bound_by", "share_of_bound")}
     return record
+
+
+# the ensemble's Reynolds numbers (phase 16): SSP-RK3's viscous limit at
+# dx = 2 pi/2048 and dt = 1e-3 is Re ~ 340, so the floor is 600
+ENSEMBLE_RE = (600.0, 800.0, 1000.0, 1500.0, 2000.0, 3000.0, 5000.0,
+               10000.0)
+# the batched Arakawa RHS (one device Re a member, the first B of
+# ENSEMBLE_RE): the ensemble's batch, then ragged batches (one column; a
+# part-filled last block on both axes)
+ARAKAWA_BATCHED = [(len(ENSEMBLE_RE), VORTEX_NX, VORTEX_NX), (2, 3, 1),
+                   (3, 17, 33)]
+# its backward kernel: the cavity's and the vortex field's shapes, and the
+# batches; timed at the first three
+ARAKAWA_BACKWARD = [(NX + 1, NX + 1), (VORTEX_NX, VORTEX_NX),
+                    *ARAKAWA_BATCHED]
+# flops the backward needs a point, counted from its source: two
+# Jacobians (37 each), two Laplacians and their scalings (~22), the Re
+# gradient's product and sum
+FLOPS_ARAKAWA_BACKWARD = 100
+
+
+def arakawa_inputs(shape, n, seed):
+    rng = np.random.default_rng(seed)
+    dx, dy = 1.0 / (shape[-2] - 1), 1.0 / max(shape[-1] - 1, 1)
+    return [rng.standard_normal(shape) for _ in range(n)], dx, dy
+
+
+def arakawa_re(shape, dtype, dev):
+    """One Re a member of a batch, RE for a 2-D field (a 0-d tensor)."""
+    if len(shape) == 2:
+        return torch.tensor(RE, dtype=dtype, device=dev)
+    return torch.tensor(ENSEMBLE_RE[:shape[0]], dtype=dtype, device=dev)
+
+
+def phase_arakawa_batched():
+    """The batched kernel 1 (one device Re a member) and its backward
+    kernel against their plain versions, two calls bitwise equal; timed at
+    the ensemble's batch (forward, backward) and at 1025^2 and 2048^2
+    (backward).  Returns {"batched": the forward's record at the batch,
+    "backward": the backward's at 1025^2 with the others under "at_2048"
+    and "at_batch"}."""
+    from cfd_julia_torch.ops import cuda_kernels as ck
+
+    dev = torch.device("cuda")
+    timed = {}
+    for shape in ARAKAWA_BATCHED:
+        (w_np, s_np), dx, dy = arakawa_inputs(shape, 2, sum(shape))
+        for dtype, rel in [(torch.float32, 1e-5), (torch.float64, 1e-12)]:
+            w = torch.as_tensor(w_np, dtype=dtype, device=dev)
+            s = torch.as_tensor(s_np, dtype=dtype, device=dev)
+            re = arakawa_re(shape, dtype, dev)
+            got = ck.arakawa_rhs_fused(w, s, dx, dy, re)
+            again = ck.arakawa_rhs_fused(w, s, dx, dy, re)
+            ref = ck.arakawa_rhs_fused_plain(w, s, dx, dy, re)
+            one_t = ck.arakawa_rhs_fused(w[0], s[0], dx, dy, re[0])
+            one_f = ck.arakawa_rhs_fused(w[0], s[0], dx, dy, float(re[0]))
+            # the batch with one host Re (re[0]) for every member
+            host = ck.arakawa_rhs_fused(w, s, dx, dy, float(re[0]))
+            host_ref = ck.arakawa_rhs_fused_plain(w, s, dx, dy, float(re[0]))
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            same = torch.equal(got, again)
+            one_same = torch.equal(one_t, one_f) and torch.equal(got[0],
+                                                                 one_f)
+            host_err = float((host - host_ref).abs().max())
+            host_same = torch.equal(host[0], one_f)
+            ok = (err <= rel * scale and same and one_same and host_same
+                  and host_err <= rel * float(host_ref.abs().max()))
+            line = (f"phase 2 kernel arakawa_rhs batched {shape} "
+                    f"{str(dtype)[6:]} re={[float(r) for r in re]}: "
+                    f"max|k-p|={err:.3e} max|p|={scale:.3e} "
+                    f"tol={rel:g}*max|p|; two calls bitwise equal: {same}; "
+                    f"member 0 with a 0-d re tensor, and in the batch, "
+                    f"bitwise the float-re 2-D call: {one_same}; the batch "
+                    f"with a float re: max|k-p|={host_err:.3e}, member 0 "
+                    f"bitwise the 2-D call: {host_same}")
+            if shape == ARAKAWA_BATCHED[0] and dtype == torch.float32:
+                ms, call_ms = median_ms(
+                    lambda: ck.arakawa_rhs_fused(w, s, dx, dy, re))
+                plain_ms, _ = median_ms(
+                    lambda: ck.arakawa_rhs_fused_plain(w, s, dx, dy, re),
+                    reps=10)
+                b = bound(nbytes(w, s, got), FLOPS_ARAKAWA * w.numel(), ms)
+                line += (f"; device time: kernel {ms:.4f} ms (bound "
+                         f"{b['bound_ms']:.4f} ms by {b['bound_by']}: 3 "
+                         f"fields of {shape}, {100 * b['share_of_bound']:.1f}"
+                         f"% of it; {ms / shape[0]:.4f} ms a member), plain "
+                         f"{plain_ms:.4f} ms; eager call {call_ms:.4f} ms")
+                timed["batched"] = {
+                    "name": "arakawa_rhs", "shape": list(shape),
+                    "launches": None, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, **b, "library_ms": None}
+            line += " ok" if ok else " FAIL"
+            print(line)
+            check(ok, line)
+            del w, s, got, again, ref, host, host_ref
+    for shape in ARAKAWA_BACKWARD:
+        (w_np, s_np, g_np), dx, dy = arakawa_inputs(shape, 3, sum(shape) + 1)
+        for dtype, rel in [(torch.float32, 1e-5), (torch.float64, 1e-12)]:
+            w, s, g = (torch.as_tensor(a, dtype=dtype, device=dev)
+                       for a in (w_np, s_np, g_np))
+            re = arakawa_re(shape, dtype, dev)
+            got = ck.arakawa_rhs_backward(w, s, g, dx, dy, re)
+            again = ck.arakawa_rhs_backward(w, s, g, dx, dy, re)
+            ref = ck.arakawa_rhs_backward_plain(w, s, g, dx, dy, re)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            gg = 1.0 / (4 * dx * dy)
+            amax = [float(x.abs().max()) for x in (w, s, g)]
+            # each field's scale: its largest value or its Jacobian term's
+            # size, gg max|a| max|b| (with one column the Jacobian is 0)
+            errs, oks = [], []
+            for mine, want, jac in ((got[0], ref[0], gg * amax[1] * amax[2]),
+                                    (got[1], ref[1], gg * amax[2] * amax[0])):
+                e = float((mine - want).abs().max())
+                sc = max(float(want.abs().max()), jac)
+                errs.append(e / sc)
+                oks.append(e <= rel * sc)
+            dre = (got[2].double() - ref[2].double()).abs()
+            if dtype == torch.float64:
+                re_scale = ref[2].abs()
+                re_tol = "rel 1e-10"
+                re_err = float((dre / re_scale).max())
+                re_ok = bool((dre <= 1e-10 * re_scale).all())
+            else:
+                lap = ck.arakawa.laplacian(w.double(), dx, dy)
+                re_scale = (g.double() * lap).abs().sum((-2, -1)) / \
+                    re.double() ** 2
+                re_tol = "1e-5 of sum|g lap w|/re^2"
+                re_err = float((dre / re_scale).max())
+                re_ok = bool((dre <= 1e-5 * re_scale).all())
+            ok = all(oks) and re_ok and same
+            line = (f"phase 2 kernel arakawa_rhs_backward {shape} "
+                    f"{str(dtype)[6:]}: max|k-p| of gw {errs[0]:.3e}, gs "
+                    f"{errs[1]:.3e} of their scales (tol {rel:g}); d/dre "
+                    f"{[float(x) for x in got[2].reshape(-1)]} vs the plain "
+                    f"version's, err {re_err:.3e} ({re_tol}); two calls "
+                    f"bitwise equal: {same}")
+            key = {ARAKAWA_BACKWARD[0]: "backward",
+                   ARAKAWA_BACKWARD[1]: "at_2048",
+                   ARAKAWA_BATCHED[0]: "at_batch"}.get(shape)
+            if key is not None and dtype == torch.float32:
+                ms, call_ms = median_ms(
+                    lambda: ck.arakawa_rhs_backward(w, s, g, dx, dy, re))
+                plain_ms, _ = median_ms(
+                    lambda: ck.arakawa_rhs_backward_plain(w, s, g, dx, dy,
+                                                          re), reps=10)
+                b = bound(nbytes(w, s, g, got[0], got[1]),
+                          FLOPS_ARAKAWA_BACKWARD * w.numel(), ms)
+                line += (f"; device time: kernel {ms:.4f} ms (bound "
+                         f"{b['bound_ms']:.4f} ms by {b['bound_by']}: 5 "
+                         f"fields, {100 * b['share_of_bound']:.1f}% of it), "
+                         f"plain {plain_ms:.4f} ms; eager call "
+                         f"{call_ms:.4f} ms")
+                timed[key] = {"shape": list(shape), "launches": None,
+                              "max_abs_err": max(
+                                  float((a - b).abs().max())
+                                  for a, b in zip(got, ref)),
+                              "ms": ms, "plain_ms": plain_ms, **b,
+                              "library_ms": None}
+            line += " ok" if ok else " FAIL"
+            print(line)
+            check(ok, line)
+            del w, s, g, got, again, ref
+    backward = {"name": "arakawa_rhs_backward", "route": "cuda",
+                "source": "cfd_julia_torch/csrc/arakawa_rhs.cu",
+                "replaces": ("cfd_julia_tpu/ops/arakawa.py:57 (jax.grad of "
+                             "the XLA RHS; the TPU kernel has no backward)"),
+                **timed["backward"], "at_2048": timed["at_2048"],
+                "at_batch": timed["at_batch"]}
+    return {"batched": timed["batched"], "backward": backward}
 
 
 # the packed cavity's stage kernel: (nx, ny) of its phase 2 shapes, the
@@ -2478,6 +2673,274 @@ def phase_checkpoint(cavity_ref, w_ps23, fused_ref):
         check(ok, line)
 
 
+def phase_ensemble(fdm_step_s):
+    """The 8-member fdm ensemble at 2048^2 (fp32): the batched step
+    graphed (launches counted from 0 over its 200 steps) and eager, the
+    user's vortex_fdm_re_sweep, the Re=1000 member against its anchor and
+    every member against its own single run (phase 9's path); member-
+    steps/s beside phase 9's fdm steps/s (fdm_step_s: its seconds a
+    step).  Returns the launch counts of the graphed run."""
+    import dataclasses
+
+    from cfd_julia_torch.models import ensemble, vortex
+    from cfd_julia_torch.ops import cuda_kernels
+
+    cfg = vortex.VortexConfig(nx=VORTEX_NX, ny=VORTEX_NX, solver="fdm",
+                              dt=1e-3, re=1000.0,
+                              t_final=VORTEX_TOTAL * 1e-3)
+    check(cfg.nt == VORTEX_TOTAL, f"ensemble nt {cfg.nt}")
+    n_members, n = len(ENSEMBLE_RE), VORTEX_TOTAL - VORTEX_FIRST
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = torch.tensor(ENSEMBLE_RE, dtype=torch.float32, device="cuda")
+    step, w0 = ensemble.make_sweep_step(cfg, res, torch.float32, "cuda")
+    cuda_kernels.reset_launch_counts()
+    w, seconds = timed_steps(step, w0, True, VORTEX_FIRST, VORTEX_TOTAL)
+    launches = dict(cuda_kernels.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    cuda_kernels.reset_launch_counts()
+    w_eager, e_seconds = timed_steps(step, w0, False, VORTEX_FIRST,
+                                     VORTEX_TOTAL)
+    e_launches = dict(cuda_kernels.LAUNCHES)
+    same = torch.equal(w, w_eager)
+    del w_eager
+    sweep = ensemble.vortex_fdm_re_sweep(cfg, ENSEMBLE_RE, torch.float32,
+                                         "cuda")
+    entry_same = torch.equal(sweep.w, w)
+    del sweep
+    anchor_ok, text = vortex_anchor_check(w[ENSEMBLE_RE.index(1000.0)],
+                                          "fdm")
+    rel, bitwise = [], []
+    for k, re in enumerate(ENSEMBLE_RE):
+        single = vortex_run(dataclasses.replace(cfg, re=re), VORTEX_FIRST,
+                            VORTEX_TOTAL)[0]
+        rel.append(float((w[k] - single).abs().max() / single.abs().max()))
+        bitwise.append(torch.equal(w[k], single))
+        del single
+    finite = bool(torch.isfinite(w).all())
+    want = dict.fromkeys(launches, 0)
+    want["arakawa_rhs"] = 3 * VORTEX_TOTAL
+    ok = (anchor_ok and same and entry_same and finite
+          and launches == want and e_launches == launches
+          and w.shape == (n_members, VORTEX_NX, VORTEX_NX)
+          and max(rel) <= VORTEX_TWIN_TOL)
+    line = (f"phase 16 ensemble fdm {n_members} x {VORTEX_NX}^2 fp32 "
+            f"@{VORTEX_TOTAL} steps (dt=1e-3, re={list(ENSEMBLE_RE)}): "
+            f"Re=1000 member {text}; {n} steps (from step {VORTEX_FIRST}) "
+            f"graphed {n_members * n / seconds:.2f} member-steps/s "
+            f"({n / seconds:.2f} batch steps/s, {seconds:.4f} s), eager "
+            f"{n_members * n / e_seconds:.2f} member-steps/s; phase 9's "
+            f"single fdm run {1.0 / fdm_step_s:.2f} steps/s; graphed == "
+            f"eager bitwise: {same}; vortex_fdm_re_sweep == the step-level "
+            f"run bitwise: {entry_same}; launches {launches['arakawa_rhs']} "
+            f"arakawa_rhs (want {want['arakawa_rhs']}: 3 a step for the "
+            f"batch), all kernels {sum(launches.values())}, eager run "
+            f"{'the same' if e_launches == launches else e_launches}; each "
+            f"member against its single run (phase 9's path): max|w_b - "
+            f"w_single|/max|w_single| {[f'{r:.2e}' for r in rel]} (tol "
+            f"{VORTEX_TWIN_TOL:g}), bitwise {bitwise}; peak device memory "
+            f"{peak:.1f} MB; fields {'finite' if finite else 'NOT finite'} "
+            f"{'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+    return launches
+
+
+# phase 16's gradients: the cavity (a), the fdm ensemble (b), ps23 (c)
+GRAD_CAVITY_STEPS = 50
+GRAD_ENSEMBLE_RE = (600.0, 1000.0, 2000.0, 4000.0)
+GRAD_VORTEX_STEPS = 10
+
+
+def peak_gb(fn):
+    """fn()'s result and the peak of allocated device memory over it, GB
+    above what was allocated before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def phase_gradients():
+    """Reverse-mode gradients in fp64 through the port on the card, each
+    against the plain RHS's autograd and central finite differences.
+    Returns the launch counts of (a), the cavity's kernel run, and of
+    (b), the ensemble's, under "cavity" and "ensemble"."""
+    import dataclasses
+
+    from cfd_julia_torch.models import cavity, ensemble, vortex
+    from cfd_julia_torch.ops import cuda_kernels
+    from cfd_julia_torch.stepping import loop
+    from torch.utils.checkpoint import checkpoint
+
+    f64, dev = torch.float64, "cuda"
+
+    # (a) the cavity
+    def cavity_loss(rhs_impl, re_value, grad):
+        cfg = cavity.CavityConfig(nx=NX, ny=NX, dt=2e-5, re=RE, bc_order=2,
+                                  poisson="matmul", rhs_impl=rhs_impl)
+        re = torch.tensor(re_value, dtype=f64, device=dev,
+                          requires_grad=grad)
+        step = cavity.make_step_fn(cfg, f64, dev, re=re)
+        with torch.set_grad_enabled(grad):
+            final = loop.advance(step, cavity.initial_state(cfg, f64, dev),
+                                 GRAD_CAVITY_STEPS, graph=False)
+            loss = 1e6 * torch.mean(final[1] ** 2)
+        if not grad:
+            return float(loss)
+        (g,) = torch.autograd.grad(loss, re)
+        return float(g)
+
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    g_kernel, peak_k = peak_gb(lambda: cavity_loss("kernel", RE, True))
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    cuda_kernels.reset_launch_counts()
+    g_twin, peak_t = peak_gb(lambda: cavity_loss("torch", RE, True))
+    twin_quiet = not any(cuda_kernels.LAUNCHES.values())
+    h = 0.5
+    fd = (cavity_loss("kernel", RE + h, False)
+          - cavity_loss("kernel", RE - h, False)) / (2 * h)
+    rel_twin = abs(g_kernel - g_twin) / abs(g_twin)
+    rel_fd = abs(g_kernel - fd) / abs(fd)
+    n_fwd = launches["arakawa_rhs"]
+    ok = (rel_twin <= 1e-9 and rel_fd <= 1e-4 and twin_quiet
+          and n_fwd == 3 * GRAD_CAVITY_STEPS
+          and launches["arakawa_rhs_backward"] == n_fwd
+          and math.isfinite(g_kernel) and g_kernel != 0.0)
+    line = (f"phase 16 gradient (a) cavity {NX}^2 fp64 (dt=2e-5, Re={RE:g}, "
+            f"{GRAD_CAVITY_STEPS} steps from rest, matmul, graph=False): "
+            f"d(1e6 mean psi^2)/dRe = {g_kernel!r} through the kernel RHS "
+            f"and its backward kernel ({seconds:.2f} s with the forward); "
+            f"plain RHS's autograd {g_twin!r} (rel {rel_twin:.2e}, tol "
+            f"1e-9; {'no' if twin_quiet else 'SOME'} kernel launches); "
+            f"central FD h={h:g} {fd!r} (rel {rel_fd:.2e}, tol 1e-4); "
+            f"launches {n_fwd} arakawa_rhs, "
+            f"{launches['arakawa_rhs_backward']} arakawa_rhs_backward "
+            f"(want {3 * GRAD_CAVITY_STEPS} each); peak device memory "
+            f"{peak_k:.2f} GB kernel, {peak_t:.2f} GB plain "
+            f"{'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+    # (b) the fdm ensemble, one Re gradient a member
+    vcfg = vortex.VortexConfig(nx=VORTEX_NX, ny=VORTEX_NX, solver="fdm",
+                               dt=1e-3, t_final=GRAD_VORTEX_STEPS * 1e-3)
+    check(vcfg.nt == GRAD_VORTEX_STEPS, f"gradient nt {vcfg.nt}")
+
+    def member_losses(w):
+        return torch.mean(w ** 2, (-2, -1))
+
+    def ensemble_grad():
+        r = torch.tensor(GRAD_ENSEMBLE_RE, dtype=f64, device=dev,
+                         requires_grad=True)
+        out = ensemble.vortex_fdm_re_sweep(vcfg, r, f64, dev)
+        (g,) = torch.autograd.grad(member_losses(out.w).sum(), r)
+        return g
+
+    def twin_grad():
+        """The same through the plain RHS, each step recomputed in the
+        backward (torch.utils.checkpoint): its autograd would hold ~56 GB
+        of the plain Jacobian's intermediates over 10 steps."""
+        r = torch.tensor(GRAD_ENSEMBLE_RE, dtype=f64, device=dev,
+                         requires_grad=True)
+        step, w = ensemble.make_sweep_step(
+            dataclasses.replace(vcfg, rhs_impl="torch"), r, f64, dev)
+        for _ in range(GRAD_VORTEX_STEPS):
+            w = checkpoint(step, w, use_reentrant=False)
+        (g,) = torch.autograd.grad(member_losses(w).sum(), r)
+        return g
+
+    cuda_kernels.reset_launch_counts()
+    g_k, peak_k = peak_gb(ensemble_grad)
+    e_launches = dict(cuda_kernels.LAUNCHES)
+    cuda_kernels.reset_launch_counts()
+    g_t, peak_t = peak_gb(twin_grad)
+    twin_quiet = not any(cuda_kernels.LAUNCHES.values())
+    k = GRAD_ENSEMBLE_RE.index(1000.0)
+    h = 1.0
+    with torch.no_grad():
+        losses = []
+        for sign in (1, -1):
+            res = list(GRAD_ENSEMBLE_RE)
+            res[k] += sign * h
+            losses.append(float(member_losses(ensemble.vortex_fdm_re_sweep(
+                vcfg, res, f64, dev).w)[k]))
+        w_k = ensemble.vortex_fdm_re_sweep(vcfg, GRAD_ENSEMBLE_RE, f64,
+                                           dev).w
+        w_t = ensemble.vortex_fdm_re_sweep(
+            dataclasses.replace(vcfg, rhs_impl="torch"), GRAD_ENSEMBLE_RE,
+            f64, dev).w
+        w_diff = float((w_k - w_t).abs().max())
+        del w_k, w_t
+    fd = (losses[0] - losses[1]) / (2 * h)
+    rel_twin = float(((g_k - g_t).abs() / g_t.abs()).max())
+    rel_fd = abs(float(g_k[k]) - fd) / abs(fd)
+    values = [float(x) for x in g_k]
+    n_fwd = e_launches["arakawa_rhs"]
+    ok = (rel_twin <= 1e-9 and rel_fd <= 1e-4 and twin_quiet
+          and len(set(values)) == len(values)
+          and all(math.isfinite(x) for x in values)
+          and n_fwd == 3 * GRAD_VORTEX_STEPS
+          and e_launches["arakawa_rhs_backward"] == n_fwd)
+    line = (f"phase 16 gradient (b) fdm ensemble {len(GRAD_ENSEMBLE_RE)} x "
+            f"{VORTEX_NX}^2 fp64 (re={list(GRAD_ENSEMBLE_RE)}, "
+            f"{GRAD_VORTEX_STEPS} steps, dt=1e-3): d mean(w_b^2)/d re_b = "
+            f"{values} in one backward pass (distinct: "
+            f"{len(set(values)) == len(values)}); plain RHS's autograd "
+            f"(each step recomputed under torch.utils.checkpoint) "
+            f"{[float(x) for x in g_t]}, rel {rel_twin:.2e} (tol 1e-9; "
+            f"{'no' if twin_quiet else 'SOME'} kernel launches; the "
+            f"forward runs' max|w_kernel - w_plain| {w_diff:.3e}); central FD of the Re=1000 member h={h:g} "
+            f"{fd!r} (rel {rel_fd:.2e}, tol 1e-4); launches {n_fwd} "
+            f"arakawa_rhs, {e_launches['arakawa_rhs_backward']} "
+            f"arakawa_rhs_backward (want {3 * GRAD_VORTEX_STEPS} each); "
+            f"peak device memory {peak_k:.2f} GB kernel, {peak_t:.2f} GB "
+            f"plain {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+    # (c) ps23, w.r.t. the initial field
+    pcfg = vortex.VortexConfig(nx=VORTEX_NX, ny=VORTEX_NX, solver="ps23",
+                               dt=1e-3, re=1000.0)
+    pstep = vortex.make_spectral_step_half(pcfg, f64, dev)
+
+    def ps23_loss(w0):
+        hf = loop.advance(pstep, vortex.half_init(w0), GRAD_VORTEX_STEPS,
+                          graph=False)
+        return torch.sum(vortex.half_decode(hf, pcfg.nx, pcfg.ny) ** 2)
+
+    w0 = vortex.initial_vorticity(pcfg, f64, dev)
+    v = torch.as_tensor(np.random.default_rng(11).standard_normal(
+        w0.shape), dtype=f64, device=dev)
+
+    def ps23_grad():
+        x = w0.clone().requires_grad_()
+        (g,) = torch.autograd.grad(ps23_loss(x), x)
+        return float(torch.sum(g * v))
+
+    directional, peak_p = peak_gb(ps23_grad)
+    h = 1e-6
+    with torch.no_grad():
+        fd = (float(ps23_loss(w0 + h * v)) - float(ps23_loss(w0 - h * v))) \
+            / (2 * h)
+    rel_fd = abs(directional - fd) / abs(fd)
+    ok = rel_fd <= 1e-6 and math.isfinite(directional)
+    line = (f"phase 16 gradient (c) ps23 {VORTEX_NX}^2 fp64 "
+            f"({GRAD_VORTEX_STEPS} steps, dt=1e-3, Re=1000, graph=False): "
+            f"directional derivative of sum(w^2) w.r.t. the initial field "
+            f"along a seeded normal field {directional!r}, central FD "
+            f"h={h:g} {fd!r} (rel {rel_fd:.2e}, tol 1e-6); peak device "
+            f"memory {peak_p:.2f} GB {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+    return {"cavity": launches, "ensemble": e_launches}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2502,6 +2965,7 @@ def main(argv=None):
     phase_card()
     phase_build()
     record = phase_kernels()
+    batched_records = phase_arakawa_batched()
     mg_records = phase_mg_kernels()
     euler_record = phase_euler_kernels()
     stage_record = phase_stage_kernel()
@@ -2541,6 +3005,7 @@ def main(argv=None):
     phase_cli_euler()
     del e_step, e_state
     fdm_launches, v_steps, w_ps23 = phase_vortex()
+    fdm_step_s = v_steps["fdm"][2]
     if args.profile:
         for solver in ("ps23", "fdm"):
             v_step, v_state, v_step_s = v_steps[solver]
@@ -2564,12 +3029,27 @@ def main(argv=None):
     phase_checkpoint(cavity_ref, w_ps23, fused_ref)
     del fused_ref
     phase_1d()
+    ensemble_launches = phase_ensemble(fdm_step_s)
+    grad_launches = phase_gradients()
 
     record["launches"] = launches[record["name"]]
     record["path"] = f"cavity {NX}^2, {STEPS_TOTAL} steps"
     record["at_2048"]["launches"] = fdm_launches["arakawa_rhs"]
     record["at_2048"]["path"] = (f"vortex fdm {VORTEX_NX}^2, {VORTEX_TOTAL} "
                                  f"steps")
+    record["batched"] = batched_records["batched"]
+    record["batched"]["launches"] = ensemble_launches["arakawa_rhs"]
+    record["batched"]["path"] = (f"ensemble fdm {len(ENSEMBLE_RE)} x "
+                                 f"{VORTEX_NX}^2, {VORTEX_TOTAL} steps")
+    backward = batched_records["backward"]
+    backward["launches"] = grad_launches["cavity"]["arakawa_rhs_backward"]
+    backward["path"] = (f"cavity {NX}^2 fp64 gradient, {GRAD_CAVITY_STEPS} "
+                        f"steps")
+    backward["at_batch"]["launches"] = \
+        grad_launches["ensemble"]["arakawa_rhs_backward"]
+    backward["at_batch"]["path"] = (
+        f"fdm ensemble {len(GRAD_ENSEMBLE_RE)} x {VORTEX_NX}^2 fp64 "
+        f"gradient, {GRAD_VORTEX_STEPS} steps")
     for name, rec in mg_records.items():
         variant = "fmg" if name == "residual_restrict" else "fused"
         rec["launches"] = mg_counts[variant][name]
@@ -2582,7 +3062,7 @@ def main(argv=None):
     for rec in (tier_record, split_record):
         rec["launches"] = tier_launches[rec["name"]]
         rec["path"] = f"fused_bf16x3 cavity {NX}^2, {STEPS_TOTAL} steps"
-    print(json.dumps({"kernels": [record, *mg_records.values(),
+    print(json.dumps({"kernels": [record, backward, *mg_records.values(),
                                   euler_record, stage_record,
                                   tier_record, split_record]}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,9 @@ trees in order and then in reverse (a, b, b, a for two trees and two
 rounds):
   - arakawa_rhs at 1025^2 fp32, with the fields warm in L2 (as in the
     cavity step) and with L2 flushed (a 128 MB write before each call);
+    batched at chip_smoke's (8, 2048, 2048) with one device Re a member,
+    and its backward kernel (with the Re gradient) at 1025^2 and at the
+    batch, for the trees that have them;
   - euler_rhs at (3, 8192) fp32 on the Sod state after 100 steps, for
     hllc, roe, rusanov/roe and rusanov/spectral;
   - the two multigrid level edges at 4097^2 fp32, 2 sweeps, for the trees
@@ -226,6 +229,27 @@ def cases(dev):
             lambda: ck.arakawa_rhs_fused(w, s, dx, dx, cs.RE),
             lambda: ck.arakawa_rhs_fused_plain(w, s, dx, dx, cs.RE),
             before, "arakawa_rhs_f32")
+    g = torch.as_tensor(rng.standard_normal((n, n)), dtype=torch.float32,
+                        device=dev)
+    re = torch.tensor(cs.RE, dtype=torch.float32, device=dev)
+    out["arakawa_rhs_backward 1025^2 fp32"] = (
+        lambda: ck.arakawa_rhs_backward(w, s, g, dx, dx, re),
+        lambda: ck.arakawa_rhs_backward_plain(w, s, g, dx, dx, re),
+        None, "arakawa_rhs_backward_f32")
+    shape = cs.ARAKAWA_BATCHED[0]
+    arrays, dxb, dyb = cs.arakawa_inputs(shape, 3, sum(shape))
+    wb, sb, gb = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                  for a in arrays)
+    reb = cs.arakawa_re(shape, torch.float32, dev)
+    tag = "x".join(map(str, shape))
+    out[f"arakawa_rhs batched {tag} fp32"] = (
+        lambda: ck.arakawa_rhs_fused(wb, sb, dxb, dyb, reb),
+        lambda: ck.arakawa_rhs_fused_plain(wb, sb, dxb, dyb, reb),
+        None, "arakawa_rhs_batched_f32")
+    out[f"arakawa_rhs_backward batched {tag} fp32"] = (
+        lambda: ck.arakawa_rhs_backward(wb, sb, gb, dxb, dyb, reb),
+        lambda: ck.arakawa_rhs_backward_plain(wb, sb, gb, dxb, dyb, reb),
+        None, "arakawa_rhs_backward_f32")
     nx = 8192
     q = cs.euler_sod_100(nx).float().contiguous()
     for solver, ws in cs.EULER_VARIANTS:

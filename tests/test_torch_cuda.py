@@ -134,6 +134,212 @@ def test_fdm_kernel_step_matches_twin_step(cuda_device, nx, ny):
     _assert_rel(got, ref, 1e-12)
 
 
+# batched Arakawa shapes: ragged (the last block part-filled on both axes,
+# one column), a periodic vortex field, and the ensemble's 2048^2 batch
+ARAKAWA_BATCHED = [(2, 3, 1), (3, 17, 33), (4, 130, 256), (8, 2048, 2048)]
+ARAKAWA_BACKWARD = [(1025, 1025), (2048, 2048), (3, 1), (3, 2),
+                    *ARAKAWA_BATCHED]
+
+
+def _members_re(batch, dtype, device):
+    """batch distinct Reynolds numbers, 600 .. 10000 as the ensemble's."""
+    return torch.linspace(600.0, 10000.0, batch, dtype=dtype, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", ARAKAWA_BATCHED)
+def test_arakawa_batched_kernel_matches_plain(cuda_device, shape, dtype):
+    """One launch for a batch with one device Re a member, against the
+    batched twin; two calls bitwise equal; each member bitwise the 2-D
+    call with its Re as a host float; a batch of one with a 0-d tensor Re
+    bitwise the float call; the batch with one host Re.  The tolerance is
+    REL of the larger of max|twin| and the Jacobian term's size, gg
+    max|w| max|s|: with one column the Jacobian is 0 and both sides carry
+    its roundoff, which at Re = 10000 outweighs the viscous term."""
+    w, s = _fields(shape, seed=7)
+    dx, dy = _spacing(shape[1:])
+    wt, st = (interop.field_from_numpy(a, dtype, cuda_device) for a in (w, s))
+    re = _members_re(shape[0], dtype, cuda_device)
+    before = cuda_kernels.LAUNCHES["arakawa_rhs"]
+    got = cuda_kernels.arakawa_rhs_fused(wt, st, dx, dy, re)
+    again = cuda_kernels.arakawa_rhs_fused(wt, st, dx, dy, re)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["arakawa_rhs"] == before + 2
+    assert torch.equal(got, again)
+    jac = float(wt.abs().max() * st.abs().max()) / (4 * dx * dy)
+
+    def check(out, ref):
+        err = float((out - ref).abs().max())
+        assert err <= REL[dtype] * max(float(ref.abs().max()), jac), err
+
+    check(got, cuda_kernels.arakawa_rhs_fused_plain(wt, st, dx, dy, re))
+    for k in (0, shape[0] - 1):
+        one = cuda_kernels.arakawa_rhs_fused(wt[k], st[k], dx, dy,
+                                             float(re[k]))
+        assert torch.equal(got[k], one)
+        assert torch.equal(cuda_kernels.arakawa_rhs_fused(
+            wt[k], st[k], dx, dy, re[k]), one)
+    # one host Re for the whole batch
+    host = cuda_kernels.arakawa_rhs_fused(wt, st, dx, dy, float(re[-1]))
+    check(host, cuda_kernels.arakawa_rhs_fused_plain(wt, st, dx, dy,
+                                                     float(re[-1])))
+    assert torch.equal(host[-1], got[-1])
+
+
+def _backward_scales(w, s, g, dx, dy):
+    """The size of each backward output's Jacobian term, gg max|a| max|b|
+    (with one column the Jacobian is zero, and both sides roundoff)."""
+    gg = 1.0 / (4 * dx * dy)
+    amax = [float(t.abs().max()) for t in (w, s, g)]
+    return gg * amax[1] * amax[2], gg * amax[2] * amax[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", ARAKAWA_BACKWARD)
+def test_arakawa_backward_kernel_matches_plain(cuda_device, shape, dtype):
+    """gw, gs within REL of each output's scale (its largest value or its
+    Jacobian term's size) of arakawa_rhs_backward_plain; gre (a member's
+    -sum g lap(w) / re^2) within 1e-10 relative in fp64 and, in fp32, 1e-5
+    of the sum of |g lap(w)| / re^2; two calls bitwise equal (no atomics),
+    one counted launch a call."""
+    w, s, g = _fields(shape, seed=8, n=3)
+    dx, dy = _spacing(shape[-2:])
+    wt, st, gt = (interop.field_from_numpy(a, dtype, cuda_device)
+                  for a in (w, s, g))
+    re = (_members_re(shape[0], dtype, cuda_device) if len(shape) == 3
+          else torch.tensor(100.0, dtype=dtype, device=cuda_device))
+    before = cuda_kernels.LAUNCHES["arakawa_rhs_backward"]
+    got = cuda_kernels.arakawa_rhs_backward(wt, st, gt, dx, dy, re)
+    again = cuda_kernels.arakawa_rhs_backward(wt, st, gt, dx, dy, re)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["arakawa_rhs_backward"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = cuda_kernels.arakawa_rhs_backward_plain(wt, st, gt, dx, dy, re)
+    for mine, want, jac in zip(got[:2], ref[:2],
+                               _backward_scales(wt, st, gt, dx, dy)):
+        err = float((mine - want).abs().max())
+        assert err <= REL[dtype] * max(float(want.abs().max()), jac), err
+    assert got[2].shape == shape[:-2]
+    lap = cuda_kernels.arakawa.laplacian(wt.double(), dx, dy)
+    mass = (gt.double() * lap).abs().sum((-2, -1)) / re.double() ** 2
+    err = (got[2].double() - ref[2].double()).abs()
+    if dtype == torch.float64:
+        assert bool((err <= 1e-10 * ref[2].abs()).all()), (err, ref[2])
+    else:
+        assert bool((err <= 1e-5 * mass).all()), (err, mass)
+    gw_only = cuda_kernels.arakawa_rhs_backward(wt, st, gt, dx, dy, re,
+                                                re_grad=False)
+    assert gw_only[2] is None and torch.equal(gw_only[0], got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("re_kind", ["members", "0-d", "float"])
+def test_arakawa_autograd_function_gradcheck(cuda_device, re_kind):
+    """torch.autograd.gradcheck of the kernel pair (forward kernel, backward
+    kernel) in fp64 at (2, 9, 6) against finite differences of the forward
+    kernel, in w, s and a tensor re; each backward call is one counted
+    backward launch, and no twin runs."""
+    w, s = _fields((2, 9, 6), seed=9)
+    wt, st = (torch.tensor(a, dtype=torch.float64, device=cuda_device,
+                           requires_grad=True) for a in (w, s))
+    re = {"members": torch.tensor([80.0, 120.0], dtype=torch.float64,
+                                  device=cuda_device, requires_grad=True),
+          "0-d": torch.tensor(90.0, dtype=torch.float64, device=cuda_device,
+                              requires_grad=True),
+          "float": 90.0}[re_kind]
+    inputs = (wt, st) + ((re,) if torch.is_tensor(re) else ())
+
+    def fn(*args):
+        r = args[2] if len(args) == 3 else re
+        return cuda_kernels.arakawa_rhs_fused(args[0], args[1], 0.4, 0.3, r)
+
+    before = cuda_kernels.LAUNCHES["arakawa_rhs_backward"]
+    assert torch.autograd.gradcheck(fn, inputs, eps=1e-6, atol=1e-8)
+    assert cuda_kernels.LAUNCHES["arakawa_rhs_backward"] > before
+
+
+@pytest.mark.cuda
+def test_cavity_grad_kernel_matches_twin(cuda_device):
+    """d (1e6 mean psi^2) / d Re through 10 eager fp64 cavity steps (32^2):
+    the kernel RHS with its backward kernel against the twin's autograd,
+    rel 1e-10, with as many backward launches as forward ones."""
+    cfg = cavity.CavityConfig(nx=32, ny=32, dt=1e-3, poisson="matmul")
+
+    def grad(rhs_impl):
+        c = dataclasses.replace(cfg, rhs_impl=rhs_impl)
+        re = torch.tensor(100.0, dtype=torch.float64, device=cuda_device,
+                          requires_grad=True)
+        step = cavity.make_step_fn(c, torch.float64, cuda_device, re=re)
+        final = loop.advance(step, cavity.initial_state(c, torch.float64,
+                                                        cuda_device), 10,
+                             graph=False)
+        (g,) = torch.autograd.grad(1e6 * torch.mean(final[1] ** 2), re)
+        return float(g)
+
+    ref = grad("torch")
+    cuda_kernels.reset_launch_counts()
+    got = grad("kernel")
+    assert cuda_kernels.LAUNCHES["arakawa_rhs"] == 30
+    assert cuda_kernels.LAUNCHES["arakawa_rhs_backward"] == 30
+    assert abs(got - ref) <= 1e-10 * abs(ref), (got, ref)
+
+
+@pytest.mark.cuda
+def test_graphed_loop_refuses_grad_on_cuda(cuda_device):
+    """A step that closes over an Re tensor which requires grad: the
+    graphed loop raises under grad mode, naming graph=False, before any
+    capture; under torch.no_grad() it captures and equals the eager run
+    bitwise; back under grad mode it raises again (never a replay of the
+    no-grad graph)."""
+    cfg = cavity.CavityConfig(nx=16, ny=16, dt=1e-3)
+    re = torch.tensor(100.0, dtype=torch.float64, device=cuda_device,
+                      requires_grad=True)
+    step = cavity.make_step_fn(cfg, torch.float64, cuda_device, re=re)
+    state = cavity.initial_state(cfg, torch.float64, cuda_device)
+    with pytest.raises(ValueError, match="graph=False"):
+        loop.advance(step, state, 5)
+    with torch.no_grad():
+        graphed = loop.advance(step, state, 5)
+        eager = loop.advance(step, state, 5, graph=False)
+    assert all(torch.equal(a, b) for a, b in zip(graphed, eager))
+    with pytest.raises(ValueError, match="graph=False"):
+        loop.advance(step, state, 5)
+    grad_state = (state[0].clone().requires_grad_(), *state[1:])
+    with pytest.raises(ValueError, match="graph=False"):
+        loop.advance(cavity.make_step_fn(cfg, torch.float64, cuda_device),
+                     grad_state, 5)
+
+
+@pytest.mark.cuda
+def test_ensemble_graphed_equals_eager_and_members(cuda_device):
+    """The fdm sweep at 64^2 with 3 members, graphed and eager: bitwise
+    equal, 3 batched launches a step; each member within 1e-12 of its
+    single fp64 run."""
+    from cfd_julia_torch.models import ensemble
+
+    cfg = vortex.VortexConfig(nx=64, ny=64, solver="fdm", dt=1e-3,
+                              t_final=0.06)
+    res = [600.0, 1000.0, 5000.0]
+    cuda_kernels.reset_launch_counts()
+    graphed = ensemble.vortex_fdm_re_sweep(cfg, res, torch.float64,
+                                           cuda_device)
+    n_graph = cuda_kernels.LAUNCHES["arakawa_rhs"]
+    eager = ensemble.vortex_fdm_re_sweep(cfg, res, torch.float64,
+                                         cuda_device, graph=False)
+    assert n_graph == 3 * cfg.nt
+    assert cuda_kernels.LAUNCHES["arakawa_rhs"] == 6 * cfg.nt
+    assert torch.equal(graphed.w, eager.w)
+    for k, r in enumerate(res):
+        single = loop.advance(
+            vortex.make_step(dataclasses.replace(cfg, re=r), torch.float64,
+                             cuda_device),
+            vortex.initial_vorticity(cfg, torch.float64, cuda_device),
+            cfg.nt)
+        _assert_rel(graphed.w[k], single, 1e-12)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("solver", ["ps23", "ps32", "hybrid"])
 def test_spectral_step_on_gpu_matches_cpu(cuda_device, solver):

@@ -12,6 +12,10 @@ JAX package's Pallas kernels in interpret mode:
   j, j+1 of each field) around its ROWS output rows, with the periodic
   wrap of rows and columns resolved at the load, rows past the array's
   end read as row 0, and only rows inside the array stored;
+- the Arakawa RHS's backward (its adjoint in w, s and each member's Re):
+  walkers of BACK_ROWS rows over a window of three fields, and the Re
+  gradient's partial sums, a block's written to its own slot and a
+  member's slots added by a one-block second launch;
 - the Euler RHS: blocks of CELLS cells that stage cells c0-3 .. c0+CELLS+2
   through the mirror map (clamped past the last block's ghosts), compute
   the CELLS+1 interfaces of the tile from the staged cells (the spectral
@@ -53,6 +57,8 @@ def _constant(source, name):
 BLOCK_X = _constant("arakawa_rhs.cu", "kBlockX")
 BLOCK_Y = _constant("arakawa_rhs.cu", "kBlockY")
 ROWS = _constant("arakawa_rhs.cu", "kRows")
+BACK_ROWS = _constant("arakawa_rhs.cu", "kBackRows")
+SUM_THREADS = _constant("arakawa_rhs.cu", "kSumThreads")
 CELLS = _constant("euler_rhs.cu", "kCells")
 GHOST = _constant("euler_rhs.cu", "kGhost")
 
@@ -130,7 +136,9 @@ def _arakawa_fields(shape, seed):
 def test_constants_read_from_the_source():
     """The block sizes the emulations use: a warp's columns, and each
     phase's tasks of one kind fit in half an Euler block."""
-    assert BLOCK_X == 32 and BLOCK_Y >= 1 and ROWS >= 1
+    assert BLOCK_X == 32 and BLOCK_Y >= 1 and ROWS >= 1 and BACK_ROWS >= 1
+    # the Re gradient's second launch halves its sums down to one
+    assert SUM_THREADS & (SUM_THREADS - 1) == 0
     threads = _constant("euler_rhs.cu", "kThreads")
     assert GHOST == 3 and threads % 64 == 0
     assert 3 * (CELLS + 1) <= threads // 2 and CELLS + 2 <= threads // 2
@@ -163,6 +171,141 @@ def test_arakawa_missing_wrap_is_caught():
     err = (got - ref).abs().amax(dim=1)
     assert err[0] > 1e-6 * float(ref.abs().max())
     assert float(err[1:].max()) <= 1e-12 * float(ref.abs().max())
+
+
+# ------------------------------------------------- the Arakawa backward
+
+def _jac(a, b, gg):
+    """J(a, b) of two neighbourhoods (c, E, W, N, S, NE, SW, NW, SE), in
+    the kernel's order."""
+    _, aE, aW, aN, aS, aNE, aSW, aNW, aSE = a
+    _, bE, bW, bN, bS, bNE, bSW, bNW, bSE = b
+    j1 = (aE - aW) * (bN - bS) - (aN - aS) * (bE - bW)
+    j2 = aE * (bNE - bSE) - aW * (bNW - bSW) - aN * (bNE - bNW) + \
+        aS * (bSE - bSW)
+    j3 = aNE * (bN - bE) - aSW * (bW - bS) - aNW * (bN - bW) + \
+        aSE * (bE - bS)
+    return gg * (j1 + j2 + j3) / 3.0
+
+
+def _lap(a, dx, dy):
+    c, E, W, N, S = a[:5]
+    return (E - 2.0 * c + W) / (dx * dx) + (N - 2.0 * c + S) / (dy * dy)
+
+
+def _warp_sum(v):
+    """Lane 0's value after __shfl_down_sync steps 16, 8, 4, 2, 1 (a lane
+    past the warp keeps its own value)."""
+    v = v.clone()
+    for d in (16, 8, 4, 2, 1):
+        v = v + torch.cat([v[d:], v[32 - d:]])
+    return v[0]
+
+
+def emulate_arakawa_backward(w, s, g, dx, dy, re, partial_slot=None):
+    """arakawa_rhs_backward as csrc/arakawa_rhs.cu computes it on (B, nr,
+    nc) fields with one Re a member: walkers of BACK_ROWS rows with a
+    window of w, s, g (rows wrapped as the forward's), each thread's fp64
+    sum of g lap(w) over its stored rows, a block's sum by warp shuffles
+    and then the warps in order into partials[(b gy + by) gx + bx], and
+    the second launch's SUM_THREADS strided sums and tree per member.
+    partial_slot(b, by, bx, gy, gx) overrides the slot (a wrong kernel)."""
+    batch, nr, nc = w.shape
+    gg = 1.0 / (4.0 * dx * dy)
+    gw, gs = torch.full_like(w, float("nan")), torch.full_like(w, float("nan"))
+    gx = -(-nc // BLOCK_X)
+    gy = -(-(-(-nr // BACK_ROWS)) // BLOCK_Y)
+    partials = torch.zeros(batch * gy * gx, dtype=torch.float64)
+    slot = partial_slot or (lambda b, by, bx, gy, gx: (b * gy + by) * gx + bx)
+    for b in range(batch):
+        f = (w[b], s[b], g[b])
+        for bx in range(gx):
+            jj = torch.arange(bx * BLOCK_X, (bx + 1) * BLOCK_X)
+            lanes = jj < nc
+            j = jj[lanes]
+            cols = (torch.where(j == 0, nc - 1, j - 1), j,
+                    torch.where(j + 1 == nc, 0, j + 1))
+            for by in range(gy):
+                acc = torch.zeros(BLOCK_Y, BLOCK_X, dtype=torch.float64)
+                for ty in range(BLOCK_Y):
+                    i0 = (by * BLOCK_Y + ty) * BACK_ROWS
+                    if i0 >= nr:
+                        continue
+                    rows = []
+                    for q in range(i0 - 1, i0 + BACK_ROWS + 1):
+                        i = nr - 1 if q < 0 else (0 if q >= nr else q)
+                        rows.append([[x[i, c] for c in cols] for x in f])
+                    for r in range(BACK_ROWS):
+                        W, C, E = rows[r], rows[r + 1], rows[r + 2]
+                        # (c, E, W, N, S, NE, SW, NW, SE) of field k
+                        n = [(C[k][1], E[k][1], W[k][1], C[k][2], C[k][0],
+                              E[k][2], W[k][0], W[k][2], E[k][0])
+                             for k in range(3)]
+                        if i0 + r < nr:
+                            gw[b, i0 + r, j] = -_jac(n[1], n[2], gg) + \
+                                _lap(n[2], dx, dy) / re[b]
+                            gs[b, i0 + r, j] = -_jac(n[2], n[0], gg)
+                            acc[ty, lanes] += (n[2][0] * _lap(n[0], dx, dy)
+                                               ).double()
+                total = 0.0
+                for ty in range(BLOCK_Y):
+                    total = total + _warp_sum(acc[ty])
+                partials[slot(b, by, bx, gy, gx)] = total
+    gre = torch.empty(batch, dtype=w.dtype)
+    n = gy * gx
+    for b in range(batch):
+        p = partials[b * n:(b + 1) * n]
+        sums = torch.zeros(SUM_THREADS, dtype=torch.float64)
+        for k in range(0, n, SUM_THREADS):
+            part = p[k:k + SUM_THREADS]
+            sums[:part.shape[0]] += part
+        half = SUM_THREADS // 2
+        while half:
+            sums[:half] += sums[half:2 * half]
+            half //= 2
+        gre[b] = -sums[0] / (float(re[b]) * float(re[b]))
+    return gw, gs, gre
+
+
+# a batch of ragged members, and one member on several blocks both ways
+BACKWARD_SHAPES = [(2, 3, 1), (3, 17, 33), (1, 37, 53),
+                   (2, 2 * BLOCK_Y * BACK_ROWS + 7, 2 * BLOCK_X + 6)]
+
+
+def _backward_fields(shape, seed):
+    rng = np.random.default_rng(seed)
+    w, s, g = (torch.as_tensor(rng.standard_normal(shape)) for _ in range(3))
+    re = torch.as_tensor(rng.uniform(50.0, 5000.0, shape[0]))
+    return w, s, g, 1.0 / (shape[1] - 1), 1.0 / max(shape[2] - 1, 1), re
+
+
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES)
+def test_arakawa_backward_walk_matches_plain(shape):
+    """The backward's walk against arakawa_rhs_backward_plain, fp64: the
+    fields within 1e-12 of their scale (their largest value or their
+    Jacobian term's size), each member's d/dre within 1e-12 relative."""
+    w, s, g, dx, dy, re = _backward_fields(shape, seed=sum(shape))
+    got = emulate_arakawa_backward(w, s, g, dx, dy, re)
+    ref = cuda_kernels.arakawa_rhs_backward_plain(w, s, g, dx, dy, re)
+    gg = 1.0 / (4.0 * dx * dy)
+    jac = (gg * float(s.abs().max() * g.abs().max()),
+           gg * float(g.abs().max() * w.abs().max()))
+    for mine, want, term in zip(got[:2], ref[:2], jac):
+        scale = max(float(want.abs().max()), term)
+        assert float((mine - want).abs().max()) <= 1e-12 * scale
+    assert torch.allclose(got[2], ref[2], rtol=1e-12, atol=0.0)
+
+
+def test_arakawa_backward_wrong_slot_is_caught():
+    """Partial sums written to another member's slots move the Re
+    gradients off the plain version's, so the test above can see a wrong
+    slot index."""
+    w, s, g, dx, dy, re = _backward_fields((2, 17, 33), seed=7)
+    got = emulate_arakawa_backward(
+        w, s, g, dx, dy, re,
+        partial_slot=lambda b, by, bx, gy, gx: ((1 - b) * gy + by) * gx + bx)
+    ref = cuda_kernels.arakawa_rhs_backward_plain(w, s, g, dx, dy, re)
+    assert not torch.allclose(got[2], ref[2], rtol=1e-6)
 
 
 # --------------------------------------------------------------- Euler RHS
