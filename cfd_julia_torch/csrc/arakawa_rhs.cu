@@ -28,7 +28,7 @@
 // Numerics: the twin's expression in the twin's order (ops/arakawa.py).
 // The four divisions, by constants of the launch (3, dx^2, dy^2, re), are
 // div_rn.cuh's with reciprocals made on the host: each equals the IEEE
-// quotient, and the host-Re modes have no division slow path (nor any
+// quotient, and the 2-D host-Re call has no division slow path (nor any
 // call).  The reciprocals go in as scalar parameters and 3 as a literal
 // (passed as structs of divisor and reciprocal they cost 17 registers and
 // 2-5% of the time on the H100).  Folding the divisions into gg/3, 1/(dx^2 re) and
@@ -36,18 +36,18 @@
 // twin's by a few ulps; not taken.
 //
 // Batches: a (B, nr, nc) call is one launch, blockIdx.z the member, each
-// member's fields at a 64-bit offset.  Its Reynolds numbers may be one
-// host value or B values in device memory (an ensemble, or an Re that
-// carries a gradient); then each thread loads re[b] and takes its
-// correctly rounded reciprocal (rcp_rn, div_rn.cuh), which equals the
-// IEEE quotient 1/re the host takes, so a member's result is the
-// host-value call's bit for bit.  (rcp_rn keeps a CALL to its slow path,
-// for operands past the normal range, once a thread before the loads.)
-// One kernel template serves the three modes (Mode below); the 2-D
-// host-value mode's code is the one measured before batches existed (the
-// member offset is compiled out of it: with it, ptxas kept fewer loads in
-// flight, 48 registers against 61, and the 1025^2 fp32 call ran 7% slower
-// on the H100).
+// member's fields at a 64-bit offset, its Reynolds number read from device
+// memory (an ensemble, or an Re that carries a gradient; a caller with one
+// host value for the batch fills a (B,) tensor with it).  Each thread
+// loads re[b] and takes its correctly rounded reciprocal (rcp_rn,
+// div_rn.cuh), which equals the IEEE quotient 1/re the host takes, so a
+// member's result is the host-value call's bit for bit.  (rcp_rn keeps a
+// CALL to its slow path, for operands past the normal range, once a thread
+// before the loads.)  One kernel template serves both calls (kBatch
+// below); the 2-D host-value call's code is the one measured before
+// batches existed (the member offset is compiled out of it: with it,
+// ptxas kept fewer loads in flight, 48 registers against 61, and the
+// 1025^2 fp32 call ran 7% slower on the H100).
 //
 // Backward (the adjoint of the forward, for torch.autograd; the TPU
 // kernel has none, and the JAX package differentiates its XLA RHS
@@ -145,14 +145,9 @@ __device__ __forceinline__ void load_window(
   }
 }
 
-// what a launch's members and Reynolds numbers are
-enum Mode {
-  kSingle,    // one (nr, nc) field, the launch's re
-  kHostRe,    // blockIdx.z the member, the launch's re for every member
-  kDeviceRe,  // blockIdx.z the member, its re from re_dev[b], 1/re by rcp_rn
-};
-
-template <typename T, int kMode>
+// kBatch false: one (nr, nc) field and the launch's re and 1/re; true:
+// blockIdx.z the member, its re from re_dev[b], 1/re by rcp_rn
+template <typename T, bool kBatch>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 arakawa_rhs_kernel(const T* __restrict__ w, const T* __restrict__ s,
                    T* __restrict__ out, int nr, int nc, T gg, T dx2,
@@ -163,13 +158,11 @@ arakawa_rhs_kernel(const T* __restrict__ w, const T* __restrict__ s,
   if (j >= nc || i0 >= nr) return;
   const int jp = (j + 1 == nc) ? 0 : j + 1;
   const int jm = (j == 0) ? nc - 1 : j - 1;
-  if constexpr (kMode != kSingle) {
+  if constexpr (kBatch) {
     const long long member = static_cast<long long>(blockIdx.z) * nr * nc;
     w += member;
     s += member;
     out += member;
-  }
-  if constexpr (kMode == kDeviceRe) {
     re = re_dev[blockIdx.z];
     rre = rcp_rn(re);
   }
@@ -288,10 +281,12 @@ bool bad_shape(int batch, int nr, int nc) {
   return batch <= 0 || batch > 65535 || nr <= 0 || nc <= 0;
 }
 
+// re_dev null: the 2-D call (batch 1) with the host value re
 template <typename T>
 int launch(const T* w, const T* s, T* out, const T* re_dev, int batch,
            int nr, int nc, double dx, double dy, double re, void* stream) {
-  if (bad_shape(batch, nr, nc)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(batch, nr, nc) || (re_dev == nullptr && batch != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid = grid_of(nr, nc, kRows, batch);
   const T dx2 = static_cast<T>(dx * dx), dy2 = static_cast<T>(dy * dy);
@@ -300,14 +295,10 @@ int launch(const T* w, const T* s, T* out, const T* re_dev, int batch,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T r3 = T(1) / T(3), rdx2 = T(1) / dx2, rdy2 = T(1) / dy2;
   if (re_dev != nullptr)
-    arakawa_rhs_kernel<T, kDeviceRe><<<grid, block, 0, st>>>(
+    arakawa_rhs_kernel<T, true><<<grid, block, 0, st>>>(
         w, s, out, nr, nc, gg, dx2, dy2, T(0), r3, rdx2, rdy2, T(0), re_dev);
-  else if (batch > 1)
-    arakawa_rhs_kernel<T, kHostRe><<<grid, block, 0, st>>>(
-        w, s, out, nr, nc, gg, dx2, dy2, re_, r3, rdx2, rdy2, T(1) / re_,
-        nullptr);
   else
-    arakawa_rhs_kernel<T, kSingle><<<grid, block, 0, st>>>(
+    arakawa_rhs_kernel<T, false><<<grid, block, 0, st>>>(
         w, s, out, nr, nc, gg, dx2, dy2, re_, r3, rdx2, rdy2, T(1) / re_,
         nullptr);
   return static_cast<int>(cudaGetLastError());
@@ -352,20 +343,22 @@ extern "C" int arakawa_rhs_f64(const double* w, const double* s, double* out,
   return launch<double>(w, s, out, nullptr, 1, nr, nc, dx, dy, re, stream);
 }
 
-// (batch, nr, nc) fields; re_dev: batch Reynolds numbers in device memory,
-// or null for the host value re
+// (batch, nr, nc) fields; re_dev: the batch's Reynolds numbers in device
+// memory
 extern "C" int arakawa_rhs_batched_f32(const float* w, const float* s,
                                        float* out, const float* re_dev,
                                        int batch, int nr, int nc, double dx,
-                                       double dy, double re, void* stream) {
-  return launch<float>(w, s, out, re_dev, batch, nr, nc, dx, dy, re, stream);
+                                       double dy, void* stream) {
+  if (re_dev == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(w, s, out, re_dev, batch, nr, nc, dx, dy, 0.0, stream);
 }
 
 extern "C" int arakawa_rhs_batched_f64(const double* w, const double* s,
                                        double* out, const double* re_dev,
                                        int batch, int nr, int nc, double dx,
-                                       double dy, double re, void* stream) {
-  return launch<double>(w, s, out, re_dev, batch, nr, nc, dx, dy, re,
+                                       double dy, void* stream) {
+  if (re_dev == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<double>(w, s, out, re_dev, batch, nr, nc, dx, dy, 0.0,
                         stream);
 }
 

@@ -133,7 +133,8 @@ def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda", re=None):
     torch.autograd (run it eagerly: loop.advance(..., graph=False)); the
     kernel RHS differentiates through its backward kernel, the "matmul"
     and "fst*" solves through cuBLAS and cuFFT.  The bf16 tiers (kernel 8)
-    have no backward and raise for an re or a state that requires grad."""
+    have no backward: their product raises, at the first step, for an re or
+    a state that requires grad."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
     dx, dy, dt = cfg.dx, cfg.dy, cfg.dt
@@ -148,12 +149,6 @@ def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda", re=None):
             "routes it) or cavity_fused.make_fused_step_fn directly")
     if cfg.bc_order not in (1, 2):
         raise ValueError("bc_order must be 1 or 2")
-    if direct.tier_of(cfg.poisson) is not None and isinstance(
-            re, torch.Tensor) and re.requires_grad:
-        raise ValueError(
-            f"poisson={cfg.poisson!r} runs the bf16 tier GEMM, which has no "
-            "backward: an re that requires grad needs poisson='matmul', "
-            "'fst' or 'fst_half'")
 
     if rhs_impl == "kernel":
         def rhs_interior(w, s):

@@ -32,9 +32,8 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DBL = ctypes.c_double
 _ARAKAWA_ARGS = [_PTR, _PTR, _PTR, _INT, _INT, _DBL, _DBL, _DBL, _PTR]
-# w, s, out, re (device, or null for the host re), batch, nr, nc, dx, dy,
-# re, stream
-_ARAKAWA_BATCHED_ARGS = [_PTR] * 4 + [_INT] * 3 + [_DBL] * 3 + [_PTR]
+# w, s, out, re (device, one a member), batch, nr, nc, dx, dy, stream
+_ARAKAWA_BATCHED_ARGS = [_PTR] * 4 + [_INT] * 3 + [_DBL] * 2 + [_PTR]
 # w, s, g, re, gw, gs, partials, gre, batch, nr, nc, dx, dy, stream
 _ARAKAWA_BACKWARD_ARGS = [_PTR] * 8 + [_INT] * 3 + [_DBL] * 2 + [_PTR]
 # q, out, nx, gamma, dx, solver code, wavespeed code, stream

@@ -21,7 +21,9 @@ Kernels (csrc/ file; TPU function replaced):
   arakawa_rhs_backward            arakawa_rhs.cu; none (the JAX package
                                   differentiates its XLA RHS): the adjoint
                                   of arakawa_rhs_fused, its autograd
-                                  backward
+                                  backward; with the Re gradient also the
+                                  one-block sum of its partials, counted
+                                  under arakawa_re_grad
   redblack_sweeps_fused           multigrid.cu;   redblack_sweeps_fused
   smooth_residual_restrict_fused  multigrid.cu;   smooth_residual_restrict_fused
   residual_restrict_fused         multigrid.cu;   residual_restrict_fused
@@ -51,6 +53,7 @@ from cfd_julia_torch.ops import _cuda_build, arakawa, riemann, weno
 from cfd_julia_torch.poisson import iterative
 
 LAUNCHES = {"arakawa_rhs": 0, "arakawa_rhs_backward": 0,
+            "arakawa_re_grad": 0,
             "redblack_sweeps": 0,
             "smooth_residual_restrict": 0, "residual_restrict": 0,
             "prolong_correct_smooth": 0, "euler_rhs": 0,
@@ -152,25 +155,31 @@ def _member_re(re, w):
     return re.reshape(-1).contiguous()
 
 
+def _batch_re(re, w3):
+    """A (B,) device tensor of w3's dtype: re's members, or a float re
+    filled in (the kernels take a batch's Re from device memory)."""
+    if isinstance(re, torch.Tensor):
+        return re
+    return torch.full((w3.shape[0],), float(re), dtype=w3.dtype,
+                      device=w3.device)
+
+
 def _arakawa_launch(w, s, dx: float, dy: float, re):
-    """Kernel 1 on contiguous (B, nr, nc) CUDA fields: re a float (the
-    2-D entry for B = 1, else the batched one with a host Re) or a (B,)
-    device tensor (the batched entry, each member's Re read there)."""
+    """Kernel 1 on contiguous (B, nr, nc) CUDA fields: the 2-D entry for a
+    float re and B = 1, else the batched entry, each member's Re read from
+    device memory (re a (B,) tensor, or a float filled into one)."""
     batch, nr, nc = w.shape
     out = torch.empty_like(w)
     sfx = _SUFFIX[w.dtype]
-    if isinstance(re, torch.Tensor):
-        _launch("arakawa_rhs", f"arakawa_rhs_batched_{sfx}", w.device,
-                w.data_ptr(), s.data_ptr(), out.data_ptr(), re.data_ptr(),
-                batch, nr, nc, float(dx), float(dy), 0.0)
-    elif batch == 1:
+    if batch == 1 and not isinstance(re, torch.Tensor):
         _launch("arakawa_rhs", f"arakawa_rhs_{sfx}", w.device, w.data_ptr(),
                 s.data_ptr(), out.data_ptr(), nr, nc, float(dx), float(dy),
                 float(re))
     else:
         _launch("arakawa_rhs", f"arakawa_rhs_batched_{sfx}", w.device,
-                w.data_ptr(), s.data_ptr(), out.data_ptr(), None, batch, nr,
-                nc, float(dx), float(dy), float(re))
+                w.data_ptr(), s.data_ptr(), out.data_ptr(),
+                _batch_re(re, w).data_ptr(), batch, nr, nc, float(dx),
+                float(dy))
     return out
 
 
@@ -233,7 +242,8 @@ def arakawa_rhs_backward(w, s, g, dx: float, dy: float, re,
     shape w.shape[:-2]), or None with re_grad=False.  One launch of the
     backward kernel (csrc/arakawa_rhs.cu) and, for gre, a one-block
     launch that adds the blocks' partial sums in a fixed order: no
-    atomics, the same result every run.  re: a float or a tensor
+    atomics, the same result every run; the two launches count under
+    arakawa_rhs_backward and arakawa_re_grad.  re: a float or a tensor
     broadcast over the leading axes.  Matches
     arakawa_rhs_backward_plain."""
     _check_arakawa("arakawa_rhs_backward", w, s, re)
@@ -248,8 +258,8 @@ def arakawa_rhs_backward(w, s, g, dx: float, dy: float, re,
     nr, nc = shape[-2:]
     w3, s3, g3 = (t.reshape(-1, nr, nc) for t in (w, s, g))
     batch = w3.shape[0]
-    re_b = (_member_re(re, w) if isinstance(re, torch.Tensor) else
-            torch.full((batch,), float(re), dtype=w.dtype, device=w.device))
+    re_b = _batch_re(_member_re(re, w) if isinstance(re, torch.Tensor)
+                     else re, w3)
     gw, gs = torch.empty_like(w3), torch.empty_like(w3)
     partials = gre = None
     if re_grad:
@@ -261,6 +271,8 @@ def arakawa_rhs_backward(w, s, g, dx: float, dy: float, re,
             f"arakawa_rhs_backward_{_SUFFIX[w.dtype]}", w.device,
             *(t.data_ptr() for t in (w3, s3, g3, re_b, gw, gs)),
             _ptr(partials), _ptr(gre), batch, nr, nc, float(dx), float(dy))
+    if re_grad:   # the same C call's second launch, the partials' sum
+        LAUNCHES["arakawa_re_grad"] += 1
     return (gw.reshape(shape), gs.reshape(shape),
             None if gre is None else gre.reshape(shape[:-2]))
 
@@ -711,7 +723,9 @@ def _refuse_tier_grad(*tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise ValueError("the bf16 tier product (kernel 8, csrc/"
                          "tier_gemm.cu) has no backward; an operand "
-                         "requires grad")
+                         "requires grad (a gradient through a Poisson "
+                         "solve needs poisson='matmul', 'fst' or "
+                         "'fst_half')")
 
 
 def _bf16_split(a):

@@ -27,8 +27,13 @@ A graph replays launches and records no autograd graph, so the graphed
 runner refuses a state, or a step's output, that requires grad (a
 gradient through the run, or through an Re tensor the step closes over):
 it raises a ValueError naming graph=False, never capturing or silently
-detaching one.  The eager runner (graph=False, and every CPU run) is
-differentiable: torch.autograd follows its steps as they run.
+detaching one.  The state and the tensors the step closes over
+(`closed_over`) are checked at every run, the step's output once, at the
+warm-up before a step's first capture for a state layout and grad mode.
+So a tensor the step reaches otherwise (an object's attribute) that is
+set to require grad after that capture goes unseen, and the replays
+return a detached state.  The eager runner (graph=False, and every CPU
+run) is differentiable: torch.autograd follows its steps as they run.
 
 Graphs are kept per step function (weakly, as `jax.jit` keeps a program
 per static step function), so a second run of the same step replays the
@@ -42,6 +47,8 @@ compute nothing that is kept and are not counted either.
 """
 from __future__ import annotations
 
+import functools
+import types
 import weakref
 
 import torch
@@ -84,6 +91,33 @@ def refuse_grad(tensors, what: str) -> None:
             f"{what} requires grad, and a CUDA graph records no autograd "
             "graph: run with graph=False to differentiate through the steps "
             "(or under torch.no_grad() to replay graphs)")
+
+
+def closed_over(fn) -> tuple:
+    """The tensors fn reaches through its closure cells and defaults, and
+    through those of the functions and functools.partial objects found
+    there, in tuples and lists too (what a step built by a make_step
+    function closes over, such as a tensor Re)."""
+    found, todo, seen = [], [fn], set()
+    while todo:
+        v = todo.pop()
+        if id(v) in seen:
+            continue
+        seen.add(id(v))
+        if isinstance(v, torch.Tensor):
+            found.append(v)
+        elif isinstance(v, (tuple, list)):
+            todo.extend(v)
+        elif isinstance(v, functools.partial):
+            todo.extend((v.func, *v.args, *v.keywords.values()))
+        elif isinstance(v, types.FunctionType):
+            todo.extend(v.__defaults__ or ())
+            for cell in v.__closure__ or ():
+                try:
+                    todo.append(cell.cell_contents)
+                except ValueError:    # a cell not yet assigned
+                    pass
+    return tuple(found)
 
 
 def warm_up(fn, stream) -> None:
@@ -192,6 +226,7 @@ class _Graphed:
 
     def __init__(self, step_fn, state, history: bool):
         refuse_grad(state, "the state")
+        refuse_grad(closed_over(step_fn), "a tensor the step closes over")
         # grad mode is part of the key: a step that closes over an Re
         # tensor which requires grad gives an output that requires grad
         # under grad mode only, so a graph captured under torch.no_grad()

@@ -554,7 +554,8 @@ def phase_arakawa_batched():
             ref = ck.arakawa_rhs_fused_plain(w, s, dx, dy, re)
             one_t = ck.arakawa_rhs_fused(w[0], s[0], dx, dy, re[0])
             one_f = ck.arakawa_rhs_fused(w[0], s[0], dx, dy, float(re[0]))
-            # the batch with one host Re (re[0]) for every member
+            # the batch with a float re (re[0]) for every member, which
+            # the wrapper fills into a device tensor
             host = ck.arakawa_rhs_fused(w, s, dx, dy, float(re[0]))
             host_ref = ck.arakawa_rhs_fused_plain(w, s, dx, dy, float(re[0]))
             torch.cuda.synchronize()
@@ -2811,6 +2812,7 @@ def phase_gradients():
     ok = (rel_twin <= 1e-9 and rel_fd <= 1e-4 and twin_quiet
           and n_fwd == 3 * GRAD_CAVITY_STEPS
           and launches["arakawa_rhs_backward"] == n_fwd
+          and launches["arakawa_re_grad"] == n_fwd
           and math.isfinite(g_kernel) and g_kernel != 0.0)
     line = (f"phase 16 gradient (a) cavity {NX}^2 fp64 (dt=2e-5, Re={RE:g}, "
             f"{GRAD_CAVITY_STEPS} steps from rest, matmul, graph=False): "
@@ -2820,8 +2822,9 @@ def phase_gradients():
             f"1e-9; {'no' if twin_quiet else 'SOME'} kernel launches); "
             f"central FD h={h:g} {fd!r} (rel {rel_fd:.2e}, tol 1e-4); "
             f"launches {n_fwd} arakawa_rhs, "
-            f"{launches['arakawa_rhs_backward']} arakawa_rhs_backward "
-            f"(want {3 * GRAD_CAVITY_STEPS} each); peak device memory "
+            f"{launches['arakawa_rhs_backward']} arakawa_rhs_backward, "
+            f"{launches['arakawa_re_grad']} arakawa_re_grad (want "
+            f"{3 * GRAD_CAVITY_STEPS} each); peak device memory "
             f"{peak_k:.2f} GB kernel, {peak_t:.2f} GB plain "
             f"{'ok' if ok else 'FAIL'}")
     print(line)
@@ -2886,7 +2889,8 @@ def phase_gradients():
           and len(set(values)) == len(values)
           and all(math.isfinite(x) for x in values)
           and n_fwd == 3 * GRAD_VORTEX_STEPS
-          and e_launches["arakawa_rhs_backward"] == n_fwd)
+          and e_launches["arakawa_rhs_backward"] == n_fwd
+          and e_launches["arakawa_re_grad"] == n_fwd)
     line = (f"phase 16 gradient (b) fdm ensemble {len(GRAD_ENSEMBLE_RE)} x "
             f"{VORTEX_NX}^2 fp64 (re={list(GRAD_ENSEMBLE_RE)}, "
             f"{GRAD_VORTEX_STEPS} steps, dt=1e-3): d mean(w_b^2)/d re_b = "
@@ -2898,7 +2902,8 @@ def phase_gradients():
             f"forward runs' max|w_kernel - w_plain| {w_diff:.3e}); central FD of the Re=1000 member h={h:g} "
             f"{fd!r} (rel {rel_fd:.2e}, tol 1e-4); launches {n_fwd} "
             f"arakawa_rhs, {e_launches['arakawa_rhs_backward']} "
-            f"arakawa_rhs_backward (want {3 * GRAD_VORTEX_STEPS} each); "
+            f"arakawa_rhs_backward, {e_launches['arakawa_re_grad']} "
+            f"arakawa_re_grad (want {3 * GRAD_VORTEX_STEPS} each); "
             f"peak device memory {peak_k:.2f} GB kernel, {peak_t:.2f} GB "
             f"plain {'ok' if ok else 'FAIL'}")
     print(line)
@@ -3043,10 +3048,16 @@ def main(argv=None):
                                  f"{VORTEX_NX}^2, {VORTEX_TOTAL} steps")
     backward = batched_records["backward"]
     backward["launches"] = grad_launches["cavity"]["arakawa_rhs_backward"]
+    # a backward call that takes the Re gradient is two device launches:
+    # the backward kernel and the one-block sum of its partials (its time
+    # is inside "ms")
+    backward["re_grad_launches"] = grad_launches["cavity"]["arakawa_re_grad"]
     backward["path"] = (f"cavity {NX}^2 fp64 gradient, {GRAD_CAVITY_STEPS} "
                         f"steps")
     backward["at_batch"]["launches"] = \
         grad_launches["ensemble"]["arakawa_rhs_backward"]
+    backward["at_batch"]["re_grad_launches"] = \
+        grad_launches["ensemble"]["arakawa_re_grad"]
     backward["at_batch"]["path"] = (
         f"fdm ensemble {len(GRAD_ENSEMBLE_RE)} x {VORTEX_NX}^2 fp64 "
         f"gradient, {GRAD_VORTEX_STEPS} steps")

@@ -273,14 +273,32 @@ def test_graphed_loop_refuses_grad():
     assert final[1].requires_grad
 
 
+def test_graphed_loop_checks_closed_over_tensors_every_run():
+    """The tensors a step closes over, through nested closures, are
+    checked at every graphed run: an Re that comes to require grad after
+    the step was built (and could have been captured) is refused before
+    any device work, naming graph=False."""
+    cfg = cavity.CavityConfig(nx=8, ny=8, dt=1e-3)
+    state = cavity.initial_state(cfg, F64, "cpu")
+    re = torch.tensor(100.0, dtype=F64)
+    step = cavity.make_step_fn(cfg, F64, "cpu", re=re)
+    assert any(t is re for t in loop.closed_over(step))
+    re.requires_grad_()
+    with pytest.raises(ValueError, match="graph=False"):
+        loop._Graphed(step, state, history=False)
+    with torch.no_grad():
+        loop.refuse_grad(loop.closed_over(step), "a closed-over tensor")
+
+
 @pytest.mark.parametrize("poisson", ["matmul_bf16x3", "matmul_bf16x1"])
 def test_tiers_refuse_grad(poisson):
     cfg = cavity.CavityConfig(nx=8, ny=8, dt=1e-3, poisson=poisson)
     re = torch.tensor(100.0, requires_grad=True)
-    with pytest.raises(ValueError, match="no backward"):
-        cavity.make_step_fn(cfg, torch.float32, "cpu", re=re)
-    step = cavity.make_step_fn(cfg, torch.float32, "cpu")
     w, s, rms = cavity.initial_state(cfg, torch.float32, "cpu")
+    re_step = cavity.make_step_fn(cfg, torch.float32, "cpu", re=re)
+    with pytest.raises(ValueError, match="no backward"):
+        re_step((w, s, rms))
+    step = cavity.make_step_fn(cfg, torch.float32, "cpu")
     with pytest.raises(ValueError, match="no backward"):
         step((w.requires_grad_(), s, rms))
     with torch.no_grad():

@@ -153,7 +153,8 @@ def test_arakawa_batched_kernel_matches_plain(cuda_device, shape, dtype):
     """One launch for a batch with one device Re a member, against the
     batched twin; two calls bitwise equal; each member bitwise the 2-D
     call with its Re as a host float; a batch of one with a 0-d tensor Re
-    bitwise the float call; the batch with one host Re.  The tolerance is
+    bitwise the float call; the batch with one float Re (filled into a
+    device tensor: the same batched entry).  The tolerance is
     REL of the larger of max|twin| and the Jacobian term's size, gg
     max|w| max|s|: with one column the Jacobian is 0 and both sides carry
     its roundoff, which at Re = 10000 outweighs the viscous term."""
@@ -180,7 +181,7 @@ def test_arakawa_batched_kernel_matches_plain(cuda_device, shape, dtype):
         assert torch.equal(got[k], one)
         assert torch.equal(cuda_kernels.arakawa_rhs_fused(
             wt[k], st[k], dx, dy, re[k]), one)
-    # one host Re for the whole batch
+    # one float Re for the whole batch
     host = cuda_kernels.arakawa_rhs_fused(wt, st, dx, dy, float(re[-1]))
     check(host, cuda_kernels.arakawa_rhs_fused_plain(wt, st, dx, dy,
                                                      float(re[-1])))
@@ -203,18 +204,19 @@ def test_arakawa_backward_kernel_matches_plain(cuda_device, shape, dtype):
     Jacobian term's size) of arakawa_rhs_backward_plain; gre (a member's
     -sum g lap(w) / re^2) within 1e-10 relative in fp64 and, in fp32, 1e-5
     of the sum of |g lap(w)| / re^2; two calls bitwise equal (no atomics),
-    one counted launch a call."""
+    one counted launch a call, and one of the Re gradient's sum."""
     w, s, g = _fields(shape, seed=8, n=3)
     dx, dy = _spacing(shape[-2:])
     wt, st, gt = (interop.field_from_numpy(a, dtype, cuda_device)
                   for a in (w, s, g))
     re = (_members_re(shape[0], dtype, cuda_device) if len(shape) == 3
           else torch.tensor(100.0, dtype=dtype, device=cuda_device))
-    before = cuda_kernels.LAUNCHES["arakawa_rhs_backward"]
+    before = dict(cuda_kernels.LAUNCHES)
     got = cuda_kernels.arakawa_rhs_backward(wt, st, gt, dx, dy, re)
     again = cuda_kernels.arakawa_rhs_backward(wt, st, gt, dx, dy, re)
     torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES["arakawa_rhs_backward"] == before + 2
+    for name in ("arakawa_rhs_backward", "arakawa_re_grad"):
+        assert cuda_kernels.LAUNCHES[name] == before[name] + 2, name
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     ref = cuda_kernels.arakawa_rhs_backward_plain(wt, st, gt, dx, dy, re)
     for mine, want, jac in zip(got[:2], ref[:2],
@@ -232,6 +234,8 @@ def test_arakawa_backward_kernel_matches_plain(cuda_device, shape, dtype):
     gw_only = cuda_kernels.arakawa_rhs_backward(wt, st, gt, dx, dy, re,
                                                 re_grad=False)
     assert gw_only[2] is None and torch.equal(gw_only[0], got[0])
+    assert cuda_kernels.LAUNCHES["arakawa_re_grad"] == \
+        before["arakawa_re_grad"] + 2
 
 
 @pytest.mark.cuda
@@ -283,6 +287,7 @@ def test_cavity_grad_kernel_matches_twin(cuda_device):
     got = grad("kernel")
     assert cuda_kernels.LAUNCHES["arakawa_rhs"] == 30
     assert cuda_kernels.LAUNCHES["arakawa_rhs_backward"] == 30
+    assert cuda_kernels.LAUNCHES["arakawa_re_grad"] == 30
     assert abs(got - ref) <= 1e-10 * abs(ref), (got, ref)
 
 
@@ -292,7 +297,8 @@ def test_graphed_loop_refuses_grad_on_cuda(cuda_device):
     graphed loop raises under grad mode, naming graph=False, before any
     capture; under torch.no_grad() it captures and equals the eager run
     bitwise; back under grad mode it raises again (never a replay of the
-    no-grad graph)."""
+    no-grad graph), as it does for an Re set to require grad after its
+    step was captured under grad mode."""
     cfg = cavity.CavityConfig(nx=16, ny=16, dt=1e-3)
     re = torch.tensor(100.0, dtype=torch.float64, device=cuda_device,
                       requires_grad=True)
@@ -310,6 +316,14 @@ def test_graphed_loop_refuses_grad_on_cuda(cuda_device):
     with pytest.raises(ValueError, match="graph=False"):
         loop.advance(cavity.make_step_fn(cfg, torch.float64, cuda_device),
                      grad_state, 5)
+    # an Re that comes to require grad after its step's graphs were
+    # captured under grad mode: the cached graphs are not replayed
+    re2 = torch.tensor(100.0, dtype=torch.float64, device=cuda_device)
+    step2 = cavity.make_step_fn(cfg, torch.float64, cuda_device, re=re2)
+    loop.advance(step2, state, 5)
+    re2.requires_grad_()
+    with pytest.raises(ValueError, match="graph=False"):
+        loop.advance(step2, state, 5)
 
 
 @pytest.mark.cuda
