@@ -12,6 +12,9 @@ level-edge call is one `__global__` launch for up to K = 3 sweeps (plus
 the residual sum's one-block reduction), one more a further K sweeps; a
 smoother call is one launch for any sweeps on a level that fits one
 block's shared memory, else as a level edge's.  CPU calls count nothing.
+Under utils.debug.nan_guard each CUDA call also checks its outputs and
+raises FloatingPointError naming the kernel at a NaN; outside it that
+check is one flag test on the host and nothing on the device.
 
 Kernels (csrc/ file; TPU function replaced):
   arakawa_rhs_fused               arakawa_rhs.cu; arakawa_rhs_fused (any
@@ -59,6 +62,11 @@ LAUNCHES = {"arakawa_rhs": 0, "arakawa_rhs_backward": 0,
             "prolong_correct_smooth": 0, "euler_rhs": 0,
             "cavity_fused_stage": 0, "tier_split": 0, "tier_gemm": 0}
 
+# set by utils.debug.nan_guard: every launch checks its outputs for NaNs,
+# and the loop layer and the multigrid solve run eagerly (a check syncs,
+# which a CUDA graph capture forbids)
+CHECK_NAN = False
+
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 _MG_DTYPES = tuple(_SUFFIX)
 
@@ -87,9 +95,11 @@ def _on_cpu(name: str, *tensors) -> bool:
     return False
 
 
-def _launch(name: str, symbol: str, device, *args) -> None:
+def _launch(name: str, symbol: str, device, *args, outputs=()) -> None:
     """Call a C launcher of the kernel library on `device`'s current
-    stream; raise on a launch error; count the call."""
+    stream; raise on a launch error; count the call.  Under
+    utils.debug.nan_guard (CHECK_NAN), raise FloatingPointError naming the
+    kernel if one of `outputs` holds a NaN (a device sync a call)."""
     lib = _cuda_build.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -98,6 +108,10 @@ def _launch(name: str, symbol: str, device, *args) -> None:
         msg = lib.cfd_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
     LAUNCHES[name] += 1
+    if CHECK_NAN and any(bool(torch.isnan(t).any()) for t in outputs
+                         if t is not None):
+        raise FloatingPointError(
+            f"NaN in the output of the {name} kernel ({symbol})")
 
 
 # ------------------------------------------------------- Arakawa RHS
@@ -174,12 +188,12 @@ def _arakawa_launch(w, s, dx: float, dy: float, re):
     if batch == 1 and not isinstance(re, torch.Tensor):
         _launch("arakawa_rhs", f"arakawa_rhs_{sfx}", w.device, w.data_ptr(),
                 s.data_ptr(), out.data_ptr(), nr, nc, float(dx), float(dy),
-                float(re))
+                float(re), outputs=(out,))
     else:
         _launch("arakawa_rhs", f"arakawa_rhs_batched_{sfx}", w.device,
                 w.data_ptr(), s.data_ptr(), out.data_ptr(),
                 _batch_re(re, w).data_ptr(), batch, nr, nc, float(dx),
-                float(dy))
+                float(dy), outputs=(out,))
     return out
 
 
@@ -270,7 +284,8 @@ def arakawa_rhs_backward(w, s, g, dx: float, dy: float, re,
     _launch("arakawa_rhs_backward",
             f"arakawa_rhs_backward_{_SUFFIX[w.dtype]}", w.device,
             *(t.data_ptr() for t in (w3, s3, g3, re_b, gw, gs)),
-            _ptr(partials), _ptr(gre), batch, nr, nc, float(dx), float(dy))
+            _ptr(partials), _ptr(gre), batch, nr, nc, float(dx), float(dy),
+            outputs=(gw, gs, gre))
     if re_grad:   # the same C call's second launch, the partials' sum
         LAUNCHES["arakawa_re_grad"] += 1
     return (gw.reshape(shape), gs.reshape(shape),
@@ -372,7 +387,7 @@ def redblack_sweeps_fused(u, f, dx: float, dy: float, iters: int = 1):
     work = _pass_work(u, iters)
     _launch("redblack_sweeps", f"mg_rb_sweeps_{_SUFFIX[u.dtype]}", u.device,
             u.data_ptr(), f.data_ptr(), out.data_ptr(), _ptr(work),
-            *u.shape, 1.0 / dx**2, 1.0 / dy**2, iters)
+            *u.shape, 1.0 / dx**2, 1.0 / dy**2, iters, outputs=(out,))
     return out
 
 
@@ -403,7 +418,8 @@ def smooth_residual_restrict_fused(u, f, dx: float, dy: float, sweeps: int):
     _launch("smooth_residual_restrict",
             f"mg_smooth_residual_restrict_{_SUFFIX[u.dtype]}", u.device,
             u.data_ptr(), f.data_ptr(), out.data_ptr(), fc.data_ptr(),
-            _ptr(work), nr, nc, 1.0 / dx**2, 1.0 / dy**2, sweeps)
+            _ptr(work), nr, nc, 1.0 / dx**2, 1.0 / dy**2, sweeps,
+            outputs=(out, fc))
     return out, fc
 
 
@@ -423,7 +439,7 @@ def residual_restrict_fused(u, f, dx: float, dy: float):
     fc = u.new_empty(((nr - 1) // 2 + 1, (nc - 1) // 2 + 1))
     _launch("residual_restrict", f"mg_residual_restrict_{_SUFFIX[u.dtype]}",
             u.device, u.data_ptr(), f.data_ptr(), fc.data_ptr(), nr, nc,
-            1.0 / dx**2, 1.0 / dy**2)
+            1.0 / dx**2, 1.0 / dy**2, outputs=(fc,))
     return fc
 
 
@@ -473,7 +489,7 @@ def prolong_correct_smooth_fused(u, f, uc, dx: float, dy: float,
             f"mg_prolong_correct_smooth_{_SUFFIX[u.dtype]}", u.device,
             u.data_ptr(), f.data_ptr(), uc.data_ptr(), out.data_ptr(),
             _ptr(work), _ptr(partials), _ptr(ssq), nr, nc, 1.0 / dx**2,
-            1.0 / dy**2, sweeps)
+            1.0 / dy**2, sweeps, outputs=(out, ssq))
     return (out, ssq) if want_rms else out
 
 
@@ -538,7 +554,8 @@ def euler_rhs_fused(q, gamma: float, dx: float, solver: str = "hllc",
     out = torch.empty_like(q)
     _launch("euler_rhs", f"euler_rhs_{_SUFFIX[q.dtype]}", q.device,
             q.data_ptr(), out.data_ptr(), nx, float(gamma), float(dx),
-            _EULER_SOLVER[solver], _EULER_WS[rusanov_wavespeed])
+            _EULER_SOLVER[solver], _EULER_WS[rusanov_wavespeed],
+            outputs=(out,))
     return out
 
 
@@ -700,7 +717,7 @@ def cavity_fused_stage(w, wt, s, walls, stage: int, dt: float, dx: float,
     _launch("cavity_fused_stage", f"cavity_stage_{_SUFFIX[w.dtype]}",
             w.device, *(t.data_ptr() for t in (*tensors, out, *walls_out)),
             P, Q, m, n, stage, bc_order, float(dt), float(dx), float(dy),
-            float(re))
+            float(re), outputs=(out, *walls_out))
     return out, walls_out
 
 
@@ -814,7 +831,8 @@ def tier_split(x, transpose: bool, out_rows: int, kp: int, passes: int,
     if out is None:
         out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
     _launch("tier_split", "tier_split", x.device, x.data_ptr(), rows, cols,
-            ld, int(transpose), out.data_ptr(), out_rows, kp, passes)
+            ld, int(transpose), out.data_ptr(), out_rows, kp, passes,
+            outputs=(out,))
     return out
 
 
@@ -839,7 +857,7 @@ def _tier_gemm(map_a, map_b, a_lo: int, b_lo: int, m: int, n: int, kp: int,
     out = torch.empty((m, n), dtype=torch.float32, device=device)
     _launch("tier_gemm", "tier_gemm_tn", device, ctypes.addressof(map_a),
             ctypes.addressof(map_b), out.data_ptr(), m, n, n, kp // TIER_BK,
-            a_lo, b_lo, passes)
+            a_lo, b_lo, passes, outputs=(out,))
     return out
 
 

@@ -434,7 +434,8 @@ def solve(f, u0, dx: float, dy: float, cfg: MGConfig = MGConfig(),
 
     The loop runs on the host and reads rms/rms0 once per cycle (one
     device sync per cycle); on a CUDA device each cycle is a replay of the
-    configuration's captured V-cycle unless graph=False.  With fused edges
+    configuration's captured V-cycle unless graph=False or under
+    utils.debug.nan_guard.  With fused edges
     the finest ascend kernel returns the residual sum of the cycle's
     output, so no separate residual pass runs per cycle."""
     if mesh is not None:
@@ -472,7 +473,8 @@ def solve(f, u0, dx: float, dy: float, cfg: MGConfig = MGConfig(),
     graphed = None
     u, it, rms, rel, nrec = u0, 0, rms0, rms0 / rms0, 0
     while it < cfg.max_cycles and float(rel) > cfg.tol:
-        if graph and f.device.type == "cuda":
+        if graph and f.device.type == "cuda" and \
+                not cuda_kernels.CHECK_NAN:
             if graphed is None:
                 key = (tuple(f.shape), f.dtype, f.device, dx, dy, impl,
                        dataclasses.replace(cfg, tol=0.0, max_cycles=0,

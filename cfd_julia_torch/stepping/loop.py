@@ -7,8 +7,8 @@ chunks of at most CHUNK steps, the last one shorter where the interval
 does not divide.  On a CUDA state each distinct chunk length is captured
 once as a CUDA graph (`torch.cuda.CUDAGraph`) and then replayed, so a
 chunk of 50 cavity steps is one graph launch instead of ~5000 eager ones.
-On a CPU state, or with graph=False, the same plan runs its chunks
-eagerly.  Either way nothing in the loop reads the device from the host:
+On a CPU state, with graph=False, or under utils.debug.nan_guard, the
+same plan runs its chunks eagerly.  Either way nothing in the loop reads the device from the host:
 per-step diagnostics and snapshots stay on the device.
 
 The chunk length (CHUNK = 50 steps) bounds what a capture costs: it
@@ -259,7 +259,9 @@ class _Graphed:
 
 
 def _runner(step_fn, state, graph: bool, history: bool = False):
-    if graph and _leaves(state)[0].device.type == "cuda":
+    # under utils.debug.nan_guard every step runs eagerly: its checks sync
+    if graph and _leaves(state)[0].device.type == "cuda" \
+            and not cuda_kernels.CHECK_NAN:
         return _Graphed(step_fn, state, history)
     return _Eager(step_fn, state)
 

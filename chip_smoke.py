@@ -146,7 +146,25 @@ Phases, one line each:
      ensemble (4 members, 10 steps) in one backward pass against the plain
      RHS's autograd (rel 1e-9) and FD for Re=1000 (h=1, rtol 1e-4);
      (c) ps23 at 2048^2, 10 steps: the directional derivative of sum(w^2)
-     w.r.t. the initial field against FD (rtol 1e-6); peak memory of each.
+     w.r.t. the initial field against FD (rtol 1e-6); peak memory of each;
+ 17. the user surface (cfd_julia_torch/cli.py, examples/, utils/debug.py):
+     `list` (29 presets) and `validate` (7 checks, all PASS) as processes
+     on the card; `run-all` in this process through cli.main (the quick
+     table), with the counts set to 0 just before it: 29/29
+     presets OK, each metrics.json's device the card, seconds and kernel
+     launches a preset, kernel 1 launched by cavity / vortex_merger_fdm /
+     tgv, kernels 2, 3 and 5 by the multigrid presets, kernel 6 by the
+     Euler presets, burgers_central's non-finite field reported and not
+     gated; the three order studies of tests/test_cli_tools.py in fp64 on
+     the card at that file's bounds, each against the same study with
+     --device cpu in this process (errors within 1e-9 relative or 1e-12
+     absolute); `run burgers_weno_dirichlet --sweep nx=100,200,400` (three
+     points, the solution_d_<nx>.txt aliases); examples.adjoint_cavity
+     (fp64 d loss/dRe through kernel 1 and its backward kernel against its
+     central difference, rel 1e-4) and examples.vortex_diagnostics (128^2,
+     the enstrophy budget within 1e-2); and utils.debug.nan_guard naming
+     kernel 6 and kernel 1 at a NaN fed to each, the same calls returning
+     outside the guard.
 Then a JSON line with each kernel's record, and last
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 nonzero without that last line; without a GPU it fails at once.
@@ -154,6 +172,8 @@ nonzero without that last line; without a GPU it fails at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import re
@@ -2946,6 +2966,331 @@ def phase_gradients():
     return {"cavity": launches, "ensemble": e_launches}
 
 
+# ------------------------------------------------------- the user surface
+
+# phase 17: the kernels (LAUNCHES keys) each preset's path must launch in
+# run-all on the card; the other presets launch none of the hand-written
+# kernels (cuFFT, cuBLAS and eager torch: heat, Burgers, the direct and
+# the relaxation Poisson solves, ps23 / ps32 / hybrid)
+MG_PATH = ("smooth_residual_restrict", "prolong_correct_smooth",
+           "redblack_sweeps")
+RUN_ALL_KERNELS = {
+    "cavity": ("arakawa_rhs",), "vortex_merger_fdm": ("arakawa_rhs",),
+    "tgv": ("arakawa_rhs",), "poisson_mg2": MG_PATH,
+    "poisson_mgcg": MG_PATH, "poisson_mgN": MG_PATH,
+    "euler_roe": ("euler_rhs",), "euler_hllc": ("euler_rhs",),
+    "euler_rusanov": ("euler_rhs",),
+}
+# the order studies of tests/test_cli_tools.py, with its bounds on the
+# observed orders (self-convergence: the p column)
+ORDER_STUDIES = [
+    (["heat", "--scheme", "icp", "--grids", "20,40,80"], "> 3.5",
+     lambda p: p > 3.5),
+    (["poisson", "--scheme", "fft", "--self", "--grids", "32,64,128"],
+     "|p - 2| < 0.3", lambda p: abs(p - 2.0) < 0.3),
+    (["burgers", "--scheme", "crweno", "--self", "--bc", "dirichlet",
+      "--grids", "100,200,400"], "> 3.5", lambda p: p > 3.5),
+]
+
+
+def cli_main(argv):
+    """cfd_julia_torch.cli.main(argv) in this process: (rc, stdout)."""
+    from cfd_julia_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def cli_process(argv, timeout=600):
+    """`python -m cfd_julia_torch <argv>` as its own process: (rc, stdout,
+    stderr, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cfd_julia_torch", *argv],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+    return (proc.returncode, proc.stdout, proc.stderr,
+            time.perf_counter() - t0)
+
+
+def phase_cli_surface():
+    """`list` and `validate` as processes on the card."""
+    rc, out, err, seconds = cli_process(["list"])
+    names = [ln.split()[0] for ln in out.splitlines()
+             if ln and not ln.startswith(" ")]
+    ok = rc == 0 and len(names) == 29 and names == sorted(names)
+    line = (f"phase 17 cli `list`: rc {rc}, {len(names)} presets (want 29), "
+            f"{seconds:.2f} s {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, f"{line}\n{err[-2000:]}")
+    rc, out, err, seconds = cli_process(["validate"])
+    rows = out.splitlines()
+    checks = [r for r in rows if r.startswith(("PASS ", "FAIL "))]
+    ok = (rc == 0 and len(checks) == 7
+          and all(r.startswith("PASS ") for r in checks)
+          and rows[-1] == "validate: PASS")
+    for r in checks:
+        print(f"phase 17 cli `validate --device cuda`: {r}")
+    line = (f"phase 17 cli `validate --device cuda`: rc {rc}, "
+            f"{sum(r.startswith('PASS ') for r in checks)}/7 PASS, "
+            f"process {seconds:.2f} s {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, f"{line}\n{out[-2000:]}\n{err[-2000:]}")
+
+
+def phase_run_all():
+    """`run-all` (its quick table, cli.QUICK: `--full` runs the point-Jacobi
+    and red-black presets at 512^2 to their 2M-sweep cap, over 1000 s on
+    an H100 at 700 W, PERF.md) through cli.main in this process, every preset on the
+    card: 29/29 OK, each metrics.json's device the card, seconds and
+    kernel launches a preset (the counts set to 0 just before run-all and
+    read after each preset), the path kernels launched; burgers_central's
+    non-finite field reported, not gated (ROADMAP C).  Returns the
+    counts over the whole run."""
+    from cfd_julia_torch import run
+    from cfd_julia_torch.ops import cuda_kernels
+
+    card = torch.cuda.get_device_name()
+    per = {}
+    real = run.run_preset
+
+    def recorded(name, **kw):
+        before = dict(cuda_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        try:
+            return real(name, **kw)
+        finally:
+            torch.cuda.synchronize()
+            per[name] = (time.perf_counter() - t0, {
+                k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items()
+                if v != before[k]})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run.run_preset = recorded
+        cuda_kernels.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            rc, out = cli_main(["run-all", "--outdir", tmp])
+            total = time.perf_counter() - t0
+        finally:
+            run.run_preset = real
+        launches = dict(cuda_kernels.LAUNCHES)
+        lines = out.splitlines()
+        ok_names = [ln.split()[1] for ln in lines if ln.startswith("OK ")]
+        metrics = {name: json.loads((Path(tmp) / name / "metrics.json")
+                                    .read_text()) for name in ok_names}
+    names = sorted(per)
+    all_ok = (rc == 0 and len(names) == 29 and ok_names == names
+              and lines[-1] == "run-all: 29/29 presets OK")
+    for name in names:
+        seconds, counts = per[name]
+        m = metrics.get(name, {})
+        want = RUN_ALL_KERNELS.get(name, ())
+        ok = (m.get("device") == card
+              and all(counts.get(k, 0) > 0 for k in want))
+        finite = all(math.isfinite(v) for v in m.values()
+                     if isinstance(v, float))
+        note = ""
+        if not finite:
+            # the central baseline is not finite past the shock in either
+            # package at its t = 0.25 (ROADMAP C): reported, not gated
+            ok = ok and name == "burgers_central"
+            note = " non-finite field (reported, not gated)"
+        all_ok = all_ok and ok
+        print(f"phase 17 run-all {name} (quick): {seconds:.3f} s, launches "
+              f"{json.dumps(counts, sort_keys=True)} (want > 0: "
+              f"{', '.join(want) or 'none'}){note} {'ok' if ok else 'FAIL'}")
+    line = (f"phase 17 cli `run-all` in-process on {card}: "
+            f"{lines[-1] if lines else 'no output'}, "
+            f"rc {rc}, {total:.2f} s; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})} "
+            f"{'ok' if all_ok else 'FAIL'}")
+    print(line)
+    check(all_ok, line)
+    return launches
+
+
+def order_numbers(outdir, self_pairs):
+    """(errors, orders) of an order study's text file: the errors and
+    observed orders (order.txt), or each (triplet, norm)'s e1, e2 and p
+    (order_self.txt)."""
+    if self_pairs:
+        rows = [ln.split() for ln in (Path(outdir) / "order_self.txt")
+                .read_text().splitlines() if not ln.startswith("#")]
+        errs = [float(v) for r in rows for v in r[4:6]]
+        return errs, [float(r[6]) for r in rows]
+    rows = (Path(outdir) / "order.txt").read_text().splitlines()
+    errs = [float(r.split()[1]) for r in rows if not r.startswith("#")]
+    ns = [int(r.split()[0]) for r in rows if not r.startswith("#")]
+    return errs, [math.log(errs[i] / errs[i + 1]) / math.log(ns[i + 1] / ns[i])
+                  for i in range(len(errs) - 1)]
+
+
+def phase_order():
+    """The three order studies of tests/test_cli_tools.py through cli.main
+    in fp64 on the card, each against the same study with --device cpu in
+    this process: errors within 1e-9 relative or 1e-12 absolute, whichever
+    is larger (the errors are differences of O(1) fields; two fp64 runs of
+    thousands of steps part by ~1e-13), orders at the tests' bounds."""
+    for argv, bound_text, bound in ORDER_STUDIES:
+        self_pairs = "--self" in argv
+        res = {}
+        for dev in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                rc, _ = cli_main(["order", *argv, "--outdir", tmp,
+                                  "--device", dev])
+                seconds = time.perf_counter() - t0
+                check(rc == 0, f"order {' '.join(argv)} --device {dev}: "
+                      f"rc {rc}")
+                res[dev] = (*order_numbers(tmp, self_pairs), seconds)
+        (eg, pg, sg), (ec, pc, sc) = res["cuda"], res["cpu"]
+        worst = max(abs(a - b) / max(1e-9 * abs(b), 1e-12)
+                    for a, b in zip(eg, ec))
+        ok = worst <= 1.0 and all(bound(p) for p in pg)
+        line = (f"phase 17 cli `order {' '.join(argv)}` fp64: orders on "
+                f"the card {[round(p, 4) for p in pg]} ({bound_text}), "
+                f"errors {[float(f'{e:.6e}') for e in eg]}; against "
+                f"--device cpu: max |e_cuda - e_cpu| / max(1e-9 e, 1e-12) "
+                f"{worst:.3f} (want <= 1); {sg:.2f} s on the card, "
+                f"{sc:.2f} s on the CPU {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+
+
+# the sweep's fp32 WENO runs overshoot max|u| = 1 by roundoff near the
+# shock: up to 5e-6 on the CPU, 1e-4 on the card (ROADMAP C)
+SWEEP_UMAX = 1.0 + 1e-4
+
+
+def phase_sweep():
+    """`run burgers_weno_dirichlet --sweep nx=100,200,400` on the card:
+    three points in sweep_metrics.json, each on the card, and the
+    reference's per-grid aliases solution_d_<nx>.txt in the top outdir."""
+    card = torch.cuda.get_device_name()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc, _ = cli_main(["run", "burgers_weno_dirichlet", "--outdir", tmp,
+                          "--sweep", "nx=100,200,400"])
+        seconds = time.perf_counter() - t0
+        sweep = json.loads((Path(tmp) / "sweep_metrics.json").read_text())
+        top = sorted(p.name for p in Path(tmp).iterdir() if p.is_file())
+    want = [f"solution_d_{n}.txt" for n in (100, 200, 400)]
+    ok = (rc == 0 and [m["nx"] for m in sweep] == [100, 200, 400]
+          and all(m["device"] == card for m in sweep)
+          and all(w in top for w in want)
+          and all(m["umax"] <= SWEEP_UMAX for m in sweep))
+    line = (f"phase 17 cli `run burgers_weno_dirichlet --sweep "
+            f"nx=100,200,400`: rc {rc}, {len(sweep)} points on "
+            f"{sweep[0]['device'] if sweep else '?'}, umax "
+            f"{[m['umax'] for m in sweep]}, tv {[m['tv'] for m in sweep]}, "
+            f"top-level files {top}; {seconds:.2f} s "
+            f"{'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+
+def phase_examples():
+    """examples.adjoint_cavity (fp64 d loss/dRe through kernel 1 and its
+    backward kernel, against its central difference) and
+    examples.vortex_diagnostics (128^2 ps23, t = 10: the budget identity)
+    on the card, each with the counts set to 0 just before it."""
+    from cfd_julia_torch.examples import adjoint_cavity, vortex_diagnostics
+    from cfd_julia_torch.ops import cuda_kernels
+
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = adjoint_cavity.main(["--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+    ok = (res["fd_rel"] <= 1e-4 and counts.get("arakawa_rhs", 0) > 0
+          and counts.get("arakawa_rhs_backward", 0) > 0
+          and res["grads"][50.0] < res["grads"][100.0] < res["grads"][200.0]
+          < 0)
+    line = (f"phase 17 examples.adjoint_cavity (32^2, 100 steps, fp64): "
+            f"loss {res['loss']!r}, d/dRe {res['grad']!r}, central FD "
+            f"{res['fd']!r} (rel {res['fd_rel']:.2e}, tol 1e-4), d/dRe at "
+            f"Re 50/100/200 {[res['grads'][r] for r in (50.0, 100.0, 200.0)]}"
+            f"; launches {json.dumps(counts)}; {seconds:.2f} s "
+            f"{'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+    cuda_kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = vortex_diagnostics.main(["--nx", "128", "--device", "cuda",
+                                           "--outdir", tmp])
+        seconds = time.perf_counter() - t0
+    z = [r[2] for r in res["rows"]]
+    ok = (res["budget_defect"] < 1e-2 and np.isfinite(res["spectrum"]).all()
+          and all(b < a for a, b in zip(z, z[1:])))
+    line = (f"phase 17 examples.vortex_diagnostics (128^2 ps23, Re=1000, "
+            f"t=10, fp32): Z {z[0]:.6e} -> {z[-1]:.6e} (decreasing), "
+            f"enstrophy budget max relative defect "
+            f"{res['budget_defect']:.3e} (tol 1e-2), E(k) peak at k="
+            f"{res['k_peak']}; {seconds:.2f} s {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+
+def phase_nan_guard():
+    """utils.debug.nan_guard on the card: a NaN fed to kernel 6 (Sod
+    (3, 8192) fp32) and to kernel 1 (1025^2 fp32) raises
+    FloatingPointError naming the kernel; the same calls outside the guard
+    return (their output holds the NaN)."""
+    from cfd_julia_torch.models import euler1d
+    from cfd_julia_torch.ops import cuda_kernels
+    from cfd_julia_torch.utils import debug
+
+    dev = torch.device("cuda")
+    cfg = euler1d.EulerConfig(nx=8192)
+    q = euler1d.sod_initial_state(cfg, torch.float32, dev)[1].contiguous()
+    q[0, 4000] = float("nan")
+    w = torch.randn(NX + 1, NX + 1, device=dev)
+    s = torch.randn(NX + 1, NX + 1, device=dev)
+    w[7, 9] = float("nan")
+    calls = {
+        "euler_rhs": lambda: cuda_kernels.euler_rhs_fused(q, cfg.gamma,
+                                                          cfg.dx, "hllc"),
+        "arakawa_rhs": lambda: cuda_kernels.arakawa_rhs_fused(
+            w, s, 1.0 / NX, 1.0 / NX, RE),
+    }
+    for name, call in calls.items():
+        out = call()
+        unguarded = bool(torch.isnan(out).any())
+        message = None
+        try:
+            with debug.nan_guard():
+                call()
+        except FloatingPointError as e:
+            message = str(e)
+        ok = (unguarded and message is not None and name in message
+              and not cuda_kernels.CHECK_NAN)
+        line = (f"phase 17 nan_guard {name}: a NaN fed to the kernel; "
+                f"outside the guard it returns (NaN in its output: "
+                f"{unguarded}), under it raises FloatingPointError "
+                f"{message!r} {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+
+
+def phase_user_surface():
+    """Phase 17: the CLI's subcommands, the examples and the NaN guard on
+    the card.  Returns run-all's launch counts."""
+    t0 = time.perf_counter()
+    phase_cli_surface()
+    launches = phase_run_all()
+    phase_order()
+    phase_sweep()
+    phase_examples()
+    phase_nan_guard()
+    print(f"phase 17 user surface: {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3036,6 +3381,7 @@ def main(argv=None):
     phase_1d()
     ensemble_launches = phase_ensemble(fdm_step_s)
     grad_launches = phase_gradients()
+    phase_user_surface()
 
     record["launches"] = launches[record["name"]]
     record["path"] = f"cavity {NX}^2, {STEPS_TOTAL} steps"

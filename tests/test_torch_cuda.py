@@ -1221,3 +1221,87 @@ def test_tier_cavity_on_gpu_matches_cpu_twin(cuda_device, tier):
     cpu = cavity.solve(cfg, torch.float32, "cpu")
     _assert_rel(got.s, cpu.s, 1e-4)
     _assert_rel(got.w, cpu.w, 1e-4)
+
+
+# ------------------------------------------------ the user surface
+
+def _nan_inputs(kernel, device):
+    """(call) of a kernel wrapper on inputs holding one NaN."""
+    if kernel == "euler_rhs":
+        cfg = euler1d.EulerConfig(nx=1024)
+        q = euler1d.sod_initial_state(cfg, torch.float32, device)[1]
+        q = q.contiguous()
+        q[1, 500] = float("nan")
+        return lambda: cuda_kernels.euler_rhs_fused(q, cfg.gamma, cfg.dx,
+                                                    "hllc")
+    w, s = (torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in _fields((65, 65), seed=8))
+    w[3, 4] = float("nan")
+    return lambda: cuda_kernels.arakawa_rhs_fused(w, s, 1 / 64, 1 / 64,
+                                                  100.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["euler_rhs", "arakawa_rhs"])
+def test_nan_guard_names_the_kernel(cuda_device, kernel):
+    """Under utils.debug.nan_guard a NaN fed to kernel 6 or kernel 1 raises
+    FloatingPointError naming the kernel; outside it the same call returns
+    its NaN."""
+    from cfd_julia_torch.utils import debug
+
+    call = _nan_inputs(kernel, cuda_device)
+    assert bool(torch.isnan(call()).any())
+    with debug.nan_guard():
+        with pytest.raises(FloatingPointError,
+                           match=f"NaN in the output of the {kernel} kernel"):
+            call()
+    assert not cuda_kernels.CHECK_NAN
+
+
+@pytest.mark.cuda
+def test_nan_guard_costs_nothing_when_off(cuda_device):
+    """A graphed cavity run, the same run under the guard (eager, every
+    launch checked) and the graphed run again after it (replays of the
+    cached graphs): bitwise equal, with equal launch counts."""
+    from cfd_julia_torch.utils import debug
+
+    cfg = cavity.CavityConfig(nx=64, ny=64, dt=1e-3)
+    step = cavity.make_step_fn(cfg, torch.float32, cuda_device)
+    state = cavity.initial_state(cfg, torch.float32, cuda_device)
+
+    def run():
+        cuda_kernels.reset_launch_counts()
+        out = loop.run_steps(step, state, 60)
+        torch.cuda.synchronize()
+        return (*out[0], out[1]), dict(cuda_kernels.LAUNCHES)
+
+    first, n_first = run()
+    with debug.nan_guard():
+        guarded, n_guarded = run()
+    again, n_again = run()
+    _assert_same(guarded, first)
+    _assert_same(again, first)
+    assert n_first == n_guarded == n_again
+    assert n_first["arakawa_rhs"] == 3 * 60
+
+
+@pytest.mark.cuda
+def test_order_heat_icp_on_gpu_matches_cpu(cuda_device, tmp_path, capsys):
+    """`order heat --scheme icp` in fp64 on the card and on the CPU: errors
+    within 1e-9 relative, or 1e-12 absolute where that is larger (the
+    errors are differences of O(1) fields)."""
+    from cfd_julia_torch import cli
+
+    errs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        assert cli.main(["order", "heat", "--scheme", "icp", "--grids",
+                         "20,40,80", "--outdir", str(out), "--device",
+                         dev]) == 0
+        errs[dev] = [float(line.split()[1]) for line in
+                     (out / "order.txt").read_text().splitlines()
+                     if not line.startswith("#")]
+    capsys.readouterr()
+    assert len(errs["cuda"]) == 3
+    for g, c in zip(errs["cuda"], errs["cpu"]):
+        assert abs(g - c) <= max(1e-9 * abs(c), 1e-12), (errs,)
