@@ -65,7 +65,9 @@
 // no atomics, so it is the same every run: each block writes the fp64 sum
 // of g lap(w) over its points (every thread's sum, then a fixed tree
 // across the block) to its own slot, and a one-block second launch adds
-// each member's slots in a fixed order and scales by -1/re^2.
+// each member's slots in a fixed order and scales by -1/re^2.  The
+// Jacobian, the Laplacian and that sum live in arakawa.cuh, which the
+// packed cavity stage's backward (csrc/cavity_stage.cu) shares.
 //
 // C ABI (bound with ctypes by cfd_julia_torch/ops/cuda_kernels.py): each
 // launcher runs on the caller's stream, allocates nothing (the backward's
@@ -75,6 +77,7 @@
 
 #include <cuda_runtime.h>
 
+#include "arakawa.cuh"
 #include "div_rn.cuh"
 
 namespace {
@@ -83,14 +86,6 @@ constexpr int kBlockX = 32;  // columns a block: axis 1, contiguous
 constexpr int kBlockY = 4;   // column walkers a block, stacked along axis 0
 constexpr int kRows = 8;     // output rows a walker computes
 constexpr int kBackRows = 4; // the backward's: its window holds 3 fields
-constexpr int kSumThreads = 256;  // the Re gradient's second launch
-
-// the 3 x 3 neighbourhood of a point, E/W along axis 0, N/S along axis 1
-// (as in cfd_julia_torch/ops/arakawa.py)
-template <typename T>
-struct Nbhd {
-  T c, E, W, N, S, NE, SW, NW, SE;
-};
 
 // a field's neighbourhood from its values at columns jm, j, jp ([0], [1],
 // [2]) of rows W (i-1), C (i) and E (i+1)
@@ -98,26 +93,6 @@ template <typename T>
 __device__ __forceinline__ Nbhd<T> nbhd(const T (&W)[3], const T (&C)[3],
                                         const T (&E)[3]) {
   return {C[1], E[1], W[1], C[2], C[0], E[2], W[0], W[2], E[0]};
-}
-
-// Arakawa's J(a, b), the twin's jacobian(a, b) (a in w's place)
-template <typename T>
-__device__ __forceinline__ T jacobian(const Nbhd<T>& a, const Nbhd<T>& b,
-                                      T gg, T r3) {
-  const T j1 = (a.E - a.W) * (b.N - b.S) - (a.N - a.S) * (b.E - b.W);
-  const T j2 = a.E * (b.NE - b.SE) - a.W * (b.NW - b.SW)
-             - a.N * (b.NE - b.NW) + a.S * (b.SE - b.SW);
-  const T j3 = a.NE * (b.N - b.E) - a.SW * (b.W - b.S)
-             - a.NW * (b.N - b.W) + a.SE * (b.E - b.S);
-  return div_rn(gg * (j1 + j2 + j3), T(3), r3);
-}
-
-// the 5-point Laplacian, the twin's laplacian(a)
-template <typename T>
-__device__ __forceinline__ T laplacian(const Nbhd<T>& a, T dx2, T dy2,
-                                       T rdx2, T rdy2) {
-  return div_rn(a.E - T(2) * a.c + a.W, dx2, rdx2)
-       + div_rn(a.N - T(2) * a.c + a.S, dy2, rdy2);
 }
 
 // kFields fields at columns jm, j, jp of one row
@@ -183,22 +158,6 @@ arakawa_rhs_kernel(const T* __restrict__ w, const T* __restrict__ s,
   }
 }
 
-// fp64 sum over a block of kBlockX * kBlockY threads, in a fixed order:
-// each warp by shuffles, then the warps' sums in order; thread 0 has it
-__device__ __forceinline__ double block_sum(double v) {
-  __shared__ double warp_sums[kBlockY];
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
-  if (threadIdx.x == 0) warp_sums[threadIdx.y] = v;
-  __syncthreads();
-  double total = 0.0;
-  if (threadIdx.x == 0 && threadIdx.y == 0) {
-#pragma unroll
-    for (int k = 0; k < kBlockY; ++k) total += warp_sums[k];
-  }
-  return total;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 arakawa_rhs_backward_kernel(const T* __restrict__ w, const T* __restrict__ s,
@@ -240,35 +199,10 @@ arakawa_rhs_backward_kernel(const T* __restrict__ w, const T* __restrict__ s,
     }
   }
   if (partials == nullptr) return;
-  const double total = block_sum(acc);
+  const double total = block_sum<kBlockY>(acc);
   if (threadIdx.x == 0 && threadIdx.y == 0)
     partials[(static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y)
              * gridDim.x + blockIdx.x] = total;
-}
-
-// d re[b] = -(sum of member b's n partials, in a fixed order) / re[b]^2
-template <typename T>
-__global__ void __launch_bounds__(kSumThreads)
-arakawa_re_grad_kernel(const double* __restrict__ partials, int n,
-                       int batch, const T* __restrict__ re_dev,
-                       T* __restrict__ gre) {
-  __shared__ double sums[kSumThreads];
-  for (int b = 0; b < batch; ++b) {
-    const double* p = partials + static_cast<long long>(b) * n;
-    double v = 0.0;
-    for (int k = threadIdx.x; k < n; k += kSumThreads) v += p[k];
-    sums[threadIdx.x] = v;
-    __syncthreads();
-    for (int half = kSumThreads / 2; half > 0; half >>= 1) {
-      if (threadIdx.x < half) sums[threadIdx.x] += sums[threadIdx.x + half];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) {
-      const double re = static_cast<double>(re_dev[b]);
-      gre[b] = static_cast<T>(-sums[0] / (re * re));
-    }
-    __syncthreads();
-  }
 }
 
 dim3 grid_of(int nr, int nc, int rows, int batch) {
@@ -322,8 +256,9 @@ int launch_backward(const T* w, const T* s, const T* g, const T* re_dev,
   if (partials != nullptr) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    arakawa_re_grad_kernel<T><<<1, kSumThreads, 0, st>>>(
-        partials, static_cast<int>(grid.x * grid.y), batch, re_dev, gre);
+    re_grad_sum_kernel<T><<<1, kSumThreads, 0, st>>>(
+        partials, static_cast<int>(grid.x * grid.y), batch, re_dev, 0.0, 1.0,
+        gre);
   }
   return static_cast<int>(cudaGetLastError());
 }

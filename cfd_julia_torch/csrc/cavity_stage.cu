@@ -76,14 +76,43 @@
 // rounding (kernel_ab.py prints max|new - old|, PERF.md row 7 records it);
 // the wall vectors are bitwise the scalar kernel's.
 //
+// Backward (the adjoint of a stage, for torch.autograd; the JAX package
+// takes jax.grad of its XLA stage, which has no TPU kernel).  For the
+// cotangents G of out and H of the next wall vectors, with q = G on the
+// logical interior (0 elsewhere), W wt extended by its walls and corners,
+// S psi extended by 0, and the stage's combine a w + b wt + c r ((0, 1,
+// dt) at stage 1, where wt is w; (3/4, 1/4, dt/4); (1/3, 2/3, 2 dt/3)):
+//   gw  = a q,
+//   dW  = c (-J(S, q) + lap(q) / re) at the interior and its one-node
+//         frame: gwt = b q + dW on the interior (0 in the padding), the
+//         four wall vectors' gradients on the frame (0 past the logical
+//         walls; the corners are constants),
+//   gs  = -c J(q, W) + the next wall vectors' adjoint of H,
+//   gre = -c sum q lap(W) / re^2.
+// Kernel 1's adjoint identities (sum q J(W, S) = sum W J(S, q) = sum S
+// J(q, W): the Jacobian is antisymmetric as a trilinear form) hold here on
+// the zero-extended grid, since every sum is over finitely many points;
+// the tests hold the formulas against autograd of the twin.  A gather:
+// one thread an output point of a 32 x 8 block, each reading the 3 x 3
+// neighbourhoods of q, W and S from global memory under the extension's
+// branches (a simple kernel; its time is in PERF.md); the threads of row 0
+// also write rl's and rh's gradients, those of column 0 cl's and ch's.  So
+// each output is written by one thread, with no atomics, and two calls
+// agree bitwise.  The Re gradient takes each block's fp64 sum of q lap(W)
+// and a one-block second launch that adds them in a fixed order (kernel
+// 1's, csrc/arakawa.cuh, with its Jacobian and Laplacian).
+//
 // C ABI (bound with ctypes by cfd_julia_torch/ops/cuda_kernels.py): the
-// launcher runs on the caller's stream, allocates nothing, does not
-// synchronise, and returns cudaGetLastError() of the launch; it refuses
-// (cudaErrorInvalidValue) a shape out of range, Q not a multiple of kVec, or
-// w, wt, s, out not 16-byte aligned.
+// launchers run on the caller's stream, allocate nothing (the backward's
+// partial sums go to a buffer of cavity_stage_backward_partials(P, Q)
+// doubles, given by the caller), do not synchronise, and return
+// cudaGetLastError() of their launches; the forward refuses
+// (cudaErrorInvalidValue) a shape out of range, Q not a multiple of kVec,
+// or w, wt, s, out not 16-byte aligned.
 
 #include <cuda_runtime.h>
 
+#include "arakawa.cuh"
 #include "div_rn.cuh"
 
 namespace {
@@ -396,6 +425,173 @@ int launch(const T* w, const T* wt, const T* s, const T* rl, const T* rh,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kBackX = 32;  // the backward's block: columns (a warp)
+constexpr int kBackY = 8;   // and rows; a thread an output point
+
+template <typename T>
+struct BackConsts {
+  T gg, dx2, dy2, re, r3, rdx2, rdy2, rre, lid;
+  T a, b, c;   // the stage's combine a w + b wt + c r
+  T k0, k1;    // a next wall value is (k0 s0 + k1 s1) / h^2
+};
+
+// the backward's inputs as fields on the whole plane
+template <typename T>
+struct BackFields {
+  const T *wt, *s, *rl, *rh, *cl, *ch, *g;
+  int P, Q, m, n;
+  T lid;
+
+  // wt extended: the interior, the walls on its frame, the lid corners
+  __device__ __forceinline__ T W(int a, int b) const {
+    const bool rin = a >= 0 && a < m, cin = b >= 0 && b < n;
+    if (rin && cin) return wt[a * Q + b];
+    if (cin) return a == -1 ? rl[b] : a == m ? rh[b] : T(0);
+    if (rin) return b == -1 ? cl[a] : b == n ? ch[a] : T(0);
+    return b == n && (a == -1 || a == m) ? lid : T(0);
+  }
+  // psi: the buffer, 0 past its edge
+  __device__ __forceinline__ T S(int a, int b) const {
+    return a >= 0 && a < P && b >= 0 && b < Q ? s[a * Q + b] : T(0);
+  }
+  // the cotangent of out on the logical interior, 0 elsewhere
+  __device__ __forceinline__ T q(int a, int b) const {
+    return a >= 0 && a < m && b >= 0 && b < n ? g[a * Q + b] : T(0);
+  }
+};
+
+// the 3 x 3 neighbourhood of (a, b) of field kF: 0 W, 1 S, 2 q
+template <int kF, typename T>
+__device__ __forceinline__ Nbhd<T> around(const BackFields<T>& f, int a,
+                                          int b) {
+  auto v = [&f](int i, int j) {
+    return kF == 0 ? f.W(i, j) : kF == 1 ? f.S(i, j) : f.q(i, j);
+  };
+  return {v(a, b),         v(a + 1, b),     v(a - 1, b),
+          v(a, b + 1),     v(a, b - 1),     v(a + 1, b + 1),
+          v(a - 1, b - 1), v(a - 1, b + 1), v(a + 1, b - 1)};
+}
+
+// dW / c at a point of the interior or its frame: -J(S, q) + lap(q)/re
+template <typename T>
+__device__ __forceinline__ T d_wt(const BackFields<T>& f,
+                                  const BackConsts<T>& k, int a, int b) {
+  const Nbhd<T> qn = around<2>(f, a, b);
+  return -jacobian(around<1>(f, a, b), qn, k.gg, k.r3)
+       + div_rn(laplacian(qn, k.dx2, k.dy2, k.rdx2, k.rdy2), k.re, k.rre);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBackX * kBackY)
+cavity_stage_backward_kernel(BackFields<T> f, const T* __restrict__ h_rl,
+                             const T* __restrict__ h_rh,
+                             const T* __restrict__ h_cl,
+                             const T* __restrict__ h_ch, T* __restrict__ gw,
+                             T* __restrict__ gwt, T* __restrict__ gs,
+                             T* __restrict__ g_rl, T* __restrict__ g_rh,
+                             T* __restrict__ g_cl, T* __restrict__ g_ch,
+                             double* __restrict__ partials, BackConsts<T> k) {
+  const int b = blockIdx.x * kBackX + threadIdx.x;
+  const int a = blockIdx.y * kBackY + threadIdx.y;
+  const int m = f.m, n = f.n;
+  double acc = 0.0;   // this thread's q lap(W)
+  if (a < f.P && b < f.Q) {
+    const int o = a * f.Q + b;
+    const Nbhd<T> qn = around<2>(f, a, b);
+    const Nbhd<T> wn = around<0>(f, a, b);
+    T v = k.c * -jacobian(qn, wn, k.gg, k.r3);
+    // the next wall vectors' adjoint, in the plain version's order
+    if (a == 0) v += div_rn(k.k0 * h_rl[b], k.dx2, k.rdx2);
+    if (k.k1 != T(0) && a == 1) v += div_rn(k.k1 * h_rl[b], k.dx2, k.rdx2);
+    if (a == m - 1) v += div_rn(k.k0 * h_rh[b], k.dx2, k.rdx2);
+    if (k.k1 != T(0) && a == m - 2)
+      v += div_rn(k.k1 * h_rh[b], k.dx2, k.rdx2);
+    if (a < m) {
+      if (b == 0) v += div_rn(k.k0 * h_cl[a], k.dy2, k.rdy2);
+      if (k.k1 != T(0) && b == 1)
+        v += div_rn(k.k1 * h_cl[a], k.dy2, k.rdy2);
+      if (b == n - 1) v += div_rn(k.k0 * h_ch[a], k.dy2, k.rdy2);
+      if (k.k1 != T(0) && b == n - 2)
+        v += div_rn(k.k1 * h_ch[a], k.dy2, k.rdy2);
+    }
+    gs[o] = v;
+    if (a < m && b < n) {
+      gwt[o] = k.b * qn.c + k.c * d_wt(f, k, a, b);
+      if (partials != nullptr)
+        acc = static_cast<double>(
+            qn.c * laplacian(wn, k.dx2, k.dy2, k.rdx2, k.rdy2));
+    } else {
+      gwt[o] = T(0);
+    }
+    if (gw != nullptr) gw[o] = k.a * qn.c;
+    // the frame: rows -1 and m by row 0's threads, columns -1 and n by
+    // column 0's
+    if (a == 0) {
+      g_rl[b] = b < n ? k.c * d_wt(f, k, -1, b) : T(0);
+      g_rh[b] = b < n ? k.c * d_wt(f, k, m, b) : T(0);
+    }
+    if (b == 0) {
+      g_cl[a] = a < m ? k.c * d_wt(f, k, a, -1) : T(0);
+      g_ch[a] = a < m ? k.c * d_wt(f, k, a, n) : T(0);
+    }
+  }
+  if (partials == nullptr) return;   // the whole grid
+  const double total = block_sum<kBackY>(acc);
+  if (threadIdx.x == 0 && threadIdx.y == 0)
+    partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
+}
+
+dim3 back_grid(int P, int Q) {
+  return dim3((Q + kBackX - 1) / kBackX, (P + kBackY - 1) / kBackY);
+}
+
+template <typename T>
+int launch_backward(const T* wt, const T* s, const T* rl, const T* rh,
+                    const T* cl, const T* ch, const T* g, const T* h_rl,
+                    const T* h_rh, const T* h_cl, const T* h_ch, T* gw,
+                    T* gwt, T* gs, T* g_rl, T* g_rh, T* g_cl, T* g_ch,
+                    double* partials, T* gre, int P, int Q, int m, int n,
+                    int stage, int order, double dt, double dx, double dy,
+                    double re, void* stream) {
+  if (P <= 0 || Q <= 0 || m < 2 || n < 2 || m > P || n > Q ||
+      static_cast<long long>(P) * Q >= (1LL << 31) ||
+      (order != 1 && order != 2) || stage < 1 || stage > 3 ||
+      (partials == nullptr) != (gre == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const double kA[] = {0.0, 0.75, 1.0 / 3.0};
+  static const double kB[] = {1.0, 0.25, 2.0 / 3.0};
+  static const double kC[] = {1.0, 0.25, 2.0 / 3.0};
+  const double c = kC[stage - 1] * dt;
+  BackConsts<T> k;
+  k.gg = static_cast<T>(1.0 / (4.0 * dx * dy));
+  k.dx2 = static_cast<T>(dx * dx);
+  k.dy2 = static_cast<T>(dy * dy);
+  k.re = static_cast<T>(re);
+  k.r3 = T(1) / T(3);
+  k.rdx2 = T(1) / k.dx2;
+  k.rdy2 = T(1) / k.dy2;
+  k.rre = T(1) / k.re;
+  k.lid = static_cast<T>(order == 2 ? -3.0 / dy : -2.0 / dy);
+  k.a = static_cast<T>(kA[stage - 1]);
+  k.b = static_cast<T>(kB[stage - 1]);
+  k.c = static_cast<T>(c);
+  k.k0 = static_cast<T>(order == 1 ? -2.0 : -4.0);
+  k.k1 = static_cast<T>(order == 1 ? 0.0 : 0.5);
+  const BackFields<T> f{wt, s, rl, rh, cl, ch, g, P, Q, m, n, k.lid};
+  const dim3 grid = back_grid(P, Q);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cavity_stage_backward_kernel<T><<<grid, dim3(kBackX, kBackY), 0, st>>>(
+      f, h_rl, h_rh, h_cl, h_ch, gw, gwt, gs, g_rl, g_rh, g_cl, g_ch,
+      partials, k);
+  if (partials != nullptr) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    re_grad_sum_kernel<T><<<1, kSumThreads, 0, st>>>(
+        partials, static_cast<int>(grid.x * grid.y), 1, nullptr, re, c, gre);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define CAVITY_STAGE_LAUNCHER(NAME, T)                                       \
@@ -410,6 +606,33 @@ int launch(const T* w, const T* wt, const T* s, const T* rl, const T* rh,
 
 CAVITY_STAGE_LAUNCHER(cavity_stage_f32, float)
 CAVITY_STAGE_LAUNCHER(cavity_stage_f64, double)
+
+// gw (null at stage 1, or not wanted), gwt, gs and the wall vectors'
+// gradients from the stage's inputs wt, s, rl, rh, cl, ch and the
+// cotangents g, h_*; with partials and gre (both or neither) also gre =
+// dL/dre, one value
+#define CAVITY_STAGE_BACKWARD_LAUNCHER(NAME, T)                              \
+  extern "C" int NAME(const T* wt, const T* s, const T* rl, const T* rh,    \
+                      const T* cl, const T* ch, const T* g, const T* h_rl,  \
+                      const T* h_rh, const T* h_cl, const T* h_ch, T* gw,   \
+                      T* gwt, T* gs, T* g_rl, T* g_rh, T* g_cl, T* g_ch,    \
+                      double* partials, T* gre, int P, int Q, int m, int n, \
+                      int stage, int order, double dt, double dx,           \
+                      double dy, double re, void* stream) {                 \
+    return launch_backward<T>(wt, s, rl, rh, cl, ch, g, h_rl, h_rh, h_cl,   \
+                              h_ch, gw, gwt, gs, g_rl, g_rh, g_cl, g_ch,    \
+                              partials, gre, P, Q, m, n, stage, order, dt,  \
+                              dx, dy, re, stream);                          \
+  }
+
+CAVITY_STAGE_BACKWARD_LAUNCHER(cavity_stage_backward_f32, float)
+CAVITY_STAGE_BACKWARD_LAUNCHER(cavity_stage_backward_f64, double)
+
+// the backward's partial sums of the Re gradient: one a block
+extern "C" int cavity_stage_backward_partials(int P, int Q) {
+  const dim3 grid = back_grid(P, Q);
+  return static_cast<int>(grid.x * grid.y);
+}
 
 // the walk's geometry, for the tests that emulate it: 0 rows a walker,
 // 1 walkers a block, 2 bytes a lane loads of a row, 3 lanes a walker

@@ -24,6 +24,13 @@ one bf16 pass) with fp32 accumulation, through csrc/tier_gemm.cu on the
 GPU and its plain twin on the CPU.  So a tier computes the TPU's arithmetic
 on every device (JAX's CPU backend ignores the precision and runs fp32).
 A tier takes fp32 states only and raises for any other dtype.
+
+Every formulation is differentiable with torch.autograd through the eager
+loop, in a tensor Re (the `re` of make_step_fn, or of
+cavity_fused.make_fused_step_fn for the packed step) and in the state, as
+the JAX package's are with jax.grad: kernel 1 and kernel 7 through their
+backward kernels, a tier's products through the tier product of the
+cotangent (the transpose of a dot at its precision, as JAX takes it).
 """
 from __future__ import annotations
 
@@ -132,9 +139,9 @@ def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda", re=None):
     The step is then differentiable in re, and in the state, with
     torch.autograd (run it eagerly: loop.advance(..., graph=False)); the
     kernel RHS differentiates through its backward kernel, the "matmul"
-    and "fst*" solves through cuBLAS and cuFFT.  The bf16 tiers (kernel 8)
-    have no backward: their product raises, at the first step, for an re or
-    a state that requires grad."""
+    and "fst*" solves through cuBLAS and cuFFT, the bf16 tiers' solves
+    through the tier product of the cotangent (kernel 8 on the GPU, its
+    twin on the CPU; cuda_kernels.TierPlan)."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
     dx, dy, dt = cfg.dx, cfg.dy, cfg.dt

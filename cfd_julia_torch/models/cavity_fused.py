@@ -20,6 +20,12 @@ full-grid step, reference ch. 18, lid_driven_cavity.jl:58-118).
   "default"; poisson/direct.sine_products: csrc/tier_gemm.cu on the GPU,
   the sine matrices split once when the step is built, its twin on the
   CPU, fp32 states only).
+* The step is differentiable with torch.autograd in the state and in a
+  tensor Re (make_fused_step_fn's `re`), as the JAX package's packed step
+  is with jax.grad: a stage through the kernel's backward kernel
+  (cuda_kernels.cavity_fused_stage_backward) on the GPU and autograd of
+  its twin on the CPU, a tier's products through the tier product of the
+  cotangent.
 
 The state is the flat tuple (w, s, rl, rh, cl, ch, rms), rms last, as the
 loop layer records state[-1]; the JAX package nests the walls,
@@ -57,21 +63,40 @@ def _check(cfg) -> None:
                          f"{(cfg.nx, cfg.ny)}")
 
 
-def make_fused_step_fn(cfg, dtype=None, device="cuda"):
+def make_fused_step_fn(cfg, dtype=None, device="cuda", re=None):
     """Step on the packed state (w, s, rl, rh, cl, ch, rms) of `dtype` on
     `device`; the matrices are built here, once.  cfg.rhs_impl picks the
     stage: auto (the kernel on a CUDA device, the twin on the CPU), kernel
     or torch (the twin, any device).  cfg.poisson picks the products:
     fused_bf16x3 / fused_bf16x1 their tier, any other name full precision
-    (TF32 stays off: the JAX package's mm_precision="highest")."""
+    (TF32 stays off: the JAX package's mm_precision="highest").
+
+    `re` overrides cfg.re, as in cavity.make_step_fn: a float, or a 0-d
+    tensor (the JAX package's traced cfg.re), whose value is read on the
+    host once, here (the stage kernel takes a host Re); a step raises if
+    the tensor has been written in place since, and under a CUDA graph
+    capture (a replay would keep the value read here after the tensor
+    changes: run such a step with graph=False).  The step is
+    differentiable in re and in the state with torch.autograd (run it
+    eagerly: loop.advance(..., graph=False)): the stage kernel through its
+    backward kernel, a tier's products through the tier product of the
+    cotangent (cuda_kernels.TierPlan), the fp32 / fp64 ones through
+    cuBLAS."""
     _check(cfg)
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
-    stage_fn = (cuda_kernels.cavity_fused_stage
-                if precision.resolve_rhs_impl(cfg.rhs_impl, device) == "kernel"
-                else cuda_kernels.cavity_fused_stage_plain)
+    kernel = precision.resolve_rhs_impl(cfg.rhs_impl, device) == "kernel"
     nx, ny = cfg.nx, cfg.ny
-    dx, dy, dt, re = cfg.dx, cfg.dy, cfg.dt, cfg.re
+    dx, dy, dt = cfg.dx, cfg.dy, cfg.dt
+    re_t = re if isinstance(re, torch.Tensor) else None
+    if re_t is not None:
+        if re_t.dim() != 0 or not re_t.is_floating_point():
+            raise ValueError(f"re must be a float or a 0-d floating tensor, "
+                             f"got {re_t.dtype} of shape "
+                             f"{tuple(re_t.shape)}")
+        re_value, re_version = float(re_t.detach()), re_t._version
+    else:
+        re_value = cfg.re if re is None else float(re)
     m, n = nx - 1, ny - 1
     P, Q = padded_extents(nx, ny)
 
@@ -99,16 +124,30 @@ def make_fused_step_fn(cfg, dtype=None, device="cuda"):
         return right(left(coeff)) * scale
 
     def stage(k, w, wt, s, walls):
-        wt, walls = stage_fn(w, wt, s, walls, k, dt, dx, dy, re, m, n,
-                             cfg.bc_order)
+        if kernel:
+            wt, walls = cuda_kernels.cavity_fused_stage(
+                w, wt, s, walls, k, dt, dx, dy, re_value, m, n, cfg.bc_order,
+                re_t=re_t)
+        else:
+            wt, walls = cuda_kernels.cavity_fused_stage_plain(
+                w, wt, s, walls, k, dt, dx, dy,
+                re_value if re_t is None else re_t, m, n, cfg.bc_order)
         return wt, solve_neg(wt), walls
 
     def step(state):
-        if torch.is_grad_enabled() and any(t.requires_grad for t in state):
-            raise ValueError(
-                "the packed cavity step (kernel 7, csrc/cavity_stage.cu) has "
-                "no backward: differentiate the full-grid step "
-                "(cavity.make_step_fn, poisson='matmul' or 'fst')")
+        if re_t is not None:
+            if re_t._version != re_version:
+                raise ValueError(
+                    "the Re tensor of this packed cavity step was written in "
+                    "place after the step was built, which read its value "
+                    f"({re_value!r}) once; rebuild the step with "
+                    "make_fused_step_fn(..., re=...)")
+            if state[0].is_cuda and torch.cuda.is_current_stream_capturing():
+                raise ValueError(
+                    "a packed cavity step built with an Re tensor reads its "
+                    "value once, on the host, and a CUDA graph would replay "
+                    "it after the tensor changes: run the step with "
+                    "graph=False, or build it with a float Re")
         w, s, *walls, _ = state
         sp = s
         wt, s, walls = stage(1, w, w, s, tuple(walls))

@@ -41,6 +41,10 @@ _EULER_ARGS = [_PTR, _PTR, _INT, _DBL, _DBL, _INT, _INT, _PTR]
 # w, wt, s, rl, rh, cl, ch, out, rl_o, rh_o, cl_o, ch_o, P, Q, m, n, stage,
 # bc order, dt, dx, dy, re, stream
 _CAVITY_STAGE_ARGS = [_PTR] * 12 + [_INT] * 6 + [_DBL] * 4 + [_PTR]
+# wt, s, rl, rh, cl, ch, g, h_rl, h_rh, h_cl, h_ch, gw, gwt, gs, g_rl, g_rh,
+# g_cl, g_ch, partials, gre, P, Q, m, n, stage, bc order, dt, dx, dy, re,
+# stream
+_CAVITY_STAGE_BACKWARD_ARGS = [_PTR] * 20 + [_INT] * 6 + [_DBL] * 4 + [_PTR]
 # x, rows, cols, ld, transpose, out, out_rows, kp, passes, stream
 _TIER_SPLIT_ARGS = [_PTR] + [_INT] * 4 + [_PTR] + [_INT] * 3 + [_PTR]
 # map, base, rows, kp, role (0 A, 1 B)
@@ -78,6 +82,9 @@ SIGNATURES = {
     "cavity_stage_f32": (_INT, _CAVITY_STAGE_ARGS),
     "cavity_stage_f64": (_INT, _CAVITY_STAGE_ARGS),
     "cavity_stage_constant": (_INT, [_INT]),
+    "cavity_stage_backward_f32": (_INT, _CAVITY_STAGE_BACKWARD_ARGS),
+    "cavity_stage_backward_f64": (_INT, _CAVITY_STAGE_BACKWARD_ARGS),
+    "cavity_stage_backward_partials": (_INT, [_INT, _INT]),
     "tier_split": (_INT, _TIER_SPLIT_ARGS),
     "tier_encode": (_INT, _TIER_ENCODE_ARGS),
     "tier_gemm_tn": (_INT, _TIER_GEMM_ARGS),

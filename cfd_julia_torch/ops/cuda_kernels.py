@@ -35,10 +35,18 @@ Kernels (csrc/ file; TPU function replaced):
   cavity_fused_stage              cavity_stage.cu; the XLA-fused stage of
                                   models/cavity_fused.py:153-215 (not a
                                   Pallas kernel)
+  cavity_stage_backward           cavity_stage.cu; none (the JAX package
+                                  differentiates its XLA stage): the
+                                  adjoint of cavity_fused_stage, its
+                                  autograd backward; with the Re gradient
+                                  also the one-block sum of its partials,
+                                  counted under cavity_stage_re_grad
   tier_split, tier_matmul,        tier_gemm.cu;   XLA's bf16_3x / default
   TierPlan                        dot of the precision tiers (direct.py:99-
                                   102, cavity_fused.py:120; not a Pallas
-                                  kernel): the operand split and the GEMM
+                                  kernel): the operand split and the GEMM;
+                                  also their backward, the same kernels on
+                                  the cotangent
 
 The multigrid kernels take bf16, fp32 or fp64 fields; bf16 computes in
 fp32 and rounds once, at the output store (the TPU kernels' `_c32`
@@ -60,7 +68,8 @@ LAUNCHES = {"arakawa_rhs": 0, "arakawa_rhs_backward": 0,
             "redblack_sweeps": 0,
             "smooth_residual_restrict": 0, "residual_restrict": 0,
             "prolong_correct_smooth": 0, "euler_rhs": 0,
-            "cavity_fused_stage": 0, "tier_split": 0, "tier_gemm": 0}
+            "cavity_fused_stage": 0, "cavity_stage_backward": 0,
+            "cavity_stage_re_grad": 0, "tier_split": 0, "tier_gemm": 0}
 
 # set by utils.debug.nan_guard: every launch checks its outputs for NaNs,
 # and the loop layer and the multigrid solve run eagerly (a check syncs,
@@ -605,8 +614,8 @@ def _cavity_wall_vectors(s, m: int, n: int, dx: float, dy: float,
     return rl, rh, torch.where(rows, cl, 0.0), torch.where(rows, ch, 0.0)
 
 
-def _cavity_rhs(w, s, walls, m: int, n: int, dx: float, dy: float,
-                re: float, lid: float):
+def _cavity_rhs(w, s, walls, m: int, n: int, dx: float, dy: float, re,
+                lid: float):
     """-J(w, s) + lap(w)/re on the padded interior, w's wall values from the
     wall vectors, psi's walls zero (cavity_fused.py:153-196)."""
     rl, rh, cl, ch = walls
@@ -651,11 +660,12 @@ def _cavity_rhs(w, s, walls, m: int, n: int, dx: float, dy: float,
 
 
 def cavity_fused_stage_plain(w, wt, s, walls, stage: int, dt: float,
-                             dx: float, dy: float, re: float, m: int, n: int,
+                             dx: float, dy: float, re, m: int, n: int,
                              bc_order: int):
     """Plain twin of cavity_fused_stage: the JAX package's rhs, the SSP-RK3
     combine of stage `stage` and the validity mask, then the next wall
-    vectors from s (cavity_fused.py:153-215)."""
+    vectors from s (cavity_fused.py:153-215).  re: a float or a 0-d
+    tensor (autograd differentiates the twin in it)."""
     r = _cavity_rhs(wt, s, walls, m, n, dx, dy, re, _lid(dy, bc_order))
     if stage == 1:
         raw = w + dt * r
@@ -683,21 +693,50 @@ def cavity_stage_geometry() -> dict:
 
 
 def cavity_fused_stage(w, wt, s, walls, stage: int, dt: float, dx: float,
-                       dy: float, re: float, m: int, n: int, bc_order: int):
+                       dy: float, re: float, m: int, n: int, bc_order: int,
+                       re_t=None):
     """One SSP-RK3 stage of the packed cavity in one kernel pass
     (csrc/cavity_stage.cu): r = -J(wt, s) + lap(wt)/re on the (m, n)
     logical interior of the (P, Q) buffers, wt's walls from the vectors
     walls = (rl, rh, cl, ch) (lengths Q, Q, P, P); the stage's combine of
     w (the step's start), wt and r, 0 in the padding; and the next wall
     vectors from s.  Stage 1 takes wt = w.  Returns (wt_new, walls_new),
-    new tensors; matches cavity_fused_stage_plain."""
+    new tensors; matches cavity_fused_stage_plain.
+
+    re is the float the kernel takes; re_t, if given, a 0-d tensor of the
+    same value (its caller reads it on the host) in which the result is
+    differentiated.  Under grad mode, with an input or re_t that requires
+    grad, the call is _CavityStage: this launch forward, the backward
+    kernel (cavity_fused_stage_backward) backward.  On the CPU autograd
+    differentiates the twin."""
     tensors = (w, wt, s, *walls)
     if w.dtype not in (torch.float32, torch.float64) or any(
             t.dtype != w.dtype for t in tensors):
         raise TypeError("cavity_fused_stage takes fp32 or fp64 tensors of "
                         f"one dtype, got {[str(t.dtype) for t in tensors]}")
+    _check_stage_shapes("cavity_fused_stage", w, wt, s, walls, stage, m, n,
+                        bc_order)
+    if re_t is not None and (not isinstance(re_t, torch.Tensor) or
+                             re_t.dim() != 0 or
+                             not re_t.is_floating_point()):
+        raise ValueError("cavity_fused_stage: re_t must be a 0-d floating "
+                         f"tensor, got {re_t!r}")
+    if _on_cpu("cavity_fused_stage", *tensors):
+        return cavity_fused_stage_plain(w, wt, s, walls, stage, dt, dx, dy,
+                                        re if re_t is None else re_t, m, n,
+                                        bc_order)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*tensors, re_t) if t is not None):
+        out, *walls_out = _CavityStage.apply(
+            w, wt, s, *walls, re_t, (stage, dt, dx, dy, re, m, n, bc_order))
+        return out, tuple(walls_out)
+    return _cavity_stage_launch(w, wt, s, walls, stage, dt, dx, dy, re, m, n,
+                                bc_order)
+
+
+def _check_stage_shapes(name, w, wt, s, walls, stage, m, n, bc_order):
     if w.dim() != 2 or wt.shape != w.shape or s.shape != w.shape:
-        raise ValueError("cavity_fused_stage takes w, wt, s of one 2-D shape, "
+        raise ValueError(f"{name} takes w, wt, s of one 2-D shape, "
                          f"got {[tuple(t.shape) for t in (w, wt, s)]}")
     P, Q = w.shape
     if [tuple(v.shape) for v in walls] != [(Q,), (Q,), (P,), (P,)]:
@@ -709,16 +748,174 @@ def cavity_fused_stage(w, wt, s, walls, stage: int, dt: float, dx: float,
     if stage not in (1, 2, 3) or bc_order not in (1, 2):
         raise ValueError(f"stage {stage} (1, 2, 3) or bc_order {bc_order} "
                          "(1, 2) out of range")
-    if _on_cpu("cavity_fused_stage", *tensors):
-        return cavity_fused_stage_plain(w, wt, s, walls, stage, dt, dx, dy,
-                                        re, m, n, bc_order)
+
+
+def _cavity_stage_launch(w, wt, s, walls, stage, dt, dx, dy, re, m, n,
+                         bc_order):
+    """Kernel 7 on checked CUDA tensors: one launch."""
+    P, Q = w.shape
     out = torch.empty_like(w)
     walls_out = tuple(torch.empty_like(v) for v in walls)
     _launch("cavity_fused_stage", f"cavity_stage_{_SUFFIX[w.dtype]}",
-            w.device, *(t.data_ptr() for t in (*tensors, out, *walls_out)),
+            w.device, *(t.data_ptr() for t in (w, wt, s, *walls, out,
+                                               *walls_out)),
             P, Q, m, n, stage, bc_order, float(dt), float(dx), float(dy),
             float(re), outputs=(out, *walls_out))
     return out, walls_out
+
+
+class _CavityStage(torch.autograd.Function):
+    """Kernel 7 with its backward kernel: forward cavity_fused_stage's
+    launch, backward cavity_fused_stage_backward, on CUDA tensors; re_t a
+    0-d tensor holding the launch's re, or None (no Re gradient)."""
+
+    @staticmethod
+    def forward(ctx, w, wt, s, rl, rh, cl, ch, re_t, args):
+        ctx.args = args
+        ctx.re_like = None if re_t is None else (re_t.dtype, re_t.device)
+        ctx.save_for_backward(wt, s, rl, rh, cl, ch)
+        out, walls = _cavity_stage_launch(w, wt, s, (rl, rh, cl, ch), *args)
+        return (out, *walls)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, *h):
+        wt, s, *walls = ctx.saved_tensors
+        want_re = ctx.needs_input_grad[7]
+        gw, gwt, gs, gwalls, gre = cavity_fused_stage_backward(
+            wt, s, walls, g.contiguous(), tuple(v.contiguous() for v in h),
+            *ctx.args, re_grad=want_re)
+        if want_re:
+            dtype, device = ctx.re_like
+            gre = gre.to(device=device, dtype=dtype)
+        return (gw, gwt, gs, *gwalls, gre, None)
+
+
+# the stage's combine a w + b wt + c r: (a, b, c) with c a multiple of dt;
+# stage 1 reads wt alone (it is w)
+_STAGE_COEFFS = {1: (0.0, 1.0, 1.0), 2: (0.75, 0.25, 0.25),
+                 3: (1.0 / 3.0, 2.0 / 3.0, 2.0 / 3.0)}
+
+
+def _extended_w(wt, walls, m: int, n: int, lid: float):
+    """W on the points [-1, P] x [-1, Q] (index (i+1, j+1) for point (i, j)):
+    wt on the logical interior, the wall vectors on its one-node frame,
+    the lid at the corners (-1, n) and (m, n), 0 elsewhere (the stage's
+    view of wt, cavity_fused.py:153-180)."""
+    rl, rh, cl, ch = walls
+    P, Q = wt.shape
+    e = wt.new_zeros((P + 2, Q + 2))
+    e[1:m + 1, 1:n + 1] = wt[:m, :n]
+    e[0, 1:n + 1] = rl[:n]
+    e[m + 1, 1:n + 1] = rh[:n]
+    e[1:m + 1, 0] = cl[:m]
+    e[1:m + 1, n + 1] = ch[:m]
+    e[0, n + 1] = e[m + 1, n + 1] = lid
+    return e
+
+
+def cavity_fused_stage_backward_plain(wt, s, walls, g, h, stage: int,
+                                      dt: float, dx: float, dy: float, re,
+                                      m: int, n: int, bc_order: int):
+    """Plain version of cavity_fused_stage_backward: the adjoint of one
+    stage as the explicit gather the kernel computes (not autograd).  With
+    q = g on the logical interior (0 elsewhere), W wt extended by its
+    walls (_extended_w), S s extended by 0, and (a, b, c) the stage's
+    combine (_STAGE_COEFFS, c times dt), on the zero-extended grid where
+    sum q J(W, S) = sum W J(S, q) = sum S J(q, W) holds:
+      dW = c (-J(S, q) + lap(q)/re) on the interior and its frame: gwt =
+           b q + dW on the interior (0 in the padding), the wall vectors'
+           gradients on the frame (0 past the logical walls; the corners
+           are constants);
+      gs = -c J(q, W) on the buffer, plus h's share through the next wall
+           vectors (rl_o = f(s[0], s[1]), rh_o, cl_o, ch_o);
+      gw = a q (None at stage 1, where wt is w);
+      gre = -c sum q lap(W) / re^2.
+    J and lap are ops.arakawa's on the extended grids padded past any
+    wrap.  Returns (gw, gwt, gs, (grl, grh, gcl, gch), gre)."""
+    P, Q = wt.shape
+    a_c, b_c, c_c = _STAGE_COEFFS[stage]
+    c = c_c * dt
+    rows = torch.arange(P, device=wt.device) < m
+    cols = torch.arange(Q, device=wt.device) < n
+    valid = rows[:, None] & cols[None, :]
+    q = torch.where(valid, g, 0.0)
+    # points (i, j) of [-2, P+1] x [-2, Q+1] at index (i+2, j+2)
+    qz = F.pad(q, (2, 2, 2, 2))
+    sz = F.pad(s, (2, 2, 2, 2))
+    wz = F.pad(_extended_w(wt, walls, m, n, _lid(dy, bc_order)),
+               (1, 1, 1, 1))
+    d_w = -arakawa.jacobian(sz, qz, dx, dy) + \
+        arakawa.laplacian(qz, dx, dy) / re
+    d_s = -arakawa.jacobian(qz, wz, dx, dy)
+    gwt = torch.where(valid, b_c * q + c * d_w[2:P + 2, 2:Q + 2], 0.0)
+    gwalls = (torch.where(cols, c * d_w[1, 2:Q + 2], 0.0),
+              torch.where(cols, c * d_w[m + 2, 2:Q + 2], 0.0),
+              torch.where(rows, c * d_w[2:P + 2, 1], 0.0),
+              torch.where(rows, c * d_w[2:P + 2, n + 2], 0.0))
+    gs = c * d_s[2:P + 2, 2:Q + 2]
+    # the next wall vectors' adjoint: f(s0, s1) = (k0 s0 + k1 s1) / h^2
+    h_rl, h_rh, h_cl, h_ch = h
+    k0, k1 = (-2.0, 0.0) if bc_order == 1 else (-4.0, 0.5)
+    for row, hv, k in ((0, h_rl, k0), (1, h_rl, k1), (m - 1, h_rh, k0),
+                       (m - 2, h_rh, k1)):
+        if k:
+            gs[row, :] += k * hv / dx**2
+    for col, hv, k in ((0, h_cl, k0), (1, h_cl, k1), (n - 1, h_ch, k0),
+                       (n - 2, h_ch, k1)):
+        if k:
+            gs[:m, col] += k * hv[:m] / dy**2
+    lap_w = arakawa.laplacian(wz, dx, dy)[2:P + 2, 2:Q + 2]
+    gre = -c * torch.sum(q * lap_w) / re**2
+    return (None if stage == 1 else a_c * q), gwt, gs, gwalls, gre
+
+
+def cavity_fused_stage_backward(wt, s, walls, g, h, stage: int, dt: float,
+                                dx: float, dy: float, re: float, m: int,
+                                n: int, bc_order: int, re_grad: bool = True):
+    """The adjoint of cavity_fused_stage for the cotangents g (of the new
+    interior) and h = (h_rl, h_rh, h_cl, h_ch) (of the next wall vectors):
+    (gw, gwt, gs, (grl, grh, gcl, gch), gre), cavity_fused_stage_backward_
+    plain's formulas; gw None at stage 1 (wt is w), gre a 0-d tensor of
+    wt's dtype, or None with re_grad=False.  One launch of the backward
+    kernel (csrc/cavity_stage.cu, a thread an output point, a gather: no
+    atomics) and, for gre, a one-block launch that adds its blocks' fp64
+    partial sums in a fixed order, so two calls agree bitwise; counted
+    under cavity_stage_backward and cavity_stage_re_grad.  re: a float."""
+    tensors = (wt, s, *walls, g, *h)
+    if wt.dtype not in (torch.float32, torch.float64) or any(
+            t.dtype != wt.dtype for t in tensors):
+        raise TypeError("cavity_fused_stage_backward takes fp32 or fp64 "
+                        "tensors of one dtype, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    _check_stage_shapes("cavity_fused_stage_backward", wt, g, s, walls,
+                        stage, m, n, bc_order)
+    if [tuple(v.shape) for v in h] != [tuple(v.shape) for v in walls]:
+        raise ValueError(f"cavity_fused_stage_backward: h of shapes "
+                         f"{[tuple(v.shape) for v in h]}, expected the "
+                         f"wall vectors' {[tuple(v.shape) for v in walls]}")
+    if _on_cpu("cavity_fused_stage_backward", *tensors):
+        gw, gwt, gs, gwalls, gre = cavity_fused_stage_backward_plain(
+            wt, s, walls, g, h, stage, dt, dx, dy, re, m, n, bc_order)
+        return gw, gwt, gs, gwalls, gre if re_grad else None
+    P, Q = wt.shape
+    gw = None if stage == 1 else torch.empty_like(wt)
+    gwt, gs = torch.empty_like(wt), torch.empty_like(wt)
+    gwalls = tuple(torch.empty_like(v) for v in walls)
+    partials = gre = None
+    if re_grad:
+        k = _cuda_build.load_library().cavity_stage_backward_partials(P, Q)
+        partials = torch.empty(k, dtype=torch.float64, device=wt.device)
+        gre = torch.empty((), dtype=wt.dtype, device=wt.device)
+    _launch("cavity_stage_backward",
+            f"cavity_stage_backward_{_SUFFIX[wt.dtype]}", wt.device,
+            *(t.data_ptr() for t in tensors), _ptr(gw), gwt.data_ptr(),
+            gs.data_ptr(), *(v.data_ptr() for v in gwalls), _ptr(partials),
+            _ptr(gre), P, Q, m, n, stage, bc_order, float(dt), float(dx),
+            float(dy), float(re), outputs=(gw, gwt, gs, *gwalls, gre))
+    if re_grad:   # the same C call's second launch, the partials' sum
+        LAUNCHES["cavity_stage_re_grad"] += 1
+    return gw, gwt, gs, gwalls, gre
 
 
 # ------------------------------------------------------- precision tiers
@@ -731,18 +928,6 @@ TIER_PASSES = {"bf16x3": 3, "bf16x1": 1}
 # ring stage (K's); the split pass takes multiples of TIER_BN
 TIER_BM, TIER_BN, TIER_BK = 128, 64, 64
 _TMA_MAP_BYTES = 128   # sizeof(CUtensorMap)
-
-
-def _refuse_tier_grad(*tensors) -> None:
-    """The tier GEMM has no backward: raise for an operand that requires
-    grad under grad mode, on every device (the CPU twin would otherwise
-    differentiate arithmetic that the GPU path cannot)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise ValueError("the bf16 tier product (kernel 8, csrc/"
-                         "tier_gemm.cu) has no backward; an operand "
-                         "requires grad (a gradient through a Poisson "
-                         "solve needs poisson='matmul', 'fst' or "
-                         "'fst_half')")
 
 
 def _bf16_split(a):
@@ -871,7 +1056,15 @@ class TierPlan:
     one tier_split launch (the field, read in place through its row stride)
     and one tier_gemm launch; a_planes and b_planes hold the operands'
     planes.  On the CPU a call is the twin, tier_matmul_plain, on the fp32
-    operands."""
+    operands.
+
+    Differentiable in the field on every device (_TierPlanProduct): the
+    backward is the tier product of the cotangent with the transposed
+    constant, as JAX transposes a dot at its precision.  A symmetric
+    constant (the sine matrices; checked once, here) is its own
+    transpose, so the backward is this plan, its split constant and its
+    scratch; another builds the transposed plan at its first backward.
+    The constant takes no gradient: one that requires grad is refused."""
 
     def __init__(self, const, passes: int, side: str, shape):
         if const.dtype != torch.float32 or const.dim() != 2:
@@ -890,8 +1083,12 @@ class TierPlan:
         if inner != k or min(m, n, k) < 1:
             raise ValueError(f"TierPlan {side}: {tuple(const.shape)} and "
                              f"fields {self.shape} do not multiply")
+        _refuse_const_grad(const)
         self.const, self.passes, self.side = const, passes, side
         self.mnk = (m, n, k)
+        self.symmetric = (const.shape[0] == const.shape[1]
+                          and bool(torch.equal(const, const.t())))
+        self._transposed = self if self.symmetric else None
         if const.device.type == "cpu":
             return
         if m * n >= 2**31:
@@ -923,8 +1120,18 @@ class TierPlan:
                           self.a_planes.shape[2], self.passes,
                           self.const.device)
 
-    def __call__(self, x):
-        _refuse_tier_grad(x)
+    def transposed(self) -> "TierPlan":
+        """The plan of the transposed constant on the same side, for
+        fields of this plan's output shape: this plan for a symmetric
+        constant, else built at the first call."""
+        if self._transposed is None:
+            m, n, _ = self.mnk
+            self._transposed = TierPlan(self.const.t().contiguous(),
+                                        self.passes, self.side, (m, n))
+        return self._transposed
+
+    def product(self, x):
+        """The tier product of x, outside autograd."""
         if tuple(x.shape) != self.shape or x.device != self.const.device:
             raise ValueError(f"TierPlan takes fields {self.shape} on "
                              f"{self.const.device}, got {tuple(x.shape)} on "
@@ -936,6 +1143,63 @@ class TierPlan:
         self.split(x)
         return self.gemm()
 
+    def __call__(self, x):
+        if torch.is_grad_enabled():
+            _refuse_const_grad(self.const)
+            if x.requires_grad:
+                return _TierPlanProduct.apply(x, self)
+        return self.product(x)
+
+
+class _TierPlanProduct(torch.autograd.Function):
+    """A TierPlan's product, linear in the field: the backward is the
+    transposed plan's product of the cotangent (kernel 8 on the GPU, the
+    twin on the CPU), never autograd of the split's bf16 casts, which
+    would round the cotangent to bf16."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return plan.product(x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return ctx.plan.transposed().product(g.contiguous()), None
+
+
+def _refuse_const_grad(const) -> None:
+    """A plan's constant is split once, at build: it takes no gradient."""
+    if const.requires_grad:
+        raise ValueError("a TierPlan's constant (split once, when the plan "
+                         "is built) takes no gradient, and this one "
+                         "requires grad; differentiate in the field, or "
+                         "multiply two fields with tier_matmul")
+
+
+class _TierMatmul(torch.autograd.Function):
+    """tier_matmul, bilinear: the gradients are the tier products
+    g @ b^T and a^T @ g, of the forward's passes (JAX's transpose of a
+    dot at its precision)."""
+
+    @staticmethod
+    def forward(ctx, a, b, passes):
+        ctx.passes = passes
+        ctx.save_for_backward(a, b)
+        return _tier_matmul(a, b, passes)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.contiguous()
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _tier_matmul(g, b.t().contiguous(), ctx.passes)
+        if ctx.needs_input_grad[1]:
+            gb = _tier_matmul(a.t().contiguous(), g, ctx.passes)
+        return ga, gb, None
+
 
 def tier_matmul(a, b, passes: int):
     """C = A @ B in a precision tier of the TPU's matrix unit, fp32 in and
@@ -944,7 +1208,9 @@ def tier_matmul(a, b, passes: int):
     a: (M, K), b: (K, N), fp32.  On the GPU both operands are split
     (tier_split, two launches) and multiplied (tier_gemm, one launch);
     TierPlan splits a constant operand once instead.  On the CPU it runs
-    the twin, so a tier computes the TPU's arithmetic on every device."""
+    the twin, so a tier computes the TPU's arithmetic on every device.
+    Differentiable in a and b on every device (_TierMatmul): the
+    gradients are tier products of the cotangent."""
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"tier_matmul takes fp32 operands, got {a.dtype} "
                         f"and {b.dtype}")
@@ -954,7 +1220,13 @@ def tier_matmul(a, b, passes: int):
                          f">= 1, got {tuple(a.shape)} @ {tuple(b.shape)}")
     if passes not in (1, 3):
         raise ValueError(f"tier_matmul: passes must be 1 or 3, got {passes}")
-    _refuse_tier_grad(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _TierMatmul.apply(a, b, passes)
+    return _tier_matmul(a, b, passes)
+
+
+def _tier_matmul(a, b, passes: int):
+    """tier_matmul on checked operands, outside autograd."""
     if _on_cpu("tier_matmul", a, b):
         return tier_matmul_plain(a, b, passes)
     (m, k), n = a.shape, b.shape[1]

@@ -30,7 +30,11 @@ Phases, one line each:
      65^2 and 3x3 beside an empty launch; the packed cavity's stage kernel
      at (nx, ny) = 1024^2, 16^2, 24x16, 33x47, 34x130, 9x129, 1025^2 and
      3x3 in fp32 and fp64, every stage and both wall-BC orders, two calls
-     bitwise equal, timed at 1024^2 warm and with L2 flushed; the tier
+     bitwise equal, timed at 1024^2 warm and with L2 flushed; its
+     backward kernel (the adjoint of a stage: the field and wall-vector
+     gradients and d/d re) at the same shapes, fp32 and fp64, every stage
+     and order, with and without d/d re, against its plain version, two
+     calls bitwise equal, timed at 1024^2 fp32 beside its bound; the tier
      GEMM (csrc/tier_gemm.cu, the bf16 precision tiers' split-bf16
      product: the split pass
      tier_split and the wgmma GEMM) at 1024^3, 1023^3, 1x1x1, 15x17x13,
@@ -147,6 +151,18 @@ Phases, one line each:
      RHS's autograd (rel 1e-9) and FD for Re=1000 (h=1, rtol 1e-4);
      (c) ps23 at 2048^2, 10 steps: the directional derivative of sum(w^2)
      w.r.t. the initial field against FD (rtol 1e-6); peak memory of each;
+ 18. (run after phase 16, before 17) gradients through the packed cavity
+     and the bf16 tiers at phase 16 (a)'s configuration: fp64 `fused`
+     (the stage kernel and its backward kernel) d/dRe against phase 16's
+     full-grid gradient (rel 1e-9) and central FD (h=0.5, rtol 1e-4), and
+     d/d(initial w) against the full-grid one mapped by pack_state (1e-9
+     of its scale, 0 in the padding), 150 backward stage launches as the
+     forward's; the fp32 `fused`, `fused_bf16x3`, `fused_bf16x1`,
+     `matmul_bf16x3` and `matmul_bf16x1` d/dRe against the fp64 one (fp32
+     and bf16x3 rel 1e-3 and 2e-3, bf16x1 finite, the same sign, within
+     0.5) beside the loss's own difference, the tier products' backward
+     the tier GEMM on the cotangent (as many tier_split and tier_gemm
+     launches backward as forward); seconds and peak memory of each;
  17. the user surface (cfd_julia_torch/cli.py, examples/, utils/debug.py):
      `list` (29 presets) and `validate` (7 checks, all PASS) as processes
      on the card; `run-all` in this process through cli.main (the quick
@@ -812,6 +828,143 @@ def stage_timing(ck, args, err):
     b = stage_bound(stage, *w.shape, w.element_size(), ms)
     return {"max_abs_err": err, "ms": ms, "cold_ms": cold_ms,
             "plain_ms": plain_ms, **b}
+
+
+def stage_backward_inputs(nx, ny, dtype, seed):
+    """Random fields and wall vectors on the whole buffer (the padding
+    too: the adjoint must not lean on its zeros) and the cotangents g, h
+    of the stage's outputs, on the card."""
+    from cfd_julia_torch.models import cavity_fused
+
+    rng = np.random.default_rng(seed)
+    P, Q = cavity_fused.padded_extents(nx, ny)
+    dev = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    wt, s, g = (dev(rng.standard_normal((P, Q))) for _ in range(3))
+    walls, h = (tuple(dev(rng.standard_normal(k)) for k in (Q, Q, P, P))
+                for _ in range(2))
+    return wt, s, walls, g, h
+
+
+def stage_re_scale(ck, wt, walls, g, stage, dt, dx, dy, m, n, bc_order):
+    """c sum|q lap W| / re^2 in fp64: the size of the terms of the
+    stage's Re gradient (its fp32 tolerance is a share of it)."""
+    import torch.nn.functional as F
+
+    wz = F.pad(ck._extended_w(wt.double(), tuple(v.double() for v in walls),
+                              m, n, ck._lid(dy, bc_order)), (1, 1, 1, 1))
+    lap = ck.arakawa.laplacian(wz, dx, dy)[2:m + 2, 2:n + 2]
+    c = ck._STAGE_COEFFS[stage][2] * dt
+    return c * float((g.double()[:m, :n] * lap).abs().sum()) / RE**2
+
+
+def phase_stage_backward_kernel():
+    """The stage kernel's backward (its adjoint) against its plain version
+    at every shape of STAGE_SHAPES in fp32 and fp64, every stage, both
+    wall-BC orders, with and without the Re gradient, two calls bitwise
+    equal; timed at the 1024^2 buffer in fp32 (stage 2, Jensen walls, with
+    the Re gradient: the call a packed gradient makes) warm and with L2
+    flushed, beside its bound.  Returns the kernel's record."""
+    from cfd_julia_torch.ops import cuda_kernels as ck
+
+    record = None
+    for nx, ny in STAGE_SHAPES:
+        m, n = nx - 1, ny - 1
+        for dtype, rel in [(torch.float32, 1e-5), (torch.float64, 1e-12)]:
+            worst = re_worst = 0.0
+            all_same = True
+            for bc_order in (1, 2):
+                for stage in (1, 2, 3):
+                    wt, s, walls, g, h = stage_backward_inputs(
+                        nx, ny, dtype, nx + 7 * stage + bc_order)
+                    args = (wt, s, walls, g, h, stage, 2e-5, 1.0 / nx,
+                            1.0 / ny, RE, m, n, bc_order)
+                    ref = ck.cavity_fused_stage_backward_plain(*args)
+                    for re_grad in (True, False):
+                        got = ck.cavity_fused_stage_backward(
+                            *args, re_grad=re_grad)
+                        again = ck.cavity_fused_stage_backward(
+                            *args, re_grad=re_grad)
+                        torch.cuda.synchronize()
+                        flat = [x for x in (got[0], got[1], got[2], *got[3])
+                                if x is not None]
+                        flat_ref = [x for x in (ref[0], ref[1], ref[2],
+                                                *ref[3]) if x is not None]
+                        flat_again = [x for x in (again[0], again[1],
+                                                  again[2], *again[3])
+                                      if x is not None]
+                        worst = max(worst, *(
+                            float((a - b).abs().max()) / float(b.abs().max())
+                            for a, b in zip(flat, flat_ref)))
+                        all_same &= all(torch.equal(a, b)
+                                        for a, b in zip(flat, flat_again))
+                        all_same &= (got[4] is None) != re_grad
+                        if re_grad:
+                            all_same &= torch.equal(got[4], again[4])
+                            err = abs(float(got[4]) - float(ref[4]))
+                            scale = (abs(float(ref[4]))
+                                     if dtype == torch.float64 else
+                                     stage_re_scale(ck, wt, walls, g,
+                                                    *args[5:9], m, n,
+                                                    bc_order))
+                            re_worst = max(re_worst, err / scale)
+                    if (nx, ny) == STAGE_SHAPES[0] and stage == 2 and \
+                            bc_order == 2 and dtype == torch.float32:
+                        record = stage_backward_timing(ck, args, float(max(
+                            (a - b).abs().max()
+                            for a, b in zip(flat, flat_ref))))
+                    del wt, s, walls, g, h, got, again, ref
+            re_tol = 1e-10 if dtype == torch.float64 else 1e-5
+            ok = worst <= rel and re_worst <= re_tol and all_same
+            P, Q = -(-m // 8) * 8, -(-n // 128) * 128
+            line = (f"phase 2 kernel cavity_stage_backward {nx}x{ny} (buffer "
+                    f"{P}x{Q}) {str(dtype)[6:]} stages 1-3, bc_order 1-2, "
+                    f"with and without d/dre: max|k-p|/max|p| over gw, gwt, "
+                    f"gs and the wall vectors' gradients {worst:.3e} (tol "
+                    f"{rel:g}); d/dre err {re_worst:.3e} of "
+                    f"{'|p|' if dtype == torch.float64 else 'c sum|q lap W|/re^2'}"
+                    f" (tol {re_tol:g}); two calls bitwise equal: {all_same}"
+                    f" {'ok' if ok else 'FAIL'}")
+            if (nx, ny) == STAGE_SHAPES[0] and dtype == torch.float32:
+                line += (f"; 1024^2 fp32 stage 2 with d/dre: device time "
+                         f"{record['ms']:.4f} ms warm in L2 "
+                         f"({100 * record['share_of_bound']:.1f}% of its "
+                         f"bound {record['bound_ms']:.4f} ms by "
+                         f"{record['bound_by']}: 3 fields read, 3 written), "
+                         f"{record['cold_ms']:.4f} ms with L2 flushed "
+                         f"({100 * record['bound_ms'] / record['cold_ms']:.1f}"
+                         f"%), without d/dre {record['no_re_ms']:.4f} ms, "
+                         f"plain {record['plain_ms']:.4f} ms; eager call "
+                         f"{record['call_ms']:.4f} ms (medians of 30 calls, "
+                         f"CUDA events)")
+            print(line)
+            check(ok, line)
+    return record
+
+
+def stage_backward_timing(ck, args, err):
+    """The stage backward's warm, L2-flushed, no-Re and plain device times
+    and its bound: g, wt and s read once, gw, gwt and gs written once, the
+    wall vectors, their cotangents and gradients once each."""
+    wt, s, walls, g, h, stage = args[:6]
+    call = lambda: ck.cavity_fused_stage_backward(*args)
+    ms, call_ms = median_ms(call)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    cold_ms, _ = median_ms(call, before=flush.zero_)
+    del flush
+    no_re_ms, _ = median_ms(
+        lambda: ck.cavity_fused_stage_backward(*args, re_grad=False))
+    plain_ms, _ = median_ms(lambda: ck.cavity_fused_stage_backward_plain(
+        *args), reps=10)
+    fields = (6 if stage != 1 else 5) * wt.numel() * wt.element_size()
+    vectors = 3 * nbytes(*walls)
+    b = bound(fields + vectors, FLOPS_ARAKAWA_BACKWARD * wt.numel(), ms)
+    return {"name": "cavity_stage_backward", "route": "cuda",
+            "source": "cfd_julia_torch/csrc/cavity_stage.cu",
+            "replaces": ("cfd_julia_tpu/models/cavity_fused.py:153 (jax.grad "
+                         "of the XLA-fused stage; no TPU kernel)"),
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **b, "library_ms": None,
+            "cold_ms": cold_ms, "no_re_ms": no_re_ms, "call_ms": call_ms}
 
 
 # the tier GEMM (kernel 8): (M, N, K) of its paths (the fused tiers'
@@ -2834,6 +2987,7 @@ def phase_gradients():
           and launches["arakawa_rhs_backward"] == n_fwd
           and launches["arakawa_re_grad"] == n_fwd
           and math.isfinite(g_kernel) and g_kernel != 0.0)
+    cavity_grad = g_kernel
     line = (f"phase 16 gradient (a) cavity {NX}^2 fp64 (dt=2e-5, Re={RE:g}, "
             f"{GRAD_CAVITY_STEPS} steps from rest, matmul, graph=False): "
             f"d(1e6 mean psi^2)/dRe = {g_kernel!r} through the kernel RHS "
@@ -2963,7 +3117,154 @@ def phase_gradients():
             f"memory {peak_p:.2f} GB {'ok' if ok else 'FAIL'}")
     print(line)
     check(ok, line)
-    return {"cavity": launches, "ensemble": e_launches}
+    return {"cavity": launches, "ensemble": e_launches,
+            "cavity_grad": cavity_grad}
+
+
+# phase 18: the packed cavity's and the tiers' gradients; the fp32
+# formulations' rel. bounds against the fp64 packed gradient (bf16x1, the
+# tier that stalls: finite, the same sign, within 0.5)
+GRAD_TIERS = {"fused": 1e-3, "fused_bf16x3": 2e-3, "fused_bf16x1": 0.5,
+              "matmul_bf16x3": 2e-3, "matmul_bf16x1": 0.5}
+
+
+def cavity_gradient(poisson, dtype, re_value, grad=True, w_grad=False):
+    """The 1024^2 cavity of phase 16 (a) (dt=2e-5, Jensen walls,
+    GRAD_CAVITY_STEPS eager steps from rest) on `poisson`: the full-grid
+    step, or the packed one for fused*, its psi decoded.  Returns loss =
+    1e6 mean(psi^2) (in fp64), d loss/dRe, d loss/d(initial w) (w_grad),
+    the forward's and the backward's launches, and the seconds and the
+    peak device memory (GB) of forward and backward together."""
+    from cfd_julia_torch.models import cavity, cavity_fused
+    from cfd_julia_torch.ops import cuda_kernels
+    from cfd_julia_torch.stepping import loop
+
+    cfg = cavity.CavityConfig(nx=NX, ny=NX, dt=2e-5, re=RE, bc_order=2,
+                              poisson=poisson)
+    fused = poisson.startswith("fused")
+    out = {}
+
+    def run():
+        re = torch.tensor(re_value, dtype=dtype, device="cuda",
+                          requires_grad=grad)
+        if fused:
+            step = cavity_fused.make_fused_step_fn(cfg, dtype, "cuda", re=re)
+            state = cavity_fused.init_state(cfg, dtype, "cuda")
+        else:
+            step = cavity.make_step_fn(cfg, dtype, "cuda", re=re)
+            state = cavity.initial_state(cfg, dtype, "cuda")
+        w0 = state[0].clone().requires_grad_(w_grad)
+        cuda_kernels.reset_launch_counts()
+        with torch.set_grad_enabled(grad):
+            final = loop.advance(step, (w0, *state[1:]), GRAD_CAVITY_STEPS,
+                                 graph=False)
+            psi = (cavity_fused.decode_state(cfg, final)[1] if fused
+                   else final[1])
+            loss = 1e6 * torch.mean(psi.double() ** 2)
+        out["loss"] = float(loss.detach())
+        out["forward"] = dict(cuda_kernels.LAUNCHES)
+        if grad:
+            cuda_kernels.reset_launch_counts()
+            grads = torch.autograd.grad(loss, (re, w0) if w_grad else (re,))
+            torch.cuda.synchronize()
+            out["backward"] = dict(cuda_kernels.LAUNCHES)
+            out["grad"] = float(grads[0])
+            out["w_grad"] = grads[1] if w_grad else None
+
+    t0 = time.perf_counter()
+    _, out["peak_gb"] = peak_gb(run)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_packed_gradients(matmul_grad):
+    """Phase 18 (after phase 16): gradients through the packed cavity and
+    the bf16 tiers at phase 16 (a)'s configuration.  fp64 `fused` (the
+    stage kernel and its backward kernel, fp64 cuBLAS products): d loss/dRe
+    and d loss/d(initial w) in one backward pass, against phase 16's
+    full-grid gradient matmul_grad (rel 1e-9) and central FD (h=0.5, rtol
+    1e-4), the state gradient against the full-grid one mapped by
+    pack_state (1e-9 of its scale, 0 in the padding); then each fp32
+    formulation's d loss/dRe against the fp64 one beside its loss's own
+    rel. difference, with as many backward stage (or RHS) launches as
+    forward ones and, for a tier, as many tier_split and tier_gemm
+    launches in the backward as in the forward (12 + 12 a step).  Returns
+    the fp64 fused run's backward launches."""
+    from cfd_julia_torch.models import cavity, cavity_fused
+
+    f64, steps = torch.float64, GRAD_CAVITY_STEPS
+    full = cavity_gradient("matmul", f64, RE, w_grad=True)
+    ref = cavity_gradient("fused", f64, RE, w_grad=True)
+    h = 0.5
+    fd = (cavity_gradient("fused", f64, RE + h, grad=False)["loss"]
+          - cavity_gradient("fused", f64, RE - h, grad=False)["loss"]) / (2 * h)
+    g = ref["grad"]
+    rel_matmul = abs(g - matmul_grad) / abs(matmul_grad)
+    rel_full = abs(g - full["grad"]) / abs(full["grad"])
+    rel_fd = abs(g - fd) / abs(fd)
+    cfg = cavity.CavityConfig(nx=NX, ny=NX)
+    mapped = cavity_fused.pack_state(cfg, full["w_grad"],
+                                     torch.zeros_like(full["w_grad"]))[0]
+    gw = ref["w_grad"]
+    w_scale = float(mapped.abs().max())
+    w_err = float((gw - mapped).abs().max()) / w_scale
+    m = NX - 1
+    pad_zero = not (gw[m:].any() or gw[:, m:].any())
+    fwd, bwd = ref["forward"], ref["backward"]
+    n_stage = fwd["cavity_fused_stage"]
+    ok = (rel_matmul <= 1e-9 and rel_fd <= 1e-4 and w_err <= 1e-9
+          and pad_zero and w_scale > 0 and math.isfinite(g) and g != 0.0
+          and n_stage == 3 * steps
+          and bwd["cavity_stage_backward"] == n_stage
+          and bwd["cavity_stage_re_grad"] == n_stage
+          and fwd["arakawa_rhs"] == bwd["arakawa_rhs_backward"] == 0
+          and full["backward"]["arakawa_rhs_backward"]
+          == full["forward"]["arakawa_rhs"] == 3 * steps)
+    line = (f"phase 18 gradient (a) packed cavity {NX}^2 fp64 (poisson="
+            f"fused, dt=2e-5, Re={RE:g}, {steps} steps from rest, graph="
+            f"False): d(1e6 mean psi^2)/dRe = {g!r} through the stage kernel "
+            f"and its backward kernel; phase 16's full-grid matmul gradient "
+            f"{matmul_grad!r} (rel {rel_matmul:.2e}, tol 1e-9; recomputed "
+            f"with the state gradient {full['grad']!r}, rel {rel_full:.2e}); "
+            f"central FD h={h:g} {fd!r} (rel {rel_fd:.2e}, tol 1e-4); d/d(w0) "
+            f"against the full-grid one mapped by pack_state: max|diff| "
+            f"{w_err:.2e} of its scale {w_scale:.3e} (tol 1e-9), padding 0: "
+            f"{pad_zero}; launches {n_stage} cavity_fused_stage, "
+            f"{bwd['cavity_stage_backward']} cavity_stage_backward, "
+            f"{bwd['cavity_stage_re_grad']} cavity_stage_re_grad (want "
+            f"{3 * steps} each); {ref['seconds']:.2f} s and "
+            f"{ref['peak_gb']:.2f} GB peak (forward and backward), the "
+            f"full-grid one {full['seconds']:.2f} s and "
+            f"{full['peak_gb']:.2f} GB {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+    for poisson, tol in GRAD_TIERS.items():
+        r = cavity_gradient(poisson, torch.float32, RE)
+        rel = abs(r["grad"] - g) / abs(g)
+        rel_loss = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+        fwd, bwd = r["forward"], r["backward"]
+        rhs, rhs_back = (("cavity_fused_stage", "cavity_stage_backward")
+                         if poisson.startswith("fused") else
+                         ("arakawa_rhs", "arakawa_rhs_backward"))
+        tiers = 0 if poisson == "fused" else 12 * steps
+        ok = (math.isfinite(r["grad"]) and rel <= tol
+              and math.copysign(1.0, r["grad"]) == math.copysign(1.0, g)
+              and fwd[rhs] == bwd[rhs_back] == 3 * steps
+              and fwd["tier_gemm"] == bwd["tier_gemm"] == tiers
+              and fwd["tier_split"] == bwd["tier_split"] == tiers)
+        line = (f"phase 18 gradient (b) {poisson} {NX}^2 fp32: d(1e6 mean "
+                f"psi^2)/dRe = {r['grad']!r}, rel {rel:.3e} of the fp64 "
+                f"fused gradient (tol {tol:g}{', finite, the same sign' if tol == 0.5 else ''}); "
+                f"the loss's own rel. difference {rel_loss:.3e}; launches "
+                f"forward / backward: {rhs} {fwd[rhs]} / {rhs_back} "
+                f"{bwd[rhs_back]}, tier_split {fwd['tier_split']} / "
+                f"{bwd['tier_split']}, tier_gemm {fwd['tier_gemm']} / "
+                f"{bwd['tier_gemm']} (want {3 * steps} and {tiers}); "
+                f"{r['seconds']:.2f} s, {r['peak_gb']:.2f} GB peak "
+                f"{'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+    return ref["backward"]
 
 
 # ------------------------------------------------------- the user surface
@@ -3319,6 +3620,7 @@ def main(argv=None):
     mg_records = phase_mg_kernels()
     euler_record = phase_euler_kernels()
     stage_record = phase_stage_kernel()
+    stage_back_record = phase_stage_backward_kernel()
     tier_record, split_record = phase_tier_kernel()
     phase_empty_graph(mg_records["redblack_sweeps"]["floor_ms"])
     launches, step, state, step_s, rms, cavity_eager_s = phase_main_path()
@@ -3381,6 +3683,7 @@ def main(argv=None):
     phase_1d()
     ensemble_launches = phase_ensemble(fdm_step_s)
     grad_launches = phase_gradients()
+    packed_launches = phase_packed_gradients(grad_launches["cavity_grad"])
     phase_user_surface()
 
     record["launches"] = launches[record["name"]]
@@ -3416,12 +3719,20 @@ def main(argv=None):
                             f"fp32, {EULER_STEPS} steps")
     stage_record["launches"] = fused_launches["cavity_fused_stage"]
     stage_record["path"] = (f"fused cavity {NX}^2, {STEPS_TOTAL} steps")
+    # a backward call that takes the Re gradient is two device launches,
+    # as kernel 1's (the one-block sum's time is inside "ms")
+    stage_back_record["launches"] = packed_launches["cavity_stage_backward"]
+    stage_back_record["re_grad_launches"] = \
+        packed_launches["cavity_stage_re_grad"]
+    stage_back_record["path"] = (f"packed cavity {NX}^2 fp64 gradient, "
+                                 f"{GRAD_CAVITY_STEPS} steps")
     for rec in (tier_record, split_record):
         rec["launches"] = tier_launches[rec["name"]]
         rec["path"] = f"fused_bf16x3 cavity {NX}^2, {STEPS_TOTAL} steps"
     print(json.dumps({"kernels": [record, backward, *mg_records.values(),
                                   euler_record, stage_record,
-                                  tier_record, split_record]}))
+                                  stage_back_record, tier_record,
+                                  split_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

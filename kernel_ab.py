@@ -35,7 +35,9 @@ rounds):
     fp32 on chip_smoke.stage_inputs with Jensen walls, stages 1, 2 and 3,
     warm and L2-flushed, and stage 2 in fp64; besides max|kernel - twin|
     it prints max|this tree - the first tree| over the new interior and
-    over the four wall vectors;
+    over the four wall vectors; and, for the trees that have it, the
+    stage's backward kernel at stage 2 with the Re gradient (fp32, warm
+    and L2-flushed) on chip_smoke.stage_backward_inputs;
   - the empty-launch floor (torch.cuda._sleep(0)) and, as a yardstick of
     the Arakawa RHS's bytes alone, torch.add of two 1025^2 fp32 fields,
     beside them;
@@ -297,6 +299,16 @@ def stage_cases(dev):
                         lambda args=args: ck.cavity_fused_stage_plain(*args),
                         flush.zero_ if temp == "cold" else None,
                         f"cavity_stage_{ck._SUFFIX[dtype]}")]
+    wt, s, walls, g, h = cs.stage_backward_inputs(cs.NX, cs.NX, torch.float32,
+                                                  cs.NX + 16)
+    args = (wt, s, walls, g, h, 2, 2e-5, 1.0 / cs.NX, 1.0 / cs.NX, cs.RE, m,
+            n, 2)
+    for temp in ("warm", "cold"):
+        out[f"cavity_stage_backward {cs.NX}^2 fp32 stage 2 {temp}"] = [(
+            lambda: ck.cavity_fused_stage_backward(*args),
+            lambda: ck.cavity_fused_stage_backward_plain(*args),
+            flush.zero_ if temp == "cold" else None,
+            "cavity_stage_backward_f32")]
     return out
 
 

@@ -21,6 +21,7 @@ import re
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from cfd_julia_torch import interop
 from cfd_julia_torch.models import (burgers1d, cavity, cavity_fused,
@@ -995,6 +996,241 @@ def test_fused_resume_is_bitwise_on_the_gpu(cuda_device, tmp_path):
     want = cavity.solve(cfg, torch.float32, cuda_device)
     _assert_same((got.w, got.s, got.rms_history),
                  (want.w, want.s, want.rms_history))
+
+
+# ------------------------------------------------ the stage's backward
+
+# the backward kernel's shapes: the 1024^2 buffer, padding on both axes,
+# none (P = m = 8, n = Q = 128), the smallest interior, a part-filled
+# last block on both axes
+STAGE_BACKWARD_SHAPES = [(1024, 1024), (24, 16), (9, 129), (3, 3),
+                         (34, 130)]
+
+
+def _stage_backward_inputs(nx, ny, dtype, device, seed):
+    """Random fields and wall vectors on the whole buffer (the padding
+    too), cotangents g and h of the stage's outputs."""
+    rng = np.random.default_rng(seed)
+    P, Q = cavity_fused.padded_extents(nx, ny)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    wt, s, g = (t(rng.standard_normal((P, Q))) for _ in range(3))
+    walls, h = (tuple(t(rng.standard_normal(k)) for k in (Q, Q, P, P))
+                for _ in range(2))
+    return wt, s, walls, g, h
+
+
+def _flat_backward(r):
+    gw, gwt, gs, gwalls, gre = r
+    return [x for x in (gw, gwt, gs, *gwalls, gre) if x is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("re_grad", [True, False], ids=["re", "no_re"])
+@pytest.mark.parametrize("stage", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx,ny", STAGE_BACKWARD_SHAPES)
+def test_cavity_stage_backward_kernel_matches_plain(cuda_device, nx, ny,
+                                                    dtype, stage, re_grad):
+    """The stage's backward kernel against its plain version for both
+    wall-BC orders: every field and wall-vector gradient within REL of its
+    scale, d/dre within 1e-10 (fp64) or 1e-5 of c sum|q lap W|/re^2
+    (fp32); a second call bitwise; one backward launch a call and, with
+    the Re gradient, one cavity_stage_re_grad launch."""
+    m, n = nx - 1, ny - 1
+    dt, dx, dy, re = 1e-3, 1.0 / nx, 1.0 / ny, 100.0
+    for bc_order in (1, 2):
+        wt, s, walls, g, h = _stage_backward_inputs(
+            nx, ny, dtype, cuda_device, seed=nx + 7 * stage + bc_order)
+        args = (stage, dt, dx, dy, re, m, n, bc_order)
+        before = dict(cuda_kernels.LAUNCHES)
+        got = cuda_kernels.cavity_fused_stage_backward(
+            wt, s, walls, g, h, *args, re_grad=re_grad)
+        again = cuda_kernels.cavity_fused_stage_backward(
+            wt, s, walls, g, h, *args, re_grad=re_grad)
+        torch.cuda.synchronize()
+        assert cuda_kernels.LAUNCHES["cavity_stage_backward"] == \
+            before["cavity_stage_backward"] + 2
+        assert cuda_kernels.LAUNCHES["cavity_stage_re_grad"] == \
+            before["cavity_stage_re_grad"] + 2 * re_grad
+        ref = cuda_kernels.cavity_fused_stage_backward_plain(
+            wt, s, walls, g, h, *args)
+        assert (got[0] is None) == (stage == 1)
+        assert (got[4] is None) != re_grad
+        for mine, want in zip(_flat_backward(got)[:-1] if re_grad else
+                              _flat_backward(got),
+                              _flat_backward(ref)[:-1]):
+            _assert_rel(mine, want, REL[dtype])
+        _assert_same(_flat_backward(got), _flat_backward(again))
+        if re_grad:
+            err = abs(float(got[4]) - float(ref[4]))
+            if dtype == torch.float64:
+                assert err <= 1e-10 * abs(float(ref[4]))
+            else:
+                c = {1: 1.0, 2: 0.25, 3: 2 / 3}[stage] * dt
+                lap = cuda_kernels.arakawa.laplacian(
+                    F.pad(cuda_kernels._extended_w(
+                        wt.double(), tuple(v.double() for v in walls), m, n,
+                        cuda_kernels._lid(dy, bc_order)), (1, 1, 1, 1)),
+                    dx, dy)[2:-2, 2:-2]
+                q = g.double()[:m, :n]
+                scale = c * float((q * lap[:m, :n]).abs().sum()) / re**2
+                assert err <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_cavity_stage_autograd_function_gradcheck(cuda_device):
+    """torch.autograd.gradcheck of the kernel pair (forward kernel,
+    backward kernel) in fp64 on raw (8, 8) buffers (m = 5, n = 6: padding
+    on both axes) at each stage, in w, wt, s and the four wall vectors,
+    against finite differences of the forward kernel; and the Re gradient
+    (re_t's value is not read: the kernel takes the float re) against a
+    central difference of the forward kernel in that float, rel 1e-6; no
+    twin runs."""
+    rng = np.random.default_rng(12)
+    P, Q, m, n = 8, 8, 5, 6
+    t = lambda shape, grad=True: torch.tensor(
+        rng.standard_normal(shape), dtype=torch.float64, device=cuda_device,
+        requires_grad=grad)
+    for stage in (1, 2, 3):
+        fields = [t((P, Q)) for _ in range(3)]
+        walls = [t(k) for k in (Q, Q, P, P)]
+
+        def fn(w, wt, s, rl, rh, cl, ch, re=90.0, re_t=None):
+            wt = w if stage == 1 else wt
+            out, walls_out = cuda_kernels.cavity_fused_stage(
+                w, wt, s, (rl, rh, cl, ch), stage, 0.01, 0.2, 0.15, re, m, n,
+                2, re_t=re_t)
+            return (out, *walls_out)
+
+        before = cuda_kernels.LAUNCHES["cavity_stage_backward"]
+        assert torch.autograd.gradcheck(fn, (*fields, *walls), eps=1e-6,
+                                        atol=1e-7)
+        assert cuda_kernels.LAUNCHES["cavity_stage_backward"] > before
+        cot = [t(tuple(o.shape), grad=False) for o in fn(*fields, *walls)]
+        re_t = torch.tensor(90.0, dtype=torch.float64, device=cuda_device,
+                            requires_grad=True)
+        outs = fn(*fields, *walls, re_t=re_t)
+        (g,) = torch.autograd.grad(outs, re_t, cot)
+        with torch.no_grad():
+            loss = lambda re: sum(float(torch.sum(o * c)) for o, c in zip(
+                fn(*fields, *walls, re=re), cot))
+            fd = (loss(90.0 + 1e-3) - loss(90.0 - 1e-3)) / 2e-3
+        assert abs(float(g) - fd) <= 1e-6 * abs(fd), (float(g), fd)
+
+
+@pytest.mark.cuda
+def test_fused_grad_kernel_matches_twin(cuda_device):
+    """d (1e6 mean psi^2) / d Re and the gradient w.r.t. the initial
+    packed w through 10 eager fp64 packed steps (32^2, from a developed
+    state): the stage kernel with its backward kernel against the twin's
+    autograd (rel 1e-10; 1e-10 of the state gradient's scale), with as
+    many backward launches as forward ones, and no gradient in w's
+    padding."""
+    cfg = cavity.CavityConfig(nx=32, ny=32, dt=1e-3, poisson="fused")
+    start = tuple(t.clone() for t in loop.advance(
+        cavity_fused.make_fused_step_fn(cfg, torch.float64, cuda_device),
+        cavity_fused.init_state(cfg, torch.float64, cuda_device), 20))
+
+    def grads(rhs_impl):
+        c = dataclasses.replace(cfg, rhs_impl=rhs_impl)
+        re = torch.tensor(100.0, dtype=torch.float64, device=cuda_device,
+                          requires_grad=True)
+        w0 = start[0].clone().requires_grad_()
+        step = cavity_fused.make_fused_step_fn(c, torch.float64, cuda_device,
+                                               re=re)
+        final = loop.advance(step, (w0, *start[1:]), 10, graph=False)
+        psi = cavity_fused.decode_state(c, final)[1]
+        return torch.autograd.grad(1e6 * torch.mean(psi ** 2), (re, w0))
+
+    ref = grads("torch")
+    cuda_kernels.reset_launch_counts()
+    got = grads("kernel")
+    assert cuda_kernels.LAUNCHES["cavity_fused_stage"] == 30
+    assert cuda_kernels.LAUNCHES["cavity_stage_backward"] == 30
+    assert cuda_kernels.LAUNCHES["cavity_stage_re_grad"] == 30
+    assert abs(float(got[0]) - float(ref[0])) <= 1e-10 * abs(float(ref[0]))
+    _assert_rel(got[1], ref[1], 1e-10)
+    assert not got[1][31:].any() and not got[1][:, 31:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+def test_tier_backward_is_the_product_of_the_cotangent(cuda_device, passes):
+    """On the card the tier Functions' backward is kernel 8 on the
+    cotangent, bit for bit: through a plan of the 1024^2 zero-extended
+    sine matrix (symmetric: the plan itself) on either side, through a
+    plan of a general constant (its transposed plan), and through
+    tier_matmul (g @ b^T, a^T @ g); one split and one GEMM launch a
+    plan's backward."""
+    n = 1024
+    k = torch.arange(n, device=cuda_device)
+    inside = (k[:, None] < n - 1) & (k[None, :] < n - 1)
+    sine = torch.where(inside, direct._sine_entries(
+        k[:, None] + 1, k[None, :] + 1, n, torch.float32), 0.0)
+    rng = np.random.default_rng(passes)
+    rand = lambda shape: torch.as_tensor(rng.standard_normal(shape),
+                                         dtype=torch.float32,
+                                         device=cuda_device)
+    general = rand((n, n))
+    for const, symmetric in ((sine, True), (general, False)):
+        for side in ("left", "right"):
+            plan = cuda_kernels.TierPlan(const, passes, side, (n, n))
+            assert plan.symmetric == symmetric
+            x = rand((n, n)).requires_grad_()
+            g = rand((n, n))
+            out = plan(x)
+            cuda_kernels.reset_launch_counts()
+            (got,) = torch.autograd.grad(out, x, g)
+            assert cuda_kernels.LAUNCHES["tier_gemm"] == 1
+            assert cuda_kernels.LAUNCHES["tier_split"] == \
+                (1 if symmetric else 2)
+            want = cuda_kernels.TierPlan(const.T.contiguous(), passes, side,
+                                         (n, n))(g)
+            _assert_same(got, want)
+    a, b, g = rand((200, 130)), rand((130, 70)), rand((200, 70))
+    a.requires_grad_()
+    b.requires_grad_()
+    ga, gb = torch.autograd.grad(cuda_kernels.tier_matmul(a, b, passes),
+                                 (a, b), g)
+    with torch.no_grad():
+        _assert_same(ga, cuda_kernels.tier_matmul(g, b.T.contiguous(),
+                                                  passes))
+        _assert_same(gb, cuda_kernels.tier_matmul(a.T.contiguous(), g,
+                                                  passes))
+
+
+@pytest.mark.cuda
+def test_graphed_fused_tier_with_reynolds_tensor_is_unchanged(cuda_device):
+    """A graphed no-grad fused_bf16x3 run is the eager run of a step built
+    with an Re tensor that requires no grad, bit for bit, with the same
+    launches (3 stage, 12 + 12 tier a step) and no backward launch; the
+    graphed loop refuses a step built with an Re tensor (its value is read
+    once on the host, which a replay would keep) and a packed state that
+    requires grad, each naming graph=False."""
+    cfg = cavity.CavityConfig(nx=64, ny=64, dt=1e-3, poisson="fused_bf16x3")
+    state = cavity_fused.init_state(cfg, torch.float32, cuda_device)
+    float_step = cavity_fused.make_fused_step_fn(cfg, torch.float32,
+                                                 cuda_device)
+    re_step = cavity_fused.make_fused_step_fn(
+        cfg, torch.float32, cuda_device,
+        re=torch.tensor(cfg.re, device=cuda_device))
+    runs = []
+    for step, graph in ((float_step, True), (re_step, False)):
+        cuda_kernels.reset_launch_counts()
+        out = loop.run_steps(step, state, 60, graph=graph)
+        torch.cuda.synchronize()
+        runs.append(((*out[0], out[1]), dict(cuda_kernels.LAUNCHES)))
+    (a, na), (b, nb) = runs
+    _assert_same(a, b)
+    assert na == nb
+    assert na["cavity_fused_stage"] == 180
+    assert na["tier_gemm"] == na["tier_split"] == 720
+    assert na["cavity_stage_backward"] == na["cavity_stage_re_grad"] == 0
+    with pytest.raises(ValueError, match="graph=False"):
+        loop.run_steps(re_step, state, 5)
+    grad_state = (state[0].clone().requires_grad_(), *state[1:])
+    with pytest.raises(ValueError, match="graph=False"):
+        loop.run_steps(float_step, grad_state, 5)
 
 
 # ------------------------------------------------ the 1D heat / Burgers family

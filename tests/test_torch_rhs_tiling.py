@@ -58,7 +58,7 @@ BLOCK_X = _constant("arakawa_rhs.cu", "kBlockX")
 BLOCK_Y = _constant("arakawa_rhs.cu", "kBlockY")
 ROWS = _constant("arakawa_rhs.cu", "kRows")
 BACK_ROWS = _constant("arakawa_rhs.cu", "kBackRows")
-SUM_THREADS = _constant("arakawa_rhs.cu", "kSumThreads")
+SUM_THREADS = _constant("arakawa.cuh", "kSumThreads")
 CELLS = _constant("euler_rhs.cu", "kCells")
 GHOST = _constant("euler_rhs.cu", "kGhost")
 
