@@ -6,6 +6,7 @@ examples/ scripts), each `python -m cfd_julia_torch.examples.<name>` with
   vortex_merger       the vortex merger's snapshots and a contour figure
   vortex_diagnostics  E(k) and the enstrophy budget dZ/dt = -2 nu P
   adjoint_cavity      d(loss)/dRe of the cavity through torch.autograd
+  multichip_cavity    the cavity sharded over a mesh of ranks (--ranks)
 
 Each module's main(argv) prints its checks and returns them as a dict.
 """

@@ -132,6 +132,15 @@ def field_from_numpy(a, dtype=None, device="cpu"):
                            device=device).contiguous()
 
 
+def block_from_numpy(a, mesh, dtype=None, device="cpu"):
+    """This rank's block of a global, mesh-divisible field given as numpy
+    (a JAX package's padded field, np.asarray of a sharded array), in
+    `dtype` on `device`: the two packages then start from one state."""
+    from cfd_julia_torch.parallel import sharded
+
+    return sharded.place(field_from_numpy(a, dtype, device), mesh)
+
+
 def state_from_numpy(w, s, dtype=None, device="cpu"):
     """Cavity state (w, s, rms=0) from numpy fields."""
     wt = field_from_numpy(w, dtype, device)

@@ -110,6 +110,111 @@ def assemble_with_wall_bc(w_interior, s, dx: float, dy: float,
     return torch.cat([col_lo[:, None], mid, col_hi[:, None]], 1)
 
 
+def _wall_bc_fields(s, dx: float, dy: float, order: int, halo: int = 0):
+    """Full-shape wall-BC candidate fields from shifts of psi, each valid on
+    its own wall line (i=0, i=nx, j=0, j=ny) and selected there by a mask
+    (cfd_julia_tpu/models/cavity.py:175-197).  s: the whole padded field,
+    whose shifts are periodic rolls (halo=0), or a rank's block with a
+    frame of `halo` >= 2 nodes from its periodic neighbours, whose shifts
+    are slices of the framed block (the same values)."""
+    if order not in (1, 2):
+        raise ValueError("bc_order must be 1 or 2")
+
+    def at(di, dj):
+        """s[i + di, j + dj]"""
+        if halo == 0:
+            return torch.roll(s, (-di, -dj), (-2, -1))
+        n, m = s.shape[-2] - 2 * halo, s.shape[-1] - 2 * halo
+        return s[..., halo + di:halo + di + n, halo + dj:halo + dj + m]
+
+    if order == 1:
+        return (-2.0 * at(1, 0) / dx**2,
+                -2.0 * at(-1, 0) / dx**2,
+                -2.0 * at(0, 1) / dy**2,
+                -2.0 * at(0, -1) / dy**2 - 2.0 / dy)
+    return ((-4.0 * at(1, 0) + 0.5 * at(2, 0)) / dx**2,
+            (-4.0 * at(-1, 0) + 0.5 * at(-2, 0)) / dx**2,
+            (-4.0 * at(0, 1) + 0.5 * at(0, 2)) / dy**2,
+            (-4.0 * at(0, -1) + 0.5 * at(0, -2)) / dy**2 - 3.0 / dy)
+
+
+def periodic_rhs(cfg: CavityConfig, device):
+    """rhs(w, s): the periodic vorticity RHS over a field's last two axes,
+    kernel 1 (cuda_kernels.arakawa_rhs_fused) or its twin by cfg.rhs_impl
+    resolved on `device`."""
+    if precision.resolve_rhs_impl(cfg.rhs_impl, device) == "kernel":
+        return lambda w, s: cuda_kernels.arakawa_rhs_fused(
+            w, s, cfg.dx, cfg.dy, cfg.re)
+    return lambda w, s: arakawa.vorticity_rhs(w, s, cfg.dx, cfg.dy, cfg.re)
+
+
+def padded_step(cfg: CavityConfig, i, j, frame, solve, total):
+    """The padded cavity step on a (block of a) (P, Q) field; the one body
+    of make_padded_step_fn and parallel/sharded.make_sharded_cavity_step.
+    i, j: the global row and column indices of the block, (n, 1) and
+    (1, m) integer tensors; frame(w, s) -> (r, s_framed, halo): the
+    periodic RHS on the block, and psi with its `halo`-node frame for
+    _wall_bc_fields; solve: the padded Poisson solve on the block; total:
+    the sum of a block's tensor over the whole field."""
+    nx, ny = cfg.nx, cfg.ny
+    dx, dy, dt = cfg.dx, cfg.dy, cfg.dt
+    interior = (i >= 1) & (i <= nx - 1) & (j >= 1) & (j <= ny - 1)
+    logical = (i <= nx) & (j <= ny)
+    n_nodes = float((nx + 1) * (ny + 1))
+
+    def close(wt_raw, s_framed, halo):
+        """Mask in the wall BCs (the y-walls own the corners: applied last,
+        the reference's write order), zero the padding, fresh psi."""
+        bx_lo, bx_hi, by_lo, by_hi = _wall_bc_fields(s_framed, dx, dy,
+                                                     cfg.bc_order, halo)
+        wt = torch.where(interior, wt_raw, 0.0)
+        wt = torch.where(i == 0, bx_lo, wt)
+        wt = torch.where(i == nx, bx_hi, wt)
+        wt = torch.where(j == 0, by_lo, wt)
+        wt = torch.where(j == ny, by_hi, wt)
+        wt = torch.where(logical, wt, 0.0)
+        return wt, solve(-wt)
+
+    def step(state):
+        w, s, _ = state
+        sp = s
+        r, sf, h = frame(w, s)
+        wt, s = close(w + dt * r, sf, h)
+        r, sf, h = frame(wt, s)
+        wt, s = close(0.75 * w + 0.25 * wt + 0.25 * dt * r, sf, h)
+        r, sf, h = frame(wt, s)
+        wn, s = close((w + 2.0 * wt + 2.0 * dt * r) / 3.0, sf, h)
+        rms = torch.sqrt(
+            total(torch.where(logical, (s - sp) ** 2, 0.0)) / n_nodes)
+        return (wn, s, rms)
+
+    return step
+
+
+def make_padded_step_fn(cfg: CavityConfig, padded_shape, dtype=None,
+                        device="cuda"):
+    """Cavity step on mesh-divisible padded (P, Q) fields, the multi-device
+    formulation on one device (cfd_julia_tpu/models/cavity.py:199-246):
+    the same math as make_step_fn, with masks for the RHS and BC assembly
+    and the zero-extended sine-matmul solve
+    (direct.make_fst_matmul_padded).  The RHS is kernel 1 over the whole
+    (P, Q) field (periodic; the interior mask keeps what the walls need).
+
+    State: (w, s, rms) with w, s of shape padded_shape; the logical field
+    lives at [0..nx, 0..ny], the padding stays exactly zero."""
+    dtype = dtype or precision.default_dtype()
+    device = precision.resolve_device(device)
+    if cfg.bc_order not in (1, 2):
+        raise ValueError("bc_order must be 1 or 2")
+    P, Q = padded_shape
+    rhs = periodic_rhs(cfg, device)
+    solve = direct.make_fst_matmul_padded(cfg.nx, cfg.ny, cfg.dx, cfg.dy,
+                                          padded_shape, dtype, device)
+    return padded_step(cfg, torch.arange(P, device=device)[:, None],
+                       torch.arange(Q, device=device)[None, :],
+                       lambda w, s: (rhs(w, s), s, 0), solve, torch.sum)
+
+
 POISSON = ("auto", "matmul", "matmul_bf16x3", "matmul_bf16x1", "fst",
            "fst_half", "fused", "fused_bf16x3", "fused_bf16x1")
 # the packed step's names (models/cavity_fused), which solve() routes

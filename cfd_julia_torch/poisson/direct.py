@@ -153,6 +153,54 @@ def make_fst_matmul_interior(nx: int, ny: int, dx: float, dy: float,
     return solve
 
 
+def make_fst_matmul_padded(nx: int, ny: int, dx: float, dy: float,
+                           padded_shape, dtype, device=None, block=None,
+                           gather_rows=None, gather_cols=None):
+    """Build the Dirichlet Poisson solve lap(u) = f as four dense matmuls
+    on a zero-extended (P, Q) padded field whose logical content lives at
+    [0..nx, 0..ny] (cfd_julia_tpu/poisson/direct.py:71-104, the multi-chip
+    formulation).  solve(f) reads only the interior (1..nx-1, 1..ny-1) and
+    returns the padded solution, exactly zero on the walls and the
+    padding: u = (S_x ((S_x g S_y) / den) S_y) * 4/(nx ny), S the
+    zero-extended sine matrices (sine_matrix).
+
+    Sharded over a mesh: `block` = (rows, cols), the slices of the rank's
+    block (parallel/mesh.block_slices); solve then maps the rank's block of
+    f to its block of u.  gather_rows(a) stacks the blocks of the rank's
+    mesh column along dim 0 (the x axis), gather_cols(a) those of its mesh
+    row along dim 1: each left product takes the rank's row block of S_x
+    against the gathered operand, each right product the gathered operand
+    against the column block of S_y."""
+    P, Q = padded_shape
+    rows, cols = block or (slice(0, P), slice(0, Q))
+    sx = sine_matrix(nx, P, dtype, device)[rows]
+    sy = sine_matrix(ny, Q, dtype, device)[:, cols].contiguous()
+    k = torch.arange(P, dtype=dtype, device=device)[rows, None]
+    l_ = torch.arange(Q, dtype=dtype, device=device)[None, cols]
+    valid = ((k >= 1) & (k <= nx - 1)) & ((l_ >= 1) & (l_ <= ny - 1))
+    den = (2.0 / dx**2) * (torch.cos(math.pi * k / nx) - 1.0) + (
+        2.0 / dy**2
+    ) * (torch.cos(math.pi * l_ / ny) - 1.0)
+    den = torch.where(valid, den, torch.ones((), dtype=dtype, device=device))
+    scale = 4.0 / (nx * ny)
+    same = lambda a: a  # noqa: E731
+    gather_rows, gather_cols = gather_rows or same, gather_cols or same
+
+    def solve(f):
+        g = torch.where(valid, f, torch.zeros((), dtype=dtype, device=device))
+        coeff = (gather_cols(sx @ gather_rows(g)) @ sy) / den
+        return (gather_cols(sx @ gather_rows(coeff)) @ sy) * scale
+
+    return solve
+
+
+def solve_fst_matmul_padded(f, nx: int, ny: int, dx: float, dy: float):
+    """One-off form of make_fst_matmul_padded on a whole (P, Q) padded
+    field f (builds the matrices for this call)."""
+    return make_fst_matmul_padded(nx, ny, dx, dy, tuple(f.shape), f.dtype,
+                                  f.device)(f)
+
+
 def solve_fst_matmul_interior(f, nx: int, ny: int, dx: float, dy: float,
                               tier: str | None = None):
     """One-off form of make_fst_matmul_interior (builds the matrices for

@@ -80,11 +80,14 @@ def jacobi_sweep(u, f, dx: float, dy: float, mask):
 
 
 def chebyshev_smooth(u, f, dx: float, dy: float, iters: int, imask,
-                     lmax: float = 2.0, lmin_frac: float = 0.25):
+                     lmax: float = 2.0, lmin_frac: float = 0.25,
+                     residual=residual_full):
     """Degree-`iters` Chebyshev-accelerated Jacobi smoother: damps the
     upper eigenvalue band [lmin_frac*lmax, lmax] of the
     Jacobi-preconditioned 5-point Laplacian (Saad, Iterative Methods,
-    alg. 12.1).  Each degree is one unmasked residual and two axpys."""
+    alg. 12.1).  Each degree is one unmasked residual and two axpys.
+    residual: residual_full's signature; the mesh multigrid passes one
+    that takes the stencil's halo from the neighbouring ranks."""
     if iters <= 0:
         return u
     diag = -2.0 / dx**2 - 2.0 / dy**2
@@ -94,13 +97,13 @@ def chebyshev_smooth(u, f, dx: float, dy: float, iters: int, imask,
     delta = 0.5 * (b - a)
     sigma1 = theta / delta
 
-    r = residual_full(f, u, dx, dy, imask)
+    r = residual(f, u, dx, dy, imask)
     d = (r / diag) / theta
     u = u + d
     # a fill, not torch.tensor: a CUDA graph capture forbids host copies
     rho = u.new_full((), 1.0 / sigma1)
     for _ in range(iters - 1):
-        z = residual_full(f, u, dx, dy, imask) / diag
+        z = residual(f, u, dx, dy, imask) / diag
         rho_n = 1.0 / (2.0 * sigma1 - rho)
         d = rho_n * rho * d + (2.0 * rho_n / delta) * z
         u = u + d

@@ -37,9 +37,10 @@ configuration (grid, dtype, device, spacing, the cycle's options), the
 four most recent ones, so repeated solves replay it; a solve copies its
 f, u0 and rms0 into the graph's static tensors.  fmg_start and the rms0
 residual run eagerly, once a solve.  graph=False keeps the eager loop.
-Left out of the port: `cycle_dtype="bf16"` (its numerics stall at 4096²,
-ROADMAP A.0), the multi-device mesh solve (ROADMAP A.10), and the
-TPU-only halo, tile and interpret options.
+`solve(..., mesh=)` runs the multi-device solve on a mesh of ranks (the
+last section).  Left out of the port: `cycle_dtype="bf16"` (its numerics
+stall at 4096², ROADMAP A.0), and the TPU-only halo, tile and interpret
+options.
 """
 from __future__ import annotations
 
@@ -50,7 +51,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from cfd_julia_torch.ops import cuda_kernels
+from cfd_julia_torch.ops import arakawa, cuda_kernels
+from cfd_julia_torch.parallel import halo
+from cfd_julia_torch.parallel import mesh as mesh_lib
 from cfd_julia_torch.poisson.iterative import (
     IterativeResult,
     _record,
@@ -93,29 +96,42 @@ def prolongation(uc):
     return F.conv_transpose2d(uc[None, None], k, stride=2, padding=1)[0, 0]
 
 
-def _restrict_matrix(nf: int, dtype, device):
-    """(nc+1, nf+1) separable full-weighting rows: interior row c holds
-    [1/4, 1/2, 1/4] at fine 2c-1..2c+1; rows 0/nc inject the coincident
-    boundary node (exact for interior-masked residuals)."""
+def _restrict_matrix_padded(nf, Pc, Pf, dtype, device=None):
+    """(Pc, Pf) separable full-weighting rows, zero past the logical
+    (nc+1, nf+1) corner: interior row c holds [1/4, 1/2, 1/4] at fine
+    2c-1..2c+1; rows 0/nc inject the coincident boundary node (exact for
+    interior-masked residuals).  The mesh solve's padded levels take it
+    zero-extended; _restrict_matrix is the logical extent."""
     nc = nf // 2
-    c = torch.arange(nc + 1, device=device)[:, None]
-    fine = torch.arange(nf + 1, device=device)[None, :]
+    c = torch.arange(Pc, device=device)[:, None]
+    fine = torch.arange(Pf, device=device)[None, :]
     d = fine - 2 * c
-    w = torch.where(d == 0, 0.5, torch.where(d.abs() == 1, 0.25, 0.0))
+    w = torch.where(d == 0, 0.5,
+                    torch.where(d.abs() == 1, 0.25, 0.0)).to(dtype)
     inject = (fine == 2 * c).to(dtype)
-    boundary = (c == 0) | (c == nc)
-    return torch.where(boundary, inject, w.to(dtype))
+    m = torch.where((c == 0) | (c == nc), inject, w)
+    return torch.where((c <= nc) & (fine <= nf), m, 0.0)
+
+
+def _prolong_matrix_padded(nc, Pf, Pc, dtype, device=None):
+    """(Pf, Pc) bilinear columns, zero past the logical (nf+1, nc+1)
+    corner: fine even row 2c copies coarse c, fine odd row 2c+1 averages
+    coarse c and c+1."""
+    nf = 2 * nc
+    fine = torch.arange(Pf, device=device)[:, None]
+    c = torch.arange(Pc, device=device)[None, :]
+    even = (fine == 2 * c).to(dtype)
+    odd = ((fine == 2 * c + 1) | (fine == 2 * c - 1)).to(dtype) * 0.5
+    m = torch.where(fine % 2 == 0, even, odd)
+    return torch.where((fine <= nf) & (c <= nc), m, 0.0)
+
+
+def _restrict_matrix(nf: int, dtype, device):
+    return _restrict_matrix_padded(nf, nf // 2 + 1, nf + 1, dtype, device)
 
 
 def _prolong_matrix(nc: int, dtype, device):
-    """(nf+1, nc+1) bilinear columns: fine even row 2c copies coarse c,
-    fine odd row 2c+1 averages coarse c and c+1."""
-    nf = 2 * nc
-    fine = torch.arange(nf + 1, device=device)[:, None]
-    c = torch.arange(nc + 1, device=device)[None, :]
-    even = (fine == 2 * c).to(dtype)
-    odd = ((fine == 2 * c + 1) | (fine == 2 * c - 1)).to(dtype) * 0.5
-    return torch.where(fine % 2 == 0, even, odd)
+    return _prolong_matrix_padded(nc, 2 * nc + 1, nc + 1, dtype, device)
 
 
 def restriction_matmul(r):
@@ -437,10 +453,15 @@ def solve(f, u0, dx: float, dy: float, cfg: MGConfig = MGConfig(),
     configuration's captured V-cycle unless graph=False or under
     utils.debug.nan_guard.  With fused edges
     the finest ascend kernel returns the residual sum of the cycle's
-    output, so no separate residual pass runs per cycle."""
+    output, so no separate residual pass runs per cycle.
+
+    With `mesh` (a DeviceMesh of parallel/mesh.make_mesh, called on every
+    rank with the same global f and u0) the solve runs distributed over
+    the ranks and returns the global u on every rank (_mesh_solve); it
+    runs eagerly, since collectives over gloo cannot be captured in a CUDA
+    graph, so `graph` applies to the single-device solve only."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the multi-device mesh solve is not ported yet (ROADMAP A.10)")
+        return _mesh_solve(f, u0, dx, dy, cfg, mesh)
     check_config(cfg)
     impl = impl_choice(cfg.impl, f.device)
     nx, ny = f.shape[0] - 1, f.shape[1] - 1
@@ -491,3 +512,241 @@ def solve(f, u0, dx: float, dy: float, cfg: MGConfig = MGConfig(),
         u, rms = u.clone(), rms.clone()
     return IterativeResult(u=u, iterations=it, rms=rms, rms0=rms0,
                            history=hist, n_records=nrec)
+
+
+# --------------------------------------------------- multi-device V-cycle
+#
+# Distributed multigrid (cfd_julia_tpu/poisson/multigrid.py:540-760; mg_N.jl
+# redesigned for a mesh of ranks), one program on every rank, each holding
+# its block of every sharded level.
+#  * Every level is zero-padded to mesh-divisible extents, JAX's exactly:
+#    a sharded axis pads to a multiple of 8 * (its ranks), an unsharded one
+#    keeps the logical extent.  The masks make the padded algebra exact:
+#    stencils never reach the interior from the padding, smoother updates
+#    are interior-masked, and the transfer matrices are zero-extended, so
+#    the padding stays exactly zero through the cycle.
+#  * A level is sharded along an axis while each rank keeps at least
+#    _AGGLOM_TILE rows (columns) there; below that every rank holds all of
+#    it and computes it (coarse-level agglomeration).  The descent gathers
+#    once past the switch (inside the restriction's products), the ascent
+#    takes a local slice (the prolongation matrix's row block).
+#  * The smoother is the Chebyshev-Jacobi one and the transfers the
+#    separable matmul pair, as in JAX: every residual takes a width-1 halo
+#    exchange and runs the stencil on the framed block; each transfer
+#    product applies the rank's block of the zero-extended matrix to an
+#    operand gathered along one mesh axis (parallel/halo.py).
+# The loop runs on the host and reads rms/rms0 once a cycle, as the
+# single-device eager loop does.
+
+_AGGLOM_TILE = 8   # least rows / columns a rank keeps before a level is
+                   # held whole on every rank (JAX's TPU sublane count;
+                   # kept so the padded extents match JAX's)
+
+
+class _MeshLevel(NamedTuple):
+    nx: int
+    ny: int
+    dx: float
+    dy: float
+    P: int
+    Q: int
+    sx: str | None     # the mesh axis the level's rows are sharded on
+    sy: str | None     # that of its columns
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _mesh_grid(mesh):
+    names = tuple(mesh.mesh_dim_names)
+    shape = tuple(mesh.shape)
+    py = shape[1] if len(shape) > 1 else 1
+    return shape[0], py, names[0], names[1] if len(names) > 1 else None
+
+
+def _mesh_levels(nx, ny, dx, dy, n_levels, mesh):
+    """Padded level pyramid: logical (nxl+1, nyl+1) nodes inside padded
+    (P, Q) extents; sharded axes pad to multiples of 8 * their ranks, so
+    every block has whole tiles, unsharded axes keep the logical extent."""
+    px, py, xn, yn = _mesh_grid(mesh)
+    out = []
+    for nxl, nyl, dxl, dyl in _build_levels(nx, ny, dx, dy, n_levels):
+        sx = xn if px > 1 and (nxl + 1) >= _AGGLOM_TILE * px else None
+        sy = yn if yn and py > 1 and (nyl + 1) >= _AGGLOM_TILE * py \
+            else None
+        P = _round_up(nxl + 1, 8 * px) if sx else nxl + 1
+        Q = _round_up(nyl + 1, 8 * py) if sy else nyl + 1
+        out.append(_MeshLevel(nxl, nyl, dxl, dyl, P, Q, sx, sy))
+    return out
+
+
+def _padded_imask(nx, ny, P, Q, dtype, device=None):
+    """Interior mask with LOGICAL bounds inside a padded (P, Q) extent
+    (interior_mask with the padding rows and columns zero)."""
+    i = torch.arange(P, device=device)
+    j = torch.arange(Q, device=device)
+    m = ((i > 0) & (i < nx))[:, None] & ((j > 0) & (j < ny))[None, :]
+    return m.to(dtype)
+
+
+def _mesh_cfg(cfg: MGConfig) -> MGConfig:
+    """Resolve an MGConfig for the mesh solve; refuse the single-device
+    options loudly rather than silently running another solve."""
+    transfers = "matmul" if cfg.transfers == "auto" else cfg.transfers
+    if transfers != "matmul":
+        raise ValueError("mesh multigrid uses transfers='matmul' (the "
+                         "conv/reshape forms are single-device; dense "
+                         f"matmuls split over the mesh), got {transfers!r}")
+    if cfg.smoother not in ("auto", "cheb"):
+        raise ValueError("mesh multigrid uses the Chebyshev smoother "
+                         f"(smoother='cheb'|'auto'), got {cfg.smoother!r}")
+    if cfg.cycle_dtype != "fp32":
+        raise ValueError("mesh multigrid supports cycle_dtype='fp32' only "
+                         "(the mixed and bf16 pyramids are single-device)")
+    if cfg.impl == "kernel":
+        raise ValueError("mesh multigrid runs no CUDA kernel (Chebyshev "
+                         "smoother and matmul transfers in PyTorch, as the "
+                         "JAX mesh solve runs no Pallas kernel); impl="
+                         "'kernel' is single-device")
+    cfg = dataclasses.replace(cfg, transfers=transfers, smoother="cheb",
+                              fused="off")
+    check_config(cfg)
+    return cfg
+
+
+class _LevelOps(NamedTuple):
+    """A level of the padded pyramid on this rank: its spacing, its block's
+    interior mask, the distributed residual, and the transfers to the next
+    coarser level (restrict) and from it (prolong; None at the bottom)."""
+    dx: float
+    dy: float
+    shape: tuple
+    imask: torch.Tensor
+    residual: object
+    restrict: object
+    prolong: object
+
+
+def _mesh_level_ops(plv, mesh, dtype, device) -> list:
+    """_LevelOps of every level of `plv` on this rank."""
+    def block(L):
+        return mesh_lib.block_slices((L.P, L.Q), mesh, (L.sx, L.sy))
+
+    def residual_fn(L):
+        def residual(f, u, dx, dy, mask):
+            up = halo.halo_exchange_periodic(u, mesh, 1, (L.sx, L.sy))
+            return (f - arakawa.laplacian(up, dx, dy)[1:-1, 1:-1]) * mask
+        return residual
+
+    def transfer(src, mx, my):
+        """a on level src -> mx @ a @ my.T on the destination's blocks: mx
+        and my are the destination's row and column blocks of the
+        zero-extended matrices, each applied to an operand gathered along
+        the axis src is sharded on."""
+        def apply(a):
+            t = mx @ halo.all_gather_axis(a, mesh, src.sx, 0)
+            return halo.all_gather_axis(t, mesh, src.sy, 1) @ my.T
+        return apply
+
+    out = []
+    for k, L in enumerate(plv):
+        rows, cols = block(L)
+        restrict = prolong = None
+        if k + 1 < len(plv):
+            C = plv[k + 1]
+            crows, ccols = block(C)
+            restrict = transfer(
+                L,
+                _restrict_matrix_padded(L.nx, C.P, L.P, dtype, device)[crows],
+                _restrict_matrix_padded(L.ny, C.Q, L.Q, dtype, device)[ccols])
+            prolong = transfer(
+                C,
+                _prolong_matrix_padded(C.nx, L.P, C.P, dtype, device)[rows],
+                _prolong_matrix_padded(C.ny, L.Q, C.Q, dtype, device)[cols])
+        imask = _padded_imask(L.nx, L.ny, L.P, L.Q, dtype,
+                              device)[rows, cols].contiguous()
+        out.append(_LevelOps(L.dx, L.dy, tuple(imask.shape), imask,
+                             residual_fn(L), restrict, prolong))
+    return out
+
+
+def _mesh_smooth(L: _LevelOps, u, f, iters: int):
+    return chebyshev_smooth(u, f, L.dx, L.dy, iters, L.imask,
+                            residual=L.residual)
+
+
+def _mesh_v_cycle(u, f, ops, cfg: MGConfig):
+    """One V-cycle over the padded pyramid's levels `ops` (a tail of the
+    whole pyramid during FMG) on this rank's blocks; element-equal to
+    v_cycle with the Chebyshev smoother and matmul transfers on the
+    unpadded grids."""
+    n = len(ops)
+    fs, us = [f], [u]
+    for k in range(n - 1):
+        L = ops[k]
+        uk = _mesh_smooth(L, us[k], fs[k], cfg.v1)
+        r = L.residual(fs[k], uk, L.dx, L.dy, L.imask)
+        us[k] = uk
+        fs.append(L.restrict(r))
+        us.append(u.new_zeros(ops[k + 1].shape))
+    us[-1] = _mesh_smooth(ops[-1], us[-1], fs[-1],
+                          cfg.v2 if n > 1 else cfg.v1)
+    for k in range(n - 1, 0, -1):
+        L = ops[k - 1]
+        uf = us[k - 1] + L.prolong(us[k]) * L.imask
+        us[k - 1] = _mesh_smooth(L, uf, fs[k - 1], cfg.v3)
+    return us[0]
+
+
+def _mesh_fmg_start(fp, up, ops, cfg: MGConfig):
+    """fmg_start on the padded pyramid: homogenize, restrict down, then one
+    V-cycle per level on the way up."""
+    L0 = ops[0]
+    gs = [L0.residual(fp, up, L0.dx, L0.dy, L0.imask)]
+    for k in range(1, len(ops)):
+        gs.append(ops[k - 1].restrict(gs[k - 1]))
+    v = _mesh_smooth(ops[-1], fp.new_zeros(ops[-1].shape), gs[-1], cfg.v2)
+    for k in range(len(ops) - 2, -1, -1):
+        v = ops[k].prolong(v) * ops[k].imask
+        v = _mesh_v_cycle(v, gs[k], ops[k:], cfg)
+    return up + v
+
+
+def _mesh_solve(f, u0, dx: float, dy: float, cfg: MGConfig,
+                mesh) -> IterativeResult:
+    """solve() over a mesh of ranks.  f, u0: the global (nx+1, ny+1)
+    fields, the same on every rank; returns the global u on every rank."""
+    cfg = _mesh_cfg(cfg)
+    nx, ny = f.shape[0] - 1, f.shape[1] - 1
+    plv = _mesh_levels(nx, ny, dx, dy, cfg.n_levels, mesh)
+    ops = _mesh_level_ops(plv, mesh, f.dtype, f.device)
+    L0, top = plv[0], ops[0]
+    rows, cols = mesh_lib.block_slices((L0.P, L0.Q), mesh, (L0.sx, L0.sy))
+    pad = (0, L0.Q - (ny + 1), 0, L0.P - (nx + 1))
+    fp = F.pad(f, pad)[rows, cols].contiguous()
+    up = F.pad(u0, pad)[rows, cols].contiguous()
+
+    def rms_of(u):
+        r = top.residual(fp, u, dx, dy, top.imask)
+        return torch.sqrt(halo.all_reduce_sum(torch.sum(r**2))
+                          / ((nx - 1) * (ny - 1)))
+
+    rms0 = rms_of(up)
+    if cfg.fmg:
+        up = _mesh_fmg_start(fp, up, ops, cfg)
+    hist = torch.full((cfg.max_cycles + 1, 3), float("nan"), dtype=f.dtype,
+                      device=f.device)
+    it, rms, rel, nrec = 0, rms0, rms0 / rms0, 0
+    while it < cfg.max_cycles and float(rel) > cfg.tol:
+        up = _mesh_v_cycle(up, fp, ops, cfg)
+        rms = rms_of(up)
+        rel = rms / rms0
+        it += 1
+        _record(hist, nrec, it, rms, rel)
+        nrec += 1
+    from cfd_julia_torch.parallel import sharded
+
+    u = sharded.gather(up, mesh, (L0.sx, L0.sy))
+    return IterativeResult(u=u[:nx + 1, :ny + 1].contiguous(), iterations=it,
+                           rms=rms, rms0=rms0, history=hist, n_records=nrec)

@@ -12,8 +12,11 @@ JAX spectral vortex solvers checkpoint a packed real state (`pack_c`,
 which the port does not have); `load_state` refuses it on its shape and
 dtype check.
 
-The JAX package's `save_sharded` / `load_sharded` (orbax, a multi-device
-mesh) wait for the multi-device port (ROADMAP A.10).
+`save_sharded` / `load_sharded` are the multi-device pair (the JAX
+package's orbax one): torch.distributed.checkpoint, in which every rank
+writes its own shards of a sharded field (a DTensor: parallel/sharded
+.as_dtensor) with no gather, and a restore goes into the caller's mesh,
+which may differ from the saver's.
 """
 from __future__ import annotations
 
@@ -111,3 +114,49 @@ def load_state(path: str, like):
             leaves.append(torch.from_numpy(a).to(ref.device))
         step = int(data["__step__"]) if "__step__" in data.files else None
     return _unflatten(like, iter(leaves)), step
+
+
+# the file torch.distributed.checkpoint writes beside the shards
+_DCP_METADATA = ".metadata"
+
+
+def save_sharded(path: str, state) -> None:
+    """Save a state of DTensors (sharded: every rank writes its own
+    shards, no host gather) and plain tensors (replicated: one copy is
+    written) with torch.distributed.checkpoint, called on every rank of
+    the default process group.  `path` is a checkpoint DIRECTORY; an
+    existing one is overwritten."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save({f"leaf_{i}": t for i, t in enumerate(_leaves(state))},
+             storage_writer=dcp.FileSystemWriter(os.path.abspath(path),
+                                                 overwrite=True))
+
+
+def load_sharded(path: str, like):
+    """Restore a save_sharded checkpoint into `like`'s structure, dtypes,
+    shapes and shardings, on every rank: a DTensor leaf restores into its
+    own mesh and placements (which may differ from the saver's, as orbax
+    restores into a template's shardings), each rank reading only its
+    shards; a plain tensor leaf whole on its device.  A directory in
+    another format is refused."""
+    path = os.path.abspath(path)
+    if not os.path.isfile(os.path.join(path, _DCP_METADATA)):
+        raise ValueError(
+            f"{path} is not a save_sharded checkpoint: that format is a "
+            f"torch.distributed.checkpoint directory, with a {_DCP_METADATA} "
+            "file beside the ranks' shard files")
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+
+    def blank(t):
+        if isinstance(t, DTensor):
+            return DTensor.from_local(torch.empty_like(t.to_local()),
+                                      t.device_mesh, t.placements,
+                                      run_check=False, shape=t.shape,
+                                      stride=t.stride())
+        return torch.empty_like(t)
+
+    leaves = {f"leaf_{i}": blank(t) for i, t in enumerate(_leaves(like))}
+    dcp.load(leaves, checkpoint_id=path)
+    return _unflatten(like, iter(leaves.values()))

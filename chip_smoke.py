@@ -180,7 +180,24 @@ Phases, one line each:
      central difference, rel 1e-4) and examples.vortex_diagnostics (128^2,
      the enstrophy budget within 1e-2); and utils.debug.nan_guard naming
      kernel 6 and kernel 1 at a NaN fed to each, the same calls returning
-     outside the guard.
+     outside the guard;
+ 19. (last) the multi-device path (cfd_julia_torch/parallel/), its ranks
+     started by parallel/launch.py: (a) the 1024^2 sharded cavity of phase
+     3's configuration on one rank over NCCL, 2000 steps, against both
+     cavity anchors and the single-device padded step at step 100 (1e-5
+     of max|psi|), 6000 kernel-1 launches; (b) the same on 2x2 ranks on
+     the one card over gloo (halos and gathers staged through host memory,
+     printed as such), 100 steps, against (a) (1e-5 of max|psi|) and the
+     anchor, 300 kernel-1 launches on every rank; (c) the 4096^2 mesh
+     multigrid solve (poly, cheb smoother, matmul transfers, fp32, tol
+     1e-5) on one rank and on 2x2 against the single-device solve of the
+     same MGConfig: at most one more cycle, u within 1e-5 of max|u|, an
+     fp64 recheck of the residual on the gathered u; (d) save_sharded of
+     (b)'s state, restored bitwise on 2x2 and on one rank; (e) `python -m
+     cfd_julia_torch.examples.multichip_cavity --ranks 4 --device cuda`.
+     Seconds, peak memory a rank and the share of a cavity step its
+     collectives take when replayed alone, beside the card's name and
+     power limit; the 2x2 runs share one card and are no scaling numbers.
 Then a JSON line with each kernel's record, and last
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 nonzero without that last line; without a GPU it fails at once.
@@ -3592,6 +3609,308 @@ def phase_user_surface():
     return launches
 
 
+# phase 19: the multi-device path (cfd_julia_torch/parallel/).  The 2x2
+# runs put four ranks on the one card over gloo, halos and gathers staged
+# through host memory: a correctness check, no scaling number.
+MESH_RANKS = 4
+MESH_MG = dict(tol=MG_TOL, max_cycles=20, transfers="matmul",
+               smoother="cheb", fused="off")
+# reps of a sharded cavity step's collectives replayed alone (halo/collective
+# share)
+MESH_COMM_REPS = 10
+
+
+def card_text():
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0].strip()
+
+
+def mesh_cavity_cfg():
+    from cfd_julia_torch.models import cavity
+
+    return cavity.CavityConfig(nx=NX, ny=NX, dt=2e-5, re=RE, bc_order=2)
+
+
+def mesh_problem(device):
+    """Phase 5's 4096^2 poly problem: (f, u0, ue, dx, dy)."""
+    from cfd_julia_torch.models import poisson2d
+
+    cfg = poisson2d.PoissonConfig(nx=MG_NX, ny=MG_NX, solver="multigrid",
+                                  problem="poly")
+    _, _, _, _, ue, f = poisson2d.build_problem(cfg, torch.float32, device)
+    return f, poisson2d._dirichlet_init(ue), ue, cfg.dx, cfg.dy
+
+
+def cavity_comm_ms(mesh, shape, device):
+    """ms of one sharded cavity step's collectives replayed alone on
+    blocks of the step's shapes: a stage's width-2 exchange of the stacked
+    (w, psi) and its solve's four gathers, three stages, and the rms sum."""
+    from cfd_julia_torch.parallel import halo
+    from cfd_julia_torch.parallel import mesh as mesh_lib
+
+    rows, cols = mesh_lib.block_slices(shape, mesh)
+    blk = torch.zeros((rows.stop - rows.start, cols.stop - cols.start),
+                      device=device)
+    stack, one = torch.stack([blk, blk]), torch.zeros((), device=device)
+
+    def step():
+        for _ in range(3):
+            halo.halo_exchange_periodic(stack, mesh, 2)
+            for _ in range(2):
+                halo.all_gather_axis(blk, mesh, "x", 0)
+                halo.all_gather_axis(blk, mesh, "y", 1)
+        halo.all_reduce_sum(one)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_COMM_REPS):
+        step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / MESH_COMM_REPS
+
+
+def mesh_rank(device, steps, save_to, load_from):
+    """One rank of phase 19 (run by parallel/launch.py): the sharded 1024^2
+    cavity for `steps` steps, psi gathered at step 100 and at the end, the
+    kernel launches of the first 100 steps; save_to: save the state with
+    save_sharded and load it back on this mesh; load_from: (path, global
+    shape) of another mesh's checkpoint to load here; the 4096^2 mesh
+    multigrid solve."""
+    import torch.distributed as dist
+
+    from cfd_julia_torch.ops import cuda_kernels
+    from cfd_julia_torch.parallel import halo, sharded
+    from cfd_julia_torch.parallel import mesh as mesh_lib
+    from cfd_julia_torch.poisson import multigrid
+    from cfd_julia_torch.utils import checkpoint
+
+    mesh = mesh_lib.make_mesh("cuda")
+    out = {"mesh": tuple(mesh.shape), "backend": dist.get_backend(),
+           "transport": halo.transport(mesh, device)}
+    shape = sharded.padded_shape((NX + 1, NX + 1), mesh)
+    step = sharded.make_sharded_cavity_step(mesh_cavity_cfg(), mesh,
+                                            torch.float32, device)
+    w0 = sharded.place(torch.zeros(shape, device=device), mesh)
+    state = (w0, torch.zeros_like(w0), torch.zeros((), device=device))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(STEPS_FIRST):
+        state = step(state)
+    torch.cuda.synchronize()
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0) / STEPS_FIRST
+    out["psi_first"] = sharded.gather(state[1], mesh).cpu()
+    t1 = time.perf_counter()
+    for _ in range(steps - STEPS_FIRST):
+        state = step(state)
+    torch.cuda.synchronize()
+    out["cavity_s"] = time.perf_counter() - t0
+    if steps > STEPS_FIRST:
+        out["late_ms"] = 1e3 * (time.perf_counter() - t1) / (steps - STEPS_FIRST)
+    out["launches"] = dict(cuda_kernels.LAUNCHES)
+    out["psi_last"] = sharded.gather(state[1], mesh).cpu()
+    out["cavity_peak"] = torch.cuda.max_memory_allocated()
+    out["comm_ms"] = cavity_comm_ms(mesh, shape, device)
+
+    if save_to:
+        as_saved = (sharded.as_dtensor(state[0], mesh),
+                    sharded.as_dtensor(state[1], mesh), state[2])
+        t0 = time.perf_counter()
+        checkpoint.save_sharded(save_to, as_saved)
+        out["save_s"] = time.perf_counter() - t0
+        blank = tuple(torch.full_like(t, float("nan")) for t in state)
+        back = checkpoint.load_sharded(
+            save_to, (sharded.as_dtensor(blank[0], mesh),
+                      sharded.as_dtensor(blank[1], mesh), blank[2]))
+        out["reload_bitwise"] = all(
+            torch.equal(a, b) for a, b in
+            zip((back[0].to_local(), back[1].to_local(), back[2]), state))
+        out["saved"] = tuple(sharded.gather(t, mesh) for t in state[:2]) \
+            + (state[2],)
+    if load_from:
+        path, global_shape = load_from
+        blank = sharded.place(torch.full(global_shape, float("nan"),
+                                         device=device), mesh)
+        t0 = time.perf_counter()
+        got = checkpoint.load_sharded(
+            path, (sharded.as_dtensor(blank, mesh),
+                   sharded.as_dtensor(blank.clone(), mesh),
+                   torch.zeros((), device=device)))
+        out["load_s"] = time.perf_counter() - t0
+        out["loaded"] = (sharded.gather(got[0].to_local(), mesh),
+                         sharded.gather(got[1].to_local(), mesh), got[2])
+
+    f, u0, _, dx, dy = mesh_problem(device)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = multigrid.solve(f, u0, dx, dy, cfg=multigrid.MGConfig(**MESH_MG),
+                          mesh=mesh)
+    torch.cuda.synchronize()
+    out["mg"] = {"u": res.u, "iterations": res.iterations,
+                 "rel": float(res.rms / res.rms0),
+                 "seconds": time.perf_counter() - t0,
+                 "peak": torch.cuda.max_memory_allocated()}
+    return out
+
+
+def phase_mesh():
+    """Phase 19: (b, c, d-save) on 2x2 ranks over gloo, then (a, c, d-load)
+    on one rank over NCCL, each group launched once; the single-device
+    padded step and multigrid solve in this process; (e) the example.
+    Returns the kernel-1 launches of each 2x2 rank and of world 1."""
+    from cfd_julia_torch.models import cavity
+    from cfd_julia_torch.parallel import launch
+    from cfd_julia_torch.poisson import multigrid
+
+    card = card_text()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "cavity_2x2")
+        t0 = time.perf_counter()
+        quad = launch.run(mesh_rank, MESH_RANKS, "cuda",
+                          args=(STEPS_FIRST, ckpt, None))
+        quad_s = time.perf_counter() - t0
+        shape = tuple(quad[0]["saved"][0].shape)
+        t0 = time.perf_counter()
+        one = launch.run(mesh_rank, 1, "cuda",
+                         args=(STEPS_TOTAL, None, (ckpt, shape)))[0]
+        one_s = time.perf_counter() - t0
+
+    def gb(b):
+        return f"{b / 2**30:.3f} GB"
+
+    # (a) world 1 over NCCL at full width, against the anchors and the
+    # single-device padded step
+    cfg = mesh_cavity_cfg()
+    step = cavity.make_padded_step_fn(cfg, (NX + 1, NX + 1), torch.float32,
+                                      "cuda")
+    w = torch.zeros((NX + 1, NX + 1), device="cuda")
+    st = (w, torch.zeros_like(w), torch.zeros((), device="cuda"))
+    for _ in range(STEPS_FIRST):
+        st = step(st)
+    single = st[1].cpu()
+    scale = float(single.abs().max())
+    anchor_check(one["psi_first"], STEPS_FIRST, "phase 19 (a) world 1")
+    anchor_check(one["psi_last"], STEPS_TOTAL, "phase 19 (a) world 1")
+    d_one = float((one["psi_first"] - single).abs().max())
+    k1 = one["launches"]["arakawa_rhs"]
+    ok = (one["backend"] == "nccl" and d_one <= 1e-5 * scale
+          and k1 == 3 * STEPS_TOTAL)
+    line = (f"phase 19 (a) sharded cavity {NX}^2 fp32, world 1 {one['mesh']} "
+            f"({one['transport']}): {STEPS_TOTAL} steps in "
+            f"{one['cavity_s']:.3f} s ({one['step_ms']:.4f} ms a step over the "
+            f"first {STEPS_FIRST}, {one['late_ms']:.4f} over the rest), peak "
+            f"{gb(one['cavity_peak'])}, the step's collectives alone "
+            f"{one['comm_ms']:.4f} ms ({one['comm_ms'] / one['late_ms']:.1%}); "
+            f"kernel 1 {k1} launches (want {3 * STEPS_TOTAL}); max|psi - padded single-device step| @"
+            f"{STEPS_FIRST} = {d_one:.3e} (tol 1e-5 x {scale:.6g}); group "
+            f"{one_s:.2f} s; {card} {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+    # (b) 2x2 ranks on the one card over gloo, host-staged
+    n = NX + 1
+    for rank, r in enumerate(quad):
+        d = float((r["psi_first"][:n, :n] - one["psi_first"]).abs().max())
+        pad = float(r["psi_first"][n:].abs().max()
+                    + r["psi_first"][:, n:].abs().max())
+        k1 = r["launches"]["arakawa_rhs"]
+        ok = (r["backend"] == "gloo" and "host memory" in r["transport"]
+              and d <= 1e-5 * scale and pad == 0.0
+              and k1 == 3 * STEPS_FIRST)
+        line = (f"phase 19 (b) sharded cavity {NX}^2 fp32, rank {rank} of "
+                f"{r['mesh']} on one card ({r['transport']}): {STEPS_FIRST} "
+                f"steps in {r['cavity_s']:.3f} s ({r['step_ms']:.4f} ms a "
+                f"step), peak {gb(r['cavity_peak'])}, the step's collectives "
+                f"alone {r['comm_ms']:.4f} ms "
+                f"({r['comm_ms'] / r['step_ms']:.1%} of the step); kernel 1 "
+                f"{k1} launches (want {3 * STEPS_FIRST}); max|psi - world "
+                f"1| @{STEPS_FIRST} = {d:.3e} (tol 1e-5 x {scale:.6g}), "
+                f"padding {pad:g}; {card} {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+    anchor_check(quad[0]["psi_first"][:n, :n], STEPS_FIRST,
+                 "phase 19 (b) 2x2")
+
+    # (c) the 4096^2 mesh multigrid solve against the single-device one
+    f, u0, ue, dx, dy = mesh_problem("cuda")
+    mgc = multigrid.MGConfig(**MESH_MG)
+    multigrid.solve(f, u0, dx, dy, cfg=mgc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = multigrid.solve(f, u0, dx, dy, cfg=mgc)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    u_scale = float(ref.u.abs().max())
+    for label, r, world in [("world 1", one["mg"], 1),
+                            *((f"2x2 rank {k}", q["mg"], MESH_RANKS)
+                              for k, q in enumerate(quad))]:
+        u = r["u"].cuda()
+        d = float((u - ref.u).abs().max())
+        rel_ind = recheck_rel(u, f, u0, dx, dy)
+        extra = r["iterations"] - ref.iterations
+        ok = (0 <= extra <= 1 and r["rel"] <= MG_TOL
+              and rel_ind <= 4 * MG_TOL and d <= 1e-5 * u_scale
+              and bool(torch.isfinite(u).all()))
+        line = (f"phase 19 (c) mesh multigrid {MG_NX}^2 poly fp32 cheb/"
+                f"matmul, {label}: {r['iterations']} cycles (single-device "
+                f"{ref.iterations}, {extra:+d}; at most one more) rms/rms0="
+                f"{r['rel']:.3e} (tol {MG_TOL:g}) fp64 recheck of the gathered "
+                f"u {rel_ind:.3e} (tol {4 * MG_TOL:g}); max|u - single| = "
+                f"{d:.3e} (tol 1e-5 x {u_scale:.6g}); {r['seconds']:.3f} s a "
+                f"solve (single-device {ref_s:.3f} s), peak "
+                f"{gb(r['peak'])}; {card} {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+    del f, u0, ue, ref
+
+    # (d) save_sharded on 2x2, load_sharded on 2x2 and on world 1
+    saved, loaded = quad[0]["saved"], one["loaded"]
+    same = [bool(r["reload_bitwise"]) for r in quad]
+    cross = all(torch.equal(a, b) for a, b in zip(saved, loaded))
+    ok = all(same) and cross
+    line = (f"phase 19 (d) save_sharded of the 2x2 state {tuple(shape)} "
+            f"({max(r['save_s'] for r in quad):.3f} s), load_sharded on 2x2 "
+            f"bitwise {same}, on world 1 bitwise {cross} "
+            f"({one['load_s']:.3f} s); {card} {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+    # (e) the example, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cfd_julia_torch.examples.multichip_cavity",
+         "--ranks", str(MESH_RANKS), "--device", "cuda"], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    ex_s = time.perf_counter() - t0
+    m = re.search(r"\|\|dpsi\|\| = (\S+),", proc.stdout)
+    dpsi = float(m.group(1).rstrip(",")) if m else float("nan")
+    ok = (proc.returncode == 0 and math.isfinite(dpsi) and dpsi > 0
+          and "staged through host memory" in proc.stdout)
+    line = (f"phase 19 (e) `python -m cfd_julia_torch.examples.multichip_cavity"
+            f" --ranks {MESH_RANKS} --device cuda`: rc {proc.returncode}, "
+            f"||dpsi|| = {dpsi:.9g}, {ex_s:.2f} s; {card} "
+            f"{'ok' if ok else 'FAIL'}")
+    print(line)
+    for text in proc.stdout.strip().splitlines():
+        print(f"  {text}")
+    if not ok:
+        print(proc.stderr[-4000:])
+    check(ok, line)
+    print(f"phase 19 multi-device: 2x2 group {quad_s:.2f} s, world-1 group "
+          f"{one_s:.2f} s, phase {time.perf_counter() - t_phase:.2f} s; "
+          f"{card}")
+    return ([r["launches"]["arakawa_rhs"] for r in quad],
+            one["launches"]["arakawa_rhs"])
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3685,12 +4004,20 @@ def main(argv=None):
     grad_launches = phase_gradients()
     packed_launches = phase_packed_gradients(grad_launches["cavity_grad"])
     phase_user_surface()
+    mesh_launches, mesh_launches_one = phase_mesh()
 
     record["launches"] = launches[record["name"]]
     record["path"] = f"cavity {NX}^2, {STEPS_TOTAL} steps"
     record["at_2048"]["launches"] = fdm_launches["arakawa_rhs"]
     record["at_2048"]["path"] = (f"vortex fdm {VORTEX_NX}^2, {VORTEX_TOTAL} "
                                  f"steps")
+    record["sharded"] = {
+        "launches": mesh_launches,
+        "path": (f"sharded cavity {NX}^2, {STEPS_FIRST} steps on each of "
+                 f"{MESH_RANKS} ranks (2x2, one card, gloo)"),
+        "world_1": {"launches": mesh_launches_one,
+                    "path": f"sharded cavity {NX}^2, {STEPS_TOTAL} steps, "
+                            f"one rank (NCCL)"}}
     record["batched"] = batched_records["batched"]
     record["batched"]["launches"] = ensemble_launches["arakawa_rhs"]
     record["batched"]["path"] = (f"ensemble fdm {len(ENSEMBLE_RE)} x "

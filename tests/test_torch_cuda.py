@@ -16,7 +16,9 @@ rho < 0 and p < 0, where the flux amplifies roundoff.
 """
 import dataclasses
 import json
+import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -28,7 +30,11 @@ from cfd_julia_torch.models import (burgers1d, cavity, cavity_fused,
                                     euler1d, heat1d, poisson2d, vortex)
 from cfd_julia_torch.ops import _cuda_build, cuda_kernels
 from cfd_julia_torch.poisson import direct, multigrid
+from cfd_julia_torch.parallel import launch
 from cfd_julia_torch.stepping import loop, ssprk3
+
+sys.path.insert(0, os.path.dirname(__file__))
+import torch_parallel_ranks  # noqa: E402  (JAX-free rank programs)
 
 REL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 8e-3}
 # cells a block of the Euler kernel owns: nx = EULER_TILE +- 1 puts an
@@ -1541,3 +1547,45 @@ def test_order_heat_icp_on_gpu_matches_cpu(cuda_device, tmp_path, capsys):
     assert len(errs["cuda"]) == 3
     for g, c in zip(errs["cuda"], errs["cpu"]):
         assert abs(g - c) <= max(1e-9 * abs(c), 1e-12), (errs,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("split", [(513, 512), (512, 513), (343, 341, 341)])
+def test_arakawa_kernel_on_halo_blocks(cuda_device, split, dtype):
+    """Kernel 1 on a rank's 1-halo framed block of a 1025^2 field, ragged
+    rank extents (1025 rows as 513 + 512, ...; columns as 517 + 508):
+    against its twin on the block, and its interior against the kernel on
+    the whole periodic field."""
+    n = 1025
+    w, s = _fields((n, n), seed=11)
+    dx, dy = _spacing((n, n))
+    wt, st, _ = interop.state_from_numpy(w, s, dtype, cuda_device)
+    whole = cuda_kernels.arakawa_rhs_fused(wt, st, dx, dy, 100.0)
+    framed = [F.pad(t[None], (1, 1, 1, 1), mode="circular")[0]
+              for t in (wt, st)]
+    r0 = 0
+    for rows in split:
+        c0 = 0
+        for cols in (517, 508):
+            wb, sb = (t[r0:r0 + rows + 2, c0:c0 + cols + 2].contiguous()
+                      for t in framed)
+            got = cuda_kernels.arakawa_rhs_fused(wb, sb, dx, dy, 100.0)
+            _assert_rel(got, cuda_kernels.arakawa_rhs_fused_plain(
+                wb, sb, dx, dy, 100.0), REL[dtype])
+            _assert_rel(got[1:-1, 1:-1], whole[r0:r0 + rows, c0:c0 + cols],
+                        REL[dtype])
+            c0 += cols
+        r0 += rows
+
+
+@pytest.mark.cuda
+def test_host_staged_exchange_is_bitwise_a_cpu_exchange(cuda_device):
+    """Four ranks on the card over gloo: the host-staged halo exchanges
+    (widths 1 and 2) and axis gathers of CUDA blocks equal the same calls
+    on CPU blocks, and the periodic pad of the global field, bitwise."""
+    results = launch.run(torch_parallel_ranks.staged_exchange, 4, "cuda",
+                         args=((66, 68), 3))
+    for rank, r in enumerate(results):
+        assert r == {"staged": True, "halo1": True, "halo2": True,
+                     "gather_x": True, "gather_y": True}, (rank, r)

@@ -335,8 +335,11 @@ def test_mg_unported_options_raise(opts, exc, match):
 
 def test_mg_mesh_and_fft_solvers_raise():
     f, u0, dx, dy = _small()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        multigrid.solve(f, u0, dx, dy, mesh=object())
+    # the mesh solve is ported (tests/test_torch_parallel.py); it refuses a
+    # single-device option before it touches the mesh
+    with pytest.raises(ValueError, match="transfers"):
+        multigrid.solve(f, u0, dx, dy, multigrid.MGConfig(transfers="conv"),
+                        mesh=object())
     for solver in ("fft", "fft_spectral", "fst"):
         res = poisson2d.solve(poisson2d.PoissonConfig(nx=8, ny=8,
                                                       solver=solver),
