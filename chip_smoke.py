@@ -12,8 +12,10 @@ Phases, one line each:
      time beside the twin's and its bound (bytes over HBM rate or flops
      over the fp32 peak) at its main path's shape: the Arakawa RHS in
      fp32 and fp64 at 1025^2 and at 2048^2 (the cavity's and the fdm
-     vortex solver's shapes, each timed warm in L2 and with L2 flushed)
-     and at small and ragged shapes down to 3x1, two calls bitwise equal;
+     vortex solver's shapes) and at 517^2 and 1029^2 (phase 19's framed
+     blocks: a 2x2 rank's and one rank's), each timed warm in L2 and with
+     L2 flushed, and at small and ragged shapes down to 3x1, two calls
+     bitwise equal;
      batched with one device Re a member at (8, 2048, 2048) (the
      ensemble's, eight distinct Re), (2, 3, 1) and (3, 17, 33) in fp32 and
      fp64, two calls bitwise equal, a batch of one with a 0-d Re tensor
@@ -479,8 +481,11 @@ def phase_build():
 # neighbours alias)
 ARAKAWA_SHAPES = [(37, 53), (8, 8), (3, 1), (3, 2), (65, 33), (1023, 31)]
 # the shapes its paths give it, timed: the cavity's nodes and the periodic
-# vortex field's unique nodes (16-byte-aligned rows, 3 fields the size of L2)
-ARAKAWA_TIMED = [(NX + 1, NX + 1), (VORTEX_NX, VORTEX_NX)]
+# vortex field's unique nodes (16-byte-aligned rows, 3 fields the size of L2),
+# then phase 19's framed blocks: a 2x2 rank's 513^2 block and one rank's
+# 1025^2 field, each with its 2-node frame
+ARAKAWA_MESH = [((NX + 2) // 2 + 4,) * 2, (NX + 5,) * 2]
+ARAKAWA_TIMED = [(NX + 1, NX + 1), (VORTEX_NX, VORTEX_NX), *ARAKAWA_MESH]
 
 
 def phase_kernels():
@@ -545,11 +550,18 @@ def phase_kernels():
             print(line)
             check(ok, line)
             del w, s, got, again, ref
+    keys = ("launches", "max_abs_err", "ms", "cold_ms", "plain_ms",
+            "bound_ms", "bound_by", "share_of_bound", "library_ms")
+
+    def sub(shape):
+        return {"shape": list(shape),
+                **{k: v for k, v in records[shape].items() if k in keys}}
+
     record = records[ARAKAWA_TIMED[0]]
-    record["at_2048"] = {
-        k: v for k, v in records[ARAKAWA_TIMED[1]].items()
-        if k in ("launches", "max_abs_err", "ms", "cold_ms", "plain_ms",
-                 "bound_ms", "bound_by", "share_of_bound")}
+    record["at_2048"] = {k: v for k, v in sub(ARAKAWA_TIMED[1]).items()
+                         if k != "shape"}
+    record["sharded"] = {**sub(ARAKAWA_MESH[0]),
+                         "world_1": sub(ARAKAWA_MESH[1])}
     return record
 
 
@@ -4011,13 +4023,13 @@ def main(argv=None):
     record["at_2048"]["launches"] = fdm_launches["arakawa_rhs"]
     record["at_2048"]["path"] = (f"vortex fdm {VORTEX_NX}^2, {VORTEX_TOTAL} "
                                  f"steps")
-    record["sharded"] = {
-        "launches": mesh_launches,
-        "path": (f"sharded cavity {NX}^2, {STEPS_FIRST} steps on each of "
-                 f"{MESH_RANKS} ranks (2x2, one card, gloo)"),
-        "world_1": {"launches": mesh_launches_one,
-                    "path": f"sharded cavity {NX}^2, {STEPS_TOTAL} steps, "
-                            f"one rank (NCCL)"}}
+    record["sharded"].update(
+        launches=mesh_launches,
+        path=(f"sharded cavity {NX}^2, {STEPS_FIRST} steps on each of "
+              f"{MESH_RANKS} ranks (2x2, one card, gloo)"))
+    record["sharded"]["world_1"].update(
+        launches=mesh_launches_one,
+        path=f"sharded cavity {NX}^2, {STEPS_TOTAL} steps, one rank (NCCL)")
     record["batched"] = batched_records["batched"]
     record["batched"]["launches"] = ensemble_launches["arakawa_rhs"]
     record["batched"]["path"] = (f"ensemble fdm {len(ENSEMBLE_RE)} x "
