@@ -141,6 +141,16 @@ def block_from_numpy(a, mesh, dtype=None, device="cpu"):
     return sharded.place(field_from_numpy(a, dtype, device), mesh)
 
 
+def slab_from_numpy(a, mesh, dim: int = -2, dtype=None, device="cpu"):
+    """This rank's slab of a global (.., n, m) field given as numpy (the
+    JAX package's unpacked half spectrum, a row slab: dim -2), in `dtype`
+    on `device` (parallel/sharded.place_slab): both packages then start
+    from one state."""
+    from cfd_julia_torch.parallel import sharded
+
+    return sharded.place_slab(field_from_numpy(a, dtype, device), mesh, dim)
+
+
 def state_from_numpy(w, s, dtype=None, device="cpu"):
     """Cavity state (w, s, rms=0) from numpy fields."""
     wt = field_from_numpy(w, dtype, device)

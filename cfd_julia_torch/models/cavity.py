@@ -235,9 +235,16 @@ def _check_poisson(name: str, dtype) -> None:
             "state")
 
 
-def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda", re=None):
+def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda", re=None,
+                 mesh=None):
     """Cavity step on state (w, s, rms) of (nx+1, ny+1) tensors of `dtype`
     on `device`; the Poisson solve's constants are built here, once.
+
+    With a mesh (cfd_julia_tpu/models/cavity.py:290-341): poisson="fst" or
+    "fst_half" only, the pencil DST-I; the state is this rank's blocks of
+    the (nx+1, ny+1) fields zero-padded to mesh multiples
+    (parallel/sharded.make_sharded_cavity_step, whose "matmul" form is the
+    JAX package's make_padded_step_fn); re: cfg.re only.
 
     `re` overrides cfg.re: a float, or a 0-d tensor on `device` (the JAX
     package's traced re), which the kernel RHS reads from device memory.
@@ -249,6 +256,18 @@ def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda", re=None):
     twin on the CPU; cuda_kernels.TierPlan)."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
+    if mesh is not None:
+        if cfg.poisson not in ("fst", "fst_half"):
+            raise ValueError(
+                f"poisson={cfg.poisson!r} is single-device only; the mesh "
+                "step uses poisson='fst'/'fst_half' (pencil DST) or "
+                "parallel/sharded.make_sharded_cavity_step (matmul DST on "
+                "padded blocks)")
+        if re is not None:
+            raise ValueError("the mesh step takes cfg.re only")
+        from cfd_julia_torch.parallel import sharded
+
+        return sharded.make_sharded_cavity_step(cfg, mesh, dtype, device)
     dx, dy, dt = cfg.dx, cfg.dy, cfg.dt
     re = cfg.re if re is None else re
     rhs_impl = precision.resolve_rhs_impl(cfg.rhs_impl, device)

@@ -25,6 +25,16 @@ PyTorch runs eagerly, so the wavenumber, Crank-Nicolson and Jacobian
 constants are built once, on the device, when a step is made, and reused
 by every step (the JAX package rebuilds them inside its traced step).
 
+Mesh forms (`mesh=`, the JAX package's `mesh=`; one process a rank, each
+running the same step on its part of the state, parallel/sharded.py): the
+fdm vorticity and the full spectrum in 2D blocks, the half spectrum in row
+slabs (kx split over all ranks).  Every 2D transform is the pencil form of
+ops/spectral.py, the 3/2-rule pads and cuts each axis where it is whole,
+and the physical Arakawa terms take their halos from the ring neighbours
+(parallel/halo.py): kernel 1 on each rank's framed block for fdm, the
+plain Jacobian on each row slab for hybrid.  nx and ny must divide over
+the ranks.
+
 Reference run config: 128^2, [0, 2pi]^2, Re=1000, dt=0.01, t=20 (vm);
 TGV validation: 64^2, Re=10, dt=0.01, t=1 (tgv.jl:92-146).
 """
@@ -37,6 +47,9 @@ import torch
 
 from cfd_julia_torch.core import precision
 from cfd_julia_torch.ops import arakawa, cuda_kernels, spectral
+from cfd_julia_torch.parallel import halo
+from cfd_julia_torch.parallel import mesh as mesh_lib
+from cfd_julia_torch.parallel import transpose
 from cfd_julia_torch.stepping import loop, ssprk3
 from cfd_julia_torch.utils import checkpoint
 
@@ -138,7 +151,26 @@ def initial_vorticity(cfg: VortexConfig, dtype=None, device="cuda"):
 
 # ----------------------------------------------------------------- FDM
 
-def fdm_rhs(w, dx, dy, re, impl: str = "torch", poisson=None):
+def _check_mesh_grid(nx: int, ny: int, mesh) -> None:
+    """Raise unless the periodic grid divides over the mesh's ranks."""
+    world = mesh_lib.world_size(mesh)
+    if nx % world or ny % world:
+        raise ValueError(f"a periodic {nx}x{ny} grid on a mesh needs nx and "
+                         f"ny divisible by its {world} ranks")
+
+
+def make_block_poisson(nx: int, ny: int, dx: float, dy: float, dtype,
+                       device, mesh):
+    """The fdm Poisson solve lap(psi) = f on 2D blocks: the block moves to
+    its row slab, the pencil rfft2 / irfft2 solve runs, and psi moves
+    back."""
+    inner = spectral.make_fft_poisson_periodic(nx, ny, dx, dy, dtype, device,
+                                               eigen="fdm", mesh=mesh)
+    return lambda f: transpose.rows_to_block(
+        inner(transpose.block_to_rows(f, mesh, (nx, ny))), mesh, (nx, ny))
+
+
+def fdm_rhs(w, dx, dy, re, impl: str = "torch", poisson=None, mesh=None):
     """vm_rhs: psi from FFT Poisson (FDM eigenvalues), Arakawa + viscous
     Laplacian (Common.jl:132-182).  impl="kernel" runs the fused
     Jacobian+Laplacian CUDA kernel (ops.cuda_kernels), "torch" its plain
@@ -146,9 +178,24 @@ def fdm_rhs(w, dx, dy, re, impl: str = "torch", poisson=None):
     spectral.make_fft_poisson_periodic for w's grid; built for this call
     when not given.  w: (nx, ny), or (B, nx, ny) for a batch of members
     (one kernel launch for all); re: a float, or a tensor with one Re a
-    member (ops.arakawa.members), which may require grad."""
+    member (ops.arakawa.members), which may require grad.
+
+    With a mesh: w is this rank's block, psi comes from the pencil solve
+    (`make_block_poisson`, the `poisson` to pass), and the RHS is kernel 1
+    (or its twin) on the block framed by one node from the ring neighbours
+    (halo.make_distributed_vorticity_rhs), where the JAX package's mesh
+    form runs its XLA RHS."""
     if impl not in ("kernel", "torch"):
         raise ValueError(f"unknown fdm rhs impl {impl!r} (kernel | torch)")
+    if mesh is not None:
+        if poisson is None:
+            px, py = mesh.shape
+            nx, ny = w.shape[-2] * px, w.shape[-1] * py
+            poisson = make_block_poisson(nx, ny, dx, dy, w.dtype, w.device,
+                                         mesh)
+        s = poisson(-w)
+        return halo.make_distributed_vorticity_rhs(mesh, dx, dy, re,
+                                                   impl)(w, s)
     if poisson is None:
         s = spectral.fft_poisson_periodic(-w, dx, dy, eigen="fdm")
     else:
@@ -158,18 +205,25 @@ def fdm_rhs(w, dx, dy, re, impl: str = "torch", poisson=None):
     return arakawa.vorticity_rhs(w, s, dx, dy, re)
 
 
-def make_fdm_rhs(cfg: VortexConfig, dtype=None, device="cuda", re=None):
+def make_fdm_rhs(cfg: VortexConfig, dtype=None, device="cuda", re=None,
+                 mesh=None):
     """w (nx, ny), or (B, nx, ny), -> dw/dt on `device` for the fdm
     solver, with the Poisson eigenvalues built once and cfg.rhs_impl
     resolved against the device.  `re` overrides cfg.re: a float or a
-    tensor on `device` of one Re a member (models/ensemble.py)."""
+    tensor on `device` of one Re a member (models/ensemble.py).  With a
+    mesh: this rank's block of w -> its block of dw/dt (fdm_rhs)."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
     impl = precision.resolve_rhs_impl(cfg.rhs_impl, device)
-    poisson = spectral.make_fft_poisson_periodic(
-        cfg.nx, cfg.ny, cfg.dx, cfg.dy, dtype, device, eigen="fdm")
     re = cfg.re if re is None else re
-    return lambda w: fdm_rhs(w, cfg.dx, cfg.dy, re, impl, poisson)
+    if mesh is not None:
+        _check_mesh_grid(cfg.nx, cfg.ny, mesh)
+        poisson = make_block_poisson(cfg.nx, cfg.ny, cfg.dx, cfg.dy, dtype,
+                                     device, mesh)
+    else:
+        poisson = spectral.make_fft_poisson_periodic(
+            cfg.nx, cfg.ny, cfg.dx, cfg.dy, dtype, device, eigen="fdm")
+    return lambda w: fdm_rhs(w, cfg.dx, cfg.dy, re, impl, poisson, mesh)
 
 
 # ------------------------------------------------- spectral formulations
@@ -202,15 +256,30 @@ def _step_consts(cfg: VortexConfig, dtype, device, eps: float = 1e-6):
     return kx[:, None] ** 2 + ky[None, :] ** 2, kx, ky
 
 
-def jacobian_hybrid(wf, k2, dx, dy):
+def jacobian_hybrid(wf, k2, dx, dy, mesh=None, line=None):
     """-J(w, psi) computed in physical space with the Arakawa scheme, psi
-    from the spectrum (hybrid.jl:92-152)."""
-    w = spectral.ifft2(wf).real
-    s = spectral.ifft2(wf / k2).real
-    return spectral.fft2(-arakawa.jacobian(w, s, dx, dy))
+    from the spectrum (hybrid.jl:92-152).  With a mesh: wf is this rank's
+    block and k2 the global (nx, ny) constant; w and psi come to row slabs
+    by the pencil ifft2, J runs there with a ring halo over `line`
+    (mesh.flat_line, built for the call when not given) and the fft2 takes
+    it back to the block."""
+    if mesh is None:
+        w = spectral.ifft2(wf).real
+        s = spectral.ifft2(wf / k2).real
+        return spectral.fft2(-arakawa.jacobian(w, s, dx, dy))
+    shape = tuple(k2.shape)
+    if line is None:
+        line = mesh_lib.flat_line(mesh)
+    z = transpose.block_to_cols(
+        torch.stack([wf, wf / k2[mesh_lib.block_slices(shape, mesh)]]), mesh,
+        shape)
+    w, s = spectral.ifft2(z, mesh, shape).real
+    jac = -halo.slab_jacobian(w, s, dx, dy, line)
+    return transpose.cols_to_block(spectral.fft2(jac, mesh, shape), mesh,
+                                   shape)
 
 
-def _deriv_spectra(wf, k2, kx, ky):
+def _deriv_spectra(wf, k2, kx, ky, block=None):
     """psi_x, w_y, psi_y, w_x spectra (pseudospectral_32_rule.jl:113-122).
 
     Unlike the reference, the *multiplicative* wavenumbers zero (a) the
@@ -218,17 +287,21 @@ def _deriv_spectra(wf, k2, kx, ky):
     symmetry and injects O(eps) noise (the guard is only needed for the
     1/k^2 division, where k2 keeps it) — and (b) the Nyquist mode, whose
     first derivative is not representable as a Hermitian (real-field)
-    spectrum; zeroing it is the standard pseudospectral convention."""
+    spectrum; zeroing it is the standard pseudospectral convention.
+    block: (rows, cols) slices of a rank's block of the global constants,
+    where wf is that block."""
     nx_, ny_ = kx.shape[0], ky.shape[0]
     kx0 = kx.clone()
     kx0[0] = 0.0
     ky0 = ky.clone()
     ky0[0] = 0.0
+    rows, cols = block or (slice(None), slice(None))
     # drop the Nyquist row/column entirely: its placement under the 3/2-rule
     # pad (one-sided negative block, pad_32) cannot be Hermitian
-    wf = wf * _nyquist_mask(nx_, ny_, wf.device)
-    ikx = 1j * kx0[:, None]
-    iky = 1j * ky0[None, :]
+    wf = wf * _nyquist_mask(nx_, ny_, wf.device)[rows, cols]
+    ikx = 1j * kx0[rows, None]
+    iky = 1j * ky0[None, cols]
+    k2 = k2[rows, cols]
     return ikx * wf / k2, iky * wf, iky * wf / k2, ikx * wf
 
 
@@ -244,7 +317,7 @@ def _nyquist_mask(nx: int, ny: int, device=None, hy: int | None = None):
     return keep_x & keep_y
 
 
-def jacobian_ps32(wf, k2, kx, ky, nx, ny):
+def jacobian_ps32(wf, k2, kx, ky, nx, ny, mesh=None):
     """Pseudospectral Jacobian, 3/2-rule zero-padding dealiasing
     (pseudospectral_32_rule.jl:95-177): jf = fft(psi_x w_y - psi_y w_x)
     evaluated on the 1.5x grid, truncated back.
@@ -255,7 +328,11 @@ def jacobian_ps32(wf, k2, kx, ky, nx, ny):
     non-Hermitian content on the coarse Nyquist line — unrepresentable for
     a real field and inert anyway (_deriv_spectra masks it before every
     jacobian).  Zeroing it keeps the state exactly Hermitian so the
-    half-spectrum path computes the same step."""
+    half-spectrum path computes the same step.  With a mesh: wf is this
+    rank's block and k2, kx, ky the global constants
+    (_jacobian_ps32_mesh)."""
+    if mesh is not None:
+        return _jacobian_ps32_mesh(wf, k2, kx, ky, nx, ny, mesh)
     nxe, nye = 3 * nx // 2, 3 * ny // 2
     scale = (nxe * nye) / (nx * ny)
     specs = torch.stack(_deriv_spectra(wf, k2, kx, ky))
@@ -266,52 +343,102 @@ def jacobian_ps32(wf, k2, kx, ky, nx, ny):
         * _nyquist_mask(nx, ny, wf.device)
 
 
-def jacobian_ps23(wf, k2, kx, ky, nx, ny):
+def _jacobian_ps32_mesh(wf, k2, kx, ky, nx, ny, mesh):
+    """jacobian_ps32 on this rank's block wf: each axis of the 3/2 grid is
+    padded and cut where it is whole: the ky pad on the row slab, the kx
+    pad on the column slab, the transforms of the padded grid as pencils,
+    the kx cut on the column slab, the ky cut on the row slab."""
+    nxe, nye = 3 * nx // 2, 3 * ny // 2
+    hx, hy = nx // 2, ny // 2
+    scale = (nxe * nye) / (nx * ny)
+    block = mesh_lib.block_slices((nx, ny), mesh)
+    specs = transpose.block_to_rows(
+        torch.stack(_deriv_spectra(wf, k2, kx, ky, block)), mesh, (nx, ny))
+    zc = specs.new_zeros((*specs.shape[:-1], nye - ny))
+    specs = torch.cat([specs[..., :hy], zc, specs[..., hy:]], dim=-1)
+    specs = transpose.rows_to_cols(specs, mesh, (nx, nye))
+    specs = spectral._pad_rows_32(specs, nx, nxe) * scale
+    j1, j2, j3, j4 = spectral.ifft2(specs, mesh, (nxe, nye)).real
+    jacpf = spectral.fft2(j1 * j2 - j3 * j4, mesh, (nxe, nye))
+    jacpf = torch.cat([jacpf[..., :hx, :], jacpf[..., nxe - hx:, :]], dim=-2)
+    jacpf = transpose.cols_to_rows(jacpf, mesh, (nx, nye))
+    jacpf = torch.cat([jacpf[..., :hy], jacpf[..., nye - hy:]], dim=-1)
+    jacpf = transpose.rows_to_block(jacpf, mesh, (nx, ny))
+    return (jacpf / scale) * _nyquist_mask(nx, ny, wf.device)[block]
+
+
+def jacobian_ps23(wf, k2, kx, ky, nx, ny, mesh=None):
     """Pseudospectral Jacobian, 2/3-rule truncation
     (pseudospectral_23_rule.jl:93-144): derivative spectra are masked
     before the physical product; the product spectrum is NOT re-masked
     (reference behaviour).  The band is spectral.dealias_mask_23's
-    symmetric |k| < ne//2."""
-    mask = spectral.dealias_mask_23(nx, ny, wf.device)
-    specs = torch.stack(_deriv_spectra(wf, k2, kx, ky)) * mask
-    j1, j2, j3, j4 = spectral.ifft2(specs).real
-    return spectral.fft2(j1 * j2 - j3 * j4)
+    symmetric |k| < ne//2.  With a mesh: wf is this rank's block and k2,
+    kx, ky the global constants; the block goes to the column slab, the
+    pencil ifft2 brings the four fields to row slabs, the fft2 their
+    product back to the column slab, and that returns to the block."""
+    if mesh is None:
+        mask = spectral.dealias_mask_23(nx, ny, wf.device)
+        specs = torch.stack(_deriv_spectra(wf, k2, kx, ky)) * mask
+        j1, j2, j3, j4 = spectral.ifft2(specs).real
+        return spectral.fft2(j1 * j2 - j3 * j4)
+    block = mesh_lib.block_slices((nx, ny), mesh)
+    mask = spectral.dealias_mask_23(nx, ny, wf.device)[block]
+    specs = torch.stack(_deriv_spectra(wf, k2, kx, ky, block)) * mask
+    j1, j2, j3, j4 = spectral.ifft2(
+        transpose.block_to_cols(specs, mesh, (nx, ny)), mesh, (nx, ny)).real
+    return transpose.cols_to_block(
+        spectral.fft2(j1 * j2 - j3 * j4, mesh, (nx, ny)), mesh, (nx, ny))
 
 
-def make_spectral_step(cfg: VortexConfig, dtype=None, device="cuda"):
+def make_spectral_step(cfg: VortexConfig, dtype=None, device="cuda",
+                       mesh=None):
     """3-stage low-storage RK3/CN step over the full vorticity spectrum
     (hybrid.jl:34-69, identical stepper in ch. 21/22): wf (nx, ny) complex
-    -> wf after dt."""
+    -> wf after dt.  With a mesh: this rank's block of wf -> its block
+    after dt (the jacobians' mesh forms; the stage math on the block)."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
     dt, re = cfg.dt, cfg.re
     k2, kx, ky = _step_consts(cfg, dtype, device)
+    line = None
+    if mesh is not None:
+        _check_mesh_grid(cfg.nx, cfg.ny, mesh)
+        if cfg.solver == "hybrid":
+            line = mesh_lib.flat_line(mesh)
     if cfg.solver == "hybrid":
-        jac = lambda wf: jacobian_hybrid(wf, k2, cfg.dx, cfg.dy)
+        jac = lambda wf: jacobian_hybrid(wf, k2, cfg.dx, cfg.dy, mesh, line)
     elif cfg.solver == "ps32":
-        jac = lambda wf: jacobian_ps32(wf, k2, kx, ky, cfg.nx, cfg.ny)
+        jac = lambda wf: jacobian_ps32(wf, k2, kx, ky, cfg.nx, cfg.ny, mesh)
     elif cfg.solver == "ps23":
-        jac = lambda wf: jacobian_ps23(wf, k2, kx, ky, cfg.nx, cfg.ny)
+        jac = lambda wf: jacobian_ps23(wf, k2, kx, ky, cfg.nx, cfg.ny, mesh)
     else:
         raise ValueError(f"solver {cfg.solver!r} has no spectral step")
-    ds = [a * 0.5 * dt * k2 / re for a in ALPHAS]
+    zero_mean_mode, k2_state = spectral.zero_mean_mode, k2
+    if mesh is not None:
+        # the k = (0, 0) mode is on the block at the mesh's origin
+        block = mesh_lib.block_slices((cfg.nx, cfg.ny), mesh)
+        keep = torch.ones_like(k2, dtype=torch.bool)
+        keep[0, 0] = False
+        keep, k2_state = keep[block], k2[block]
+        zero_mean_mode = lambda e: torch.where(keep, e, 0)  # noqa: E731
+    ds = [a * 0.5 * dt * k2_state / re for a in ALPHAS]
 
     def step(wf):
         jn = jac(wf)
         w1 = ((1.0 - ds[0]) / (1.0 + ds[0])) * wf + (
             GAMMAS[0] * dt * jn
         ) / (1.0 + ds[0])
-        w1 = spectral.zero_mean_mode(w1)
+        w1 = zero_mean_mode(w1)
         j1 = jac(w1)
         w2 = ((1.0 - ds[1]) / (1.0 + ds[1])) * w1 + (
             RHOS[1] * dt * jn + GAMMAS[1] * dt * j1
         ) / (1.0 + ds[1])
-        w2 = spectral.zero_mean_mode(w2)
+        w2 = zero_mean_mode(w2)
         j2 = jac(w2)
         wn = ((1.0 - ds[2]) / (1.0 + ds[2])) * w2 + (
             RHOS[2] * dt * j1 + GAMMAS[2] * dt * j2
         ) / (1.0 + ds[2])
-        return spectral.zero_mean_mode(wn)
+        return zero_mean_mode(wn)
 
     return step
 
@@ -381,15 +508,41 @@ def _deriv_consts_half(cfg: VortexConfig, dtype, device, band_mask=None):
     return torch.stack([(kx0 / k2h) * m, ky0 * m, (ky0 / k2h) * m, kx0 * m])
 
 
-def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda"):
+def _truncate_32_half_slab(h_e, nx: int, ny: int, cols):
+    """spectral.truncate_32_half on the column slab of the (nxe, nye//2+1)
+    half spectrum, whose global column indices are `cols` ((1, t)): the kx
+    cut of every column, and column ny/2 the conjugate of its kx mirror,
+    as truncate_32_half builds the coarse Nyquist column.  The columns
+    past ny/2 are cut by the caller on the row slab."""
+    nxe = h_e.shape[-2]
+    hx, hy = nx // 2, ny // 2
+
+    def cut(a):
+        return torch.cat([a[..., :hx, :], a[..., nxe - hx:, :]], dim=-2)
+
+    mirror = torch.conj(torch.cat(
+        [h_e[..., :1, :], torch.flip(h_e[..., 1:, :], (-2,))], dim=-2))
+    return torch.where(cols == hy, cut(mirror), cut(h_e))
+
+
+def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
+                            mesh=None):
     """3-stage RK3/CN step over the rfft2 half spectrum: H (nx, ny//2+1)
     complex -> H after dt.
 
     The same operations as make_spectral_step on the representation with
     the Hermitian redundancy removed; tests/test_torch_vortex.py holds the
-    two together and both against the JAX package."""
+    two together and both against the JAX package.
+
+    With a mesh: H is this rank's row slab (kx split over all ranks, the
+    JAX package's packed_half_sharding); a Jacobian moves its spectra to
+    column slabs, the pencil irfft2 brings the fields to row slabs, the
+    pencil rfft2 their product back, and that returns to the row slab
+    (_make_half_jacobian_mesh)."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
+    if mesh is not None:
+        return _make_spectral_step_half_mesh(cfg, dtype, device, mesh)
     nx, ny = cfg.nx, cfg.ny
     _, _, k2h, nyq = _half_consts(cfg, dtype, device)
     (a1, b1, _), (a2, b2, r2), (a3, b3, r3) = _cn_consts(cfg, k2h)
@@ -437,14 +590,102 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda"):
     return step
 
 
-def half_init(w0):
-    """rfft2 half-spectrum state with the mean mode projected out."""
-    return spectral.zero_mean_mode(spectral.rfft2(w0))
+def _make_spectral_step_half_mesh(cfg: VortexConfig, dtype, device, mesh):
+    """make_spectral_step_half on row slabs of H: the constants are the
+    rank's row slabs of the single-device ones."""
+    _check_mesh_grid(cfg.nx, cfg.ny, mesh)
+    nx, ny = cfg.nx, cfg.ny
+    hy = ny // 2 + 1
+    rows, _ = mesh_lib.slab_slices((nx, hy), mesh, -2)
+    _, _, k2h, nyq = _half_consts(cfg, dtype, device)
+    (a1, b1, _), (a2, b2, r2), (a3, b3, r3) = (
+        tuple(c[rows] for c in stage) for stage in _cn_consts(cfg, k2h))
+
+    def product(phys):
+        return phys[0] * phys[1] - phys[2] * phys[3]
+
+    def forward(phys, shape):
+        """Row slab of a real field of global `shape` -> row slab of its
+        half spectrum."""
+        h = spectral.rfft2(phys, mesh, shape)
+        return transpose.cols_to_rows(h, mesh,
+                                      (shape[0], shape[1] // 2 + 1))
+
+    if cfg.solver == "hybrid":
+        inv_k2h = (1.0 / k2h)[rows]
+        line = mesh_lib.flat_line(mesh)
+
+        def jac(H):
+            z = transpose.rows_to_cols(torch.stack([H, H * inv_k2h]), mesh,
+                                       (nx, hy))
+            w, s = spectral.irfft2(z, nx, ny, mesh)
+            return forward(-halo.slab_jacobian(w, s, cfg.dx, cfg.dy, line),
+                           (nx, ny))
+    elif cfg.solver == "ps23":
+        g = _deriv_consts_half(cfg, dtype, device,
+                               _band_mask_23_half(cfg, device))[:, rows]
+
+        def jac(H):
+            z = transpose.rows_to_cols(g * (1j * H), mesh, (nx, hy))
+            return forward(product(spectral.irfft2(z, nx, ny, mesh)),
+                           (nx, ny))
+    elif cfg.solver == "ps32":
+        nxe, nye = 3 * nx // 2, 3 * ny // 2
+        hye = nye // 2 + 1
+        scale = (nxe * nye) / (nx * ny)
+        g = (_deriv_consts_half(cfg, dtype, device) * scale)[:, rows]
+        nyq_over_scale = (nyq / scale)[rows]
+        _, cols = mesh_lib.slab_slices((nxe, hye), mesh, -1)
+        cols = torch.arange(cols.start, cols.stop, device=device)[None, :]
+
+        def jac(H):
+            # pad_32_half: the ky pad here, where ky is whole, the kx pad on
+            # the column slab
+            p = g * (1j * H)
+            p = torch.cat([p[..., :ny // 2],
+                           p.new_zeros((*p.shape[:-1], hye - ny // 2))], -1)
+            p = transpose.rows_to_cols(p, mesh, (nx, hye))
+            p = spectral._pad_rows_32(p, nx, nxe)
+            jf = spectral.rfft2(product(spectral.irfft2(p, nxe, nye, mesh)),
+                                mesh, (nxe, nye))
+            jf = _truncate_32_half_slab(jf, nx, ny, cols)
+            jf = transpose.cols_to_rows(jf, mesh, (nx, hye))[..., :hy]
+            return jf * nyq_over_scale
+    else:
+        raise ValueError(f"solver {cfg.solver!r} has no spectral step")
+
+    def step(H):
+        jn = jac(H)
+        H1 = a1 * H + b1 * jn
+        j1 = jac(H1)
+        H2 = a2 * H1 + r2 * jn + b2 * j1
+        j2 = jac(H2)
+        return a3 * H2 + r3 * j1 + b3 * j2
+
+    return step
 
 
-def half_decode(H, nx: int, ny: int):
-    """Real vorticity (nx, ny) from the half spectrum."""
-    return spectral.irfft2(H, nx, ny)
+def half_init(w0, mesh=None):
+    """rfft2 half-spectrum state with the mean mode projected out.  With a
+    mesh: w0 is this rank's row slab of the vorticity (nx divides over the
+    ranks) and the result its row slab of the half spectrum."""
+    if mesh is None:
+        return spectral.zero_mean_mode(spectral.rfft2(w0))
+    nx, ny = w0.shape[-2] * mesh_lib.world_size(mesh), w0.shape[-1]
+    h = transpose.cols_to_rows(spectral.rfft2(w0, mesh, (nx, ny)), mesh,
+                               (nx, ny // 2 + 1))
+    # the mean mode is row 0 of the first slab
+    return spectral.zero_mean_mode(h) if mesh_lib.flat_index(mesh) == 0 \
+        else h
+
+
+def half_decode(H, nx: int, ny: int, mesh=None):
+    """Real vorticity (nx, ny) from the half spectrum.  With a mesh: the
+    rank's row slab of H -> its row slab of the vorticity."""
+    if mesh is None:
+        return spectral.irfft2(H, nx, ny)
+    h = transpose.rows_to_cols(H, mesh, (nx, ny // 2 + 1))
+    return spectral.irfft2(h, nx, ny, mesh)
 
 
 # -------------------------------------------------------------- the solve

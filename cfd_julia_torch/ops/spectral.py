@@ -23,6 +23,18 @@ hand-written kernel here, as the JAX package has none either.
 Tensors are real or complex of one precision; wavenumber constants are
 built in fp64 with numpy and cast, so their fp32 values are the JAX
 package's bit for bit.
+
+Mesh forms (`mesh=`, a parallel/mesh.make_mesh mesh; each rank runs the
+same call on its own slab): the pencil decomposition of the JAX package's
+`_constrain` / `_pencil_specs` pairs.  Each 1D transform runs where its
+axis is whole, and parallel/transpose.py moves the field between a row
+slab (rows split over all ranks, P(flat, None)) and a column slab
+(P(None, flat)) in between.  The forward transforms (fft2, rfft2,
+dst1_2d) take a row slab and return a column slab; the inverses (ifft2,
+irfft2, idst1_2d) take a column slab and return a row slab; the solves
+take and return row slabs.  A slab does not carry its field's global
+extent, so the one-off mesh forms take it as `shape`.  mesh=None is the
+single-device code, unchanged.
 """
 from __future__ import annotations
 
@@ -36,25 +48,90 @@ _NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 # ------------------------------------------------------------- transforms
 
-def fft2(x):
-    """2D FFT over the last two axes."""
-    return torch.fft.fft2(x)
+def _global_shape(shape):
+    """The (n, m) a mesh form needs: a slab does not carry it."""
+    if shape is None:
+        raise ValueError("with a mesh, give the field's global shape: a "
+                         "rank's slab does not carry it")
+    return tuple(shape)[-2:]
 
 
-def ifft2(x):
-    return torch.fft.ifft2(x)
+def _transpose():
+    from cfd_julia_torch.parallel import transpose
+
+    return transpose
 
 
-def rfft2(x):
-    """Half spectrum (.., nx, ny//2+1) of a real field (.., nx, ny)."""
-    return torch.fft.rfft2(x)
+def col_slab(t, mesh, fill=0.0):
+    """This rank's column slab of a global (.., n, m) constant, its padded
+    columns set to `fill`."""
+    from cfd_julia_torch.parallel import mesh as mesh_lib
+
+    m = t.shape[-1]
+    width = mesh_lib.slab_extent(m, mesh) * mesh_lib.world_size(mesh)
+    pad = t.new_full((*t.shape[:-1], width - m), fill)
+    _, cols = mesh_lib.slab_slices(t.shape, mesh, -1)
+    return torch.cat([t, pad], dim=-1)[..., cols].contiguous()
 
 
-def irfft2(h, nx: int, ny: int):
+def row_slab(t, mesh, fill=0.0):
+    """This rank's row slab of a global (.., n, m) constant, its padded
+    rows set to `fill`."""
+    from cfd_julia_torch.parallel import mesh as mesh_lib
+
+    n = t.shape[-2]
+    height = mesh_lib.slab_extent(n, mesh) * mesh_lib.world_size(mesh)
+    pad = t.new_full((*t.shape[:-2], height - n, t.shape[-1]), fill)
+    rows, _ = mesh_lib.slab_slices(t.shape, mesh, -2)
+    return torch.cat([t, pad], dim=-2)[..., rows, :].contiguous()
+
+
+def fft2(x, mesh=None, shape=None):
+    """2D FFT over the last two axes.  With a mesh: x is the row slab of a
+    global `shape` (nx, ny) field and the result its column slab (fft
+    along y, the transpose, fft along x)."""
+    if mesh is None:
+        return torch.fft.fft2(x)
+    x = torch.fft.fft(x, dim=-1)
+    x = _transpose().rows_to_cols(x, mesh, _global_shape(shape))
+    return torch.fft.fft(x, dim=-2)
+
+
+def ifft2(x, mesh=None, shape=None):
+    """Inverse 2D FFT.  With a mesh: x is the column slab of a global
+    `shape` field and the result its row slab."""
+    if mesh is None:
+        return torch.fft.ifft2(x)
+    x = torch.fft.ifft(x, dim=-2)
+    x = _transpose().cols_to_rows(x, mesh, _global_shape(shape))
+    return torch.fft.ifft(x, dim=-1)
+
+
+def rfft2(x, mesh=None, shape=None):
+    """Half spectrum (.., nx, ny//2+1) of a real field (.., nx, ny).  With a
+    mesh: x is the row slab of the real field of global `shape` (nx, ny)
+    and the result the column slab of its half spectrum (rfft along the
+    local y, the transpose, a complex fft along x)."""
+    if mesh is None:
+        return torch.fft.rfft2(x)
+    nx, ny = _global_shape(shape)
+    h = torch.fft.rfft(x, dim=-1)
+    h = _transpose().rows_to_cols(h, mesh, (nx, ny // 2 + 1))
+    return torch.fft.fft(h, dim=-2)
+
+
+def irfft2(h, nx: int, ny: int, mesh=None):
     """Real field (.., nx, ny) from its half spectrum (.., nx, ny//2+1).
     The c2r transform along the last axis ignores the imaginary part of
-    the ky = 0 column and, for even ny, of the Nyquist column."""
-    return torch.fft.irfft2(h, s=(nx, ny))
+    the ky = 0 column and, for even ny, of the Nyquist column.  With a
+    mesh: h is the column slab of the half spectrum and the result the row
+    slab of the field (ifft along kx where kx is whole, the transpose,
+    c2r along ky where ky is whole)."""
+    if mesh is None:
+        return torch.fft.irfft2(h, s=(nx, ny))
+    h = torch.fft.ifft(h, dim=-2)
+    h = _transpose().cols_to_rows(h, mesh, (nx, ny // 2 + 1))
+    return torch.fft.irfft(h, n=ny, dim=-1)
 
 
 def complex_for(real_dtype):
@@ -103,11 +180,14 @@ def wavespace(nx: int, ny: int, dx: float, dy: float, dtype, device=None,
 
 def make_fft_poisson_periodic(nx: int, ny: int, dx: float, dy: float,
                               dtype, device=None, eigen: str = "fdm",
-                              eps: float = 1e-6):
+                              eps: float = 1e-6, mesh=None):
     """Build the periodic solve laplacian(u) = f on an nx x ny grid of
     unique nodes; returns solve(f) -> u.  The eigenvalue denominator is
     built here, once, on the rfft2 half grid: f is real, so the half
-    spectrum carries the whole solve at half the transform work.
+    spectrum carries the whole solve at half the transform work.  With a
+    mesh, solve maps this rank's row slab of f to its row slab of u (the
+    pencil rfft2 / irfft2; the denominator kept as the rank's column
+    slab).
 
     eigen="fdm": second-order FDM eigenvalues aa + bb cos(kx) + cc cos(ky)
     with the *index-space* wavenumbers kx = 2 pi i / n (fft_p.jl:8-42,
@@ -144,6 +224,19 @@ def make_fft_poisson_periodic(nx: int, ny: int, dx: float, dy: float,
     # mean, so odd sizes solve as the JAX package does.
     mirror = torch.roll(torch.flip(inv_den, (0, 1)), (1, 1), (0, 1))
     inv_den = (0.5 * (inv_den + mirror))[:, : ny // 2 + 1].contiguous()
+    if mesh is not None:
+        from cfd_julia_torch.parallel import mesh as mesh_lib
+
+        inv_den = col_slab(inv_den, mesh)
+        rows = mesh_lib.slab_extent(nx, mesh)
+
+        def solve(f):
+            if f.shape[-2:] != (rows, ny):
+                raise ValueError(f"solve was built for row slabs {(rows, ny)}"
+                                 f" of {(nx, ny)}, got {tuple(f.shape[-2:])}")
+            return irfft2(rfft2(f, mesh, (nx, ny)) * inv_den, nx, ny, mesh)
+
+        return solve
 
     def solve(f):
         if f.shape[-2:] != (nx, ny):
@@ -155,12 +248,14 @@ def make_fft_poisson_periodic(nx: int, ny: int, dx: float, dy: float,
 
 
 def fft_poisson_periodic(f, dx: float, dy: float, eigen: str = "fdm",
-                         eps: float = 1e-6):
+                         eps: float = 1e-6, mesh=None, shape=None):
     """One-off form of make_fft_poisson_periodic (builds the eigenvalues
-    for this call); f: (nx, ny) real, unique periodic nodes."""
-    nx, ny = f.shape[-2], f.shape[-1]
+    for this call); f: (nx, ny) real, unique periodic nodes, or with a mesh
+    the rank's row slab of a field of global `shape`."""
+    nx, ny = (f.shape[-2], f.shape[-1]) if mesh is None \
+        else _global_shape(shape)
     return make_fft_poisson_periodic(nx, ny, dx, dy, f.dtype, f.device,
-                                     eigen, eps)(f)
+                                     eigen, eps, mesh)(f)
 
 
 # ----------------------------------------------------------------- DST-I
@@ -210,18 +305,27 @@ def _dst1_half_last(v, weights=None):
     return inter[..., :m]
 
 
-def dst1(v, axis: int = -1, impl: str = "rfft", weights=None):
+def dst1(v, axis: int = -1, impl: str = "rfft", weights=None, mesh=None):
     """DST-I along `axis`: X_k = 2 sum_j v_j sin(pi (j+1)(k+1) / (m+1)),
     matching FFTW's unnormalized RODFT00 on m interior points.
 
     impl="rfft": odd extension + rfft.
     impl="half": length-(m+1) rfft + pre/post passes (_dst1_half_last) —
     half the transform length of the odd extension; `weights` are its
-    dst1_half_weights, for a caller that transforms many times."""
+    dst1_half_weights, for a caller that transforms many times.
+
+    With a mesh, v is this rank's slab in which `axis` is whole: a row
+    slab for axis -1, a column slab for axis -2 (the layout the JAX
+    package's pencil constraint gives the transform), and the result keeps
+    it.  The rows are independent, so the transform is the rank's own and
+    the slab's zero padding stays zero."""
     if impl not in ("rfft", "half"):
         # a typo'd variant name must never silently run (and get
         # benchmarked as) the default odd-extension path
         raise ValueError(f"unknown DST impl {impl!r} (rfft | half)")
+    if mesh is not None and axis not in (-1, -2, v.dim() - 1, v.dim() - 2):
+        raise ValueError(f"dst1 with a mesh transforms one of a slab's two "
+                         f"axes, -2 or -1; got axis {axis}")
     v = torch.movedim(v, axis, -1)
     m = v.shape[-1]
     if impl == "half":
@@ -233,24 +337,40 @@ def dst1(v, axis: int = -1, impl: str = "rfft", weights=None):
     return torch.movedim(X, -1, axis)
 
 
-def dst1_2d(v, impl: str = "rfft"):
-    """2D DST-I over the last two axes (= FFTW.r2r(..., RODFT00))."""
-    return dst1(dst1(v, axis=-1, impl=impl), axis=-2, impl=impl)
+def dst1_2d(v, impl: str = "rfft", mesh=None, shape=None):
+    """2D DST-I over the last two axes (= FFTW.r2r(..., RODFT00)).  With a
+    mesh: v is the row slab of a global `shape` field and the result its
+    column slab."""
+    if mesh is None:
+        return dst1(dst1(v, axis=-1, impl=impl), axis=-2, impl=impl)
+    v = dst1(v, -1, impl, mesh=mesh)
+    v = _transpose().rows_to_cols(v, mesh, _global_shape(shape))
+    return dst1(v, -2, impl, mesh=mesh)
 
 
-def idst1_2d(v, norm_nx: int, norm_ny: int, impl: str = "rfft"):
+def idst1_2d(v, norm_nx: int, norm_ny: int, impl: str = "rfft", mesh=None,
+             shape=None):
     """Inverse 2D DST-I with the reference normalization /(2 nx * 2 ny)
-    (fft_d.jl:22): the forward pair applied twice scales by 4 nx ny."""
-    return dst1_2d(v, impl) / (4.0 * norm_nx * norm_ny)
+    (fft_d.jl:22): the forward pair applied twice scales by 4 nx ny.  With
+    a mesh: v is the column slab of a global `shape` field and the result
+    its row slab (the x transform first: the axes commute)."""
+    if mesh is None:
+        return dst1_2d(v, impl) / (4.0 * norm_nx * norm_ny)
+    v = dst1(v, -2, impl, mesh=mesh)
+    v = _transpose().cols_to_rows(v, mesh, _global_shape(shape))
+    return dst1(v, -1, impl, mesh=mesh) / (4.0 * norm_nx * norm_ny)
 
 
 def make_fst_poisson_dirichlet(mx: int, my: int, dx: float, dy: float,
-                               dtype, device=None, impl: str = "rfft"):
+                               dtype, device=None, impl: str = "rfft",
+                               mesh=None):
     """Build the homogeneous-Dirichlet solve laplacian(u) = f on the
     (mx, my) interior nodes of an (mx+2, my+2) grid via DST-I; returns
     solve(f_interior) -> u_interior.  The eigenvalues of the DST
     diagonalization of the 5-point Laplacian (fft_d.jl:7-23), and the half
-    transform's weights, are built here, once."""
+    transform's weights, are built here, once.  With a mesh, solve maps
+    this rank's row slab of f to its row slab of u: the y transforms on
+    the row slab, the x transforms and the division on the column slab."""
     if impl not in ("rfft", "half"):
         raise ValueError(f"unknown DST impl {impl!r} (rfft | half)")
     nx, ny = mx + 1, my + 1
@@ -263,6 +383,28 @@ def make_fst_poisson_dirichlet(mx: int, my: int, dx: float, dy: float,
     if impl == "half":
         wx = dst1_half_weights(mx, dtype, device)
         wy = dst1_half_weights(my, dtype, device)
+
+    if mesh is not None:
+        from cfd_julia_torch.parallel import mesh as mesh_lib
+
+        transpose = _transpose()
+        den = col_slab(den, mesh, 1.0)
+        rows = mesh_lib.slab_extent(mx, mesh)
+
+        def solve(f_interior):
+            if f_interior.shape[-2:] != (rows, my):
+                raise ValueError(f"solve was built for row slabs {(rows, my)}"
+                                 f" of {(mx, my)} interior nodes, got "
+                                 f"{tuple(f_interior.shape[-2:])}")
+            e = dst1(f_interior, -1, impl, wy, mesh)
+            e = dst1(transpose.rows_to_cols(e, mesh, (mx, my)), -2, impl, wx,
+                     mesh)
+            u = dst1(e / den, -2, impl, wx, mesh)
+            u = dst1(transpose.cols_to_rows(u, mesh, (mx, my)), -1, impl, wy,
+                     mesh)
+            return u / (4.0 * nx * ny)
+
+        return solve
 
     def solve(f_interior):
         if f_interior.shape[-2:] != (mx, my):
@@ -279,13 +421,16 @@ def make_fst_poisson_dirichlet(mx: int, my: int, dx: float, dy: float,
 
 
 def fst_poisson_dirichlet(f_interior, dx: float, dy: float,
-                          impl: str = "rfft"):
+                          impl: str = "rfft", mesh=None, shape=None):
     """One-off form of make_fst_poisson_dirichlet.  f_interior: (nx-1,
     ny-1) interior nodes of an (nx+1, ny+1) grid; returns the interior
-    solution of the same shape."""
-    mx, my = f_interior.shape[-2], f_interior.shape[-1]
+    solution of the same shape.  With a mesh: the rank's row slab of the
+    interior, of global `shape` (nx-1, ny-1)."""
+    mx, my = (f_interior.shape[-2], f_interior.shape[-1]) if mesh is None \
+        else _global_shape(shape)
     return make_fst_poisson_dirichlet(
-        mx, my, dx, dy, f_interior.dtype, f_interior.device, impl)(f_interior)
+        mx, my, dx, dy, f_interior.dtype, f_interior.device, impl,
+        mesh)(f_interior)
 
 
 # ------------------------------------------------------------- dealiasing

@@ -33,14 +33,17 @@ def host_staged(group, t) -> bool:
 
 
 def transport(mesh, device) -> str:
-    """How this mesh moves fields on `device`, for a run's log."""
+    """How this mesh moves fields on `device` (halos, gathers and the
+    transposes of parallel/transpose.py alike), for a run's log."""
     backend = dist.get_backend()
     if all(n == 1 for n in mesh.shape):
-        return f"backend {backend}, one rank: halos wrap in place"
+        return (f"backend {backend}, one rank: halos wrap in place, "
+                "transposes are no-ops")
     if torch.device(device).type != "cuda":
-        return f"backend {backend}, halos and gathers in host memory"
+        return (f"backend {backend}, halos, gathers and transposes in host "
+                "memory")
     staged = backend == "gloo"
-    return (f"backend {backend}, halos and gathers "
+    return (f"backend {backend}, halos, gathers and transposes "
             f"{'staged through host memory' if staged else 'on the device'}")
 
 
@@ -121,20 +124,35 @@ def all_reduce_sum(t):
     return buf.to(t.device) if staged else buf
 
 
-def make_distributed_vorticity_rhs(mesh, dx: float, dy: float, re: float):
+def make_distributed_vorticity_rhs(mesh, dx: float, dy: float, re: float,
+                                   impl: str = "kernel"):
     """r = -J(w, s) + lap(w)/re over a 2D-decomposed periodic field, on
     local blocks: (w_block, s_block) -> r_block.  One stacked width-1 halo
     exchange for both operands, then kernel 1
     (cuda_kernels.arakawa_rhs_fused; its twin on the CPU) on the padded
-    block.  The kernel is periodic over the block, and its 17-point
-    stencil never reaches a wrapped value from the [1:-1, 1:-1] interior,
-    which is the rank's block."""
+    block, or with impl="torch" the plain ops.arakawa.vorticity_rhs.  The
+    RHS is periodic over the block, and its 17-point stencil never
+    reaches a wrapped value from the [1:-1, 1:-1] interior, which is the
+    rank's block."""
+    if impl not in ("kernel", "torch"):
+        raise ValueError(f"unknown rhs impl {impl!r} (kernel | torch)")
+    fn = cuda_kernels.arakawa_rhs_fused if impl == "kernel" \
+        else arakawa.vorticity_rhs
+
     def rhs(wl, sl):
         bp = halo_exchange_periodic(torch.stack([wl, sl]), mesh, 1)
-        return cuda_kernels.arakawa_rhs_fused(bp[0], bp[1], dx, dy,
-                                              re)[1:-1, 1:-1]
+        return fn(bp[0], bp[1], dx, dy, re)[1:-1, 1:-1]
 
     return rhs
+
+
+def slab_jacobian(w, s, dx: float, dy: float, line):
+    """Arakawa J(w, s) on row slabs of periodic fields: one width-1 ring
+    exchange of the stacked operands over `line` (mesh.flat_line) along
+    the slab axis; the whole y axis wraps in place."""
+    ext = halo_exchange_periodic(torch.stack([w, s]), line, 1,
+                                 axes=(line.mesh_dim_names[0], None))
+    return arakawa.jacobian(ext[0], ext[1], dx, dy)[..., 1:-1, 1:-1]
 
 
 def make_distributed_burgers_weno_rhs(mesh, dx: float,

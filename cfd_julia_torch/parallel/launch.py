@@ -23,6 +23,10 @@ builds its mesh (parallel/mesh.make_mesh) and its fields.
   path does (TF32 off), and with one CPU thread (a spawned child does not
   inherit the caller's torch.set_num_threads; several ranks share the
   host's cores).
+- fn's arguments reach the ranks through a file in that directory, not
+  the spawn pipe: a child reads the pipe only as far as it has imported
+  fn's module, so large arguments in it would start the ranks one after
+  another, each waiting for the last one's imports.
 - A rank still running TIMEOUT_S seconds after the start is stopped; the
   same bound holds each collective inside the ranks.
 - A rank that raises, or dies, stops the others, and join() raises
@@ -51,7 +55,7 @@ def backend_for(device_type: str, world: int) -> str:
     return "gloo"
 
 
-def _rank_main(rank, fn, args, world, device_type, backend, tmp):
+def _rank_main(rank, fn, world, device_type, backend, tmp):
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -66,6 +70,7 @@ def _rank_main(rank, fn, args, world, device_type, backend, tmp):
                             world_size=world,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
     try:
+        args = torch.load(os.path.join(tmp, "args.pt"), weights_only=False)
         result = fn(device, *args)
         torch.save(result, os.path.join(tmp, f"result_{rank}.pt"))
     except BaseException:
@@ -86,9 +91,10 @@ class Ranks:
         self.tmp = tempfile.mkdtemp(prefix="cfd_julia_torch_ranks_")
         self.deadline = time.monotonic() + TIMEOUT_S
         try:
+            torch.save(tuple(args), os.path.join(self.tmp, "args.pt"))
             self.ctx = mp.start_processes(
                 _rank_main, nprocs=world, join=False, start_method="spawn",
-                args=(fn, tuple(args), world, device_type,
+                args=(fn, world, device_type,
                       backend_for(device_type, world), self.tmp))
         except BaseException:
             shutil.rmtree(self.tmp, ignore_errors=True)

@@ -15,6 +15,15 @@ coordinate (a, b) owns rows [a P/px, (a+1) P/px) and columns
 [b Q/py, (b+1) Q/py) (`block_slices`), the layout of the JAX package's
 `field_sharding`.  An axis given as None is not sharded (the JAX package's
 `replicated` along it): every rank holds all of it.
+
+The pencil transforms of ops/spectral.py also lay fields out in slabs: one
+axis split over all ranks in flat order, the JAX package's
+P(tuple(mesh.axis_names), None) (a row slab) or P(None, flat) (a column
+slab).  The flat order is x-major, so it is the global rank order
+(`flat_index`).  A slab's extent is zero-padded up to a multiple of the
+world size (`slab_slices`); parallel/transpose.py moves fields between
+blocks and slabs, and `flat_line` is the 1D view of all ranks that
+parallel/halo.py's ring exchange uses along a slab axis.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 AXES = ("x", "y")
+FLAT = ("flat",)
 
 
 def factor_2d(n: int) -> tuple[int, int]:
@@ -71,6 +81,52 @@ def neighbour_ranks(mesh: DeviceMesh, axis) -> tuple[int, int]:
         c[dim] = (coord[dim] + shift) % n
         out.append(int(mesh.mesh[tuple(c)]))
     return out[0], out[1]
+
+
+def world_size(mesh: DeviceMesh) -> int:
+    """The mesh's ranks, every axis together."""
+    return math.prod(mesh.shape)
+
+
+def flat_index(mesh: DeviceMesh) -> int:
+    """This rank's position in the flattened mesh, x-major: a * py + b at
+    coordinate (a, b), which is its global rank (`make_mesh`)."""
+    pos = 0
+    for c, n in zip(mesh.get_coordinate(), mesh.shape):
+        pos = pos * n + c
+    return pos
+
+
+def flat_line(mesh: DeviceMesh) -> DeviceMesh:
+    """A 1D mesh ("flat",) of the mesh's ranks in flat order: the ring of a
+    slab axis.  Over every rank of the default group, its group is that
+    group (no new one is made), but build it once, when a step is built,
+    on every rank in the same order, as any mesh."""
+    return DeviceMesh(mesh.device_type,
+                      torch.arange(world_size(mesh)), mesh_dim_names=FLAT)
+
+
+def slab_extent(n: int, mesh: DeviceMesh) -> int:
+    """Rows (or columns) a rank holds of an extent n split over all ranks:
+    n rounded up to a multiple of the world size, then divided."""
+    p = world_size(mesh)
+    return -(-n // p)
+
+
+def slab_slices(shape, mesh: DeviceMesh, dim: int) -> tuple[slice, slice]:
+    """This rank's slab of a global (n, m) field with axis `dim` split over
+    all ranks in flat order: (rows, cols) slices of the field zero-padded
+    along `dim` to slab_extent * world size; the other axis is whole.
+    dim -2 (or 0): a row slab; dim -1 (or 1): a column slab."""
+    n, m = tuple(shape)[-2:]
+    r = flat_index(mesh)
+    if dim in (-2, 0):
+        b = slab_extent(n, mesh)
+        return slice(r * b, (r + 1) * b), slice(0, m)
+    if dim in (-1, 1):
+        b = slab_extent(m, mesh)
+        return slice(0, n), slice(r * b, (r + 1) * b)
+    raise ValueError(f"a slab splits dim -2 or -1, got {dim}")
 
 
 def block_slices(shape, mesh: DeviceMesh, axes=AXES) -> tuple[slice, ...]:

@@ -1,5 +1,5 @@
 """Sharded solver steps on a 2D mesh of ranks (counterpart of
-cfd_julia_tpu/parallel/sharded.py:23-56, 122-124).
+cfd_julia_tpu/parallel/sharded.py).
 
 The JAX package jits the padded cavity step with the fields sharded
 P("x", "y") and lets XLA's SPMD partitioner insert the collectives.  Here
@@ -15,16 +15,24 @@ rank's block of a global array, `gather` builds the global array from the
 blocks on every rank (the port's `np.asarray` of a sharded JAX array), and
 `as_dtensor` wraps a block as the DTensor that utils/checkpoint
 .save_sharded writes without a gather.
+
+The periodic vortex steps (`make_sharded_vortex_step`,
+`make_sharded_vortex_step_half`) and the cavity's fst / fst_half solve run
+the pencil transforms of ops/spectral.py, whose all-to-all transposes are
+parallel/transpose.py.  The half spectrum lives in row slabs
+(`place_slab`, `gather_slab`); JAX's packed Re/Im states (`pack_c`) are
+not ported: the states here are complex.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from cfd_julia_torch.models import cavity
+from cfd_julia_torch.models import cavity, vortex
 from cfd_julia_torch.parallel import halo
 from cfd_julia_torch.parallel import mesh as mesh_lib
 from cfd_julia_torch.poisson import direct
+from cfd_julia_torch.stepping import ssprk3
 
 
 def _round_up(n: int, m: int) -> int:
@@ -44,8 +52,9 @@ def pad_to_mesh(arr, mesh):
 
 
 def place(arr, mesh):
-    """This rank's block of a global mesh-divisible field (a copy)."""
-    return arr[mesh_lib.block_slices(arr.shape, mesh)].contiguous()
+    """This rank's block of a global mesh-divisible field (a copy); leading
+    axes are a batch."""
+    return arr[(..., *mesh_lib.block_slices(arr.shape, mesh))].contiguous()
 
 
 def gather(block, mesh, axes=mesh_lib.AXES):
@@ -53,6 +62,54 @@ def gather(block, mesh, axes=mesh_lib.AXES):
     ax, ay = axes
     rows = halo.all_gather_axis(block, mesh, ax, 0)
     return halo.all_gather_axis(rows, mesh, ay, 1)
+
+
+def place_slab(arr, mesh, dim: int = -2):
+    """This rank's slab of a global (.., n, m) field (a copy): axis `dim`
+    split over all ranks in flat order, zero-padded (mesh.slab_slices)."""
+    from cfd_julia_torch.ops import spectral
+
+    if dim in (-2, arr.dim() - 2):
+        return spectral.row_slab(arr, mesh)
+    return spectral.col_slab(arr, mesh)
+
+
+def gather_slab(slab, mesh, shape, dim: int = -2):
+    """The global field of `shape` (n, m) from every rank's slab, on every
+    rank, its padding cut."""
+    n, m = shape
+    line = mesh_lib.flat_line(mesh)
+    whole = halo.all_gather_axis(slab, line, mesh_lib.FLAT[0], dim)
+    return whole[..., :n, :m]
+
+
+def _device(mesh, device):
+    device = torch.device(device or mesh.device_type)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def make_sharded_vortex_step(cfg, mesh, dtype=None, device=None):
+    """The vortex step on this rank's block: fdm, the real vorticity
+    (SSP-RK3 over vortex.make_fdm_rhs(mesh=): the pencil Poisson solve and
+    kernel 1 on the framed block); the spectral solvers, the full complex
+    spectrum (vortex.make_spectral_step(mesh=)).  The JAX package carries
+    the spectrum as its packed Re/Im stack; here it is complex."""
+    device = _device(mesh, device)
+    dtype = dtype or torch.float32
+    if cfg.solver == "fdm":
+        rhs = vortex.make_fdm_rhs(cfg, dtype, device, mesh=mesh)
+        return lambda w: ssprk3.ssprk3_step(rhs, w, cfg.dt)
+    return vortex.make_spectral_step(cfg, dtype, device, mesh=mesh)
+
+
+def make_sharded_vortex_step_half(cfg, mesh, dtype=None, device=None):
+    """The half-spectrum step on this rank's row slab of the complex
+    (nx, ny//2+1) half spectrum (kx over all ranks: JAX's
+    packed_half_sharding, P(None, flat, None), without its Re/Im axis)."""
+    return vortex.make_spectral_step_half(cfg, dtype or torch.float32,
+                                          _device(mesh, device), mesh=mesh)
 
 
 def as_dtensor(block, mesh):
@@ -64,6 +121,11 @@ def as_dtensor(block, mesh):
                               run_check=False)
 
 
+# the cavity's Poisson solves on a mesh: the padded sine matmuls, and the
+# pencil DST-I of JAX's make_step_fn(cfg, mesh=)
+CAVITY_POISSON = ("auto", "matmul", "fst", "fst_half")
+
+
 def make_sharded_cavity_step(cfg, mesh, dtype=None, device=None):
     """The padded cavity step on this rank's blocks:
     (w_block, s_block, rms) -> (w_block, s_block, rms), rms the global
@@ -73,12 +135,20 @@ def make_sharded_cavity_step(cfg, mesh, dtype=None, device=None):
     serves both the RHS and the wall BCs' +-2 shifts of psi; kernel 1
     (its twin on the CPU, by cfg.rhs_impl) runs on the framed block,
     periodic over it, and its interior is the rank's block, since the
-    stencil never reaches a wrapped value from there; the Poisson solve
-    is four block matmuls, each behind a gather along one mesh axis
-    (direct.make_fst_matmul_padded); the rms an all-reduced sum."""
-    device = torch.device(device or mesh.device_type)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    stencil never reaches a wrapped value from there; the rms an
+    all-reduced sum.  The Poisson solve, by cfg.poisson: "auto" and
+    "matmul" four block matmuls, each behind a gather along one mesh axis
+    (direct.make_fst_matmul_padded); "fst" and "fst_half" the pencil
+    DST-I (direct.make_fst(mesh=): the interior to row slabs, y
+    transforms, a transpose, x transforms and the division, back).  Any
+    other name raises."""
+    if cfg.poisson not in CAVITY_POISSON:
+        raise ValueError(
+            f"poisson={cfg.poisson!r} does not run on a mesh; the sharded "
+            f"cavity step runs {' | '.join(CAVITY_POISSON)} ('fst' / "
+            "'fst_half': the pencil DST; 'auto' / 'matmul': the padded sine "
+            "matmuls)")
+    device = _device(mesh, device)
     dtype = dtype or torch.float32
     if cfg.bc_order not in (1, 2):
         raise ValueError("bc_order must be 1 or 2")
@@ -90,10 +160,17 @@ def make_sharded_cavity_step(cfg, mesh, dtype=None, device=None):
         ext = halo.halo_exchange_periodic(torch.stack([w, s]), mesh, 2)
         return rhs(ext[0], ext[1])[2:-2, 2:-2], ext[1], 2
 
-    solve = direct.make_fst_matmul_padded(
-        cfg.nx, cfg.ny, cfg.dx, cfg.dy, shape, dtype, device, (rows, cols),
-        gather_rows=lambda a: halo.all_gather_axis(a, mesh, "x", 0),
-        gather_cols=lambda a: halo.all_gather_axis(a, mesh, "y", 1))
+    if cfg.poisson in ("fst", "fst_half"):
+        solve = direct.make_fst(
+            cfg.nx, cfg.ny, cfg.dx, cfg.dy, dtype, device,
+            impl="half" if cfg.poisson == "fst_half" else "rfft", mesh=mesh,
+            padded_shape=shape)
+    else:
+        solve = direct.make_fst_matmul_padded(
+            cfg.nx, cfg.ny, cfg.dx, cfg.dy, shape, dtype, device,
+            (rows, cols),
+            gather_rows=lambda a: halo.all_gather_axis(a, mesh, "x", 0),
+            gather_cols=lambda a: halo.all_gather_axis(a, mesh, "y", 1))
     i = torch.arange(rows.start, rows.stop, device=device)[:, None]
     j = torch.arange(cols.start, cols.stop, device=device)[None, :]
     return cavity.padded_step(cfg, i, j, frame, solve,

@@ -21,6 +21,14 @@ PyTorch runs eagerly, so each `make_*` builds its eigenvalue denominator
 (and the sine matrices or transform weights) once and returns the solve
 that reuses them, where JAX built them once at trace time; `solve_*` are
 the one-off forms.
+
+With a mesh (`mesh=`), the FFT and FST solves map this rank's 2D block of
+the node grid, zero-padded to a mesh-divisible `padded_shape` (default:
+(nx+1, ny+1) rounded up to multiples of the mesh's (px, py), as
+parallel/sharded.padded_shape), to its block of the solution, exactly
+zero on the padding: the grid moves into the row slabs of the nodes the
+transforms read (parallel/transpose.py), the pencil solve of
+ops/spectral.py runs, and the result moves back.
 """
 from __future__ import annotations
 
@@ -32,12 +40,53 @@ import torch.nn.functional as F
 from cfd_julia_torch.ops import cuda_kernels, spectral
 
 
+def _mesh_padded(nx: int, ny: int, mesh, padded_shape):
+    """padded_shape, or (nx+1, ny+1) rounded up to the mesh's (px, py)."""
+    if padded_shape is not None:
+        return tuple(padded_shape)
+    return tuple(-(-n // p) * p for n, p in zip((nx + 1, ny + 1), mesh.shape))
+
+
+def _row_wrap(parts, n: int):
+    """The Parts of a row slab moved down by n rows and cut to global row
+    n: rank 0 then holds row n, a copy of its row 0 (a periodic wrap)."""
+    from cfd_julia_torch.parallel import transpose
+
+    out = []
+    for p in parts:
+        lo, hi = max(p.rows[0] + n, n), min(p.rows[1] + n, n + 1)
+        rows = (lo, hi) if lo < hi else (n, n)
+        out.append(transpose.Part(p.shape, (p.origin[0] + n, p.origin[1]),
+                                  rows, p.cols))
+    return out
+
+
 def make_fft(nx: int, ny: int, dx: float, dy: float, dtype, device=None,
-             eigen: str = "fdm"):
+             eigen: str = "fdm", mesh=None, padded_shape=None):
     """Build the periodic Poisson solve on an (nx+1, ny+1) node grid with
-    wrapped edges; returns solve(f) -> u of the same shape."""
+    wrapped edges; returns solve(f) -> u of the same shape.  With a mesh:
+    blocks of the padded grid (module docstring); the unique nodes' row
+    slabs solve, and u's last row and column are moved in as copies of
+    its first."""
     inner = spectral.make_fft_poisson_periodic(nx, ny, dx, dy, dtype, device,
-                                               eigen)
+                                               eigen, mesh=mesh)
+    if mesh is not None:
+        from cfd_julia_torch.parallel import transpose
+
+        shape = _mesh_padded(nx, ny, mesh, padded_shape)
+        unique = transpose.block_parts(mesh, shape, extent=(nx, ny))
+        slabs = transpose.row_parts(mesh, (nx, ny))
+        blocks = transpose.block_parts(mesh, shape, extent=(nx + 1, ny + 1))
+        wide = transpose.row_parts(mesh, (nx, ny + 1))
+        wrap = _row_wrap(wide, nx)
+
+        def solve(f):
+            u = inner(transpose.move(f, unique, slabs, mesh))
+            u = torch.cat([u, u[..., :1]], dim=-1)   # column ny = column 0
+            return (transpose.move(u, wide, blocks, mesh)
+                    + transpose.move(u, wrap, blocks, mesh))
+
+        return solve
 
     def solve(f):
         # circular pad: the duplicated last row and column repeat the first
@@ -47,26 +96,47 @@ def make_fft(nx: int, ny: int, dx: float, dy: float, dtype, device=None,
     return solve
 
 
-def solve_fft(f, dx: float, dy: float, eigen: str = "fdm"):
-    """Periodic Poisson solve; f, result: (nx+1, ny+1) with wrapped edges."""
-    nx, ny = f.shape[0] - 1, f.shape[1] - 1
-    return make_fft(nx, ny, dx, dy, f.dtype, f.device, eigen)(f)
+def solve_fft(f, dx: float, dy: float, eigen: str = "fdm", mesh=None,
+              shape=None):
+    """Periodic Poisson solve; f, result: (nx+1, ny+1) with wrapped edges,
+    or with a mesh this rank's block of that grid zero-padded to mesh
+    multiples, `shape` its (nx+1, ny+1)."""
+    nx, ny = (f.shape[0] - 1, f.shape[1] - 1) if mesh is None \
+        else (shape[0] - 1, shape[1] - 1)
+    return make_fft(nx, ny, dx, dy, f.dtype, f.device, eigen, mesh)(f)
 
 
 def make_fst(nx: int, ny: int, dx: float, dy: float, dtype, device=None,
-             impl: str = "rfft"):
+             impl: str = "rfft", mesh=None, padded_shape=None):
     """Build the homogeneous-Dirichlet Poisson solve via DST-I on the
     interior of an (nx+1, ny+1) grid (impl: rfft | half, ops.spectral.dst1);
-    returns solve(f) -> u with an exactly-zero boundary ring."""
+    returns solve(f) -> u with an exactly-zero boundary ring.  With a mesh:
+    blocks of the padded grid (module docstring); one move takes the
+    interior nodes into the row slabs of the (nx-1, ny-1) interior, and
+    one brings the solution back, the walls and the padding zero."""
     inner = spectral.make_fst_poisson_dirichlet(nx - 1, ny - 1, dx, dy, dtype,
-                                                device, impl)
+                                                device, impl, mesh)
+    if mesh is not None:
+        from cfd_julia_torch.parallel import transpose
+
+        interior = (nx - 1, ny - 1)
+        blocks = transpose.block_parts(
+            mesh, _mesh_padded(nx, ny, mesh, padded_shape), (1, 1), interior)
+        slabs = transpose.row_parts(mesh, interior)
+        return lambda f: transpose.move(
+            inner(transpose.move(f, blocks, slabs, mesh)), slabs, blocks,
+            mesh)
     return lambda f: F.pad(inner(f[1:-1, 1:-1]), (1, 1, 1, 1))
 
 
-def solve_fst(f, dx: float, dy: float, impl: str = "rfft"):
-    """One-off form of make_fst; f: (nx+1, ny+1)."""
-    nx, ny = f.shape[0] - 1, f.shape[1] - 1
-    return make_fst(nx, ny, dx, dy, f.dtype, f.device, impl)(f)
+def solve_fst(f, dx: float, dy: float, impl: str = "rfft", mesh=None,
+              shape=None):
+    """One-off form of make_fst; f: (nx+1, ny+1), or with a mesh this
+    rank's block of that grid zero-padded to mesh multiples, `shape` its
+    (nx+1, ny+1)."""
+    nx, ny = (f.shape[0] - 1, f.shape[1] - 1) if mesh is None \
+        else (shape[0] - 1, shape[1] - 1)
+    return make_fst(nx, ny, dx, dy, f.dtype, f.device, impl, mesh)(f)
 
 
 def sine_matrix(n: int, size: int, dtype, device=None):

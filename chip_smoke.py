@@ -13,8 +13,9 @@ Phases, one line each:
      over the fp32 peak) at its main path's shape: the Arakawa RHS in
      fp32 and fp64 at 1025^2 and at 2048^2 (the cavity's and the fdm
      vortex solver's shapes) and at 517^2 and 1029^2 (phase 19's framed
-     blocks: a 2x2 rank's and one rank's), each timed warm in L2 and with
-     L2 flushed, and at small and ragged shapes down to 3x1, two calls
+     cavity blocks: a 2x2 rank's and one rank's) and 1026^2 and 2050^2
+     (its framed fdm vortex blocks), each timed warm in L2 and with L2
+     flushed, and at small and ragged shapes down to 3x1, two calls
      bitwise equal;
      batched with one device Re a member at (8, 2048, 2048) (the
      ensemble's, eight distinct Re), (2, 3, 1) and (3, 17, 33) in fp32 and
@@ -196,10 +197,25 @@ Phases, one line each:
      same MGConfig: at most one more cycle, u within 1e-5 of max|u|, an
      fp64 recheck of the residual on the gathered u; (d) save_sharded of
      (b)'s state, restored bitwise on 2x2 and on one rank; (e) `python -m
-     cfd_julia_torch.examples.multichip_cavity --ranks 4 --device cuda`.
-     Seconds, peak memory a rank and the share of a cavity step its
-     collectives take when replayed alone, beside the card's name and
-     power limit; the 2x2 runs share one card and are no scaling numbers.
+     cfd_julia_torch.examples.multichip_cavity --ranks 4 --device cuda`;
+     (f) on the one NCCL rank, the 2048^2 vortex merger (dt=1e-3,
+     Re=1000, fp32) for ps23, ps32 and hybrid through
+     make_sharded_vortex_step_half (row slabs of the half spectrum, the
+     pencil transposes of parallel/transpose.py) and fdm through
+     make_sharded_vortex_step (blocks, kernel 1 on the framed block), 200
+     steps each, against the <solver>:2048:200 anchors and at step 10 the
+     single-device step (1e-5 of max|w|), 600 kernel-1 launches for fdm;
+     ps23's full spectrum in blocks for 20 steps against the half form;
+     (g) the four on 2x2 ranks over gloo (transposes and halos staged
+     through host memory, printed as such), 10 steps, against (f) (1e-5
+     of max|w|), 30 kernel-1 launches a rank for fdm; (h) phase 3's
+     cavity with poisson="fst" and "fst_half" through
+     cavity.make_step_fn(mesh=): one rank 100 steps against cavity:1024:100
+     and the single-device step (1e-5 of max|psi|), 2x2 20 steps against
+     the one-rank run.  Seconds, peak memory a rank and the share of a
+     step its collectives (a-e) or its transposes (f-h) take when replayed
+     alone, beside the card's name and power limit; the 2x2 runs share
+     one card and are no scaling numbers.
 Then a JSON line with each kernel's record, and last
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 nonzero without that last line; without a GPU it fails at once.
@@ -483,9 +499,13 @@ ARAKAWA_SHAPES = [(37, 53), (8, 8), (3, 1), (3, 2), (65, 33), (1023, 31)]
 # the shapes its paths give it, timed: the cavity's nodes and the periodic
 # vortex field's unique nodes (16-byte-aligned rows, 3 fields the size of L2),
 # then phase 19's framed blocks: a 2x2 rank's 513^2 block and one rank's
-# 1025^2 field, each with its 2-node frame
+# 1025^2 field, each with its 2-node frame; and the sharded fdm vortex's: a
+# 2x2 rank's 1024^2 block and one rank's 2048^2 field, each with its 1-node
+# frame
 ARAKAWA_MESH = [((NX + 2) // 2 + 4,) * 2, (NX + 5,) * 2]
-ARAKAWA_TIMED = [(NX + 1, NX + 1), (VORTEX_NX, VORTEX_NX), *ARAKAWA_MESH]
+ARAKAWA_VORTEX_MESH = [(VORTEX_NX // 2 + 2,) * 2, (VORTEX_NX + 2,) * 2]
+ARAKAWA_TIMED = [(NX + 1, NX + 1), (VORTEX_NX, VORTEX_NX), *ARAKAWA_MESH,
+                 *ARAKAWA_VORTEX_MESH]
 
 
 def phase_kernels():
@@ -562,6 +582,8 @@ def phase_kernels():
                          if k != "shape"}
     record["sharded"] = {**sub(ARAKAWA_MESH[0]),
                          "world_1": sub(ARAKAWA_MESH[1])}
+    record["sharded_vortex"] = {**sub(ARAKAWA_VORTEX_MESH[0]),
+                                "world_1": sub(ARAKAWA_VORTEX_MESH[1])}
     return record
 
 
@@ -3685,6 +3707,198 @@ def cavity_comm_ms(mesh, shape, device):
     return 1e3 * (time.perf_counter() - t0) / MESH_COMM_REPS
 
 
+# phase 19 (f)-(h): the periodic spectral family and the cavity's fst /
+# fst_half solve on the mesh.  Steps of (g) and of (f) held against the
+# single-device step; ps23's full-spectrum run against the half form; the
+# cavity's one-rank and 2x2 runs; replays of a step's transposes
+MESH_VORTEX_CHECK = 10
+MESH_PS23_FULL = 20
+MESH_CAVITY_ONE, MESH_CAVITY_QUAD = 100, 20
+MESH_REPLAY_REPS = 3
+
+
+def vortex_mesh_cfg(solver):
+    from cfd_julia_torch.models import vortex
+
+    return vortex.VortexConfig(nx=VORTEX_NX, ny=VORTEX_NX, solver=solver,
+                               dt=1e-3, re=1000.0)
+
+
+def record_moves(step, state):
+    """The transposes (parallel/transpose.move calls) of one step of
+    `step` from `state`, as (shape, dtype, args, kwargs) to replay."""
+    from cfd_julia_torch.parallel import transpose
+
+    real, seen = transpose.move, []
+
+    def spy(x, *args, **kwargs):
+        seen.append((tuple(x.shape), x.dtype, args, kwargs))
+        return real(x, *args, **kwargs)
+
+    transpose.move = spy
+    try:
+        step(state)
+    finally:
+        transpose.move = real
+    torch.cuda.synchronize()
+    return seen
+
+
+def replay_ms(moves, device):
+    """ms of one step's transposes replayed alone on zero tensors of their
+    shapes: the mean of MESH_REPLAY_REPS replays after a warm one."""
+    from cfd_julia_torch.parallel import transpose
+
+    bufs = [(torch.zeros(shape, dtype=dtype, device=device), args, kwargs)
+            for shape, dtype, args, kwargs in moves]
+
+    def once():
+        for x, args, kwargs in bufs:
+            transpose.move(x, *args, **kwargs)
+
+    once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_REPLAY_REPS):
+        once()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / MESH_REPLAY_REPS
+
+
+def mesh_vortex(device, mesh, steps):
+    """(f) / (g) on this rank: the four solvers at 2048^2 through the
+    sharded steps (ps23, ps32, hybrid on row slabs of the half spectrum,
+    fdm on blocks), MESH_VORTEX_CHECK steps, then on to `steps`: w
+    gathered at the check (and, for ps23 on one rank, after
+    MESH_PS23_FULL steps, beside its full-spectrum run), kernel-1 launches
+    over the run, ms a step, a step's transposes replayed alone, peak
+    memory."""
+    from cfd_julia_torch.models import vortex
+    from cfd_julia_torch.ops import cuda_kernels, spectral
+    from cfd_julia_torch.parallel import halo, sharded, transpose
+
+    n = VORTEX_NX
+    out = {"transport": halo.transport(mesh, device)}
+    for solver in VORTEX_SOLVERS:
+        cfg = vortex_mesh_cfg(solver)
+        w0 = vortex.initial_vorticity(cfg, torch.float32, device)
+        if solver == "fdm":
+            step = sharded.make_sharded_vortex_step(cfg, mesh, torch.float32,
+                                                    device)
+            state = sharded.place(w0, mesh)
+
+            def decode(s):
+                return sharded.gather(s, mesh).cpu()
+        else:
+            step = sharded.make_sharded_vortex_step_half(
+                cfg, mesh, torch.float32, device)
+            state = vortex.half_init(sharded.place_slab(w0, mesh), mesh)
+
+            def decode(s):
+                return sharded.gather_slab(vortex.half_decode(s, n, n, mesh),
+                                           mesh, (n, n)).cpu()
+        rec = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(MESH_VORTEX_CHECK):
+            state = step(state)
+        torch.cuda.synchronize()
+        rec["first_s"] = time.perf_counter() - t0
+        rec["w_check"] = decode(state)
+        done = MESH_VORTEX_CHECK
+        if steps > done and solver == "ps23":
+            for _ in range(MESH_PS23_FULL - done):
+                state = step(state)
+            rec["w_full_check"] = decode(state)
+            done = MESH_PS23_FULL
+        if steps > done:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps - done):
+                state = step(state)
+            torch.cuda.synchronize()
+            rec["step_ms"] = 1e3 * (time.perf_counter() - t0) / (steps - done)
+            rec["w_last"] = decode(state)
+        else:
+            rec["step_ms"] = 1e3 * rec["first_s"] / MESH_VORTEX_CHECK
+        rec["launches"] = dict(cuda_kernels.LAUNCHES)
+        moves = record_moves(step, state)
+        rec["moves"] = len(moves)
+        rec["transpose_ms"] = replay_ms(moves, device)
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        out[solver] = rec
+        del state, step, moves
+        if steps > MESH_VORTEX_CHECK and solver == "ps23":
+            # the full complex spectrum in blocks, against the half form
+            full = sharded.make_sharded_vortex_step(cfg, mesh, torch.float32,
+                                                    device)
+            wf = sharded.place(spectral.zero_mean_mode(spectral.fft2(
+                w0.to(torch.complex64))), mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH_PS23_FULL):
+                wf = full(wf)
+            torch.cuda.synchronize()
+            out["ps23_full"] = {
+                "step_ms": 1e3 * (time.perf_counter() - t0) / MESH_PS23_FULL,
+                "w": sharded.gather_slab(spectral.ifft2(
+                    transpose.block_to_cols(wf, mesh, (n, n)), mesh,
+                    (n, n)).real, mesh, (n, n)).cpu()}
+            del full, wf
+        del w0
+    return out
+
+
+def mesh_cavity_fst(device, mesh, steps):
+    """(h) on this rank: the 1024^2 cavity of phase 3's configuration with
+    poisson="fst" and "fst_half" through cavity.make_step_fn(mesh=), psi
+    gathered after MESH_CAVITY_QUAD steps and after `steps`, kernel-1
+    launches, ms a step, a step's transposes replayed alone, peak memory."""
+    import dataclasses
+
+    from cfd_julia_torch.models import cavity
+    from cfd_julia_torch.ops import cuda_kernels
+    from cfd_julia_torch.parallel import sharded
+
+    out = {}
+    shape = sharded.padded_shape((NX + 1, NX + 1), mesh)
+    for poisson in ("fst", "fst_half"):
+        cfg = dataclasses.replace(mesh_cavity_cfg(), poisson=poisson)
+        step = cavity.make_step_fn(cfg, torch.float32, device, mesh=mesh)
+        w0 = sharded.place(torch.zeros(shape, device=device), mesh)
+        state = (w0, torch.zeros_like(w0), torch.zeros((), device=device))
+        rec = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(MESH_CAVITY_QUAD):
+            state = step(state)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        rec["psi_check"] = sharded.gather(state[1], mesh).cpu()
+        if steps > MESH_CAVITY_QUAD:
+            t0 = time.perf_counter()
+            for _ in range(steps - MESH_CAVITY_QUAD):
+                state = step(state)
+            torch.cuda.synchronize()
+            rec["step_ms"] = (1e3 * (time.perf_counter() - t0)
+                              / (steps - MESH_CAVITY_QUAD))
+            rec["psi_last"] = sharded.gather(state[1], mesh).cpu()
+        else:
+            rec["step_ms"] = 1e3 * first_s / MESH_CAVITY_QUAD
+        rec["launches"] = dict(cuda_kernels.LAUNCHES)
+        moves = record_moves(step, state)
+        rec["moves"] = len(moves)
+        rec["transpose_ms"] = replay_ms(moves, device)
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        out[poisson] = rec
+        del step, state, w0
+    return out
+
+
 def mesh_rank(device, steps, save_to, load_from):
     """One rank of phase 19 (run by parallel/launch.py): the sharded 1024^2
     cavity for `steps` steps, psi gathered at step 100 and at the end, the
@@ -3768,6 +3982,17 @@ def mesh_rank(device, steps, save_to, load_from):
                  "rel": float(res.rms / res.rms0),
                  "seconds": time.perf_counter() - t0,
                  "peak": torch.cuda.max_memory_allocated()}
+    del f, u0, res
+    torch.cuda.empty_cache()
+    one = mesh_lib.world_size(mesh) == 1
+    t0 = time.perf_counter()
+    out["vortex"] = mesh_vortex(device, mesh,
+                                VORTEX_TOTAL if one else MESH_VORTEX_CHECK)
+    out["vortex_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cavity_fst"] = mesh_cavity_fst(
+        device, mesh, MESH_CAVITY_ONE if one else MESH_CAVITY_QUAD)
+    out["cavity_fst_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3916,11 +4141,148 @@ def phase_mesh():
     if not ok:
         print(proc.stderr[-4000:])
     check(ok, line)
-    print(f"phase 19 multi-device: 2x2 group {quad_s:.2f} s, world-1 group "
-          f"{one_s:.2f} s, phase {time.perf_counter() - t_phase:.2f} s; "
-          f"{card}")
+    vortex_launches = phase_mesh_spectral(one, quad, card, gb)
+    print(f"phase 19 multi-device: 2x2 group {quad_s:.2f} s (its (g) "
+          f"{max(r['vortex_s'] for r in quad):.2f} s, (h) "
+          f"{max(r['cavity_fst_s'] for r in quad):.2f} s), world-1 group "
+          f"{one_s:.2f} s ((f) {one['vortex_s']:.2f} s, (h) "
+          f"{one['cavity_fst_s']:.2f} s), phase "
+          f"{time.perf_counter() - t_phase:.2f} s; {card}")
     return ([r["launches"]["arakawa_rhs"] for r in quad],
-            one["launches"]["arakawa_rhs"])
+            one["launches"]["arakawa_rhs"], vortex_launches)
+
+
+def single_vortex(solver, steps, device="cuda"):
+    """The single-device step of phase 9's path after `steps` steps: w."""
+    from cfd_julia_torch.models import vortex
+    from cfd_julia_torch.stepping import loop
+
+    cfg = vortex_mesh_cfg(solver)
+    step = vortex.make_step(cfg, torch.float32, device)
+    w0 = vortex.initial_vorticity(cfg, torch.float32, device)
+    if solver == "fdm":
+        return loop.advance(step, w0, steps, graph=False).cpu()
+    h = loop.advance(step, vortex.half_init(w0), steps, graph=False)
+    return vortex.half_decode(h, cfg.nx, cfg.ny).cpu()
+
+
+def phase_mesh_spectral(one, quad, card, gb, device="cuda"):
+    """Phase 19 (f)-(h) from the two groups' results, against the
+    single-device steps run here on `device`.  Returns the fdm kernel-1
+    launches of world 1 and of each 2x2 rank."""
+    import dataclasses
+
+    from cfd_julia_torch.models import cavity
+    from cfd_julia_torch.stepping import loop
+
+    def share(rec):
+        return (f"{rec['step_ms']:.4f} ms a step, its {rec['moves']} "
+                f"transposes alone {rec['transpose_ms']:.4f} ms "
+                f"({rec['transpose_ms'] / rec['step_ms']:.1%}), peak "
+                f"{gb(rec['peak'])}")
+
+    # (f) one rank over NCCL at 2048^2
+    f = one["vortex"]
+    checks = {}
+    for solver in VORTEX_SOLVERS:
+        rec = f[solver]
+        single = single_vortex(solver, MESH_VORTEX_CHECK, device)
+        scale = float(single.abs().max())
+        d = float((rec["w_check"] - single).abs().max())
+        checks[solver] = scale
+        a_ok, a_text = vortex_anchor_check(rec["w_last"], solver)
+        k1 = rec["launches"]["arakawa_rhs"]
+        want = 3 * VORTEX_TOTAL if solver == "fdm" else 0
+        ok = (a_ok and d <= 1e-5 * scale and k1 == want
+              and one["backend"] == "nccl"
+              and bool(torch.isfinite(rec["w_last"]).all()))
+        line = (f"phase 19 (f) sharded vortex {solver} {VORTEX_NX}^2 fp32, "
+                f"world 1 {one['mesh']} ({f['transport']}), "
+                f"{'make_sharded_vortex_step (blocks)' if solver == 'fdm' else 'make_sharded_vortex_step_half (row slabs)'}"
+                f": @{VORTEX_TOTAL} {a_text}; max|w - single-device step| "
+                f"@{MESH_VORTEX_CHECK} = {d:.3e} (tol 1e-5 x {scale:.6g}); "
+                f"kernel 1 {k1} launches (want {want}); {share(rec)}; "
+                f"{card} {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+    full = f["ps23_full"]
+    half = f["ps23"]["w_full_check"]
+    scale = float(half.abs().max())
+    d = float((full["w"] - half).abs().max())
+    ok = d <= 1e-5 * scale and bool(torch.isfinite(full["w"]).all())
+    line = (f"phase 19 (f) sharded vortex ps23 {VORTEX_NX}^2 fp32, world 1, "
+            f"the full spectrum in blocks (make_sharded_vortex_step): "
+            f"{MESH_PS23_FULL} steps, {full['step_ms']:.4f} ms a step; "
+            f"max|w - half form| @{MESH_PS23_FULL} = {d:.3e} (tol 1e-5 x "
+            f"{scale:.6g}); {card} {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+    # (g) 2x2 ranks on the one card over gloo, host-staged
+    for rank, r in enumerate(quad):
+        g = r["vortex"]
+        for solver in VORTEX_SOLVERS:
+            rec = g[solver]
+            scale = checks[solver]
+            d = float((rec["w_check"] - f[solver]["w_check"]).abs().max())
+            k1 = rec["launches"]["arakawa_rhs"]
+            want = 3 * MESH_VORTEX_CHECK if solver == "fdm" else 0
+            ok = (r["backend"] == "gloo" and "host memory" in g["transport"]
+                  and d <= 1e-5 * scale and k1 == want)
+            line = (f"phase 19 (g) sharded vortex {solver} {VORTEX_NX}^2 "
+                    f"fp32, rank {rank} of {r['mesh']} on one card "
+                    f"({g['transport']}): {MESH_VORTEX_CHECK} steps; max|w - "
+                    f"world 1| @{MESH_VORTEX_CHECK} = {d:.3e} (tol 1e-5 x "
+                    f"{scale:.6g}); kernel 1 {k1} launches (want {want}); "
+                    f"{share(rec)}; {card} {'ok' if ok else 'FAIL'}")
+            print(line)
+            check(ok, line)
+
+    # (h) the 1024^2 cavity with the pencil DST
+    n = NX + 1
+    for poisson in ("fst", "fst_half"):
+        h1 = one["cavity_fst"][poisson]
+        label = f"phase 19 (h) sharded cavity poisson={poisson}"
+        anchor_check(h1["psi_last"][:n, :n], MESH_CAVITY_ONE,
+                     f"{label} world 1")
+        cfg = dataclasses.replace(mesh_cavity_cfg(), poisson=poisson)
+        step = cavity.make_step_fn(cfg, torch.float32, device)
+        st, _ = loop.run_steps(step, cavity.initial_state(cfg, torch.float32,
+                                                          device),
+                               MESH_CAVITY_ONE, graph=False)
+        single = st[1].cpu()
+        scale = float(single.abs().max())
+        d = float((h1["psi_last"][:n, :n] - single).abs().max())
+        k1 = h1["launches"]["arakawa_rhs"]
+        ok = (d <= 1e-5 * scale and k1 == 3 * MESH_CAVITY_ONE
+              and one["backend"] == "nccl")
+        line = (f"{label} {NX}^2 fp32, world 1 {one['mesh']}: "
+                f"{MESH_CAVITY_ONE} steps; max|psi - single-device {poisson} "
+                f"step| @{MESH_CAVITY_ONE} = {d:.3e} (tol 1e-5 x {scale:.6g});"
+                f" kernel 1 {k1} launches (want {3 * MESH_CAVITY_ONE}); "
+                f"{share(h1)}; {card} {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+        ref = h1["psi_check"][:n, :n]
+        scale = float(ref.abs().max())
+        for rank, r in enumerate(quad):
+            rec = r["cavity_fst"][poisson]
+            psi = rec["psi_check"]
+            d = float((psi[:n, :n] - ref).abs().max())
+            pad = float(psi[n:].abs().max() + psi[:, n:].abs().max())
+            k1 = rec["launches"]["arakawa_rhs"]
+            ok = (d <= 1e-5 * scale and pad == 0.0
+                  and k1 == 3 * MESH_CAVITY_QUAD)
+            line = (f"{label} {NX}^2 fp32, rank {rank} of {r['mesh']} on one "
+                    f"card ({r['vortex']['transport']}): {MESH_CAVITY_QUAD} "
+                    f"steps; max|psi - world 1| @{MESH_CAVITY_QUAD} = "
+                    f"{d:.3e} (tol 1e-5 x {scale:.6g}), padding {pad:g}; "
+                    f"kernel 1 {k1} launches (want {3 * MESH_CAVITY_QUAD}); "
+                    f"{share(rec)}; {card} {'ok' if ok else 'FAIL'}")
+            print(line)
+            check(ok, line)
+    return (f["fdm"]["launches"]["arakawa_rhs"],
+            [r["vortex"]["fdm"]["launches"]["arakawa_rhs"] for r in quad])
 
 
 def main(argv=None):
@@ -4016,7 +4378,8 @@ def main(argv=None):
     grad_launches = phase_gradients()
     packed_launches = phase_packed_gradients(grad_launches["cavity_grad"])
     phase_user_surface()
-    mesh_launches, mesh_launches_one = phase_mesh()
+    mesh_launches, mesh_launches_one, (vortex_one, vortex_quad) = \
+        phase_mesh()
 
     record["launches"] = launches[record["name"]]
     record["path"] = f"cavity {NX}^2, {STEPS_TOTAL} steps"
@@ -4030,6 +4393,14 @@ def main(argv=None):
     record["sharded"]["world_1"].update(
         launches=mesh_launches_one,
         path=f"sharded cavity {NX}^2, {STEPS_TOTAL} steps, one rank (NCCL)")
+    record["sharded_vortex"].update(
+        launches=vortex_quad,
+        path=(f"sharded fdm vortex {VORTEX_NX}^2, {MESH_VORTEX_CHECK} steps "
+              f"on each of {MESH_RANKS} ranks (2x2, one card, gloo)"))
+    record["sharded_vortex"]["world_1"].update(
+        launches=vortex_one,
+        path=(f"sharded fdm vortex {VORTEX_NX}^2, {VORTEX_TOTAL} steps, one "
+              f"rank (NCCL)"))
     record["batched"] = batched_records["batched"]
     record["batched"]["launches"] = ensemble_launches["arakawa_rhs"]
     record["batched"]["path"] = (f"ensemble fdm {len(ENSEMBLE_RE)} x "
