@@ -24,7 +24,7 @@ def _rank(device, nx: int, steps: int) -> dict:
     mesh = mesh_lib.make_mesh(device.type)
     cfg = cavity.CavityConfig(nx=nx, ny=nx)
     step = sharded.make_sharded_cavity_step(cfg, mesh, torch.float32, device)
-    shape = sharded.padded_shape((nx + 1, nx + 1), mesh)
+    shape = mesh_lib.padded_shape((nx + 1, nx + 1), mesh)
     w0 = sharded.place(torch.zeros(shape, device=device), mesh)
     state = (w0, torch.zeros_like(w0), torch.zeros((), device=device))
     for _ in range(steps):

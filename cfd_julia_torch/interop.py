@@ -144,11 +144,11 @@ def block_from_numpy(a, mesh, dtype=None, device="cpu"):
 def slab_from_numpy(a, mesh, dim: int = -2, dtype=None, device="cpu"):
     """This rank's slab of a global (.., n, m) field given as numpy (the
     JAX package's unpacked half spectrum, a row slab: dim -2), in `dtype`
-    on `device` (parallel/sharded.place_slab): both packages then start
+    on `device` (parallel/mesh.place_slab): both packages then start
     from one state."""
-    from cfd_julia_torch.parallel import sharded
+    from cfd_julia_torch.parallel import mesh as mesh_lib
 
-    return sharded.place_slab(field_from_numpy(a, dtype, device), mesh, dim)
+    return mesh_lib.place_slab(field_from_numpy(a, dtype, device), mesh, dim)
 
 
 def state_from_numpy(w, s, dtype=None, device="cpu"):

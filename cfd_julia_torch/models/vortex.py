@@ -163,11 +163,13 @@ def make_block_poisson(nx: int, ny: int, dx: float, dy: float, dtype,
                        device, mesh):
     """The fdm Poisson solve lap(psi) = f on 2D blocks: the block moves to
     its row slab, the pencil rfft2 / irfft2 solve runs, and psi moves
-    back."""
+    back; the moves are planned here, once."""
     inner = spectral.make_fft_poisson_periodic(nx, ny, dx, dy, dtype, device,
                                                eigen="fdm", mesh=mesh)
-    return lambda f: transpose.rows_to_block(
-        inner(transpose.block_to_rows(f, mesh, (nx, ny))), mesh, (nx, ny))
+    to_rows = transpose.block_to_rows(mesh, (nx, ny))
+    to_block = transpose.rows_to_block(mesh, (nx, ny))
+    return lambda f: transpose.move(inner(transpose.move(f, to_rows)),
+                                    to_block)
 
 
 def fdm_rhs(w, dx, dy, re, impl: str = "torch", poisson=None, mesh=None):
@@ -256,27 +258,36 @@ def _step_consts(cfg: VortexConfig, dtype, device, eps: float = 1e-6):
     return kx[:, None] ** 2 + ky[None, :] ** 2, kx, ky
 
 
-def jacobian_hybrid(wf, k2, dx, dy, mesh=None, line=None):
+def jacobian_hybrid(wf, k2, dx, dy, mesh=None):
     """-J(w, psi) computed in physical space with the Arakawa scheme, psi
     from the spectrum (hybrid.jl:92-152).  With a mesh: wf is this rank's
-    block and k2 the global (nx, ny) constant; w and psi come to row slabs
-    by the pencil ifft2, J runs there with a ring halo over `line`
-    (mesh.flat_line, built for the call when not given) and the fft2 takes
-    it back to the block."""
-    if mesh is None:
-        w = spectral.ifft2(wf).real
-        s = spectral.ifft2(wf / k2).real
-        return spectral.fft2(-arakawa.jacobian(w, s, dx, dy))
+    block and k2 the global (nx, ny) constant (_make_jacobian_hybrid_mesh,
+    built for this call)."""
+    if mesh is not None:
+        return _make_jacobian_hybrid_mesh(k2, dx, dy, mesh)(wf)
+    w = spectral.ifft2(wf).real
+    s = spectral.ifft2(wf / k2).real
+    return spectral.fft2(-arakawa.jacobian(w, s, dx, dy))
+
+
+def _make_jacobian_hybrid_mesh(k2, dx, dy, mesh):
+    """jacobian_hybrid on this rank's block, its moves planned here: w and
+    psi come to row slabs by the pencil ifft2, J runs there with a ring
+    halo over mesh.flat_line, and the fft2 takes it back to the block."""
     shape = tuple(k2.shape)
-    if line is None:
-        line = mesh_lib.flat_line(mesh)
-    z = transpose.block_to_cols(
-        torch.stack([wf, wf / k2[mesh_lib.block_slices(shape, mesh)]]), mesh,
-        shape)
-    w, s = spectral.ifft2(z, mesh, shape).real
-    jac = -halo.slab_jacobian(w, s, dx, dy, line)
-    return transpose.cols_to_block(spectral.fft2(jac, mesh, shape), mesh,
-                                   shape)
+    k2 = k2[mesh_lib.block_slices(shape, mesh)]
+    line = mesh_lib.flat_line(mesh)
+    pencil = transpose.pencil(mesh, shape)
+    to_cols = transpose.block_to_cols(mesh, shape)
+    to_block = transpose.cols_to_block(mesh, shape)
+
+    def jac(wf):
+        z = transpose.move(torch.stack([wf, wf / k2]), to_cols)
+        w, s = spectral.ifft2(z, pencil).real
+        j = -halo.slab_jacobian(w, s, dx, dy, line)
+        return transpose.move(spectral.fft2(j, pencil), to_block)
+
+    return jac
 
 
 def _deriv_spectra(wf, k2, kx, ky, block=None):
@@ -330,9 +341,9 @@ def jacobian_ps32(wf, k2, kx, ky, nx, ny, mesh=None):
     jacobian).  Zeroing it keeps the state exactly Hermitian so the
     half-spectrum path computes the same step.  With a mesh: wf is this
     rank's block and k2, kx, ky the global constants
-    (_jacobian_ps32_mesh)."""
+    (_make_jacobian_ps32_mesh, built for this call)."""
     if mesh is not None:
-        return _jacobian_ps32_mesh(wf, k2, kx, ky, nx, ny, mesh)
+        return _make_jacobian_ps32_mesh(k2, kx, ky, mesh)(wf)
     nxe, nye = 3 * nx // 2, 3 * ny // 2
     scale = (nxe * nye) / (nx * ny)
     specs = torch.stack(_deriv_spectra(wf, k2, kx, ky))
@@ -343,28 +354,40 @@ def jacobian_ps32(wf, k2, kx, ky, nx, ny, mesh=None):
         * _nyquist_mask(nx, ny, wf.device)
 
 
-def _jacobian_ps32_mesh(wf, k2, kx, ky, nx, ny, mesh):
-    """jacobian_ps32 on this rank's block wf: each axis of the 3/2 grid is
-    padded and cut where it is whole: the ky pad on the row slab, the kx
-    pad on the column slab, the transforms of the padded grid as pencils,
-    the kx cut on the column slab, the ky cut on the row slab."""
+def _make_jacobian_ps32_mesh(k2, kx, ky, mesh):
+    """jacobian_ps32 on this rank's block, its moves planned here: each
+    axis of the 3/2 grid is padded and cut where it is whole: the ky pad
+    on the row slab, the kx pad on the column slab, the transforms of the
+    padded grid as pencils, the kx cut on the column slab, the ky cut on
+    the row slab."""
+    nx, ny = k2.shape
     nxe, nye = 3 * nx // 2, 3 * ny // 2
     hx, hy = nx // 2, ny // 2
     scale = (nxe * nye) / (nx * ny)
     block = mesh_lib.block_slices((nx, ny), mesh)
-    specs = transpose.block_to_rows(
-        torch.stack(_deriv_spectra(wf, k2, kx, ky, block)), mesh, (nx, ny))
-    zc = specs.new_zeros((*specs.shape[:-1], nye - ny))
-    specs = torch.cat([specs[..., :hy], zc, specs[..., hy:]], dim=-1)
-    specs = transpose.rows_to_cols(specs, mesh, (nx, nye))
-    specs = spectral._pad_rows_32(specs, nx, nxe) * scale
-    j1, j2, j3, j4 = spectral.ifft2(specs, mesh, (nxe, nye)).real
-    jacpf = spectral.fft2(j1 * j2 - j3 * j4, mesh, (nxe, nye))
-    jacpf = torch.cat([jacpf[..., :hx, :], jacpf[..., nxe - hx:, :]], dim=-2)
-    jacpf = transpose.cols_to_rows(jacpf, mesh, (nx, nye))
-    jacpf = torch.cat([jacpf[..., :hy], jacpf[..., nye - hy:]], dim=-1)
-    jacpf = transpose.rows_to_block(jacpf, mesh, (nx, ny))
-    return (jacpf / scale) * _nyquist_mask(nx, ny, wf.device)[block]
+    nyq = _nyquist_mask(nx, ny, k2.device)[block]
+    to_rows = transpose.block_to_rows(mesh, (nx, ny))
+    wide = transpose.pencil(mesh, (nx, nye))
+    fine = transpose.pencil(mesh, (nxe, nye))
+    to_block = transpose.rows_to_block(mesh, (nx, ny))
+
+    def jac(wf):
+        specs = transpose.move(
+            torch.stack(_deriv_spectra(wf, k2, kx, ky, block)), to_rows)
+        zc = specs.new_zeros((*specs.shape[:-1], nye - ny))
+        specs = torch.cat([specs[..., :hy], zc, specs[..., hy:]], dim=-1)
+        specs = transpose.move(specs, wide.to_cols)
+        specs = spectral._pad_rows_32(specs, nx, nxe) * scale
+        j1, j2, j3, j4 = spectral.ifft2(specs, fine).real
+        jacpf = spectral.fft2(j1 * j2 - j3 * j4, fine)
+        jacpf = torch.cat([jacpf[..., :hx, :], jacpf[..., nxe - hx:, :]],
+                          dim=-2)
+        jacpf = transpose.move(jacpf, wide.to_rows)
+        jacpf = torch.cat([jacpf[..., :hy], jacpf[..., nye - hy:]], dim=-1)
+        jacpf = transpose.move(jacpf, to_block)
+        return (jacpf / scale) * nyq
+
+    return jac
 
 
 def jacobian_ps23(wf, k2, kx, ky, nx, ny, mesh=None):
@@ -373,21 +396,36 @@ def jacobian_ps23(wf, k2, kx, ky, nx, ny, mesh=None):
     before the physical product; the product spectrum is NOT re-masked
     (reference behaviour).  The band is spectral.dealias_mask_23's
     symmetric |k| < ne//2.  With a mesh: wf is this rank's block and k2,
-    kx, ky the global constants; the block goes to the column slab, the
-    pencil ifft2 brings the four fields to row slabs, the fft2 their
-    product back to the column slab, and that returns to the block."""
-    if mesh is None:
-        mask = spectral.dealias_mask_23(nx, ny, wf.device)
-        specs = torch.stack(_deriv_spectra(wf, k2, kx, ky)) * mask
-        j1, j2, j3, j4 = spectral.ifft2(specs).real
-        return spectral.fft2(j1 * j2 - j3 * j4)
-    block = mesh_lib.block_slices((nx, ny), mesh)
-    mask = spectral.dealias_mask_23(nx, ny, wf.device)[block]
-    specs = torch.stack(_deriv_spectra(wf, k2, kx, ky, block)) * mask
-    j1, j2, j3, j4 = spectral.ifft2(
-        transpose.block_to_cols(specs, mesh, (nx, ny)), mesh, (nx, ny)).real
-    return transpose.cols_to_block(
-        spectral.fft2(j1 * j2 - j3 * j4, mesh, (nx, ny)), mesh, (nx, ny))
+    kx, ky the global constants (_make_jacobian_ps23_mesh, built for this
+    call)."""
+    if mesh is not None:
+        return _make_jacobian_ps23_mesh(k2, kx, ky, mesh)(wf)
+    mask = spectral.dealias_mask_23(nx, ny, wf.device)
+    specs = torch.stack(_deriv_spectra(wf, k2, kx, ky)) * mask
+    j1, j2, j3, j4 = spectral.ifft2(specs).real
+    return spectral.fft2(j1 * j2 - j3 * j4)
+
+
+def _make_jacobian_ps23_mesh(k2, kx, ky, mesh):
+    """jacobian_ps23 on this rank's block, its moves planned here: the
+    block goes to the column slab, the pencil ifft2 brings the four fields
+    to row slabs, the fft2 their product back to the column slab, and
+    that returns to the block."""
+    shape = tuple(k2.shape)
+    block = mesh_lib.block_slices(shape, mesh)
+    mask = spectral.dealias_mask_23(*shape, k2.device)[block]
+    pencil = transpose.pencil(mesh, shape)
+    to_cols = transpose.block_to_cols(mesh, shape)
+    to_block = transpose.cols_to_block(mesh, shape)
+
+    def jac(wf):
+        specs = torch.stack(_deriv_spectra(wf, k2, kx, ky, block)) * mask
+        j1, j2, j3, j4 = spectral.ifft2(transpose.move(specs, to_cols),
+                                        pencil).real
+        return transpose.move(spectral.fft2(j1 * j2 - j3 * j4, pencil),
+                              to_block)
+
+    return jac
 
 
 def make_spectral_step(cfg: VortexConfig, dtype=None, device="cuda",
@@ -400,17 +438,18 @@ def make_spectral_step(cfg: VortexConfig, dtype=None, device="cuda",
     device = precision.resolve_device(device)
     dt, re = cfg.dt, cfg.re
     k2, kx, ky = _step_consts(cfg, dtype, device)
-    line = None
     if mesh is not None:
         _check_mesh_grid(cfg.nx, cfg.ny, mesh)
-        if cfg.solver == "hybrid":
-            line = mesh_lib.flat_line(mesh)
     if cfg.solver == "hybrid":
-        jac = lambda wf: jacobian_hybrid(wf, k2, cfg.dx, cfg.dy, mesh, line)
+        jac = (lambda wf: jacobian_hybrid(wf, k2, cfg.dx, cfg.dy)) \
+            if mesh is None else _make_jacobian_hybrid_mesh(k2, cfg.dx,
+                                                           cfg.dy, mesh)
     elif cfg.solver == "ps32":
-        jac = lambda wf: jacobian_ps32(wf, k2, kx, ky, cfg.nx, cfg.ny, mesh)
+        jac = (lambda wf: jacobian_ps32(wf, k2, kx, ky, cfg.nx, cfg.ny)) \
+            if mesh is None else _make_jacobian_ps32_mesh(k2, kx, ky, mesh)
     elif cfg.solver == "ps23":
-        jac = lambda wf: jacobian_ps23(wf, k2, kx, ky, cfg.nx, cfg.ny, mesh)
+        jac = (lambda wf: jacobian_ps23(wf, k2, kx, ky, cfg.nx, cfg.ny)) \
+            if mesh is None else _make_jacobian_ps23_mesh(k2, kx, ky, mesh)
     else:
         raise ValueError(f"solver {cfg.solver!r} has no spectral step")
     zero_mean_mode, k2_state = spectral.zero_mean_mode, k2
@@ -535,68 +574,19 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
     two together and both against the JAX package.
 
     With a mesh: H is this rank's row slab (kx split over all ranks, the
-    JAX package's packed_half_sharding); a Jacobian moves its spectra to
+    JAX package's packed_half_sharding) and the constants are the rank's
+    row slabs of the single-device ones.  A Jacobian moves its spectra to
     column slabs, the pencil irfft2 brings the fields to row slabs, the
-    pencil rfft2 their product back, and that returns to the row slab
-    (_make_half_jacobian_mesh)."""
+    pencil rfft2 their product back, and that returns to the row slab;
+    the moves are planned here, once."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
-    if mesh is not None:
-        return _make_spectral_step_half_mesh(cfg, dtype, device, mesh)
-    nx, ny = cfg.nx, cfg.ny
-    _, _, k2h, nyq = _half_consts(cfg, dtype, device)
-    (a1, b1, _), (a2, b2, r2), (a3, b3, r3) = _cn_consts(cfg, k2h)
-
-    def product(phys):
-        return phys[0] * phys[1] - phys[2] * phys[3]
-
-    if cfg.solver == "hybrid":
-        inv_k2h = 1.0 / k2h
-
-        def jac(H):
-            w, s = spectral.irfft2(torch.stack([H, H * inv_k2h]), nx, ny)
-            return spectral.rfft2(-arakawa.jacobian(w, s, cfg.dx, cfg.dy))
-    elif cfg.solver == "ps23":
-        g = _deriv_consts_half(cfg, dtype, device,
-                               _band_mask_23_half(cfg, device))
-
-        def jac(H):
-            return spectral.rfft2(product(
-                spectral.irfft2(g * (1j * H), nx, ny)))
-    elif cfg.solver == "ps32":
-        nxe, nye = 3 * nx // 2, 3 * ny // 2
-        scale = (nxe * nye) / (nx * ny)
-        # the Parseval rescale of the padded spectra is folded into g, and
-        # the one of the truncated product into the Nyquist zeroing (see
-        # jacobian_ps32)
-        g = _deriv_consts_half(cfg, dtype, device) * scale
-        nyq_over_scale = nyq / scale
-
-        def jac(H):
-            pads = spectral.pad_32_half(g * (1j * H), ny, nxe, nye)
-            jf = spectral.rfft2(product(spectral.irfft2(pads, nxe, nye)))
-            return spectral.truncate_32_half(jf, nx, ny) * nyq_over_scale
-    else:
-        raise ValueError(f"solver {cfg.solver!r} has no spectral step")
-
-    def step(H):
-        jn = jac(H)
-        H1 = a1 * H + b1 * jn
-        j1 = jac(H1)
-        H2 = a2 * H1 + r2 * jn + b2 * j1
-        j2 = jac(H2)
-        return a3 * H2 + r3 * j1 + b3 * j2
-
-    return step
-
-
-def _make_spectral_step_half_mesh(cfg: VortexConfig, dtype, device, mesh):
-    """make_spectral_step_half on row slabs of H: the constants are the
-    rank's row slabs of the single-device ones."""
-    _check_mesh_grid(cfg.nx, cfg.ny, mesh)
     nx, ny = cfg.nx, cfg.ny
     hy = ny // 2 + 1
-    rows, _ = mesh_lib.slab_slices((nx, hy), mesh, -2)
+    rows = slice(None)
+    if mesh is not None:
+        _check_mesh_grid(nx, ny, mesh)
+        rows, _ = mesh_lib.slab_slices((nx, hy), mesh, -2)
     _, _, k2h, nyq = _half_consts(cfg, dtype, device)
     (a1, b1, _), (a2, b2, r2), (a3, b3, r3) = (
         tuple(c[rows] for c in stage) for stage in _cn_consts(cfg, k2h))
@@ -604,53 +594,78 @@ def _make_spectral_step_half_mesh(cfg: VortexConfig, dtype, device, mesh):
     def product(phys):
         return phys[0] * phys[1] - phys[2] * phys[3]
 
-    def forward(phys, shape):
-        """Row slab of a real field of global `shape` -> row slab of its
-        half spectrum."""
-        h = spectral.rfft2(phys, mesh, shape)
-        return transpose.cols_to_rows(h, mesh,
-                                      (shape[0], shape[1] // 2 + 1))
+    if mesh is None:
+        def inverse(h):
+            return spectral.irfft2(h, nx, ny)
+
+        forward = spectral.rfft2
+
+        def physical_jacobian(w, s):
+            return arakawa.jacobian(w, s, cfg.dx, cfg.dy)
+    else:
+        half = transpose.pencil(mesh, (nx, hy))
+
+        def inverse(h):
+            """Row slab of a half spectrum -> row slab of its field."""
+            return spectral.irfft2(transpose.move(h, half.to_cols), nx, ny,
+                                   half)
+
+        def forward(phys):
+            """Row slab of a real field -> row slab of its half spectrum."""
+            return transpose.move(spectral.rfft2(phys, half), half.to_rows)
+
+        if cfg.solver == "hybrid":
+            line = mesh_lib.flat_line(mesh)
+
+            def physical_jacobian(w, s):
+                return halo.slab_jacobian(w, s, cfg.dx, cfg.dy, line)
 
     if cfg.solver == "hybrid":
         inv_k2h = (1.0 / k2h)[rows]
-        line = mesh_lib.flat_line(mesh)
 
         def jac(H):
-            z = transpose.rows_to_cols(torch.stack([H, H * inv_k2h]), mesh,
-                                       (nx, hy))
-            w, s = spectral.irfft2(z, nx, ny, mesh)
-            return forward(-halo.slab_jacobian(w, s, cfg.dx, cfg.dy, line),
-                           (nx, ny))
+            w, s = inverse(torch.stack([H, H * inv_k2h]))
+            return forward(-physical_jacobian(w, s))
     elif cfg.solver == "ps23":
         g = _deriv_consts_half(cfg, dtype, device,
                                _band_mask_23_half(cfg, device))[:, rows]
 
         def jac(H):
-            z = transpose.rows_to_cols(g * (1j * H), mesh, (nx, hy))
-            return forward(product(spectral.irfft2(z, nx, ny, mesh)),
-                           (nx, ny))
+            return forward(product(inverse(g * (1j * H))))
     elif cfg.solver == "ps32":
         nxe, nye = 3 * nx // 2, 3 * ny // 2
-        hye = nye // 2 + 1
         scale = (nxe * nye) / (nx * ny)
+        # the Parseval rescale of the padded spectra is folded into g, and
+        # the one of the truncated product into the Nyquist zeroing (see
+        # jacobian_ps32)
         g = (_deriv_consts_half(cfg, dtype, device) * scale)[:, rows]
         nyq_over_scale = (nyq / scale)[rows]
-        _, cols = mesh_lib.slab_slices((nxe, hye), mesh, -1)
-        cols = torch.arange(cols.start, cols.stop, device=device)[None, :]
+        if mesh is None:
+            def jac(H):
+                pads = spectral.pad_32_half(g * (1j * H), ny, nxe, nye)
+                jf = spectral.rfft2(product(spectral.irfft2(pads, nxe, nye)))
+                return spectral.truncate_32_half(jf, nx, ny) * nyq_over_scale
+        else:
+            hye = nye // 2 + 1
+            wide = transpose.pencil(mesh, (nx, hye))
+            fine = transpose.pencil(mesh, (nxe, hye))
+            _, cols = mesh_lib.slab_slices((nxe, hye), mesh, -1)
+            cols = torch.arange(cols.start, cols.stop, device=device)[None, :]
 
-        def jac(H):
-            # pad_32_half: the ky pad here, where ky is whole, the kx pad on
-            # the column slab
-            p = g * (1j * H)
-            p = torch.cat([p[..., :ny // 2],
-                           p.new_zeros((*p.shape[:-1], hye - ny // 2))], -1)
-            p = transpose.rows_to_cols(p, mesh, (nx, hye))
-            p = spectral._pad_rows_32(p, nx, nxe)
-            jf = spectral.rfft2(product(spectral.irfft2(p, nxe, nye, mesh)),
-                                mesh, (nxe, nye))
-            jf = _truncate_32_half_slab(jf, nx, ny, cols)
-            jf = transpose.cols_to_rows(jf, mesh, (nx, hye))[..., :hy]
-            return jf * nyq_over_scale
+            def jac(H):
+                # pad_32_half: the ky pad here, where ky is whole, the kx
+                # pad on the column slab
+                p = g * (1j * H)
+                p = torch.cat([p[..., :ny // 2],
+                               p.new_zeros((*p.shape[:-1], hye - ny // 2))],
+                              -1)
+                p = transpose.move(p, wide.to_cols)
+                p = spectral._pad_rows_32(p, nx, nxe)
+                jf = spectral.rfft2(product(spectral.irfft2(p, nxe, nye,
+                                                            fine)), fine)
+                jf = _truncate_32_half_slab(jf, nx, ny, cols)
+                jf = transpose.move(jf, wide.to_rows)[..., :hy]
+                return jf * nyq_over_scale
     else:
         raise ValueError(f"solver {cfg.solver!r} has no spectral step")
 
@@ -672,11 +687,10 @@ def half_init(w0, mesh=None):
     if mesh is None:
         return spectral.zero_mean_mode(spectral.rfft2(w0))
     nx, ny = w0.shape[-2] * mesh_lib.world_size(mesh), w0.shape[-1]
-    h = transpose.cols_to_rows(spectral.rfft2(w0, mesh, (nx, ny)), mesh,
-                               (nx, ny // 2 + 1))
-    # the mean mode is row 0 of the first slab
-    return spectral.zero_mean_mode(h) if mesh_lib.flat_index(mesh) == 0 \
-        else h
+    half = transpose.pencil(mesh, (nx, ny // 2 + 1))
+    h = transpose.move(spectral.rfft2(w0, half), half.to_rows)
+    # the mean mode is row 0 of the first slab, rank 0's
+    return spectral.zero_mean_mode(h) if mesh.get_rank() == 0 else h
 
 
 def half_decode(H, nx: int, ny: int, mesh=None):
@@ -684,8 +698,8 @@ def half_decode(H, nx: int, ny: int, mesh=None):
     rank's row slab of H -> its row slab of the vorticity."""
     if mesh is None:
         return spectral.irfft2(H, nx, ny)
-    h = transpose.rows_to_cols(H, mesh, (nx, ny // 2 + 1))
-    return spectral.irfft2(h, nx, ny, mesh)
+    half = transpose.pencil(mesh, (nx, ny // 2 + 1))
+    return spectral.irfft2(transpose.move(H, half.to_cols), nx, ny, half)
 
 
 # -------------------------------------------------------------- the solve

@@ -24,17 +24,18 @@ Tensors are real or complex of one precision; wavenumber constants are
 built in fp64 with numpy and cast, so their fp32 values are the JAX
 package's bit for bit.
 
-Mesh forms (`mesh=`, a parallel/mesh.make_mesh mesh; each rank runs the
-same call on its own slab): the pencil decomposition of the JAX package's
-`_constrain` / `_pencil_specs` pairs.  Each 1D transform runs where its
-axis is whole, and parallel/transpose.py moves the field between a row
-slab (rows split over all ranks, P(flat, None)) and a column slab
-(P(None, flat)) in between.  The forward transforms (fft2, rfft2,
-dst1_2d) take a row slab and return a column slab; the inverses (ifft2,
-irfft2, idst1_2d) take a column slab and return a row slab; the solves
-take and return row slabs.  A slab does not carry its field's global
-extent, so the one-off mesh forms take it as `shape`.  mesh=None is the
-single-device code, unchanged.
+Mesh forms (each rank runs the same call on its own slab): the pencil
+decomposition of the JAX package's `_constrain` / `_pencil_specs` pairs.
+Each 1D transform runs where its axis is whole, and parallel/transpose.py
+moves the field between a row slab (rows split over all ranks,
+P(flat, None)) and a column slab (P(None, flat)) in between.  The
+transforms take a `pencil` (transpose.pencil of the mesh and the field's
+global shape, built once by the caller, as its moves depend only on
+those): the forward transforms (fft2, rfft2, dst1_2d) take a row slab and
+return a column slab; the inverses (ifft2, irfft2, idst1_2d) take a
+column slab and return a row slab.  The solves take `mesh=` and map row
+slabs to row slabs, their pencils and constants built with them.  No
+pencil or mesh is the single-device code, unchanged.
 """
 from __future__ import annotations
 
@@ -43,94 +44,62 @@ import math
 import numpy as np
 import torch
 
+from cfd_julia_torch.parallel import mesh as mesh_lib
+from cfd_julia_torch.parallel import transpose
+
 _NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 # ------------------------------------------------------------- transforms
 
 def _global_shape(shape):
-    """The (n, m) a mesh form needs: a slab does not carry it."""
+    """The (n, m) a one-off mesh solve needs: a slab does not carry it."""
     if shape is None:
         raise ValueError("with a mesh, give the field's global shape: a "
                          "rank's slab does not carry it")
     return tuple(shape)[-2:]
 
 
-def _transpose():
-    from cfd_julia_torch.parallel import transpose
-
-    return transpose
-
-
-def col_slab(t, mesh, fill=0.0):
-    """This rank's column slab of a global (.., n, m) constant, its padded
-    columns set to `fill`."""
-    from cfd_julia_torch.parallel import mesh as mesh_lib
-
-    m = t.shape[-1]
-    width = mesh_lib.slab_extent(m, mesh) * mesh_lib.world_size(mesh)
-    pad = t.new_full((*t.shape[:-1], width - m), fill)
-    _, cols = mesh_lib.slab_slices(t.shape, mesh, -1)
-    return torch.cat([t, pad], dim=-1)[..., cols].contiguous()
-
-
-def row_slab(t, mesh, fill=0.0):
-    """This rank's row slab of a global (.., n, m) constant, its padded
-    rows set to `fill`."""
-    from cfd_julia_torch.parallel import mesh as mesh_lib
-
-    n = t.shape[-2]
-    height = mesh_lib.slab_extent(n, mesh) * mesh_lib.world_size(mesh)
-    pad = t.new_full((*t.shape[:-2], height - n, t.shape[-1]), fill)
-    rows, _ = mesh_lib.slab_slices(t.shape, mesh, -2)
-    return torch.cat([t, pad], dim=-2)[..., rows, :].contiguous()
-
-
-def fft2(x, mesh=None, shape=None):
-    """2D FFT over the last two axes.  With a mesh: x is the row slab of a
-    global `shape` (nx, ny) field and the result its column slab (fft
-    along y, the transpose, fft along x)."""
-    if mesh is None:
+def fft2(x, pencil=None):
+    """2D FFT over the last two axes.  With a pencil: x is the row slab of
+    the pencil's global field and the result its column slab (fft along
+    y, the transpose, fft along x)."""
+    if pencil is None:
         return torch.fft.fft2(x)
-    x = torch.fft.fft(x, dim=-1)
-    x = _transpose().rows_to_cols(x, mesh, _global_shape(shape))
+    x = transpose.move(torch.fft.fft(x, dim=-1), pencil.to_cols)
     return torch.fft.fft(x, dim=-2)
 
 
-def ifft2(x, mesh=None, shape=None):
-    """Inverse 2D FFT.  With a mesh: x is the column slab of a global
-    `shape` field and the result its row slab."""
-    if mesh is None:
+def ifft2(x, pencil=None):
+    """Inverse 2D FFT.  With a pencil: x is the column slab of the
+    pencil's global field and the result its row slab."""
+    if pencil is None:
         return torch.fft.ifft2(x)
-    x = torch.fft.ifft(x, dim=-2)
-    x = _transpose().cols_to_rows(x, mesh, _global_shape(shape))
+    x = transpose.move(torch.fft.ifft(x, dim=-2), pencil.to_rows)
     return torch.fft.ifft(x, dim=-1)
 
 
-def rfft2(x, mesh=None, shape=None):
+def rfft2(x, pencil=None):
     """Half spectrum (.., nx, ny//2+1) of a real field (.., nx, ny).  With a
-    mesh: x is the row slab of the real field of global `shape` (nx, ny)
-    and the result the column slab of its half spectrum (rfft along the
-    local y, the transpose, a complex fft along x)."""
-    if mesh is None:
+    pencil of the half spectrum's global (nx, ny//2+1): x is the row slab
+    of the real field and the result the column slab of its half spectrum
+    (rfft along the local y, the transpose, a complex fft along x)."""
+    if pencil is None:
         return torch.fft.rfft2(x)
-    nx, ny = _global_shape(shape)
-    h = torch.fft.rfft(x, dim=-1)
-    h = _transpose().rows_to_cols(h, mesh, (nx, ny // 2 + 1))
+    h = transpose.move(torch.fft.rfft(x, dim=-1), pencil.to_cols)
     return torch.fft.fft(h, dim=-2)
 
 
-def irfft2(h, nx: int, ny: int, mesh=None):
+def irfft2(h, nx: int, ny: int, pencil=None):
     """Real field (.., nx, ny) from its half spectrum (.., nx, ny//2+1).
     The c2r transform along the last axis ignores the imaginary part of
     the ky = 0 column and, for even ny, of the Nyquist column.  With a
-    mesh: h is the column slab of the half spectrum and the result the row
-    slab of the field (ifft along kx where kx is whole, the transpose,
+    pencil of the half spectrum: h is its column slab and the result the
+    row slab of the field (ifft along kx where kx is whole, the transpose,
     c2r along ky where ky is whole)."""
-    if mesh is None:
+    if pencil is None:
         return torch.fft.irfft2(h, s=(nx, ny))
-    h = torch.fft.ifft(h, dim=-2)
-    h = _transpose().cols_to_rows(h, mesh, (nx, ny // 2 + 1))
+    h = transpose.move(torch.fft.ifft(h, dim=-2), pencil.to_rows)
     return torch.fft.irfft(h, n=ny, dim=-1)
 
 
@@ -225,16 +194,15 @@ def make_fft_poisson_periodic(nx: int, ny: int, dx: float, dy: float,
     mirror = torch.roll(torch.flip(inv_den, (0, 1)), (1, 1), (0, 1))
     inv_den = (0.5 * (inv_den + mirror))[:, : ny // 2 + 1].contiguous()
     if mesh is not None:
-        from cfd_julia_torch.parallel import mesh as mesh_lib
-
-        inv_den = col_slab(inv_den, mesh)
+        inv_den = mesh_lib.place_slab(inv_den, mesh, -1)
         rows = mesh_lib.slab_extent(nx, mesh)
+        half = transpose.pencil(mesh, (nx, ny // 2 + 1))
 
         def solve(f):
             if f.shape[-2:] != (rows, ny):
                 raise ValueError(f"solve was built for row slabs {(rows, ny)}"
                                  f" of {(nx, ny)}, got {tuple(f.shape[-2:])}")
-            return irfft2(rfft2(f, mesh, (nx, ny)) * inv_den, nx, ny, mesh)
+            return irfft2(rfft2(f, half) * inv_den, nx, ny, half)
 
         return solve
 
@@ -337,28 +305,26 @@ def dst1(v, axis: int = -1, impl: str = "rfft", weights=None, mesh=None):
     return torch.movedim(X, -1, axis)
 
 
-def dst1_2d(v, impl: str = "rfft", mesh=None, shape=None):
+def dst1_2d(v, impl: str = "rfft", pencil=None):
     """2D DST-I over the last two axes (= FFTW.r2r(..., RODFT00)).  With a
-    mesh: v is the row slab of a global `shape` field and the result its
-    column slab."""
-    if mesh is None:
+    pencil: v is the row slab of the pencil's global field and the result
+    its column slab."""
+    if pencil is None:
         return dst1(dst1(v, axis=-1, impl=impl), axis=-2, impl=impl)
-    v = dst1(v, -1, impl, mesh=mesh)
-    v = _transpose().rows_to_cols(v, mesh, _global_shape(shape))
-    return dst1(v, -2, impl, mesh=mesh)
+    v = transpose.move(dst1(v, -1, impl), pencil.to_cols)
+    return dst1(v, -2, impl)
 
 
-def idst1_2d(v, norm_nx: int, norm_ny: int, impl: str = "rfft", mesh=None,
-             shape=None):
+def idst1_2d(v, norm_nx: int, norm_ny: int, impl: str = "rfft",
+             pencil=None):
     """Inverse 2D DST-I with the reference normalization /(2 nx * 2 ny)
     (fft_d.jl:22): the forward pair applied twice scales by 4 nx ny.  With
-    a mesh: v is the column slab of a global `shape` field and the result
-    its row slab (the x transform first: the axes commute)."""
-    if mesh is None:
+    a pencil: v is the column slab of the pencil's global field and the
+    result its row slab (the x transform first: the axes commute)."""
+    if pencil is None:
         return dst1_2d(v, impl) / (4.0 * norm_nx * norm_ny)
-    v = dst1(v, -2, impl, mesh=mesh)
-    v = _transpose().cols_to_rows(v, mesh, _global_shape(shape))
-    return dst1(v, -1, impl, mesh=mesh) / (4.0 * norm_nx * norm_ny)
+    v = transpose.move(dst1(v, -2, impl), pencil.to_rows)
+    return dst1(v, -1, impl) / (4.0 * norm_nx * norm_ny)
 
 
 def make_fst_poisson_dirichlet(mx: int, my: int, dx: float, dy: float,
@@ -385,23 +351,19 @@ def make_fst_poisson_dirichlet(mx: int, my: int, dx: float, dy: float,
         wy = dst1_half_weights(my, dtype, device)
 
     if mesh is not None:
-        from cfd_julia_torch.parallel import mesh as mesh_lib
-
-        transpose = _transpose()
-        den = col_slab(den, mesh, 1.0)
+        den = mesh_lib.place_slab(den, mesh, -1, 1.0)
         rows = mesh_lib.slab_extent(mx, mesh)
+        moves = transpose.pencil(mesh, (mx, my))
 
         def solve(f_interior):
             if f_interior.shape[-2:] != (rows, my):
                 raise ValueError(f"solve was built for row slabs {(rows, my)}"
                                  f" of {(mx, my)} interior nodes, got "
                                  f"{tuple(f_interior.shape[-2:])}")
-            e = dst1(f_interior, -1, impl, wy, mesh)
-            e = dst1(transpose.rows_to_cols(e, mesh, (mx, my)), -2, impl, wx,
-                     mesh)
-            u = dst1(e / den, -2, impl, wx, mesh)
-            u = dst1(transpose.cols_to_rows(u, mesh, (mx, my)), -1, impl, wy,
-                     mesh)
+            e = dst1(f_interior, -1, impl, wy)
+            e = dst1(transpose.move(e, moves.to_cols), -2, impl, wx)
+            u = dst1(e / den, -2, impl, wx)
+            u = dst1(transpose.move(u, moves.to_rows), -1, impl, wy)
             return u / (4.0 * nx * ny)
 
         return solve

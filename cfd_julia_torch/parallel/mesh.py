@@ -10,7 +10,7 @@ Rank r sits at row-major position r of the mesh, so along either axis the
 group ranks ascend with the coordinate.
 
 A sharded field of global shape (P, Q) must divide over the mesh (the
-callers zero-pad to it: parallel/sharded.padded_shape); the rank at
+callers zero-pad to it: `padded_shape`); the rank at
 coordinate (a, b) owns rows [a P/px, (a+1) P/px) and columns
 [b Q/py, (b+1) Q/py) (`block_slices`), the layout of the JAX package's
 `field_sharding`.  An axis given as None is not sharded (the JAX package's
@@ -19,11 +19,11 @@ coordinate (a, b) owns rows [a P/px, (a+1) P/px) and columns
 The pencil transforms of ops/spectral.py also lay fields out in slabs: one
 axis split over all ranks in flat order, the JAX package's
 P(tuple(mesh.axis_names), None) (a row slab) or P(None, flat) (a column
-slab).  The flat order is x-major, so it is the global rank order
-(`flat_index`).  A slab's extent is zero-padded up to a multiple of the
-world size (`slab_slices`); parallel/transpose.py moves fields between
-blocks and slabs, and `flat_line` is the 1D view of all ranks that
-parallel/halo.py's ring exchange uses along a slab axis.
+slab).  The flat order is x-major, so the rank at flat position r is
+global rank r.  A slab's extent is zero-padded up to a multiple of the
+world size (`slab_slices`, `place_slab`); parallel/transpose.py moves
+fields between blocks and slabs, and `flat_line` is the 1D view of all
+ranks that parallel/halo.py's ring exchange uses along a slab axis.
 """
 from __future__ import annotations
 
@@ -88,15 +88,6 @@ def world_size(mesh: DeviceMesh) -> int:
     return math.prod(mesh.shape)
 
 
-def flat_index(mesh: DeviceMesh) -> int:
-    """This rank's position in the flattened mesh, x-major: a * py + b at
-    coordinate (a, b), which is its global rank (`make_mesh`)."""
-    pos = 0
-    for c, n in zip(mesh.get_coordinate(), mesh.shape):
-        pos = pos * n + c
-    return pos
-
-
 def flat_line(mesh: DeviceMesh) -> DeviceMesh:
     """A 1D mesh ("flat",) of the mesh's ranks in flat order: the ring of a
     slab axis.  Over every rank of the default group, its group is that
@@ -119,7 +110,7 @@ def slab_slices(shape, mesh: DeviceMesh, dim: int) -> tuple[slice, slice]:
     along `dim` to slab_extent * world size; the other axis is whole.
     dim -2 (or 0): a row slab; dim -1 (or 1): a column slab."""
     n, m = tuple(shape)[-2:]
-    r = flat_index(mesh)
+    r = dist.get_rank()
     if dim in (-2, 0):
         b = slab_extent(n, mesh)
         return slice(r * b, (r + 1) * b), slice(0, m)
@@ -127,6 +118,25 @@ def slab_slices(shape, mesh: DeviceMesh, dim: int) -> tuple[slice, slice]:
         b = slab_extent(m, mesh)
         return slice(0, n), slice(r * b, (r + 1) * b)
     raise ValueError(f"a slab splits dim -2 or -1, got {dim}")
+
+
+def place_slab(t, mesh: DeviceMesh, dim: int = -2, fill: float = 0.0):
+    """This rank's slab of a global (.., n, m) tensor (a copy): axis `dim`
+    (-2: rows, -1: columns) split over all ranks in flat order, its
+    padding past n (or m) set to `fill`."""
+    dim = dim - t.dim() if dim >= 0 else dim
+    n = t.shape[dim]
+    pad = slab_extent(n, mesh) * world_size(mesh) - n
+    fill_shape = list(t.shape)
+    fill_shape[dim] = pad
+    whole = torch.cat([t, t.new_full(fill_shape, fill)], dim=dim)
+    return whole[(..., *slab_slices(whole.shape, mesh, dim))].contiguous()
+
+
+def padded_shape(shape, mesh: DeviceMesh) -> tuple[int, int]:
+    """`shape` rounded up to multiples of the mesh's (px, py)."""
+    return tuple(-(-n // p) * p for n, p in zip(tuple(shape)[-2:],
+                                                 mesh.shape))
 
 
 def block_slices(shape, mesh: DeviceMesh, axes=AXES) -> tuple[slice, ...]:

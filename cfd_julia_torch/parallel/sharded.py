@@ -9,7 +9,7 @@ along one mesh axis for each dense sine product, a sum over all ranks for
 the rms.
 
 Node-centred (n+1)-sized fields are zero-padded to mesh-divisible shapes
-(`padded_shape`, `pad_to_mesh`); the step works on the logical
+(mesh.padded_shape, `pad_to_mesh`); the step works on the logical
 [:n+1, :n+1] view and the padding stays exactly zero.  `place` takes a
 rank's block of a global array, `gather` builds the global array from the
 blocks on every rank (the port's `np.asarray` of a sharded JAX array), and
@@ -20,7 +20,7 @@ The periodic vortex steps (`make_sharded_vortex_step`,
 `make_sharded_vortex_step_half`) and the cavity's fst / fst_half solve run
 the pencil transforms of ops/spectral.py, whose all-to-all transposes are
 parallel/transpose.py.  The half spectrum lives in row slabs
-(`place_slab`, `gather_slab`); JAX's packed Re/Im states (`pack_c`) are
+(mesh.place_slab, `gather_slab`); JAX's packed Re/Im states (`pack_c`) are
 not ported: the states here are complex.
 """
 from __future__ import annotations
@@ -35,19 +35,9 @@ from cfd_julia_torch.poisson import direct
 from cfd_julia_torch.stepping import ssprk3
 
 
-def _round_up(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
-
-
-def padded_shape(shape, mesh):
-    """`shape` rounded up to multiples of the mesh's (px, py)."""
-    px, py = mesh.shape
-    return (_round_up(shape[0], px), _round_up(shape[1], py))
-
-
 def pad_to_mesh(arr, mesh):
-    """A global (n, m) tensor zero-padded to padded_shape."""
-    P, Q = padded_shape(arr.shape, mesh)
+    """A global (n, m) tensor zero-padded to mesh.padded_shape."""
+    P, Q = mesh_lib.padded_shape(arr.shape, mesh)
     return F.pad(arr, (0, Q - arr.shape[1], 0, P - arr.shape[0]))
 
 
@@ -62,16 +52,6 @@ def gather(block, mesh, axes=mesh_lib.AXES):
     ax, ay = axes
     rows = halo.all_gather_axis(block, mesh, ax, 0)
     return halo.all_gather_axis(rows, mesh, ay, 1)
-
-
-def place_slab(arr, mesh, dim: int = -2):
-    """This rank's slab of a global (.., n, m) field (a copy): axis `dim`
-    split over all ranks in flat order, zero-padded (mesh.slab_slices)."""
-    from cfd_julia_torch.ops import spectral
-
-    if dim in (-2, arr.dim() - 2):
-        return spectral.row_slab(arr, mesh)
-    return spectral.col_slab(arr, mesh)
 
 
 def gather_slab(slab, mesh, shape, dim: int = -2):
@@ -152,7 +132,7 @@ def make_sharded_cavity_step(cfg, mesh, dtype=None, device=None):
     dtype = dtype or torch.float32
     if cfg.bc_order not in (1, 2):
         raise ValueError("bc_order must be 1 or 2")
-    shape = padded_shape((cfg.nx + 1, cfg.ny + 1), mesh)
+    shape = mesh_lib.padded_shape((cfg.nx + 1, cfg.ny + 1), mesh)
     rows, cols = mesh_lib.block_slices(shape, mesh)
     rhs = cavity.periodic_rhs(cfg, device)
 
@@ -163,8 +143,7 @@ def make_sharded_cavity_step(cfg, mesh, dtype=None, device=None):
     if cfg.poisson in ("fst", "fst_half"):
         solve = direct.make_fst(
             cfg.nx, cfg.ny, cfg.dx, cfg.dy, dtype, device,
-            impl="half" if cfg.poisson == "fst_half" else "rfft", mesh=mesh,
-            padded_shape=shape)
+            impl="half" if cfg.poisson == "fst_half" else "rfft", mesh=mesh)
     else:
         solve = direct.make_fst_matmul_padded(
             cfg.nx, cfg.ny, cfg.dx, cfg.dy, shape, dtype, device,

@@ -27,6 +27,13 @@ both backends.  Under gloo, CUDA tensors are staged through host memory
 (halo.host_staged: the backend decides, never an error).  On one rank a
 move between two layouts that coincide returns its input: no message, no
 copy.
+
+A move's `Plan` (its group, and this rank's slices to send and to fill)
+depends only on the mesh and the shapes, so the callers build each plan
+once, when a step or a solve is built, and `move(x, plan)` only slices,
+exchanges and places.  A `Pencil` holds the two moves of a pencil
+transform: row slab -> column slab and back.  Rank k sits at flat
+position k and at mesh coordinate divmod(k, py) (mesh.make_mesh).
 """
 from __future__ import annotations
 
@@ -51,18 +58,6 @@ class Part(NamedTuple):
     cols: tuple[int, int]
 
 
-def _coordinate(mesh, rank: int) -> tuple[int, ...]:
-    """The mesh coordinate of global `rank`."""
-    return tuple(int(i) for i in (mesh.mesh == rank).nonzero()[0])
-
-
-def _flat(mesh, rank: int) -> int:
-    pos = 0
-    for c, n in zip(_coordinate(mesh, rank), mesh.shape):
-        pos = pos * n + c
-    return pos
-
-
 def _clip(lo: int, hi: int, n: int) -> tuple[int, int]:
     return max(lo, 0), min(hi, n)
 
@@ -78,7 +73,7 @@ def block_parts(mesh, shape, shift=(0, 0), extent=None) -> list[Part]:
     bx, by = P // px, Q // py
     out = []
     for rank in range(mesh_lib.world_size(mesh)):
-        a, b = _coordinate(mesh, rank)
+        a, b = divmod(rank, py)
         r0, c0 = a * bx - shift[0], b * by - shift[1]
         rows, cols = (r0, r0 + bx), (c0, c0 + by)
         if extent is not None:
@@ -91,9 +86,7 @@ def row_parts(mesh, shape) -> list[Part]:
     """Every rank's Part of a global (n, m) field in row slabs."""
     n, m = tuple(shape)[-2:]
     s = mesh_lib.slab_extent(n, mesh)
-    return [Part((s, m), (_flat(mesh, k) * s, 0),
-                 _clip(_flat(mesh, k) * s, (_flat(mesh, k) + 1) * s, n),
-                 (0, m))
+    return [Part((s, m), (k * s, 0), _clip(k * s, (k + 1) * s, n), (0, m))
             for k in range(mesh_lib.world_size(mesh))]
 
 
@@ -101,8 +94,7 @@ def col_parts(mesh, shape) -> list[Part]:
     """Every rank's Part of a global (n, m) field in column slabs."""
     n, m = tuple(shape)[-2:]
     t = mesh_lib.slab_extent(m, mesh)
-    return [Part((n, t), (0, _flat(mesh, k) * t), (0, n),
-                 _clip(_flat(mesh, k) * t, (_flat(mesh, k) + 1) * t, m))
+    return [Part((n, t), (0, k * t), (0, n), _clip(k * t, (k + 1) * t, m))
             for k in range(mesh_lib.world_size(mesh))]
 
 
@@ -149,39 +141,63 @@ def _all_to_all(x, send, shapes, group):
     return out
 
 
-def move(x, src: list[Part], dst: list[Part], mesh, group_axis=None):
-    """x, this rank's tensor of a field laid out as `src` (Parts in global
-    rank order), as this rank's tensor of the layout `dst`, by one
-    all-to-all over the ranks of mesh axis `group_axis`'s group that holds
-    this rank (None: all ranks).  Leading axes of x are a batch."""
+class Plan(NamedTuple):
+    """One move between two layouts, for this rank: the `group` it runs
+    on (None: all ranks); for each member of the group, the (rows, cols)
+    slices of this rank's tensor that the member gets (`send`) and of the
+    result that what it sends fills (`recv`), None where the two parts do
+    not meet; the trailing shape of the result; and `noop`, true where
+    the group is this rank alone and the two layouts coincide."""
+    group: object
+    send: tuple
+    recv: tuple
+    shape: tuple[int, int]
+    noop: bool
+
+
+def plan(src: list[Part], dst: list[Part], mesh, group_axis=None) -> Plan:
+    """The Plan of moving a field laid out as `src` (Parts in global rank
+    order) to the layout `dst`, by one all-to-all over the ranks of mesh
+    axis `group_axis`'s group that holds this rank (None: all ranks)."""
+    world = mesh_lib.world_size(mesh)
+    if not torch.equal(mesh.mesh.flatten().cpu(), torch.arange(world)):
+        raise ValueError("a move needs rank k at flat position k of the "
+                         "mesh, as mesh.make_mesh lays it out")
     group = None if group_axis is None else mesh.get_group(group_axis)
-    ranks = (list(range(mesh_lib.world_size(mesh))) if group is None
+    ranks = (range(world) if group is None
              else dist.get_process_group_ranks(group))
     me = dist.get_rank()
     mine, want = src[me], dst[me]
-    if len(ranks) == 1 and mine == want:
-        return x
-    batch = tuple(x.shape[:-2])
-    send, where = [], []
+    send, recv = [], []
     for k in ranks:
         rows, cols = _meet(mine.rows, dst[k].rows), _meet(mine.cols,
                                                            dst[k].cols)
-        send.append(x[(..., *_local(mine, rows, cols))]
-                    if rows and cols else None)
+        send.append(_local(mine, rows, cols) if rows and cols else None)
         rows, cols = _meet(src[k].rows, want.rows), _meet(src[k].cols,
                                                           want.cols)
-        where.append((rows, cols) if rows and cols else None)
-    if len(ranks) == 1:
+        recv.append(_local(want, rows, cols) if rows and cols else None)
+    return Plan(group, tuple(send), tuple(recv), want.shape,
+                len(send) == 1 and mine == want)
+
+
+def move(x, plan: Plan):
+    """x, this rank's tensor of a field in the plan's source layout, as
+    its tensor of the target layout.  Leading axes of x are a batch."""
+    if plan.noop:
+        return x
+    batch = tuple(x.shape[:-2])
+    send = [None if s is None else x[(..., *s)] for s in plan.send]
+    if len(send) == 1:
         pieces = send
     else:
-        shapes = [None if w is None
-                  else (*batch, w[0][1] - w[0][0], w[1][1] - w[1][0])
-                  for w in where]
-        pieces = _all_to_all(x, send, shapes, group)
-    out = x.new_zeros((*batch, *want.shape))
-    for w, piece in zip(where, pieces):
-        if w is not None:
-            out[(..., *_local(want, *w))] = piece
+        shapes = [None if r is None
+                  else (*batch, r[0].stop - r[0].start, r[1].stop - r[1].start)
+                  for r in plan.recv]
+        pieces = _all_to_all(x, send, shapes, plan.group)
+    out = x.new_zeros((*batch, *plan.shape))
+    for r, piece in zip(plan.recv, pieces):
+        if r is not None:
+            out[(..., *r)] = piece
     return out
 
 
@@ -191,33 +207,47 @@ def _rows_group(mesh, shape):
     return "y" if shape[-2] % mesh_lib.world_size(mesh) == 0 else None
 
 
-def block_to_rows(x, mesh, shape):
+def block_to_rows(mesh, shape) -> Plan:
     """Block of a global (n, m) field -> its row slab."""
-    return move(x, block_parts(mesh, shape), row_parts(mesh, shape), mesh,
+    return plan(block_parts(mesh, shape), row_parts(mesh, shape), mesh,
                 _rows_group(mesh, shape))
 
 
-def rows_to_block(x, mesh, shape):
+def rows_to_block(mesh, shape) -> Plan:
     """Row slab of a global (n, m) field -> its block."""
-    return move(x, row_parts(mesh, shape), block_parts(mesh, shape), mesh,
+    return plan(row_parts(mesh, shape), block_parts(mesh, shape), mesh,
                 _rows_group(mesh, shape))
 
 
-def rows_to_cols(x, mesh, shape):
+def rows_to_cols(mesh, shape) -> Plan:
     """Row slab of a global (n, m) field -> its column slab."""
-    return move(x, row_parts(mesh, shape), col_parts(mesh, shape), mesh)
+    return plan(row_parts(mesh, shape), col_parts(mesh, shape), mesh)
 
 
-def cols_to_rows(x, mesh, shape):
+def cols_to_rows(mesh, shape) -> Plan:
     """Column slab of a global (n, m) field -> its row slab."""
-    return move(x, col_parts(mesh, shape), row_parts(mesh, shape), mesh)
+    return plan(col_parts(mesh, shape), row_parts(mesh, shape), mesh)
 
 
-def block_to_cols(x, mesh, shape):
+def block_to_cols(mesh, shape) -> Plan:
     """Block of a global (n, m) field -> its column slab, directly."""
-    return move(x, block_parts(mesh, shape), col_parts(mesh, shape), mesh)
+    return plan(block_parts(mesh, shape), col_parts(mesh, shape), mesh)
 
 
-def cols_to_block(x, mesh, shape):
+def cols_to_block(mesh, shape) -> Plan:
     """Column slab of a global (n, m) field -> its block, directly."""
-    return move(x, col_parts(mesh, shape), block_parts(mesh, shape), mesh)
+    return plan(col_parts(mesh, shape), block_parts(mesh, shape), mesh)
+
+
+class Pencil(NamedTuple):
+    """The moves of a pencil transform of a global (n, m) field `shape`:
+    row slab -> column slab (`to_cols`) and back (`to_rows`)."""
+    shape: tuple[int, int]
+    to_cols: Plan
+    to_rows: Plan
+
+
+def pencil(mesh, shape) -> Pencil:
+    """The Pencil of a global (n, m) field on `mesh`."""
+    shape = tuple(shape)[-2:]
+    return Pencil(shape, rows_to_cols(mesh, shape), cols_to_rows(mesh, shape))

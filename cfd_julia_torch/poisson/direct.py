@@ -23,12 +23,11 @@ that reuses them, where JAX built them once at trace time; `solve_*` are
 the one-off forms.
 
 With a mesh (`mesh=`), the FFT and FST solves map this rank's 2D block of
-the node grid, zero-padded to a mesh-divisible `padded_shape` (default:
-(nx+1, ny+1) rounded up to multiples of the mesh's (px, py), as
-parallel/sharded.padded_shape), to its block of the solution, exactly
-zero on the padding: the grid moves into the row slabs of the nodes the
-transforms read (parallel/transpose.py), the pencil solve of
-ops/spectral.py runs, and the result moves back.
+the node grid, zero-padded to parallel/mesh.padded_shape, to its block of
+the solution, exactly zero on the padding: the grid moves into the row
+slabs of the nodes the transforms read (parallel/transpose.py, the moves
+planned when the solve is built), the pencil solve of ops/spectral.py
+runs, and the result moves back.
 """
 from __future__ import annotations
 
@@ -38,13 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from cfd_julia_torch.ops import cuda_kernels, spectral
-
-
-def _mesh_padded(nx: int, ny: int, mesh, padded_shape):
-    """padded_shape, or (nx+1, ny+1) rounded up to the mesh's (px, py)."""
-    if padded_shape is not None:
-        return tuple(padded_shape)
-    return tuple(-(-n // p) * p for n, p in zip((nx + 1, ny + 1), mesh.shape))
+from cfd_julia_torch.parallel import mesh as mesh_lib
+from cfd_julia_torch.parallel import transpose
 
 
 def _row_wrap(parts, n: int):
@@ -62,7 +56,7 @@ def _row_wrap(parts, n: int):
 
 
 def make_fft(nx: int, ny: int, dx: float, dy: float, dtype, device=None,
-             eigen: str = "fdm", mesh=None, padded_shape=None):
+             eigen: str = "fdm", mesh=None):
     """Build the periodic Poisson solve on an (nx+1, ny+1) node grid with
     wrapped edges; returns solve(f) -> u of the same shape.  With a mesh:
     blocks of the padded grid (module docstring); the unique nodes' row
@@ -71,20 +65,19 @@ def make_fft(nx: int, ny: int, dx: float, dy: float, dtype, device=None,
     inner = spectral.make_fft_poisson_periodic(nx, ny, dx, dy, dtype, device,
                                                eigen, mesh=mesh)
     if mesh is not None:
-        from cfd_julia_torch.parallel import transpose
-
-        shape = _mesh_padded(nx, ny, mesh, padded_shape)
-        unique = transpose.block_parts(mesh, shape, extent=(nx, ny))
-        slabs = transpose.row_parts(mesh, (nx, ny))
-        blocks = transpose.block_parts(mesh, shape, extent=(nx + 1, ny + 1))
+        shape = mesh_lib.padded_shape((nx + 1, ny + 1), mesh)
         wide = transpose.row_parts(mesh, (nx, ny + 1))
-        wrap = _row_wrap(wide, nx)
+        blocks = transpose.block_parts(mesh, shape, extent=(nx + 1, ny + 1))
+        to_slabs = transpose.plan(
+            transpose.block_parts(mesh, shape, extent=(nx, ny)),
+            transpose.row_parts(mesh, (nx, ny)), mesh)
+        to_blocks = transpose.plan(wide, blocks, mesh)
+        wrap = transpose.plan(_row_wrap(wide, nx), blocks, mesh)
 
         def solve(f):
-            u = inner(transpose.move(f, unique, slabs, mesh))
+            u = inner(transpose.move(f, to_slabs))
             u = torch.cat([u, u[..., :1]], dim=-1)   # column ny = column 0
-            return (transpose.move(u, wide, blocks, mesh)
-                    + transpose.move(u, wrap, blocks, mesh))
+            return transpose.move(u, to_blocks) + transpose.move(u, wrap)
 
         return solve
 
@@ -107,7 +100,7 @@ def solve_fft(f, dx: float, dy: float, eigen: str = "fdm", mesh=None,
 
 
 def make_fst(nx: int, ny: int, dx: float, dy: float, dtype, device=None,
-             impl: str = "rfft", mesh=None, padded_shape=None):
+             impl: str = "rfft", mesh=None):
     """Build the homogeneous-Dirichlet Poisson solve via DST-I on the
     interior of an (nx+1, ny+1) grid (impl: rfft | half, ops.spectral.dst1);
     returns solve(f) -> u with an exactly-zero boundary ring.  With a mesh:
@@ -117,15 +110,15 @@ def make_fst(nx: int, ny: int, dx: float, dy: float, dtype, device=None,
     inner = spectral.make_fst_poisson_dirichlet(nx - 1, ny - 1, dx, dy, dtype,
                                                 device, impl, mesh)
     if mesh is not None:
-        from cfd_julia_torch.parallel import transpose
-
         interior = (nx - 1, ny - 1)
         blocks = transpose.block_parts(
-            mesh, _mesh_padded(nx, ny, mesh, padded_shape), (1, 1), interior)
+            mesh, mesh_lib.padded_shape((nx + 1, ny + 1), mesh), (1, 1),
+            interior)
         slabs = transpose.row_parts(mesh, interior)
-        return lambda f: transpose.move(
-            inner(transpose.move(f, blocks, slabs, mesh)), slabs, blocks,
-            mesh)
+        to_slabs = transpose.plan(blocks, slabs, mesh)
+        to_blocks = transpose.plan(slabs, blocks, mesh)
+        return lambda f: transpose.move(inner(transpose.move(f, to_slabs)),
+                                        to_blocks)
     return lambda f: F.pad(inner(f[1:-1, 1:-1]), (1, 1, 1, 1))
 
 

@@ -1505,13 +1505,12 @@ def phase_main_path(poisson="auto", label="phase 3 cavity"):
     return launches, step, state, seconds / n, rms, e_seconds / n
 
 
-def phase_profile(label, run, units, unit_s, unit="step"):
-    """Device time by kernel over a short steady window (torch.profiler):
-    run() does `units` units of work; the busy share is taken against the
-    unprofiled time of one unit, unit_s.  A first run() under the profiler
-    is its warm-up and is not recorded (without it the trace can miss the
-    window's first kernels); the kernels' launch counts restart after it,
-    so they count the recorded run alone."""
+def profiled_kernels(run):
+    """(device kernel events, host wall us) of run() under torch.profiler.
+    A first run() under the profiler is its warm-up and is not recorded
+    (without it the trace can miss the window's first kernels); the
+    kernels' launch counts restart after it, so they count the recorded
+    run alone."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from cfd_julia_torch.ops import cuda_kernels
@@ -1534,16 +1533,13 @@ def phase_profile(label, run, units, unit_s, unit="step"):
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith("ProfilerStep")]
-    if not kernels:
-        print("profile: no device events recorded (device time not measured)")
-        return
-    by_name, spans = {}, []
-    for e in kernels:
-        by_name.setdefault(e.name, [0.0, 0])
-        by_name[e.name][0] += e.time_range.end - e.time_range.start
-        by_name[e.name][1] += 1
-        spans.append((e.time_range.start, e.time_range.end))
-    spans.sort()
+    return kernels, wall_us
+
+
+def busy_us(kernels):
+    """(us the device was running at least one of `kernels`, us from the
+    first one's start to the last one's end)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -1552,7 +1548,23 @@ def phase_profile(label, run, units, unit_s, unit="step"):
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
+    return busy, spans[-1][1] - spans[0][0]
+
+
+def phase_profile(label, run, units, unit_s, unit="step"):
+    """Device time by kernel over a short steady window (profiled_kernels):
+    run() does `units` units of work; the busy share is taken against the
+    unprofiled time of one unit, unit_s."""
+    kernels, wall_us = profiled_kernels(run)
+    if not kernels:
+        print("profile: no device events recorded (device time not measured)")
+        return
+    by_name = {}
+    for e in kernels:
+        by_name.setdefault(e.name, [0.0, 0])
+        by_name[e.name][0] += e.time_range.end - e.time_range.start
+        by_name[e.name][1] += 1
+    busy, span = busy_us(kernels)
     total = sum(v[0] for v in by_name.values())
     print(f"profile {label} {units} {unit}s: device busy {busy / units:.1f} "
           f"us/{unit} = {100 * busy / units / (unit_s * 1e6):.1f}% of the "
@@ -3715,6 +3727,9 @@ MESH_VORTEX_CHECK = 10
 MESH_PS23_FULL = 20
 MESH_CAVITY_ONE, MESH_CAVITY_QUAD = 100, 20
 MESH_REPLAY_REPS = 3
+# eager steps of a one-rank mesh step and of the single-device step timed
+# and profiled for their device time, side by side
+MESH_PROFILE_STEPS = 5
 
 
 def vortex_mesh_cfg(solver):
@@ -3765,6 +3780,41 @@ def replay_ms(moves, device):
     return 1e3 * (time.perf_counter() - t0) / MESH_REPLAY_REPS
 
 
+def eager_step_times(step, state, steps=MESH_PROFILE_STEPS):
+    """(ms a step, device busy ms a step, kernels a step) of `steps` eager
+    steps from `state`, their results dropped: the wall time unprofiled,
+    then the device's busy time under torch.profiler (profiled_kernels;
+    None where it records no device event)."""
+    def run():
+        s = state
+        for _ in range(steps):
+            s = step(s)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels, _ = profiled_kernels(run)
+    if not kernels:
+        return ms, None, None
+    return ms, busy_us(kernels)[0] / steps / 1e3, len(kernels) / steps
+
+
+def eager_text(rec, single):
+    """A one-rank mesh step's eager times beside the single-device step's
+    (eager_step_times each)."""
+    def one(t):
+        ms, dev, kern = t
+        busy = "device time not measured" if dev is None else \
+            f"device busy {dev:.4f} ms in {kern:.0f} kernels"
+        return f"{ms:.4f} ms a step, {busy}"
+
+    return (f"eager: the mesh step {one(rec)}; the single-device step "
+            f"{one(single)}")
+
+
 def mesh_vortex(device, mesh, steps):
     """(f) / (g) on this rank: the four solvers at 2048^2 through the
     sharded steps (ps23, ps32, hybrid on row slabs of the half spectrum,
@@ -3776,6 +3826,7 @@ def mesh_vortex(device, mesh, steps):
     from cfd_julia_torch.models import vortex
     from cfd_julia_torch.ops import cuda_kernels, spectral
     from cfd_julia_torch.parallel import halo, sharded, transpose
+    from cfd_julia_torch.parallel import mesh as mesh_lib
 
     n = VORTEX_NX
     out = {"transport": halo.transport(mesh, device)}
@@ -3792,7 +3843,7 @@ def mesh_vortex(device, mesh, steps):
         else:
             step = sharded.make_sharded_vortex_step_half(
                 cfg, mesh, torch.float32, device)
-            state = vortex.half_init(sharded.place_slab(w0, mesh), mesh)
+            state = vortex.half_init(mesh_lib.place_slab(w0, mesh), mesh)
 
             def decode(s):
                 return sharded.gather_slab(vortex.half_decode(s, n, n, mesh),
@@ -3828,6 +3879,8 @@ def mesh_vortex(device, mesh, steps):
         rec["moves"] = len(moves)
         rec["transpose_ms"] = replay_ms(moves, device)
         rec["peak"] = torch.cuda.max_memory_allocated()
+        if mesh_lib.world_size(mesh) == 1:
+            rec["eager"] = eager_step_times(step, state)
         out[solver] = rec
         del state, step, moves
         if steps > MESH_VORTEX_CHECK and solver == "ps23":
@@ -3844,8 +3897,8 @@ def mesh_vortex(device, mesh, steps):
             out["ps23_full"] = {
                 "step_ms": 1e3 * (time.perf_counter() - t0) / MESH_PS23_FULL,
                 "w": sharded.gather_slab(spectral.ifft2(
-                    transpose.block_to_cols(wf, mesh, (n, n)), mesh,
-                    (n, n)).real, mesh, (n, n)).cpu()}
+                    transpose.move(wf, transpose.block_to_cols(mesh, (n, n))),
+                    transpose.pencil(mesh, (n, n))).real, mesh, (n, n)).cpu()}
             del full, wf
         del w0
     return out
@@ -3860,10 +3913,11 @@ def mesh_cavity_fst(device, mesh, steps):
 
     from cfd_julia_torch.models import cavity
     from cfd_julia_torch.ops import cuda_kernels
+    from cfd_julia_torch.parallel import mesh as mesh_lib
     from cfd_julia_torch.parallel import sharded
 
     out = {}
-    shape = sharded.padded_shape((NX + 1, NX + 1), mesh)
+    shape = mesh_lib.padded_shape((NX + 1, NX + 1), mesh)
     for poisson in ("fst", "fst_half"):
         cfg = dataclasses.replace(mesh_cavity_cfg(), poisson=poisson)
         step = cavity.make_step_fn(cfg, torch.float32, device, mesh=mesh)
@@ -3894,6 +3948,8 @@ def mesh_cavity_fst(device, mesh, steps):
         rec["moves"] = len(moves)
         rec["transpose_ms"] = replay_ms(moves, device)
         rec["peak"] = torch.cuda.max_memory_allocated()
+        if mesh_lib.world_size(mesh) == 1:
+            rec["eager"] = eager_step_times(step, state)
         out[poisson] = rec
         del step, state, w0
     return out
@@ -3917,7 +3973,7 @@ def mesh_rank(device, steps, save_to, load_from):
     mesh = mesh_lib.make_mesh("cuda")
     out = {"mesh": tuple(mesh.shape), "backend": dist.get_backend(),
            "transport": halo.transport(mesh, device)}
-    shape = sharded.padded_shape((NX + 1, NX + 1), mesh)
+    shape = mesh_lib.padded_shape((NX + 1, NX + 1), mesh)
     step = sharded.make_sharded_cavity_step(mesh_cavity_cfg(), mesh,
                                             torch.float32, device)
     w0 = sharded.place(torch.zeros(shape, device=device), mesh)
@@ -4153,7 +4209,8 @@ def phase_mesh():
 
 
 def single_vortex(solver, steps, device="cuda"):
-    """The single-device step of phase 9's path after `steps` steps: w."""
+    """The single-device step of phase 9's path after `steps` steps: w,
+    and the eager step's times from there (eager_step_times)."""
     from cfd_julia_torch.models import vortex
     from cfd_julia_torch.stepping import loop
 
@@ -4161,9 +4218,11 @@ def single_vortex(solver, steps, device="cuda"):
     step = vortex.make_step(cfg, torch.float32, device)
     w0 = vortex.initial_vorticity(cfg, torch.float32, device)
     if solver == "fdm":
-        return loop.advance(step, w0, steps, graph=False).cpu()
+        w = loop.advance(step, w0, steps, graph=False)
+        return w.cpu(), eager_step_times(step, w)
     h = loop.advance(step, vortex.half_init(w0), steps, graph=False)
-    return vortex.half_decode(h, cfg.nx, cfg.ny).cpu()
+    return (vortex.half_decode(h, cfg.nx, cfg.ny).cpu(),
+            eager_step_times(step, h))
 
 
 def phase_mesh_spectral(one, quad, card, gb, device="cuda"):
@@ -4186,7 +4245,8 @@ def phase_mesh_spectral(one, quad, card, gb, device="cuda"):
     checks = {}
     for solver in VORTEX_SOLVERS:
         rec = f[solver]
-        single = single_vortex(solver, MESH_VORTEX_CHECK, device)
+        single, single_times = single_vortex(solver, MESH_VORTEX_CHECK,
+                                             device)
         scale = float(single.abs().max())
         d = float((rec["w_check"] - single).abs().max())
         checks[solver] = scale
@@ -4202,6 +4262,7 @@ def phase_mesh_spectral(one, quad, card, gb, device="cuda"):
                 f": @{VORTEX_TOTAL} {a_text}; max|w - single-device step| "
                 f"@{MESH_VORTEX_CHECK} = {d:.3e} (tol 1e-5 x {scale:.6g}); "
                 f"kernel 1 {k1} launches (want {want}); {share(rec)}; "
+                f"{eager_text(rec['eager'], single_times)}; "
                 f"{card} {'ok' if ok else 'FAIL'}")
         print(line)
         check(ok, line)
@@ -4251,6 +4312,7 @@ def phase_mesh_spectral(one, quad, card, gb, device="cuda"):
                                                           device),
                                MESH_CAVITY_ONE, graph=False)
         single = st[1].cpu()
+        single_times = eager_step_times(step, st)
         scale = float(single.abs().max())
         d = float((h1["psi_last"][:n, :n] - single).abs().max())
         k1 = h1["launches"]["arakawa_rhs"]
@@ -4260,7 +4322,8 @@ def phase_mesh_spectral(one, quad, card, gb, device="cuda"):
                 f"{MESH_CAVITY_ONE} steps; max|psi - single-device {poisson} "
                 f"step| @{MESH_CAVITY_ONE} = {d:.3e} (tol 1e-5 x {scale:.6g});"
                 f" kernel 1 {k1} launches (want {3 * MESH_CAVITY_ONE}); "
-                f"{share(h1)}; {card} {'ok' if ok else 'FAIL'}")
+                f"{share(h1)}; {eager_text(h1['eager'], single_times)}; "
+                f"{card} {'ok' if ok else 'FAIL'}")
         print(line)
         check(ok, line)
         ref = h1["psi_check"][:n, :n]

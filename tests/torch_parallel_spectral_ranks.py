@@ -50,11 +50,12 @@ def _transposes(inp, mesh):
         shape = g.shape[-2:]
         gt = interop.field_from_numpy(g, F64)
         rows, cols = _rows(g, mesh), _cols(g, mesh)
-        to_cols = transpose.rows_to_cols(rows, mesh, shape)
-        back = transpose.cols_to_rows(to_cols, mesh, shape)
+        pencil = transpose.pencil(mesh, shape)
+        to_cols = transpose.move(rows, pencil.to_cols)
+        back = transpose.move(to_cols, pencil.to_rows)
         res = {"rows_to_cols": torch.equal(to_cols, cols),
-               "cols_to_rows": torch.equal(transpose.cols_to_rows(
-                   cols, mesh, shape), rows),
+               "cols_to_rows": torch.equal(transpose.move(
+                   cols, pencil.to_rows), rows),
                "round_trip": torch.equal(back, rows),
                "rows_are_slices": torch.equal(
                    _np_tensor(_from_rows(rows, mesh, shape)), gt),
@@ -63,14 +64,12 @@ def _transposes(inp, mesh):
         px, py = mesh.shape
         if shape[0] % px == 0 and shape[1] % py == 0:
             block = sharded.place(gt, mesh)
-            res["block_to_rows"] = torch.equal(
-                transpose.block_to_rows(block, mesh, shape), rows)
-            res["rows_to_block"] = torch.equal(
-                transpose.rows_to_block(rows, mesh, shape), block)
-            res["block_to_cols"] = torch.equal(
-                transpose.block_to_cols(block, mesh, shape), cols)
-            res["cols_to_block"] = torch.equal(
-                transpose.cols_to_block(cols, mesh, shape), block)
+            for name, src, want in [("block_to_rows", block, rows),
+                                    ("rows_to_block", rows, block),
+                                    ("block_to_cols", block, cols),
+                                    ("cols_to_block", cols, block)]:
+                plan = getattr(transpose, name)(mesh, shape)
+                res[name] = torch.equal(transpose.move(src, plan), want)
         out[key] = res
     return out
 
@@ -86,16 +85,18 @@ def _transforms(inp, mesh):
         nx, ny = shape
         half = (nx, ny // 2 + 1)
         xr = _rows(x, mesh)
+        full = transpose.pencil(mesh, shape)
+        hp = transpose.pencil(mesh, half)
         out[key] = {
-            "fft2": _from_cols(spectral.fft2(xr, mesh, shape), mesh, shape),
+            "fft2": _from_cols(spectral.fft2(xr, full), mesh, shape),
             "ifft2": _from_rows(spectral.ifft2(
-                _cols(inp["spectrum"][key], mesh), mesh, shape), mesh,
-                shape),
-            "rfft2": _from_cols(spectral.rfft2(xr, mesh, shape), mesh, half),
+                _cols(inp["spectrum"][key], mesh), full), mesh, shape),
+            "rfft2": _from_cols(spectral.rfft2(xr, hp), mesh, half),
             "irfft2": _from_rows(spectral.irfft2(
-                _cols(inp["half"][key], mesh), nx, ny, mesh), mesh, shape)}
+                _cols(inp["half"][key], mesh), nx, ny, hp), mesh, shape)}
     v = inp["dst"]
     shape = v.shape
+    pencil = transpose.pencil(mesh, shape)
     for impl in ("rfft", "half"):
         out[f"dst_{impl}"] = {
             "axis-1": _from_rows(spectral.dst1(_rows(v, mesh), -1, impl,
@@ -103,9 +104,9 @@ def _transforms(inp, mesh):
             "axis-2": _from_cols(spectral.dst1(_cols(v, mesh), -2, impl,
                                                mesh=mesh), mesh, shape),
             "dst1_2d": _from_cols(spectral.dst1_2d(_rows(v, mesh), impl,
-                                                   mesh, shape), mesh, shape),
+                                                   pencil), mesh, shape),
             "idst1_2d": _from_rows(spectral.idst1_2d(
-                _cols(v, mesh), 7, 9, impl, mesh, shape), mesh, shape),
+                _cols(v, mesh), 7, 9, impl, pencil), mesh, shape),
             "fst": _from_rows(spectral.fst_poisson_dirichlet(
                 _rows(v, mesh), inp["dx"], inp["dy"], impl, mesh, shape),
                 mesh, shape)}
@@ -195,8 +196,8 @@ def _refusals(mesh):
         "half_fdm": lambda: sharded.make_sharded_vortex_step_half(
             vortex.VortexConfig(nx=32, ny=32, solver="fdm"), mesh, F64,
             "cpu"),
-        "no_shape": lambda: spectral.fft2(torch.zeros(8, 8, dtype=F64),
-                                          mesh),
+        "no_shape": lambda: spectral.fft_poisson_periodic(
+            torch.zeros(8, 8, dtype=F64), 1.0, 1.0, mesh=mesh),
         "dst_axis": lambda: spectral.dst1(torch.zeros(2, 8, 8, dtype=F64),
                                           0, mesh=mesh),
     }
