@@ -92,23 +92,60 @@
 // Kernel 1's adjoint identities (sum q J(W, S) = sum W J(S, q) = sum S
 // J(q, W): the Jacobian is antisymmetric as a trilinear form) hold here on
 // the zero-extended grid, since every sum is over finitely many points;
-// the tests hold the formulas against autograd of the twin.  A gather:
-// one thread an output point of a 32 x 8 block, each reading the 3 x 3
-// neighbourhoods of q, W and S from global memory under the extension's
-// branches (a simple kernel; its time is in PERF.md); the threads of row 0
-// also write rl's and rh's gradients, those of column 0 cl's and ch's.  So
-// each output is written by one thread, with no atomics, and two calls
-// agree bitwise.  The Re gradient takes each block's fp64 sum of q lap(W)
-// and a one-block second launch that adds them in a fixed order (kernel
-// 1's, csrc/arakawa.cuh, with its Jacobian and Laplacian).
+// the tests hold the formulas against autograd of the twin.
+//
+// The backward's design is the forward's walk on three fields.  It reads q
+// (g), W (wt) and S (s) and writes gs, gwt and gw (stages 2-3): 6 fields
+// of 1024^2 fp32, 25.2 MB, 7.5 us at 3.35 TB/s, so it too is bound by
+// device memory.  A warp is a walker: lane l owns the kVec columns c = c0
+// + l kVec of kBackRows output rows, reads each row of its window (rows
+// a0-1 .. a0+kBackRows) of g, wt and s as one 16-byte load a field, and
+// the two halo columns as the forward does, every load before any
+// arithmetic and none under a branch; the columns beside its own come by
+// shuffles.  A walker whose window lies inside rows [1, m-2] x columns
+// [1, n-2] and whose output rows and columns miss 0, 1, m-2, m-1 and 0,
+// 1, n-2, n-1 (a warp-uniform test) takes the raw path: no extension, no
+// mask, no wall terms.  The edge path clamps its addresses and extends
+// each field its own way: q by 0 past the logical interior (m, n), S by 0
+// past the buffer (P, Q) (so psi's padding values are read), W by the
+// wall vectors on the frame and the lid at the corners (-1, n), (m, n).
+// It adds the next wall vectors' adjoint of H into gs on rows 0, 1, m-2,
+// m-1 and columns 0, 1, n-2, n-1 (k1's only under bc_order 2) in the
+// plain version's order, writes gwt = 0 in the padding, and writes the
+// frame's gradients: rl's and rh's by the walkers of rows 0 and m-1, one
+// lane an entry, cl's and ch's by the lanes of columns 0 and n-1, one an
+// output row.  dW on the frame row -1 needs row -2, past the buffer (0);
+// on row m it needs row m+1, whose psi values meet only differences of q
+// between points past the interior (0) and q there (0), so both are taken
+// as 0, and the same for the columns -2 and n+1: the frame needs no load
+// beyond the window.  gs, gwt and gw are stored 16 bytes a lane, every
+// output by one thread, with no atomics.  Each lane adds q lap(W) over its
+// points in fp64 in a fixed order, the block adds its lanes by block_sum
+// (csrc/arakawa.cuh), and a one-block second launch adds the blocks'
+// partials in a fixed order (kernel 1's, csrc/arakawa.cuh, with its
+// Jacobian and Laplacian), so two calls agree bitwise.
+//
+// Backward geometry, from ptxas and the card (NVIDIA H100 80GB HBM3,
+// 700 W; kernel_ab.py, PERF.md row 7): kBackRows = 2, kBackWalkers = 4.
+// fp32 takes 128 registers, fp64 162, no spills: 4 and 3 blocks of 128
+// threads a SM.  At the 1024^2 buffer, fp32, stage 2 the kernel runs
+// 14.8 us (torch.profiler), half its 7.5 us bound, and a copy with the
+// same loads and stores and no stencil takes 12.2 us of that; walkers of
+// 1 and 4 rows (108 and 185 registers), blocks of 2 and 8 walkers and a
+// cap of 96 registers (spills) all timed slower.  The gather this
+// replaces (a thread an output point, each 3 x 3 neighbourhood read from
+// global memory under the extensions' branches, ~36 loads a point) took
+// 22.4 us.  cavity_stage_constant() exports kBackRows and kBackWalkers
+// beside the forward's constants.
 //
 // C ABI (bound with ctypes by cfd_julia_torch/ops/cuda_kernels.py): the
 // launchers run on the caller's stream, allocate nothing (the backward's
 // partial sums go to a buffer of cavity_stage_backward_partials(P, Q)
 // doubles, given by the caller), do not synchronise, and return
-// cudaGetLastError() of their launches; the forward refuses
-// (cudaErrorInvalidValue) a shape out of range, Q not a multiple of kVec,
-// or w, wt, s, out not 16-byte aligned.
+// cudaGetLastError() of their launches; both refuse
+// (cudaErrorInvalidValue) a shape out of range or Q not a multiple of
+// kVec, the forward w, wt, s, out and the backward wt, s, g, gw, gwt, gs
+// not 16-byte aligned.
 
 #include <cuda_runtime.h>
 
@@ -425,8 +462,8 @@ int launch(const T* w, const T* wt, const T* s, const T* rl, const T* rh,
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kBackX = 32;  // the backward's block: columns (a warp)
-constexpr int kBackY = 8;   // and rows; a thread an output point
+constexpr int kBackRows = 2;     // output rows a backward walker computes
+constexpr int kBackWalkers = 4;  // backward walkers a block, along axis 0
 
 template <typename T>
 struct BackConsts {
@@ -435,114 +472,286 @@ struct BackConsts {
   T k0, k1;    // a next wall value is (k0 s0 + k1 s1) / h^2
 };
 
-// the backward's inputs as fields on the whole plane
+// the backward's buffers: the stage's inputs, the cotangents g (of out)
+// and h_* (of the next wall vectors), the gradients; gw null at stage 1
 template <typename T>
-struct BackFields {
-  const T *wt, *s, *rl, *rh, *cl, *ch, *g;
+struct BackArgs {
+  const T *wt, *s, *rl, *rh, *cl, *ch, *g, *h_rl, *h_rh, *h_cl, *h_ch;
+  T *gw, *gwt, *gs, *g_rl, *g_rh, *g_cl, *g_ch;
   int P, Q, m, n;
-  T lid;
-
-  // wt extended: the interior, the walls on its frame, the lid corners
-  __device__ __forceinline__ T W(int a, int b) const {
-    const bool rin = a >= 0 && a < m, cin = b >= 0 && b < n;
-    if (rin && cin) return wt[a * Q + b];
-    if (cin) return a == -1 ? rl[b] : a == m ? rh[b] : T(0);
-    if (rin) return b == -1 ? cl[a] : b == n ? ch[a] : T(0);
-    return b == n && (a == -1 || a == m) ? lid : T(0);
-  }
-  // psi: the buffer, 0 past its edge
-  __device__ __forceinline__ T S(int a, int b) const {
-    return a >= 0 && a < P && b >= 0 && b < Q ? s[a * Q + b] : T(0);
-  }
-  // the cotangent of out on the logical interior, 0 elsewhere
-  __device__ __forceinline__ T q(int a, int b) const {
-    return a >= 0 && a < m && b >= 0 && b < n ? g[a * Q + b] : T(0);
-  }
 };
 
-// the 3 x 3 neighbourhood of (a, b) of field kF: 0 W, 1 S, 2 q
-template <int kF, typename T>
-__device__ __forceinline__ Nbhd<T> around(const BackFields<T>& f, int a,
-                                          int b) {
-  auto v = [&f](int i, int j) {
-    return kF == 0 ? f.W(i, j) : kF == 1 ? f.S(i, j) : f.q(i, j);
-  };
-  return {v(a, b),         v(a + 1, b),     v(a - 1, b),
-          v(a, b + 1),     v(a, b - 1),     v(a + 1, b + 1),
-          v(a - 1, b - 1), v(a - 1, b + 1), v(a + 1, b - 1)};
+// one row of a backward lane's window, slot j column c-1+j: q (the
+// cotangent), W (wt extended) and S (psi extended)
+template <typename T>
+struct BackRow {
+  T q[kVec<T> + 2], w[kVec<T> + 2], s[kVec<T> + 2];
+};
+
+// the neighbourhood at slot j of the rows W (a-1), C (a) and E (a+1)
+template <typename T, int N>
+__device__ __forceinline__ Nbhd<T> nbhd(const T (&W)[N], const T (&C)[N],
+                                        const T (&E)[N], int j) {
+  return {C[j],     E[j],     W[j],     C[j + 1], C[j - 1],
+          E[j + 1], W[j - 1], W[j + 1], E[j - 1]};
+}
+
+// the same at slot 0 with the column left of it 0 (column -2 of the frame
+// column -1: past the buffer)
+template <typename T, int N>
+__device__ __forceinline__ Nbhd<T> nbhd_left0(const T (&W)[N],
+                                              const T (&C)[N],
+                                              const T (&E)[N]) {
+  return {C[0], E[0], W[0], C[1], T(0), E[1], T(0), W[1], T(0)};
+}
+
+// the same at slot j with the column right of it 0 (column n+1 of the
+// frame column n: psi's value there meets only q differences that are 0)
+template <typename T, int N>
+__device__ __forceinline__ Nbhd<T> nbhd_right0(const T (&W)[N],
+                                               const T (&C)[N],
+                                               const T (&E)[N], int j) {
+  return {C[j], E[j], W[j], T(0), C[j - 1], T(0), W[j - 1], T(0), E[j - 1]};
 }
 
 // dW / c at a point of the interior or its frame: -J(S, q) + lap(q)/re
 template <typename T>
-__device__ __forceinline__ T d_wt(const BackFields<T>& f,
-                                  const BackConsts<T>& k, int a, int b) {
-  const Nbhd<T> qn = around<2>(f, a, b);
-  return -jacobian(around<1>(f, a, b), qn, k.gg, k.r3)
+__device__ __forceinline__ T d_wt(const Nbhd<T>& sn, const Nbhd<T>& qn,
+                                  const BackConsts<T>& k) {
+  return -jacobian(sn, qn, k.gg, k.r3)
        + div_rn(laplacian(qn, k.dx2, k.dy2, k.rdx2, k.rdy2), k.re, k.rre);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBackX * kBackY)
-cavity_stage_backward_kernel(BackFields<T> f, const T* __restrict__ h_rl,
-                             const T* __restrict__ h_rh,
-                             const T* __restrict__ h_cl,
-                             const T* __restrict__ h_ch, T* __restrict__ gw,
-                             T* __restrict__ gwt, T* __restrict__ gs,
-                             T* __restrict__ g_rl, T* __restrict__ g_rh,
-                             T* __restrict__ g_cl, T* __restrict__ g_ch,
-                             double* __restrict__ partials, BackConsts<T> k) {
-  const int b = blockIdx.x * kBackX + threadIdx.x;
-  const int a = blockIdx.y * kBackY + threadIdx.y;
-  const int m = f.m, n = f.n;
-  double acc = 0.0;   // this thread's q lap(W)
-  if (a < f.P && b < f.Q) {
-    const int o = a * f.Q + b;
-    const Nbhd<T> qn = around<2>(f, a, b);
-    const Nbhd<T> wn = around<0>(f, a, b);
-    T v = k.c * -jacobian(qn, wn, k.gg, k.r3);
-    // the next wall vectors' adjoint, in the plain version's order
-    if (a == 0) v += div_rn(k.k0 * h_rl[b], k.dx2, k.rdx2);
-    if (k.k1 != T(0) && a == 1) v += div_rn(k.k1 * h_rl[b], k.dx2, k.rdx2);
-    if (a == m - 1) v += div_rn(k.k0 * h_rh[b], k.dx2, k.rdx2);
-    if (k.k1 != T(0) && a == m - 2)
-      v += div_rn(k.k1 * h_rh[b], k.dx2, k.rdx2);
-    if (a < m) {
-      if (b == 0) v += div_rn(k.k0 * h_cl[a], k.dy2, k.rdy2);
-      if (k.k1 != T(0) && b == 1)
-        v += div_rn(k.k1 * h_cl[a], k.dy2, k.rdy2);
-      if (b == n - 1) v += div_rn(k.k0 * h_ch[a], k.dy2, k.rdy2);
-      if (k.k1 != T(0) && b == n - 2)
-        v += div_rn(k.k1 * h_ch[a], k.dy2, k.rdy2);
+// One backward walker: rows a0 .. a0+kBackRows-1 of the columns c0 ..
+// c0+32 kVec-1; returns the lane's fp64 sum of q lap(W) over its points
+// (0 unless want_re).  kEdge: the window may leave the logical interior (the
+// extensions, masks, the next walls' adjoint, the frame's gradients);
+// otherwise it lies inside rows [1, m-2] x columns [1, n-2].
+template <typename T, bool kEdge>
+__device__ __forceinline__ double back_walk(const BackArgs<T>& f,
+                                            const BackConsts<T>& k,
+                                            bool want_re, int a0, int c0) {
+  constexpr int V = kVec<T>;
+  constexpr int kSeg = kWarp * V;
+  constexpr int R = kBackRows;
+  const int P = f.P, Q = f.Q, m = f.m, n = f.n;
+  const int lane = threadIdx.x;
+  const int c = c0 + lane * V;
+  const int hc = lane == 0 ? c0 - 1 : c0 + kSeg;
+  const int cv = kEdge ? min(c, Q - V) : c;
+  const int hcv = kEdge ? min(max(hc, 0), Q - 1) : hc;
+
+  // every load of the window, before any arithmetic
+  T qv[R + 2][V], wv[R + 2][V], sv[R + 2][V];
+  T qh[R + 2], wh[R + 2], sh[R + 2];
+#pragma unroll
+  for (int i = 0; i < R + 2; ++i) {
+    const int g = a0 - 1 + i;
+    const int row = (kEdge ? min(max(g, 0), P - 1) : g) * Q;
+    load_vec(f.g + row + cv, qv[i]);
+    load_vec(f.wt + row + cv, wv[i]);
+    load_vec(f.s + row + cv, sv[i]);
+    qh[i] = __ldg(f.g + row + hcv);
+    wh[i] = __ldg(f.wt + row + hcv);
+    sh[i] = __ldg(f.s + row + hcv);
+  }
+  // the edge path's wall values: cl, ch at the window's rows, rl, rh at
+  // the lane's slot columns
+  T clv[kEdge ? R + 2 : 1], chv[kEdge ? R + 2 : 1];
+  T rlv[kEdge ? V + 2 : 1], rhv[kEdge ? V + 2 : 1];
+  if constexpr (kEdge) {
+#pragma unroll
+    for (int i = 0; i < R + 2; ++i) {
+      const int gv = min(max(a0 - 1 + i, 0), P - 1);
+      clv[i] = __ldg(f.cl + gv);
+      chv[i] = __ldg(f.ch + gv);
     }
-    gs[o] = v;
-    if (a < m && b < n) {
-      gwt[o] = k.b * qn.c + k.c * d_wt(f, k, a, b);
-      if (partials != nullptr)
-        acc = static_cast<double>(
-            qn.c * laplacian(wn, k.dx2, k.dy2, k.rdx2, k.rdy2));
-    } else {
-      gwt[o] = T(0);
-    }
-    if (gw != nullptr) gw[o] = k.a * qn.c;
-    // the frame: rows -1 and m by row 0's threads, columns -1 and n by
-    // column 0's
-    if (a == 0) {
-      g_rl[b] = b < n ? k.c * d_wt(f, k, -1, b) : T(0);
-      g_rh[b] = b < n ? k.c * d_wt(f, k, m, b) : T(0);
-    }
-    if (b == 0) {
-      g_cl[a] = a < m ? k.c * d_wt(f, k, a, -1) : T(0);
-      g_ch[a] = a < m ? k.c * d_wt(f, k, a, n) : T(0);
+#pragma unroll
+    for (int j = 0; j < V + 2; ++j) {
+      const int cj = min(max(c - 1 + j, 0), Q - 1);
+      rlv[j] = __ldg(f.rl + cj);
+      rhv[j] = __ldg(f.rh + cj);
     }
   }
-  if (partials == nullptr) return;   // the whole grid
-  const double total = block_sum<kBackY>(acc);
+  // the edge path's columns, once a lane: slot j is column c-1+j; inside
+  // the logical interior, the wall column -1 or n, inside the buffer
+  bool cin[V + 2], cwl[V + 2], cwr[V + 2], cbuf[V + 2];
+#pragma unroll
+  for (int j = 0; j < V + 2; ++j) {
+    const int cj = c - 1 + j;
+    cin[j] = cj >= 0 && cj < n;
+    cwl[j] = cj == -1;
+    cwr[j] = cj == n;
+    cbuf[j] = cj >= 0 && cj < Q;
+  }
+
+  // the window's rows with the columns of the lanes beside
+  BackRow<T> rows[R + 2];
+#pragma unroll
+  for (int i = 0; i < R + 2; ++i) {
+    BackRow<T>& X = rows[i];
+    const T ql = __shfl_up_sync(0xffffffffu, qv[i][V - 1], 1);
+    const T wl = __shfl_up_sync(0xffffffffu, wv[i][V - 1], 1);
+    const T sl = __shfl_up_sync(0xffffffffu, sv[i][V - 1], 1);
+    const T qr = __shfl_down_sync(0xffffffffu, qv[i][0], 1);
+    const T wr = __shfl_down_sync(0xffffffffu, wv[i][0], 1);
+    const T sr = __shfl_down_sync(0xffffffffu, sv[i][0], 1);
+    X.q[0] = lane == 0 ? qh[i] : ql;
+    X.w[0] = lane == 0 ? wh[i] : wl;
+    X.s[0] = lane == 0 ? sh[i] : sl;
+    X.q[V + 1] = lane == kWarp - 1 ? qh[i] : qr;
+    X.w[V + 1] = lane == kWarp - 1 ? wh[i] : wr;
+    X.s[V + 1] = lane == kWarp - 1 ? sh[i] : sr;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      X.q[e + 1] = qv[i][e];
+      X.w[e + 1] = wv[i][e];
+      X.s[e + 1] = sv[i][e];
+    }
+    if constexpr (kEdge) {
+      // the row's kind is the warp's, the column's the lane's
+      const int g = a0 - 1 + i;
+      const bool qrow = g >= 0 && g < m;
+      const bool srow = g >= 0 && g < P;
+#pragma unroll
+      for (int j = 0; j < V + 2; ++j) {
+        X.q[j] = qrow && cin[j] ? X.q[j] : T(0);  // 0 past the interior
+        X.s[j] = srow && cbuf[j] ? X.s[j] : T(0);  // 0 past the buffer
+      }
+      // W: wt extended by its walls (the y-walls own the corners)
+      if (qrow) {
+#pragma unroll
+        for (int j = 0; j < V + 2; ++j)
+          X.w[j] = cin[j] ? X.w[j] : cwl[j] ? clv[i] : cwr[j] ? chv[i] : T(0);
+      } else if (g == -1 || g == m) {
+#pragma unroll
+        for (int j = 0; j < V + 2; ++j)
+          X.w[j] = cin[j] ? (g < 0 ? rlv[j] : rhv[j]) : cwr[j] ? k.lid : T(0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V + 2; ++j) X.w[j] = T(0);  // beyond the walls
+      }
+    }
+  }
+
+  const T zero[V + 2] = {};  // a row past the buffer (the frame rows)
+  double acc = 0.0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int a = a0 + r;
+    if (kEdge && a >= P) break;
+    const BackRow<T>& W = rows[r];
+    const BackRow<T>& C = rows[r + 1];
+    const BackRow<T>& E = rows[r + 2];
+    T vs[V], vt[V], vw[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int j = e + 1;
+      const Nbhd<T> qn = nbhd(W.q, C.q, E.q, j);
+      const Nbhd<T> wn = nbhd(W.w, C.w, E.w, j);
+      const Nbhd<T> sn = nbhd(W.s, C.s, E.s, j);
+      T v = k.c * -jacobian(qn, wn, k.gg, k.r3);
+      if constexpr (kEdge) {
+        // the next wall vectors' adjoint, in the plain version's order
+        const int b = c + e;
+        if (b < Q) {
+          if (a == 0) v += div_rn(k.k0 * __ldg(f.h_rl + b), k.dx2, k.rdx2);
+          if (k.k1 != T(0) && a == 1)
+            v += div_rn(k.k1 * __ldg(f.h_rl + b), k.dx2, k.rdx2);
+          if (a == m - 1)
+            v += div_rn(k.k0 * __ldg(f.h_rh + b), k.dx2, k.rdx2);
+          if (k.k1 != T(0) && a == m - 2)
+            v += div_rn(k.k1 * __ldg(f.h_rh + b), k.dx2, k.rdx2);
+          if (a < m) {
+            if (b == 0) v += div_rn(k.k0 * __ldg(f.h_cl + a), k.dy2, k.rdy2);
+            if (k.k1 != T(0) && b == 1)
+              v += div_rn(k.k1 * __ldg(f.h_cl + a), k.dy2, k.rdy2);
+            if (b == n - 1)
+              v += div_rn(k.k0 * __ldg(f.h_ch + a), k.dy2, k.rdy2);
+            if (k.k1 != T(0) && b == n - 2)
+              v += div_rn(k.k1 * __ldg(f.h_ch + a), k.dy2, k.rdy2);
+          }
+        }
+      }
+      vs[e] = v;
+      const bool valid = !kEdge || (a < m && cin[j]);
+      vt[e] = valid ? k.b * qn.c + k.c * d_wt(sn, qn, k) : T(0);
+      vw[e] = k.a * qn.c;
+      if (want_re && valid)
+        acc += static_cast<double>(
+            qn.c * laplacian(wn, k.dx2, k.dy2, k.rdx2, k.rdy2));
+    }
+    if (!kEdge || c < Q) {
+      const int o = a * Q + c;
+      store_vec(f.gs + o, vs);
+      store_vec(f.gwt + o, vt);
+      if (f.gw != nullptr) store_vec(f.gw + o, vw);
+    }
+
+    if constexpr (kEdge) {
+      // the frame's gradients: rows -1 and m from the walkers of rows 0
+      // and m-1 (a row past them is 0 or meets only zero q differences),
+      // columns -1 and n from the lanes of columns 0 and n-1
+      if (c < Q && a == 0) {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          f.g_rl[c + e] = c + e < n
+              ? k.c * d_wt(nbhd(zero, W.s, C.s, e + 1),
+                           nbhd(zero, W.q, C.q, e + 1), k)
+              : T(0);
+      }
+      if (c < Q && a == m - 1) {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          f.g_rh[c + e] = c + e < n
+              ? k.c * d_wt(nbhd(C.s, E.s, zero, e + 1),
+                           nbhd(C.q, E.q, zero, e + 1), k)
+              : T(0);
+      }
+      if (c == 0)
+        f.g_cl[a] = a < m ? k.c * d_wt(nbhd_left0(W.s, C.s, E.s),
+                                       nbhd_left0(W.q, C.q, E.q), k)
+                          : T(0);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        if (c + e == n - 1)
+          f.g_ch[a] = a < m ? k.c * d_wt(nbhd_right0(W.s, C.s, E.s, e + 2),
+                                         nbhd_right0(W.q, C.q, E.q, e + 2),
+                                         k)
+                            : T(0);
+      }
+    }
+  }
+  return acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarp * kBackWalkers)
+cavity_stage_backward_kernel(BackArgs<T> f, double* __restrict__ partials,
+                             BackConsts<T> k) {
+  constexpr int kSeg = kWarp * kVec<T>;
+  const int c0 = blockIdx.x * kSeg;
+  const int a0 = (blockIdx.y * kBackWalkers + threadIdx.y) * kBackRows;
+  const bool want_re = partials != nullptr;
+  double acc = 0.0;   // this lane's q lap(W)
+  if (a0 < f.P) {     // the whole warp
+    const bool interior = a0 >= 2 && a0 + kBackRows <= f.m - 2 && c0 >= 2 &&
+                          c0 + kSeg <= f.n - 2;
+    acc = interior ? back_walk<T, false>(f, k, want_re, a0, c0)
+                   : back_walk<T, true>(f, k, want_re, a0, c0);
+  }
+  if (!want_re) return;   // the whole grid
+  const double total = block_sum<kBackWalkers>(acc);
   if (threadIdx.x == 0 && threadIdx.y == 0)
     partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
 }
 
+template <typename T>
 dim3 back_grid(int P, int Q) {
-  return dim3((Q + kBackX - 1) / kBackX, (P + kBackY - 1) / kBackY);
+  constexpr int kSeg = kWarp * kVec<T>;
+  const int walkers = (P + kBackRows - 1) / kBackRows;
+  return dim3((Q + kSeg - 1) / kSeg,
+              (walkers + kBackWalkers - 1) / kBackWalkers);
 }
 
 template <typename T>
@@ -554,9 +763,10 @@ int launch_backward(const T* wt, const T* s, const T* rl, const T* rh,
                     int stage, int order, double dt, double dx, double dy,
                     double re, void* stream) {
   if (P <= 0 || Q <= 0 || m < 2 || n < 2 || m > P || n > Q ||
-      static_cast<long long>(P) * Q >= (1LL << 31) ||
-      (order != 1 && order != 2) || stage < 1 || stage > 3 ||
-      (partials == nullptr) != (gre == nullptr))
+      static_cast<long long>(P) * Q >= (1LL << 31) || Q % kVec<T> != 0 ||
+      !aligned(wt) || !aligned(s) || !aligned(g) || !aligned(gw) ||
+      !aligned(gwt) || !aligned(gs) || (order != 1 && order != 2) ||
+      stage < 1 || stage > 3 || (partials == nullptr) != (gre == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   static const double kA[] = {0.0, 0.75, 1.0 / 3.0};
   static const double kB[] = {1.0, 0.25, 2.0 / 3.0};
@@ -577,12 +787,13 @@ int launch_backward(const T* wt, const T* s, const T* rl, const T* rh,
   k.c = static_cast<T>(c);
   k.k0 = static_cast<T>(order == 1 ? -2.0 : -4.0);
   k.k1 = static_cast<T>(order == 1 ? 0.0 : 0.5);
-  const BackFields<T> f{wt, s, rl, rh, cl, ch, g, P, Q, m, n, k.lid};
-  const dim3 grid = back_grid(P, Q);
+  const BackArgs<T> f{wt,   s,    rl,   rh,   cl,   ch,   g,
+                      h_rl, h_rh, h_cl, h_ch, gw,   gwt,  gs,
+                      g_rl, g_rh, g_cl, g_ch, P,    Q,    m,    n};
+  const dim3 grid = back_grid<T>(P, Q);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cavity_stage_backward_kernel<T><<<grid, dim3(kBackX, kBackY), 0, st>>>(
-      f, h_rl, h_rh, h_cl, h_ch, gw, gwt, gs, g_rl, g_rh, g_cl, g_ch,
-      partials, k);
+  cavity_stage_backward_kernel<T>
+      <<<grid, dim3(kWarp, kBackWalkers), 0, st>>>(f, partials, k);
   if (partials != nullptr) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -628,20 +839,27 @@ CAVITY_STAGE_LAUNCHER(cavity_stage_f64, double)
 CAVITY_STAGE_BACKWARD_LAUNCHER(cavity_stage_backward_f32, float)
 CAVITY_STAGE_BACKWARD_LAUNCHER(cavity_stage_backward_f64, double)
 
-// the backward's partial sums of the Re gradient: one a block
+// the backward's partial sums of the Re gradient: one a block of its grid,
+// which has more blocks in fp64 (a walker spans 64 columns, not 128); the
+// buffer the caller gives holds the larger count, and an fp32 launch uses
+// the first of them
 extern "C" int cavity_stage_backward_partials(int P, int Q) {
-  const dim3 grid = back_grid(P, Q);
-  return static_cast<int>(grid.x * grid.y);
+  const dim3 f32 = back_grid<float>(P, Q), f64 = back_grid<double>(P, Q);
+  const unsigned a = f32.x * f32.y, b = f64.x * f64.y;
+  return static_cast<int>(a > b ? a : b);
 }
 
-// the walk's geometry, for the tests that emulate it: 0 rows a walker,
-// 1 walkers a block, 2 bytes a lane loads of a row, 3 lanes a walker
+// the walks' geometry, for the tests that emulate them: 0 rows a walker,
+// 1 walkers a block, 2 bytes a lane loads of a row, 3 lanes a walker;
+// 4 rows a backward walker, 5 backward walkers a block
 extern "C" int cavity_stage_constant(int which) {
   switch (which) {
     case 0: return kRows;
     case 1: return kWalkers;
     case 2: return kVecBytes;
     case 3: return kWarp;
+    case 4: return kBackRows;
+    case 5: return kBackWalkers;
     default: return -1;
   }
 }

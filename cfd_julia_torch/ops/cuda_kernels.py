@@ -684,12 +684,26 @@ def cavity_fused_stage_plain(w, wt, s, walls, stage: int, dt: float,
 CAVITY_STAGE_CONSTANTS = ("rows", "walkers", "vec_bytes", "lanes")
 
 
+# the backward kernel's walk: rows a walker, walkers a block (exported
+# after the forward's)
+CAVITY_STAGE_BACKWARD_CONSTANTS = ("rows", "walkers")
+
+
 def cavity_stage_geometry() -> dict:
     """The stage kernel's walk constants, as the library exports them
     (cavity_stage_constant); builds the CUDA library."""
     lib = _cuda_build.load_library()
     return {name: lib.cavity_stage_constant(i)
             for i, name in enumerate(CAVITY_STAGE_CONSTANTS)}
+
+
+def cavity_stage_backward_geometry() -> dict:
+    """The backward kernel's walk constants, as the library exports them;
+    builds the CUDA library."""
+    lib = _cuda_build.load_library()
+    first = len(CAVITY_STAGE_CONSTANTS)
+    return {name: lib.cavity_stage_constant(first + i)
+            for i, name in enumerate(CAVITY_STAGE_BACKWARD_CONSTANTS)}
 
 
 def cavity_fused_stage(w, wt, s, walls, stage: int, dt: float, dx: float,
@@ -782,9 +796,13 @@ class _CavityStage(torch.autograd.Function):
     def backward(ctx, g, *h):
         wt, s, *walls = ctx.saved_tensors
         want_re = ctx.needs_input_grad[7]
+        # the kernel reads g's rows 16 bytes at a time
+        g = g.contiguous()
+        if g.data_ptr() % 16:
+            g = g.clone()
         gw, gwt, gs, gwalls, gre = cavity_fused_stage_backward(
-            wt, s, walls, g.contiguous(), tuple(v.contiguous() for v in h),
-            *ctx.args, re_grad=want_re)
+            wt, s, walls, g, tuple(v.contiguous() for v in h), *ctx.args,
+            re_grad=want_re)
         if want_re:
             dtype, device = ctx.re_like
             gre = gre.to(device=device, dtype=dtype)
@@ -878,10 +896,13 @@ def cavity_fused_stage_backward(wt, s, walls, g, h, stage: int, dt: float,
     (gw, gwt, gs, (grl, grh, gcl, gch), gre), cavity_fused_stage_backward_
     plain's formulas; gw None at stage 1 (wt is w), gre a 0-d tensor of
     wt's dtype, or None with re_grad=False.  One launch of the backward
-    kernel (csrc/cavity_stage.cu, a thread an output point, a gather: no
-    atomics) and, for gre, a one-block launch that adds its blocks' fp64
-    partial sums in a fixed order, so two calls agree bitwise; counted
-    under cavity_stage_backward and cavity_stage_re_grad.  re: a float."""
+    kernel (csrc/cavity_stage.cu: the forward's warp walkers on 16-byte
+    rows of g, wt and s, each output written by one thread, no atomics)
+    and, for gre, a one-block launch that adds its blocks' fp64 partial
+    sums in a fixed order, so two calls agree bitwise; counted under
+    cavity_stage_backward and cavity_stage_re_grad.  re: a float.  The
+    kernel refuses (a launch error) Q not a multiple of 16 bytes' worth of
+    elements and wt, s or g not 16-byte aligned."""
     tensors = (wt, s, *walls, g, *h)
     if wt.dtype not in (torch.float32, torch.float64) or any(
             t.dtype != wt.dtype for t in tensors):

@@ -912,12 +912,13 @@ def phase_stage_backward_kernel():
     """The stage kernel's backward (its adjoint) against its plain version
     at every shape of STAGE_SHAPES in fp32 and fp64, every stage, both
     wall-BC orders, with and without the Re gradient, two calls bitwise
-    equal; timed at the 1024^2 buffer in fp32 (stage 2, Jensen walls, with
-    the Re gradient: the call a packed gradient makes) warm and with L2
-    flushed, beside its bound.  Returns the kernel's record."""
+    equal; timed at the 1024^2 buffer in fp32 and fp64 (stage 2, Jensen
+    walls, with the Re gradient: the call a packed gradient makes) warm
+    and with L2 flushed, beside its bound.  Returns the kernel's fp32
+    record, the fp64 times under "fp64"."""
     from cfd_julia_torch.ops import cuda_kernels as ck
 
-    record = None
+    timed = {}    # dtype -> the 1024^2 stage 2 timing
     for nx, ny in STAGE_SHAPES:
         m, n = nx - 1, ny - 1
         for dtype, rel in [(torch.float32, 1e-5), (torch.float64, 1e-12)]:
@@ -959,10 +960,11 @@ def phase_stage_backward_kernel():
                                                     bc_order))
                             re_worst = max(re_worst, err / scale)
                     if (nx, ny) == STAGE_SHAPES[0] and stage == 2 and \
-                            bc_order == 2 and dtype == torch.float32:
-                        record = stage_backward_timing(ck, args, float(max(
-                            (a - b).abs().max()
-                            for a, b in zip(flat, flat_ref))))
+                            bc_order == 2:
+                        timed[dtype] = stage_backward_timing(
+                            ck, args, float(max(
+                                (a - b).abs().max()
+                                for a, b in zip(flat, flat_ref))))
                     del wt, s, walls, g, h, got, again, ref
             re_tol = 1e-10 if dtype == torch.float64 else 1e-5
             ok = worst <= rel and re_worst <= re_tol and all_same
@@ -975,21 +977,36 @@ def phase_stage_backward_kernel():
                     f"{'|p|' if dtype == torch.float64 else 'c sum|q lap W|/re^2'}"
                     f" (tol {re_tol:g}); two calls bitwise equal: {all_same}"
                     f" {'ok' if ok else 'FAIL'}")
-            if (nx, ny) == STAGE_SHAPES[0] and dtype == torch.float32:
-                line += (f"; 1024^2 fp32 stage 2 with d/dre: device time "
-                         f"{record['ms']:.4f} ms warm in L2 "
-                         f"({100 * record['share_of_bound']:.1f}% of its "
-                         f"bound {record['bound_ms']:.4f} ms by "
-                         f"{record['bound_by']}: 3 fields read, 3 written), "
-                         f"{record['cold_ms']:.4f} ms with L2 flushed "
-                         f"({100 * record['bound_ms'] / record['cold_ms']:.1f}"
-                         f"%), without d/dre {record['no_re_ms']:.4f} ms, "
-                         f"plain {record['plain_ms']:.4f} ms; eager call "
-                         f"{record['call_ms']:.4f} ms (medians of 30 calls, "
+            if (nx, ny) == STAGE_SHAPES[0]:
+                rec = timed[dtype]
+                line += (f"; 1024^2 {str(dtype)[6:]} stage 2 with d/dre: "
+                         f"device time {rec['ms']:.4f} ms warm in L2 "
+                         f"({100 * rec['share_of_bound']:.1f}% of its "
+                         f"bound {rec['bound_ms']:.4f} ms by "
+                         f"{rec['bound_by']}: 3 fields read, 3 written), "
+                         f"{rec['cold_ms']:.4f} ms with L2 flushed "
+                         f"({100 * rec['bound_ms'] / rec['cold_ms']:.1f}"
+                         f"%), without d/dre {rec['no_re_ms']:.4f} ms, "
+                         f"plain {rec['plain_ms']:.4f} ms; eager call "
+                         f"{rec['call_ms']:.4f} ms (medians of 30 calls, "
                          f"CUDA events)")
+                if dtype == torch.float32:
+                    line += (f"; the thread-a-point gather it replaced: "
+                             f"{STAGE_BACKWARD_GATHER_MS} ms (PERF.md row "
+                             f"7, its chip_smoke.py phase 2)")
             print(line)
             check(ok, line)
+    record = timed[torch.float32]
+    record["fp64"] = {k: timed[torch.float64][k] for k in
+                      ("ms", "cold_ms", "no_re_ms", "plain_ms", "bound_ms",
+                       "bound_by", "max_abs_err")}
     return record
+
+
+# the stage backward's device ms at the 1024^2 buffer, fp32, stage 2 with
+# d/dre, as the gather of one thread an output point took it (this script's
+# phase 2 on "NVIDIA H100 80GB HBM3, 700.00 W"): beside the new kernel's
+STAGE_BACKWARD_GATHER_MS = 0.0288
 
 
 def stage_backward_timing(ck, args, err):

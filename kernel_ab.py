@@ -36,11 +36,15 @@ rounds):
     warm and L2-flushed, and stage 2 in fp64; besides max|kernel - twin|
     it prints max|this tree - the first tree| over the new interior and
     over the four wall vectors; and, for the trees that have it, the
-    stage's backward kernel at stage 2 with the Re gradient (fp32, warm
-    and L2-flushed) on chip_smoke.stage_backward_inputs;
+    stage's backward kernel at stage 2 on chip_smoke.stage_backward_inputs:
+    with the Re gradient in fp32 (warm and L2-flushed) and fp64 (warm),
+    and without it in fp32 (warm);
   - the empty-launch floor (torch.cuda._sleep(0)) and, as a yardstick of
     the Arakawa RHS's bytes alone, torch.add of two 1025^2 fp32 fields,
     beside them;
+  - the stage backward's call at 1024^2 fp32 under torch.profiler on
+    each tree's library: the device time of its main kernel and of the
+    Re sum's second launch;
   - the 4096^2 fused="off" multigrid solve (chip_smoke's problem), where
     every smoother is the smoother kernel: a torch.profiler window of 3
     solves on each tree's library, in turns, with its device time a solve
@@ -299,16 +303,26 @@ def stage_cases(dev):
                         lambda args=args: ck.cavity_fused_stage_plain(*args),
                         flush.zero_ if temp == "cold" else None,
                         f"cavity_stage_{ck._SUFFIX[dtype]}")]
-    wt, s, walls, g, h = cs.stage_backward_inputs(cs.NX, cs.NX, torch.float32,
-                                                  cs.NX + 16)
-    args = (wt, s, walls, g, h, 2, 2e-5, 1.0 / cs.NX, 1.0 / cs.NX, cs.RE, m,
-            n, 2)
-    for temp in ("warm", "cold"):
-        out[f"cavity_stage_backward {cs.NX}^2 fp32 stage 2 {temp}"] = [(
-            lambda: ck.cavity_fused_stage_backward(*args),
-            lambda: ck.cavity_fused_stage_backward_plain(*args),
-            flush.zero_ if temp == "cold" else None,
-            "cavity_stage_backward_f32")]
+    for dtype, variants in ((torch.float32, (("warm", True), ("cold", True),
+                                             ("warm", False))),
+                            (torch.float64, (("warm", True),))):
+        sfx = str(dtype)[6:]
+        wt, s, walls, g, h = cs.stage_backward_inputs(cs.NX, cs.NX, dtype,
+                                                      cs.NX + 16)
+        args = (wt, s, walls, g, h, 2, 2e-5, 1.0 / cs.NX, 1.0 / cs.NX, cs.RE,
+                m, n, 2)
+        for temp, re_grad in variants:
+            # without d/dre the result ends before gre (None)
+            keep = 5 if re_grad else 4
+            out[f"cavity_stage_backward {cs.NX}^2 {sfx} stage 2 {temp}"
+                f"{'' if re_grad else ' no d/dre'}"] = [(
+                    lambda args=args, re_grad=re_grad, keep=keep:
+                    ck.cavity_fused_stage_backward(
+                        *args, re_grad=re_grad)[:keep],
+                    lambda args=args, keep=keep:
+                    ck.cavity_fused_stage_backward_plain(*args)[:keep],
+                    flush.zero_ if temp == "cold" else None,
+                    f"cavity_stage_backward_{ck._SUFFIX[dtype]}")]
     return out
 
 
@@ -350,6 +364,29 @@ def off_profiles(libs, rounds):
                   f"{sum(us for us, _ in rb) / 3:.2f} us/solve "
                   f"({100 * sum(us for us, _ in rb) / total:.1f}%) in "
                   f"{sum(n for _, n in rb) / 3:.1f} launches/solve")
+
+
+def stage_backward_profiles(libs):
+    """The stage backward's call (1024^2 fp32, stage 2, d/dRe) on each
+    library under torch.profiler, 20 calls: device us a call of the main
+    kernel and of the Re sum's second launch, beside the event-timed
+    ms (which also holds the launch gaps)."""
+    m = n = cs.NX - 1
+    wt, s, walls, g, h = cs.stage_backward_inputs(cs.NX, cs.NX,
+                                                  torch.float32, cs.NX + 16)
+    args = (wt, s, walls, g, h, 2, 2e-5, 1.0 / cs.NX, 1.0 / cs.NX, cs.RE, m,
+            n, 2)
+    for name, lib in libs:
+        if not has(lib, "cavity_stage_backward_f32"):
+            continue
+        with mock.patch.object(_cuda_build, "load_library",
+                               lambda lib=lib: lib):
+            call = lambda: ck.cavity_fused_stage_backward(*args)
+            ms = cs.median_ms(call)[0]
+            cs.phase_profile(f"ab stage backward {name} (events {ms:.5f} "
+                             f"ms a call)", lambda: [call() for _ in
+                                                     range(20)], 20,
+                             ms * 1e-3, unit="call")
 
 
 def flat(x):
@@ -457,6 +494,8 @@ def main(argv=None):
                                     f", wall vectors {rest_d:.3e}"))
     if not only or only.search("off"):
         off_profiles(libs, args.rounds)
+    if not only or only.search("profile cavity_stage_backward"):
+        stage_backward_profiles(libs)
     return 0
 
 

@@ -1083,6 +1083,58 @@ def test_cavity_stage_backward_kernel_matches_plain(cuda_device, nx, ny,
                 assert err <= 1e-5 * scale
 
 
+# the backward kernel's walk constants as its source states them (the CPU
+# emulation, tests/test_torch_stage_backward_tiling.py, reads the same)
+STAGE_BACKWARD_CONSTANTS = {
+    name: int(re.search(rf"constexpr int {key} = (\d+);",
+                        (_cuda_build.CSRC / "cavity_stage.cu").read_text())
+              .group(1))
+    for name, key in (("rows", "kBackRows"), ("walkers", "kBackWalkers"))}
+
+
+@pytest.mark.cuda
+def test_cavity_stage_backward_constants_match_the_emulation(cuda_device):
+    """The backward walk the library was built with is the one the CPU
+    emulation replays, and its Re partials' count is the emulation's: the
+    blocks of the fp64 grid (a walker spans 16 bytes a lane of 32 lanes),
+    at least those of the fp32 grid."""
+    assert cuda_kernels.cavity_stage_backward_geometry() == \
+        STAGE_BACKWARD_CONSTANTS
+    rows, walkers = (STAGE_BACKWARD_CONSTANTS[k] for k in ("rows", "walkers"))
+    lib = _cuda_build.load_library()
+    for nx, ny in STAGE_SHAPES:
+        P, Q = cavity_fused.padded_extents(nx, ny)
+        by = -(-(-(-P // rows)) // walkers)      # walker groups
+        blocks = [-(-Q // (32 * 16 // size)) * by for size in (4, 8)]
+        assert lib.cavity_stage_backward_partials(P, Q) == max(blocks)
+
+
+@pytest.mark.cuda
+def test_cavity_stage_backward_refuses_misaligned_rows(cuda_device):
+    """The backward kernel reads the rows of g, wt and s as 16-byte
+    vectors: a cotangent whose storage starts off a 16-byte boundary is
+    refused with a launch error, never read; through autograd the
+    Function hands the kernel an aligned copy."""
+    wt, s, walls, g, h = _stage_backward_inputs(16, 16, torch.float32,
+                                                cuda_device, 0)
+    shifted = torch.zeros(g.numel() + 1, device=cuda_device)[1:].view(
+        g.shape)
+    shifted.copy_(g)
+    args = (2, 1e-3, 1 / 16, 1 / 16, 100.0, 15, 15, 2)
+    before = cuda_kernels.LAUNCHES["cavity_stage_backward"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_kernels.cavity_fused_stage_backward(wt, s, walls, shifted, h,
+                                                 *args)
+    assert cuda_kernels.LAUNCHES["cavity_stage_backward"] == before
+    w = wt.clone().requires_grad_(True)
+    out, walls_out = cuda_kernels.cavity_fused_stage(
+        w, wt, s, walls, 2, 1e-3, 1 / 16, 1 / 16, 100.0, 15, 15, 2)
+    (gw,) = torch.autograd.grad((out, *walls_out), w, (shifted, *h))
+    want = cuda_kernels.cavity_fused_stage_backward(wt, s, walls, g, h,
+                                                    *args)[0]
+    _assert_same((gw,), (want,))
+
+
 @pytest.mark.cuda
 def test_cavity_stage_autograd_function_gradcheck(cuda_device):
     """torch.autograd.gradcheck of the kernel pair (forward kernel,

@@ -45,6 +45,8 @@ N = 32
 STEPS = 2
 CAVITY_STEPS = 3
 FULL_DT, HALF_DT = 0.01, 5e-3
+# the fdm RHS's tensor Re: not the config's 1000
+FDM_RE = 437.5
 # ragged extents: 31 rows and the 17 columns of a 32^2 half spectrum
 TRANSPOSE_SHAPES = {"31x17": (31, 17), "32x17": (32, 17), "32x32": (32, 32),
                     "34x34": (34, 34)}
@@ -78,7 +80,7 @@ def _inputs():
     cw0[1:-1, 1:-1] = 0.1 * rng.standard_normal((N - 1, N - 1))
     inp["cavity_w0"] = cw0
     inp.update(steps=STEPS, cavity_steps=CAVITY_STEPS, full_dt=FULL_DT,
-               half_dt=HALF_DT)
+               half_dt=HALF_DT, fdm_re=FDM_RE)
     return inp
 
 
@@ -113,6 +115,11 @@ def _jax_steps(inputs, k):
     against those; JAX's own tests hold its worlds together)."""
     mesh = _jmesh(k)
     out = {"full": {}, "half": {}, "cavity": {}}
+    cfg = j_vortex.VortexConfig(nx=N, ny=N, solver="fdm", dt=FULL_DT)
+    out["fdm_rhs_re"] = np.asarray(jax.jit(
+        lambda w, re: j_vortex.fdm_rhs(w, cfg.dx, cfg.dy, re, mesh=mesh))(
+            j_sharded.place(jnp.asarray(inputs["w0"]), mesh),
+            jnp.asarray(FDM_RE)))
     for solver in ranks.SOLVERS if k == 4 else ():
         cfg = j_vortex.VortexConfig(nx=N, ny=N, solver=solver, dt=FULL_DT)
         step = j_sharded.make_sharded_vortex_step(cfg, mesh, jnp.float64)
@@ -272,6 +279,14 @@ def test_sharded_vortex_step_matches_jax(port, jax_refs, world, solver):
     """make_sharded_vortex_step, two steps: fdm's real blocks and the full
     complex spectrum's, against JAX's sharded step on 4 devices."""
     _close(port[world][0]["full"][solver], jax_refs[4]["full"][solver])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_fdm_rhs_tensor_re_matches_jax(port, jax_refs, world):
+    """vortex.make_fdm_rhs(cfg, mesh=, re=<0-d fp64 tensor>) on the rank's
+    blocks against JAX's fdm_rhs(w, dx, dy, jnp.asarray(re), mesh=) on as
+    many devices, a traced Re that is not cfg.re."""
+    _close(port[world][0]["fdm_rhs_re"], jax_refs[world]["fdm_rhs_re"])
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -142,6 +142,16 @@ def _full_steps(inp, mesh, steps):
     return out
 
 
+def _fdm_rhs_tensor_re(inp, mesh):
+    """vortex.make_fdm_rhs with a 0-d fp64 tensor Re (not cfg.re) on this
+    rank's block of w0, gathered."""
+    cfg = _vortex_cfg("fdm", inp["full_dt"])
+    re = torch.tensor(inp["fdm_re"], dtype=F64)
+    rhs = vortex.make_fdm_rhs(cfg, F64, "cpu", re=re, mesh=mesh)
+    return _np(sharded.gather(rhs(interop.block_from_numpy(inp["w0"], mesh,
+                                                           F64)), mesh))
+
+
 def _half_steps(inp, mesh, steps):
     """The three half steps from h0; and half_init / half_decode on row
     slabs, as "init" and "decode"."""
@@ -298,6 +308,7 @@ def all_cases(device, inp):
     out["transpose"] = _transposes(inp, mesh)
     out["transform"] = _transforms(inp, mesh)
     out["full"] = _full_steps(inp, mesh, inp["steps"])
+    out["fdm_rhs_re"] = _fdm_rhs_tensor_re(inp, mesh)
     out["half"] = _half_steps(inp, mesh, inp["steps"])
     out["cavity"] = _cavity(inp, mesh, inp["cavity_steps"])
     out["refusals"] = _refusals(mesh)
