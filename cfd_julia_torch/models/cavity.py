@@ -138,14 +138,16 @@ def _wall_bc_fields(s, dx: float, dy: float, order: int, halo: int = 0):
             (-4.0 * at(0, -1) + 0.5 * at(0, -2)) / dy**2 - 3.0 / dy)
 
 
-def periodic_rhs(cfg: CavityConfig, device):
+def periodic_rhs(cfg: CavityConfig, device, re=None):
     """rhs(w, s): the periodic vorticity RHS over a field's last two axes,
     kernel 1 (cuda_kernels.arakawa_rhs_fused) or its twin by cfg.rhs_impl
-    resolved on `device`."""
+    resolved on `device`.  re: cfg.re (None), a float, or a 0-d tensor,
+    which kernel 1 reads from device memory and differentiates in."""
+    re = cfg.re if re is None else re
     if precision.resolve_rhs_impl(cfg.rhs_impl, device) == "kernel":
         return lambda w, s: cuda_kernels.arakawa_rhs_fused(
-            w, s, cfg.dx, cfg.dy, cfg.re)
-    return lambda w, s: arakawa.vorticity_rhs(w, s, cfg.dx, cfg.dy, cfg.re)
+            w, s, cfg.dx, cfg.dy, re)
+    return lambda w, s: arakawa.vorticity_rhs(w, s, cfg.dx, cfg.dy, re)
 
 
 def padded_step(cfg: CavityConfig, i, j, frame, solve, total):
@@ -244,7 +246,10 @@ def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda", re=None,
     "fst_half" only, the pencil DST-I; the state is this rank's blocks of
     the (nx+1, ny+1) fields zero-padded to mesh multiples
     (parallel/sharded.make_sharded_cavity_step, whose "matmul" form is the
-    JAX package's make_padded_step_fn); re: cfg.re only.
+    JAX package's make_padded_step_fn).  A tensor re there is every
+    rank's alike (halo.replicate): after
+    halo.all_reduce_sum(local_loss).backward() on every rank, re.grad
+    holds the global gradient and each rank's initial blocks theirs.
 
     `re` overrides cfg.re: a float, or a 0-d tensor on `device` (the JAX
     package's traced re), which the kernel RHS reads from device memory.
@@ -263,11 +268,9 @@ def make_step_fn(cfg: CavityConfig, dtype=None, device="cuda", re=None,
                 "step uses poisson='fst'/'fst_half' (pencil DST) or "
                 "parallel/sharded.make_sharded_cavity_step (matmul DST on "
                 "padded blocks)")
-        if re is not None:
-            raise ValueError("the mesh step takes cfg.re only")
         from cfd_julia_torch.parallel import sharded
 
-        return sharded.make_sharded_cavity_step(cfg, mesh, dtype, device)
+        return sharded.make_sharded_cavity_step(cfg, mesh, dtype, device, re)
     dx, dy, dt = cfg.dx, cfg.dy, cfg.dt
     re = cfg.re if re is None else re
     rhs_impl = precision.resolve_rhs_impl(cfg.rhs_impl, device)

@@ -213,7 +213,9 @@ def make_fdm_rhs(cfg: VortexConfig, dtype=None, device="cuda", re=None,
     solver, with the Poisson eigenvalues built once and cfg.rhs_impl
     resolved against the device.  `re` overrides cfg.re: a float or a
     tensor on `device` of one Re a member (models/ensemble.py).  With a
-    mesh: this rank's block of w -> its block of dw/dt (fdm_rhs)."""
+    mesh: this rank's block of w -> its block of dw/dt (fdm_rhs), and a
+    tensor re is every rank's alike, differentiable through
+    halo.replicate."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
     impl = precision.resolve_rhs_impl(cfg.rhs_impl, device)

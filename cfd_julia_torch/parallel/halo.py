@@ -17,11 +17,23 @@ nor all_gather), so under gloo every collective here stages CUDA tensors
 through host memory (`host_staged`).  That is how several ranks share one
 GPU, where NCCL refuses two ranks on the same device.  The choice is made
 from the backend, never on an error.
+
+Gradients: where autograd tracks an input, each collective runs as an
+autograd Function whose backward is its transpose (the JAX package's
+transposes of ppermute, all_gather, psum and pbroadcast), its messages
+staged as the forward's; without grad the forward is the plain code.  A
+halo's gradient goes back to the rank it came from; a gather's is summed
+over the axis (a reduce-scatter); all_reduce_sum's replicated output
+passes its cotangent through; `replicate` (the identity) sums it over
+the ranks.  So each rank's loss is all_reduce_sum(local), and its
+.backward() on every rank leaves a replicated leaf (a tensor Re entered
+through `replicate`) the whole gradient and every rank its blocks'.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+from torch.autograd.function import once_differentiable
 
 from cfd_julia_torch.ops import arakawa, cuda_kernels, weno
 from cfd_julia_torch.parallel import mesh as mesh_lib
@@ -51,30 +63,67 @@ def _stage(t, staged):
     return t.contiguous().cpu() if staged else t.contiguous()
 
 
+def _tracked(*tensors) -> bool:
+    """True where autograd records an op on these tensors: only then does
+    a collective run as its autograd Function (the forward is the same
+    code either way, so a run without grad is unchanged)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _shift(up, down, mesh, axis):
+    """One ring exchange along mesh axis `axis` (more than one rank): send
+    `up` to the neighbour at coordinate c + 1 and `down` to the one at
+    c - 1; return (what c - 1 sent up, what c + 1 sent down)."""
+    group = mesh.get_group(axis)
+    lo_rank, hi_rank = mesh_lib.neighbour_ranks(mesh, axis)
+    staged = host_staged(group, up)
+    send_up, send_down = _stage(up, staged), _stage(down, staged)
+    from_lo, from_hi = torch.empty_like(send_up), torch.empty_like(send_down)
+    # the upward messages (tag 0) before the downward ones (tag 1): with two
+    # ranks both neighbours are one rank, and the two pairs must not cross
+    ops = [dist.P2POp(dist.isend, send_up, hi_rank, group, 0),
+           dist.P2POp(dist.irecv, from_lo, lo_rank, group, 0),
+           dist.P2POp(dist.isend, send_down, lo_rank, group, 1),
+           dist.P2POp(dist.irecv, from_hi, hi_rank, group, 1)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if staged:
+        from_lo, from_hi = from_lo.to(up.device), from_hi.to(up.device)
+    return from_lo, from_hi
+
+
+class _Halos(torch.autograd.Function):
+    """(lo edge, hi edge) of a block -> (lo halo, hi halo) from the ring
+    neighbours.  The backward is the exchange's transpose: each halo's
+    gradient goes back to the rank it came from, as the gradient of that
+    rank's edge (the lo halo's down, the hi halo's up), by the same
+    exchange with the same tags."""
+
+    @staticmethod
+    def forward(ctx, lo_edge, hi_edge, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _shift(hi_edge, lo_edge, mesh, axis)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_lo, g_hi):
+        g_lo_edge, g_hi_edge = _shift(g_hi, g_lo, ctx.mesh, ctx.axis)
+        return g_lo_edge, g_hi_edge, None, None
+
+
 def _edges_from_neighbours(ul, mesh, axis, dim: int, width: int):
     """(low halo, high halo) of ul along tensor dim `dim`: the high edge of
     the ring neighbour at coordinate c - 1 and the low edge of the one at
-    c + 1 on mesh axis `axis`."""
+    c + 1 on mesh axis `axis`.  Differentiable: with one rank on the axis
+    autograd adds each halo's gradient into the opposite edge; with more,
+    _Halos sends it back."""
     lo_edge = ul.narrow(dim, 0, width)
     hi_edge = ul.narrow(dim, ul.shape[dim] - width, width)
     if mesh_lib.axis_size(mesh, axis) == 1:
         return hi_edge, lo_edge
-    group = mesh.get_group(axis)
-    lo_rank, hi_rank = mesh_lib.neighbour_ranks(mesh, axis)
-    staged = host_staged(group, ul)
-    send_hi, send_lo = _stage(hi_edge, staged), _stage(lo_edge, staged)
-    lo_halo, hi_halo = torch.empty_like(send_hi), torch.empty_like(send_lo)
-    # the upward messages (tag 0) before the downward ones (tag 1): with two
-    # ranks both neighbours are one rank, and the two pairs must not cross
-    ops = [dist.P2POp(dist.isend, send_hi, hi_rank, group, 0),
-           dist.P2POp(dist.irecv, lo_halo, lo_rank, group, 0),
-           dist.P2POp(dist.isend, send_lo, lo_rank, group, 1),
-           dist.P2POp(dist.irecv, hi_halo, hi_rank, group, 1)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    if staged:
-        lo_halo, hi_halo = lo_halo.to(ul.device), hi_halo.to(ul.device)
-    return lo_halo, hi_halo
+    if _tracked(ul):
+        return _Halos.apply(lo_edge, hi_edge, mesh, axis)
+    return _shift(hi_edge, lo_edge, mesh, axis)
 
 
 def halo_exchange_periodic(ul, mesh, width: int = 1,
@@ -85,7 +134,8 @@ def halo_exchange_periodic(ul, mesh, width: int = 1,
     x-padded block, so that the corners arrive.  Leading axes are a batch:
     stacking several operands rides one exchange.  axes: the mesh axes of
     the block's two dims, None where the field is not sharded (its own
-    edges wrap)."""
+    edges wrap).  Differentiable: the backward undoes the y pass, then the
+    x pass, so the corners' gradients travel back through both."""
     ax, ay = axes
     lo, hi = _edges_from_neighbours(ul, mesh, ax, -2, width)
     up = torch.cat([lo, ul, hi], dim=-2)
@@ -99,15 +149,7 @@ def halo_exchange_1d_periodic(ul, mesh, axis: str, width: int):
     return torch.cat([lo, ul, hi], dim=-1)
 
 
-def all_gather_axis(t, mesh, axis, dim: int):
-    """The blocks of the ranks along mesh axis `axis` (this rank's and
-    theirs), concatenated along tensor dim `dim` in coordinate order: the
-    JAX package's gather of a dense matmul's operand.  t itself for an axis
-    of one rank or None."""
-    n = mesh_lib.axis_size(mesh, axis)
-    if n == 1:
-        return t
-    group = mesh.get_group(axis)
+def _gather(t, group, n: int, dim: int):
     staged = host_staged(group, t)
     src = _stage(t, staged)
     parts = [torch.empty_like(src) for _ in range(n)]
@@ -116,15 +158,111 @@ def all_gather_axis(t, mesh, axis, dim: int):
     return out.to(t.device) if staged else out
 
 
-def all_reduce_sum(t):
-    """The sum of t over every rank (the default group: the whole mesh)."""
+def _reduce_scatter(g, group, n: int, dim: int):
+    """The transpose of _gather: the sum over the group's ranks of their
+    g's slice that this rank's block gave, added in rank order (one
+    all_to_all_single, then a local sum: the same bits every run, on NCCL
+    and gloo alike; gloo has no reduce_scatter of such tensors)."""
+    pieces = g.chunk(n, dim)
+    send = _stage(torch.cat([p.reshape(-1) for p in pieces]),
+                  host_staged(group, g))
+    got = torch.empty_like(send)
+    dist.all_to_all_single(got, send, group=group)
+    parts = got.to(g.device).split(pieces[0].numel())
+    total = parts[0].clone()
+    for part in parts[1:]:
+        total += part
+    return total.view(pieces[0].shape)
+
+
+class _Gather(torch.autograd.Function):
+    """all_gather_axis, whose backward is a reduce-scatter along the axis."""
+
+    @staticmethod
+    def forward(ctx, t, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return _gather(t, group, n, dim)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+def all_gather_axis(t, mesh, axis, dim: int):
+    """The blocks of the ranks along mesh axis `axis` (this rank's and
+    theirs), concatenated along tensor dim `dim` in coordinate order: the
+    JAX package's gather of a dense matmul's operand.  t itself for an axis
+    of one rank or None.  Differentiable: each rank's gradient of the
+    gathered tensor is summed over the axis into the block it came from."""
+    n = mesh_lib.axis_size(mesh, axis)
+    if n == 1:
+        return t
+    group = mesh.get_group(axis)
+    if _tracked(t):
+        return _Gather.apply(t, group, n, dim)
+    return _gather(t, group, n, dim)
+
+
+def _sum_over_ranks(t):
     staged = host_staged(None, t)
     buf = t.cpu() if staged else t.clone()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM)
     return buf.to(t.device) if staged else buf
 
 
-def make_distributed_vorticity_rhs(mesh, dx: float, dy: float, re: float,
+class _AllReduceSum(torch.autograd.Function):
+    """all_reduce_sum.  Its output is replicated, and the cotangent of a
+    replicated tensor is the same on every rank and stands for one copy,
+    so the backward passes it through (JAX's psum transpose)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _sum_over_ranks(t)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return g
+
+
+def all_reduce_sum(t):
+    """The sum of t over every rank (the default group: the whole mesh),
+    replicated.  A rank's loss is all_reduce_sum(local.sum()); its
+    .backward() on every rank leaves each rank its own share of the
+    gradient, which `replicate` sums where a replicated leaf entered."""
+    if _tracked(t):
+        return _AllReduceSum.apply(t)
+    return _sum_over_ranks(t)
+
+
+class _Replicate(torch.autograd.Function):
+    """replicate: the identity, whose backward sums the gradient over
+    every rank (JAX's pbroadcast transpose)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _sum_over_ranks(g)
+
+
+def replicate(t, mesh):
+    """t, a tensor every rank holds alike (a replicated leaf such as a
+    tensor Re), as it enters this rank's local work: the identity, and in
+    the backward the sum over the mesh's ranks of the local gradients, so
+    that every rank holds the whole gradient of the global loss.  t itself
+    on one rank, for a number, or where autograd does not track it."""
+    if (not isinstance(t, torch.Tensor) or mesh_lib.world_size(mesh) == 1
+            or not _tracked(t)):
+        return t
+    return _Replicate.apply(t)
+
+
+def make_distributed_vorticity_rhs(mesh, dx: float, dy: float, re,
                                    impl: str = "kernel"):
     """r = -J(w, s) + lap(w)/re over a 2D-decomposed periodic field, on
     local blocks: (w_block, s_block) -> r_block.  One stacked width-1 halo
@@ -133,7 +271,8 @@ def make_distributed_vorticity_rhs(mesh, dx: float, dy: float, re: float,
     block, or with impl="torch" the plain ops.arakawa.vorticity_rhs.  The
     RHS is periodic over the block, and its 17-point stencil never
     reaches a wrapped value from the [1:-1, 1:-1] interior, which is the
-    rank's block."""
+    rank's block.  re: a float, or a tensor every rank holds alike, which
+    enters through `replicate` (the RHS is then differentiable in it)."""
     if impl not in ("kernel", "torch"):
         raise ValueError(f"unknown rhs impl {impl!r} (kernel | torch)")
     fn = cuda_kernels.arakawa_rhs_fused if impl == "kernel" \
@@ -141,7 +280,7 @@ def make_distributed_vorticity_rhs(mesh, dx: float, dy: float, re: float,
 
     def rhs(wl, sl):
         bp = halo_exchange_periodic(torch.stack([wl, sl]), mesh, 1)
-        return fn(bp[0], bp[1], dx, dy, re)[1:-1, 1:-1]
+        return fn(bp[0], bp[1], dx, dy, replicate(re, mesh))[1:-1, 1:-1]
 
     return rhs
 

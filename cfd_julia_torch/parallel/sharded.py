@@ -106,7 +106,7 @@ def as_dtensor(block, mesh):
 CAVITY_POISSON = ("auto", "matmul", "fst", "fst_half")
 
 
-def make_sharded_cavity_step(cfg, mesh, dtype=None, device=None):
+def make_sharded_cavity_step(cfg, mesh, dtype=None, device=None, re=None):
     """The padded cavity step on this rank's blocks:
     (w_block, s_block, rms) -> (w_block, s_block, rms), rms the global
     ||psi^n - psi^{n-1}|| on every rank (models/cavity.padded_step).
@@ -121,26 +121,42 @@ def make_sharded_cavity_step(cfg, mesh, dtype=None, device=None):
     (direct.make_fst_matmul_padded); "fst" and "fst_half" the pencil
     DST-I (direct.make_fst(mesh=): the interior to row slabs, y
     transforms, a transpose, x transforms and the division, back).  Any
-    other name raises."""
+    other name raises.
+
+    Differentiable with torch.autograd in the state (the exchanges,
+    gathers, sums and moves of halo.py and transpose.py carry the
+    gradient back), and for fst / fst_half in re: a float or a 0-d tensor
+    every rank holds alike, which enters each stage through
+    halo.replicate and reaches kernel 1 on the framed block (the kernel's
+    device-Re entry and its backward kernel).  The matmul form takes
+    cfg.re only, as the JAX package's make_padded_step_fn: a tensor re
+    raises."""
     if cfg.poisson not in CAVITY_POISSON:
         raise ValueError(
             f"poisson={cfg.poisson!r} does not run on a mesh; the sharded "
             f"cavity step runs {' | '.join(CAVITY_POISSON)} ('fst' / "
             "'fst_half': the pencil DST; 'auto' / 'matmul': the padded sine "
             "matmuls)")
+    fst = cfg.poisson in ("fst", "fst_half")
+    if isinstance(re, torch.Tensor) and not fst:
+        raise ValueError(
+            f"poisson={cfg.poisson!r} on a mesh takes cfg.re only, as the "
+            "JAX package's make_padded_step_fn; a tensor re runs with "
+            "poisson='fst' or 'fst_half'")
     device = _device(mesh, device)
     dtype = dtype or torch.float32
     if cfg.bc_order not in (1, 2):
         raise ValueError("bc_order must be 1 or 2")
     shape = mesh_lib.padded_shape((cfg.nx + 1, cfg.ny + 1), mesh)
     rows, cols = mesh_lib.block_slices(shape, mesh)
-    rhs = cavity.periodic_rhs(cfg, device)
+    re = cfg.re if re is None else re
 
     def frame(w, s):
         ext = halo.halo_exchange_periodic(torch.stack([w, s]), mesh, 2)
+        rhs = cavity.periodic_rhs(cfg, device, halo.replicate(re, mesh))
         return rhs(ext[0], ext[1])[2:-2, 2:-2], ext[1], 2
 
-    if cfg.poisson in ("fst", "fst_half"):
+    if fst:
         solve = direct.make_fst(
             cfg.nx, cfg.ny, cfg.dx, cfg.dy, dtype, device,
             impl="half" if cfg.poisson == "fst_half" else "rfft", mesh=mesh)

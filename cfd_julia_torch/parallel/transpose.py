@@ -34,6 +34,11 @@ once, when a step or a solve is built, and `move(x, plan)` only slices,
 exchanges and places.  A `Pencil` holds the two moves of a pencil
 transform: row slab -> column slab and back.  Rank k sits at flat
 position k and at mesh coordinate divmod(k, py) (mesh.make_mesh).
+
+Where autograd tracks x, `move` is differentiable: each element the
+target holds comes from one source element, so the backward is the plan's
+`inverse` (send and recv swapped, built with the plan), one all-to-all of
+the gradient; without grad the move is the plain code.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
+from torch.autograd.function import once_differentiable
 
 from cfd_julia_torch.parallel import halo
 from cfd_julia_torch.parallel import mesh as mesh_lib
@@ -146,13 +152,16 @@ class Plan(NamedTuple):
     on (None: all ranks); for each member of the group, the (rows, cols)
     slices of this rank's tensor that the member gets (`send`) and of the
     result that what it sends fills (`recv`), None where the two parts do
-    not meet; the trailing shape of the result; and `noop`, true where
-    the group is this rank alone and the two layouts coincide."""
+    not meet; the trailing shape of the result; `noop`, true where
+    the group is this rank alone and the two layouts coincide; and
+    `inverse`, the move back (send and recv swapped, to the source's
+    shape; its own inverse None), which the backward of `move` runs."""
     group: object
     send: tuple
     recv: tuple
     shape: tuple[int, int]
     noop: bool
+    inverse: "Plan | None" = None
 
 
 def plan(src: list[Part], dst: list[Part], mesh, group_axis=None) -> Plan:
@@ -176,15 +185,15 @@ def plan(src: list[Part], dst: list[Part], mesh, group_axis=None) -> Plan:
         rows, cols = _meet(src[k].rows, want.rows), _meet(src[k].cols,
                                                           want.cols)
         recv.append(_local(want, rows, cols) if rows and cols else None)
-    return Plan(group, tuple(send), tuple(recv), want.shape,
-                len(send) == 1 and mine == want)
+    noop = len(send) == 1 and mine == want
+    send, recv = tuple(send), tuple(recv)
+    # every element a layout holds is held by one rank, so the move is a
+    # permutation (less the padding): its inverse is its transpose
+    return Plan(group, send, recv, want.shape, noop,
+                Plan(group, recv, send, mine.shape, noop))
 
 
-def move(x, plan: Plan):
-    """x, this rank's tensor of a field in the plan's source layout, as
-    its tensor of the target layout.  Leading axes of x are a batch."""
-    if plan.noop:
-        return x
+def _move(x, plan: Plan):
     batch = tuple(x.shape[:-2])
     send = [None if s is None else x[(..., *s)] for s in plan.send]
     if len(send) == 1:
@@ -199,6 +208,33 @@ def move(x, plan: Plan):
         if r is not None:
             out[(..., *r)] = piece
     return out
+
+
+class _Move(torch.autograd.Function):
+    """move, whose backward is the inverse move of the gradient: what the
+    padding received (zeros) drops its gradient, and source padding that
+    was never sent gets zero."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return _move(x, plan)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _move(g, ctx.plan.inverse), None
+
+
+def move(x, plan: Plan):
+    """x, this rank's tensor of a field in the plan's source layout, as
+    its tensor of the target layout.  Leading axes of x are a batch.
+    Differentiable (_Move) where autograd tracks x."""
+    if plan.noop:
+        return x
+    if halo._tracked(x):
+        return _Move.apply(x, plan)
+    return _move(x, plan)
 
 
 def _rows_group(mesh, shape):

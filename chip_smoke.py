@@ -21,9 +21,12 @@ Phases, one line each:
      ensemble's, eight distinct Re), (2, 3, 1) and (3, 17, 33) in fp32 and
      fp64, two calls bitwise equal, a batch of one with a 0-d Re tensor
      bitwise the float Re call; its backward kernel (the adjoint: the
-     field gradients and each member's d/d re) at 1025^2, 2048^2 and the
-     batched shapes against its plain version, two calls bitwise equal;
-     the batched forward and the backward timed beside their bounds;
+     field gradients and each member's d/d re) at 1025^2, 2048^2, the
+     batched shapes and phase 19 (i)'s framed blocks (517^2 and 1029^2 of
+     the sharded cavity, 1026^2 and 2050^2 of the sharded fdm step)
+     against its plain version, two calls bitwise equal; the batched
+     forward and the backward timed beside their bounds, the backward in
+     fp32 and fp64 at 1025^2, 2048^2 and the framed blocks;
      the four multigrid kernels at 4097^2 fp32 (the 4096^2
      solve's finest level, sweeps 2) and at 129x65, 33x65, 5x5 and the
      ragged 131x67 and 301x261 in fp32, fp64 and bf16, the two level-edge
@@ -212,10 +215,27 @@ Phases, one line each:
      cavity with poisson="fst" and "fst_half" through
      cavity.make_step_fn(mesh=): one rank 100 steps against cavity:1024:100
      and the single-device step (1e-5 of max|psi|), 2x2 20 steps against
-     the one-rank run.  Seconds, peak memory a rank and the share of a
-     step its collectives (a-e) or its transposes (f-h) take when replayed
-     alone, beside the card's name and power limit; the 2x2 runs share
-     one card and are no scaling numbers.
+     the one-rank run; (i) gradients through the mesh steps in fp64, each
+     rank's loss halo.all_reduce_sum(local) and its .backward() on every
+     rank, with these groups: (i-1) on the one NCCL rank phase 16 (a)'s
+     cavity (1024^2, dt=2e-5, 50 steps from rest, d(1e6 mean psi^2)/dRe)
+     with poisson="fst" through make_step_fn(cfg, mesh=, re=<0-d tensor>)
+     against the single-device make_step_fn(cfg, re=) gradient (rel 1e-9)
+     and central FD (h=0.5, rtol 1e-4), d/d(initial w) within 1e-9 of
+     max|single-device|, 0 in the padding; fst_half the same over 10
+     steps; (i-2) both over 10 steps on 2x2 gloo ranks against the one
+     rank's 10-step gradients (rel 1e-9); (i-3) the fdm vortex at 2048^2,
+     d mean(w^2)/dRe over 10 SSP-RK3 steps through make_fdm_rhs(mesh=,
+     re=), on one rank and on 2x2, against the single-device gradient
+     (rel 1e-9); (i-4) ps23's half step at 2048^2 on one rank, 10 steps,
+     the directional derivative of sum(w^2) in the initial field against
+     the single-device one (rel 1e-9); on every rank as many kernel-1
+     backward (and Re-sum) launches as forward ones; seconds, peak memory
+     a rank and the share of the backward its collectives take replayed
+     alone; the whole of (i) within 90 s.  Seconds, peak memory a rank and
+     the share of a step its collectives (a-e) or its transposes (f-h)
+     take when replayed alone, beside the card's name and power limit;
+     the 2x2 runs share one card and are no scaling numbers.
 Then a JSON line with each kernel's record, and last
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 nonzero without that last line; without a GPU it fails at once.
@@ -233,6 +253,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -297,8 +318,10 @@ VORTEX_TWIN_TOL = 1e-4
 # slower than these.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-# dense bf16 on the tensor cores (the same data sheet)
+# dense bf16 on the tensor cores, and fp64 outside them (the same data
+# sheet)
 BF16_FLOP_PER_S = 989e12
+FP64_FLOP_PER_S = 34e12
 # flops a kernel needs per node, counted from its source: the 5-point
 # relaxation 12 (Laplacian 9, f - lap, / diag, +), the residual 10, the
 # restriction 19 a coarse node, the bilinear correction 3 on average, a
@@ -596,10 +619,18 @@ ENSEMBLE_RE = (600.0, 800.0, 1000.0, 1500.0, 2000.0, 3000.0, 5000.0,
 # part-filled last block on both axes)
 ARAKAWA_BATCHED = [(len(ENSEMBLE_RE), VORTEX_NX, VORTEX_NX), (2, 3, 1),
                    (3, 17, 33)]
-# its backward kernel: the cavity's and the vortex field's shapes, and the
-# batches; timed at the first three
+# its backward kernel: the cavity's and the vortex field's shapes, the
+# batches, and phase 19 (i)'s framed blocks (ARAKAWA_MESH: the sharded
+# cavity's on a 2x2 rank and on one rank; ARAKAWA_VORTEX_MESH: the sharded
+# fdm step's); timed at all but the ragged batches, at the single shapes
+# and the framed blocks in fp32 and fp64
 ARAKAWA_BACKWARD = [(NX + 1, NX + 1), (VORTEX_NX, VORTEX_NX),
-                    *ARAKAWA_BATCHED]
+                    *ARAKAWA_BATCHED, *ARAKAWA_MESH, *ARAKAWA_VORTEX_MESH]
+ARAKAWA_BACKWARD_TIMED = {
+    (NX + 1, NX + 1): "backward", (VORTEX_NX, VORTEX_NX): "at_2048",
+    ARAKAWA_BATCHED[0]: "at_batch", ARAKAWA_MESH[0]: "sharded",
+    ARAKAWA_MESH[1]: "sharded_world_1", ARAKAWA_VORTEX_MESH[0]:
+    "sharded_vortex", ARAKAWA_VORTEX_MESH[1]: "sharded_vortex_world_1"}
 # flops the backward needs a point, counted from its source: two
 # Jacobians (37 each), two Laplacians and their scalings (~22), the Re
 # gradient's product and sum
@@ -725,17 +756,20 @@ def phase_arakawa_batched():
                     f"{[float(x) for x in got[2].reshape(-1)]} vs the plain "
                     f"version's, err {re_err:.3e} ({re_tol}); two calls "
                     f"bitwise equal: {same}")
-            key = {ARAKAWA_BACKWARD[0]: "backward",
-                   ARAKAWA_BACKWARD[1]: "at_2048",
-                   ARAKAWA_BATCHED[0]: "at_batch"}.get(shape)
-            if key is not None and dtype == torch.float32:
+            key = ARAKAWA_BACKWARD_TIMED.get(shape)
+            if key is not None and (dtype == torch.float32
+                                    or len(shape) == 2):
+                if dtype == torch.float64:
+                    key += "_fp64"
                 ms, call_ms = median_ms(
                     lambda: ck.arakawa_rhs_backward(w, s, g, dx, dy, re))
                 plain_ms, _ = median_ms(
                     lambda: ck.arakawa_rhs_backward_plain(w, s, g, dx, dy,
                                                           re), reps=10)
                 b = bound(nbytes(w, s, g, got[0], got[1]),
-                          FLOPS_ARAKAWA_BACKWARD * w.numel(), ms)
+                          FLOPS_ARAKAWA_BACKWARD * w.numel(), ms,
+                          FP64_FLOP_PER_S if dtype == torch.float64
+                          else FP32_FLOP_PER_S)
                 line += (f"; device time: kernel {ms:.4f} ms (bound "
                          f"{b['bound_ms']:.4f} ms by {b['bound_by']}: 5 "
                          f"fields, {100 * b['share_of_bound']:.1f}% of it), "
@@ -755,8 +789,14 @@ def phase_arakawa_batched():
                 "source": "cfd_julia_torch/csrc/arakawa_rhs.cu",
                 "replaces": ("cfd_julia_tpu/ops/arakawa.py:57 (jax.grad of "
                              "the XLA RHS; the TPU kernel has no backward)"),
-                **timed["backward"], "at_2048": timed["at_2048"],
-                "at_batch": timed["at_batch"]}
+                **timed["backward"], "fp64": timed["backward_fp64"],
+                "at_2048": timed["at_2048"], "at_batch": timed["at_batch"]}
+    # phase 19 (i)'s framed blocks, each with its fp64 timing and its
+    # one-rank shape under "world_1"
+    for key in ("sharded", "sharded_vortex"):
+        backward[key] = {**timed[key], "fp64": timed[f"{key}_fp64"],
+                         "world_1": {**timed[f"{key}_world_1"],
+                                     "fp64": timed[f"{key}_world_1_fp64"]}}
     return {"batched": timed["batched"], "backward": backward}
 
 
@@ -3972,6 +4012,266 @@ def mesh_cavity_fst(device, mesh, steps):
     return out
 
 
+# phase 19 (i): gradients through the mesh steps, fp64.  One rank: the fst
+# cavity over phase 16 (a)'s 50 steps (and 10, for the 2x2 runs to meet);
+# everything else 10 steps.  Central differences of the loss in Re with
+# phase 16's step
+MESH_GRAD_STEPS = GRAD_CAVITY_STEPS
+MESH_GRAD_SHORT = GRAD_VORTEX_STEPS
+MESH_GRAD_H = 0.5
+MESH_GRAD_BUDGET_S = 90.0
+GRAD_REPLAY_REPS = 5
+# the bodies of the collectives that the autograd Functions of
+# parallel/halo.py and parallel/transpose.py run in their backward
+BACKWARD_COLLECTIVES = {"halo": ("_shift", "_reduce_scatter",
+                                 "_sum_over_ranks"),
+                        "transpose": ("_move",)}
+
+
+class Blank(NamedTuple):
+    """A recorded call's tensor argument: what a replay makes zeros of."""
+    shape: tuple
+    dtype: torch.dtype
+    device: torch.device
+
+
+@contextlib.contextmanager
+def recorded_collectives(calls):
+    """Append each call of BACKWARD_COLLECTIVES made inside to `calls`, as
+    (function, arguments with every tensor a Blank)."""
+    from cfd_julia_torch.parallel import halo, transpose
+
+    saved = []
+    for mod in (halo, transpose):
+        for name in BACKWARD_COLLECTIVES[mod.__name__.rsplit(".", 1)[1]]:
+            real = getattr(mod, name)
+
+            def spy(*args, real=real):
+                calls.append((real, [
+                    Blank(tuple(a.shape), a.dtype, a.device)
+                    if isinstance(a, torch.Tensor) else a for a in args]))
+                return real(*args)
+
+            setattr(mod, name, spy)
+            saved.append((mod, name, real))
+    try:
+        yield
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def replay_calls_ms(calls):
+    """ms of the recorded collectives replayed alone on zero tensors: the
+    median of GRAD_REPLAY_REPS replays after a warm one (0 for none).  The
+    median: the 2x2 ranks share the host, whose other work makes single
+    replays slower by up to twice."""
+    if not calls:
+        return 0.0
+    bufs = [(fn, [torch.zeros(a.shape, dtype=a.dtype, device=a.device)
+                  if isinstance(a, Blank) else a for a in args])
+            for fn, args in calls]
+
+    def once():
+        for fn, args in bufs:
+            fn(*args)
+        torch.cuda.synchronize()
+
+    once()
+    times = []
+    for _ in range(GRAD_REPLAY_REPS):
+        t0 = time.perf_counter()
+        once()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def grad_run(forward):
+    """forward() (the loss, replicated on every rank) and its .backward(),
+    the kernels' counts set to 0 before each: the loss, the forward's and
+    the backward's launches, seconds of both, the backward's ms, the peak
+    device memory, and the backward's collectives (their number, and ms
+    replayed alone)."""
+    from cfd_julia_torch.ops import cuda_kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = forward()
+    torch.cuda.synchronize()
+    rec = {"loss": float(loss.detach()),
+           "forward": dict(cuda_kernels.LAUNCHES)}
+    cuda_kernels.reset_launch_counts()
+    calls = []
+    t1 = time.perf_counter()
+    with recorded_collectives(calls):
+        loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rec.update(backward=dict(cuda_kernels.LAUNCHES), seconds=t2 - t0,
+               backward_ms=1e3 * (t2 - t1),
+               peak=torch.cuda.max_memory_allocated(),
+               collectives=len(calls), collective_ms=replay_calls_ms(calls))
+    return rec
+
+
+def grad_cavity_cfg(poisson):
+    """Phase 16 (a)'s cavity with another Poisson solve."""
+    from cfd_julia_torch.models import cavity
+
+    return cavity.CavityConfig(nx=NX, ny=NX, dt=2e-5, re=RE, bc_order=2,
+                               poisson=poisson)
+
+
+def grad_direction(n, device, dtype=torch.float64):
+    """Phase 16 (c)'s seeded direction in the initial field."""
+    return torch.as_tensor(np.random.default_rng(11).standard_normal(
+        (n, n)), dtype=dtype, device=device)
+
+
+def mesh_gradients(device, mesh):
+    """(i) on this rank, fp64, each loss replicated by halo.all_reduce_sum
+    and its .backward() run on every rank: the cavity's d(1e6 mean
+    psi^2)/dRe and d/d(initial w) through make_step_fn(mesh=, re=<0-d
+    tensor>), fst over MESH_GRAD_STEPS and MESH_GRAD_SHORT steps (one rank)
+    or MESH_GRAD_SHORT (2x2), fst_half over MESH_GRAD_SHORT, and on one
+    rank their central differences; the fdm vortex's d mean(w^2)/dRe
+    through make_fdm_rhs(mesh=, re=); on one rank ps23's directional
+    derivative of sum(w^2) in the initial field."""
+    from cfd_julia_torch.models import cavity, vortex
+    from cfd_julia_torch.parallel import halo, sharded
+    from cfd_julia_torch.parallel import mesh as mesh_lib
+    from cfd_julia_torch.stepping import ssprk3
+
+    f64 = torch.float64
+    one = mesh_lib.world_size(mesh) == 1
+    shape = mesh_lib.padded_shape((NX + 1, NX + 1), mesh)
+    n_nodes = float((NX + 1) ** 2)
+
+    def cavity_run(poisson, steps, re_value, grad=True):
+        re = torch.tensor(re_value, dtype=f64, device=device,
+                          requires_grad=grad)
+        step = cavity.make_step_fn(grad_cavity_cfg(poisson), f64, device,
+                                   re=re, mesh=mesh)
+        w0 = sharded.place(torch.zeros(shape, dtype=f64, device=device),
+                           mesh).requires_grad_(grad)
+
+        def forward():
+            st = (w0, torch.zeros_like(w0),
+                  torch.zeros((), dtype=f64, device=device))
+            for _ in range(steps):
+                st = step(st)
+            return 1e6 * halo.all_reduce_sum((st[1] ** 2).sum()) / n_nodes
+
+        if not grad:
+            with torch.no_grad():
+                return float(forward())
+        rec = grad_run(forward)
+        rec.update(re_grad=float(re.grad),
+                   w_grad=sharded.gather(w0.grad, mesh).cpu())
+        return rec
+
+    out = {"cavity": {}}
+    runs = [("fst", MESH_GRAD_SHORT), ("fst_half", MESH_GRAD_SHORT)]
+    if one:
+        runs.insert(0, ("fst", MESH_GRAD_STEPS))
+    for poisson, steps in runs:
+        rec = cavity_run(poisson, steps, RE)
+        if one and (poisson, steps) != ("fst", MESH_GRAD_SHORT):
+            rec["fd"] = (cavity_run(poisson, steps, RE + MESH_GRAD_H, False)
+                         - cavity_run(poisson, steps, RE - MESH_GRAD_H,
+                                      False)) / (2 * MESH_GRAD_H)
+        out["cavity"][(poisson, steps)] = rec
+        torch.cuda.empty_cache()
+
+    cfg = vortex_mesh_cfg("fdm")
+    re = torch.tensor(cfg.re, dtype=f64, device=device, requires_grad=True)
+    rhs = vortex.make_fdm_rhs(cfg, f64, device, re=re, mesh=mesh)
+    w0 = sharded.place(vortex.initial_vorticity(cfg, f64, device), mesh)
+
+    def fdm_forward():
+        w = w0
+        for _ in range(MESH_GRAD_SHORT):
+            w = ssprk3.ssprk3_step(rhs, w, cfg.dt)
+        return halo.all_reduce_sum((w ** 2).sum()) / (cfg.nx * cfg.ny)
+
+    out["fdm"] = grad_run(fdm_forward)
+    out["fdm"]["re_grad"] = float(re.grad)
+    del rhs, w0
+    torch.cuda.empty_cache()
+    if one:
+        cfg = vortex_mesh_cfg("ps23")
+        n = cfg.nx
+        step = vortex.make_spectral_step_half(cfg, f64, device, mesh=mesh)
+        w0 = mesh_lib.place_slab(vortex.initial_vorticity(cfg, f64, device),
+                                 mesh).requires_grad_()
+
+        def ps23_forward():
+            h = vortex.half_init(w0, mesh)
+            for _ in range(MESH_GRAD_SHORT):
+                h = step(h)
+            return halo.all_reduce_sum(
+                (vortex.half_decode(h, n, n, mesh) ** 2).sum())
+
+        out["ps23"] = grad_run(ps23_forward)
+        v = mesh_lib.place_slab(grad_direction(n, device), mesh)
+        with torch.no_grad():
+            out["ps23"]["directional"] = float(
+                halo.all_reduce_sum((w0.grad * v).sum()))
+        del step, w0, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def single_gradients(dev="cuda"):
+    """The single-device fp64 gradients phase 19 (i) is held against, on
+    the card: the cavity's (fst over MESH_GRAD_STEPS, fst_half over
+    MESH_GRAD_SHORT steps: d loss/dRe and d loss/d(initial w)), fdm's
+    d mean(w^2)/dRe and ps23's directional derivative, each loss as
+    mesh_gradients's."""
+    from cfd_julia_torch.models import cavity, vortex
+    from cfd_julia_torch.stepping import ssprk3
+
+    f64 = torch.float64
+    out = {}
+    t0 = time.perf_counter()
+    for poisson, steps in [("fst", MESH_GRAD_STEPS),
+                           ("fst_half", MESH_GRAD_SHORT)]:
+        cfg = grad_cavity_cfg(poisson)
+        re = torch.tensor(RE, dtype=f64, device=dev, requires_grad=True)
+        step = cavity.make_step_fn(cfg, f64, dev, re=re)
+        st = cavity.initial_state(cfg, f64, dev)
+        w0 = st[0].clone().requires_grad_()
+        st = (w0, *st[1:])
+        for _ in range(steps):
+            st = step(st)
+        (1e6 * (st[1] ** 2).sum() / float((NX + 1) ** 2)).backward()
+        out[poisson] = {"re_grad": float(re.grad), "w_grad": w0.grad.cpu()}
+        del step, st, w0
+    cfg = vortex_mesh_cfg("fdm")
+    re = torch.tensor(cfg.re, dtype=f64, device=dev, requires_grad=True)
+    rhs = vortex.make_fdm_rhs(cfg, f64, dev, re=re)
+    w = vortex.initial_vorticity(cfg, f64, dev)
+    for _ in range(MESH_GRAD_SHORT):
+        w = ssprk3.ssprk3_step(rhs, w, cfg.dt)
+    ((w ** 2).sum() / (cfg.nx * cfg.ny)).backward()
+    out["fdm"] = float(re.grad)
+    del rhs, w
+    cfg = vortex_mesh_cfg("ps23")
+    step = vortex.make_spectral_step_half(cfg, f64, dev)
+    w0 = vortex.initial_vorticity(cfg, f64, dev).requires_grad_()
+    h = vortex.half_init(w0)
+    for _ in range(MESH_GRAD_SHORT):
+        h = step(h)
+    (vortex.half_decode(h, cfg.nx, cfg.ny) ** 2).sum().backward()
+    out["ps23"] = float((w0.grad * grad_direction(cfg.nx, dev)).sum())
+    del step, w0, h
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def mesh_rank(device, steps, save_to, load_from):
     """One rank of phase 19 (run by parallel/launch.py): the sharded 1024^2
     cavity for `steps` steps, psi gathered at step 100 and at the end, the
@@ -4066,6 +4366,10 @@ def mesh_rank(device, steps, save_to, load_from):
     out["cavity_fst"] = mesh_cavity_fst(
         device, mesh, MESH_CAVITY_ONE if one else MESH_CAVITY_QUAD)
     out["cavity_fst_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["grad"] = mesh_gradients(device, mesh)
+    out["grad_s"] = time.perf_counter() - t0
     return out
 
 
@@ -4215,6 +4519,7 @@ def phase_mesh():
         print(proc.stderr[-4000:])
     check(ok, line)
     vortex_launches = phase_mesh_spectral(one, quad, card, gb)
+    grad_launches = phase_mesh_gradients(one, quad, card, gb)
     print(f"phase 19 multi-device: 2x2 group {quad_s:.2f} s (its (g) "
           f"{max(r['vortex_s'] for r in quad):.2f} s, (h) "
           f"{max(r['cavity_fst_s'] for r in quad):.2f} s), world-1 group "
@@ -4222,7 +4527,132 @@ def phase_mesh():
           f"{one['cavity_fst_s']:.2f} s), phase "
           f"{time.perf_counter() - t_phase:.2f} s; {card}")
     return ([r["launches"]["arakawa_rhs"] for r in quad],
-            one["launches"]["arakawa_rhs"], vortex_launches)
+            one["launches"]["arakawa_rhs"], vortex_launches, grad_launches)
+
+
+def phase_mesh_gradients(one, quad, card, gb, device="cuda"):
+    """Phase 19 (i) from the two groups' results (mesh_gradients), against
+    the single-device gradients run here.  Returns the kernel-1 backward
+    launches of each 2x2 rank and of world 1, for the cavity and fdm."""
+    single = single_gradients(device)
+    n = NX + 1
+
+    def launches_ok(rec, steps):
+        f, b = rec["forward"], rec["backward"]
+        return (f["arakawa_rhs"] == 3 * steps
+                and b["arakawa_rhs_backward"] == f["arakawa_rhs"]
+                and b["arakawa_re_grad"] == f["arakawa_rhs"])
+
+    def cost(rec):
+        share = rec["collective_ms"] / rec["backward_ms"]
+        return (f"{rec['seconds']:.3f} s forward and backward (backward "
+                f"{rec['backward_ms']:.2f} ms, its {rec['collectives']} "
+                f"collectives replayed alone {rec['collective_ms']:.2f} ms, "
+                f"{share:.1%}), peak {gb(rec['peak'])}; launches forward "
+                f"{rec['forward']['arakawa_rhs']} arakawa_rhs, backward "
+                f"{rec['backward']['arakawa_rhs_backward']} "
+                f"arakawa_rhs_backward and {rec['backward']['arakawa_re_grad']}"
+                f" arakawa_re_grad")
+
+    def field_err(got, ref):
+        """max|got - ref| over the logical nodes, over max|ref|, and the
+        largest |got| on the padding."""
+        pad = max((float(t.abs().max()) for t in (got[n:], got[:, n:])
+                   if t.numel()), default=0.0)
+        return float((got[:n, :n] - ref).abs().max()
+                     / ref.abs().max()), pad
+
+    # (i-1) one NCCL rank against the single-device gradients and FD
+    g1 = one["grad"]
+    for poisson, steps in [("fst", MESH_GRAD_STEPS),
+                           ("fst_half", MESH_GRAD_SHORT)]:
+        rec, ref = g1["cavity"][(poisson, steps)], single[poisson]
+        rel = abs(rec["re_grad"] - ref["re_grad"]) / abs(ref["re_grad"])
+        rel_fd = abs(rec["re_grad"] - rec["fd"]) / abs(rec["fd"])
+        w_err, pad = field_err(rec["w_grad"], ref["w_grad"])
+        ok = (rel <= 1e-9 and rel_fd <= 1e-4 and w_err <= 1e-9
+              and pad == 0.0 and launches_ok(rec, steps)
+              and one["backend"] == "nccl")
+        line = (f"phase 19 (i-1) cavity gradient {NX}^2 fp64 poisson="
+                f"{poisson}, make_step_fn(mesh=, re=<0-d tensor>), world 1 "
+                f"{one['mesh']}, {steps} steps from rest: d(1e6 mean "
+                f"psi^2)/dRe = {rec['re_grad']!r}, single-device "
+                f"{ref['re_grad']!r} (rel {rel:.2e}, tol 1e-9), central FD "
+                f"h={MESH_GRAD_H:g} {rec['fd']!r} (rel {rel_fd:.2e}, tol "
+                f"1e-4); d/d(initial w) within {w_err:.2e} of max|single| "
+                f"{float(ref['w_grad'].abs().max()):.6g} (tol 1e-9), padding "
+                f"{pad:g}; {cost(rec)}; {card} {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+
+    # (i-2) 2x2 gloo ranks against the one rank's 10-step gradients
+    for poisson in ("fst", "fst_half"):
+        ref = g1["cavity"][(poisson, MESH_GRAD_SHORT)]
+        for rank, r in enumerate(quad):
+            rec = r["grad"]["cavity"][(poisson, MESH_GRAD_SHORT)]
+            rel = abs(rec["re_grad"] - ref["re_grad"]) / abs(ref["re_grad"])
+            w_err, pad = field_err(rec["w_grad"], ref["w_grad"])
+            ok = (rel <= 1e-9 and w_err <= 1e-9 and pad == 0.0
+                  and launches_ok(rec, MESH_GRAD_SHORT)
+                  and r["backend"] == "gloo")
+            line = (f"phase 19 (i-2) cavity gradient {NX}^2 fp64 poisson="
+                    f"{poisson}, rank {rank} of {r['mesh']} on one card "
+                    f"({r['transport']}), {MESH_GRAD_SHORT} steps: dRe "
+                    f"{rec['re_grad']!r}, world 1 {ref['re_grad']!r} (rel "
+                    f"{rel:.2e}, tol 1e-9); d/d(initial w) within "
+                    f"{w_err:.2e} of max|world 1| (tol 1e-9), padding "
+                    f"{pad:g}; {cost(rec)}; {card} {'ok' if ok else 'FAIL'}")
+            print(line)
+            check(ok, line)
+
+    # (i-3) fdm on one rank and on 2x2 against the single-device gradient
+    for label, r in [("world 1", one), *((f"rank {k} of 2x2", q)
+                                         for k, q in enumerate(quad))]:
+        rec = r["grad"]["fdm"]
+        rel = abs(rec["re_grad"] - single["fdm"]) / abs(single["fdm"])
+        ok = rel <= 1e-9 and launches_ok(rec, MESH_GRAD_SHORT)
+        line = (f"phase 19 (i-3) fdm gradient {VORTEX_NX}^2 fp64, "
+                f"make_fdm_rhs(mesh=, re=<0-d tensor>), {label} {r['mesh']} "
+                f"({r['transport']}), {MESH_GRAD_SHORT} SSP-RK3 steps: d "
+                f"mean(w^2)/dRe = {rec['re_grad']!r}, single-device "
+                f"{single['fdm']!r} (rel {rel:.2e}, tol 1e-9); {cost(rec)}; "
+                f"{card} {'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+
+    # (i-4) ps23's half step on one rank
+    rec = g1["ps23"]
+    rel = abs(rec["directional"] - single["ps23"]) / abs(single["ps23"])
+    ok = rel <= 1e-9 and math.isfinite(rec["directional"])
+    line = (f"phase 19 (i-4) ps23 gradient {VORTEX_NX}^2 fp64, "
+            f"make_spectral_step_half(mesh=), world 1, {MESH_GRAD_SHORT} "
+            f"steps: the directional derivative of sum(w^2) in the initial "
+            f"field along phase 16 (c)'s direction {rec['directional']!r}, "
+            f"single-device {single['ps23']!r} (rel {rel:.2e}, tol 1e-9); "
+            f"{rec['seconds']:.3f} s forward and backward, peak "
+            f"{gb(rec['peak'])}; {card} {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+    quad_s = max(r["grad_s"] for r in quad)
+    total = one["grad_s"] + quad_s + single["seconds"]
+    ok = total <= MESH_GRAD_BUDGET_S
+    line = (f"phase 19 (i) gradients: {total:.2f} s (world 1 "
+            f"{one['grad_s']:.2f} s, 2x2 {quad_s:.2f} s, the single-device "
+            f"references {single['seconds']:.2f} s; budget "
+            f"{MESH_GRAD_BUDGET_S:g} s); {card} {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+
+    def backward_launches(r, kind):
+        recs = (r["grad"]["cavity"].values() if kind == "cavity"
+                else [r["grad"]["fdm"]])
+        return {name: sum(rec["backward"][name] for rec in recs)
+                for name in ("arakawa_rhs_backward", "arakawa_re_grad")}
+
+    return {kind: ([backward_launches(r, kind) for r in quad],
+                   backward_launches(one, kind))
+            for kind in ("cavity", "fdm")}
 
 
 def single_vortex(solver, steps, device="cuda"):
@@ -4458,8 +4888,8 @@ def main(argv=None):
     grad_launches = phase_gradients()
     packed_launches = phase_packed_gradients(grad_launches["cavity_grad"])
     phase_user_surface()
-    mesh_launches, mesh_launches_one, (vortex_one, vortex_quad) = \
-        phase_mesh()
+    mesh_launches, mesh_launches_one, (vortex_one, vortex_quad), \
+        mesh_grad_launches = phase_mesh()
 
     record["launches"] = launches[record["name"]]
     record["path"] = f"cavity {NX}^2, {STEPS_TOTAL} steps"
@@ -4500,6 +4930,28 @@ def main(argv=None):
     backward["at_batch"]["path"] = (
         f"fdm ensemble {len(GRAD_ENSEMBLE_RE)} x {VORTEX_NX}^2 fp64 "
         f"gradient, {GRAD_VORTEX_STEPS} steps")
+    # phase 19 (i): the backward on each rank's framed block
+    for key, kind, path, path_one in [
+            ("sharded", "cavity",
+             f"cavity {NX}^2 fp64 gradients (fst, fst_half), "
+             f"{MESH_GRAD_SHORT} steps each on each of {MESH_RANKS} ranks "
+             f"(2x2, one card, gloo)",
+             f"cavity {NX}^2 fp64 gradients, one rank (NCCL): fst "
+             f"{MESH_GRAD_STEPS} and {MESH_GRAD_SHORT} steps, fst_half "
+             f"{MESH_GRAD_SHORT}"),
+            ("sharded_vortex", "fdm",
+             f"fdm vortex {VORTEX_NX}^2 fp64 gradient, {MESH_GRAD_SHORT} "
+             f"steps on each of {MESH_RANKS} ranks (2x2, one card, gloo)",
+             f"fdm vortex {VORTEX_NX}^2 fp64 gradient, {MESH_GRAD_SHORT} "
+             f"steps, one rank (NCCL)")]:
+        quad_l, one_l = mesh_grad_launches[kind]
+        backward[key].update(
+            launches=[q["arakawa_rhs_backward"] for q in quad_l],
+            re_grad_launches=[q["arakawa_re_grad"] for q in quad_l],
+            path=path)
+        backward[key]["world_1"].update(
+            launches=one_l["arakawa_rhs_backward"],
+            re_grad_launches=one_l["arakawa_re_grad"], path=path_one)
     for name, rec in mg_records.items():
         variant = "fmg" if name == "residual_restrict" else "fused"
         rec["launches"] = mg_counts[variant][name]
