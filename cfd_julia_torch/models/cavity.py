@@ -138,16 +138,16 @@ def _wall_bc_fields(s, dx: float, dy: float, order: int, halo: int = 0):
             (-4.0 * at(0, -1) + 0.5 * at(0, -2)) / dy**2 - 3.0 / dy)
 
 
-def periodic_rhs(cfg: CavityConfig, device, re=None):
-    """rhs(w, s): the periodic vorticity RHS over a field's last two axes,
-    kernel 1 (cuda_kernels.arakawa_rhs_fused) or its twin by cfg.rhs_impl
-    resolved on `device`.  re: cfg.re (None), a float, or a 0-d tensor,
+def periodic_rhs(cfg: CavityConfig, device):
+    """rhs(w, s, re=cfg.re): the periodic vorticity RHS over a field's
+    last two axes, kernel 1 (cuda_kernels.arakawa_rhs_fused) or its twin
+    by cfg.rhs_impl resolved on `device`.  re: a float, or a 0-d tensor,
     which kernel 1 reads from device memory and differentiates in."""
-    re = cfg.re if re is None else re
     if precision.resolve_rhs_impl(cfg.rhs_impl, device) == "kernel":
-        return lambda w, s: cuda_kernels.arakawa_rhs_fused(
+        return lambda w, s, re=cfg.re: cuda_kernels.arakawa_rhs_fused(
             w, s, cfg.dx, cfg.dy, re)
-    return lambda w, s: arakawa.vorticity_rhs(w, s, cfg.dx, cfg.dy, re)
+    return lambda w, s, re=cfg.re: arakawa.vorticity_rhs(
+        w, s, cfg.dx, cfg.dy, re)
 
 
 def padded_step(cfg: CavityConfig, i, j, frame, solve, total):

@@ -18,10 +18,10 @@ through host memory (`host_staged`).  That is how several ranks share one
 GPU, where NCCL refuses two ranks on the same device.  The choice is made
 from the backend, never on an error.
 
-Gradients: where autograd tracks an input, each collective runs as an
-autograd Function whose backward is its transpose (the JAX package's
-transposes of ppermute, all_gather, psum and pbroadcast), its messages
-staged as the forward's; without grad the forward is the plain code.  A
+Gradients: each collective runs as an autograd Function whose backward
+is its transpose (the JAX package's transposes of ppermute, all_gather,
+psum and pbroadcast), its messages staged as the forward's; without grad
+the Function's forward is the whole of the call, the same code.  A
 halo's gradient goes back to the rank it came from; a gather's is summed
 over the axis (a reduce-scatter); all_reduce_sum's replicated output
 passes its cotangent through; `replicate` (the identity) sums it over
@@ -61,13 +61,6 @@ def transport(mesh, device) -> str:
 
 def _stage(t, staged):
     return t.contiguous().cpu() if staged else t.contiguous()
-
-
-def _tracked(*tensors) -> bool:
-    """True where autograd records an op on these tensors: only then does
-    a collective run as its autograd Function (the forward is the same
-    code either way, so a run without grad is unchanged)."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _shift(up, down, mesh, axis):
@@ -121,9 +114,7 @@ def _edges_from_neighbours(ul, mesh, axis, dim: int, width: int):
     hi_edge = ul.narrow(dim, ul.shape[dim] - width, width)
     if mesh_lib.axis_size(mesh, axis) == 1:
         return hi_edge, lo_edge
-    if _tracked(ul):
-        return _Halos.apply(lo_edge, hi_edge, mesh, axis)
-    return _shift(hi_edge, lo_edge, mesh, axis)
+    return _Halos.apply(lo_edge, hi_edge, mesh, axis)
 
 
 def halo_exchange_periodic(ul, mesh, width: int = 1,
@@ -198,10 +189,7 @@ def all_gather_axis(t, mesh, axis, dim: int):
     n = mesh_lib.axis_size(mesh, axis)
     if n == 1:
         return t
-    group = mesh.get_group(axis)
-    if _tracked(t):
-        return _Gather.apply(t, group, n, dim)
-    return _gather(t, group, n, dim)
+    return _Gather.apply(t, mesh.get_group(axis), n, dim)
 
 
 def _sum_over_ranks(t):
@@ -231,9 +219,7 @@ def all_reduce_sum(t):
     replicated.  A rank's loss is all_reduce_sum(local.sum()); its
     .backward() on every rank leaves each rank its own share of the
     gradient, which `replicate` sums where a replicated leaf entered."""
-    if _tracked(t):
-        return _AllReduceSum.apply(t)
-    return _sum_over_ranks(t)
+    return _AllReduceSum.apply(t)
 
 
 class _Replicate(torch.autograd.Function):
@@ -255,9 +241,8 @@ def replicate(t, mesh):
     tensor Re), as it enters this rank's local work: the identity, and in
     the backward the sum over the mesh's ranks of the local gradients, so
     that every rank holds the whole gradient of the global loss.  t itself
-    on one rank, for a number, or where autograd does not track it."""
-    if (not isinstance(t, torch.Tensor) or mesh_lib.world_size(mesh) == 1
-            or not _tracked(t)):
+    on one rank or for a number."""
+    if not isinstance(t, torch.Tensor) or mesh_lib.world_size(mesh) == 1:
         return t
     return _Replicate.apply(t)
 

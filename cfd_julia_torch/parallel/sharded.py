@@ -150,11 +150,12 @@ def make_sharded_cavity_step(cfg, mesh, dtype=None, device=None, re=None):
     shape = mesh_lib.padded_shape((cfg.nx + 1, cfg.ny + 1), mesh)
     rows, cols = mesh_lib.block_slices(shape, mesh)
     re = cfg.re if re is None else re
+    rhs = cavity.periodic_rhs(cfg, device)
 
     def frame(w, s):
         ext = halo.halo_exchange_periodic(torch.stack([w, s]), mesh, 2)
-        rhs = cavity.periodic_rhs(cfg, device, halo.replicate(re, mesh))
-        return rhs(ext[0], ext[1])[2:-2, 2:-2], ext[1], 2
+        return (rhs(ext[0], ext[1], halo.replicate(re, mesh))[2:-2, 2:-2],
+                ext[1], 2)
 
     if fst:
         solve = direct.make_fst(

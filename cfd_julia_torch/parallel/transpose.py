@@ -35,10 +35,9 @@ exchanges and places.  A `Pencil` holds the two moves of a pencil
 transform: row slab -> column slab and back.  Rank k sits at flat
 position k and at mesh coordinate divmod(k, py) (mesh.make_mesh).
 
-Where autograd tracks x, `move` is differentiable: each element the
-target holds comes from one source element, so the backward is the plan's
-`inverse` (send and recv swapped, built with the plan), one all-to-all of
-the gradient; without grad the move is the plain code.
+`move` is differentiable: each element the target holds comes from one
+source element, so the backward is the plan's `inverse` (send and recv
+swapped, built with the plan), one all-to-all of the gradient.
 """
 from __future__ import annotations
 
@@ -229,12 +228,10 @@ class _Move(torch.autograd.Function):
 def move(x, plan: Plan):
     """x, this rank's tensor of a field in the plan's source layout, as
     its tensor of the target layout.  Leading axes of x are a batch.
-    Differentiable (_Move) where autograd tracks x."""
+    Differentiable (_Move)."""
     if plan.noop:
         return x
-    if halo._tracked(x):
-        return _Move.apply(x, plan)
-    return _move(x, plan)
+    return _Move.apply(x, plan)
 
 
 def _rows_group(mesh, shape):

@@ -3783,7 +3783,13 @@ def cavity_comm_ms(mesh, shape, device):
 MESH_VORTEX_CHECK = 10
 MESH_PS23_FULL = 20
 MESH_CAVITY_ONE, MESH_CAVITY_QUAD = 100, 20
-MESH_REPLAY_REPS = 3
+REPLAY_REPS = 5
+# the bodies of the collectives of parallel/halo.py and
+# parallel/transpose.py, which their autograd Functions run forward and
+# backward: (f)-(h) replay a step's transposes, (i) a backward's all
+COLLECTIVES = {"halo": ("_shift", "_reduce_scatter", "_sum_over_ranks"),
+               "transpose": ("_move",)}
+TRANSPOSES = {"transpose": ("_move",)}
 # eager steps of a one-rank mesh step and of the single-device step timed
 # and profiled for their device time, side by side
 MESH_PROFILE_STEPS = 5
@@ -3796,45 +3802,73 @@ def vortex_mesh_cfg(solver):
                                dt=1e-3, re=1000.0)
 
 
-def record_moves(step, state):
-    """The transposes (parallel/transpose.move calls) of one step of
-    `step` from `state`, as (shape, dtype, args, kwargs) to replay."""
-    from cfd_julia_torch.parallel import transpose
+class Blank(NamedTuple):
+    """A recorded call's tensor argument: what a replay makes zeros of."""
+    shape: tuple
+    dtype: torch.dtype
+    device: torch.device
 
-    real, seen = transpose.move, []
 
-    def spy(x, *args, **kwargs):
-        seen.append((tuple(x.shape), x.dtype, args, kwargs))
-        return real(x, *args, **kwargs)
+@contextlib.contextmanager
+def recorded_collectives(calls, names=COLLECTIVES):
+    """Append each call made inside of the functions `names` ({module of
+    parallel/: function names}) to `calls`, as (function, arguments with
+    every tensor a Blank)."""
+    from cfd_julia_torch.parallel import halo, transpose
 
-    transpose.move = spy
+    saved = []
+    for mod in (halo, transpose):
+        for name in names.get(mod.__name__.rsplit(".", 1)[1], ()):
+            real = getattr(mod, name)
+
+            def spy(*args, real=real):
+                calls.append((real, [
+                    Blank(tuple(a.shape), a.dtype, a.device)
+                    if isinstance(a, torch.Tensor) else a for a in args]))
+                return real(*args)
+
+            setattr(mod, name, spy)
+            saved.append((mod, name, real))
     try:
-        step(state)
+        yield
     finally:
-        transpose.move = real
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def recorded_moves(step, state):
+    """The transposes (the parallel/transpose._move calls) of one step of
+    `step` from `state`, recorded_collectives's way."""
+    calls = []
+    with recorded_collectives(calls, TRANSPOSES):
+        step(state)
     torch.cuda.synchronize()
-    return seen
+    return calls
 
 
-def replay_ms(moves, device):
-    """ms of one step's transposes replayed alone on zero tensors of their
-    shapes: the mean of MESH_REPLAY_REPS replays after a warm one."""
-    from cfd_julia_torch.parallel import transpose
-
-    bufs = [(torch.zeros(shape, dtype=dtype, device=device), args, kwargs)
-            for shape, dtype, args, kwargs in moves]
+def replay_calls_ms(calls):
+    """ms of the recorded collectives replayed alone on zero tensors: the
+    median of REPLAY_REPS replays after a warm one (0 for none).  The
+    median: the 2x2 ranks share the host, whose other work makes single
+    replays slower by up to twice."""
+    if not calls:
+        return 0.0
+    bufs = [(fn, [torch.zeros(a.shape, dtype=a.dtype, device=a.device)
+                  if isinstance(a, Blank) else a for a in args])
+            for fn, args in calls]
 
     def once():
-        for x, args, kwargs in bufs:
-            transpose.move(x, *args, **kwargs)
+        for fn, args in bufs:
+            fn(*args)
+        torch.cuda.synchronize()
 
     once()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(MESH_REPLAY_REPS):
+    times = []
+    for _ in range(REPLAY_REPS):
+        t0 = time.perf_counter()
         once()
-    torch.cuda.synchronize()
-    return 1e3 * (time.perf_counter() - t0) / MESH_REPLAY_REPS
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
 
 
 def eager_step_times(step, state, steps=MESH_PROFILE_STEPS):
@@ -3932,9 +3966,9 @@ def mesh_vortex(device, mesh, steps):
         else:
             rec["step_ms"] = 1e3 * rec["first_s"] / MESH_VORTEX_CHECK
         rec["launches"] = dict(cuda_kernels.LAUNCHES)
-        moves = record_moves(step, state)
+        moves = recorded_moves(step, state)
         rec["moves"] = len(moves)
-        rec["transpose_ms"] = replay_ms(moves, device)
+        rec["transpose_ms"] = replay_calls_ms(moves)
         rec["peak"] = torch.cuda.max_memory_allocated()
         if mesh_lib.world_size(mesh) == 1:
             rec["eager"] = eager_step_times(step, state)
@@ -4001,9 +4035,9 @@ def mesh_cavity_fst(device, mesh, steps):
         else:
             rec["step_ms"] = 1e3 * first_s / MESH_CAVITY_QUAD
         rec["launches"] = dict(cuda_kernels.LAUNCHES)
-        moves = record_moves(step, state)
+        moves = recorded_moves(step, state)
         rec["moves"] = len(moves)
-        rec["transpose_ms"] = replay_ms(moves, device)
+        rec["transpose_ms"] = replay_calls_ms(moves)
         rec["peak"] = torch.cuda.max_memory_allocated()
         if mesh_lib.world_size(mesh) == 1:
             rec["eager"] = eager_step_times(step, state)
@@ -4020,72 +4054,6 @@ MESH_GRAD_STEPS = GRAD_CAVITY_STEPS
 MESH_GRAD_SHORT = GRAD_VORTEX_STEPS
 MESH_GRAD_H = 0.5
 MESH_GRAD_BUDGET_S = 90.0
-GRAD_REPLAY_REPS = 5
-# the bodies of the collectives that the autograd Functions of
-# parallel/halo.py and parallel/transpose.py run in their backward
-BACKWARD_COLLECTIVES = {"halo": ("_shift", "_reduce_scatter",
-                                 "_sum_over_ranks"),
-                        "transpose": ("_move",)}
-
-
-class Blank(NamedTuple):
-    """A recorded call's tensor argument: what a replay makes zeros of."""
-    shape: tuple
-    dtype: torch.dtype
-    device: torch.device
-
-
-@contextlib.contextmanager
-def recorded_collectives(calls):
-    """Append each call of BACKWARD_COLLECTIVES made inside to `calls`, as
-    (function, arguments with every tensor a Blank)."""
-    from cfd_julia_torch.parallel import halo, transpose
-
-    saved = []
-    for mod in (halo, transpose):
-        for name in BACKWARD_COLLECTIVES[mod.__name__.rsplit(".", 1)[1]]:
-            real = getattr(mod, name)
-
-            def spy(*args, real=real):
-                calls.append((real, [
-                    Blank(tuple(a.shape), a.dtype, a.device)
-                    if isinstance(a, torch.Tensor) else a for a in args]))
-                return real(*args)
-
-            setattr(mod, name, spy)
-            saved.append((mod, name, real))
-    try:
-        yield
-    finally:
-        for mod, name, real in saved:
-            setattr(mod, name, real)
-
-
-def replay_calls_ms(calls):
-    """ms of the recorded collectives replayed alone on zero tensors: the
-    median of GRAD_REPLAY_REPS replays after a warm one (0 for none).  The
-    median: the 2x2 ranks share the host, whose other work makes single
-    replays slower by up to twice."""
-    if not calls:
-        return 0.0
-    bufs = [(fn, [torch.zeros(a.shape, dtype=a.dtype, device=a.device)
-                  if isinstance(a, Blank) else a for a in args])
-            for fn, args in calls]
-
-    def once():
-        for fn, args in bufs:
-            fn(*args)
-        torch.cuda.synchronize()
-
-    once()
-    times = []
-    for _ in range(GRAD_REPLAY_REPS):
-        t0 = time.perf_counter()
-        once()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return float(np.median(times))
-
-
 def grad_run(forward):
     """forward() (the loss, replicated on every rank) and its .backward(),
     the kernels' counts set to 0 before each: the loss, the forward's and

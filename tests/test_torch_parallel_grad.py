@@ -7,11 +7,11 @@ The port runs as spawned ranks over gloo (parallel/launch.py): one group
 for each world size 4, 2 and 1, all started at once, each running every
 case once (tests/torch_parallel_grad_ranks.py, which imports no JAX); the
 JAX gradients run on the conftest's virtual CPU devices with a 4-device
-mesh meanwhile (the padded matmul step and fdm under lax.scan: XLA's CPU
-compile of their unrolled three-step gradients runs for minutes).  Each
-rank's loss is halo.all_reduce_sum(local loss), and its .backward() leaves
-the global d loss/dRe in re.grad on every rank and each rank's block of
-d loss/d(initial state) in its leaf.
+mesh meanwhile (the padded matmul step, fdm and the half step under
+lax.scan: XLA's CPU compile of their unrolled gradients runs for
+minutes).  Each rank's loss is halo.all_reduce_sum(local loss), and its
+.backward() leaves the global d loss/dRe in re.grad on every rank and
+each rank's block of d loss/d(initial state) in its leaf.
 
 Tolerances: the adjoint identities 1e-12 relative; the gradients 1e-9
 relative (the Re gradients) or 1e-9 of the largest value (the fields);
@@ -134,13 +134,32 @@ def _jax_fdm(inputs, mesh):
     return float(jax.jit(jax.grad(loss))(jnp.asarray(FDM_RE)))
 
 
+def _jax_half(inputs, mesh):
+    """The gradient in the initial w of sum(w^2) after ps23 half steps
+    through JAX's make_spectral_step_half(cfg, dtype, mesh), half_init and
+    half_decode, in forward mode (jax.jacfwd of the scalar loss): jax.grad
+    of it on the CPU mesh stops at XLA's CPU FFT, which refuses the
+    transposed layout that the reverse pass hands it."""
+    cfg = j_vortex.VortexConfig(nx=N, ny=N, solver="ps23", dt=HALF_DT)
+    step = j_vortex.make_spectral_step_half(cfg, jnp.float64, mesh)
+
+    def loss(w0):
+        h, _ = jax.lax.scan(lambda h, _: (step(h), None),
+                            j_vortex.half_init(w0), None, HALF_STEPS)
+        return jnp.sum(j_vortex.half_decode(h, N, jnp.float64) ** 2)
+
+    return np.asarray(jax.jit(jax.jacfwd(loss))(
+        j_sharded.place(jnp.asarray(inputs["w0"]), mesh)))
+
+
 @pytest.fixture(scope="module")
 def jax_refs(inputs):
     mesh = j_mesh.make_mesh(jax.devices()[:4])
     return {"cavity": {p: _jax_cavity(inputs, mesh, p)
                        for p in ("fst", "fst_half")},
             "matmul": _jax_matmul(inputs, mesh),
-            "fdm": _jax_fdm(inputs, mesh)}
+            "fdm": _jax_fdm(inputs, mesh),
+            "half": _jax_half(inputs, mesh)}
 
 
 def _rel(got, ref):
@@ -224,13 +243,16 @@ def test_fdm_mesh_re_gradient(port, jax_refs, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_half_step_initial_field_gradient(port, world):
-    """The ps23 half step on row slabs: d sum(w^2)/d(initial w) against the
-    port's single-device gradient."""
-    ref = port[1][0]["single"]["half"]
+def test_half_step_initial_field_gradient(port, jax_refs, world):
+    """The ps23 half step on row slabs: d sum(w^2)/d(initial w) against
+    the gradient through JAX's make_spectral_step_half(cfg, dtype, mesh)
+    on 4 devices and against the port's single-device gradient."""
+    single = port[1][0]["single"]["half"]
     for r in port[world]:
         got = r["half"]["w_grad"]
-        assert np.abs(got - ref).max() <= GRAD_RTOL * np.abs(ref).max()
+        for ref in (jax_refs["half"], single):
+            err = np.abs(got - ref).max()
+            assert err <= GRAD_RTOL * np.abs(ref).max(), err
         assert r["half"]["nograd"]
 
 
