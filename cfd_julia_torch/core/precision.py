@@ -15,6 +15,12 @@ def default_dtype() -> torch.dtype:
     return torch.float32
 
 
+def complex_dtype(real_dtype=None) -> torch.dtype:
+    """The complex dtype of a real dtype (the default dtype when None)."""
+    return torch.complex128 if (real_dtype or default_dtype()) == \
+        torch.float64 else torch.complex64
+
+
 def resolve_device(name) -> torch.device:
     """torch.device for `name`; a CUDA device without a usable GPU raises
     instead of falling back to the CPU."""

@@ -110,6 +110,12 @@ def assemble_with_wall_bc(w_interior, s, dx: float, dy: float,
     return torch.cat([col_lo[:, None], mid, col_hi[:, None]], 1)
 
 
+def apply_wall_bc(w, s, dx: float, dy: float, order: int = 2):
+    """Wall-BC fill of an existing full (nx+1, ny+1) field, its interior
+    kept (cfd_julia_tpu/models/cavity.py:170)."""
+    return assemble_with_wall_bc(w[1:-1, 1:-1], s, dx, dy, order)
+
+
 def _wall_bc_fields(s, dx: float, dy: float, order: int, halo: int = 0):
     """Full-shape wall-BC candidate fields from shifts of psi, each valid on
     its own wall line (i=0, i=nx, j=0, j=ny) and selected there by a mask

@@ -15,11 +15,12 @@ counterpart of cfd_julia_tpu/models/vortex.py).
 
 The spectral solvers carry the rfft2 HALF spectrum (nx, ny//2+1) of the
 real vorticity across the whole run (`make_spectral_step_half`, what
-`solve` runs); `make_spectral_step` is the same scheme on the full (nx, ny)
-spectrum.  All transforms are torch.fft (cuFFT on a CUDA device).  No ghost
-arrays — periodicity is torch.roll or the kernel's wrap; snapshots stack on
-the device (the reference ifft's to write text snapshots mid-loop,
-vm.jl:78-86).
+`solve` runs; on a CUDA device its stage math is three kernels,
+csrc/vortex_stage.cu); `make_spectral_step` is the same scheme on the full
+(nx, ny) spectrum.  All transforms are torch.fft (cuFFT on a CUDA device).
+No ghost arrays — periodicity is torch.roll or the kernel's wrap;
+snapshots stack on the device (the reference ifft's to write text
+snapshots mid-loop, vm.jl:78-86).
 
 PyTorch runs eagerly, so the wavenumber, Crank-Nicolson and Jacobian
 constants are built once, on the device, when a step is made, and reused
@@ -72,10 +73,12 @@ class VortexConfig:
     ns: int = 10             # snapshots
     ic: str = "vm"           # vm | tgv
     tgv_n: int = 4
-    rhs_impl: str = "auto"   # the fdm Arakawa RHS: auto (kernel on a CUDA
-                             # device, torch on the CPU) | kernel
-                             # (csrc/arakawa_rhs.cu; CUDA only) | torch
-                             # (ops.arakawa, any device)
+    rhs_impl: str = "auto"   # the fdm Arakawa RHS and the spectral
+                             # steps' stage passes: auto (kernels on a
+                             # CUDA device, torch on the CPU) | kernel
+                             # (csrc/arakawa_rhs.cu, csrc/vortex_stage.cu;
+                             # CUDA only) | torch (ops.arakawa and the
+                             # passes' plain twins, any device)
 
     @property
     def dx(self) -> float:
@@ -490,9 +493,11 @@ def make_spectral_step(cfg: VortexConfig, dtype=None, device="cuda",
 # vorticity — half the memory traffic of the full spectrum for every
 # elementwise op in the step.  The four derivative spectra (psi_x, w_y,
 # psi_y, w_x) are CONSTANT real multiples of i*H, so a stage builds them
-# with one broadcast multiply, takes them to physical space with one
-# batched irfft2, and brings the real Jacobian back with one rfft2, whose
-# output *is* the state's layout.  FFT work: 2.5 c2c-equivalents a stage.
+# in one pass (vortex_derivs_half), takes them to physical space with one
+# batched irfft2, forms the product in one pass (vortex_product) and
+# brings the real Jacobian back with one rfft2, whose output *is* the
+# state's layout; one more pass (vortex_cn_combine) updates the state.
+# FFT work: 2.5 c2c-equivalents a stage.
 
 def _half_consts(cfg: VortexConfig, dtype, device, eps: float = 1e-6):
     """(kx0, ky0, k2h, nyq) on the half grid, in the working dtype
@@ -529,24 +534,49 @@ def _cn_consts(cfg: VortexConfig, k2h):
     return out
 
 
-def _band_mask_23_half(cfg: VortexConfig, device=None):
-    """spectral.dealias_mask_23 on the half grid: the symmetric row band,
-    and the columns iy < nye//2 only."""
+def _band_23_half(cfg: VortexConfig, device=None):
+    """(rows (nx,), columns (ny//2+1,)) kept by the 2/3 rule on the half
+    grid: the symmetric row band, and the columns iy < nye//2 only."""
     nxe, nye = (2 * cfg.nx) // 3, (2 * cfg.ny) // 3
-    ix = torch.arange(cfg.nx, device=device)[:, None]
-    iy = torch.arange(cfg.ny // 2 + 1, device=device)[None, :]
-    keep_x = (ix < nxe // 2) | (ix > cfg.nx - nxe // 2)
-    return keep_x & (iy < nye // 2)
+    ix = torch.arange(cfg.nx, device=device)
+    iy = torch.arange(cfg.ny // 2 + 1, device=device)
+    return (ix < nxe // 2) | (ix > cfg.nx - nxe // 2), iy < nye // 2
 
 
-def _deriv_consts_half(cfg: VortexConfig, dtype, device, band_mask=None):
-    """(4, nx, ny//2+1) real g with g * (i H) the half spectra of psi_x,
-    w_y, psi_y, w_x: kx0/k2, ky0, ky0/k2, kx0, each times the Nyquist (and
-    band) mask.  The JAX package holds the same four as two packed
-    Hermitian pairs (`_packed_jacobian_consts_traced`)."""
-    kx0, ky0, k2h, nyq = _half_consts(cfg, dtype, device)
-    m = nyq if band_mask is None else nyq * band_mask.to(dtype)
-    return torch.stack([(kx0 / k2h) * m, ky0 * m, (ky0 / k2h) * m, kx0 * m])
+def _band_mask_23_half(cfg: VortexConfig, device=None):
+    """spectral.dealias_mask_23 on the half grid (_band_23_half)."""
+    keep_x, keep_y = _band_23_half(cfg, device)
+    return keep_x[:, None] & keep_y[None, :]
+
+
+def _deriv_tables(cfg: VortexConfig, dtype, device, band: bool = False,
+                  eps: float = 1e-6):
+    """(rowk (nx, 3), colk (ny//2+1, 3)): the row vectors (kx, kx0, rm) and
+    the column vectors (ky, kyg, cm) from which the derivative pass
+    (ops.cuda_kernels.vortex_derivs_half) builds its g = kx0/k2, ky,
+    ky/k2, kx0 times rm cm, k2 = kx^2 + kyg^2: _half_consts's wavenumbers
+    (kx and kyg eps-guarded, kx0 with k = 0 zeroed) and the Nyquist masks
+    as 0/1, with `band` also _band_23_half's.  The JAX package holds
+    the same four g as two packed Hermitian pairs
+    (`_packed_jacobian_consts_traced`)."""
+    nx, ny = cfg.nx, cfg.ny
+    hy = ny // 2 + 1
+    kx = _kvec(nx, cfg.dx, dtype, device, eps)
+    kx0 = kx.clone()
+    kx0[0] = 0.0
+    ky = (2.0 * math.pi / (ny * cfg.dy)) * \
+        torch.arange(hy, device=device).to(dtype)
+    kyg = ky.clone()
+    kyg[0] = eps
+    ix = torch.arange(nx, device=device)
+    iy = torch.arange(hy, device=device)
+    rm = (ix != nx // 2) | (nx % 2 == 1)
+    cm = (iy != ny // 2) | (ny % 2 == 1)
+    if band:
+        keep_x, keep_y = _band_23_half(cfg, device)
+        rm, cm = rm & keep_x, cm & keep_y
+    return (torch.stack([kx, kx0, rm.to(dtype)], 1),
+            torch.stack([ky, kyg, cm.to(dtype)], 1))
 
 
 def _truncate_32_half_slab(h_e, nx: int, ny: int, cols):
@@ -573,7 +603,13 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
 
     The same operations as make_spectral_step on the representation with
     the Hermitian redundancy removed; tests/test_torch_vortex.py holds the
-    two together and both against the JAX package.
+    two together and both against the JAX package.  The stage math is
+    three passes of ops.cuda_kernels: vortex_derivs_half (the four
+    derivative spectra from H), vortex_product (the physical Jacobian) and
+    vortex_cn_combine (a stage's update); cfg.rhs_impl picks their CUDA
+    kernels ("kernel", and "auto" on a CUDA device) or their plain twins
+    ("torch", and "auto" on the CPU).  ps23 on one device inverts its 2/3
+    band's columns alone (spectral.irfft2_band).
 
     With a mesh: H is this rank's row slab (kx split over all ranks, the
     JAX package's packed_half_sharding) and the constants are the rank's
@@ -583,6 +619,14 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
     the moves are planned here, once."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
+    if precision.resolve_rhs_impl(cfg.rhs_impl, device) == "kernel":
+        derivs, product, combine = (cuda_kernels.vortex_derivs_half,
+                                    cuda_kernels.vortex_product,
+                                    cuda_kernels.vortex_cn_combine)
+    else:
+        derivs, product, combine = (cuda_kernels.vortex_derivs_half_plain,
+                                    cuda_kernels.vortex_product_plain,
+                                    cuda_kernels.vortex_cn_combine_plain)
     nx, ny = cfg.nx, cfg.ny
     hy = ny // 2 + 1
     rows = slice(None)
@@ -590,11 +634,12 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
         _check_mesh_grid(nx, ny, mesh)
         rows, _ = mesh_lib.slab_slices((nx, hy), mesh, -2)
     _, _, k2h, nyq = _half_consts(cfg, dtype, device)
-    (a1, b1, _), (a2, b2, r2), (a3, b3, r3) = (
-        tuple(c[rows] for c in stage) for stage in _cn_consts(cfg, k2h))
-
-    def product(phys):
-        return phys[0] * phys[1] - phys[2] * phys[3]
+    # each stage's (a, b, r), stage 1 without r, in the memory orders the
+    # spectra come in (_is_kx_major): row by row, and column by column from
+    # the first use
+    cn = {False: [(a, b, None if s == 0 else r) for s, (a, b, r) in
+                  enumerate(tuple(c[rows] for c in stage)
+                            for stage in _cn_consts(cfg, k2h))]}
 
     if mesh is None:
         def inverse(h):
@@ -629,23 +674,37 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
             w, s = inverse(torch.stack([H, H * inv_k2h]))
             return forward(-physical_jacobian(w, s))
     elif cfg.solver == "ps23":
-        g = _deriv_consts_half(cfg, dtype, device,
-                               _band_mask_23_half(cfg, device))[:, rows]
+        rowk, colk = _deriv_tables(cfg, dtype, device, band=True)
+        rowk = rowk[rows]
+        if mesh is None:
+            # the 2/3 band keeps the columns iy < nye//2 alone, and the
+            # inverse's 1/(nx ny) is folded into g
+            nb, scale = ((2 * ny) // 3) // 2, 1.0 / (nx * ny)
+
+            def band_inverse(h):
+                return spectral.irfft2_band(h, nx, ny, norm="forward")
+        else:
+            nb, scale, band_inverse = hy, 1.0, inverse
 
         def jac(H):
-            return forward(product(inverse(g * (1j * H))))
+            return forward(product(band_inverse(derivs(H, rowk, colk, nb,
+                                                       scale))))
     elif cfg.solver == "ps32":
         nxe, nye = 3 * nx // 2, 3 * ny // 2
         scale = (nxe * nye) / (nx * ny)
-        # the Parseval rescale of the padded spectra is folded into g, and
-        # the one of the truncated product into the Nyquist zeroing (see
-        # jacobian_ps32)
-        g = (_deriv_consts_half(cfg, dtype, device) * scale)[:, rows]
+        # the Parseval rescale of the padded spectra is folded into g (on
+        # one device with the inverse's 1/(nxe nye)), and the one of the
+        # truncated product into the Nyquist zeroing (see jacobian_ps32)
+        rowk, colk = _deriv_tables(cfg, dtype, device)
+        rowk = rowk[rows]
         nyq_over_scale = (nyq / scale)[rows]
         if mesh is None:
             def jac(H):
-                pads = spectral.pad_32_half(g * (1j * H), ny, nxe, nye)
-                jf = spectral.rfft2(product(spectral.irfft2(pads, nxe, nye)))
+                pads = spectral.pad_32_half(
+                    derivs(H, rowk, colk, hy, scale / (nxe * nye)), ny, nxe,
+                    nye)
+                jf = spectral.rfft2(product(spectral.irfft2(
+                    pads, nxe, nye, norm="forward")))
                 return spectral.truncate_32_half(jf, nx, ny) * nyq_over_scale
         else:
             hye = nye // 2 + 1
@@ -657,7 +716,7 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
             def jac(H):
                 # pad_32_half: the ky pad here, where ky is whole, the kx
                 # pad on the column slab
-                p = g * (1j * H)
+                p = derivs(H, rowk, colk, hy, scale)
                 p = torch.cat([p[..., :ny // 2],
                                p.new_zeros((*p.shape[:-1], hye - ny // 2))],
                               -1)
@@ -671,15 +730,44 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
     else:
         raise ValueError(f"solver {cfg.solver!r} has no spectral step")
 
+    def update(stage, H, j0, j1):
+        """The stage's CN update a H + r j0 + b j1 (stage 0: a H + b j1),
+        every operand in the memory order of j1, the new Jacobian: a copy
+        of H or j0 only where theirs differs (ps32's truncated Jacobian
+        against rfft2's state)."""
+        kx = _is_kx_major(j1)
+        if kx not in cn:
+            cn[kx] = [tuple(None if t is None else _in_order(t, kx)
+                            for t in tabs) for tabs in cn[False]]
+        a, b, r = cn[kx][stage]
+        H, j1 = _in_order(H, kx), _in_order(j1, kx)
+        return combine(a, H, r, None if j0 is None else _in_order(j0, kx),
+                       b, j1)
+
     def step(H):
+        H = _in_order(H, _is_kx_major(H))
         jn = jac(H)
-        H1 = a1 * H + b1 * jn
+        H1 = update(0, H, None, jn)
         j1 = jac(H1)
-        H2 = a2 * H1 + r2 * jn + b2 * j1
+        H2 = update(1, H1, jn, j1)
         j2 = jac(H2)
-        return a3 * H2 + r3 * j1 + b3 * j2
+        return update(2, H2, j1, j2)
 
     return step
+
+
+def _is_kx_major(t) -> bool:
+    """A 2-D spectrum stored column by column (strides (1, rows): what
+    torch.fft.rfft2 returns on the GPU), not row by row."""
+    return not t.is_contiguous() and t.mT.is_contiguous()
+
+
+def _in_order(t, kx_major: bool):
+    """t stored column by column (kx_major) or row by row: t itself, or a
+    copy."""
+    if kx_major:
+        return t if t.mT.is_contiguous() else t.mT.contiguous().mT
+    return t.contiguous()
 
 
 def half_init(w0, mesh=None):

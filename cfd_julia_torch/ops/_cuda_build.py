@@ -51,6 +51,12 @@ _TIER_SPLIT_ARGS = [_PTR] + [_INT] * 4 + [_PTR] + [_INT] * 3 + [_PTR]
 _TIER_ENCODE_ARGS = [_PTR, _PTR, _INT, _INT, _INT]
 # map_a, map_b, c, M, N, ldc, k-blocks, a_lo, b_lo, passes, stream
 _TIER_GEMM_ARGS = [_PTR] * 3 + [_INT] * 7 + [_PTR]
+# h, rowk, colk, out, rows, hy, nb, kx_major, scale, stream
+_VORTEX_DERIVS_ARGS = [_PTR] * 4 + [_INT] * 4 + [_DBL, _PTR]
+# in, out, n, stream
+_VORTEX_PRODUCT_ARGS = [_PTR, _PTR, ctypes.c_longlong, _PTR]
+# a, h, r, j0, b, j1, out, n, stream
+_VORTEX_COMBINE_ARGS = [_PTR] * 7 + [ctypes.c_longlong, _PTR]
 # multigrid launchers, one per storage type (ops/cuda_kernels.py)
 _MG_ARGS = {
     # u, f, out, work, nr, nc, 1/dx^2, 1/dy^2, sweeps, stream
@@ -85,6 +91,10 @@ SIGNATURES = {
     "cavity_stage_backward_f32": (_INT, _CAVITY_STAGE_BACKWARD_ARGS),
     "cavity_stage_backward_f64": (_INT, _CAVITY_STAGE_BACKWARD_ARGS),
     "cavity_stage_backward_partials": (_INT, [_INT, _INT]),
+    **{f"vortex_{name}_{sfx}": (_INT, args) for name, args in (
+        ("derivs_half", _VORTEX_DERIVS_ARGS),
+        ("product", _VORTEX_PRODUCT_ARGS),
+        ("cn_combine", _VORTEX_COMBINE_ARGS)) for sfx in ("f32", "f64")},
     "tier_split": (_INT, _TIER_SPLIT_ARGS),
     "tier_encode": (_INT, _TIER_ENCODE_ARGS),
     "tier_gemm_tn": (_INT, _TIER_GEMM_ARGS),

@@ -41,6 +41,12 @@ Kernels (csrc/ file; TPU function replaced):
                                   autograd backward; with the Re gradient
                                   also the one-block sum of its partials,
                                   counted under cavity_stage_re_grad
+  vortex_derivs_half,             vortex_stage.cu; the XLA-fused stage math
+  vortex_product,                 of the half-spectrum vortex step
+  vortex_cn_combine               (cfd_julia_tpu/models/vortex.py:392; not
+                                  a Pallas kernel): the derivative spectra,
+                                  the physical product, the Crank-Nicolson
+                                  combine; their backward is torch ops
   tier_split, tier_matmul,        tier_gemm.cu;   XLA's bf16_3x / default
   TierPlan                        dot of the precision tiers (direct.py:99-
                                   102, cavity_fused.py:120; not a Pallas
@@ -69,7 +75,9 @@ LAUNCHES = {"arakawa_rhs": 0, "arakawa_rhs_backward": 0,
             "smooth_residual_restrict": 0, "residual_restrict": 0,
             "prolong_correct_smooth": 0, "euler_rhs": 0,
             "cavity_fused_stage": 0, "cavity_stage_backward": 0,
-            "cavity_stage_re_grad": 0, "tier_split": 0, "tier_gemm": 0}
+            "cavity_stage_re_grad": 0, "tier_split": 0, "tier_gemm": 0,
+            "vortex_derivs_half": 0, "vortex_product": 0,
+            "vortex_cn_combine": 0}
 
 # set by utils.debug.nan_guard: every launch checks its outputs for NaNs,
 # and the loop layer and the multigrid solve run eagerly (a check syncs,
@@ -85,21 +93,23 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _on_cpu(name: str, *tensors) -> bool:
+def _on_cpu(name: str, *tensors, any_order=()) -> bool:
     """True for CPU tensors (take the twin); checks a CUDA call's
-    preconditions; raises for any other device."""
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
+    preconditions: `tensors` contiguous, `any_order` on the same device
+    (their layout the caller's to check); raises for any other device."""
+    every = (*tensors, *any_order)
+    dev = every[0].device
+    if any(t.device != dev for t in every):
         raise ValueError(f"{name}: tensors lie on different devices: "
-                         f"{[str(t.device) for t in tensors]}")
+                         f"{[str(t.device) for t in every]}")
     if dev.type == "cpu":
         return True
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} takes contiguous tensors")
-    if tensors[0].numel() >= 2**31:
-        raise ValueError(f"{tensors[0].numel()} points exceed the kernel's "
+    if every[0].numel() >= 2**31:
+        raise ValueError(f"{every[0].numel()} points exceed the kernel's "
                          "int index")
     return False
 
@@ -937,6 +947,258 @@ def cavity_fused_stage_backward(wt, s, walls, g, h, stage: int, dt: float,
     if re_grad:   # the same C call's second launch, the partials' sum
         LAUNCHES["cavity_stage_re_grad"] += 1
     return gw, gwt, gs, gwalls, gre
+
+
+# ------------------------------------------------------- vortex stage passes
+#
+# The elementwise stage math of models/vortex.make_spectral_step_half
+# (csrc/vortex_stage.cu): each pass is one launch on CUDA tensors and its
+# twin on the CPU.  Under grad, with an input that requires grad, a CUDA
+# call is an autograd Function whose backward is the pass's adjoint as
+# torch ops (the *_backward_plain functions); the constants take no
+# gradient.
+
+_REAL_OF = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+
+
+def _kx_major(name: str, *tensors) -> bool:
+    """The memory order the 2-D operands of a pass share: False, each
+    contiguous (row by row); True, each stored column by column (t.mT
+    contiguous: the half spectra torch.fft.rfft2 returns on the GPU).
+    Raises for any other layout, or for operands of mixed orders."""
+    if all(t.is_contiguous() for t in tensors):
+        return False
+    if all(t.mT.is_contiguous() for t in tensors):
+        return True
+    raise ValueError(f"{name} takes operands of one memory order, row by row "
+                     f"(contiguous) or column by column, got strides "
+                     f"{[t.stride() for t in tensors]}")
+
+
+def _refuse_stage_grad(name: str, *consts) -> None:
+    if torch.is_grad_enabled() and any(
+            c is not None and c.requires_grad for c in consts):
+        raise ValueError(f"{name}: its constants take no gradient, and one "
+                         "requires grad")
+
+
+def _deriv_g(rowk, colk, nb: int, scale: float):
+    """(4, rows, nb) real g = kx0/k2, ky, ky/k2, kx0, each times the mask
+    rm cm and `scale`, in the kernel's operation order, from rowk (rows, 3)
+    = (kx, kx0, rm) and colk (>= nb, 3) = (ky, kyg, cm)."""
+    kx, kx0, rm = (rowk[:, k, None] for k in range(3))
+    ky, kyg, cm = (colk[:nb, k] for k in range(3))
+    k2 = kx * kx + kyg * kyg
+    m = rm * cm
+    return torch.stack([(kx0 / k2) * m, ky * m, (ky / k2) * m,
+                        kx0 * m]) * scale
+
+
+def vortex_derivs_half_plain(h, rowk, colk, nb: int, scale: float = 1.0):
+    """Plain twin of vortex_derivs_half: g (_deriv_g), then the four spectra
+    g (i H) = (-g Im H, g Re H) of H's first nb columns."""
+    g = _deriv_g(rowk, colk, nb, scale)
+    hb = h[..., :nb]
+    return torch.complex(-(g * hb.imag), g * hb.real)
+
+
+def vortex_derivs_half_backward_plain(gout, rowk, colk, hy: int,
+                                      scale: float = 1.0):
+    """The adjoint of vortex_derivs_half for the cotangent gout (4, rows,
+    nb): gH = -i sum_c g_c gout_c on H's first nb columns, 0 on the rest
+    of its hy (the complex autograd convention: conj(i g) = -i g)."""
+    nb = gout.shape[-1]
+    g = _deriv_g(rowk, colk, nb, scale)
+    acc = g[0] * gout[0] + g[1] * gout[1] + g[2] * gout[2] + g[3] * gout[3]
+    gh = gout.new_zeros((gout.shape[-2], hy))
+    gh[:, :nb] = torch.complex(acc.imag, -acc.real)
+    return gh
+
+
+def _derivs_launch(h, rowk, colk, nb: int, scale: float):
+    """One launch; the spectra in h's memory order (_kx_major)."""
+    rows, hy = h.shape
+    kx = _kx_major("vortex_derivs_half", h)
+    out = h.new_empty((4, nb, rows)).mT if kx else h.new_empty((4, rows, nb))
+    _launch("vortex_derivs_half",
+            f"vortex_derivs_half_{_SUFFIX[rowk.dtype]}", h.device,
+            h.data_ptr(), rowk.data_ptr(), colk.data_ptr(), out.data_ptr(),
+            rows, hy, nb, int(kx), float(scale), outputs=(out,))
+    return out
+
+
+class _VortexDerivs(torch.autograd.Function):
+    """vortex_derivs_half's launch, differentiable in H."""
+
+    @staticmethod
+    def forward(ctx, h, rowk, colk, nb, scale):
+        ctx.save_for_backward(rowk, colk)
+        ctx.args = (h.shape[-1], scale)
+        return _derivs_launch(h, rowk, colk, nb, scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        rowk, colk = ctx.saved_tensors
+        return (vortex_derivs_half_backward_plain(g, rowk, colk, *ctx.args),
+                None, None, None, None)
+
+
+def vortex_derivs_half(h, rowk, colk, nb: int, scale: float = 1.0):
+    """The four derivative half spectra psi_x, w_y, psi_y, w_x of the
+    vorticity half spectrum H in one pass (csrc/vortex_stage.cu): out[c] =
+    g_c (i H[:, :nb]), (4, rows, nb), g_c = kx0/k2, ky, ky/k2, kx0 times the
+    mask rm cm and `scale`, k2 = kx^2 + kyg^2, built from rowk (rows, 3) =
+    (kx, kx0, rm) and colk (>= nb, 3) = (ky, kyg, cm).  h: (rows, hy)
+    complex64 or complex128, a half spectrum or a rank's row slab of one;
+    rowk, colk: of h's real dtype, contiguous; 1 <= nb <= hy.  On the GPU
+    h is contiguous or stored column by column (torch.fft.rfft2's
+    output there), and the spectra come in h's order.  Matches
+    vortex_derivs_half_plain bitwise."""
+    if h.dtype not in _REAL_OF or rowk.dtype != _REAL_OF[h.dtype] or \
+            colk.dtype != rowk.dtype:
+        raise TypeError(f"vortex_derivs_half takes a complex64 or complex128 "
+                        f"H and constants of its real dtype, got {h.dtype}, "
+                        f"{rowk.dtype}, {colk.dtype}")
+    if h.dim() != 2 or not 1 <= nb <= h.shape[1] or \
+            tuple(rowk.shape) != (h.shape[0], 3) or colk.dim() != 2 or \
+            colk.shape[0] < nb or colk.shape[1] != 3:
+        raise ValueError(f"vortex_derivs_half: H (rows, hy), rowk (rows, 3), "
+                         f"colk (>= nb, 3), 1 <= nb <= hy; got "
+                         f"{tuple(h.shape)}, {tuple(rowk.shape)}, "
+                         f"{tuple(colk.shape)}, nb={nb}")
+    if _on_cpu("vortex_derivs_half", rowk, colk, any_order=(h,)):
+        return vortex_derivs_half_plain(h, rowk, colk, nb, scale)
+    _kx_major("vortex_derivs_half", h)
+    _refuse_stage_grad("vortex_derivs_half", rowk, colk)
+    if torch.is_grad_enabled() and h.requires_grad:
+        return _VortexDerivs.apply(h, rowk, colk, nb, scale)
+    return _derivs_launch(h, rowk, colk, nb, scale)
+
+
+def vortex_product_plain(phys):
+    """Plain twin of vortex_product: phys[0] phys[1] - phys[2] phys[3]."""
+    return phys[0] * phys[1] - phys[2] * phys[3]
+
+
+def vortex_product_backward_plain(phys, g):
+    """The adjoint of vortex_product for the cotangent g: the four
+    products (g p1, g p0, -(g p3), -(g p2)), stacked."""
+    return torch.stack([g * phys[1], g * phys[0], -(g * phys[3]),
+                        -(g * phys[2])])
+
+
+def _product_launch(phys):
+    out = phys.new_empty(phys.shape[1:])
+    _launch("vortex_product", f"vortex_product_{_SUFFIX[phys.dtype]}",
+            phys.device, phys.data_ptr(), out.data_ptr(), out.numel(),
+            outputs=(out,))
+    return out
+
+
+class _VortexProduct(torch.autograd.Function):
+    """vortex_product's launch, differentiable in the fields."""
+
+    @staticmethod
+    def forward(ctx, phys):
+        ctx.save_for_backward(phys)
+        return _product_launch(phys)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (phys,) = ctx.saved_tensors
+        return vortex_product_backward_plain(phys, g)
+
+
+def vortex_product(phys):
+    """The physical Jacobian p = a b - c d of the four real fields phys =
+    (a, b, c, d), (4, ...) fp32 or fp64, in one pass
+    (csrc/vortex_stage.cu).  Matches vortex_product_plain bitwise."""
+    if phys.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"vortex_product takes fp32 or fp64 fields, got "
+                        f"{phys.dtype}")
+    if phys.dim() < 2 or phys.shape[0] != 4 or phys[0].numel() == 0:
+        raise ValueError(f"vortex_product takes four stacked fields (4, ...),"
+                         f" got {tuple(phys.shape)}")
+    if _on_cpu("vortex_product", phys):
+        return vortex_product_plain(phys)
+    if torch.is_grad_enabled() and phys.requires_grad:
+        return _VortexProduct.apply(phys)
+    return _product_launch(phys)
+
+
+def vortex_cn_combine_plain(a, h, r, j0, b, j1):
+    """Plain twin of vortex_cn_combine: a H + r j0 + b j1, or a H + b j1
+    with r and j0 None, summed left to right."""
+    out = a * h
+    if j0 is not None:
+        out = out + r * j0
+    return out + b * j1
+
+
+def vortex_cn_combine_backward_plain(a, r, b, g):
+    """The adjoint of vortex_cn_combine in H, j0 and j1 for the cotangent
+    g: the real scalings (a g, r g, b g), r g None without r."""
+    return a * g, None if r is None else r * g, b * g
+
+
+def _combine_launch(a, h, r, j0, b, j1):
+    out = torch.empty_like(h)
+    _launch("vortex_cn_combine",
+            f"vortex_cn_combine_{_SUFFIX[a.dtype]}", h.device,
+            a.data_ptr(), h.data_ptr(), _ptr(r), _ptr(j0), b.data_ptr(),
+            j1.data_ptr(), out.data_ptr(), h.numel(), outputs=(out,))
+    return out
+
+
+class _VortexCombine(torch.autograd.Function):
+    """vortex_cn_combine's launch, differentiable in H, j0 and j1."""
+
+    @staticmethod
+    def forward(ctx, a, h, r, j0, b, j1):
+        ctx.save_for_backward(a, r, b)
+        return _combine_launch(a, h, r, j0, b, j1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, r, b = ctx.saved_tensors
+        gh, gj0, gj1 = vortex_cn_combine_backward_plain(a, r, b, g)
+        need = ctx.needs_input_grad
+        return (None, gh if need[1] else None, None,
+                gj0 if need[3] else None, None, gj1 if need[5] else None)
+
+
+def vortex_cn_combine(a, h, r, j0, b, j1):
+    """One RK3/CN stage update of the half spectrum in one pass
+    (csrc/vortex_stage.cu): a H + r j0 + b j1, or a H + b j1 at stage 1
+    (r and j0 None), in the twin's order.  a, r, b: the stage's real
+    tables (models/vortex._cn_consts), of H's shape and real dtype; H, j0,
+    j1: complex64 or complex128 of one shape.  On the GPU every operand is
+    contiguous, or every one stored column by column (_kx_major), and the
+    result comes in their order.  Matches vortex_cn_combine_plain
+    bitwise."""
+    if (r is None) != (j0 is None):
+        raise ValueError("vortex_cn_combine takes r and j0 together")
+    waves = [t for t in (h, j0, j1) if t is not None]
+    tables = [t for t in (a, r, b) if t is not None]
+    if h.dtype not in _REAL_OF or any(t.dtype != h.dtype for t in waves) or \
+            any(t.dtype != _REAL_OF[h.dtype] for t in tables):
+        raise TypeError(f"vortex_cn_combine takes complex64 or complex128 "
+                        f"spectra and tables of their real dtype, got "
+                        f"{[str(t.dtype) for t in (*waves, *tables)]}")
+    if any(t.shape != h.shape for t in (*waves, *tables)) or h.numel() == 0:
+        raise ValueError(f"vortex_cn_combine takes tensors of one non-empty "
+                         f"shape, got "
+                         f"{[tuple(t.shape) for t in (*waves, *tables)]}")
+    if _on_cpu("vortex_cn_combine", any_order=(*waves, *tables)):
+        return vortex_cn_combine_plain(a, h, r, j0, b, j1)
+    _kx_major("vortex_cn_combine", *waves, *tables)
+    _refuse_stage_grad("vortex_cn_combine", a, r, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in waves):
+        return _VortexCombine.apply(a, h, r, j0, b, j1)
+    return _combine_launch(a, h, r, j0, b, j1)
 
 
 # ------------------------------------------------------- precision tiers

@@ -44,6 +44,7 @@ import math
 import numpy as np
 import torch
 
+from cfd_julia_torch.core import precision
 from cfd_julia_torch.parallel import mesh as mesh_lib
 from cfd_julia_torch.parallel import transpose
 
@@ -90,22 +91,36 @@ def rfft2(x, pencil=None):
     return torch.fft.fft(h, dim=-2)
 
 
-def irfft2(h, nx: int, ny: int, pencil=None):
+def irfft2(h, nx: int, ny: int, pencil=None, norm: str = "backward"):
     """Real field (.., nx, ny) from its half spectrum (.., nx, ny//2+1).
     The c2r transform along the last axis ignores the imaginary part of
-    the ky = 0 column and, for even ny, of the Nyquist column.  With a
-    pencil of the half spectrum: h is its column slab and the result the
-    row slab of the field (ifft along kx where kx is whole, the transpose,
-    c2r along ky where ky is whole)."""
+    the ky = 0 column and, for even ny, of the Nyquist column.  norm:
+    torch.fft's ("forward" leaves out the 1/(nx ny), for a caller that
+    has folded it into the spectrum).  With a pencil of the half spectrum:
+    h is its column slab and the result the row slab of the field (ifft
+    along kx where kx is whole, the transpose, c2r along ky where ky is
+    whole)."""
     if pencil is None:
-        return torch.fft.irfft2(h, s=(nx, ny))
-    h = transpose.move(torch.fft.ifft(h, dim=-2), pencil.to_rows)
-    return torch.fft.irfft(h, n=ny, dim=-1)
+        return torch.fft.irfft2(h, s=(nx, ny), norm=norm)
+    h = transpose.move(torch.fft.ifft(h, dim=-2, norm=norm), pencil.to_rows)
+    return torch.fft.irfft(h, n=ny, dim=-1, norm=norm)
+
+
+def irfft2_band(h, nx: int, ny: int, norm: str = "backward"):
+    """Real field (.., nx, ny) from the first nb columns h (.., nx, nb) of
+    a half spectrum whose columns nb..ny//2 are zero (ps23's 2/3 band): the
+    kx transform of the nb columns alone, then the c2r transform along ky,
+    which zero-pads its input to ny//2+1 columns; irfft2 of the padded
+    spectrum (the JAX package's rowsfirst inverse with active_cols,
+    cfd_julia_tpu/ops/spectral.py:102).  norm as irfft2's.  On the GPU the
+    kx transform reads h without a copy when h is stored column by column
+    (each (nx, nb) plane's kx contiguous)."""
+    return torch.fft.irfft(torch.fft.ifft(h, n=nx, dim=-2, norm=norm), n=ny,
+                           dim=-1, norm=norm)
 
 
 def complex_for(real_dtype):
-    return torch.complex128 if real_dtype == torch.float64 \
-        else torch.complex64
+    return precision.complex_dtype(real_dtype)
 
 
 def zero_mean_mode(e):

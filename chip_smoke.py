@@ -57,8 +57,19 @@ Phases, one line each:
      4, 5 and a block's cells - 1, + 0, + 1 in fp32 and fp64 for roe,
      hllc, rusanov/roe and rusanov/spectral, on random physical states and
      on the Sod state after 100 steps, two calls bitwise equal, timed
-     beside an empty launch; and an empty kernel beside a CUDA graph of
-     100 of them;
+     beside an empty launch; the half-spectrum vortex step's three stage
+     passes (csrc/vortex_stage.cu): the derivative spectra on ps23's
+     2048^2 band, ps32's full width with its scale, a mesh rank's row
+     slab, 48x40 both ways and an odd 3x4 plane, the physical product at
+     2048^2, 3072^2 (ps32's grid), 48x40 and 3x5, the CN combine at
+     stages 1 and 2 on 2048x1025, 48x21, 3x5 and a row slab off a 16-byte
+     boundary, in fp32 and fp64, bitwise their twins (or within 1e-6 /
+     1e-14 of the scale), two calls bitwise equal, a non-contiguous table
+     refused; each timed at 2048^2 fp32 (the product also at 3072^2)
+     beside its twin, its bound and, for the derivative pass, one
+     torch.mul by a precomputed complex table; ps23's band-limited
+     inverse beside irfft2 of the padded spectra (--profile: each by
+     kernel); and an empty kernel beside a CUDA graph of 100 of them;
   3. the cavity path: the lid-driven cavity at 1024^2 (dt=2e-5, Re=100,
      Jensen wall BCs, fp32) from rest, 100 steps and then on to 2000,
      checked against the fp64 anchors of benchmarks/physics_anchors.json,
@@ -91,11 +102,15 @@ Phases, one line each:
      (8192 cells, dt=5e-5, t=0.2) against the exact Sod solution;
   9. the vortex path: the vortex merger at 2048^2 (dt=1e-3, Re=1000, fp32)
      from the two-Gaussian state, 100 steps and then on to 200, for ps23,
-     ps32 and hybrid through models.vortex.make_spectral_step_half (cuFFT)
-     and for fdm through SSP-RK3 over fdm_rhs (rhs_impl="auto": the
-     Arakawa CUDA kernel on the periodic field), each against its fp64
-     anchor, with steps/s; fdm with the kernel's launch count and the same
-     run on the plain twin (--profile: the ps23 and fdm steps by kernel);
+     ps32 and hybrid through models.vortex.make_spectral_step_half (cuFFT
+     and the stage kernels: 3 launches a step of each pass, hybrid the
+     combine alone) and for fdm through SSP-RK3 over fdm_rhs
+     (rhs_impl="auto": the Arakawa CUDA kernel on the periodic field),
+     each against its fp64 anchor, with steps/s and the kernels' launch
+     counts; fdm's whole run and the spectral solvers' first 20 steps also
+     on the plain twins (rhs_impl="torch"), within 1e-4 and launching no
+     kernel (--profile: each of the four steps by kernel, the stage
+     passes' us a step beside their bounds);
  10. the user entry points `run tgv` (64^2, Re=10, t=1) against the
      analytic decay, `run vortex_merger_ps23` (128^2, t=20) for its
      snapshots' mean and enstrophy, and `run poisson_fst` and
@@ -156,7 +171,9 @@ Phases, one line each:
      ensemble (4 members, 10 steps) in one backward pass against the plain
      RHS's autograd (rel 1e-9) and FD for Re=1000 (h=1, rtol 1e-4);
      (c) ps23 at 2048^2, 10 steps: the directional derivative of sum(w^2)
-     w.r.t. the initial field against FD (rtol 1e-6); peak memory of each;
+     w.r.t. the initial field against FD (rtol 1e-6), the gradient through
+     the stage kernels' autograd Functions against the twins' (rel
+     1e-12); peak memory of each;
  18. (run after phase 16, before 17) gradients through the packed cavity
      and the bf16 tiers at phase 16 (a)'s configuration: fp64 `fused`
      (the stage kernel and its backward kernel) d/dRe against phase 16's
@@ -175,13 +192,15 @@ Phases, one line each:
      table), with the counts set to 0 just before it: 29/29
      presets OK, each metrics.json's device the card, seconds and kernel
      launches a preset, kernel 1 launched by cavity / vortex_merger_fdm /
-     tgv, kernels 2, 3 and 5 by the multigrid presets, kernel 6 by the
-     Euler presets, burgers_central's non-finite field reported and not
-     gated; the three order studies of tests/test_cli_tools.py in fp64 on
-     the card at that file's bounds, each against the same study with
-     --device cpu in this process (errors within 1e-9 relative or 1e-12
-     absolute); `run burgers_weno_dirichlet --sweep nx=100,200,400` (three
-     points, the solution_d_<nx>.txt aliases); examples.adjoint_cavity
+     tgv, the vortex stage passes by vortex_merger_ps23 / _ps32 (all
+     three) and _hybrid (the combine), kernels 2, 3 and 5 by the
+     multigrid presets, kernel 6 by the Euler presets, burgers_central's
+     non-finite field reported and not gated; the three order studies of
+     tests/test_cli_tools.py in fp64 on the card at that file's bounds,
+     each against the same study with --device cpu in this process
+     (errors within 1e-9 relative or 1e-12 absolute); `run
+     burgers_weno_dirichlet --sweep nx=100,200,400` (three points, the
+     solution_d_<nx>.txt aliases); examples.adjoint_cavity
      (fp64 d loss/dRe through kernel 1 and its backward kernel against its
      central difference, rel 1e-4) and examples.vortex_diagnostics (128^2,
      the enstrophy budget within 1e-2); and utils.debug.nan_guard naming
@@ -229,13 +248,15 @@ Phases, one line each:
      re=), on one rank and on 2x2, against the single-device gradient
      (rel 1e-9); (i-4) ps23's half step at 2048^2 on one rank, 10 steps,
      the directional derivative of sum(w^2) in the initial field against
-     the single-device one (rel 1e-9); on every rank as many kernel-1
-     backward (and Re-sum) launches as forward ones; seconds, peak memory
-     a rank and the share of the backward its collectives take replayed
-     alone; the whole of (i) within 90 s.  Seconds, peak memory a rank and
-     the share of a step its collectives (a-e) or its transposes (f-h)
-     take when replayed alone, beside the card's name and power limit;
-     the 2x2 runs share one card and are no scaling numbers.
+     the single-device one (rel 1e-9), and the gradient through the stage
+     kernels against the twins' on the same rank (rel 1e-12); on every
+     rank as many kernel-1 backward (and Re-sum) launches as forward ones;
+     seconds, peak memory a rank and the share of the backward its
+     collectives take replayed alone; the whole of (i) within 90 s.
+     Seconds, peak memory a rank and the share of a step its collectives
+     (a-e) or its transposes (f-h) take when replayed alone, beside the
+     card's name and power limit; the 2x2 runs share one card and are no
+     scaling numbers.
 Then a JSON line with each kernel's record, and last
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 nonzero without that last line; without a GPU it fails at once.
@@ -1073,6 +1094,301 @@ def stage_backward_timing(ck, args, err):
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, **b, "library_ms": None,
             "cold_ms": cold_ms, "no_re_ms": no_re_ms, "call_ms": call_ms}
+
+
+# the half-spectrum vortex step's stage passes (csrc/vortex_stage.cu):
+# their LAUNCHES keys, and the launches a step of each spectral solver
+# (ps23 and ps32 each pass once a stage, hybrid the combine alone; fdm
+# kernel 1 three times)
+VORTEX_PASSES = ("vortex_derivs_half", "vortex_product", "vortex_cn_combine")
+VORTEX_STEP_LAUNCHES = {"ps23": dict.fromkeys(VORTEX_PASSES, 3),
+                        "ps32": dict.fromkeys(VORTEX_PASSES, 3),
+                        "hybrid": {"vortex_cn_combine": 3},
+                        "fdm": {"arakawa_rhs": 3}}
+# steps of phase 9's kernel-against-twin run of each spectral solver
+VORTEX_TWIN_STEPS = 20
+# flops an output element of a pass needs, counted from
+# csrc/vortex_stage.cu: (a) k2, m and the four g (two divisions) shared by
+# four complex outputs, 8 products; (b) 3; (c) per complex value 3 (stage
+# 1) or 5 (stages 2, 3) a component
+FLOPS_DERIVS, FLOPS_PRODUCT = 22, 3
+# a pass that is not bitwise its twin: max|k-p| allowed, of max|p|
+VORTEX_PASS_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
+VORTEX_REPLACES = ("cfd_julia_tpu/models/vortex.py:392 (make_spectral_step_"
+                   "half's stage math, XLA-fused; not a Pallas kernel)")
+
+
+def derivs_bound(rows, nb, itemsize, ms):
+    """(a)'s bound: H's nb columns read once, the four spectra written
+    once, the row and column tables read once."""
+    n_bytes = (5 * 2 * rows * nb + 3 * (rows + nb)) * itemsize
+    return bound(n_bytes, FLOPS_DERIVS * rows * nb, ms)
+
+
+def product_bound(n, itemsize, ms):
+    """(b)'s bound: four fields read once, the product written once."""
+    return bound(5 * n * itemsize, FLOPS_PRODUCT * n, ms)
+
+
+def combine_bound(n, stage, itemsize, ms):
+    """(c)'s bound on n complex values: H, j1 (and j0 from stage 2) and
+    the real tables a, b (and r) read once, the state written once."""
+    terms = 2 if stage == 1 else 3
+    n_bytes = ((terms + 1) * 2 + terms) * n * itemsize
+    return bound(n_bytes, (2 * terms - 1) * 2 * n, ms)
+
+
+def vortex_stage_cases(dev):
+    """(label, cfg, band, rows, nb, scale, kx_major) of the derivative
+    pass's checks: ps23's 2048^2 band as its step runs it (H stored column
+    by column, as torch.fft.rfft2 returns it, and the inverse's 1/(nx ny)
+    in the scale) and the same row by row, ps32's full width (its scale
+    over the 3072^2 inverse's size), a 2x2 mesh rank's row slab (the band
+    in the masks, all columns), a non-square grid both ways (an inexact
+    scale), and a 3x4 grid whose output plane is odd (the one-value-a-
+    thread path)."""
+    from cfd_julia_torch.models import vortex
+
+    def cfg(nx, ny):
+        return vortex.VortexConfig(nx=nx, ny=ny, solver="ps23", dt=1e-3,
+                                   re=1000.0)
+
+    big = cfg(VORTEX_NX, VORTEX_NX)
+    band = ((2 * VORTEX_NX) // 3) // 2
+    hy = VORTEX_NX // 2 + 1
+    quarter = VORTEX_NX // 4
+    every = slice(None)
+    return [("ps23 band", big, True, every, band, 1.0 / VORTEX_NX ** 2, True),
+            ("ps23 band row by row", big, True, every, band,
+             1.0 / VORTEX_NX ** 2, False),
+            ("ps32 full width", big, False, every, hy,
+             2.25 / (3 * VORTEX_NX // 2) ** 2, True),
+            ("mesh row slab", big, True, slice(quarter, 2 * quarter), hy,
+             1.0, False),
+            ("48x40 band", cfg(48, 40), True, every, 13, 1.0 / 1920, True),
+            ("48x40 full width", cfg(48, 40), False, every, 21, 2.25, False),
+            ("3x4 odd plane", cfg(3, 4), False, every, 3, 1.0, True)]
+
+
+def kx_major(t):
+    """t stored column by column (each (rows, cols) plane's rows
+    together), as torch.fft.rfft2 returns a half spectrum on the GPU."""
+    return t.mT.contiguous().mT
+
+
+def complex_field(shape, dtype, seed, dev="cuda"):
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return torch.as_tensor(z, device=dev).to(
+        torch.complex128 if dtype == torch.float64 else torch.complex64)
+
+
+def pass_check(ck, name, call, plain, dtype):
+    """A pass against its twin: (ok, text, max|k-p|, the kernel's output);
+    two calls bitwise equal, two launches counted, bitwise the twin or
+    within VORTEX_PASS_TOL of max|twin|."""
+    before = ck.LAUNCHES[name]
+    got, again, ref = call(), call(), plain()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    same, bitwise = torch.equal(got, again), torch.equal(got, ref)
+    ok = (same and ck.LAUNCHES[name] == before + 2 and got.dtype == ref.dtype
+          and got.shape == ref.shape
+          and (bitwise or err <= VORTEX_PASS_TOL[dtype] * scale))
+    text = (f"max|k-p|={err:.3e} of max|p|={scale:.3e} ("
+            f"{'bitwise the twin' if bitwise else 'NOT bitwise'}, tol "
+            f"{VORTEX_PASS_TOL[dtype]:g}); two calls bitwise equal: {same}")
+    return ok, text, err, got
+
+
+def phase_vortex_stage_kernels():
+    """The three stage passes of the half-spectrum vortex step against their
+    twins in fp32 and fp64 (vortex_stage_cases for the derivative pass; the
+    product at 2048^2, 3072^2 (ps32's grid), 48x40 and 3x5; the combine at
+    stages 1 and 2 on 2048x1025, 48x21, 3x5 and a row slab whose tables
+    start off a 16-byte boundary), two calls bitwise equal; a non-
+    contiguous constant refused; each timed at its main path's shape in
+    fp32 beside its twin, its bound and, for the derivative pass, one
+    torch.mul of a precomputed complex table.  Returns the three records."""
+    from cfd_julia_torch.models import vortex
+    from cfd_julia_torch.ops import cuda_kernels as ck
+
+    dev = "cuda"
+    timed = {}
+    for dtype in (torch.float32, torch.float64):
+        for k, (label, cfg, band, rows, nb, scale, kx) in enumerate(
+                vortex_stage_cases(dev)):
+            rowk, colk = vortex._deriv_tables(cfg, dtype, dev, band=band)
+            rowk = rowk[rows]
+            H = complex_field((cfg.nx, cfg.ny // 2 + 1), dtype, 40 + k)[rows]
+            H = kx_major(H) if kx else H
+            args = (H, rowk, colk, nb, scale)
+            ok, text, err, got = pass_check(
+                ck, "vortex_derivs_half",
+                lambda: ck.vortex_derivs_half(*args),
+                lambda: ck.vortex_derivs_half_plain(*args), dtype)
+            ok = ok and got.mT.is_contiguous() == kx
+            line = (f"phase 2 kernel vortex_derivs_half {label} H "
+                    f"{tuple(H.shape)} strides {H.stride()} nb={nb} "
+                    f"scale={scale:g} {str(dtype)[6:]}: {text}; spectra "
+                    f"strides {got.stride()}")
+            if dtype == torch.float32 and label in ("ps23 band",
+                                                    "ps32 full width"):
+                g = ck._deriv_g(rowk, colk, nb, scale)
+                ig = kx_major(torch.complex(torch.zeros_like(g), g))
+                hb = H[:, :nb]
+                ms, _ = median_ms(lambda: ck.vortex_derivs_half(*args))
+                plain_ms, _ = median_ms(
+                    lambda: ck.vortex_derivs_half_plain(*args))
+                lib_ms, _ = median_ms(lambda: torch.mul(ig, hb))
+                b = derivs_bound(H.shape[0], nb, 4, ms)
+                timed[label] = {"max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, **b,
+                                "library_ms": lib_ms}
+                line += vortex_timing_text(timed[label],
+                                           "torch.mul(i g, H[:, :nb])")
+                del g, ig, hb
+            print(line + (" ok" if ok else " FAIL"))
+            check(ok, line)
+            del rowk, colk, H, got
+        for shape in [(VORTEX_NX, VORTEX_NX), (3 * VORTEX_NX // 2,) * 2,
+                      (48, 40), (3, 5)]:
+            phys = torch.as_tensor(np.random.default_rng(sum(shape))
+                                   .standard_normal((4, *shape)),
+                                   dtype=dtype, device=dev)
+            ok, text, err, got = pass_check(
+                ck, "vortex_product", lambda: ck.vortex_product(phys),
+                lambda: ck.vortex_product_plain(phys), dtype)
+            line = (f"phase 2 kernel vortex_product {shape[0]}x{shape[1]} "
+                    f"{str(dtype)[6:]}: {text}")
+            if dtype == torch.float32 and shape[0] >= VORTEX_NX:
+                ms, _ = median_ms(lambda: ck.vortex_product(phys))
+                plain_ms, _ = median_ms(lambda: ck.vortex_product_plain(phys))
+                b = product_bound(got.numel(), 4, ms)
+                timed[shape] = {"max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, **b,
+                                "library_ms": None}
+                line += vortex_timing_text(timed[shape], None)
+            print(line + (" ok" if ok else " FAIL"))
+            check(ok, line)
+            del phys, got
+        hy = VORTEX_NX // 2 + 1
+        for shape, rows, kx in [((VORTEX_NX, hy), slice(None), True),
+                                ((VORTEX_NX, hy), slice(None), False),
+                                ((48, 21), slice(None), True),
+                                ((3, 5), slice(None), False),
+                                ((VORTEX_NX, hy), slice(1, VORTEX_NX // 4),
+                                 False)]:
+            rng = np.random.default_rng(shape[0] + rows.start
+                                        if rows.start else shape[0])
+            order = kx_major if kx else (lambda t: t)
+            tables = [order(torch.as_tensor(rng.uniform(0.5, 1.0, shape),
+                                            dtype=dtype, device=dev)[rows])
+                      for _ in range(3)]
+            a, r, b = tables
+            h, j0, j1 = (order(complex_field(shape, dtype, 60 + i)[rows])
+                         for i in range(3))
+            for stage in (1, 2):
+                args = (a, h, r, j0, b, j1) if stage == 2 else \
+                    (a, h, None, None, b, j1)
+                ok, text, err, got = pass_check(
+                    ck, "vortex_cn_combine",
+                    lambda: ck.vortex_cn_combine(*args),
+                    lambda: ck.vortex_cn_combine_plain(*args), dtype)
+                where = " (rows 1.. of a table)" if rows.start else ""
+                line = (f"phase 2 kernel vortex_cn_combine stage {stage} "
+                        f"{tuple(h.shape)}{where} strides {h.stride()} "
+                        f"{str(dtype)[6:]}: {text}")
+                if dtype == torch.float32 and shape[0] == VORTEX_NX and \
+                        rows.start is None and kx:
+                    ms, _ = median_ms(lambda: ck.vortex_cn_combine(*args))
+                    plain_ms, _ = median_ms(
+                        lambda: ck.vortex_cn_combine_plain(*args))
+                    bd = combine_bound(h.numel(), stage, 4, ms)
+                    timed[stage] = {"max_abs_err": err, "ms": ms,
+                                    "plain_ms": plain_ms, **bd,
+                                    "library_ms": None}
+                    line += vortex_timing_text(timed[stage], None)
+                print(line + (" ok" if ok else " FAIL"))
+                check(ok, line)
+            del tables, a, r, b, h, j0, j1, got
+    # a constant that is not contiguous, and operands of mixed memory
+    # orders, are refused, nothing launched
+    cfg = vortex_stage_cases(dev)[4][1]
+    rowk, colk = vortex._deriv_tables(cfg, torch.float32, dev)
+    H = complex_field((cfg.nx, cfg.ny // 2 + 1), torch.float32, 7)
+    a = torch.ones(H.shape, device=dev)
+    before = dict(ck.LAUNCHES)
+    refused = []
+    for call in [lambda: ck.vortex_derivs_half(H, rowk.mT.contiguous().mT,
+                                               colk, 21),
+                 lambda: ck.vortex_derivs_half(H, rowk, colk[::2], 10),
+                 lambda: ck.vortex_cn_combine(a, kx_major(H), None, None, a,
+                                              H)]:
+        try:
+            call()
+        except ValueError as e:
+            refused.append("contiguous" in str(e) or "order" in str(e))
+    ok = refused == [True, True, True] and ck.LAUNCHES == before
+    line = (f"phase 2 kernel vortex stage passes: non-contiguous row and "
+            f"column tables, spectra of mixed memory orders refused "
+            f"{refused}, launches unchanged: {ck.LAUNCHES == before} "
+            f"{'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
+    src = "cfd_julia_torch/csrc/vortex_stage.cu"
+    derivs = {"name": "vortex_derivs_half", "route": "cuda", "source": src,
+              "replaces": VORTEX_REPLACES, "launches": None,
+              **timed["ps23 band"], "shape": "ps23 2048^2: H (2048, 1025), "
+              "682 band columns, fp32",
+              "full_width": {**timed["ps32 full width"],
+                             "shape": "ps32 2048^2: all 1025 columns"}}
+    product = {"name": "vortex_product", "route": "cuda", "source": src,
+               "replaces": VORTEX_REPLACES, "launches": None,
+               **timed[(VORTEX_NX, VORTEX_NX)], "shape": "(4, 2048, 2048) "
+               "fp32", "at_3072": timed[(3 * VORTEX_NX // 2,) * 2]}
+    combine = {"name": "vortex_cn_combine", "route": "cuda", "source": src,
+               "replaces": VORTEX_REPLACES, "launches": None, **timed[2],
+               "shape": "stage 2 (2048, 1025) complex64", "stage_1": timed[1]}
+    return derivs, product, combine
+
+
+def phase_vortex_inverse():
+    """ps23's band-limited inverse as its step runs it (four spectra of
+    682 columns stored column by column, the normalisation folded into
+    the spectra) against irfft2 of the same spectra padded to all 1025
+    columns, row by row, at 2048^2 fp32: device ms of each (the copies
+    torch.fft makes are inside).  Returns {name: (call, ms)}, for a
+    profile by kernel."""
+    from cfd_julia_torch.ops import spectral
+
+    n, hy = VORTEX_NX, VORTEX_NX // 2 + 1
+    nb = ((2 * n) // 3) // 2
+    full = complex_field((4, n, hy), torch.float32, 70)
+    full[..., nb:] = 0
+    band = kx_major(full[..., :nb])
+    calls = {"irfft2_band": lambda: spectral.irfft2_band(band, n, n,
+                                                         norm="forward"),
+             "irfft2": lambda: spectral.irfft2(full, n, n, norm="forward")}
+    diff = float((calls["irfft2_band"]() - calls["irfft2"]()).abs().max())
+    ms = {name: median_ms(call)[0] for name, call in calls.items()}
+    print(f"phase 2 vortex inverse {n}^2 fp32, 4 fields: irfft2_band of "
+          f"{nb} columns stored column by column {ms['irfft2_band']:.4f} "
+          f"ms, irfft2 of all {hy} columns row by row {ms['irfft2']:.4f} ms "
+          f"(norm=\"forward\"; medians of 30 calls, CUDA events); max "
+          f"difference {diff:.3e}")
+    return {name: (call, ms[name]) for name, call in calls.items()}
+
+
+def vortex_timing_text(t, library):
+    text = (f"; device time: kernel {t['ms']:.4f} ms ("
+            f"{100 * t['share_of_bound']:.1f}% of its bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']}), plain "
+            f"{t['plain_ms']:.4f} ms")
+    if library:
+        text += f", {library} {t['library_ms']:.4f} ms"
+    return text + " (medians of 30 calls, CUDA events, warm L2)"
 
 
 # the tier GEMM (kernel 8): (M, N, K) of its paths (the fused tiers'
@@ -2260,16 +2576,18 @@ def vortex_run(cfg, n_first, n_total, graph=True):
 
 def phase_vortex():
     """The four anchored vortex-merger runs at 2048^2 on the port's default
-    path (graphed), each beside the same run with graph=False.  Returns
-    fdm's launch counts, {solver: (step, state, seconds a step)} and
-    ps23's final vorticity."""
+    path (graphed), each beside the same run with graph=False, with the
+    kernels' launches against VORTEX_STEP_LAUNCHES; fdm's whole run and
+    the spectral solvers' first VORTEX_TWIN_STEPS steps also on the plain
+    twins (rhs_impl="torch").  Returns {solver: launch counts}, {solver:
+    (step, state, seconds a step)} and ps23's final vorticity."""
     import dataclasses
 
     from cfd_julia_torch.models import vortex
     from cfd_julia_torch.ops import cuda_kernels
 
     n = VORTEX_TOTAL - VORTEX_FIRST
-    steps, fdm_launches, w_ps23 = {}, None, None
+    steps, all_launches, w_ps23 = {}, {}, None
     for solver in VORTEX_SOLVERS:
         cfg = vortex.VortexConfig(nx=VORTEX_NX, ny=VORTEX_NX, solver=solver,
                                   dt=1e-3, re=1000.0)
@@ -2290,8 +2608,8 @@ def phase_vortex():
         del w_eager
         finite = bool(torch.isfinite(w).all())
         want = dict.fromkeys(launches, 0)
-        if solver == "fdm":
-            want["arakawa_rhs"] = 3 * VORTEX_TOTAL
+        for name, per_step in VORTEX_STEP_LAUNCHES[solver].items():
+            want[name] = per_step * VORTEX_TOTAL
         ok = (ok and finite and w.dtype == torch.float32
               and w.shape == (VORTEX_NX, VORTEX_NX) and launches == want
               and same and e_launches == launches)
@@ -2301,13 +2619,37 @@ def phase_vortex():
                 f"({seconds:.4f} s), eager (graph=False) {n / e_seconds:.2f} "
                 f"steps/s; {gtext}; peak device memory over the run: graphed "
                 f"{peak:.1f} MB, eager {e_peak:.1f} MB; launches "
-                f"{launches['arakawa_rhs']} arakawa_rhs (want "
-                f"{want['arakawa_rhs']}), all kernels "
-                f"{sum(launches.values())}, eager run "
+                f"{json.dumps({k: v for k, v in launches.items() if v})} "
+                f"(want {json.dumps({k: v for k, v in want.items() if v})}"
+                f"), all kernels {sum(launches.values())}, eager run "
                 f"{'the same' if e_launches == launches else e_launches}; "
                 f"fields {'finite' if finite else 'NOT finite'}")
+        all_launches[solver] = launches
+        if solver != "fdm":
+            # the kernels against the twins over the first steps
+            cuda_kernels.reset_launch_counts()
+            w_k = vortex_run(cfg, VORTEX_TWIN_STEPS // 2,
+                             VORTEX_TWIN_STEPS)[0]
+            k_launches = {k: v for k, v in cuda_kernels.LAUNCHES.items()
+                          if v}
+            cuda_kernels.reset_launch_counts()
+            w_twin = vortex_run(dataclasses.replace(cfg, rhs_impl="torch"),
+                                VORTEX_TWIN_STEPS // 2,
+                                VORTEX_TWIN_STEPS)[0]
+            diff = float((w_k - w_twin).abs().max())
+            twin_quiet = not any(cuda_kernels.LAUNCHES.values())
+            k_want = {k: v * VORTEX_TWIN_STEPS for k, v in
+                      VORTEX_STEP_LAUNCHES[solver].items()}
+            ok = (ok and diff <= VORTEX_TWIN_TOL and twin_quiet
+                  and k_launches == k_want)
+            line += (f"; {VORTEX_TWIN_STEPS} graphed steps on the kernels "
+                     f"({json.dumps(k_launches)}) against the twins "
+                     f"(rhs_impl=\"torch\", {'no' if twin_quiet else 'SOME'}"
+                     f" kernel launches): max|w-w_twin|={diff:.3e} "
+                     f"({'bitwise' if diff == 0.0 else 'NOT bitwise'}, tol "
+                     f"{VORTEX_TWIN_TOL:g})")
+            del w_k, w_twin
         if solver == "fdm":
-            fdm_launches = launches
             cuda_kernels.reset_launch_counts()
             w_twin, twin_s, _, _, _ = vortex_run(
                 dataclasses.replace(cfg, rhs_impl="torch"), VORTEX_FIRST,
@@ -2326,7 +2668,7 @@ def phase_vortex():
         if solver == "ps23":
             w_ps23 = w
         del w
-    return fdm_launches, steps, w_ps23
+    return all_launches, steps, w_ps23
 
 
 def phase_cli_spectral():
@@ -2407,6 +2749,43 @@ def profile_transforms(by_name, label, steps):
           f"kernels {(total - fft_us - k1_us) / steps:.1f} us/step "
           f"({100 * (total - fft_us - k1_us) / total:.1f}%) in "
           f"{rest_n / steps:.1f}")
+
+
+# each pass's kernel template (csrc/vortex_stage.cu) as the profiler names it
+VORTEX_PASS_KERNELS = {"vortex_derivs_half": "derivs_kernel",
+                       "vortex_product": "product_kernel",
+                       "vortex_cn_combine": "combine_kernel"}
+
+
+def profile_vortex_passes(by_name, solver, steps):
+    """Each stage pass's device us and launches a step inside the profiled
+    2048^2 fp32 step of `solver`, against its bound a step (ps23: the
+    banded derivative pass; ps32: the full-width one and the product on
+    the 3072^2 grid); fails unless every pass launches as
+    VORTEX_STEP_LAUNCHES says."""
+    hy = VORTEX_NX // 2 + 1
+    nb = ((2 * VORTEX_NX) // 3) // 2 if solver == "ps23" else hy
+    n_phys = (3 * VORTEX_NX // 2 if solver == "ps32" else VORTEX_NX) ** 2
+    bounds = {"vortex_derivs_half": 3 * derivs_bound(VORTEX_NX, nb, 4,
+                                                     1.0)["bound_ms"],
+              "vortex_product": 3 * product_bound(n_phys, 4, 1.0)["bound_ms"],
+              "vortex_cn_combine": (
+                  combine_bound(VORTEX_NX * hy, 1, 4, 1.0)["bound_ms"]
+                  + 2 * combine_bound(VORTEX_NX * hy, 2, 4, 1.0)["bound_ms"])}
+    parts, ok = [], True
+    for name, kernel in VORTEX_PASS_KERNELS.items():
+        us, n = kernel_sums(by_name, kernel)
+        want = VORTEX_STEP_LAUNCHES[solver].get(name, 0) * steps
+        ok = ok and n == want
+        if want:
+            us_step = us / steps
+            parts.append(f"{name} {us_step:.2f} us in {n / steps:.1f} "
+                         f"launches ({100 * 1e3 * bounds[name] / us_step:.1f}"
+                         f"% of its bound {1e3 * bounds[name]:.2f} us)")
+    line = (f"profile vortex {solver} {VORTEX_NX}^2 stage passes a step: "
+            + "; ".join(parts))
+    print(line + (" ok" if ok else " FAIL"))
+    check(ok, line)
 
 
 def phase_cavity_fst(matmul_rates, profile):
@@ -3203,38 +3582,56 @@ def phase_gradients():
     print(line)
     check(ok, line)
 
-    # (c) ps23, w.r.t. the initial field
+    # (c) ps23, w.r.t. the initial field: through the stage kernels (their
+    # autograd Functions) and through the twins
     pcfg = vortex.VortexConfig(nx=VORTEX_NX, ny=VORTEX_NX, solver="ps23",
                                dt=1e-3, re=1000.0)
-    pstep = vortex.make_spectral_step_half(pcfg, f64, dev)
+    psteps = {impl: vortex.make_spectral_step_half(
+        dataclasses.replace(pcfg, rhs_impl=impl), f64, dev)
+        for impl in ("auto", "torch")}
 
-    def ps23_loss(w0):
-        hf = loop.advance(pstep, vortex.half_init(w0), GRAD_VORTEX_STEPS,
-                          graph=False)
+    def ps23_loss(w0, impl="auto"):
+        hf = loop.advance(psteps[impl], vortex.half_init(w0),
+                          GRAD_VORTEX_STEPS, graph=False)
         return torch.sum(vortex.half_decode(hf, pcfg.nx, pcfg.ny) ** 2)
 
     w0 = vortex.initial_vorticity(pcfg, f64, dev)
-    v = torch.as_tensor(np.random.default_rng(11).standard_normal(
-        w0.shape), dtype=f64, device=dev)
+    v = grad_direction(VORTEX_NX, dev)
 
-    def ps23_grad():
+    def ps23_grad(impl="auto"):
         x = w0.clone().requires_grad_()
-        (g,) = torch.autograd.grad(ps23_loss(x), x)
-        return float(torch.sum(g * v))
+        (g,) = torch.autograd.grad(ps23_loss(x, impl), x)
+        return g
 
-    directional, peak_p = peak_gb(ps23_grad)
+    cuda_kernels.reset_launch_counts()
+    g_k, peak_p = peak_gb(ps23_grad)
+    p_launches = {k: n for k, n in cuda_kernels.LAUNCHES.items() if n}
+    cuda_kernels.reset_launch_counts()
+    g_t = ps23_grad("torch")
+    twin_quiet = not any(cuda_kernels.LAUNCHES.values())
+    rel_twin = float((g_k - g_t).abs().max() / g_t.abs().max())
+    directional = float(torch.sum(g_k * v))
+    del g_k, g_t
     h = 1e-6
     with torch.no_grad():
         fd = (float(ps23_loss(w0 + h * v)) - float(ps23_loss(w0 - h * v))) \
             / (2 * h)
     rel_fd = abs(directional - fd) / abs(fd)
-    ok = rel_fd <= 1e-6 and math.isfinite(directional)
+    p_want = {k: n * GRAD_VORTEX_STEPS
+              for k, n in VORTEX_STEP_LAUNCHES["ps23"].items()}
+    ok = (rel_fd <= 1e-6 and math.isfinite(directional) and rel_twin <= 1e-12
+          and twin_quiet and p_launches == p_want)
     line = (f"phase 16 gradient (c) ps23 {VORTEX_NX}^2 fp64 "
             f"({GRAD_VORTEX_STEPS} steps, dt=1e-3, Re=1000, graph=False): "
             f"directional derivative of sum(w^2) w.r.t. the initial field "
             f"along a seeded normal field {directional!r}, central FD "
-            f"h={h:g} {fd!r} (rel {rel_fd:.2e}, tol 1e-6); peak device "
-            f"memory {peak_p:.2f} GB {'ok' if ok else 'FAIL'}")
+            f"h={h:g} {fd!r} (rel {rel_fd:.2e}, tol 1e-6); the gradient "
+            f"through the stage kernels ({json.dumps(p_launches)}, want "
+            f"{json.dumps(p_want)}; backward torch ops) against the twins' "
+            f"(rhs_impl=\"torch\", {'no' if twin_quiet else 'SOME'} kernel "
+            f"launches): max|g_k - g_t| / max|g_t| = {rel_twin:.2e} (tol "
+            f"1e-12); peak device memory {peak_p:.2f} GB "
+            f"{'ok' if ok else 'FAIL'}")
     print(line)
     check(ok, line)
     return {"cavity": launches, "ensemble": e_launches,
@@ -3392,12 +3789,14 @@ def phase_packed_gradients(matmul_grad):
 # phase 17: the kernels (LAUNCHES keys) each preset's path must launch in
 # run-all on the card; the other presets launch none of the hand-written
 # kernels (cuFFT, cuBLAS and eager torch: heat, Burgers, the direct and
-# the relaxation Poisson solves, ps23 / ps32 / hybrid)
+# the relaxation Poisson solves)
 MG_PATH = ("smooth_residual_restrict", "prolong_correct_smooth",
            "redblack_sweeps")
 RUN_ALL_KERNELS = {
     "cavity": ("arakawa_rhs",), "vortex_merger_fdm": ("arakawa_rhs",),
-    "tgv": ("arakawa_rhs",), "poisson_mg2": MG_PATH,
+    "tgv": ("arakawa_rhs",), "vortex_merger_ps23": VORTEX_PASSES,
+    "vortex_merger_ps32": VORTEX_PASSES,
+    "vortex_merger_hybrid": ("vortex_cn_combine",), "poisson_mg2": MG_PATH,
     "poisson_mgcg": MG_PATH, "poisson_mgN": MG_PATH,
     "euler_roe": ("euler_rhs",), "euler_hllc": ("euler_rhs",),
     "euler_rusanov": ("euler_rhs",),
@@ -4107,6 +4506,8 @@ def mesh_gradients(device, mesh):
     rank their central differences; the fdm vortex's d mean(w^2)/dRe
     through make_fdm_rhs(mesh=, re=); on one rank ps23's directional
     derivative of sum(w^2) in the initial field."""
+    import dataclasses
+
     from cfd_julia_torch.models import cavity, vortex
     from cfd_julia_torch.parallel import halo, sharded
     from cfd_julia_torch.parallel import mesh as mesh_lib
@@ -4169,25 +4570,37 @@ def mesh_gradients(device, mesh):
     del rhs, w0
     torch.cuda.empty_cache()
     if one:
+        # ps23 through the stage kernels, and through their twins
         cfg = vortex_mesh_cfg("ps23")
         n = cfg.nx
-        step = vortex.make_spectral_step_half(cfg, f64, device, mesh=mesh)
-        w0 = mesh_lib.place_slab(vortex.initial_vorticity(cfg, f64, device),
-                                 mesh).requires_grad_()
-
-        def ps23_forward():
-            h = vortex.half_init(w0, mesh)
-            for _ in range(MESH_GRAD_SHORT):
-                h = step(h)
-            return halo.all_reduce_sum(
-                (vortex.half_decode(h, n, n, mesh) ** 2).sum())
-
-        out["ps23"] = grad_run(ps23_forward)
         v = mesh_lib.place_slab(grad_direction(n, device), mesh)
-        with torch.no_grad():
-            out["ps23"]["directional"] = float(
-                halo.all_reduce_sum((w0.grad * v).sum()))
-        del step, w0, v
+        grads = {}
+        for impl, key in [("auto", "ps23"), ("torch", "ps23_twin")]:
+            step = vortex.make_spectral_step_half(
+                dataclasses.replace(cfg, rhs_impl=impl), f64, device,
+                mesh=mesh)
+            w0 = mesh_lib.place_slab(
+                vortex.initial_vorticity(cfg, f64, device),
+                mesh).requires_grad_()
+
+            def ps23_forward():
+                h = vortex.half_init(w0, mesh)
+                for _ in range(MESH_GRAD_SHORT):
+                    h = step(h)
+                return halo.all_reduce_sum(
+                    (vortex.half_decode(h, n, n, mesh) ** 2).sum())
+
+            out[key] = grad_run(ps23_forward)
+            with torch.no_grad():
+                out[key]["directional"] = float(
+                    halo.all_reduce_sum((w0.grad * v).sum()))
+            grads[key] = w0.grad
+            del step, w0
+        # the two gradients' difference, of the twins' scale
+        out["ps23"]["rel_twin"] = float(
+            (grads["ps23"] - grads["ps23_twin"]).abs().max()
+            / grads["ps23_twin"].abs().max())
+        del v, grads
         torch.cuda.empty_cache()
     return out
 
@@ -4588,15 +5001,26 @@ def phase_mesh_gradients(one, quad, card, gb, device="cuda"):
         print(line)
         check(ok, line)
 
-    # (i-4) ps23's half step on one rank
-    rec = g1["ps23"]
+    # (i-4) ps23's half step on one rank, through the stage kernels and
+    # through their twins
+    rec, twin = g1["ps23"], g1["ps23_twin"]
     rel = abs(rec["directional"] - single["ps23"]) / abs(single["ps23"])
-    ok = rel <= 1e-9 and math.isfinite(rec["directional"])
+    rel_twin = rec["rel_twin"]
+    fwd = {k: c for k, c in rec["forward"].items() if c}
+    want = {k: c * MESH_GRAD_SHORT
+            for k, c in VORTEX_STEP_LAUNCHES["ps23"].items()}
+    ok = (rel <= 1e-9 and math.isfinite(rec["directional"])
+          and rel_twin <= 1e-12 and fwd == want
+          and not any(twin["forward"].values()))
     line = (f"phase 19 (i-4) ps23 gradient {VORTEX_NX}^2 fp64, "
             f"make_spectral_step_half(mesh=), world 1, {MESH_GRAD_SHORT} "
             f"steps: the directional derivative of sum(w^2) in the initial "
             f"field along phase 16 (c)'s direction {rec['directional']!r}, "
             f"single-device {single['ps23']!r} (rel {rel:.2e}, tol 1e-9); "
+            f"the stage kernels' launches {json.dumps(fwd)} (want "
+            f"{json.dumps(want)}), the gradient against the twins' "
+            f"(rhs_impl=\"torch\", {twin['seconds']:.3f} s): max|g_k - g_t| "
+            f"/ max|g_t| = {rel_twin:.2e} (tol 1e-12); "
             f"{rec['seconds']:.3f} s forward and backward, peak "
             f"{gb(rec['peak'])}; {card} {'ok' if ok else 'FAIL'}")
     print(line)
@@ -4769,9 +5193,9 @@ def main(argv=None):
                         help="also print torch.profiler breakdowns of the "
                              "1024^2 cavity step, the 4096^2 multigrid "
                              "solve (fused and fused=\"off\"), the hllc "
-                             "8192 Euler step, the ps23 and fdm 2048^2 "
-                             "vortex steps, the fst, the fused and the "
-                             "fused_bf16x3 cavity steps")
+                             "8192 Euler step, the four 2048^2 vortex "
+                             "steps and ps23's two inverses, the fst, the "
+                             "fused and the fused_bf16x3 cavity steps")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4793,6 +5217,15 @@ def main(argv=None):
     stage_record = phase_stage_kernel()
     stage_back_record = phase_stage_backward_kernel()
     tier_record, split_record = phase_tier_kernel()
+    vortex_records = phase_vortex_stage_kernels()
+    inverses = phase_vortex_inverse()
+    if args.profile:
+        for name, (call, ms) in inverses.items():
+            phase_profile(f"vortex inverse {name} {VORTEX_NX}^2 fp32 (4 "
+                          f"fields)", lambda call=call: [call() for _ in
+                                                         range(10)],
+                          10, ms * 1e-3, unit="call")
+    del inverses
     phase_empty_graph(mg_records["redblack_sweeps"]["floor_ms"])
     launches, step, state, step_s, rms, cavity_eager_s = phase_main_path()
     cavity_ref = ((state[0], state[1]), rms)
@@ -4827,10 +5260,10 @@ def main(argv=None):
             profile_rhs(by_name, "euler_rhs_kernel", 20)
     phase_cli_euler()
     del e_step, e_state
-    fdm_launches, v_steps, w_ps23 = phase_vortex()
+    vortex_launches, v_steps, w_ps23 = phase_vortex()
     fdm_step_s = v_steps["fdm"][2]
     if args.profile:
-        for solver in ("ps23", "fdm"):
+        for solver in VORTEX_SOLVERS:
             v_step, v_state, v_step_s = v_steps[solver]
             label = f"vortex {solver} {VORTEX_NX}^2 (graphed)"
             by_name = phase_profile(
@@ -4840,6 +5273,8 @@ def main(argv=None):
                 profile_transforms(by_name, label, 10)
                 if solver == "fdm":
                     profile_rhs(by_name, "arakawa_rhs_kernel", 10)
+                else:
+                    profile_vortex_passes(by_name, solver, 10)
     del v_steps
     phase_cli_spectral()
     rates = phase_cavity_fst((1.0 / step_s, 1.0 / cavity_eager_s),
@@ -4861,7 +5296,7 @@ def main(argv=None):
 
     record["launches"] = launches[record["name"]]
     record["path"] = f"cavity {NX}^2, {STEPS_TOTAL} steps"
-    record["at_2048"]["launches"] = fdm_launches["arakawa_rhs"]
+    record["at_2048"]["launches"] = vortex_launches["fdm"]["arakawa_rhs"]
     record["at_2048"]["path"] = (f"vortex fdm {VORTEX_NX}^2, {VORTEX_TOTAL} "
                                  f"steps")
     record["sharded"].update(
@@ -4939,10 +5374,15 @@ def main(argv=None):
     for rec in (tier_record, split_record):
         rec["launches"] = tier_launches[rec["name"]]
         rec["path"] = f"fused_bf16x3 cavity {NX}^2, {STEPS_TOTAL} steps"
+    for rec in vortex_records:
+        rec["launches"] = vortex_launches["ps23"][rec["name"]]
+        rec["path"] = (f"vortex ps23 {VORTEX_NX}^2, {VORTEX_TOTAL} steps; "
+                       f"ps32 {vortex_launches['ps32'][rec['name']]}, hybrid "
+                       f"{vortex_launches['hybrid'][rec['name']]} launches")
     print(json.dumps({"kernels": [record, backward, *mg_records.values(),
                                   euler_record, stage_record,
                                   stage_back_record, tier_record,
-                                  split_record]}))
+                                  split_record, *vortex_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

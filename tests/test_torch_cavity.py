@@ -90,6 +90,56 @@ def test_wall_bc_matches_jax(nx, ny, order):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-15, atol=0)
 
 
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("nx,ny", [(16, 16), (24, 16)])
+def test_apply_wall_bc_matches_jax(nx, ny, order):
+    """apply_wall_bc fills the walls of a full field and keeps its
+    interior, as the JAX package's (fp64)."""
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((nx + 1, ny + 1))
+    s = rng.standard_normal((nx + 1, ny + 1))
+    ref = np.asarray(jax_cavity.apply_wall_bc(
+        jnp.asarray(w), jnp.asarray(s), 1.0 / nx, 1.0 / ny, order))
+    got = cavity.apply_wall_bc(torch.as_tensor(w), torch.as_tensor(s),
+                               1.0 / nx, 1.0 / ny, order)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-15, atol=0)
+    np.testing.assert_array_equal(got.numpy()[1:-1, 1:-1], w[1:-1, 1:-1])
+    assert cavity.apply_wall_bc(torch.as_tensor(w), torch.as_tensor(s),
+                                1.0 / nx, 1.0 / ny).equal(
+        cavity.apply_wall_bc(torch.as_tensor(w), torch.as_tensor(s),
+                             1.0 / nx, 1.0 / ny, 2))
+
+
+def test_package_exports_match_jax():
+    """Grid1D, Grid2D and precision at the package's top level, as the JAX
+    package's; importing the package alone builds nothing and starts no
+    CUDA context."""
+    import cfd_julia_torch
+    import cfd_julia_tpu
+    from cfd_julia_torch.core import grid
+
+    assert cfd_julia_torch.Grid1D is grid.Grid1D
+    assert cfd_julia_torch.Grid2D is grid.Grid2D
+    assert cfd_julia_torch.precision is precision
+    g = cfd_julia_torch.Grid2D(nx=16, ny=8, y1=2.0)
+    j = cfd_julia_tpu.Grid2D(nx=16, ny=8, y1=2.0)
+    # linspace's two implementations differ in the last bit
+    for a, b in zip(g.mesh(torch.float64), j.mesh(jnp.float64)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-15)
+    np.testing.assert_allclose(
+        cfd_julia_torch.Grid1D(nx=40, x0=-1.0).nodes(torch.float64).numpy(),
+        np.asarray(cfd_julia_tpu.Grid1D(nx=40, x0=-1.0).nodes(jnp.float64)),
+        rtol=0, atol=1e-15)
+    code = ("import sys, torch, cfd_julia_torch\n"
+            "bad = [m for m in sys.modules if m.startswith("
+            "'cfd_julia_torch.ops')]\n"
+            "sys.exit(1 if bad or torch.cuda.is_initialized() else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("cfg", [
     jax_cavity.CavityConfig(nx=16, ny=16, dt=2e-3, re=100.0, bc_order=1),
     jax_cavity.CavityConfig(nx=16, ny=16, dt=2e-3, re=100.0, bc_order=2),

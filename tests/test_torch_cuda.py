@@ -1641,3 +1641,198 @@ def test_host_staged_exchange_is_bitwise_a_cpu_exchange(cuda_device):
     for rank, r in enumerate(results):
         assert r == {"staged": True, "halo1": True, "halo2": True,
                      "gather_x": True, "gather_y": True}, (rank, r)
+
+
+# --------------------------------------- the vortex step's stage passes
+
+# (nx, ny, band, rows of a slab or None, nb, scale, H stored column by
+# column) of the derivative pass: ps23's band as its step runs it (H in
+# torch.fft.rfft2's column-by-column order on the GPU, the inverse's
+# 1/(nx ny) in the scale) and row by row, ps32's full width and scale,
+# non-square both ways, a mesh rank's row slab (the band in the masks, all
+# columns), an odd output plane (one value a thread) and the 2048^2 band
+VORTEX_DERIVS = [(64, 64, True, None, 21, 1 / 4096, True),
+                 (64, 64, True, None, 21, 1 / 4096, False),
+                 (64, 64, False, None, 33, 2.25, True),
+                 (48, 40, True, None, 13, 1 / 1920, True),
+                 (48, 40, False, None, 21, 1.0, False),
+                 (32, 48, True, (8, 16), 25, 1.0, False),
+                 (3, 4, False, None, 3, 1.0, True),
+                 (2048, 2048, True, None, 682, 2.0**-22, True)]
+
+
+def _complex_field(shape, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    z = torch.as_tensor(rng.standard_normal(shape)
+                        + 1j * rng.standard_normal(shape), device=device)
+    return z.to(torch.complex128 if dtype == torch.float64
+                else torch.complex64)
+
+
+def _kx_major(t):
+    """t stored column by column, as torch.fft.rfft2 returns it here."""
+    return t.mT.contiguous().mT
+
+
+def _derivs_args(case, dtype, device):
+    nx, ny, band, rows, nb, scale, kx = case
+    cfg = vortex.VortexConfig(nx=nx, ny=ny, solver="ps23", dt=1e-3)
+    rowk, colk = vortex._deriv_tables(cfg, dtype, device, band=band)
+    H = _complex_field((nx, ny // 2 + 1), dtype, nx + ny, device)
+    if rows is not None:
+        H, rowk = H[slice(*rows)], rowk[slice(*rows)]
+    return _kx_major(H) if kx else H, rowk, colk, nb, scale
+
+
+def _assert_rel_any(got, ref, rel):
+    """max|got - ref| <= rel max|ref|, real or complex."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+def _bitwise_pass(name, call, plain):
+    """Two kernel calls and the twin, bitwise equal; two launches."""
+    before = cuda_kernels.LAUNCHES[name]
+    got, again = call(), call()
+    assert cuda_kernels.LAUNCHES[name] == before + 2
+    assert torch.equal(got, again)
+    _assert_same(got, plain())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", VORTEX_DERIVS,
+                         ids=[f"{c[0]}x{c[1]}-nb{c[4]}" +
+                              ("-slab" if c[3] else "") +
+                              ("-kx" if c[6] else "") for c in VORTEX_DERIVS])
+def test_vortex_derivs_kernel_matches_plain(cuda_device, case, dtype):
+    """Bitwise the twin; the spectra in H's memory order."""
+    args = _derivs_args(case, dtype, cuda_device)
+    _bitwise_pass("vortex_derivs_half",
+                  lambda: cuda_kernels.vortex_derivs_half(*args),
+                  lambda: cuda_kernels.vortex_derivs_half_plain(*args))
+    assert cuda_kernels.vortex_derivs_half(*args).mT.is_contiguous() == \
+        case[6]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(2048, 2048), (3072, 3072), (48, 40),
+                                   (3, 5), (1, 1)])
+def test_vortex_product_kernel_matches_plain(cuda_device, shape, dtype):
+    phys = torch.as_tensor(np.random.default_rng(sum(shape)).standard_normal(
+        (4, *shape)), dtype=dtype, device=cuda_device)
+    _bitwise_pass("vortex_product", lambda: cuda_kernels.vortex_product(phys),
+                  lambda: cuda_kernels.vortex_product_plain(phys))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("stage", [1, 2])
+@pytest.mark.parametrize("shape,rows,kx", [
+    ((2048, 1025), None, True), ((2048, 1025), None, False),
+    ((48, 21), None, True), ((3, 5), None, False), ((64, 33), (1, 17), False)],
+    ids=["2048-kx", "2048", "48x21-kx", "3x5", "slab"])
+def test_vortex_cn_combine_kernel_matches_plain(cuda_device, shape, rows, kx,
+                                                stage, dtype):
+    """Every operand row by row or every one column by column (kx); the
+    slab's tables and spectra start one row in: off every 16-byte boundary
+    (the one-value-a-thread path)."""
+    rng = np.random.default_rng(shape[0] + stage)
+    sl = slice(*rows) if rows else slice(None)
+    order = _kx_major if kx else (lambda t: t)
+    a, r, b = (order(torch.as_tensor(rng.uniform(0.5, 1.0, shape),
+                                     dtype=dtype, device=cuda_device)[sl])
+               for _ in range(3))
+    h, j0, j1 = (order(_complex_field(shape, dtype, 5 + k, cuda_device)[sl])
+                 for k in range(3))
+    args = (a, h, r, j0, b, j1) if stage == 2 else (a, h, None, None, b, j1)
+    _bitwise_pass("vortex_cn_combine",
+                  lambda: cuda_kernels.vortex_cn_combine(*args),
+                  lambda: cuda_kernels.vortex_cn_combine_plain(*args))
+    assert cuda_kernels.vortex_cn_combine(*args).stride() == h.stride()
+
+
+@pytest.mark.cuda
+def test_vortex_passes_refuse_non_contiguous_constants(cuda_device):
+    H, rowk, colk, nb, _ = _derivs_args(VORTEX_DERIVS[4], torch.float32,
+                                        cuda_device)
+    a = torch.ones((21, 48), device=cuda_device).t()
+    before = dict(cuda_kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.vortex_derivs_half(H, rowk.t().contiguous().t(), colk,
+                                        nb)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.vortex_derivs_half(H, rowk, colk[::2], 10)
+    with pytest.raises(ValueError, match="memory order"):
+        cuda_kernels.vortex_cn_combine(a, H, None, None, a, H)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.vortex_product(torch.ones((4, 8, 8), device=cuda_device
+                                               ).mT)
+    with pytest.raises(ValueError, match="no gradient"):
+        cuda_kernels.vortex_derivs_half(H, rowk.clone().requires_grad_(),
+                                        colk, nb)
+    assert cuda_kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_vortex_pass_functions_match_twin_autograd(cuda_device):
+    """Under grad the three passes are autograd Functions (their backward
+    the *_backward_plain adjoints): the gradients of a loss through each
+    against autograd of its twin, fp64, rel 1e-12."""
+    f64 = torch.float64
+    H, rowk, colk, nb, _ = _derivs_args(VORTEX_DERIVS[0], f64, cuda_device)
+    phys = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (4, 64, 64)), dtype=f64, device=cuda_device)
+    tables = [torch.rand(H.shape, dtype=f64, device=cuda_device)
+              for _ in range(3)]
+    j0, j1 = (_complex_field(H.shape, f64, 9 + k, cuda_device)
+              for k in range(2))
+    G = _complex_field((4, 64, nb), f64, 3, cuda_device)
+    Gh = _complex_field(H.shape, f64, 4, cuda_device)
+    Gp = torch.rand((64, 64), dtype=f64, device=cuda_device)
+    for kernel, plain, inputs, cot in [
+            (lambda x: cuda_kernels.vortex_derivs_half(x, rowk, colk, nb),
+             lambda x: cuda_kernels.vortex_derivs_half_plain(x, rowk, colk,
+                                                             nb), (H,), G),
+            (cuda_kernels.vortex_product, cuda_kernels.vortex_product_plain,
+             (phys,), Gp),
+            (lambda h, x, y: cuda_kernels.vortex_cn_combine(
+                tables[0], h, tables[1], x, tables[2], y),
+             lambda h, x, y: cuda_kernels.vortex_cn_combine_plain(
+                tables[0], h, tables[1], x, tables[2], y),
+             (H.contiguous(), j0, j1), Gh)]:
+        got, want = [], []
+        for fn, out in ((kernel, got), (plain, want)):
+            xs = [t.clone().requires_grad_() for t in inputs]
+            out.extend(torch.autograd.grad(fn(*xs), xs, cot))
+        for g, w in zip(got, want):
+            _assert_rel_any(g, w, 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx,ny", [(64, 64), (48, 40)])
+@pytest.mark.parametrize("solver", ["ps23", "ps32", "hybrid"])
+def test_spectral_kernel_step_matches_twin_step(cuda_device, solver, nx, ny,
+                                                dtype):
+    """Three half steps on the stage kernels against three on their twins
+    (rhs_impl="torch"), which launch none; the kernels 3 launches a step
+    of each pass (hybrid: the combine alone)."""
+    cfg = vortex.VortexConfig(nx=nx, ny=ny, solver=solver, dt=1e-3)
+    w0 = vortex.initial_vorticity(cfg, dtype, cuda_device)
+    out = {}
+    for impl in ("kernel", "torch"):
+        step = vortex.make_spectral_step_half(
+            dataclasses.replace(cfg, rhs_impl=impl), dtype, cuda_device)
+        cuda_kernels.reset_launch_counts()
+        H = vortex.half_init(w0)
+        for _ in range(3):
+            H = step(H)
+        out[impl] = (H, {k: v for k, v in cuda_kernels.LAUNCHES.items()
+                         if v})
+    passes = (("vortex_cn_combine",) if solver == "hybrid" else
+              ("vortex_derivs_half", "vortex_product", "vortex_cn_combine"))
+    assert out["kernel"][1] == dict.fromkeys(passes, 9)
+    assert out["torch"][1] == {}
+    _assert_rel_any(out["kernel"][0], out["torch"][0], REL[dtype])

@@ -14,7 +14,9 @@ import scipy.fft
 import torch
 
 from cfd_julia_torch import interop
+from cfd_julia_torch.core import precision
 from cfd_julia_torch.ops import spectral
+from cfd_julia_tpu.core import precision as jax_precision
 from cfd_julia_tpu.ops import spectral as jax_spectral
 
 torch.set_num_threads(1)
@@ -72,6 +74,19 @@ def test_complex_for():
     assert spectral.complex_for(torch.float32) == torch.complex64
     assert interop.field_from_numpy(_field((3, 3), 0, True), torch.float32
                                     ).dtype == torch.complex64
+
+
+def test_complex_dtype_matches_jax():
+    """core.precision.complex_dtype, the JAX package's complex_dtype: the
+    complex type of a real one, of the default (fp32) for None."""
+    for real, jreal in [(torch.float32, jnp.float32),
+                        (torch.float64, jnp.float64)]:
+        got = precision.complex_dtype(real)
+        want = np.dtype(jax_precision.complex_dtype(jreal))
+        assert torch.empty(0, dtype=got).numpy().dtype == want
+        assert spectral.complex_for(real) == got
+    assert precision.complex_dtype() == torch.complex64
+    assert np.dtype(jax_precision.complex_dtype(jnp.float32)) == np.complex64
 
 
 @pytest.mark.parametrize("shape", SHAPES)
