@@ -1,6 +1,6 @@
 // The stage passes of the half-spectrum RK3/CN vortex step for Hopper
-// (sm_90a): the derivative spectra, the physical product and the
-// Crank-Nicolson combine.
+// (sm_90a): the derivative spectra, the physical product, the
+// Crank-Nicolson combine and ps32's truncation.
 //
 // Replaces no Pallas kernel: the JAX package leaves this stage math to XLA's
 // fusion (cfd_julia_tpu/models/vortex.py:392 make_spectral_step_half, the
@@ -20,7 +20,29 @@
 //                all of them);
 //   (b) product  p = a b - c d over the four real fields (4, n) -> (n);
 //   (c) combine  out = a H + r j0 + b j1 (stage 1: a H + b j1) with the
-//                stage's real (rows, hy) tables a, b, r.
+//                stage's real (rows, hy) tables a, b, r;
+//   (d) truncate ps32's Jacobian, spectral.truncate_32_half of the fine
+//                grid's rfft2 output jf (nxe, hye) times the real (nx, hy)
+//                table nyq/scale: out[i, j] = jf[r(i), j] t[i, j] for
+//                j < ny/2, conj(jf[(nxe - r(i)) % nxe, ny/2]) t[i, ny/2]
+//                on the Nyquist column, r(i) = i below nx/2, else
+//                nxe - nx + i (kernel 12).
+//
+// (a) has a second mode, the buffer mode, for the single-device ps23 and
+// ps32 steps: it writes the four spectra into a caller's complex buffer
+// in the layout of the step's cuFFT plans (csrc/fft_plans.cu), one of
+// two: kx fastest, (cols, 4, R), where the kx transform runs in place over
+// the first 4 nb columns and the c2r along ky with stride 4 R (ps32's); or
+// ky fastest, (4, R, cols), where the kx transform runs strided, a field
+// at a time, and the c2r on contiguous rows (ps23's, cols a 16-value pitch
+// past the c2r's hy: faster at 2048^2, chip_smoke.py phase 2).  Buffer row e
+// holds H's row e below rows/2, zeros for `pad` rows after, then H's row
+// e - pad (ps32's 3/2 pad, pad = nxe - nx; ps23 pad = 0), and columns
+// nb..cols-1 are zero.  Every element is written, zeros too: the c2r may
+// overwrite its input, so the buffer must be whole again at each stage.
+// The pitch's columns past hy are read by no plan but written all the
+// same: at 2048^2 fp32 that measured faster than stopping each row's
+// stores at hy (0.03471 against 0.03724 ms, kernel_ab.py on an H100).
 //
 // g is built here from two small tables, rowk (rows, 3) = (kx, kx0, rm)
 // and colk (>= nb, 3) = (ky, kyg, cm), not read as a (4, rows, hy) table:
@@ -30,7 +52,10 @@
 // field 16.78 MB, 3.35 TB/s): (a) banded reads 11.17 MB and writes 44.70 MB
 // (16.7 us), at full width 16.8 + 67.2 MB (25.1 us); (b) 67.1 + 16.8 MB
 // (25.0 us); (c) with its tables 67.1 MB at stage 1 (20.0 us), 92.3 MB at
-// stages 2 and 3 (27.5 us).  Design: flat index over the output, column and
+// stages 2 and 3 (27.5 us); (a)'s buffer mode, counting the values the
+// plans read, ps23 (4, 2048, 1025 of the 1040 written) 11.17 + 67.17 MB
+// (23.4 us), ps32 (1537, 4, 3072) 16.79 + 151.1 MB (50.1 us); (d) 16.8 MB of jf, 8.4 of its table and 16.8
+// written (12.5 us).  Design: flat index over the output, column and
 // row derived from it (hy = 1025 is odd, so the complex rows of H are not
 // 16-byte aligned, but the output planes are); H and (a)'s output in
 // either memory order, row by row or column by column (the order
@@ -157,6 +182,50 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// (a)'s buffer mode: V buffer points a thread, consecutive along the
+// fastest axis (V = 2 for complex64 with that axis even), each of the four
+// fields' values stored as one 2V-value access at ((j 4 + c) R + e) (kx
+// fastest) or ((c R + e) cols + j) (kKyFastest); H[i, j] at i si + j sj
+template <typename T, int V, bool kKyFastest>
+__global__ void __launch_bounds__(kThreads)
+    derivs_buffer_kernel(const T* __restrict__ h, const T* __restrict__ rowk,
+                         const T* __restrict__ colk, T* __restrict__ out,
+                         int rows, int si, int sj, int nb, int cols, int pad,
+                         T scale) {
+  const int r_out = rows + pad, split = rows / 2;
+  const int inner = kKyFastest ? cols : r_out;
+  const long long q =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * V;
+  if (q >= static_cast<long long>(cols) * r_out) return;
+  const int o = static_cast<int>(q / inner);
+  const int k0 = static_cast<int>(q - static_cast<long long>(o) * inner);
+  T vals[V][8];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int e = kKyFastest ? o : k0 + v, j = kKyFastest ? k0 + v : o;
+    if (j < nb && (e < split || e >= split + pad)) {
+      derivs_at(h, rowk, colk, e < split ? e : e - pad, j, si, sj, scale,
+                vals[v]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) vals[v][k] = T(0);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    Pack<T, 2 * V> w;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      w.v[2 * v] = vals[v][2 * c];
+      w.v[2 * v + 1] = vals[v][2 * c + 1];
+    }
+    const long long at =
+        kKyFastest ? (static_cast<long long>(c) * r_out + o) * cols + k0
+                   : (static_cast<long long>(o) * 4 + c) * r_out + k0;
+    store<T, 2 * V>(out + 2 * at, w);
+  }
+}
+
 // ----------------------------------------------------------- (b) product
 
 template <typename T, int V>
@@ -207,6 +276,37 @@ __global__ void __launch_bounds__(kThreads)
   store<T, 2 * V>(out + 2 * e, o);
 }
 
+// ---------------------------------------------------------- (d) truncate
+
+// one output value a thread, flat q in the output's (and the table's)
+// memory order: kKxMajor (i, j) at j nx + i, else i hy + j; jf (r, j) at
+// r si + j sj.  The product by the real t is the twin's complex product
+// by (t, 0), so a NaN or an infinity in jf propagates as it does there.
+template <typename T, bool kKxMajor>
+__global__ void __launch_bounds__(kThreads)
+    truncate_kernel(const T* __restrict__ jf, const T* __restrict__ table,
+                    T* __restrict__ out, int nx, int hy, int nxe, int si,
+                    int sj) {
+  const long long q =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (q >= static_cast<long long>(nx) * hy) return;
+  const int a = static_cast<int>(q / (kKxMajor ? nx : hy));
+  const int b = static_cast<int>(q - static_cast<long long>(a) *
+                                         (kKxMajor ? nx : hy));
+  const int i = kKxMajor ? b : a, j = kKxMajor ? a : b;
+  const int r = i < nx / 2 ? i : nxe - nx + i;
+  const bool nyquist = j == hy - 1;
+  const int src = nyquist ? (r == 0 ? 0 : nxe - r) : r;
+  const Pack<T, 2> z = load<T, 2>(
+      jf + 2 * (static_cast<size_t>(src) * si + static_cast<size_t>(j) * sj));
+  const T re = z.v[0], im = nyquist ? -z.v[1] : z.v[1];
+  const T t = table[q], zero = T(0);
+  Pack<T, 2> o;
+  o.v[0] = sub(mul(re, t), mul(im, zero));
+  o.v[1] = add(mul(re, zero), mul(im, t));
+  store<T, 2>(out + 2 * q, o);
+}
+
 // ------------------------------------------------------------- launchers
 
 bool aligned(const void* p, int bytes) {
@@ -245,6 +345,59 @@ int launch_derivs(const T* h, const T* rowk, const T* colk, T* out, int rows,
   else
     derivs_launch<T, false>(h, rowk, colk, out, rows, hy, nb,
                             static_cast<T>(scale), plane, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kKyFastest>
+void derivs_buffer_launch(const T* h, const T* rowk, const T* colk, T* out,
+                          int rows, int si, int sj, int nb, int cols, int pad,
+                          T scale, long long total, cudaStream_t st) {
+  constexpr int kVec = kVecBytes / (2 * static_cast<int>(sizeof(T)));
+  const int inner = kKyFastest ? cols : rows + pad;
+  if (kVec > 1 && inner % kVec == 0 && aligned(out, kVecBytes))
+    derivs_buffer_kernel<T, kVec, kKyFastest>
+        <<<blocks(total / kVec), kThreads, 0, st>>>(h, rowk, colk, out, rows,
+                                                    si, sj, nb, cols, pad,
+                                                    scale);
+  else
+    derivs_buffer_kernel<T, 1, kKyFastest><<<blocks(total), kThreads, 0, st>>>(
+        h, rowk, colk, out, rows, si, sj, nb, cols, pad, scale);
+}
+
+template <typename T>
+int launch_derivs_buffer(const T* h, const T* rowk, const T* colk, T* out,
+                         int rows, int si, int sj, int nb, int cols, int pad,
+                         int ky_fastest, double scale, void* stream) {
+  const long long total = static_cast<long long>(cols) * (rows + pad);
+  if (rows <= 0 || nb <= 0 || nb > cols || pad < 0 || si <= 0 || sj <= 0 ||
+      total * 4 >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ky_fastest)
+    derivs_buffer_launch<T, true>(h, rowk, colk, out, rows, si, sj, nb, cols,
+                                  pad, static_cast<T>(scale), total, st);
+  else
+    derivs_buffer_launch<T, false>(h, rowk, colk, out, rows, si, sj, nb,
+                                   cols, pad, static_cast<T>(scale), total,
+                                   st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_truncate(const T* jf, const T* table, T* out, int nx, int hy,
+                    int nxe, int si, int sj, int kx_major, void* stream) {
+  if (nx <= 0 || nx % 2 || hy < 2 || nxe < nx || si <= 0 || sj <= 0 ||
+      static_cast<long long>(nxe) * si >= (1LL << 31) ||
+      static_cast<long long>(hy) * sj >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n = static_cast<long long>(nx) * hy;
+  if (kx_major)
+    truncate_kernel<T, true><<<blocks(n), kThreads, 0, st>>>(
+        jf, table, out, nx, hy, nxe, si, sj);
+  else
+    truncate_kernel<T, false><<<blocks(n), kThreads, 0, st>>>(
+        jf, table, out, nx, hy, nxe, si, sj);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -308,6 +461,20 @@ int launch_combine(const T* a, const T* h, const T* r, const T* j0,
 VORTEX_DERIVS_LAUNCHER(vortex_derivs_half_f32, float)
 VORTEX_DERIVS_LAUNCHER(vortex_derivs_half_f64, double)
 
+// (a)'s buffer mode: h (rows, hy) complex, H[i, j] at complex element
+// i si + j sj; out (cols, 4, rows + pad) complex, or (4, rows + pad, cols)
+// with ky_fastest, every element written
+#define VORTEX_DERIVS_BUFFER_LAUNCHER(NAME, T)                              \
+  extern "C" int NAME(const T* h, const T* rowk, const T* colk, T* out,    \
+                      int rows, int si, int sj, int nb, int cols, int pad, \
+                      int ky_fastest, double scale, void* stream) {        \
+    return launch_derivs_buffer<T>(h, rowk, colk, out, rows, si, sj, nb,   \
+                                   cols, pad, ky_fastest, scale, stream);  \
+  }
+
+VORTEX_DERIVS_BUFFER_LAUNCHER(vortex_derivs_half_buffer_f32, float)
+VORTEX_DERIVS_BUFFER_LAUNCHER(vortex_derivs_half_buffer_f64, double)
+
 // (b): in (4, n) real, out (n)
 #define VORTEX_PRODUCT_LAUNCHER(NAME, T)                                    \
   extern "C" int NAME(const T* in, T* out, long long n, void* stream) {   \
@@ -328,3 +495,17 @@ VORTEX_PRODUCT_LAUNCHER(vortex_product_f64, double)
 
 VORTEX_COMBINE_LAUNCHER(vortex_cn_combine_f32, float)
 VORTEX_COMBINE_LAUNCHER(vortex_cn_combine_f64, double)
+
+// (d): jf (nxe, >= hy) complex, element (r, j) at complex element r si +
+// j sj; table (nx, hy) real and out (nx, hy) complex, both column by column
+// (kx_major) or both row by row
+#define VORTEX_TRUNCATE_LAUNCHER(NAME, T)                                   \
+  extern "C" int NAME(const T* jf, const T* table, T* out, int nx, int hy, \
+                      int nxe, int si, int sj, int kx_major,               \
+                      void* stream) {                                      \
+    return launch_truncate<T>(jf, table, out, nx, hy, nxe, si, sj,         \
+                              kx_major, stream);                           \
+  }
+
+VORTEX_TRUNCATE_LAUNCHER(vortex_truncate_32_f32, float)
+VORTEX_TRUNCATE_LAUNCHER(vortex_truncate_32_f64, double)

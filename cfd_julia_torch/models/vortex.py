@@ -47,7 +47,7 @@ import math
 import torch
 
 from cfd_julia_torch.core import precision
-from cfd_julia_torch.ops import arakawa, cuda_kernels, spectral
+from cfd_julia_torch.ops import arakawa, cuda_kernels, fft_plans, spectral
 from cfd_julia_torch.parallel import halo
 from cfd_julia_torch.parallel import mesh as mesh_lib
 from cfd_julia_torch.parallel import transpose
@@ -609,7 +609,16 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
     vortex_cn_combine (a stage's update); cfg.rhs_impl picks their CUDA
     kernels ("kernel", and "auto" on a CUDA device) or their plain twins
     ("torch", and "auto" on the CPU).  ps23 on one device inverts its 2/3
-    band's columns alone (spectral.irfft2_band).
+    band's columns alone.
+
+    On one device with the kernels, ps23 and ps32 run their inverse
+    transforms on the port's own cuFFT plans (ops/fft_plans.HalfInverse,
+    made here with their buffers): the derivative pass writes the spectra
+    into the plans' layout, ps32's 3/2 pad included, and ps32's Jacobian
+    comes back through the truncation pass (vortex_truncate_32) in H's
+    memory order, so no copy lies between the passes and the transforms.
+    With the twins the inverse is torch.fft's (spectral.irfft2_band;
+    pad_32_half, irfft2, truncate_32_half).
 
     With a mesh: H is this rank's row slab (kx split over all ranks, the
     JAX package's packed_half_sharding) and the constants are the rank's
@@ -619,7 +628,8 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
     the moves are planned here, once."""
     dtype = dtype or precision.default_dtype()
     device = precision.resolve_device(device)
-    if precision.resolve_rhs_impl(cfg.rhs_impl, device) == "kernel":
+    kernels = precision.resolve_rhs_impl(cfg.rhs_impl, device) == "kernel"
+    if kernels:
         derivs, product, combine = (cuda_kernels.vortex_derivs_half,
                                     cuda_kernels.vortex_product,
                                     cuda_kernels.vortex_cn_combine)
@@ -627,6 +637,8 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
         derivs, product, combine = (cuda_kernels.vortex_derivs_half_plain,
                                     cuda_kernels.vortex_product_plain,
                                     cuda_kernels.vortex_cn_combine_plain)
+    # the inverse on the port's cuFFT plans (ps23, ps32 on one device)
+    planned = kernels and mesh is None and cfg.solver in ("ps23", "ps32")
     nx, ny = cfg.nx, cfg.ny
     hy = ny // 2 + 1
     rows = slice(None)
@@ -686,9 +698,22 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
         else:
             nb, scale, band_inverse = hy, 1.0, inverse
 
-        def jac(H):
-            return forward(product(band_inverse(derivs(H, rowk, colk, nb,
-                                                       scale))))
+        if planned:
+            # ky fastest, rows padded to an aligned pitch: at 2048^2 the
+            # strided kx transform and the contiguous c2r beat the other
+            # layout (chip_smoke.py phase 2 times both)
+            inv = fft_plans.HalfInverse(4, nx, ny, nb, dtype, device,
+                                        ky_fastest=True)
+            pitch = inv.buffer.shape[-1]
+
+            def jac(H):
+                return forward(product(inv(derivs(
+                    H, rowk, colk, nb, scale, cols=pitch, ky_fastest=True,
+                    out=_buffer_for(inv, H)))))
+        else:
+            def jac(H):
+                return forward(product(band_inverse(derivs(H, rowk, colk, nb,
+                                                           scale))))
     elif cfg.solver == "ps32":
         nxe, nye = 3 * nx // 2, 3 * ny // 2
         scale = (nxe * nye) / (nx * ny)
@@ -698,7 +723,24 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
         rowk, colk = _deriv_tables(cfg, dtype, device)
         rowk = rowk[rows]
         nyq_over_scale = (nyq / scale)[rows]
-        if mesh is None:
+        if planned:
+            hye = nye // 2 + 1
+            # kx fastest: at 3072^2 the contiguous kx transform and the
+            # strided c2r beat the other layout (chip_smoke.py phase 2)
+            inv = fft_plans.HalfInverse(4, nxe, nye, ny // 2, dtype, device)
+            # the table in each memory order H may come in (_is_kx_major):
+            # the truncation writes the Jacobian in the table's
+            tables = {kx: _in_order(nyq_over_scale, kx)
+                      for kx in (False, True)}
+
+            def jac(H):
+                p = derivs(H, rowk, colk, ny // 2, scale / (nxe * nye),
+                           cols=hye, pad_rows=nxe - nx,
+                           out=_buffer_for(inv, H))
+                jf = spectral.rfft2(product(inv(p)))
+                return cuda_kernels.vortex_truncate_32(
+                    jf, tables[_is_kx_major(H)])
+        elif mesh is None:
             def jac(H):
                 pads = spectral.pad_32_half(
                     derivs(H, rowk, colk, hy, scale / (nxe * nye)), ny, nxe,
@@ -733,8 +775,8 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
     def update(stage, H, j0, j1):
         """The stage's CN update a H + r j0 + b j1 (stage 0: a H + b j1),
         every operand in the memory order of j1, the new Jacobian: a copy
-        of H or j0 only where theirs differs (ps32's truncated Jacobian
-        against rfft2's state)."""
+        of H or j0 only where theirs differs (the twins' truncated ps32
+        Jacobian against rfft2's state; the truncation pass writes H's)."""
         kx = _is_kx_major(j1)
         if kx not in cn:
             cn[kx] = [tuple(None if t is None else _in_order(t, kx)
@@ -754,6 +796,13 @@ def make_spectral_step_half(cfg: VortexConfig, dtype=None, device="cuda",
         return update(2, H2, j1, j2)
 
     return step
+
+
+def _buffer_for(inv, H):
+    """The derivative pass's buffer: the inverse's own, or a new one where
+    autograd tracks H (the passes' Functions write new tensors)."""
+    return None if torch.is_grad_enabled() and H.requires_grad \
+        else inv.buffer
 
 
 def _is_kx_major(t) -> bool:

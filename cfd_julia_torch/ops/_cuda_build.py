@@ -2,13 +2,14 @@
 
 nvcc compiles each `csrc/*.cu` for sm_90a into an object, all sources at
 once in parallel, and links the objects into one shared library with a
-plain C interface, which ctypes loads.  No PyTorch header is compiled, so
-a build takes seconds.  The library goes to
-`build/kernels/<hash of sources + flags>/` beside the package, with
-nvcc's output (ptxas register and spill counts) in `nvcc.log` beside it;
-it is built on first use, reused from disk by later processes, and loaded
-once per process.  A missing nvcc or a failed compile raises with nvcc's
-output: there is no fallback.
+plain C interface, which ctypes loads; the library links cuFFT (`-lcufft`,
+for csrc/fft_plans.cu), whose soname resolves to the copy PyTorch has
+already loaded.  No PyTorch header is compiled, so a build takes seconds.
+The library goes to `build/kernels/<hash of sources + flags>/` beside the
+package, with nvcc's output (ptxas register and spill counts) in
+`nvcc.log` beside it; it is built on first use, reused from disk by later
+processes, and loaded once per process.  A missing nvcc or a failed
+compile raises with nvcc's output: there is no fallback.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ LIB_NAME = "libcfd_julia_torch_kernels.so"
 LOG_NAME = "nvcc.log"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-LINK_FLAGS = ("-shared",)
+LINK_FLAGS = ("-shared", "-lcufft")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -57,6 +58,19 @@ _VORTEX_DERIVS_ARGS = [_PTR] * 4 + [_INT] * 4 + [_DBL, _PTR]
 _VORTEX_PRODUCT_ARGS = [_PTR, _PTR, ctypes.c_longlong, _PTR]
 # a, h, r, j0, b, j1, out, n, stream
 _VORTEX_COMBINE_ARGS = [_PTR] * 7 + [ctypes.c_longlong, _PTR]
+# h, rowk, colk, out, rows, si, sj, nb, cols, pad, ky_fastest, scale, stream
+_VORTEX_DERIVS_BUFFER_ARGS = [_PTR] * 4 + [_INT] * 7 + [_DBL, _PTR]
+# jf, table, out, nx, hy, nxe, si, sj, kx_major, stream
+_VORTEX_TRUNCATE_ARGS = [_PTR] * 3 + [_INT] * 6 + [_PTR]
+# cuFFT plans (csrc/fft_plans.cu): kind, n, batch, istride, idist, ostride,
+# odist, *handle, *work bytes; handle, work; handle, kind, in, out, stream
+_FFT_SIGNATURES = {
+    "fft_plan_create": (_INT, [_INT] * 7 + [_PTR, _PTR]),
+    "fft_plan_set_work_area": (_INT, [_INT, _PTR]),
+    "fft_plan_exec": (_INT, [_INT, _INT, _PTR, _PTR, _PTR]),
+    "fft_plan_destroy": (_INT, [_INT]),
+    "fft_version": (_INT, [_PTR]),
+}
 # multigrid launchers, one per storage type (ops/cuda_kernels.py)
 _MG_ARGS = {
     # u, f, out, work, nr, nc, 1/dx^2, 1/dy^2, sweeps, stream
@@ -93,8 +107,11 @@ SIGNATURES = {
     "cavity_stage_backward_partials": (_INT, [_INT, _INT]),
     **{f"vortex_{name}_{sfx}": (_INT, args) for name, args in (
         ("derivs_half", _VORTEX_DERIVS_ARGS),
+        ("derivs_half_buffer", _VORTEX_DERIVS_BUFFER_ARGS),
         ("product", _VORTEX_PRODUCT_ARGS),
-        ("cn_combine", _VORTEX_COMBINE_ARGS)) for sfx in ("f32", "f64")},
+        ("cn_combine", _VORTEX_COMBINE_ARGS),
+        ("truncate_32", _VORTEX_TRUNCATE_ARGS)) for sfx in ("f32", "f64")},
+    **_FFT_SIGNATURES,
     "tier_split": (_INT, _TIER_SPLIT_ARGS),
     "tier_encode": (_INT, _TIER_ENCODE_ARGS),
     "tier_gemm_tn": (_INT, _TIER_GEMM_ARGS),
@@ -155,7 +172,9 @@ def build(csrc: Path = CSRC) -> Path:
                              for p, o in zip(sources(csrc), objs))]
         results = [(cmd, proc.communicate()[0], proc.returncode)
                    for cmd, proc in procs]
-        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]
+        # the libraries after the objects that use them (a linker with
+        # --as-needed drops a library named before its users)
+        link = [nvcc, "-o", str(tmp), *(str(o) for o in objs), *LINK_FLAGS]
         for cmd, output, rc in results:
             log.append(f"$ {' '.join(cmd)}\n{output}")
             if rc != 0:

@@ -43,10 +43,16 @@ Kernels (csrc/ file; TPU function replaced):
                                   counted under cavity_stage_re_grad
   vortex_derivs_half,             vortex_stage.cu; the XLA-fused stage math
   vortex_product,                 of the half-spectrum vortex step
-  vortex_cn_combine               (cfd_julia_tpu/models/vortex.py:392; not
-                                  a Pallas kernel): the derivative spectra,
-                                  the physical product, the Crank-Nicolson
-                                  combine; their backward is torch ops
+  vortex_cn_combine,              (cfd_julia_tpu/models/vortex.py:392; not
+  vortex_truncate_32              a Pallas kernel): the derivative spectra
+                                  (also written into the step's cuFFT
+                                  layout, ops/fft_plans.py), the physical
+                                  product, the Crank-Nicolson combine,
+                                  ps32's truncation; their backward is
+                                  torch ops
+
+ops/fft_plans.py counts its cuFFT executions here too, under fft_c2c and
+fft_c2r.
   tier_split, tier_matmul,        tier_gemm.cu;   XLA's bf16_3x / default
   TierPlan                        dot of the precision tiers (direct.py:99-
                                   102, cavity_fused.py:120; not a Pallas
@@ -77,7 +83,8 @@ LAUNCHES = {"arakawa_rhs": 0, "arakawa_rhs_backward": 0,
             "cavity_fused_stage": 0, "cavity_stage_backward": 0,
             "cavity_stage_re_grad": 0, "tier_split": 0, "tier_gemm": 0,
             "vortex_derivs_half": 0, "vortex_product": 0,
-            "vortex_cn_combine": 0}
+            "vortex_cn_combine": 0, "vortex_truncate_32": 0,
+            "fft_c2c": 0, "fft_c2r": 0}
 
 # set by utils.debug.nan_guard: every launch checks its outputs for NaNs,
 # and the loop layer and the multigrid solve run eagerly (a check syncs,
@@ -994,12 +1001,41 @@ def _deriv_g(rowk, colk, nb: int, scale: float):
                         kx0 * m]) * scale
 
 
-def vortex_derivs_half_plain(h, rowk, colk, nb: int, scale: float = 1.0):
+def vortex_derivs_half_plain(h, rowk, colk, nb: int, scale: float = 1.0,
+                             cols: int | None = None, pad_rows: int = 0,
+                             ky_fastest: bool = False):
     """Plain twin of vortex_derivs_half: g (_deriv_g), then the four spectra
-    g (i H) = (-g Im H, g Re H) of H's first nb columns."""
+    g (i H) = (-g Im H, g Re H) of H's first nb columns; with `cols`, those
+    placed in the buffer layout (_to_buffer)."""
     g = _deriv_g(rowk, colk, nb, scale)
     hb = h[..., :nb]
-    return torch.complex(-(g * hb.imag), g * hb.real)
+    spectra = torch.complex(-(g * hb.imag), g * hb.real)
+    if cols is None:
+        return spectra
+    return _to_buffer(spectra, cols, pad_rows, ky_fastest)
+
+
+def _to_buffer(spectra, cols: int, pad_rows: int, ky_fastest: bool = False):
+    """(4, rows, nb) spectra -> the buffer of vortex_derivs_half's buffer
+    mode, (4, rows + pad_rows, cols) with ky_fastest, else (cols, 4, rows +
+    pad_rows): buf[c, e, j] (buf[j, c, e]) = spectra[c, i, j] for j < nb,
+    e = i below rows//2 and i + pad_rows from there (the 3/2 pad of
+    spectral.pad_32_half), zeros elsewhere."""
+    rows, nb = spectra.shape[-2:]
+    split = rows // 2
+    buf = spectra.new_zeros((4, rows + pad_rows, cols))
+    buf[:, :split, :nb] = spectra[:, :split]
+    buf[:, split + pad_rows:, :nb] = spectra[:, split:]
+    return buf if ky_fastest else buf.permute(2, 0, 1).contiguous()
+
+
+def _from_buffer(buf, rows: int, nb: int, pad_rows: int,
+                 ky_fastest: bool = False):
+    """The (4, rows, nb) spectra a buffer of _to_buffer holds."""
+    planes = buf if ky_fastest else buf.permute(1, 2, 0)
+    split = rows // 2
+    return torch.cat([planes[:, :split, :nb],
+                      planes[:, split + pad_rows:, :nb]], -2)
 
 
 def vortex_derivs_half_backward_plain(gout, rowk, colk, hy: int,
@@ -1015,13 +1051,30 @@ def vortex_derivs_half_backward_plain(gout, rowk, colk, hy: int,
     return gh
 
 
-def _derivs_launch(h, rowk, colk, nb: int, scale: float):
-    """One launch; the spectra in h's memory order (_kx_major)."""
+def _buffer_shape(rows: int, cols: int, pad_rows: int, ky_fastest: bool):
+    return (4, rows + pad_rows, cols) if ky_fastest else \
+        (cols, 4, rows + pad_rows)
+
+
+def _derivs_launch(h, rowk, colk, nb: int, scale: float, cols=None,
+                   pad_rows: int = 0, ky_fastest: bool = False, out=None):
+    """One launch: the spectra in h's memory order (_kx_major), or with
+    `cols` the buffer mode into `out` (a new buffer if None)."""
     rows, hy = h.shape
+    sfx = _SUFFIX[rowk.dtype]
+    if cols is not None:
+        if out is None:
+            out = h.new_empty(_buffer_shape(rows, cols, pad_rows,
+                                            ky_fastest))
+        si, sj = h.stride()
+        _launch("vortex_derivs_half", f"vortex_derivs_half_buffer_{sfx}",
+                h.device, h.data_ptr(), rowk.data_ptr(), colk.data_ptr(),
+                out.data_ptr(), rows, si, sj, nb, cols, pad_rows,
+                int(ky_fastest), float(scale), outputs=(out,))
+        return out
     kx = _kx_major("vortex_derivs_half", h)
     out = h.new_empty((4, nb, rows)).mT if kx else h.new_empty((4, rows, nb))
-    _launch("vortex_derivs_half",
-            f"vortex_derivs_half_{_SUFFIX[rowk.dtype]}", h.device,
+    _launch("vortex_derivs_half", f"vortex_derivs_half_{sfx}", h.device,
             h.data_ptr(), rowk.data_ptr(), colk.data_ptr(), out.data_ptr(),
             rows, hy, nb, int(kx), float(scale), outputs=(out,))
     return out
@@ -1031,20 +1084,27 @@ class _VortexDerivs(torch.autograd.Function):
     """vortex_derivs_half's launch, differentiable in H."""
 
     @staticmethod
-    def forward(ctx, h, rowk, colk, nb, scale):
+    def forward(ctx, h, rowk, colk, nb, scale, cols, pad_rows, ky_fastest):
         ctx.save_for_backward(rowk, colk)
         ctx.args = (h.shape[-1], scale)
-        return _derivs_launch(h, rowk, colk, nb, scale)
+        ctx.buffer = None if cols is None else (h.shape[0], nb, pad_rows,
+                                                ky_fastest)
+        return _derivs_launch(h, rowk, colk, nb, scale, cols, pad_rows,
+                              ky_fastest)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         rowk, colk = ctx.saved_tensors
+        if ctx.buffer is not None:
+            g = _from_buffer(g, *ctx.buffer)
         return (vortex_derivs_half_backward_plain(g, rowk, colk, *ctx.args),
-                None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
-def vortex_derivs_half(h, rowk, colk, nb: int, scale: float = 1.0):
+def vortex_derivs_half(h, rowk, colk, nb: int, scale: float = 1.0,
+                       cols: int | None = None, pad_rows: int = 0,
+                       ky_fastest: bool = False, out=None):
     """The four derivative half spectra psi_x, w_y, psi_y, w_x of the
     vorticity half spectrum H in one pass (csrc/vortex_stage.cu): out[c] =
     g_c (i H[:, :nb]), (4, rows, nb), g_c = kx0/k2, ky, ky/k2, kx0 times the
@@ -1053,8 +1113,21 @@ def vortex_derivs_half(h, rowk, colk, nb: int, scale: float = 1.0):
     complex64 or complex128, a half spectrum or a rank's row slab of one;
     rowk, colk: of h's real dtype, contiguous; 1 <= nb <= hy.  On the GPU
     h is contiguous or stored column by column (torch.fft.rfft2's
-    output there), and the spectra come in h's order.  Matches
-    vortex_derivs_half_plain bitwise."""
+    output there), and the spectra come in h's order.
+
+    The buffer mode (`cols` given, nb <= cols): the spectra in the layout
+    of the step's cuFFT plans (ops/fft_plans.HalfInverse), a complex
+    buffer (cols, 4, rows + pad_rows), kx fastest, or with ky_fastest (4,
+    rows + pad_rows, cols): buf[j, c, e] (buf[c, e, j]) = out[c, i, j] for
+    j < nb, e = i below rows//2 and i + pad_rows from there, and every
+    other element 0 (_to_buffer).  Written into `out` (that shape,
+    contiguous; not under grad), else into a new buffer; h then takes any
+    strides.  ps23: ky fastest, pad_rows = 0, cols = the inverse's row
+    pitch (hy rounded up to 16); ps32: kx fastest, cols = nye//2+1,
+    pad_rows = nxe - nx, nb = ny//2 (spectral.pad_32_half drops the
+    Nyquist column).
+
+    Matches vortex_derivs_half_plain bitwise."""
     if h.dtype not in _REAL_OF or rowk.dtype != _REAL_OF[h.dtype] or \
             colk.dtype != rowk.dtype:
         raise TypeError(f"vortex_derivs_half takes a complex64 or complex128 "
@@ -1067,13 +1140,36 @@ def vortex_derivs_half(h, rowk, colk, nb: int, scale: float = 1.0):
                          f"colk (>= nb, 3), 1 <= nb <= hy; got "
                          f"{tuple(h.shape)}, {tuple(rowk.shape)}, "
                          f"{tuple(colk.shape)}, nb={nb}")
-    if _on_cpu("vortex_derivs_half", rowk, colk, any_order=(h,)):
-        return vortex_derivs_half_plain(h, rowk, colk, nb, scale)
-    _kx_major("vortex_derivs_half", h)
+    track = torch.is_grad_enabled() and h.requires_grad
+    if cols is None:
+        if out is not None or pad_rows or ky_fastest:
+            raise ValueError("vortex_derivs_half: out, pad_rows and "
+                             "ky_fastest belong to the buffer mode (cols)")
+    else:
+        shape = _buffer_shape(h.shape[0], cols, pad_rows, ky_fastest)
+        if cols < nb or pad_rows < 0:
+            raise ValueError(f"vortex_derivs_half: the buffer mode takes "
+                             f"cols >= nb and pad_rows >= 0, got cols={cols},"
+                             f" nb={nb}, pad_rows={pad_rows}")
+        if out is not None and (tuple(out.shape) != shape or
+                                out.dtype != h.dtype or
+                                not out.is_contiguous() or track):
+            raise ValueError(f"vortex_derivs_half: out must be a contiguous "
+                             f"{h.dtype} buffer {shape}, outside grad; got "
+                             f"{out.dtype} {tuple(out.shape)}")
+    if _on_cpu("vortex_derivs_half", rowk, colk,
+               any_order=(h,) if out is None else (h, out)):
+        res = vortex_derivs_half_plain(h, rowk, colk, nb, scale, cols,
+                                       pad_rows, ky_fastest)
+        return res if out is None else out.copy_(res)
+    if cols is None:
+        _kx_major("vortex_derivs_half", h)
     _refuse_stage_grad("vortex_derivs_half", rowk, colk)
-    if torch.is_grad_enabled() and h.requires_grad:
-        return _VortexDerivs.apply(h, rowk, colk, nb, scale)
-    return _derivs_launch(h, rowk, colk, nb, scale)
+    if track:
+        return _VortexDerivs.apply(h, rowk, colk, nb, scale, cols, pad_rows,
+                                   ky_fastest)
+    return _derivs_launch(h, rowk, colk, nb, scale, cols, pad_rows,
+                          ky_fastest, out)
 
 
 def vortex_product_plain(phys):
@@ -1199,6 +1295,88 @@ def vortex_cn_combine(a, h, r, j0, b, j1):
     if torch.is_grad_enabled() and any(t.requires_grad for t in waves):
         return _VortexCombine.apply(a, h, r, j0, b, j1)
     return _combine_launch(a, h, r, j0, b, j1)
+
+
+def vortex_truncate_32_plain(jf, table):
+    """Plain twin of vortex_truncate_32: spectral.truncate_32_half(jf, nx,
+    ny) * table, (nx, ny//2+1) = table's shape."""
+    from cfd_julia_torch.ops import spectral
+
+    nx, hy = table.shape
+    return spectral.truncate_32_half(jf, nx, 2 * (hy - 1)) * table
+
+
+def vortex_truncate_32_backward_plain(g, table, nxe: int, hye: int):
+    """The adjoint of vortex_truncate_32 for the cotangent g (nx, hy): g t
+    scattered back to the (nxe, hye) fine spectrum, to rows r(i) of the
+    columns below ny/2 and, conjugated, to rows (nxe - r(i)) % nxe of
+    column ny/2; 0 elsewhere."""
+    nx, hy = table.shape
+    hx, hc = nx // 2, hy - 1
+    gm = g * table
+    r = torch.cat([torch.arange(hx, device=g.device),
+                   torch.arange(nxe - hx, nxe, device=g.device)])
+    gjf = gm.new_zeros((nxe, hye))
+    gjf[r, :hc] = gm[:, :hc]
+    gjf[(nxe - r) % nxe, hc] = torch.conj(gm[:, hc])
+    return gjf
+
+
+def _truncate_launch(jf, table):
+    """One launch; the Jacobian in the table's memory order."""
+    nx, hy = table.shape
+    kx = _kx_major("vortex_truncate_32", table)
+    out = torch.empty((hy, nx), dtype=jf.dtype, device=jf.device).mT if kx \
+        else torch.empty((nx, hy), dtype=jf.dtype, device=jf.device)
+    si, sj = jf.stride()
+    _launch("vortex_truncate_32", f"vortex_truncate_32_{_SUFFIX[table.dtype]}",
+            jf.device, jf.data_ptr(), table.data_ptr(), out.data_ptr(), nx,
+            hy, jf.shape[0], si, sj, int(kx), outputs=(out,))
+    return out
+
+
+class _VortexTruncate(torch.autograd.Function):
+    """vortex_truncate_32's launch, differentiable in jf."""
+
+    @staticmethod
+    def forward(ctx, jf, table):
+        ctx.save_for_backward(table)
+        ctx.fine = tuple(jf.shape)
+        return _truncate_launch(jf, table)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (table,) = ctx.saved_tensors
+        return vortex_truncate_32_backward_plain(g, table, *ctx.fine), None
+
+
+def vortex_truncate_32(jf, table):
+    """ps32's Jacobian from the 3/2 grid's rfft2 output in one pass
+    (csrc/vortex_stage.cu, kernel 12): spectral.truncate_32_half(jf, nx,
+    ny) times the real (nx, ny//2+1) table (the step's nyq/scale), read
+    where jf lies, its conjugate-flipped Nyquist column included.  jf:
+    (nxe, >= ny//2+1) complex64 or complex128, nxe >= nx, any strides;
+    table: of jf's real dtype, nx and ny even, contiguous or stored column
+    by column; the result comes in the table's memory order.  Matches
+    vortex_truncate_32_plain bitwise."""
+    if jf.dtype not in _REAL_OF or table.dtype != _REAL_OF[jf.dtype]:
+        raise TypeError(f"vortex_truncate_32 takes a complex64 or complex128 "
+                        f"jf and a table of its real dtype, got {jf.dtype}, "
+                        f"{table.dtype}")
+    if jf.dim() != 2 or table.dim() != 2 or table.shape[0] % 2 or \
+            table.shape[1] < 2 or jf.shape[0] < table.shape[0] or \
+            jf.shape[1] < table.shape[1]:
+        raise ValueError(f"vortex_truncate_32: jf (nxe, hye), table (nx, "
+                         f"ny//2+1) with nx even, nxe >= nx, hye >= ny//2+1;"
+                         f" got {tuple(jf.shape)}, {tuple(table.shape)}")
+    if _on_cpu("vortex_truncate_32", any_order=(jf, table)):
+        return vortex_truncate_32_plain(jf, table)
+    _kx_major("vortex_truncate_32", table)
+    _refuse_stage_grad("vortex_truncate_32", table)
+    if torch.is_grad_enabled() and jf.requires_grad:
+        return _VortexTruncate.apply(jf, table)
+    return _truncate_launch(jf, table)
 
 
 # ------------------------------------------------------- precision tiers

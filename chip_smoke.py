@@ -7,7 +7,9 @@
 Phases, one line each:
   0. the card (nvidia-smi name and power limit) and the fp32 matmul mode;
   1. builds the CUDA kernels from cfd_julia_torch/csrc/ with nvcc (one
-     process per source, all started together), with ptxas's counts;
+     process per source, all started together), with ptxas's counts, and
+     the cuFFT version the library links with the one libcufft file the
+     process maps;
   2. each kernel against its plain PyTorch twin on seeded inputs, and its
      time beside the twin's and its bound (bytes over HBM rate or flops
      over the fp32 peak) at its main path's shape: the Arakawa RHS in
@@ -67,9 +69,18 @@ Phases, one line each:
      1e-14 of the scale), two calls bitwise equal, a non-contiguous table
      refused; each timed at 2048^2 fp32 (the product also at 3072^2)
      beside its twin, its bound and, for the derivative pass, one
-     torch.mul by a precomputed complex table; ps23's band-limited
-     inverse beside irfft2 of the padded spectra (--profile: each by
-     kernel); and an empty kernel beside a CUDA graph of 100 of them;
+     torch.mul by a precomputed complex table; the derivative pass's
+     buffer mode (the ps23 and ps32 steps' cuFFT layout, the 3/2 pad
+     included) at 2048^2, 33x48 row by row and 48x40, and ps32's
+     truncation pass at 2048^2 (jf and the table both ways) and 48x40,
+     bitwise their twins in fp32 and fp64, each timed at 2048^2 fp32
+     beside its twin and its bound; ps23's band-limited inverse beside
+     irfft2 of the padded spectra, and the planned inverses of the ps23
+     and ps32 steps (ops/fft_plans.HalfInverse): each plan against its
+     plain version (1e-5 of max in fp32, 1e-13 in fp64), two executions
+     bitwise equal, against the twin route's transform, timed beside it
+     (--profile: each by kernel); and an empty kernel beside a CUDA graph
+     of 100 of them;
   3. the cavity path: the lid-driven cavity at 1024^2 (dt=2e-5, Re=100,
      Jensen wall BCs, fp32) from rest, 100 steps and then on to 2000,
      checked against the fp64 anchors of benchmarks/physics_anchors.json,
@@ -103,14 +114,16 @@ Phases, one line each:
   9. the vortex path: the vortex merger at 2048^2 (dt=1e-3, Re=1000, fp32)
      from the two-Gaussian state, 100 steps and then on to 200, for ps23,
      ps32 and hybrid through models.vortex.make_spectral_step_half (cuFFT
-     and the stage kernels: 3 launches a step of each pass, hybrid the
-     combine alone) and for fdm through SSP-RK3 over fdm_rhs
+     and the stage kernels: 3 launches a step of each pass and of each of
+     the ps23 / ps32 inverse's two cuFFT plans, ps32 also the truncation,
+     hybrid the combine alone) and for fdm through SSP-RK3 over fdm_rhs
      (rhs_impl="auto": the Arakawa CUDA kernel on the periodic field),
      each against its fp64 anchor, with steps/s and the kernels' launch
      counts; fdm's whole run and the spectral solvers' first 20 steps also
      on the plain twins (rhs_impl="torch"), within 1e-4 and launching no
      kernel (--profile: each of the four steps by kernel, the stage
-     passes' us a step beside their bounds);
+     passes' us a step beside their bounds, and ps23's and ps32's copies
+     and fills, which must be none);
  10. the user entry points `run tgv` (64^2, Re=10, t=1) against the
      analytic decay, `run vortex_merger_ps23` (128^2, t=20) for its
      snapshots' mean and enstrophy, and `run poisson_fst` and
@@ -189,11 +202,13 @@ Phases, one line each:
  17. the user surface (cfd_julia_torch/cli.py, examples/, utils/debug.py):
      `list` (29 presets) and `validate` (7 checks, all PASS) as processes
      on the card; `run-all` in this process through cli.main (the quick
-     table), with the counts set to 0 just before it: 29/29
+     table, the point-Jacobi and red-black presets cut to 20000 sweeps),
+     with the counts set to 0 just before it: 29/29
      presets OK, each metrics.json's device the card, seconds and kernel
      launches a preset, kernel 1 launched by cavity / vortex_merger_fdm /
-     tgv, the vortex stage passes by vortex_merger_ps23 / _ps32 (all
-     three) and _hybrid (the combine), kernels 2, 3 and 5 by the
+     tgv, the vortex stage passes and the inverse's plans by
+     vortex_merger_ps23 / _ps32 (ps32 also the truncation) and _hybrid
+     (the combine), kernels 2, 3 and 5 by the
      multigrid presets, kernel 6 by the Euler presets, burgers_central's
      non-finite field reported and not gated; the three order studies of
      tests/test_cli_tools.py in fp64 on the card at that file's bounds,
@@ -534,6 +549,18 @@ def phase_build():
         print(f"phase 1 ptxas: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
               f"{max(spills, default=0)} bytes at most")
+    # the library links cuFFT by soname: it must run the copy PyTorch
+    # loaded, so the process maps one libcufft file
+    from cfd_julia_torch.ops import fft_plans
+
+    with open("/proc/self/maps") as f:
+        mapped = sorted({ln.split()[-1] for ln in f
+                         if re.search(r"/libcufft\.so", ln)})
+    ok = len(mapped) == 1
+    line = (f"phase 1 cufft: cufftGetVersion()={fft_plans.version()}, "
+            f"libcufft mapped from {mapped} {'ok' if ok else 'FAIL'}")
+    print(line)
+    check(ok, line)
 
 
 # the Arakawa RHS besides its two paths' shapes: small shapes, and ragged
@@ -1101,8 +1128,15 @@ def stage_backward_timing(ck, args, err):
 # (ps23 and ps32 each pass once a stage, hybrid the combine alone; fdm
 # kernel 1 three times)
 VORTEX_PASSES = ("vortex_derivs_half", "vortex_product", "vortex_cn_combine")
-VORTEX_STEP_LAUNCHES = {"ps23": dict.fromkeys(VORTEX_PASSES, 3),
-                        "ps32": dict.fromkeys(VORTEX_PASSES, 3),
+# ps23 and ps32 on one device also execute the inverse's cuFFT plans
+# (ops/fft_plans.HalfInverse) a Jacobian: the kx transform (ps23's one a
+# field, its buffer being ky fastest) and the c2r; ps32 also its
+# truncation pass
+VORTEX_PLANNED = (*VORTEX_PASSES, "fft_c2c", "fft_c2r")
+VORTEX_STEP_LAUNCHES = {"ps23": {**dict.fromkeys(VORTEX_PLANNED, 3),
+                                 "fft_c2c": 12},
+                        "ps32": dict.fromkeys((*VORTEX_PLANNED,
+                                               "vortex_truncate_32"), 3),
                         "hybrid": {"vortex_cn_combine": 3},
                         "fdm": {"arakawa_rhs": 3}}
 # steps of phase 9's kernel-against-twin run of each spectral solver
@@ -1123,6 +1157,20 @@ def derivs_bound(rows, nb, itemsize, ms):
     once, the row and column tables read once."""
     n_bytes = (5 * 2 * rows * nb + 3 * (rows + nb)) * itemsize
     return bound(n_bytes, FLOPS_DERIVS * rows * nb, ms)
+
+
+def derivs_buffer_bound(rows, nb, cols, r_out, itemsize, ms):
+    """(a)'s buffer mode: H's nb columns and the tables read once, the
+    (cols, 4, r_out) values the plans read written once, zeros included
+    (not a pitched row's tail, which the pass writes too)."""
+    n_bytes = (2 * rows * nb + 8 * cols * r_out + 3 * (rows + nb)) * itemsize
+    return bound(n_bytes, FLOPS_DERIVS * rows * nb, ms)
+
+
+def truncate_bound(nx, hy, itemsize, ms):
+    """(d)'s bound: the (nx, hy) values it keeps of jf and the table read
+    once, the Jacobian written once; 6 flops a complex value."""
+    return bound(5 * nx * hy * itemsize, 6 * nx * hy, ms)
 
 
 def product_bound(n, itemsize, ms):
@@ -1170,6 +1218,57 @@ def vortex_stage_cases(dev):
             ("3x4 odd plane", cfg(3, 4), False, every, 3, 1.0, True)]
 
 
+# (label, nx, ny, solver, H column by column) of the buffer mode's checks:
+# the ps23 and ps32 steps' 2048^2 layouts, a ps23 buffer of odd row count
+# (one value a thread) from H row by row, and ps32 at 48x40
+VORTEX_BUFFER_CASES = [("ps23", VORTEX_NX, VORTEX_NX, "ps23", True),
+                       ("ps32", VORTEX_NX, VORTEX_NX, "ps32", True),
+                       ("ps23 33x48 row by row", 33, 48, "ps23", False),
+                       ("ps32 48x40", 48, 40, "ps32", True)]
+
+
+def planned_layout(nx, ny, solver, dtype, ky_fastest=None, dev="cuda"):
+    """(the buffer mode's keywords, the inverse) of the single-device
+    ps23 / ps32 step in its layout (models/vortex.py make_spectral_step_
+    half: ps23 ky fastest with pitched rows, ps32 kx fastest) or, with
+    ky_fastest, in the one named."""
+    from cfd_julia_torch.ops import fft_plans
+
+    if ky_fastest is None:
+        ky_fastest = solver == "ps23"
+    if solver == "ps23":
+        nb = ((2 * ny) // 3) // 2
+        kw = dict(nb=nb, scale=1.0 / (nx * ny), cols=ny // 2 + 1, pad_rows=0)
+        inv = fft_plans.HalfInverse(4, nx, ny, nb, dtype, dev, ky_fastest)
+    else:
+        nxe, nye = 3 * nx // 2, 3 * ny // 2
+        kw = dict(nb=ny // 2, scale=2.25 / (nxe * nye), cols=nye // 2 + 1,
+                  pad_rows=nxe - nx)
+        inv = fft_plans.HalfInverse(4, nxe, nye, ny // 2, dtype, dev,
+                                    ky_fastest)
+    if ky_fastest:
+        # the rows' pitch, which the pass writes whole
+        kw.update(ky_fastest=True, cols=inv.buffer.shape[-1])
+    return kw, inv
+
+
+def planned_inputs(nx, ny, solver, kx, dtype, seed=0, dev="cuda"):
+    """(H, rowk, colk, the buffer mode's keywords, the inverse) as the
+    single-device ps23 / ps32 step makes them (planned_layout); H the half
+    spectrum of a seeded real field, as the step's (the c2r reads a
+    Hermitian ky = 0 column)."""
+    from cfd_julia_torch.models import vortex
+
+    cfg = vortex.VortexConfig(nx=nx, ny=ny, solver=solver, dt=1e-3,
+                              re=1000.0)
+    H = torch.fft.rfft2(torch.as_tensor(
+        np.random.default_rng(nx + ny + seed).standard_normal((nx, ny)),
+        dtype=dtype, device=dev)).contiguous()
+    rowk, colk = vortex._deriv_tables(cfg, dtype, dev, band=solver == "ps23")
+    kw, inv = planned_layout(nx, ny, solver, dtype, dev=dev)
+    return kx_major(H) if kx else H, rowk, colk, kw, inv
+
+
 def kx_major(t):
     """t stored column by column (each (rows, cols) plane's rows
     together), as torch.fft.rfft2 returns a half spectrum on the GPU."""
@@ -1183,10 +1282,10 @@ def complex_field(shape, dtype, seed, dev="cuda"):
         torch.complex128 if dtype == torch.float64 else torch.complex64)
 
 
-def pass_check(ck, name, call, plain, dtype):
+def pass_check(ck, name, call, plain, dtype, exact=False):
     """A pass against its twin: (ok, text, max|k-p|, the kernel's output);
     two calls bitwise equal, two launches counted, bitwise the twin or
-    within VORTEX_PASS_TOL of max|twin|."""
+    (unless exact) within VORTEX_PASS_TOL of max|twin|."""
     before = ck.LAUNCHES[name]
     got, again, ref = call(), call(), plain()
     torch.cuda.synchronize()
@@ -1195,7 +1294,8 @@ def pass_check(ck, name, call, plain, dtype):
     same, bitwise = torch.equal(got, again), torch.equal(got, ref)
     ok = (same and ck.LAUNCHES[name] == before + 2 and got.dtype == ref.dtype
           and got.shape == ref.shape
-          and (bitwise or err <= VORTEX_PASS_TOL[dtype] * scale))
+          and (bitwise or (not exact
+                           and err <= VORTEX_PASS_TOL[dtype] * scale)))
     text = (f"max|k-p|={err:.3e} of max|p|={scale:.3e} ("
             f"{'bitwise the twin' if bitwise else 'NOT bitwise'}, tol "
             f"{VORTEX_PASS_TOL[dtype]:g}); two calls bitwise equal: {same}")
@@ -1207,10 +1307,12 @@ def phase_vortex_stage_kernels():
     twins in fp32 and fp64 (vortex_stage_cases for the derivative pass; the
     product at 2048^2, 3072^2 (ps32's grid), 48x40 and 3x5; the combine at
     stages 1 and 2 on 2048x1025, 48x21, 3x5 and a row slab whose tables
-    start off a 16-byte boundary), two calls bitwise equal; a non-
-    contiguous constant refused; each timed at its main path's shape in
-    fp32 beside its twin, its bound and, for the derivative pass, one
-    torch.mul of a precomputed complex table.  Returns the three records."""
+    start off a 16-byte boundary), two calls bitwise equal; the
+    derivative pass's buffer mode (VORTEX_BUFFER_CASES) and ps32's
+    truncation, bitwise; a non-contiguous constant refused; each timed at
+    its main path's shape in fp32 beside its twin, its bound and, for the
+    derivative pass, one torch.mul of a precomputed complex table.
+    Returns the four records (derivs, product, combine, truncation)."""
     from cfd_julia_torch.models import vortex
     from cfd_julia_torch.ops import cuda_kernels as ck
 
@@ -1313,6 +1415,76 @@ def phase_vortex_stage_kernels():
                 print(line + (" ok" if ok else " FAIL"))
                 check(ok, line)
             del tables, a, r, b, h, j0, j1, got
+        # the derivative pass's buffer mode, bitwise; into a caller's
+        # buffer of NaN at 2048^2 (every element written)
+        for label, nx, ny, solver, kx in VORTEX_BUFFER_CASES:
+            H, rowk, colk, kw, inv = planned_inputs(nx, ny, solver, kx,
+                                                    dtype)
+            ky = kw.get("ky_fastest", False)
+            ok, text, err, got = pass_check(
+                ck, "vortex_derivs_half",
+                lambda: ck.vortex_derivs_half(H, rowk, colk, **kw),
+                lambda: ck.vortex_derivs_half_plain(H, rowk, colk, **kw),
+                dtype, True)
+            if nx == VORTEX_NX:
+                # every element written
+                inv.buffer.fill_(float("nan"))
+                into = ck.vortex_derivs_half(H, rowk, colk, **kw,
+                                             out=inv.buffer)
+                ok = ok and into is inv.buffer and torch.equal(into, got)
+            line = (f"phase 2 kernel vortex_derivs_half buffer mode {label} "
+                    f"{tuple(got.shape)} ({'ky' if ky else 'kx'} fastest, "
+                    f"the c2r reads {inv.n // 2 + 1} columns), nb={kw['nb']},"
+                    f" pad rows {kw['pad_rows']}, {str(dtype)[6:]}: {text}")
+            if dtype == torch.float32 and nx == VORTEX_NX:
+                ms, _ = median_ms(lambda: ck.vortex_derivs_half(
+                    H, rowk, colk, **kw, out=inv.buffer))
+                plain_ms, _ = median_ms(
+                    lambda: ck.vortex_derivs_half_plain(H, rowk, colk, **kw))
+                b = derivs_buffer_bound(nx, kw["nb"], inv.n // 2 + 1,
+                                        nx + kw["pad_rows"], 4, ms)
+                timed[f"buffer {label}"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                    "library_ms": None,
+                    "shape": f"{solver} {nx}^2: buffer {tuple(got.shape)}"}
+                line += vortex_timing_text(timed[f"buffer {label}"], None)
+            print(line + (" ok" if ok else " FAIL"))
+            check(ok, line)
+            del H, rowk, colk, inv, got
+        # ps32's truncation pass on rfft2's 3/2-grid output, jf and the
+        # table (so the result) in either memory order, bitwise
+        for nx, ny in [(VORTEX_NX, VORTEX_NX), (48, 40)]:
+            nxe, nye = 3 * nx // 2, 3 * ny // 2
+            jf = torch.fft.rfft2(torch.as_tensor(
+                np.random.default_rng(nx).standard_normal((nxe, nye)),
+                dtype=dtype, device=dev))
+            cfg = vortex.VortexConfig(nx=nx, ny=ny, solver="ps32", dt=1e-3,
+                                      re=1000.0)
+            table = vortex._half_consts(cfg, dtype, dev)[3] / 2.25
+            for j, t in [(jf, kx_major(table)), (jf.contiguous(), table),
+                         (jf.contiguous(), kx_major(table))]:
+                ok, text, err, got = pass_check(
+                    ck, "vortex_truncate_32",
+                    lambda: ck.vortex_truncate_32(j, t),
+                    lambda: ck.vortex_truncate_32_plain(j, t), dtype, True)
+                ok = ok and got.stride() == t.stride()
+                line = (f"phase 2 kernel vortex_truncate_32 {nx}x{ny} from "
+                        f"jf {tuple(j.shape)} strides {j.stride()}, table "
+                        f"strides {t.stride()} {str(dtype)[6:]}: {text}")
+                if dtype == torch.float32 and nx == VORTEX_NX and \
+                        j is jf:
+                    ms, _ = median_ms(lambda: ck.vortex_truncate_32(j, t))
+                    plain_ms, _ = median_ms(
+                        lambda: ck.vortex_truncate_32_plain(j, t))
+                    b = truncate_bound(nx, ny // 2 + 1, 4, ms)
+                    timed["truncate"] = {"max_abs_err": err, "ms": ms,
+                                         "plain_ms": plain_ms, **b,
+                                         "library_ms": None}
+                    line += vortex_timing_text(timed["truncate"], None)
+                print(line + (" ok" if ok else " FAIL"))
+                check(ok, line)
+                del got
+            del jf, table
     # a constant that is not contiguous, and operands of mixed memory
     # orders, are refused, nothing launched
     cfg = vortex_stage_cases(dev)[4][1]
@@ -1343,7 +1515,9 @@ def phase_vortex_stage_kernels():
               **timed["ps23 band"], "shape": "ps23 2048^2: H (2048, 1025), "
               "682 band columns, fp32",
               "full_width": {**timed["ps32 full width"],
-                             "shape": "ps32 2048^2: all 1025 columns"}}
+                             "shape": "ps32 2048^2: all 1025 columns"},
+              "buffer_ps23": timed["buffer ps23"],
+              "buffer_ps32": timed["buffer ps32"]}
     product = {"name": "vortex_product", "route": "cuda", "source": src,
                "replaces": VORTEX_REPLACES, "launches": None,
                **timed[(VORTEX_NX, VORTEX_NX)], "shape": "(4, 2048, 2048) "
@@ -1351,17 +1525,32 @@ def phase_vortex_stage_kernels():
     combine = {"name": "vortex_cn_combine", "route": "cuda", "source": src,
                "replaces": VORTEX_REPLACES, "launches": None, **timed[2],
                "shape": "stage 2 (2048, 1025) complex64", "stage_1": timed[1]}
-    return derivs, product, combine
+    truncate = {"name": "vortex_truncate_32", "route": "cuda", "source": src,
+                "replaces": VORTEX_REPLACES, "launches": None,
+                **timed["truncate"], "shape": "ps32 2048^2: jf (3072, 1537) "
+                "column by column -> (2048, 1025) complex64"}
+    return derivs, product, combine, truncate
+
+
+# the planned inverse against its plain version, of max|plain|
+PLAN_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
 
 
 def phase_vortex_inverse():
-    """ps23's band-limited inverse as its step runs it (four spectra of
-    682 columns stored column by column, the normalisation folded into
-    the spectra) against irfft2 of the same spectra padded to all 1025
-    columns, row by row, at 2048^2 fp32: device ms of each (the copies
-    torch.fft makes are inside).  Returns {name: (call, ms)}, for a
-    profile by kernel."""
-    from cfd_julia_torch.ops import spectral
+    """The inverses of the half-spectrum step at 2048^2 (ps32's on its
+    3072^2 grid), four fields: the twin route's (torch.fft: ps23's
+    irfft2_band of 682 columns stored column by column, beside irfft2 of
+    the same spectra padded to all 1025 columns row by row; ps32's irfft2
+    of pad_32_half) and the planned route's (ops/fft_plans.HalfInverse on
+    the derivative pass's buffer).  For each planned inverse, fp32 and
+    fp64: each plan against its plain version (PLAN_TOL of max), two
+    executions bitwise equal, the inverse against the twin route's
+    transform of the same spectra; in fp32 device ms of the inverse alone,
+    of the derivative pass and the inverse together, and of the twin
+    route's transform.  Returns ({name: (call, ms)} for a profile by
+    kernel, the planned inverses' record)."""
+    from cfd_julia_torch.ops import cuda_kernels as ck
+    from cfd_julia_torch.ops import fft_plans, spectral
 
     n, hy = VORTEX_NX, VORTEX_NX // 2 + 1
     nb = ((2 * n) // 3) // 2
@@ -1378,7 +1567,86 @@ def phase_vortex_inverse():
           f"ms, irfft2 of all {hy} columns row by row {ms['irfft2']:.4f} ms "
           f"(norm=\"forward\"; medians of 30 calls, CUDA events); max "
           f"difference {diff:.3e}")
-    return {name: (call, ms[name]) for name, call in calls.items()}
+    record = {}
+    for solver in ("ps23", "ps32"):
+        for dtype in (torch.float32, torch.float64):
+            tol = PLAN_TOL[dtype]
+            H, rowk, colk, kw, inv = planned_inputs(n, n, solver, True, dtype)
+            spec = ck.vortex_derivs_half(H, rowk, colk, **kw)
+            x, want = spec.clone(), spec.clone()
+            for k in range(4) if inv.ky_fastest else [slice(None)]:
+                fft_plans.execute(inv.c2c, x[k], x[k])
+                fft_plans.execute_plain(inv.c2c, want[k], want[k])
+            e_c2c = float((x - want).abs().max() / want.abs().max())
+            out = fft_plans.execute(inv.c2r, x.clone(),
+                                    torch.empty_like(inv.out))
+            want = fft_plans.execute_plain(inv.c2r, x,
+                                           torch.empty_like(inv.out))
+            e_c2r = float((out - want).abs().max() / want.abs().max())
+            del x, want, out
+            first = inv(spec.clone()).clone()
+            same = torch.equal(inv(spec.clone()), first)
+            planes = ck._from_buffer(spec, n, kw["nb"], kw["pad_rows"],
+                                     inv.ky_fastest)
+            if solver == "ps23":
+                # stored column by column, as the twin route's step has them
+                planes = kx_major(planes)
+
+                def twin(planes=planes):
+                    return spectral.irfft2_band(planes, n, n, norm="forward")
+            else:
+                ne = 3 * n // 2
+                planes = torch.cat([planes, planes.new_zeros((4, n, 1))], -1)
+
+                def twin(planes=planes, ne=ne):
+                    return spectral.irfft2(spectral.pad_32_half(
+                        planes, n, ne, ne), ne, ne, norm="forward")
+            ref = twin()
+            e_twin = float((first - ref).abs().max() / ref.abs().max())
+            del ref
+            ok = (e_c2c <= tol and e_c2r <= tol and e_twin <= tol and same
+                  and bool(torch.isfinite(first).all()))
+            line = (f"phase 2 vortex planned inverse {solver} {n}^2 "
+                    f"{str(dtype)[6:]}: buffer {tuple(spec.shape)} ("
+                    f"{'ky' if inv.ky_fastest else 'kx'} fastest) -> fields "
+                    f"{tuple(first.shape)}; the in-place c2c of "
+                    f"{inv.c2c.batch} columns (stride {inv.c2c.istride}"
+                    f"{', a field' if inv.ky_fastest else ''}) against its "
+                    f"plain version {e_c2c:.3e} of max, "
+                    f"the c2r (stride {inv.c2r.istride}) {e_c2r:.3e}, the "
+                    f"inverse against the twin route's transform {e_twin:.3e}"
+                    f" (tol {tol:g}); two executions bitwise equal: {same}")
+            if dtype == torch.float32:
+                inv_ms, _ = median_ms(lambda: inv(inv.buffer))
+                both_ms, _ = median_ms(lambda: inv(ck.vortex_derivs_half(
+                    H, rowk, colk, **kw, out=inv.buffer)))
+                twin_ms, _ = median_ms(twin)
+                # the layout the step does not take, for its choice
+                okw, other = planned_layout(n, n, solver, dtype,
+                                            not inv.ky_fastest)
+                ck.vortex_derivs_half(H, rowk, colk, **okw, out=other.buffer)
+                other_ms, _ = median_ms(lambda: other(other.buffer))
+                del other
+                record[solver] = {
+                    "ms": inv_ms, "with_derivs_ms": both_ms,
+                    "twin_route_ms": twin_ms, "other_layout_ms": other_ms,
+                    "c2c_rel_err": e_c2c, "c2r_rel_err": e_c2r,
+                    "twin_rel_err": e_twin,
+                    "shape": f"buffer {tuple(spec.shape)} complex64"}
+                calls[f"planned {solver}"] = (lambda inv=inv: inv(inv.buffer))
+                ms[f"planned {solver}"] = inv_ms
+                if solver == "ps32":
+                    calls["twin ps32"], ms["twin ps32"] = twin, twin_ms
+                line += (f"; device time: the planned inverse {inv_ms:.4f} "
+                         f"ms (in the {'kx' if inv.ky_fastest else 'ky'} "
+                         f"fastest layout {other_ms:.4f} ms), with the "
+                         f"derivative pass into its buffer {both_ms:.4f} ms,"
+                         f" the twin route's transform {twin_ms:.4f} ms "
+                         f"(medians of 30 calls, CUDA events, warm L2)")
+            print(line + (" ok" if ok else " FAIL"))
+            check(ok, line)
+            del H, rowk, colk, spec, first, planes
+    return {name: (call, ms[name]) for name, call in calls.items()}, record
 
 
 def vortex_timing_text(t, library):
@@ -2733,17 +3001,32 @@ def phase_cli_spectral():
         check(ok, line)
 
 
+# cuFFT's kernels as the profiler names them: the transforms and a strided
+# c2r's pre- and post-processing passes (CUFFT_LAYOUT_KERNELS: a
+# transposing pass inside cuFFT, the layout's cost)
+CUFFT_LAYOUT_KERNELS = ("preprocess_kernel", "postprocess_kernel")
+CUFFT_KERNELS = ("fft", "dpRadix", *CUFFT_LAYOUT_KERNELS)
+
+
 def profile_transforms(by_name, label, steps):
-    """The profile's device time in cuFFT's kernels, in kernel 1 and in
-    everything else (PyTorch's elementwise and copy kernels)."""
+    """The profile's device time in cuFFT's kernels (of which its pre- and
+    post-processing passes), in kernel 1 and in everything else
+    (PyTorch's elementwise and copy kernels)."""
     total = sum(us for us, _ in by_name.values())
-    fft = [v for name, v in by_name.items()
-           if "fft" in name.lower() or "dpRadix" in name]
-    fft_us, fft_n = sum(us for us, _ in fft), sum(c for _, c in fft)
+
+    def sums(kernels):
+        hits = [v for name, v in by_name.items()
+                if any(k.lower() in name.lower() for k in kernels)]
+        return sum(us for us, _ in hits), sum(c for _, c in hits)
+
+    fft_us, fft_n = sums(CUFFT_KERNELS)
+    lay_us, lay_n = sums(CUFFT_LAYOUT_KERNELS)
     k1_us, k1_n = kernel_sums(by_name, "arakawa_rhs_kernel")
     rest_n = sum(c for _, c in by_name.values()) - fft_n - k1_n
     print(f"profile {label}: cuFFT {fft_us / steps:.1f} us/step "
-          f"({100 * fft_us / total:.1f}%) in {fft_n / steps:.1f} launches, "
+          f"({100 * fft_us / total:.1f}%) in {fft_n / steps:.1f} launches "
+          f"(of which its pre- and post-processing passes "
+          f"{lay_us / steps:.1f} us/step in {lay_n / steps:.1f}), "
           f"arakawa_rhs_kernel {k1_us / steps:.1f} us/step "
           f"({100 * k1_us / total:.1f}%) in {k1_n / steps:.1f}, other "
           f"kernels {(total - fft_us - k1_us) / steps:.1f} us/step "
@@ -2752,29 +3035,44 @@ def profile_transforms(by_name, label, steps):
 
 
 # each pass's kernel template (csrc/vortex_stage.cu) as the profiler names it
-VORTEX_PASS_KERNELS = {"vortex_derivs_half": "derivs_kernel",
-                       "vortex_product": "product_kernel",
-                       "vortex_cn_combine": "combine_kernel"}
+VORTEX_PASS_KERNELS = {"vortex_derivs_half": ("derivs_kernel",
+                                              "derivs_buffer_kernel"),
+                       "vortex_product": ("product_kernel",),
+                       "vortex_cn_combine": ("combine_kernel",),
+                       "vortex_truncate_32": ("truncate_kernel",)}
+# PyTorch's copies and fills as the profiler names them
+COPY_KERNELS = ("Memcpy", "Memset", "copy", "fill", "Fill", "CatArray")
 
 
 def profile_vortex_passes(by_name, solver, steps):
     """Each stage pass's device us and launches a step inside the profiled
     2048^2 fp32 step of `solver`, against its bound a step (ps23: the
-    banded derivative pass; ps32: the full-width one and the product on
-    the 3072^2 grid); fails unless every pass launches as
-    VORTEX_STEP_LAUNCHES says."""
-    hy = VORTEX_NX // 2 + 1
-    nb = ((2 * VORTEX_NX) // 3) // 2 if solver == "ps23" else hy
-    n_phys = (3 * VORTEX_NX // 2 if solver == "ps32" else VORTEX_NX) ** 2
-    bounds = {"vortex_derivs_half": 3 * derivs_bound(VORTEX_NX, nb, 4,
-                                                     1.0)["bound_ms"],
+    derivative pass's whole buffer of the band; ps32: its 3/2-padded
+    buffer, the product on the 3072^2 grid and the truncation); the
+    profile's copies and fills (COPY_KERNELS) a step.  Fails unless every
+    pass launches as VORTEX_STEP_LAUNCHES says, and for ps23 and ps32
+    unless fewer copies and fills ran than steps (the twin route's inverse
+    makes at least one a Jacobian)."""
+    n, hy = VORTEX_NX, VORTEX_NX // 2 + 1
+    if solver == "ps23":
+        # the hy values of each row the c2r reads (not the pitch's tail)
+        derivs = derivs_buffer_bound(n, ((2 * n) // 3) // 2, hy, n, 4, 1.0)
+    elif solver == "ps32":
+        ne = 3 * n // 2
+        derivs = derivs_buffer_bound(n, n // 2, ne // 2 + 1, ne, 4, 1.0)
+    else:
+        derivs = derivs_bound(n, hy, 4, 1.0)
+    n_phys = (3 * n // 2 if solver == "ps32" else n) ** 2
+    bounds = {"vortex_derivs_half": 3 * derivs["bound_ms"],
               "vortex_product": 3 * product_bound(n_phys, 4, 1.0)["bound_ms"],
               "vortex_cn_combine": (
-                  combine_bound(VORTEX_NX * hy, 1, 4, 1.0)["bound_ms"]
-                  + 2 * combine_bound(VORTEX_NX * hy, 2, 4, 1.0)["bound_ms"])}
+                  combine_bound(n * hy, 1, 4, 1.0)["bound_ms"]
+                  + 2 * combine_bound(n * hy, 2, 4, 1.0)["bound_ms"]),
+              "vortex_truncate_32": 3 * truncate_bound(n, hy, 4,
+                                                       1.0)["bound_ms"]}
     parts, ok = [], True
-    for name, kernel in VORTEX_PASS_KERNELS.items():
-        us, n = kernel_sums(by_name, kernel)
+    for name, kernels in VORTEX_PASS_KERNELS.items():
+        us, n = kernel_sums(by_name, *kernels)
         want = VORTEX_STEP_LAUNCHES[solver].get(name, 0) * steps
         ok = ok and n == want
         if want:
@@ -2782,6 +3080,17 @@ def profile_vortex_passes(by_name, solver, steps):
             parts.append(f"{name} {us_step:.2f} us in {n / steps:.1f} "
                          f"launches ({100 * 1e3 * bounds[name] / us_step:.1f}"
                          f"% of its bound {1e3 * bounds[name]:.2f} us)")
+    copies = {name: v for name, v in by_name.items()
+              if any(c in name for c in COPY_KERNELS)}
+    copy_us = sum(v[0] for v in copies.values())
+    copy_n = sum(v[1] for v in copies.values())
+    if solver in ("ps23", "ps32"):
+        # none around the transforms; the loop's state copy at a replay
+        # of the profiled chunk (under one a step) is not the step's
+        ok = ok and copy_n < steps
+    parts.append(f"copies and fills {copy_us / steps:.2f} us in "
+                 f"{copy_n / steps:.1f} launches "
+                 f"{sorted(name[:60] for name in copies)}")
     line = (f"profile vortex {solver} {VORTEX_NX}^2 stage passes a step: "
             + "; ".join(parts))
     print(line + (" ok" if ok else " FAIL"))
@@ -3794,8 +4103,8 @@ MG_PATH = ("smooth_residual_restrict", "prolong_correct_smooth",
            "redblack_sweeps")
 RUN_ALL_KERNELS = {
     "cavity": ("arakawa_rhs",), "vortex_merger_fdm": ("arakawa_rhs",),
-    "tgv": ("arakawa_rhs",), "vortex_merger_ps23": VORTEX_PASSES,
-    "vortex_merger_ps32": VORTEX_PASSES,
+    "tgv": ("arakawa_rhs",), "vortex_merger_ps23": VORTEX_PLANNED,
+    "vortex_merger_ps32": (*VORTEX_PLANNED, "vortex_truncate_32"),
     "vortex_merger_hybrid": ("vortex_cn_combine",), "poisson_mg2": MG_PATH,
     "poisson_mgcg": MG_PATH, "poisson_mgN": MG_PATH,
     "euler_roe": ("euler_rhs",), "euler_hllc": ("euler_rhs",),
@@ -3859,10 +4168,17 @@ def phase_cli_surface():
     check(ok, f"{line}\n{out[-2000:]}\n{err[-2000:]}")
 
 
+# run-all's depth here: the point-Jacobi and red-black presets (eager
+# relaxation sweeps, no hand-written kernel; 215 of run-all's 264 s on a
+# slow host, PERF.md) stop at this many sweeps, not the quick table's 200k
+RUN_ALL_RELAXATION_SWEEPS = 20_000
+
+
 def phase_run_all():
-    """`run-all` (its quick table, cli.QUICK: `--full` runs the point-Jacobi
-    and red-black presets at 512^2 to their 2M-sweep cap, over 1000 s on
-    an H100 at 700 W, PERF.md) through cli.main in this process, every preset on the
+    """`run-all` (its quick table, cli.QUICK, the relaxation presets cut to
+    RUN_ALL_RELAXATION_SWEEPS: `--full` runs the point-Jacobi and red-black
+    presets at 512^2 to their 2M-sweep cap, over 1000 s on an H100 at 700
+    W, PERF.md) through cli.main in this process, every preset on the
     card: 29/29 OK, each metrics.json's device the card, seconds and
     kernel launches a preset (the counts set to 0 just before run-all and
     read after each preset), the path kernels launched; burgers_central's
@@ -3876,6 +4192,8 @@ def phase_run_all():
     real = run.run_preset
 
     def recorded(name, **kw):
+        if name in ("poisson_jacobi", "poisson_gs_redblack"):
+            kw["max_iter"] = RUN_ALL_RELAXATION_SWEEPS
         before = dict(cuda_kernels.LAUNCHES)
         t0 = time.perf_counter()
         try:
@@ -5007,8 +5325,10 @@ def phase_mesh_gradients(one, quad, card, gb, device="cuda"):
     rel = abs(rec["directional"] - single["ps23"]) / abs(single["ps23"])
     rel_twin = rec["rel_twin"]
     fwd = {k: c for k, c in rec["forward"].items() if c}
+    # the mesh step runs the passes alone (its transforms are torch.fft's)
     want = {k: c * MESH_GRAD_SHORT
-            for k, c in VORTEX_STEP_LAUNCHES["ps23"].items()}
+            for k, c in VORTEX_STEP_LAUNCHES["ps23"].items()
+            if k in VORTEX_PASSES}
     ok = (rel <= 1e-9 and math.isfinite(rec["directional"])
           and rel_twin <= 1e-12 and fwd == want
           and not any(twin["forward"].values()))
@@ -5218,7 +5538,7 @@ def main(argv=None):
     stage_back_record = phase_stage_backward_kernel()
     tier_record, split_record = phase_tier_kernel()
     vortex_records = phase_vortex_stage_kernels()
-    inverses = phase_vortex_inverse()
+    inverses, vortex_records[0]["planned_inverse"] = phase_vortex_inverse()
     if args.profile:
         for name, (call, ms) in inverses.items():
             phase_profile(f"vortex inverse {name} {VORTEX_NX}^2 fp32 (4 "
@@ -5375,8 +5695,10 @@ def main(argv=None):
         rec["launches"] = tier_launches[rec["name"]]
         rec["path"] = f"fused_bf16x3 cavity {NX}^2, {STEPS_TOTAL} steps"
     for rec in vortex_records:
-        rec["launches"] = vortex_launches["ps23"][rec["name"]]
-        rec["path"] = (f"vortex ps23 {VORTEX_NX}^2, {VORTEX_TOTAL} steps; "
+        # the truncation runs on ps32's path alone
+        main = "ps32" if rec["name"] == "vortex_truncate_32" else "ps23"
+        rec["launches"] = vortex_launches[main][rec["name"]]
+        rec["path"] = (f"vortex {main} {VORTEX_NX}^2, {VORTEX_TOTAL} steps; "
                        f"ps32 {vortex_launches['ps32'][rec['name']]}, hybrid "
                        f"{vortex_launches['hybrid'][rec['name']]} launches")
     print(json.dumps({"kernels": [record, backward, *mg_records.values(),

@@ -31,6 +31,9 @@ rounds):
     a tree with the earlier ABI, whose one kernel split both operands in
     its main loop, that kernel), the GEMM alone on split planes, the split
     pass alone in both roles, and tier_matmul on raw operands;
+  - the vortex step's derivative pass in its buffer mode
+    (csrc/vortex_stage.cu) at 2048^2 fp32, into the ps23 and ps32
+    inverses' buffers (chip_smoke.planned_inputs);
   - the packed cavity's stage kernel (csrc/cavity_stage.cu) at 1024^2
     fp32 on chip_smoke.stage_inputs with Jensen walls, stages 1, 2 and 3,
     warm and L2-flushed, and stage 2 in fp64; besides max|kernel - twin|
@@ -265,6 +268,22 @@ def cases(dev):
             lambda solver=solver, ws=ws: ck.euler_rhs_fused_plain(
                 q, 1.4, 1.0 / nx, solver, ws),
             None, "euler_rhs_f32")
+    # the derivative pass's buffer mode at the ps23 / ps32 steps' 2048^2,
+    # into the inverse's buffer; compared as real pairs, on the values the
+    # plans read (a tree may leave a pitched row's tail unwritten)
+    for solver in ("ps23", "ps32"):
+        H, rowk, colk, kw, inv = cs.planned_inputs(
+            cs.VORTEX_NX, cs.VORTEX_NX, solver, True, torch.float32)
+        cut = (..., slice(None, inv.n // 2 + 1)) if kw.get("ky_fastest") \
+            else (...,)
+        out[f"vortex_derivs_half buffer {solver} 2048^2 fp32"] = (
+            lambda H=H, rowk=rowk, colk=colk, kw=kw, inv=inv, cut=cut:
+                torch.view_as_real(ck.vortex_derivs_half(
+                    H, rowk, colk, **kw, out=inv.buffer)[cut]),
+            lambda H=H, rowk=rowk, colk=colk, kw=kw, cut=cut:
+                torch.view_as_real(ck.vortex_derivs_half_plain(
+                    H, rowk, colk, **kw)[cut]),
+            None, "vortex_derivs_half_buffer_f32")
     for n in [(cs.MG_NX >> k) + 1 for k in range(12)]:
         rng = np.random.default_rng(n * 7919 + n)
         coarse = ((n - 1) // 2 + 1,) * 2

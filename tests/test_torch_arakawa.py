@@ -162,7 +162,12 @@ def test_build_flags_and_disk_cache(tmp_path, monkeypatch):
         assert argv[argv.index("-o") + 1].endswith(".o")
     assert "-shared" in link
     objs = [c[c.index("-o") + 1] for c in compiles]
-    assert link[-len(objs):] == objs
+    # the objects in source order, then the link flags: a library (cuFFT)
+    # after the objects that use it, which a linker with --as-needed keeps
+    flags = list(_cuda_build.LINK_FLAGS)
+    assert "-lcufft" in flags
+    assert link[-len(flags) - len(objs):-len(flags)] == objs
+    assert link[-len(flags):] == flags
     assert os.path.basename(link[link.index("-o") + 1]).startswith(".")
     assert not any((tmp_path / "build").rglob("*.o"))
 

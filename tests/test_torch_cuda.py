@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from cfd_julia_torch import interop
 from cfd_julia_torch.models import (burgers1d, cavity, cavity_fused,
                                     euler1d, heat1d, poisson2d, vortex)
-from cfd_julia_torch.ops import _cuda_build, cuda_kernels
+from cfd_julia_torch.ops import _cuda_build, cuda_kernels, fft_plans, spectral
 from cfd_julia_torch.poisson import direct, multigrid
 from cfd_julia_torch.parallel import launch
 from cfd_julia_torch.stepping import loop, ssprk3
@@ -1661,6 +1661,17 @@ VORTEX_DERIVS = [(64, 64, True, None, 21, 1 / 4096, True),
                  (2048, 2048, True, None, 682, 2.0**-22, True)]
 
 
+# launches a single-device step: the passes and, for ps23 and ps32, the
+# inverse's cuFFT executions (ops/fft_plans.HalfInverse: ps23's kx
+# transform one a field) and ps32's truncation
+_PASSES = dict.fromkeys(("vortex_derivs_half", "vortex_product",
+                         "vortex_cn_combine"), 3)
+VORTEX_PLANNED = {"ps23": {**_PASSES, "fft_c2c": 12, "fft_c2r": 3},
+                  "ps32": {**_PASSES, "fft_c2c": 3, "fft_c2r": 3,
+                           "vortex_truncate_32": 3},
+                  "hybrid": {"vortex_cn_combine": 3}}
+
+
 def _complex_field(shape, dtype, seed, device):
     rng = np.random.default_rng(seed)
     z = torch.as_tensor(rng.standard_normal(shape)
@@ -1818,7 +1829,8 @@ def test_spectral_kernel_step_matches_twin_step(cuda_device, solver, nx, ny,
                                                 dtype):
     """Three half steps on the stage kernels against three on their twins
     (rhs_impl="torch"), which launch none; the kernels 3 launches a step
-    of each pass (hybrid: the combine alone)."""
+    of each pass and of each of the inverse's cuFFT plans (ps32 also the
+    truncation; hybrid: the combine alone)."""
     cfg = vortex.VortexConfig(nx=nx, ny=ny, solver=solver, dt=1e-3)
     w0 = vortex.initial_vorticity(cfg, dtype, cuda_device)
     out = {}
@@ -1831,8 +1843,234 @@ def test_spectral_kernel_step_matches_twin_step(cuda_device, solver, nx, ny,
             H = step(H)
         out[impl] = (H, {k: v for k, v in cuda_kernels.LAUNCHES.items()
                          if v})
-    passes = (("vortex_cn_combine",) if solver == "hybrid" else
-              ("vortex_derivs_half", "vortex_product", "vortex_cn_combine"))
-    assert out["kernel"][1] == dict.fromkeys(passes, 9)
+    assert out["kernel"][1] == {k: 3 * n for k, n in
+                                VORTEX_PLANNED[solver].items()}
     assert out["torch"][1] == {}
     _assert_rel_any(out["kernel"][0], out["torch"][0], REL[dtype])
+
+
+# ------------------------- the half-spectrum inverse on the port's cuFFT plans
+
+# (nx, ny, solver, H stored column by column) of the planned inverse: the
+# north-star 2048^2 grids, small ones, an odd buffer row count (ps23 at
+# 33 rows: one value a thread) and H row by row
+VORTEX_PLANNED_CASES = [(2048, 2048, "ps23", True), (2048, 2048, "ps32", True),
+                        (64, 64, "ps23", True), (64, 64, "ps32", False),
+                        (33, 48, "ps23", False), (48, 40, "ps32", True)]
+_PLANNED_IDS = [f"{c[2]}-{c[0]}x{c[1]}" + ("-kx" if c[3] else "")
+                for c in VORTEX_PLANNED_CASES]
+
+
+def _planned_inputs(case, dtype, device, seed=0):
+    """(H, the derivative pass's buffer-mode arguments, the inverse): the
+    step's own nb, scale, cols, pad rows and HalfInverse.  H is the half
+    spectrum of a real field, as the step's are (the inverse's c2r reads
+    its input as Hermitian: a random ky = 0 column would make the two
+    libraries' c2r results differ by its imaginary part)."""
+    nx, ny, solver, kx = case
+    cfg = vortex.VortexConfig(nx=nx, ny=ny, solver=solver, dt=1e-3)
+    hy = ny // 2 + 1
+    H = torch.fft.rfft2(torch.as_tensor(
+        np.random.default_rng(nx + ny + seed).standard_normal((nx, ny)),
+        dtype=dtype, device=device))
+    H = _kx_major(H) if kx else H.contiguous()
+    rowk, colk = vortex._deriv_tables(cfg, dtype, device,
+                                      band=solver == "ps23")
+    if solver == "ps23":
+        nb = ((2 * ny) // 3) // 2
+        inv = fft_plans.HalfInverse(4, nx, ny, nb, dtype, device,
+                                    ky_fastest=True)
+        # the aligned row pitch: the pass writes it whole
+        kw = dict(nb=nb, scale=1.0 / (nx * ny), cols=inv.buffer.shape[-1],
+                  pad_rows=0, ky_fastest=True)
+    else:
+        nxe, nye = 3 * nx // 2, 3 * ny // 2
+        kw = dict(nb=ny // 2, scale=2.25 / (nxe * nye), cols=nye // 2 + 1,
+                  pad_rows=nxe - nx)
+        inv = fft_plans.HalfInverse(4, nxe, nye, ny // 2, dtype, device)
+    return H, (rowk, colk), kw, inv
+
+
+@pytest.mark.cuda
+def test_one_cufft_is_mapped(cuda_device):
+    """The kernel library's cuFFT is the one PyTorch loaded: the process
+    maps one libcufft file."""
+    _cuda_build.load_library()
+    with open("/proc/self/maps") as f:
+        paths = {line.split()[-1] for line in f
+                 if re.search(r"/libcufft\.so", line)}
+    assert len(paths) == 1, paths
+    assert fft_plans.version() > 0
+
+
+@pytest.mark.cuda
+def test_cufft_errors_raise_with_their_code(cuda_device):
+    """A plan made and destroyed; a second destruction, and a layout
+    cuFFT refuses, raise with cuFFT's code."""
+    layout = fft_plans.Layout(fft_plans.C2R, 16, 3, 1, 9, 1, 16)
+    p = fft_plans.Plan(layout, torch.float32, cuda_device)
+    assert p.work.device.type == "cuda"
+    p.destroy()
+    with pytest.raises(RuntimeError, match="cuFFT plan destruction failed"):
+        p.destroy()
+    with pytest.raises(RuntimeError, match="cuFFT plan creation"):
+        fft_plans.Plan(dataclasses.replace(layout, istride=0), torch.float32,
+                       cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", VORTEX_PLANNED_CASES, ids=_PLANNED_IDS)
+def test_vortex_derivs_buffer_mode_matches_plain(cuda_device, case, dtype):
+    """The buffer mode bitwise its twin, into a new buffer and into a
+    caller's buffer full of NaN (every element written)."""
+    H, (rowk, colk), kw, inv = _planned_inputs(case, dtype, cuda_device)
+    _bitwise_pass("vortex_derivs_half",
+                  lambda: cuda_kernels.vortex_derivs_half(H, rowk, colk,
+                                                          **kw),
+                  lambda: cuda_kernels.vortex_derivs_half_plain(H, rowk,
+                                                                colk, **kw))
+    inv.buffer.fill_(float("nan"))
+    got = cuda_kernels.vortex_derivs_half(H, rowk, colk, **kw,
+                                          out=inv.buffer)
+    assert got is inv.buffer
+    _assert_same(got, cuda_kernels.vortex_derivs_half_plain(H, rowk, colk,
+                                                            **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", VORTEX_PLANNED_CASES, ids=_PLANNED_IDS)
+def test_half_inverse_plans_match_plain(cuda_device, case, dtype):
+    """Each plan of the inverse against its plain version on the same
+    buffer (1e-5 of max in fp32, 1e-13 in fp64), the inverse against the
+    twin route's transform (irfft2_band, irfft2 of pad_32_half), two
+    executions bitwise equal, and a launch counted per execution."""
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}[dtype]
+    H, (rowk, colk), kw, inv = _planned_inputs(case, dtype, cuda_device)
+    spec = cuda_kernels.vortex_derivs_half(H, rowk, colk, **kw)
+    x, want = spec.clone(), spec.clone()
+    before = dict(cuda_kernels.LAUNCHES)
+    parts = range(4) if inv.ky_fastest else [slice(None)]
+    for k in parts:
+        fft_plans.execute(inv.c2c, x[k], x[k])
+        fft_plans.execute_plain(inv.c2c, want[k], want[k])
+    _assert_rel_any(x, want, tol)
+    out = torch.empty_like(inv.out)
+    fft_plans.execute(inv.c2r, x.clone(), out)
+    _assert_rel_any(out, fft_plans.execute_plain(inv.c2r, x, inv.out.clone()),
+                    tol)
+    assert cuda_kernels.LAUNCHES["fft_c2c"] == before["fft_c2c"] + len(parts)
+    assert cuda_kernels.LAUNCHES["fft_c2r"] == before["fft_c2r"] + 1
+    first = inv(spec.clone()).clone()
+    assert torch.equal(inv(spec.clone()), first)
+    nx, ny, solver, _ = case
+    planes = cuda_kernels._from_buffer(spec, nx, kw["nb"], kw["pad_rows"],
+                                       inv.ky_fastest)
+    if solver == "ps23":
+        ref = spectral.irfft2_band(planes, nx, ny, norm="forward")
+    else:
+        nxe, nye = 3 * nx // 2, 3 * ny // 2
+        ref = spectral.irfft2(spectral.pad_32_half(
+            torch.cat([planes, planes.new_zeros((4, nx, 1))], -1), ny, nxe,
+            nye), nxe, nye, norm="forward")
+    _assert_rel_any(first, ref, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["ps23", "ps32"])
+def test_half_inverse_two_stages_on_one_buffer(cuda_device, solver):
+    """Two stages back to back on the inverse's own buffers (the c2r may
+    overwrite its input; the pass rewrites all of it) against the same
+    second stage on new buffers: bitwise."""
+    case = (64, 64, solver, True)
+    H0, (rowk, colk), kw, inv = _planned_inputs(case, torch.float32,
+                                                cuda_device)
+    H1 = _planned_inputs(case, torch.float32, cuda_device, seed=1)[0]
+    for H in (H0, H1):
+        got = inv(cuda_kernels.vortex_derivs_half(H, rowk, colk, **kw,
+                                                  out=inv.buffer)).clone()
+    fresh = _planned_inputs(case, torch.float32, cuda_device)[3]
+    want = fresh(cuda_kernels.vortex_derivs_half(H1, rowk, colk, **kw,
+                                                 out=fresh.buffer))
+    _assert_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["ps23", "ps32"])
+def test_half_inverse_graph_replay_equals_eager(cuda_device, solver):
+    """The pass and both plans captured in a CUDA graph: each replay on
+    new spectra bitwise the eager call."""
+    case = (64, 64, solver, True)
+    H, (rowk, colk), kw, inv = _planned_inputs(case, torch.float32,
+                                               cuda_device)
+
+    def run():
+        return inv(cuda_kernels.vortex_derivs_half(H, rowk, colk, **kw,
+                                                   out=inv.buffer))
+
+    run()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = run()
+    for seed in (2, 3):
+        H.copy_(_planned_inputs(case, torch.float32, cuda_device, seed)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        captured = out.clone()
+        _assert_same(captured, run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx,ny", [(2048, 2048), (64, 64), (48, 40)])
+def test_vortex_truncate_kernel_matches_plain(cuda_device, nx, ny, dtype):
+    """Kernel 12 bitwise its twin: rfft2's 3/2-grid output column by
+    column and row by row, the table (and so the result) either way."""
+    nxe, nye = 3 * nx // 2, 3 * ny // 2
+    jf = torch.fft.rfft2(torch.as_tensor(np.random.default_rng(nx).
+                                         standard_normal((nxe, nye)),
+                                         dtype=dtype, device=cuda_device))
+    cfg = vortex.VortexConfig(nx=nx, ny=ny, solver="ps32", dt=1e-3)
+    table = vortex._half_consts(cfg, dtype, cuda_device)[3] / 2.25
+    for j in (jf, jf.contiguous(), _kx_major(jf)):
+        for t in (table, _kx_major(table)):
+            _bitwise_pass("vortex_truncate_32",
+                          lambda: cuda_kernels.vortex_truncate_32(j, t),
+                          lambda: cuda_kernels.vortex_truncate_32_plain(j, t))
+            assert cuda_kernels.vortex_truncate_32(j, t).stride() == \
+                t.stride()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(48, 40, "ps32", True),
+                                  (64, 64, "ps23", True)],
+                         ids=["ps32", "ps23"])
+def test_planned_functions_match_twin_autograd(cuda_device, case):
+    """Under grad the buffer mode, the inverse and the truncation are
+    autograd Functions: their gradients against autograd of the twins,
+    fp64, rel 1e-12."""
+    f64 = torch.float64
+    nx, ny = case[:2]
+    H, (rowk, colk), kw, inv = _planned_inputs(case, f64, cuda_device)
+    jf = _complex_field((3 * nx // 2, 3 * ny // 4 + 1), f64, 7, cuda_device)
+    table = torch.rand((nx, ny // 2 + 1), dtype=f64, device=cuda_device)
+    G = torch.rand(inv.out.shape, dtype=f64, device=cuda_device)
+    Gt = _complex_field(table.shape, f64, 8, cuda_device)
+    for kernel, plain, x, cot in [
+            (lambda h: inv(cuda_kernels.vortex_derivs_half(h, rowk, colk,
+                                                           **kw)),
+             lambda h: fft_plans.half_inverse_plain(
+                 cuda_kernels.vortex_derivs_half_plain(h, rowk, colk, **kw),
+                 inv.n, inv.nb, inv.ky_fastest),
+             H, G),
+            (lambda j: cuda_kernels.vortex_truncate_32(j, table),
+             lambda j: cuda_kernels.vortex_truncate_32_plain(j, table),
+             jf, Gt)]:
+        grads = []
+        for fn in (kernel, plain):
+            xs = x.clone().requires_grad_()
+            grads.extend(torch.autograd.grad(fn(xs), xs, cot))
+        _assert_rel_any(grads[0], grads[1], 1e-12)
