@@ -121,9 +121,10 @@
 // beyond the window.  gs, gwt and gw are stored 16 bytes a lane, every
 // output by one thread, with no atomics.  Each lane adds q lap(W) over its
 // points in fp64 in a fixed order, the block adds its lanes by block_sum
-// (csrc/arakawa.cuh), and a one-block second launch adds the blocks'
-// partials in a fixed order (kernel 1's, csrc/arakawa.cuh, with its
-// Jacobian and Laplacian), so two calls agree bitwise.
+// (csrc/arakawa.cuh) into its own slot, and the last block to finish adds
+// the slots in a fixed order and scales them (fold_re_grad, kernel 1's,
+// csrc/arakawa.cuh, with its Jacobian and Laplacian), so two calls agree
+// bitwise and a call with d/dRe is one launch.
 //
 // Backward geometry, from ptxas and the card (NVIDIA H100 80GB HBM3,
 // 700 W; kernel_ab.py, PERF.md row 7): kBackRows = 2, kBackWalkers = 4.
@@ -141,8 +142,9 @@
 // C ABI (bound with ctypes by cfd_julia_torch/ops/cuda_kernels.py): the
 // launchers run on the caller's stream, allocate nothing (the backward's
 // partial sums go to a buffer of cavity_stage_backward_partials(P, Q)
-// doubles, given by the caller), do not synchronise, and return
-// cudaGetLastError() of their launches; both refuse
+// doubles and its completion counter to one unsigned int that is 0
+// between calls, both given by the caller), do not synchronise, and
+// return cudaGetLastError() of their launch; both refuse
 // (cudaErrorInvalidValue) a shape out of range or Q not a multiple of
 // kVec, the forward w, wt, s, out and the backward wt, s, g, gw, gwt, gs
 // not 16-byte aligned.
@@ -174,32 +176,6 @@ template <typename T>
 struct Row {
   T w[kVec<T> + 2], s[kVec<T> + 2];
 };
-
-__device__ __forceinline__ void load_vec(const float* __restrict__ p,
-                                         float (&v)[4]) {
-  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-
-__device__ __forceinline__ void load_vec(const double* __restrict__ p,
-                                         double (&v)[2]) {
-  const double2 x = __ldg(reinterpret_cast<const double2*>(p));
-  v[0] = x.x;
-  v[1] = x.y;
-}
-
-__device__ __forceinline__ void store_vec(float* __restrict__ p,
-                                          const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store_vec(double* __restrict__ p,
-                                          const double (&v)[2]) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-}
 
 // the wall vorticity of psi values s0 (next to the wall) and s1 (one further)
 template <typename T>
@@ -488,14 +464,6 @@ struct BackRow {
   T q[kVec<T> + 2], w[kVec<T> + 2], s[kVec<T> + 2];
 };
 
-// the neighbourhood at slot j of the rows W (a-1), C (a) and E (a+1)
-template <typename T, int N>
-__device__ __forceinline__ Nbhd<T> nbhd(const T (&W)[N], const T (&C)[N],
-                                        const T (&E)[N], int j) {
-  return {C[j],     E[j],     W[j],     C[j + 1], C[j - 1],
-          E[j + 1], W[j - 1], W[j + 1], E[j - 1]};
-}
-
 // the same at slot 0 with the column left of it 0 (column -2 of the frame
 // column -1: past the buffer)
 template <typename T, int N>
@@ -725,14 +693,22 @@ __device__ __forceinline__ double back_walk(const BackArgs<T>& f,
   return acc;
 }
 
+// the Re gradient (partials, counter and gre all given, or none): the
+// host re and the stage's factor c of r, folded into the last block
+struct ReFold {
+  double* partials;
+  unsigned* counter;
+  double re, c;
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kWarp * kBackWalkers)
-cavity_stage_backward_kernel(BackArgs<T> f, double* __restrict__ partials,
+cavity_stage_backward_kernel(BackArgs<T> f, ReFold fold, T* __restrict__ gre,
                              BackConsts<T> k) {
   constexpr int kSeg = kWarp * kVec<T>;
   const int c0 = blockIdx.x * kSeg;
   const int a0 = (blockIdx.y * kBackWalkers + threadIdx.y) * kBackRows;
-  const bool want_re = partials != nullptr;
+  const bool want_re = fold.partials != nullptr;
   double acc = 0.0;   // this lane's q lap(W)
   if (a0 < f.P) {     // the whole warp
     const bool interior = a0 >= 2 && a0 + kBackRows <= f.m - 2 && c0 >= 2 &&
@@ -741,9 +717,9 @@ cavity_stage_backward_kernel(BackArgs<T> f, double* __restrict__ partials,
                    : back_walk<T, true>(f, k, want_re, a0, c0);
   }
   if (!want_re) return;   // the whole grid
-  const double total = block_sum<kBackWalkers>(acc);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
+  fold_re_grad<kBackWalkers>(block_sum<kBackWalkers>(acc), fold.partials,
+                             fold.counter, static_cast<const T*>(nullptr),
+                             fold.re, fold.c, gre);
 }
 
 template <typename T>
@@ -759,14 +735,15 @@ int launch_backward(const T* wt, const T* s, const T* rl, const T* rh,
                     const T* cl, const T* ch, const T* g, const T* h_rl,
                     const T* h_rh, const T* h_cl, const T* h_ch, T* gw,
                     T* gwt, T* gs, T* g_rl, T* g_rh, T* g_cl, T* g_ch,
-                    double* partials, T* gre, int P, int Q, int m, int n,
-                    int stage, int order, double dt, double dx, double dy,
-                    double re, void* stream) {
+                    double* partials, unsigned* counter, T* gre, int P,
+                    int Q, int m, int n, int stage, int order, double dt,
+                    double dx, double dy, double re, void* stream) {
   if (P <= 0 || Q <= 0 || m < 2 || n < 2 || m > P || n > Q ||
       static_cast<long long>(P) * Q >= (1LL << 31) || Q % kVec<T> != 0 ||
       !aligned(wt) || !aligned(s) || !aligned(g) || !aligned(gw) ||
       !aligned(gwt) || !aligned(gs) || (order != 1 && order != 2) ||
-      stage < 1 || stage > 3 || (partials == nullptr) != (gre == nullptr))
+      stage < 1 || stage > 3 || (partials == nullptr) != (gre == nullptr) ||
+      (partials == nullptr) != (counter == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   static const double kA[] = {0.0, 0.75, 1.0 / 3.0};
   static const double kB[] = {1.0, 0.25, 2.0 / 3.0};
@@ -790,16 +767,10 @@ int launch_backward(const T* wt, const T* s, const T* rl, const T* rh,
   const BackArgs<T> f{wt,   s,    rl,   rh,   cl,   ch,   g,
                       h_rl, h_rh, h_cl, h_ch, gw,   gwt,  gs,
                       g_rl, g_rh, g_cl, g_ch, P,    Q,    m,    n};
-  const dim3 grid = back_grid<T>(P, Q);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cavity_stage_backward_kernel<T>
-      <<<grid, dim3(kWarp, kBackWalkers), 0, st>>>(f, partials, k);
-  if (partials != nullptr) {
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    re_grad_sum_kernel<T><<<1, kSumThreads, 0, st>>>(
-        partials, static_cast<int>(grid.x * grid.y), 1, nullptr, re, c, gre);
-  }
+      <<<back_grid<T>(P, Q), dim3(kWarp, kBackWalkers), 0, st>>>(
+          f, ReFold{partials, counter, re, c}, gre, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -820,20 +791,20 @@ CAVITY_STAGE_LAUNCHER(cavity_stage_f64, double)
 
 // gw (null at stage 1, or not wanted), gwt, gs and the wall vectors'
 // gradients from the stage's inputs wt, s, rl, rh, cl, ch and the
-// cotangents g, h_*; with partials and gre (both or neither) also gre =
-// dL/dre, one value
+// cotangents g, h_*; with partials, counter and gre (all or none) also
+// gre = dL/dre, one value
 #define CAVITY_STAGE_BACKWARD_LAUNCHER(NAME, T)                              \
   extern "C" int NAME(const T* wt, const T* s, const T* rl, const T* rh,    \
                       const T* cl, const T* ch, const T* g, const T* h_rl,  \
                       const T* h_rh, const T* h_cl, const T* h_ch, T* gw,   \
                       T* gwt, T* gs, T* g_rl, T* g_rh, T* g_cl, T* g_ch,    \
-                      double* partials, T* gre, int P, int Q, int m, int n, \
-                      int stage, int order, double dt, double dx,           \
-                      double dy, double re, void* stream) {                 \
+                      double* partials, unsigned* counter, T* gre, int P,  \
+                      int Q, int m, int n, int stage, int order, double dt, \
+                      double dx, double dy, double re, void* stream) {      \
     return launch_backward<T>(wt, s, rl, rh, cl, ch, g, h_rl, h_rh, h_cl,   \
                               h_ch, gw, gwt, gs, g_rl, g_rh, g_cl, g_ch,    \
-                              partials, gre, P, Q, m, n, stage, order, dt,  \
-                              dx, dy, re, stream);                          \
+                              partials, counter, gre, P, Q, m, n, stage,    \
+                              order, dt, dx, dy, re, stream);               \
   }
 
 CAVITY_STAGE_BACKWARD_LAUNCHER(cavity_stage_backward_f32, float)

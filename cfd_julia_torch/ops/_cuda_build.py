@@ -35,17 +35,18 @@ _DBL = ctypes.c_double
 _ARAKAWA_ARGS = [_PTR, _PTR, _PTR, _INT, _INT, _DBL, _DBL, _DBL, _PTR]
 # w, s, out, re (device, one a member), batch, nr, nc, dx, dy, stream
 _ARAKAWA_BATCHED_ARGS = [_PTR] * 4 + [_INT] * 3 + [_DBL] * 2 + [_PTR]
-# w, s, g, re, gw, gs, partials, gre, batch, nr, nc, dx, dy, stream
-_ARAKAWA_BACKWARD_ARGS = [_PTR] * 8 + [_INT] * 3 + [_DBL] * 2 + [_PTR]
+# w, s, g, re, gw, gs, partials, counters, gre, batch, nr, nc, dx, dy,
+# stream
+_ARAKAWA_BACKWARD_ARGS = [_PTR] * 9 + [_INT] * 3 + [_DBL] * 2 + [_PTR]
 # q, out, nx, gamma, dx, solver code, wavespeed code, stream
 _EULER_ARGS = [_PTR, _PTR, _INT, _DBL, _DBL, _INT, _INT, _PTR]
 # w, wt, s, rl, rh, cl, ch, out, rl_o, rh_o, cl_o, ch_o, P, Q, m, n, stage,
 # bc order, dt, dx, dy, re, stream
 _CAVITY_STAGE_ARGS = [_PTR] * 12 + [_INT] * 6 + [_DBL] * 4 + [_PTR]
 # wt, s, rl, rh, cl, ch, g, h_rl, h_rh, h_cl, h_ch, gw, gwt, gs, g_rl, g_rh,
-# g_cl, g_ch, partials, gre, P, Q, m, n, stage, bc order, dt, dx, dy, re,
-# stream
-_CAVITY_STAGE_BACKWARD_ARGS = [_PTR] * 20 + [_INT] * 6 + [_DBL] * 4 + [_PTR]
+# g_cl, g_ch, partials, counters, gre, P, Q, m, n, stage, bc order, dt, dx,
+# dy, re, stream
+_CAVITY_STAGE_BACKWARD_ARGS = [_PTR] * 21 + [_INT] * 6 + [_DBL] * 4 + [_PTR]
 # x, rows, cols, ld, transpose, out, out_rows, kp, passes, stream
 _TIER_SPLIT_ARGS = [_PTR] + [_INT] * 4 + [_PTR] + [_INT] * 3 + [_PTR]
 # map, base, rows, kp, role (0 A, 1 B)
@@ -97,6 +98,9 @@ SIGNATURES = {
     "arakawa_rhs_backward_f32": (_INT, _ARAKAWA_BACKWARD_ARGS),
     "arakawa_rhs_backward_f64": (_INT, _ARAKAWA_BACKWARD_ARGS),
     "arakawa_rhs_backward_partials": (_INT, [_INT, _INT]),
+    "arakawa_rhs_backward_constant": (_INT, [_INT]),
+    "arakawa_rhs_backward_capacity": (_INT, [_INT] * 2),
+    "arakawa_rhs_backward_rows": (_INT, [_INT] * 5),
     "euler_rhs_f32": (_INT, _EULER_ARGS),
     "euler_rhs_f64": (_INT, _EULER_ARGS),
     "cavity_stage_f32": (_INT, _CAVITY_STAGE_ARGS),

@@ -24,9 +24,8 @@ Kernels (csrc/ file; TPU function replaced):
   arakawa_rhs_backward            arakawa_rhs.cu; none (the JAX package
                                   differentiates its XLA RHS): the adjoint
                                   of arakawa_rhs_fused, its autograd
-                                  backward; with the Re gradient also the
-                                  one-block sum of its partials, counted
-                                  under arakawa_re_grad
+                                  backward; the Re gradient's sum folded
+                                  into its last block (one launch)
   redblack_sweeps_fused           multigrid.cu;   redblack_sweeps_fused
   smooth_residual_restrict_fused  multigrid.cu;   smooth_residual_restrict_fused
   residual_restrict_fused         multigrid.cu;   residual_restrict_fused
@@ -38,9 +37,8 @@ Kernels (csrc/ file; TPU function replaced):
   cavity_stage_backward           cavity_stage.cu; none (the JAX package
                                   differentiates its XLA stage): the
                                   adjoint of cavity_fused_stage, its
-                                  autograd backward; with the Re gradient
-                                  also the one-block sum of its partials,
-                                  counted under cavity_stage_re_grad
+                                  autograd backward; the Re gradient's sum
+                                  folded into its last block (one launch)
   vortex_derivs_half,             vortex_stage.cu; the XLA-fused stage math
   vortex_product,                 of the half-spectrum vortex step
   vortex_cn_combine,              (cfd_julia_tpu/models/vortex.py:392; not
@@ -76,12 +74,11 @@ from cfd_julia_torch.ops import _cuda_build, arakawa, riemann, weno
 from cfd_julia_torch.poisson import iterative
 
 LAUNCHES = {"arakawa_rhs": 0, "arakawa_rhs_backward": 0,
-            "arakawa_re_grad": 0,
             "redblack_sweeps": 0,
             "smooth_residual_restrict": 0, "residual_restrict": 0,
             "prolong_correct_smooth": 0, "euler_rhs": 0,
             "cavity_fused_stage": 0, "cavity_stage_backward": 0,
-            "cavity_stage_re_grad": 0, "tier_split": 0, "tier_gemm": 0,
+            "tier_split": 0, "tier_gemm": 0,
             "vortex_derivs_half": 0, "vortex_product": 0,
             "vortex_cn_combine": 0, "vortex_truncate_32": 0,
             "fft_c2c": 0, "fft_c2r": 0}
@@ -138,6 +135,33 @@ def _launch(name: str, symbol: str, device, *args, outputs=()) -> None:
                          if t is not None):
         raise FloatingPointError(
             f"NaN in the output of the {name} kernel ({symbol})")
+
+
+# the Re gradient's completion counters of the backward kernels, one
+# buffer a (device, stream): see _fold_counters
+_FOLD_COUNTERS: dict = {}
+
+
+def _fold_counters(device):
+    """The completion counters of the backward kernels' Re-gradient fold
+    (csrc/arakawa.cuh fold_re_grad: a batch's member b counts its blocks on
+    counter b mod their number) for `device`'s current stream: unsigned
+    ints in device memory, made and zeroed once (their one memset), then
+    left at 0 by every launch (the last block of a member resets its
+    counter), so no call, and no replay of a CUDA graph that captured one,
+    needs a memset.  Calls on one stream run one after another and share
+    them; calls on two streams at once would take each other's tickets, so
+    each stream has its own buffer.  A graph keeps the buffer of the stream
+    it was captured on."""
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    counters = _FOLD_COUNTERS.get(key)
+    if counters is None:
+        n = _cuda_build.load_library().arakawa_rhs_backward_constant(6)
+        with torch.cuda.device(device):
+            counters = torch.zeros(n, dtype=torch.int32, device=device)
+        _FOLD_COUNTERS[key] = counters
+    return counters
 
 
 # ------------------------------------------------------- Arakawa RHS
@@ -280,11 +304,14 @@ def arakawa_rhs_backward(w, s, g, dx: float, dy: float, re,
     gre), gw = -J(s, g) + lap(g)/re, gs = -J(g, w) (ops.arakawa's J and
     lap), gre = -sum g lap(w) / re^2 over each member's last two axes (of
     shape w.shape[:-2]), or None with re_grad=False.  One launch of the
-    backward kernel (csrc/arakawa_rhs.cu) and, for gre, a one-block
-    launch that adds the blocks' partial sums in a fixed order: no
-    atomics, the same result every run; the two launches count under
-    arakawa_rhs_backward and arakawa_re_grad.  re: a float or a tensor
-    broadcast over the leading axes.  Matches
+    backward kernel (csrc/arakawa_rhs.cu), counted under
+    arakawa_rhs_backward, with or without gre: its blocks write fp64
+    partial sums, and the last block to finish adds each member's in a
+    fixed order (no atomics on a value: the same result every run) and
+    resets its member's completion counter (_fold_counters; concurrent
+    calls on two streams use two buffers of them).  16-byte-aligned rows take
+    the kernel's 16-byte lanes, others its one-column lanes.  re: a float
+    or a tensor broadcast over the leading axes.  Matches
     arakawa_rhs_backward_plain."""
     _check_arakawa("arakawa_rhs_backward", w, s, re)
     if g.shape != w.shape or g.dtype != w.dtype:
@@ -301,19 +328,18 @@ def arakawa_rhs_backward(w, s, g, dx: float, dy: float, re,
     re_b = _batch_re(_member_re(re, w) if isinstance(re, torch.Tensor)
                      else re, w3)
     gw, gs = torch.empty_like(w3), torch.empty_like(w3)
-    partials = gre = None
+    partials = counters = gre = None
     if re_grad:
         n = _cuda_build.load_library().arakawa_rhs_backward_partials(nr, nc)
         partials = torch.empty(batch * n, dtype=torch.float64,
                                device=w.device)
+        counters = _fold_counters(w.device)
         gre = torch.empty(batch, dtype=w.dtype, device=w.device)
     _launch("arakawa_rhs_backward",
             f"arakawa_rhs_backward_{_SUFFIX[w.dtype]}", w.device,
             *(t.data_ptr() for t in (w3, s3, g3, re_b, gw, gs)),
-            _ptr(partials), _ptr(gre), batch, nr, nc, float(dx), float(dy),
-            outputs=(gw, gs, gre))
-    if re_grad:   # the same C call's second launch, the partials' sum
-        LAUNCHES["arakawa_re_grad"] += 1
+            *(_ptr(t) for t in (partials, counters, gre)), batch, nr, nc,
+            float(dx), float(dy), outputs=(gw, gs, gre))
     return (gw.reshape(shape), gs.reshape(shape),
             None if gre is None else gre.reshape(shape[:-2]))
 
@@ -914,10 +940,12 @@ def cavity_fused_stage_backward(wt, s, walls, g, h, stage: int, dt: float,
     plain's formulas; gw None at stage 1 (wt is w), gre a 0-d tensor of
     wt's dtype, or None with re_grad=False.  One launch of the backward
     kernel (csrc/cavity_stage.cu: the forward's warp walkers on 16-byte
-    rows of g, wt and s, each output written by one thread, no atomics)
-    and, for gre, a one-block launch that adds its blocks' fp64 partial
-    sums in a fixed order, so two calls agree bitwise; counted under
-    cavity_stage_backward and cavity_stage_re_grad.  re: a float.  The
+    rows of g, wt and s, each output written by one thread), counted under
+    cavity_stage_backward, with or without gre: the last of its blocks to
+    finish adds their fp64 partial sums in a fixed order (no atomics on a
+    value, so two calls agree bitwise) and resets the stream's completion
+    counter (_fold_counters; concurrent calls on two streams use two
+    buffers of them).  re: a float.  The
     kernel refuses (a launch error) Q not a multiple of 16 bytes' worth of
     elements and wt, s or g not 16-byte aligned."""
     tensors = (wt, s, *walls, g, *h)
@@ -940,19 +968,19 @@ def cavity_fused_stage_backward(wt, s, walls, g, h, stage: int, dt: float,
     gw = None if stage == 1 else torch.empty_like(wt)
     gwt, gs = torch.empty_like(wt), torch.empty_like(wt)
     gwalls = tuple(torch.empty_like(v) for v in walls)
-    partials = gre = None
+    partials = counters = gre = None
     if re_grad:
         k = _cuda_build.load_library().cavity_stage_backward_partials(P, Q)
         partials = torch.empty(k, dtype=torch.float64, device=wt.device)
+        counters = _fold_counters(wt.device)
         gre = torch.empty((), dtype=wt.dtype, device=wt.device)
     _launch("cavity_stage_backward",
             f"cavity_stage_backward_{_SUFFIX[wt.dtype]}", wt.device,
             *(t.data_ptr() for t in tensors), _ptr(gw), gwt.data_ptr(),
-            gs.data_ptr(), *(v.data_ptr() for v in gwalls), _ptr(partials),
-            _ptr(gre), P, Q, m, n, stage, bc_order, float(dt), float(dx),
-            float(dy), float(re), outputs=(gw, gwt, gs, *gwalls, gre))
-    if re_grad:   # the same C call's second launch, the partials' sum
-        LAUNCHES["cavity_stage_re_grad"] += 1
+            gs.data_ptr(), *(v.data_ptr() for v in gwalls),
+            *(_ptr(t) for t in (partials, counters, gre)), P, Q, m, n, stage,
+            bc_order, float(dt), float(dx), float(dy), float(re),
+            outputs=(gw, gwt, gs, *gwalls, gre))
     return gw, gwt, gs, gwalls, gre
 
 

@@ -28,7 +28,10 @@ Phases, one line each:
      the sharded cavity, 1026^2 and 2050^2 of the sharded fdm step)
      against its plain version, two calls bitwise equal; the batched
      forward and the backward timed beside their bounds, the backward in
-     fp32 and fp64 at 1025^2, 2048^2 and the framed blocks;
+     fp32 and fp64 at 1025^2, 2048^2 and the framed blocks, each also as
+     the kernel alone under torch.profiler (one device kernel a call with
+     d/d re: the Re sum is folded into its last block), beside its ptxas
+     registers and spills and an empty launch;
      the four multigrid kernels at 4097^2 fp32 (the 4096^2
      solve's finest level, sweeps 2) and at 129x65, 33x65, 5x5 and the
      ragged 131x67 and 301x261 in fp32, fp64 and bf16, the two level-edge
@@ -42,7 +45,8 @@ Phases, one line each:
      backward kernel (the adjoint of a stage: the field and wall-vector
      gradients and d/d re) at the same shapes, fp32 and fp64, every stage
      and order, with and without d/d re, against its plain version, two
-     calls bitwise equal, timed at 1024^2 fp32 beside its bound; the tier
+     calls bitwise equal, timed at 1024^2 fp32 beside its bound and as the
+     kernel alone (one device kernel a call with d/d re); the tier
      GEMM (csrc/tier_gemm.cu, the bf16 precision tiers' split-bf16
      product: the split pass
      tier_split and the wgmma GEMM) at 1024^3, 1023^3, 1x1x1, 15x17x13,
@@ -512,6 +516,54 @@ def bound(n_bytes, flops, ms, flop_per_s=FP32_FLOP_PER_S):
             "share_of_bound": bound_ms / ms}
 
 
+def ptxas_lines(log, pattern=None):
+    """[(kernel, registers, spill store bytes)] of the kernels in an
+    nvcc.log whose mangled names match `pattern` (every kernel if None),
+    in the log's order."""
+    out, name, spill = [], None, None
+    for line in Path(log).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if pattern is None or re.search(
+                pattern, m.group(1)) else None
+            spill = None
+        elif name and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif name and "Used" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append((name, regs, spill))
+            name = None
+    return out
+
+
+def kernel_alone(call, kernel, calls=20):
+    """(device us a launch of the kernels whose names hold `kernel`, the
+    device kernels recorded a call, the other kernels' names) over `calls`
+    calls of call() under torch.profiler; (None, 0.0, names) if it records
+    none of them.  The profiler can drop a few events of a window, so the
+    count a call may read below 1."""
+    events, _ = profiled_kernels(lambda: [call() for _ in range(calls)])
+    mine = [e for e in events if kernel in e.name]
+    if not mine:
+        return None, 0.0, sorted({e.name for e in events})
+    us = sum(e.time_range.end - e.time_range.start for e in mine) / len(mine)
+    return us, len(events) / calls, sorted({e.name[:80] for e in events
+                                            if kernel not in e.name})
+
+
+def alone_text(us, per_call, others, bound_ms):
+    """The kernel-alone part of a backward line, and whether the profile
+    shows at most one device kernel a call, the backward, and no other."""
+    if us is None:
+        return ("the kernel alone: no device events recorded (not "
+                f"measured; other kernels {others})"), False
+    ok = not others and per_call <= 1.0
+    return (f"the kernel alone {us:.2f} us a launch under torch.profiler "
+            f"({100 * bound_ms * 1e3 / us:.1f}% of the bound), "
+            f"{per_call:g} device kernels recorded a call, other kernels: "
+            f"{', '.join(others) if others else 'none'}"), ok
+
+
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -762,6 +814,15 @@ def phase_arakawa_batched():
             print(line)
             check(ok, line)
             del w, s, got, again, ref, host, host_ref
+    # the backward's lanes, strips and ring, its ptxas counts, and an
+    # empty launch, for the timed lines
+    from cfd_julia_torch.ops import _cuda_build
+
+    lib = _cuda_build.load_library()
+    ahead = lib.arakawa_rhs_backward_constant(5)
+    back_ptxas = ptxas_lines(Path(lib._name).with_name(_cuda_build.LOG_NAME),
+                             "arakawa_rhs_backward_kernel")
+    floor_ms, _ = median_ms(lambda: torch.cuda._sleep(0))
     for shape in ARAKAWA_BACKWARD:
         (w_np, s_np, g_np), dx, dy = arakawa_inputs(shape, 3, sum(shape) + 1)
         for dtype, rel in [(torch.float32, 1e-5), (torch.float64, 1e-12)]:
@@ -818,17 +879,44 @@ def phase_arakawa_batched():
                           FLOPS_ARAKAWA_BACKWARD * w.numel(), ms,
                           FP64_FLOP_PER_S if dtype == torch.float64
                           else FP32_FLOP_PER_S)
+                us, per_call, others = kernel_alone(
+                    lambda: ck.arakawa_rhs_backward(w, s, g, dx, dy, re),
+                    "arakawa_rhs_backward_kernel")
+                alone, alone_ok = alone_text(us, per_call, others,
+                                             b["bound_ms"])
+                ok = ok and alone_ok
+                # the launcher's lanes: 16 bytes where a row is a multiple
+                # of 16 bytes (every tensor here starts 16-byte aligned)
+                f64 = int(dtype == torch.float64)
+                vec = 16 // w.element_size()
+                cols = vec if shape[-1] % vec == 0 else 1
+                strip = lib.arakawa_rhs_backward_rows(
+                    shape[0] if len(shape) == 3 else 1, *shape[-2:], f64,
+                    int(cols > 1))
+                tag = (f"arakawa_rhs_backward_kernelI{'d' if f64 else 'f'}"
+                       f"Li{cols}ELi{ahead}EE")
+                regs, spill = next(((r, sp) for name, r, sp in back_ptxas
+                                    if tag in name), (None, None))
                 line += (f"; device time: kernel {ms:.4f} ms (bound "
                          f"{b['bound_ms']:.4f} ms by {b['bound_by']}: 5 "
                          f"fields, {100 * b['share_of_bound']:.1f}% of it), "
                          f"plain {plain_ms:.4f} ms; eager call "
-                         f"{call_ms:.4f} ms")
+                         f"{call_ms:.4f} ms; {alone}; an empty launch "
+                         f"{floor_ms:.4f} ms; {cols}-column lanes, strips "
+                         f"of {strip} rows: ptxas {regs} registers, {spill} "
+                         f"bytes spill stores")
                 timed[key] = {"shape": list(shape), "launches": None,
                               "max_abs_err": max(
                                   float((a - b).abs().max())
                                   for a, b in zip(got, ref)),
                               "ms": ms, "plain_ms": plain_ms, **b,
-                              "library_ms": None}
+                              "library_ms": None,
+                              "kernel_ms": None if us is None else us * 1e-3,
+                              "kernel_share_of_bound": None if us is None
+                              else b["bound_ms"] * 1e3 / us,
+                              "floor_ms": floor_ms, "lane_columns": cols,
+                              "strip_rows": strip, "registers": regs,
+                              "spill_bytes": spill}
             line += " ok" if ok else " FAIL"
             print(line)
             check(ok, line)
@@ -1063,8 +1151,8 @@ def phase_stage_backward_kernel():
                     f"gs and the wall vectors' gradients {worst:.3e} (tol "
                     f"{rel:g}); d/dre err {re_worst:.3e} of "
                     f"{'|p|' if dtype == torch.float64 else 'c sum|q lap W|/re^2'}"
-                    f" (tol {re_tol:g}); two calls bitwise equal: {all_same}"
-                    f" {'ok' if ok else 'FAIL'}")
+                    f" (tol {re_tol:g}); two calls bitwise equal: "
+                    f"{all_same}")
             if (nx, ny) == STAGE_SHAPES[0]:
                 rec = timed[dtype]
                 line += (f"; 1024^2 {str(dtype)[6:]} stage 2 with d/dre: "
@@ -1077,17 +1165,22 @@ def phase_stage_backward_kernel():
                          f"%), without d/dre {rec['no_re_ms']:.4f} ms, "
                          f"plain {rec['plain_ms']:.4f} ms; eager call "
                          f"{rec['call_ms']:.4f} ms (medians of 30 calls, "
-                         f"CUDA events)")
+                         f"CUDA events); with d/dre {rec['alone'][0]}")
+                ok = ok and rec["alone"][1]
                 if dtype == torch.float32:
                     line += (f"; the thread-a-point gather it replaced: "
                              f"{STAGE_BACKWARD_GATHER_MS} ms (PERF.md row "
                              f"7, its chip_smoke.py phase 2)")
+            line += " ok" if ok else " FAIL"
             print(line)
             check(ok, line)
+    for rec in timed.values():
+        del rec["alone"]
     record = timed[torch.float32]
     record["fp64"] = {k: timed[torch.float64][k] for k in
                       ("ms", "cold_ms", "no_re_ms", "plain_ms", "bound_ms",
-                       "bound_by", "max_abs_err")}
+                       "bound_by", "max_abs_err", "kernel_ms",
+                       "kernel_share_of_bound")}
     return record
 
 
@@ -1114,13 +1207,18 @@ def stage_backward_timing(ck, args, err):
     fields = (6 if stage != 1 else 5) * wt.numel() * wt.element_size()
     vectors = 3 * nbytes(*walls)
     b = bound(fields + vectors, FLOPS_ARAKAWA_BACKWARD * wt.numel(), ms)
+    us, per_call, others = kernel_alone(call, "cavity_stage_backward_kernel")
     return {"name": "cavity_stage_backward", "route": "cuda",
             "source": "cfd_julia_torch/csrc/cavity_stage.cu",
             "replaces": ("cfd_julia_tpu/models/cavity_fused.py:153 (jax.grad "
                          "of the XLA-fused stage; no TPU kernel)"),
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, **b, "library_ms": None,
-            "cold_ms": cold_ms, "no_re_ms": no_re_ms, "call_ms": call_ms}
+            "cold_ms": cold_ms, "no_re_ms": no_re_ms, "call_ms": call_ms,
+            "kernel_ms": None if us is None else us * 1e-3,
+            "kernel_share_of_bound": None if us is None
+            else b["bound_ms"] * 1e3 / us,
+            "alone": alone_text(us, per_call, others, b["bound_ms"])}
 
 
 # the half-spectrum vortex step's stage passes (csrc/vortex_stage.cu):
@@ -3793,7 +3891,7 @@ def phase_gradients():
     ok = (rel_twin <= 1e-9 and rel_fd <= 1e-4 and twin_quiet
           and n_fwd == 3 * GRAD_CAVITY_STEPS
           and launches["arakawa_rhs_backward"] == n_fwd
-          and launches["arakawa_re_grad"] == n_fwd
+          and not any(k.endswith("_re_grad") for k in launches)
           and math.isfinite(g_kernel) and g_kernel != 0.0)
     cavity_grad = g_kernel
     line = (f"phase 16 gradient (a) cavity {NX}^2 fp64 (dt=2e-5, Re={RE:g}, "
@@ -3804,9 +3902,9 @@ def phase_gradients():
             f"1e-9; {'no' if twin_quiet else 'SOME'} kernel launches); "
             f"central FD h={h:g} {fd!r} (rel {rel_fd:.2e}, tol 1e-4); "
             f"launches {n_fwd} arakawa_rhs, "
-            f"{launches['arakawa_rhs_backward']} arakawa_rhs_backward, "
-            f"{launches['arakawa_re_grad']} arakawa_re_grad (want "
-            f"{3 * GRAD_CAVITY_STEPS} each); peak device memory "
+            f"{launches['arakawa_rhs_backward']} arakawa_rhs_backward (want "
+            f"{3 * GRAD_CAVITY_STEPS} each; the Re sum inside the backward "
+            f"kernel, no second launch); peak device memory "
             f"{peak_k:.2f} GB kernel, {peak_t:.2f} GB plain "
             f"{'ok' if ok else 'FAIL'}")
     print(line)
@@ -3872,7 +3970,7 @@ def phase_gradients():
           and all(math.isfinite(x) for x in values)
           and n_fwd == 3 * GRAD_VORTEX_STEPS
           and e_launches["arakawa_rhs_backward"] == n_fwd
-          and e_launches["arakawa_re_grad"] == n_fwd)
+          and not any(k.endswith("_re_grad") for k in e_launches))
     line = (f"phase 16 gradient (b) fdm ensemble {len(GRAD_ENSEMBLE_RE)} x "
             f"{VORTEX_NX}^2 fp64 (re={list(GRAD_ENSEMBLE_RE)}, "
             f"{GRAD_VORTEX_STEPS} steps, dt=1e-3): d mean(w_b^2)/d re_b = "
@@ -3884,8 +3982,7 @@ def phase_gradients():
             f"forward runs' max|w_kernel - w_plain| {w_diff:.3e}); central FD of the Re=1000 member h={h:g} "
             f"{fd!r} (rel {rel_fd:.2e}, tol 1e-4); launches {n_fwd} "
             f"arakawa_rhs, {e_launches['arakawa_rhs_backward']} "
-            f"arakawa_rhs_backward, {e_launches['arakawa_re_grad']} "
-            f"arakawa_re_grad (want {3 * GRAD_VORTEX_STEPS} each); "
+            f"arakawa_rhs_backward (want {3 * GRAD_VORTEX_STEPS} each); "
             f"peak device memory {peak_k:.2f} GB kernel, {peak_t:.2f} GB "
             f"plain {'ok' if ok else 'FAIL'}")
     print(line)
@@ -4042,7 +4139,7 @@ def phase_packed_gradients(matmul_grad):
           and pad_zero and w_scale > 0 and math.isfinite(g) and g != 0.0
           and n_stage == 3 * steps
           and bwd["cavity_stage_backward"] == n_stage
-          and bwd["cavity_stage_re_grad"] == n_stage
+          and not any(k.endswith("_re_grad") for k in bwd)
           and fwd["arakawa_rhs"] == bwd["arakawa_rhs_backward"] == 0
           and full["backward"]["arakawa_rhs_backward"]
           == full["forward"]["arakawa_rhs"] == 3 * steps)
@@ -4056,8 +4153,7 @@ def phase_packed_gradients(matmul_grad):
             f"against the full-grid one mapped by pack_state: max|diff| "
             f"{w_err:.2e} of its scale {w_scale:.3e} (tol 1e-9), padding 0: "
             f"{pad_zero}; launches {n_stage} cavity_fused_stage, "
-            f"{bwd['cavity_stage_backward']} cavity_stage_backward, "
-            f"{bwd['cavity_stage_re_grad']} cavity_stage_re_grad (want "
+            f"{bwd['cavity_stage_backward']} cavity_stage_backward (want "
             f"{3 * steps} each); {ref['seconds']:.2f} s and "
             f"{ref['peak_gb']:.2f} GB peak (forward and backward), the "
             f"full-grid one {full['seconds']:.2f} s and "
@@ -5240,7 +5336,7 @@ def phase_mesh_gradients(one, quad, card, gb, device="cuda"):
         f, b = rec["forward"], rec["backward"]
         return (f["arakawa_rhs"] == 3 * steps
                 and b["arakawa_rhs_backward"] == f["arakawa_rhs"]
-                and b["arakawa_re_grad"] == f["arakawa_rhs"])
+                and not any(k.endswith("_re_grad") for k in b))
 
     def cost(rec):
         share = rec["collective_ms"] / rec["backward_ms"]
@@ -5250,8 +5346,7 @@ def phase_mesh_gradients(one, quad, card, gb, device="cuda"):
                 f"{share:.1%}), peak {gb(rec['peak'])}; launches forward "
                 f"{rec['forward']['arakawa_rhs']} arakawa_rhs, backward "
                 f"{rec['backward']['arakawa_rhs_backward']} "
-                f"arakawa_rhs_backward and {rec['backward']['arakawa_re_grad']}"
-                f" arakawa_re_grad")
+                f"arakawa_rhs_backward")
 
     def field_err(got, ref):
         """max|got - ref| over the logical nodes, over max|ref|, and the
@@ -5359,8 +5454,8 @@ def phase_mesh_gradients(one, quad, card, gb, device="cuda"):
     def backward_launches(r, kind):
         recs = (r["grad"]["cavity"].values() if kind == "cavity"
                 else [r["grad"]["fdm"]])
-        return {name: sum(rec["backward"][name] for rec in recs)
-                for name in ("arakawa_rhs_backward", "arakawa_re_grad")}
+        return {"arakawa_rhs_backward": sum(
+            rec["backward"]["arakawa_rhs_backward"] for rec in recs)}
 
     return {kind: ([backward_launches(r, kind) for r in quad],
                    backward_launches(one, kind))
@@ -5639,17 +5734,13 @@ def main(argv=None):
     record["batched"]["path"] = (f"ensemble fdm {len(ENSEMBLE_RE)} x "
                                  f"{VORTEX_NX}^2, {VORTEX_TOTAL} steps")
     backward = batched_records["backward"]
+    # a backward call with the Re gradient is one launch: its sum is
+    # folded into the kernel's last block
     backward["launches"] = grad_launches["cavity"]["arakawa_rhs_backward"]
-    # a backward call that takes the Re gradient is two device launches:
-    # the backward kernel and the one-block sum of its partials (its time
-    # is inside "ms")
-    backward["re_grad_launches"] = grad_launches["cavity"]["arakawa_re_grad"]
     backward["path"] = (f"cavity {NX}^2 fp64 gradient, {GRAD_CAVITY_STEPS} "
                         f"steps")
     backward["at_batch"]["launches"] = \
         grad_launches["ensemble"]["arakawa_rhs_backward"]
-    backward["at_batch"]["re_grad_launches"] = \
-        grad_launches["ensemble"]["arakawa_re_grad"]
     backward["at_batch"]["path"] = (
         f"fdm ensemble {len(GRAD_ENSEMBLE_RE)} x {VORTEX_NX}^2 fp64 "
         f"gradient, {GRAD_VORTEX_STEPS} steps")
@@ -5669,12 +5760,9 @@ def main(argv=None):
              f"steps, one rank (NCCL)")]:
         quad_l, one_l = mesh_grad_launches[kind]
         backward[key].update(
-            launches=[q["arakawa_rhs_backward"] for q in quad_l],
-            re_grad_launches=[q["arakawa_re_grad"] for q in quad_l],
-            path=path)
+            launches=[q["arakawa_rhs_backward"] for q in quad_l], path=path)
         backward[key]["world_1"].update(
-            launches=one_l["arakawa_rhs_backward"],
-            re_grad_launches=one_l["arakawa_re_grad"], path=path_one)
+            launches=one_l["arakawa_rhs_backward"], path=path_one)
     for name, rec in mg_records.items():
         variant = "fmg" if name == "residual_restrict" else "fused"
         rec["launches"] = mg_counts[variant][name]
@@ -5684,11 +5772,7 @@ def main(argv=None):
                             f"fp32, {EULER_STEPS} steps")
     stage_record["launches"] = fused_launches["cavity_fused_stage"]
     stage_record["path"] = (f"fused cavity {NX}^2, {STEPS_TOTAL} steps")
-    # a backward call that takes the Re gradient is two device launches,
-    # as kernel 1's (the one-block sum's time is inside "ms")
     stage_back_record["launches"] = packed_launches["cavity_stage_backward"]
-    stage_back_record["re_grad_launches"] = \
-        packed_launches["cavity_stage_re_grad"]
     stage_back_record["path"] = (f"packed cavity {NX}^2 fp64 gradient, "
                                  f"{GRAD_CAVITY_STEPS} steps")
     for rec in (tier_record, split_record):

@@ -17,8 +17,10 @@ rounds):
   - arakawa_rhs at 1025^2 fp32, with the fields warm in L2 (as in the
     cavity step) and with L2 flushed (a 128 MB write before each call);
     batched at chip_smoke's (8, 2048, 2048) with one device Re a member,
-    and its backward kernel (with the Re gradient) at 1025^2 and at the
-    batch, for the trees that have them;
+    and its backward kernel (with and without the Re gradient) at the
+    shapes chip_smoke's phase 2 times it at (1025^2, 2048^2, the batch and
+    the framed 517^2, 1029^2, 1026^2 and 2050^2 blocks; fp32, and the 2-D
+    ones in fp64), for the trees that have them;
   - euler_rhs at (3, 8192) fp32 on the Sod state after 100 steps, for
     hllc, roe, rusanov/roe and rusanov/spectral;
   - the two multigrid level edges at 4097^2 fp32, 2 sweeps, for the trees
@@ -45,9 +47,11 @@ rounds):
   - the empty-launch floor (torch.cuda._sleep(0)) and, as a yardstick of
     the Arakawa RHS's bytes alone, torch.add of two 1025^2 fp32 fields,
     beside them;
-  - the stage backward's call at 1024^2 fp32 under torch.profiler on
-    each tree's library: the device time of its main kernel and of the
-    Re sum's second launch;
+  - the stage backward's call at 1024^2 fp32, and kernel 1's backward at
+    the shapes above, under torch.profiler on each tree's library: the
+    device time a call of each kernel (the backward kernel and, on a tree
+    from before the Re sum was folded into its last block, the sum's
+    second launch);
   - the 4096^2 fused="off" multigrid solve (chip_smoke's problem), where
     every smoother is the smoother kernel: a torch.profiler window of 3
     solves on each tree's library, in turns, with its device time a solve
@@ -58,11 +62,14 @@ printed), and each tree's RHS, stage and tier kernels' ptxas registers
 and spills are printed; --sass also counts the CALL instructions (the
 slow paths of IEEE division, reciprocal and square root) in their SASS
 (cuobjdump).  A tree that does not build is reported with nvcc's output
-and left out; the first tree must build.
+and left out; the first tree must build.  A tree from before the fold
+(no arakawa_rhs_backward_constant) takes the backward entries' earlier
+C ABI, without the completion counter's argument.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import re
 import shutil
@@ -81,20 +88,58 @@ from cfd_julia_torch.ops import _cuda_build
 from cfd_julia_torch.ops import cuda_kernels as ck
 
 
+# the backward entries' completion counter (the Re fold's): its place in
+# the wrappers' argument lists, which a tree from before the fold lacks
+_FOLD_COUNTER_ARG = {"arakawa_rhs_backward": 7, "cavity_stage_backward": 19}
+
+
+def folded(lib):
+    """Whether a library's backward entries fold the Re sum (and take the
+    counter argument)."""
+    return has(lib, "arakawa_rhs_backward_constant")
+
+
 def bind(path: Path) -> ctypes.CDLL:
     """Load a kernel library and set the signatures of the symbols it has
-    (a tree may hold only some of the sources)."""
+    (a tree may hold only some of the sources); a tree from before the fold
+    gets its backward entries' earlier signatures."""
     lib = ctypes.CDLL(str(path))
     for name, (restype, argtypes) in _cuda_build.SIGNATURES.items():
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.restype = restype
             fn.argtypes = argtypes
+            key = name.rsplit("_", 1)[0]
+            if key in _FOLD_COUNTER_ARG and not folded(lib):
+                k = _FOLD_COUNTER_ARG[key]
+                fn.argtypes = argtypes[:k] + argtypes[k + 1:]
     return lib
 
 
 def has(lib, symbol):
     return getattr(lib, symbol, None) is not None
+
+
+@contextlib.contextmanager
+def use(lib):
+    """The port's wrappers on `lib`: its load_library, and for a tree from
+    before the fold no counters and a launch that drops their argument."""
+    launch = ck._launch
+
+    def legacy(name, symbol, device, *args, outputs=()):
+        k = _FOLD_COUNTER_ARG.get(name)
+        if k is not None:
+            args = args[:k] + args[k + 1:]
+        return launch(name, symbol, device, *args, outputs=outputs)
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(_cuda_build, "load_library",
+                                              lambda: lib))
+        if not folded(lib):
+            stack.enter_context(mock.patch.object(ck, "_launch", legacy))
+            stack.enter_context(mock.patch.object(ck, "_fold_counters",
+                                                  lambda device: None))
+        yield
 
 
 # the tier GEMM's C ABI before the split pass (a, b, c, M, N, K, passes,
@@ -186,25 +231,6 @@ def tier_cases(dev):
 KERNELS = "arakawa|euler|rb_|tier|split|cavity_stage"
 
 
-def ptxas_lines(path: Path):
-    """(kernel, registers, spill stores) of the RHS, stage and tier kernels
-    in nvcc.log."""
-    text = path.with_name(_cuda_build.LOG_NAME).read_text()
-    out, name = [], None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = m.group(1) if re.search(KERNELS, m.group(1)) else None
-            spill = None
-        elif name and "spill stores" in line:
-            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
-        elif name and "Used" in line:
-            regs = int(re.search(r"Used (\d+) registers", line).group(1))
-            out.append((name, regs, spill))
-            name = None
-    return out
-
-
 def sass_calls(path: Path):
     """{kernel: (CALL instructions, MUFU.RCP instructions)} of the RHS,
     stage and tier kernels in the library's SASS."""
@@ -238,27 +264,27 @@ def cases(dev):
             lambda: ck.arakawa_rhs_fused(w, s, dx, dx, cs.RE),
             lambda: ck.arakawa_rhs_fused_plain(w, s, dx, dx, cs.RE),
             before, "arakawa_rhs_f32")
-    g = torch.as_tensor(rng.standard_normal((n, n)), dtype=torch.float32,
-                        device=dev)
-    re = torch.tensor(cs.RE, dtype=torch.float32, device=dev)
-    out["arakawa_rhs_backward 1025^2 fp32"] = (
-        lambda: ck.arakawa_rhs_backward(w, s, g, dx, dx, re),
-        lambda: ck.arakawa_rhs_backward_plain(w, s, g, dx, dx, re),
-        None, "arakawa_rhs_backward_f32")
     shape = cs.ARAKAWA_BATCHED[0]
     arrays, dxb, dyb = cs.arakawa_inputs(shape, 3, sum(shape))
-    wb, sb, gb = (torch.as_tensor(a, dtype=torch.float32, device=dev)
-                  for a in arrays)
+    wb, sb = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+              for a in arrays[:2])
     reb = cs.arakawa_re(shape, torch.float32, dev)
     tag = "x".join(map(str, shape))
     out[f"arakawa_rhs batched {tag} fp32"] = (
         lambda: ck.arakawa_rhs_fused(wb, sb, dxb, dyb, reb),
         lambda: ck.arakawa_rhs_fused_plain(wb, sb, dxb, dyb, reb),
         None, "arakawa_rhs_batched_f32")
-    out[f"arakawa_rhs_backward batched {tag} fp32"] = (
-        lambda: ck.arakawa_rhs_backward(wb, sb, gb, dxb, dyb, reb),
-        lambda: ck.arakawa_rhs_backward_plain(wb, sb, gb, dxb, dyb, reb),
-        None, "arakawa_rhs_backward_f32")
+    for label, (args, _) in backward_inputs(dev).items():
+        symbol = f"arakawa_rhs_backward_{ck._SUFFIX[args[0].dtype]}"
+        out[f"arakawa_rhs_backward {label}"] = (
+            lambda args=args: ck.arakawa_rhs_backward(*args),
+            lambda args=args: ck.arakawa_rhs_backward_plain(*args),
+            None, symbol)
+        out[f"arakawa_rhs_backward {label} no d/dre"] = (
+            lambda args=args: ck.arakawa_rhs_backward(*args,
+                                                      re_grad=False)[:2],
+            lambda args=args: ck.arakawa_rhs_backward_plain(*args)[:2],
+            None, symbol)
     nx = 8192
     q = cs.euler_sod_100(nx).float().contiguous()
     for solver, ws in cs.EULER_VARIANTS:
@@ -297,6 +323,25 @@ def cases(dev):
                 symbol = "rb_sweeps" if name == "redblack_sweeps" else name
                 out[f"{name} {n}^2 fp32 sweeps {cs.MG_SWEEPS}"] = (
                     kernel, plain, None, f"mg_{symbol}_f32")
+    return out
+
+
+def backward_inputs(dev):
+    """label -> ((w, s, g, dx, dy, re), shape) of kernel 1's backward
+    races: the shapes chip_smoke's phase 2 times it at (1025^2, 2048^2, the
+    ensemble's batch, the framed 517^2, 1029^2, 1026^2 and 2050^2 blocks)
+    in fp32, and the 2-D ones in fp64 too, with a tensor Re."""
+    out = {}
+    for shape, dtype in [(shape, dtype) for dtype in (torch.float32,
+                                                      torch.float64)
+                         for shape in cs.ARAKAWA_BACKWARD_TIMED
+                         if dtype == torch.float32 or len(shape) == 2]:
+        arrays, dx, dy = cs.arakawa_inputs(shape, 3, sum(shape) + 1)
+        w, s, g = (torch.as_tensor(a, dtype=dtype, device=dev)
+                   for a in arrays)
+        label = f"{'x'.join(map(str, shape))} {str(dtype)[6:]}"
+        out[label] = ((w, s, g, dx, dy, cs.arakawa_re(shape, dtype, dev)),
+                      shape)
     return out
 
 
@@ -362,8 +407,7 @@ def off_profiles(libs, rounds):
 
     for r in range(rounds):
         for name, lib in (libs if r % 2 == 0 else libs[::-1]):
-            with mock.patch.object(_cuda_build, "load_library",
-                                   lambda lib=lib: lib):
+            with use(lib):
                 solve()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -385,6 +429,29 @@ def off_profiles(libs, rounds):
                   f"{sum(n for _, n in rb) / 3:.1f} launches/solve")
 
 
+def arakawa_backward_profiles(libs):
+    """Kernel 1's backward with and without d/dRe on each library under
+    torch.profiler, 20 calls at each of backward_inputs' shapes: device us
+    a call of each kernel (the backward and, on a tree from before the
+    fold, the Re sum's second launch), beside the event-timed ms (which
+    also holds the launch and its gaps)."""
+    for label, (args, _) in backward_inputs("cuda").items():
+        for re_grad in (True, False):
+            for name, lib in libs:
+                if not has(lib, "arakawa_rhs_backward_f32"):
+                    continue
+                with use(lib):
+                    call = lambda: ck.arakawa_rhs_backward(*args,
+                                                           re_grad=re_grad)
+                    ms = cs.median_ms(call)[0]
+                    cs.phase_profile(
+                        f"ab arakawa_rhs_backward {label}"
+                        f"{'' if re_grad else ' no d/dre'} {name} (events "
+                        f"{ms:.5f} ms a call)",
+                        lambda: [call() for _ in range(20)], 20, ms * 1e-3,
+                        unit="call")
+
+
 def stage_backward_profiles(libs):
     """The stage backward's call (1024^2 fp32, stage 2, d/dRe) on each
     library under torch.profiler, 20 calls: device us a call of the main
@@ -398,8 +465,7 @@ def stage_backward_profiles(libs):
     for name, lib in libs:
         if not has(lib, "cavity_stage_backward_f32"):
             continue
-        with mock.patch.object(_cuda_build, "load_library",
-                               lambda lib=lib: lib):
+        with use(lib):
             call = lambda: ck.cavity_fused_stage_backward(*args)
             ms = cs.median_ms(call)[0]
             cs.phase_profile(f"ab stage backward {name} (events {ms:.5f} "
@@ -452,7 +518,8 @@ def main(argv=None):
     libs = [(str(d.relative_to(cs.REPO)) if d.is_relative_to(cs.REPO)
              else str(d), bind(p)) for d, p in zip(dirs, paths)]
     for (label, _), path in zip(libs, paths):
-        for name, regs, spill in ptxas_lines(path):
+        for name, regs, spill in cs.ptxas_lines(
+                path.with_name(_cuda_build.LOG_NAME), KERNELS):
             print(f"ptxas {label}: {name}: {regs} registers, {spill} bytes "
                   f"spill stores")
         if args.sass:
@@ -491,8 +558,7 @@ def main(argv=None):
                 if name not in times:
                     continue
                 call, plain, before = chosen[name]
-                with mock.patch.object(_cuda_build, "load_library",
-                                       lambda lib=lib: lib):
+                with use(lib):
                     if r == 0:
                         got = flat(call())
                         errs[name] = max_err(got, plain())
@@ -515,6 +581,8 @@ def main(argv=None):
         off_profiles(libs, args.rounds)
     if not only or only.search("profile cavity_stage_backward"):
         stage_backward_profiles(libs)
+    if not only or only.search("profile arakawa_rhs_backward"):
+        arakawa_backward_profiles(libs)
     return 0
 
 

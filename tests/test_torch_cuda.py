@@ -210,8 +210,9 @@ def test_arakawa_backward_kernel_matches_plain(cuda_device, shape, dtype):
     """gw, gs within REL of each output's scale (its largest value or its
     Jacobian term's size) of arakawa_rhs_backward_plain; gre (a member's
     -sum g lap(w) / re^2) within 1e-10 relative in fp64 and, in fp32, 1e-5
-    of the sum of |g lap(w)| / re^2; two calls bitwise equal (no atomics),
-    one counted launch a call, and one of the Re gradient's sum."""
+    of the sum of |g lap(w)| / re^2; two calls bitwise equal (no atomics
+    on a value), one counted launch a call with or without the Re
+    gradient (its sum is folded into the kernel's last block)."""
     w, s, g = _fields(shape, seed=8, n=3)
     dx, dy = _spacing(shape[-2:])
     wt, st, gt = (interop.field_from_numpy(a, dtype, cuda_device)
@@ -222,8 +223,8 @@ def test_arakawa_backward_kernel_matches_plain(cuda_device, shape, dtype):
     got = cuda_kernels.arakawa_rhs_backward(wt, st, gt, dx, dy, re)
     again = cuda_kernels.arakawa_rhs_backward(wt, st, gt, dx, dy, re)
     torch.cuda.synchronize()
-    for name in ("arakawa_rhs_backward", "arakawa_re_grad"):
-        assert cuda_kernels.LAUNCHES[name] == before[name] + 2, name
+    assert cuda_kernels.LAUNCHES["arakawa_rhs_backward"] == \
+        before["arakawa_rhs_backward"] + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     ref = cuda_kernels.arakawa_rhs_backward_plain(wt, st, gt, dx, dy, re)
     for mine, want, jac in zip(got[:2], ref[:2],
@@ -241,8 +242,187 @@ def test_arakawa_backward_kernel_matches_plain(cuda_device, shape, dtype):
     gw_only = cuda_kernels.arakawa_rhs_backward(wt, st, gt, dx, dy, re,
                                                 re_grad=False)
     assert gw_only[2] is None and torch.equal(gw_only[0], got[0])
-    assert cuda_kernels.LAUNCHES["arakawa_re_grad"] == \
-        before["arakawa_re_grad"] + 2
+    assert cuda_kernels.LAUNCHES["arakawa_rhs_backward"] == \
+        before["arakawa_rhs_backward"] + 3
+    assert not any(k.endswith("_re_grad") for k in cuda_kernels.LAUNCHES)
+
+
+# the backward's walk constants as its sources state them (the CPU
+# emulation, tests/test_torch_rhs_tiling.py, reads the same)
+ARAKAWA_BACKWARD_CONSTANTS = [
+    int(re.search(rf"constexpr int {key} = (\d+);",
+                  (_cuda_build.CSRC / source).read_text()).group(1))
+    for source, key in (("arakawa_rhs.cu", "kMinRows"),
+                        ("arakawa_rhs.cu", "kMaxRows"),
+                        ("arakawa_rhs.cu", "kBackWalkers"),
+                        ("arakawa_rhs.cu", "kVecBytes"),
+                        ("arakawa_rhs.cu", "kBlockX"),
+                        ("arakawa_rhs.cu", "kBackAhead"),
+                        ("arakawa.cuh", "kFoldCounters"),
+                        ("arakawa_rhs.cu", "kMaxRows64"))]
+
+
+def _back_rows(nr, nc, batch, cols, capacity, f64):
+    """The rows of a backward walker's strip (csrc/arakawa_rhs.cu
+    back_rows): the fewest waves of `capacity` walkers that hold the call
+    at the most rows a strip, then strips as short as those waves allow."""
+    min_rows, max_rows, _, _, lanes = ARAKAWA_BACKWARD_CONSTANTS[:5]
+    if f64:
+        max_rows = ARAKAWA_BACKWARD_CONSTANTS[7]
+    units = -(-nc // (lanes * cols)) * batch
+    waves = -(-units * -(-nr // max_rows) // capacity)
+    strips = max(1, waves * capacity // units)
+    return min(max_rows, max(min_rows, -(-nr // strips)))
+
+
+@pytest.mark.cuda
+def test_arakawa_backward_constants_match_the_emulation(cuda_device):
+    """The backward walk the library was built with is the one the CPU
+    emulation replays: its constants, its Re partials a member (the most
+    blocks of its three grids, 16-byte lanes of 4 fp32 or 2 fp64 columns
+    and one-column lanes, at the shortest strips), and the rows of a
+    walker's strip it takes on this card at each path's capacity (the
+    walkers the card holds at once), as the emulation's formula gives
+    them."""
+    lib = _cuda_build.load_library()
+    assert [lib.arakawa_rhs_backward_constant(k) for k in range(8)] == \
+        ARAKAWA_BACKWARD_CONSTANTS
+    min_rows, _, walkers, vec_bytes, lanes = ARAKAWA_BACKWARD_CONSTANTS[:5]
+    shapes = [(1, 1025, 1025), (1, 2048, 2048), (8, 2048, 2048),
+              (1, 517, 517), (2, 3, 1), (3, 37, 136), (1, 1024, 32)]
+    for batch, nr, nc in shapes:
+        blocks = [-(-nc // (lanes * cols)) * -(-(-(-nr // min_rows))
+                                              // walkers)
+                  for cols in (vec_bytes // 4, vec_bytes // 8, 1)]
+        assert lib.arakawa_rhs_backward_partials(nr, nc) == max(blocks)
+        for f64 in (0, 1):
+            for vec in (0, 1):
+                cap = lib.arakawa_rhs_backward_capacity(f64, vec)
+                cols = vec_bytes // (8 if f64 else 4) if vec else 1
+                assert cap > 0 and cap % walkers == 0
+                assert lib.arakawa_rhs_backward_rows(batch, nr, nc, f64,
+                                                     vec) == \
+                    _back_rows(nr, nc, batch, cols, cap, f64)
+
+
+def _offset(t):
+    """A copy of t whose storage starts one element past a 16-byte
+    boundary: the backward then takes its one-column lanes."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view(t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_arakawa_backward_lane_widths_match_plain(cuda_device, dtype):
+    """At ragged batches (37 rows; 136 columns: a part-filled last warp
+    segment of either lane width, rows a multiple of 16 bytes in both
+    dtypes; 138: in fp32 not) the 16-byte lanes (aligned arrays) and the
+    one-column lanes (the same inputs one element off a 16-byte boundary,
+    and the 138-column rows) against the plain version, as
+    test_arakawa_backward_kernel_matches_plain holds it; each path's two
+    calls bitwise equal."""
+    for shape in [(2, 37, 136), (3, 37, 138)]:
+        w, s, g = _fields(shape, seed=18, n=3)
+        dx, dy = _spacing(shape[-2:])
+        fields = [interop.field_from_numpy(a, dtype, cuda_device)
+                  for a in (w, s, g)]
+        re = _members_re(shape[0], dtype, cuda_device)
+        ref = cuda_kernels.arakawa_rhs_backward_plain(*fields, dx, dy, re)
+        lap = cuda_kernels.arakawa.laplacian(fields[0].double(), dx, dy)
+        mass = (fields[2].double() * lap).abs().sum((-2, -1)) / \
+            re.double() ** 2
+        for args in (fields, [_offset(x) for x in fields]):
+            got = cuda_kernels.arakawa_rhs_backward(*args, dx, dy, re)
+            again = cuda_kernels.arakawa_rhs_backward(*args, dx, dy, re)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            for mine, want, jac in zip(got[:2], ref[:2],
+                                       _backward_scales(*fields, dx, dy)):
+                err = float((mine - want).abs().max())
+                assert err <= REL[dtype] * max(float(want.abs().max()), jac)
+            err = (got[2].double() - ref[2].double()).abs()
+            if dtype == torch.float64:
+                assert bool((err <= 1e-10 * ref[2].abs()).all()), err
+            else:
+                assert bool((err <= 1e-5 * mass).all()), (err, mass)
+
+
+@pytest.mark.cuda
+def test_arakawa_backward_batch_shares_fold_counters(cuda_device):
+    """A batch of more members than the Re fold has counters (members b
+    and b + kFoldCounters share one) against the plain version in fp64,
+    two calls bitwise equal: every counter returned to 0 after the first."""
+    counters = ARAKAWA_BACKWARD_CONSTANTS[6]
+    shape = (counters + 3, 9, 40)
+    w, s, g = (interop.field_from_numpy(a, torch.float64, cuda_device)
+               for a in _fields(shape, seed=19, n=3))
+    dx, dy = _spacing(shape[-2:])
+    re = _members_re(shape[0], torch.float64, cuda_device)
+    got = cuda_kernels.arakawa_rhs_backward(w, s, g, dx, dy, re)
+    again = cuda_kernels.arakawa_rhs_backward(w, s, g, dx, dy, re)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = cuda_kernels.arakawa_rhs_backward_plain(w, s, g, dx, dy, re)
+    for mine, want, jac in zip(got[:2], ref[:2],
+                               _backward_scales(w, s, g, dx, dy)):
+        err = float((mine - want).abs().max())
+        assert err <= 1e-12 * max(float(want.abs().max()), jac)
+    err = (got[2] - ref[2]).abs()
+    assert bool((err <= 1e-10 * ref[2].abs()).all()), err
+
+
+def _captured_backward(call):
+    """call() eagerly on the current stream; then once on a side stream
+    (its warm-up: the stream's fold counter is made there, outside the
+    capture) and captured there in a CUDA graph; the graph replayed 3
+    times.  Returns (the eager result, [each replay's result, cloned])."""
+    want = call()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = call()
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([x.clone() for x in _flat_result(out)])
+    return _flat_result(want), replays
+
+
+def _flat_result(r):
+    return [x for part in r for x in
+            (part if isinstance(part, tuple) else (part,)) if x is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_backward_graph_replays_are_the_eager_call(cuda_device, dtype):
+    """One call with d/dRe of each backward kernel captured in a CUDA graph
+    and replayed 3 times: every replay's gradients, gre included, bitwise
+    the eager call's.  The last block's sum runs only on the ticket that
+    ends a grid, so a counter that did not return to 0 after the side
+    stream's warm-up call, or after a replay, would leave gre unwritten."""
+    w, s, g = (interop.field_from_numpy(a, dtype, cuda_device)
+               for a in _fields((3, 130, 256), seed=21, n=3))
+    re = _members_re(3, dtype, cuda_device)
+    want, replays = _captured_backward(
+        lambda: cuda_kernels.arakawa_rhs_backward(w, s, g, 0.02, 0.01, re))
+    for got in replays:
+        _assert_same(got, want)
+    nx, ny = 34, 130
+    wt, st, walls, gt, h = _stage_backward_inputs(nx, ny, dtype, cuda_device,
+                                                  seed=22)
+    want, replays = _captured_backward(
+        lambda: cuda_kernels.cavity_fused_stage_backward(
+            wt, st, walls, gt, h, 2, 1e-3, 1 / nx, 1 / ny, 100.0, nx - 1,
+            ny - 1, 2))
+    for got in replays:
+        _assert_same(got, want)
 
 
 @pytest.mark.cuda
@@ -294,7 +474,7 @@ def test_cavity_grad_kernel_matches_twin(cuda_device):
     got = grad("kernel")
     assert cuda_kernels.LAUNCHES["arakawa_rhs"] == 30
     assert cuda_kernels.LAUNCHES["arakawa_rhs_backward"] == 30
-    assert cuda_kernels.LAUNCHES["arakawa_re_grad"] == 30
+    assert not any(k.endswith("_re_grad") for k in cuda_kernels.LAUNCHES)
     assert abs(got - ref) <= 1e-10 * abs(ref), (got, ref)
 
 
@@ -1040,8 +1220,8 @@ def test_cavity_stage_backward_kernel_matches_plain(cuda_device, nx, ny,
     """The stage's backward kernel against its plain version for both
     wall-BC orders: every field and wall-vector gradient within REL of its
     scale, d/dre within 1e-10 (fp64) or 1e-5 of c sum|q lap W|/re^2
-    (fp32); a second call bitwise; one backward launch a call and, with
-    the Re gradient, one cavity_stage_re_grad launch."""
+    (fp32); a second call bitwise; one backward launch a call, with or
+    without the Re gradient (its sum is folded into the last block)."""
     m, n = nx - 1, ny - 1
     dt, dx, dy, re = 1e-3, 1.0 / nx, 1.0 / ny, 100.0
     for bc_order in (1, 2):
@@ -1056,8 +1236,7 @@ def test_cavity_stage_backward_kernel_matches_plain(cuda_device, nx, ny,
         torch.cuda.synchronize()
         assert cuda_kernels.LAUNCHES["cavity_stage_backward"] == \
             before["cavity_stage_backward"] + 2
-        assert cuda_kernels.LAUNCHES["cavity_stage_re_grad"] == \
-            before["cavity_stage_re_grad"] + 2 * re_grad
+        assert not any(k.endswith("_re_grad") for k in cuda_kernels.LAUNCHES)
         ref = cuda_kernels.cavity_fused_stage_backward_plain(
             wt, s, walls, g, h, *args)
         assert (got[0] is None) == (stage == 1)
@@ -1205,7 +1384,7 @@ def test_fused_grad_kernel_matches_twin(cuda_device):
     got = grads("kernel")
     assert cuda_kernels.LAUNCHES["cavity_fused_stage"] == 30
     assert cuda_kernels.LAUNCHES["cavity_stage_backward"] == 30
-    assert cuda_kernels.LAUNCHES["cavity_stage_re_grad"] == 30
+    assert not any(k.endswith("_re_grad") for k in cuda_kernels.LAUNCHES)
     assert abs(float(got[0]) - float(ref[0])) <= 1e-10 * abs(float(ref[0]))
     _assert_rel(got[1], ref[1], 1e-10)
     assert not got[1][31:].any() and not got[1][:, 31:].any()
@@ -1283,7 +1462,7 @@ def test_graphed_fused_tier_with_reynolds_tensor_is_unchanged(cuda_device):
     assert na == nb
     assert na["cavity_fused_stage"] == 180
     assert na["tier_gemm"] == na["tier_split"] == 720
-    assert na["cavity_stage_backward"] == na["cavity_stage_re_grad"] == 0
+    assert na["cavity_stage_backward"] == 0
     with pytest.raises(ValueError, match="graph=False"):
         loop.run_steps(re_step, state, 5)
     grad_state = (state[0].clone().requires_grad_(), *state[1:])

@@ -13,9 +13,14 @@ JAX package's Pallas kernels in interpret mode:
   wrap of rows and columns resolved at the load, rows past the array's
   end read as row 0, and only rows inside the array stored;
 - the Arakawa RHS's backward (its adjoint in w, s and each member's Re):
-  walkers of BACK_ROWS rows over a window of three fields, and the Re
-  gradient's partial sums, a block's written to its own slot and a
-  member's slots added by a one-block second launch;
+  a warp a walker of a strip of rows (as many rows as the launcher takes
+  for the card's resident walkers, MIN_ROWS .. MAX_ROWS), each lane
+  owning VEC columns where rows are 16-byte aligned (else one column),
+  the columns beside its own from the lanes beside it and the segment's
+  two halo loads, the ragged last segment's lanes past the end; and the Re
+  gradient's fold: a block's sum written to its own slot, a ticket from a
+  completion counter, and the last block's fixed-order sum of each
+  member's slots;
 - the Euler RHS: blocks of CELLS cells that stage cells c0-3 .. c0+CELLS+2
   through the mirror map (clamped past the last block's ghosts), compute
   the CELLS+1 interfaces of the tile from the staged cells (the spectral
@@ -57,8 +62,13 @@ def _constant(source, name):
 BLOCK_X = _constant("arakawa_rhs.cu", "kBlockX")
 BLOCK_Y = _constant("arakawa_rhs.cu", "kBlockY")
 ROWS = _constant("arakawa_rhs.cu", "kRows")
-BACK_ROWS = _constant("arakawa_rhs.cu", "kBackRows")
-SUM_THREADS = _constant("arakawa.cuh", "kSumThreads")
+MIN_ROWS = _constant("arakawa_rhs.cu", "kMinRows")
+MAX_ROWS = _constant("arakawa_rhs.cu", "kMaxRows")
+MAX_ROWS64 = _constant("arakawa_rhs.cu", "kMaxRows64")
+BACK_WALKERS = _constant("arakawa_rhs.cu", "kBackWalkers")
+VEC_BYTES = _constant("arakawa_rhs.cu", "kVecBytes")
+BACK_AHEAD = _constant("arakawa_rhs.cu", "kBackAhead")
+FOLD_COUNTERS = _constant("arakawa.cuh", "kFoldCounters")
 CELLS = _constant("euler_rhs.cu", "kCells")
 GHOST = _constant("euler_rhs.cu", "kGhost")
 
@@ -136,9 +146,20 @@ def _arakawa_fields(shape, seed):
 def test_constants_read_from_the_source():
     """The block sizes the emulations use: a warp's columns, and each
     phase's tasks of one kind fit in half an Euler block."""
-    assert BLOCK_X == 32 and BLOCK_Y >= 1 and ROWS >= 1 and BACK_ROWS >= 1
-    # the Re gradient's second launch halves its sums down to one
-    assert SUM_THREADS & (SUM_THREADS - 1) == 0
+    assert BLOCK_X == 32 and BLOCK_Y >= 1 and ROWS >= 1
+    assert 1 <= MIN_ROWS <= min(MAX_ROWS, MAX_ROWS64)
+    # the backward's walk: a warp a walker, 16-byte lane loads; both
+    # backward kernels fold the Re sum with a block of their walkers, the
+    # block the emulated fold adds its slots with
+    assert BACK_WALKERS >= 1 and VEC_BYTES == 16
+    assert BACK_AHEAD >= 1 and FOLD_COUNTERS >= 1
+    for source, walkers in (("arakawa_rhs.cu", "kBackWalkers"),
+                            ("cavity_stage.cu", "kBackWalkers")):
+        text = (_cuda_build.CSRC / source).read_text()
+        assert f"fold_re_grad<{walkers}>(block_sum<{walkers}>" in text
+        assert f"__launch_bounds__(kBlockX * {walkers})" in text or \
+            f"__launch_bounds__(kWarp * {walkers})" in text
+    assert 32 * BACK_WALKERS <= 1024
     threads = _constant("euler_rhs.cu", "kThreads")
     assert GHOST == 3 and threads % 64 == 0
     assert 3 * (CELLS + 1) <= threads // 2 and CELLS + 2 <= threads // 2
@@ -194,106 +215,286 @@ def _lap(a, dx, dy):
 
 
 def _warp_sum(v):
-    """Lane 0's value after __shfl_down_sync steps 16, 8, 4, 2, 1 (a lane
-    past the warp keeps its own value)."""
-    v = v.clone()
+    """Lane 0's value of block_sum's shuffle tree over the last (lane) axis
+    (__shfl_down_sync past lane 31 returns the lane's own value)."""
+    lane = np.arange(BLOCK_X)
     for d in (16, 8, 4, 2, 1):
-        v = v + torch.cat([v[d:], v[32 - d:]])
-    return v[0]
+        v = v + v[..., np.where(lane + d < BLOCK_X, lane + d, lane)]
+    return v[..., 0]
 
 
-def emulate_arakawa_backward(w, s, g, dx, dy, re, partial_slot=None):
-    """arakawa_rhs_backward as csrc/arakawa_rhs.cu computes it on (B, nr,
-    nc) fields with one Re a member: walkers of BACK_ROWS rows with a
-    window of w, s, g (rows wrapped as the forward's), each thread's fp64
-    sum of g lap(w) over its stored rows, a block's sum by warp shuffles
-    and then the warps in order into partials[(b gy + by) gx + bx], and
-    the second launch's SUM_THREADS strided sums and tree per member.
-    partial_slot(b, by, bx, gy, gx) overrides the slot (a wrong kernel)."""
+def block_sum(v):
+    """csrc/arakawa.cuh block_sum on (warps, 32) fp64 values: each warp's
+    shuffle tree, then the warps' sums in order."""
+    total = 0.0
+    for x in _warp_sum(v):
+        total += x
+    return total
+
+
+def emulate_fold(totals, re, scale, warps, counters, order, reset=True,
+                 partial_slot=None):
+    """csrc/arakawa.cuh fold_re_grad over a (batch, gy, gx) grid of blocks
+    of 32 x warps threads whose sums are `totals`: blocks arrive in `order`
+    (block indices (b gy + y) gx + x), each writes its sum to its slot
+    (partial_slot(b, y, x, gy, gx) overrides it: a wrong kernel) and takes
+    a ticket from counters[b % FOLD_COUNTERS]; the block that takes a
+    counter's last ticket (gy gx tickets for each member on it) adds, for
+    each of those members, its slots, thread t its slots t, t + 32 warps,
+    ... in turn, then block_sum, and writes gre[b] = -(scale x sum) /
+    re[b]^2; then sets the counter to 0 unless reset is False (a wrong
+    kernel).  Slots and gre start as NaN (torch.empty's garbage): a fold
+    that runs before every slot is written, or never, leaves NaN."""
+    batch, gy, gx = totals.shape
+    n, threads = gy * gx, 32 * warps
+    partials = np.full(batch * n, np.nan)
+    gre = np.full(batch, np.nan)
+    for block in order:
+        b, rest = divmod(block, n)
+        y, x = divmod(rest, gx)
+        slot = block if partial_slot is None else \
+            partial_slot(b, y, x, gy, gx)
+        partials[slot] = totals[b, y, x]
+        group = b % FOLD_COUNTERS
+        members = range(group, batch, FOLD_COUNTERS)
+        ticket, counters[group] = counters[group], counters[group] + 1
+        if ticket != n * len(members) - 1:
+            continue
+        for m in members:
+            p = partials[m * n:(m + 1) * n]
+            acc = np.zeros(threads)
+            for k in range(0, n, threads):        # thread t: slots t + k
+                part = p[k:k + threads]
+                acc[:len(part)] += part
+            gre[m] = -(scale * block_sum(acc.reshape(warps, 32))) / \
+                (re[m] * re[m])
+        if reset:
+            counters[group] = 0
+    return gre
+
+
+def lane_columns(nc, itemsize):
+    """The backward launcher's lane width for 16-byte-aligned arrays:
+    VEC_BYTES / itemsize columns a lane where nc is a multiple of it, else
+    one."""
+    vec = VEC_BYTES // itemsize
+    return vec if nc % vec == 0 else 1
+
+
+def backward_grid(nr, nc, cols, rows):
+    """(gx, gy) of the backward's grid with `cols` columns a lane and
+    strips of `rows` rows."""
+    return -(-nc // (BLOCK_X * cols)), -(-(-(-nr // rows)) // BACK_WALKERS)
+
+
+def back_rows(nr, nc, batch, cols, capacity, most=MAX_ROWS):
+    """csrc/arakawa_rhs.cu back_rows: the rows of a walker's strip, for a
+    card that holds `capacity` walkers at once: the fewest waves that hold
+    the call at `most` rows a strip (MAX_ROWS in fp32, MAX_ROWS64 in
+    fp64), then as many strips as those waves hold, each as short as that
+    allows (at least MIN_ROWS)."""
+    units = -(-nc // (BLOCK_X * cols)) * batch
+    waves = -(-units * -(-nr // most) // capacity)
+    strips = max(1, waves * capacity // units)
+    return min(most, max(MIN_ROWS, -(-nr // strips)))
+
+
+# walkers a card holds at once in the emulations: a few, so that the small
+# shapes take long strips, and an H100's 132 SMs x 4 blocks
+CAPACITIES = (8, 132 * 4 * BACK_WALKERS)
+
+
+def _slot_nbhd(W, C, E, j):
+    """arakawa.cuh's nbhd at the slots j of window rows W, C, E (slot k is
+    column c-1+k): (c, E, W, N, S, NE, SW, NW, SE)."""
+    return (C[..., j], E[..., j], W[..., j], C[..., j + 1], C[..., j - 1],
+            E[..., j + 1], W[..., j - 1], W[..., j + 1], E[..., j - 1])
+
+
+def emulate_arakawa_backward(w, s, g, dx, dy, re, cols=1, rows=MIN_ROWS,
+                             partial_slot=None, counters=None, reset=True,
+                             order_seed=0, wrap_halo=True):
+    """arakawa_rhs_backward as csrc/arakawa_rhs.cu computes it on numpy
+    (B, nr, nc) fields, one Re a member, `cols` columns a lane (the
+    16-byte lanes' VEC, or 1), strips of `rows` rows.  A warp is a walker
+    of the rows a0 .. a0+rows-1 (those < nr) over the columns c0 ..
+    c0+32 cols-1: each lane loads its
+    columns (clamped to nc-cols past nc) and one halo column (lane 0 the
+    column left of the segment, the others the one right of its last
+    column, wrapped) of the window rows a0-1 .. a0+rows (row -1 reads
+    nr-1, rows nr and past it row 0), takes column c-1 from lane l-1
+    (__shfl_up_sync) and c+cols from lane l+1 (__shfl_down_sync: that
+    lane's first column, or its halo if it lies past nc), lanes 0 and 31
+    their own halos, computes, and stores rows < nr of lanes < nc.  Each
+    lane's fp64 sum of g lap(w) (rows, then its columns), block_sum, and
+    emulate_fold with blocks arriving in a seeded order.  counters: the
+    fold's counters (a list kept across calls); partial_slot,
+    reset=False and wrap_halo=False (the ragged segment's right halo not
+    wrapped to column 0) are wrong kernels.  Returns (gw, gs, gre)."""
     batch, nr, nc = w.shape
-    gg = 1.0 / (4.0 * dx * dy)
-    gw, gs = torch.full_like(w, float("nan")), torch.full_like(w, float("nan"))
-    gx = -(-nc // BLOCK_X)
-    gy = -(-(-(-nr // BACK_ROWS)) // BLOCK_Y)
-    partials = torch.zeros(batch * gy * gx, dtype=torch.float64)
-    slot = partial_slot or (lambda b, by, bx, gy, gx: (b * gy + by) * gx + bx)
+    gx, gy = backward_grid(nr, nc, cols, rows)
+    seg = BLOCK_X * cols
+    gg, dx2, dy2 = 1.0 / (4.0 * dx * dy), dx * dx, dy * dy
+    gw, gs = np.full(w.shape, np.nan), np.full(w.shape, np.nan)
+    lane = np.arange(BLOCK_X)
+    # the walkers of a column of blocks, (blockIdx.y, threadIdx.y) in order
+    a0 = (np.arange(gy)[:, None] * BACK_WALKERS
+          + np.arange(BACK_WALKERS)[None, :]).ravel() * rows
+    live = a0 < nr
+    win_rows = a0[:, None] - 1 + np.arange(rows + 2)[None, :]
+    wrapped = np.where(win_rows < 0, nr - 1,
+                       np.where(win_rows >= nr, 0, win_rows))
+    A = (a0[:, None] + np.arange(rows)[None, :])[:, :, None, None]
+    j = np.arange(1, cols + 1)
+    totals = np.zeros((batch, gy, gx))
     for b in range(batch):
-        f = (w[b], s[b], g[b])
         for bx in range(gx):
-            jj = torch.arange(bx * BLOCK_X, (bx + 1) * BLOCK_X)
-            lanes = jj < nc
-            j = jj[lanes]
-            cols = (torch.where(j == 0, nc - 1, j - 1), j,
-                    torch.where(j + 1 == nc, 0, j + 1))
-            for by in range(gy):
-                acc = torch.zeros(BLOCK_Y, BLOCK_X, dtype=torch.float64)
-                for ty in range(BLOCK_Y):
-                    i0 = (by * BLOCK_Y + ty) * BACK_ROWS
-                    if i0 >= nr:
-                        continue
-                    rows = []
-                    for q in range(i0 - 1, i0 + BACK_ROWS + 1):
-                        i = nr - 1 if q < 0 else (0 if q >= nr else q)
-                        rows.append([[x[i, c] for c in cols] for x in f])
-                    for r in range(BACK_ROWS):
-                        W, C, E = rows[r], rows[r + 1], rows[r + 2]
-                        # (c, E, W, N, S, NE, SW, NW, SE) of field k
-                        n = [(C[k][1], E[k][1], W[k][1], C[k][2], C[k][0],
-                              E[k][2], W[k][0], W[k][2], E[k][0])
-                             for k in range(3)]
-                        if i0 + r < nr:
-                            gw[b, i0 + r, j] = -_jac(n[1], n[2], gg) + \
-                                _lap(n[2], dx, dy) / re[b]
-                            gs[b, i0 + r, j] = -_jac(n[2], n[0], gg)
-                            acc[ty, lanes] += (n[2][0] * _lap(n[0], dx, dy)
-                                               ).double()
+            c0 = bx * seg
+            c = c0 + lane * cols
+            own = c < nc
+            cv = np.where(own, c, nc - cols)
+            end = min(c0 + seg, nc)
+            right_halo = 0 if end == nc and wrap_halo else end
+            hc = np.where(lane == 0, nc - 1 if c0 == 0 else c0 - 1,
+                          min(right_halo, nc - 1))
+            win = []
+            for f in (w[b], s[b], g[b]):
+                vals = f[wrapped[:, :, None, None],
+                         (cv[:, None] + np.arange(cols))[None, None]]
+                halo = f[wrapped[:, :, None], hc[None, None, :]]
+                present = np.where(own, vals[..., 0], halo)
+                up = np.concatenate([vals[..., :1, -1], vals[..., :-1, -1]],
+                                    -1)
+                down = np.concatenate([present[..., 1:], present[..., -1:]],
+                                      -1)
+                left = np.where(lane == 0, halo, up)
+                right = np.where(lane == BLOCK_X - 1, halo, down)
+                win.append(np.concatenate([left[..., None], vals,
+                                           right[..., None]], -1))
+            # (c, E, ...) of each field at each output row and lane column
+            wn, sn, gn = (_slot_nbhd(x[:, :-2], x[:, 1:-1], x[:, 2:], j)
+                          for x in win)
+            B = (c[:, None] + np.arange(cols))[None, None]
+            store = live[:, None, None, None] & (A < nr) & \
+                own[None, None, :, None] & (B < nc)
+            d_w = -_jac(sn, gn, gg) + _lap(gn, dx, dy) / re[b]
+            d_s = -_jac(gn, wn, gg)
+            at = tuple(np.broadcast_to(i, store.shape)[store] for i in (A, B))
+            gw[b][at] = d_w[store]
+            gs[b][at] = d_s[store]
+            term = np.where(store, gn[0] * _lap(wn, dx, dy), 0.0)
+            acc = np.zeros((len(a0), BLOCK_X))
+            for r in range(rows):
+                for e in range(cols):
+                    acc += term[:, r, :, e]
+            sums = _warp_sum(acc).reshape(gy, BACK_WALKERS)
+            for y in range(gy):
                 total = 0.0
-                for ty in range(BLOCK_Y):
-                    total = total + _warp_sum(acc[ty])
-                partials[slot(b, by, bx, gy, gx)] = total
-    gre = torch.empty(batch, dtype=w.dtype)
-    n = gy * gx
-    for b in range(batch):
-        p = partials[b * n:(b + 1) * n]
-        sums = torch.zeros(SUM_THREADS, dtype=torch.float64)
-        for k in range(0, n, SUM_THREADS):
-            part = p[k:k + SUM_THREADS]
-            sums[:part.shape[0]] += part
-        half = SUM_THREADS // 2
-        while half:
-            sums[:half] += sums[half:2 * half]
-            half //= 2
-        gre[b] = -sums[0] / (float(re[b]) * float(re[b]))
+                for k in range(BACK_WALKERS):
+                    total += sums[y, k]
+                totals[b, y, bx] = total
+    order = np.random.default_rng(order_seed).permutation(batch * gy * gx)
+    gre = emulate_fold(totals, np.asarray(re, np.float64), 1.0, BACK_WALKERS,
+                       [0] * FOLD_COUNTERS if counters is None else counters,
+                       order, reset, partial_slot)
     return gw, gs, gre
 
 
 # a batch of ragged members, and one member on several blocks both ways
 BACKWARD_SHAPES = [(2, 3, 1), (3, 17, 33), (1, 37, 53),
-                   (2, 2 * BLOCK_Y * BACK_ROWS + 7, 2 * BLOCK_X + 6)]
+                   (2, 2 * BACK_WALKERS * MIN_ROWS + 7, 2 * BLOCK_X + 6)]
+# shapes only the warp walk has: nc = 1, 2, 3; nc = 1 and 2 (mod 4: the
+# one-column lanes in fp32) with a part-filled last segment; batches whose
+# rows take the 16-byte lanes (fp32 136 = 128 + 8, 132 = 128 + 4: one lane
+# in the last segment; fp64 70 = 64 + 6) over ragged walkers
+WALK_SHAPES = [(1, 5, 1), (2, 5, 2), (1, 6, 3), (2, 11, 37), (1, 9, 38),
+               (2, 13, 136), (1, 6, 132), (2, 7, 70)]
 
 
 def _backward_fields(shape, seed):
     rng = np.random.default_rng(seed)
-    w, s, g = (torch.as_tensor(rng.standard_normal(shape)) for _ in range(3))
-    re = torch.as_tensor(rng.uniform(50.0, 5000.0, shape[0]))
+    w, s, g = (rng.standard_normal(shape) for _ in range(3))
+    re = rng.uniform(50.0, 5000.0, shape[0])
     return w, s, g, 1.0 / (shape[1] - 1), 1.0 / max(shape[2] - 1, 1), re
+
+
+def _check_backward(got, w, s, g, dx, dy, re):
+    """The emulated backward against arakawa_rhs_backward_plain, fp64: the
+    fields within 1e-12 of their scale (their largest value or their
+    Jacobian term's size), each member's d/dre within 1e-12 relative."""
+    t = [torch.as_tensor(x) for x in (w, s, g, re)]
+    ref = [x.numpy() for x in cuda_kernels.arakawa_rhs_backward_plain(
+        t[0], t[1], t[2], dx, dy, t[3])]
+    gg = 1.0 / (4.0 * dx * dy)
+    jac = (gg * np.abs(s).max() * np.abs(g).max(),
+           gg * np.abs(g).max() * np.abs(w).max())
+    for mine, want, term in zip(got[:2], ref[:2], jac):
+        scale = max(np.abs(want).max(), term)
+        assert np.abs(mine - want).max() <= 1e-12 * scale
+    assert np.all(np.abs(got[2] - ref[2]) <= 1e-12 * np.abs(ref[2]))
+
+
+def _geometries(shape):
+    """(columns a lane, rows a strip) the launcher can take at `shape`:
+    the lanes of 16-byte-aligned fp32 and fp64 rows and one-column lanes,
+    each with the shortest strips and the strips it takes at CAPACITIES."""
+    batch, nr, nc = shape
+    return sorted({(cols, rows)
+                   for cols in (lane_columns(nc, 4), lane_columns(nc, 8), 1)
+                   for most in (MAX_ROWS, MAX_ROWS64)
+                   for rows in (MIN_ROWS, *(back_rows(nr, nc, batch, cols, k,
+                                                      most)
+                                            for k in CAPACITIES))})
 
 
 @pytest.mark.parametrize("shape", BACKWARD_SHAPES)
 def test_arakawa_backward_walk_matches_plain(shape):
-    """The backward's walk against arakawa_rhs_backward_plain, fp64: the
-    fields within 1e-12 of their scale (their largest value or their
-    Jacobian term's size), each member's d/dre within 1e-12 relative."""
+    """The backward's walk against arakawa_rhs_backward_plain in fp64, with
+    the lanes the launcher takes for 16-byte-aligned fp32 and fp64 rows
+    and with one-column lanes, at each strip length it can take."""
     w, s, g, dx, dy, re = _backward_fields(shape, seed=sum(shape))
-    got = emulate_arakawa_backward(w, s, g, dx, dy, re)
-    ref = cuda_kernels.arakawa_rhs_backward_plain(w, s, g, dx, dy, re)
-    gg = 1.0 / (4.0 * dx * dy)
-    jac = (gg * float(s.abs().max() * g.abs().max()),
-           gg * float(g.abs().max() * w.abs().max()))
-    for mine, want, term in zip(got[:2], ref[:2], jac):
-        scale = max(float(want.abs().max()), term)
-        assert float((mine - want).abs().max()) <= 1e-12 * scale
-    assert torch.allclose(got[2], ref[2], rtol=1e-12, atol=0.0)
+    for cols, rows in _geometries(shape):
+        _check_backward(emulate_arakawa_backward(w, s, g, dx, dy, re, cols,
+                                                 rows), w, s, g, dx, dy, re)
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_arakawa_backward_lane_widths_match_plain(shape):
+    """The walk at the widths only it has (nc = 1, 2, 3; part-filled last
+    segments; a single lane in the last segment) with each lane width the
+    launcher can take there, and the fold's result independent of which
+    block finishes last (two arrival orders, bitwise)."""
+    w, s, g, dx, dy, re = _backward_fields(shape, seed=3 * sum(shape))
+    for cols, rows in _geometries(shape):
+        got = emulate_arakawa_backward(w, s, g, dx, dy, re, cols, rows)
+        _check_backward(got, w, s, g, dx, dy, re)
+        other = emulate_arakawa_backward(w, s, g, dx, dy, re, cols, rows,
+                                         order_seed=1)
+        assert np.array_equal(other[2], got[2])
+
+
+def test_arakawa_backward_takes_both_lane_widths():
+    """The shapes above reach the 16-byte lanes in fp32 (4 columns) and
+    fp64 (2), and the one-column lanes with nc = 1, 2 and 3 (mod 4)."""
+    widths = {(nc % 4, lane_columns(nc, size)) for _, _, nc in WALK_SHAPES
+              for size in (4, 8)}
+    assert {(0, 4), (2, 2), (1, 1), (2, 1), (3, 1)} <= widths
+
+
+def test_arakawa_backward_members_share_fold_counters():
+    """A batch of more members than the fold has counters: members b and b
+    + FOLD_COUNTERS take their tickets from one counter, and the block that
+    takes its last adds both members' slots.  Each member's gre against the
+    plain version, bitwise under two arrival orders, and every counter
+    back at 0."""
+    shape = (FOLD_COUNTERS + 3, 6, 2)
+    w, s, g, dx, dy, re = _backward_fields(shape, seed=11)
+    counters = [0] * FOLD_COUNTERS
+    got = emulate_arakawa_backward(w, s, g, dx, dy, re, counters=counters)
+    _check_backward(got, w, s, g, dx, dy, re)
+    assert counters == [0] * FOLD_COUNTERS
+    other = emulate_arakawa_backward(w, s, g, dx, dy, re, order_seed=5)
+    assert np.array_equal(other[2], got[2])
 
 
 def test_arakawa_backward_wrong_slot_is_caught():
@@ -304,8 +505,37 @@ def test_arakawa_backward_wrong_slot_is_caught():
     got = emulate_arakawa_backward(
         w, s, g, dx, dy, re,
         partial_slot=lambda b, by, bx, gy, gx: ((1 - b) * gy + by) * gx + bx)
-    ref = cuda_kernels.arakawa_rhs_backward_plain(w, s, g, dx, dy, re)
-    assert not torch.allclose(got[2], ref[2], rtol=1e-6)
+    ref = cuda_kernels.arakawa_rhs_backward_plain(
+        *(torch.as_tensor(x) for x in (w, s, g)), dx, dy, torch.as_tensor(re))
+    assert not np.allclose(got[2], ref[2].numpy(), rtol=1e-6)
+
+
+def test_arakawa_backward_unreset_counter_is_caught():
+    """The fold's counters carry over between calls: reset by each
+    member's last block, a second call's gre is the first's bit for bit;
+    left at their members' block counts (a wrong kernel), no block of the
+    second call takes a last ticket and its gre is never written."""
+    w, s, g, dx, dy, re = _backward_fields((2, 17, 33), seed=8)
+    for reset in (True, False):
+        counters = [0] * FOLD_COUNTERS
+        first, second = (emulate_arakawa_backward(
+            w, s, g, dx, dy, re, counters=counters, reset=reset,
+            order_seed=k)[2] for k in range(2))
+        _check_backward(emulate_arakawa_backward(w, s, g, dx, dy, re),
+                        w, s, g, dx, dy, re)
+        assert np.all(np.isfinite(first))
+        assert np.array_equal(first, second) == reset
+
+
+def test_arakawa_backward_unwrapped_halo_is_caught():
+    """A ragged last segment whose right halo reads column nc-1 instead of
+    wrapping to column 0 moves the last column's gradients off the plain
+    version's, so the comparisons see a wrong neighbour column."""
+    w, s, g, dx, dy, re = _backward_fields((1, 9, 37), seed=9)
+    with pytest.raises(AssertionError):
+        _check_backward(emulate_arakawa_backward(w, s, g, dx, dy, re,
+                                                 wrap_halo=False),
+                        w, s, g, dx, dy, re)
 
 
 # --------------------------------------------------------------- Euler RHS

@@ -21,11 +21,12 @@ constants read from the source, and holds:
 - the block grid to give as many Re partials as cavity_stage_backward_
   partials' formula, mirrored here;
 - the emulated backward (windows, shuffles, extensions, the next walls'
-  adjoint, the frame's gradients, the fp64 per-lane sums, the block and
-  second-launch sums in the kernels' orders) to equal cavity_fused_stage_
-  backward_plain within 1e-12 in fp64; d/dRe within 1e-12 of c sum|q lap
-  W| / re^2, the size of its terms (the two sums add ~1e6 terms in other
-  orders).
+  adjoint, the frame's gradients, the fp64 per-lane sums, the block sums
+  and the last block's fold of them, csrc/arakawa.cuh fold_re_grad, in
+  the kernel's orders, with the blocks arriving in a seeded order) to
+  equal cavity_fused_stage_backward_plain within 1e-12 in fp64; d/dRe
+  within 1e-12 of c sum|q lap W| / re^2, the size of its terms (the two
+  sums add ~1e6 terms in other orders).
 
 The card test (tests/test_torch_cuda.py) compares the library's exported
 constants and partial count with these, and the kernel with the plain
@@ -39,6 +40,8 @@ import torch
 
 from cfd_julia_torch.models import cavity_fused
 from cfd_julia_torch.ops import _cuda_build, cuda_kernels
+# kernel 1's fold of the Re partials (csrc/arakawa.cuh), the same code
+from test_torch_rhs_tiling import FOLD_COUNTERS, emulate_fold
 # the forward's extension of wt by its walls, the same W
 from test_torch_stage_tiling import _wall_w
 
@@ -55,9 +58,6 @@ BACK_ROWS = _constant("kBackRows")
 BACK_WALKERS = _constant("kBackWalkers")
 VEC_BYTES = _constant("kVecBytes")
 LANES = _constant("kWarp")
-SUM_THREADS = int(re.search(
-    r"constexpr int kSumThreads = (\d+);",
-    (_cuda_build.CSRC / "arakawa.cuh").read_text()).group(1))
 # (nx, ny) of the packed cavity: the card's shapes (tests/test_torch_cuda.py
 # STAGE_SHAPES); m = P at 33x47 and 9x129, n = Q at 9x129, both at 1025^2
 STAGE_SHAPES = [(1024, 1024), (16, 16), (24, 16), (33, 47), (34, 130),
@@ -134,19 +134,6 @@ def _warp_sum(v):
     for d in (16, 8, 4, 2, 1):
         v = v + v[..., np.where(lane + d < LANES, lane + d, lane)]
     return v[..., 0]
-
-
-def _re_grad_sum(p, scale, re):
-    """re_grad_sum_kernel: each of SUM_THREADS threads adds its strided
-    partials in order, then a halving tree."""
-    sums = np.zeros(SUM_THREADS)
-    for k in range(len(p)):
-        sums[k % SUM_THREADS] += p[k]
-    half = SUM_THREADS // 2
-    while half:
-        sums[:half] += sums[half:2 * half]
-        half //= 2
-    return -(scale * sums[0]) / (re * re)
 
 
 def emulate(wt, s, walls, g, h, stage, dt, dx, dy, re, m, n, order,
@@ -308,7 +295,9 @@ def emulate(wt, s, walls, g, h, stage, dt, dx, dy, re, m, n, order,
               stored & (B == n - 1) & edge)
 
     p = block_sums.ravel()            # blockIdx.y * gridDim.x + blockIdx.x
-    gre = _re_grad_sum(p, c, re)
+    order = np.random.default_rng(len(p)).permutation(len(p))
+    gre = emulate_fold(block_sums[None], [re], c, BACK_WALKERS,
+                       [0] * FOLD_COUNTERS, order)[0]
     share = n_interior / (bx * live.sum())
     return outs, counts, p, gre, share
 
