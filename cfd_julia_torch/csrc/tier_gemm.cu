@@ -26,7 +26,8 @@
 //    Poisson solves one operand of every product is a constant sine
 //    matrix, split once when the solver is built (ops/cuda_kernels.
 //    TierPlan); only the field operand is split a call.
-// 2. tier_gemm_tn: C from the split planes, a block per kBM x kBN tile of C
+// 2. tier_gemm_tn_planes: C from the split planes, a block per kBM x kBN
+//    tile of C
 //    (8 x 16 = 128 blocks at 1024^2, one wave on 132 SMs).  One producer
 //    warp keeps a ring of kStages stages full by TMA (cp.async.bulk.tensor,
 //    128-byte swizzle, mbarrier full / empty pairs); a stage holds a k-block
@@ -43,6 +44,31 @@
 //    error (measured on an H100 80GB HBM3 at 700 W).  Masked fp32 stores to
 //    the exact (M, N); no split-K and no atomics, so two calls are bitwise
 //    equal.
+// 3. its other epilogues (the same main loop, so the same fp32 C), for
+//    the chained products of a sine-matrix Poisson solve, where each
+//    product's output is the next one's field operand (ops/cuda_kernels.
+//    TierSolve).  op(C) (C / t for an fp32 (M, N) table t, or C * scale:
+//    the solve's / den and * scale, IEEE-rounded as torch's / and * are)
+//    is stored as the bf16
+//    planes the split pass would write of it, in the next plan's layout:
+//    an A operand's (Mp, Kp) rows, or a B operand's transposed (Np, Kp)
+//    rows; or as fp32 C.  A thread loads its 32 table values before the
+//    main loop and applies op in registers after it.  Once both consumer
+//    warpgroups are done with the ring, the tile op(C) goes into the
+//    ring's shared memory (transposed for a B operand, rows padded
+//    against bank conflicts), and each thread reads back 8 consecutive
+//    values of a plane row, splits them with split8 (the split pass's
+//    rounding) and stores 16 B of hi and of lo; fp32 C leaves from the
+//    fragments as epilogue 2 stores it (C staged through shared memory
+//    in 16-byte rows timed slower on the H100: 17.2 against 15.7 us at
+//    1024^3, 3 passes).  Every element of the planes' padded extents is
+//    written, the pad's zeros included, so a solve is one split (its
+//    input field) and four GEMMs, where it was four splits, four GEMMs
+//    and two elementwise passes: at 1024^2 a product writes 4 MB of
+//    planes (3 passes) where its GEMM wrote 4 MB of C, the split read
+//    them and wrote 4 MB of planes, and / den or * scale read 4 or 8 MB
+//    and wrote 4.  The division costs ~4 us of the epilogue (IEEE / with
+//    its per-element range check); the transposition ~0.2 us.
 //
 // What bounds it at the cavity's 1024^3: a pass is 2.15 GFLOP, 2.17 us at
 // the H100's 989 TFLOP/s of dense bf16, so three passes 6.51 us; the GEMM
@@ -76,6 +102,30 @@ constexpr int kThreads = kConsumers + 32;  // and the producer warp
 constexpr int kChunk = 8;      // bf16 values a split thread writes: 16 B
 constexpr int kSplitTile = 64;  // the transposing split's square tile
 constexpr int kSplitThreads = 256;
+// the planes epilogue's tile in the ring's shared memory, row pitches in
+// floats: an A operand's kBM rows of kBN (8 floats of pad: a warp's float2
+// stores of its 8 fragment rows fall in distinct banks) or, transposed for
+// a B operand, kBN rows of kBM (4 of pad: its 4 x 8 scalar stores do)
+constexpr int kTilePitch = kBN + 8;
+constexpr int kTilePitchT = kBM + 4;
+
+// the epilogue: fp32 C from the fragments, or op(C)'s bf16 planes as an A
+// operand or a transposed B operand
+enum Epilogue : int { kDirectC = 0, kPlanesA = 1, kPlanesB = 2 };
+// the op on C before the store: none, / t (t an fp32 (M, N) table),
+// * scale
+enum Op : int { kOpNone = 0, kOpDivide = 1, kOpScale = 2 };
+
+struct EpilogueArgs {
+  void* out;            // fp32 C, or the planes (hi, then lo)
+  int ld;               // C's row stride, or the planes' kp
+  int out_rows;         // rows of a plane (C: unused)
+  const float* table;   // op's table, row stride ldt
+  int ldt;
+  int op;
+  float scale;
+  int vec;              // C's rows take 8-byte stores
+};
 
 __host__ __device__ constexpr int planes(int passes) {
   return passes == 3 ? 2 : 1;
@@ -339,12 +389,135 @@ __device__ __forceinline__ void consume(float (&cur)[32], float (&prev)[32],
   }
 }
 
-template <int kPasses>
+// the op's table at a thread's 32 fragment elements (acc's layout; 1 past
+// (M, N)), loaded before the main loop so that the loads overlap the
+// products (loaded in the epilogue, each waited behind the previous
+// element's division: 32 round trips, ~5 us a call on the H100)
+__device__ __forceinline__ void load_table(float (&t)[32],
+                                           const EpilogueArgs& e, int M,
+                                           int N, int row0, int col0) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = row0 + 8 * h, col = col0 + 8 * i + j;
+        const bool read = e.op == kOpDivide && row < M && col < N;
+        t[4 * i + 2 * h + j] =
+            read ? e.table[static_cast<size_t>(row) * e.ldt + col] : 1.f;
+      }
+    }
+  }
+}
+
+// acc = op(acc), rounded as torch rounds C / t and C * float32(scale):
+// IEEE division (its range check ends a basic block at every use, ~3 us a
+// call for the 32 here; div_rn.cuh's fast path from a reciprocal table,
+// exact inside a guarded range, timed slower on the H100: the second
+// table's loads and registers) and multiplication, __fmul_rn keeping a
+// product out of the split's subtraction (no FMA contraction)
+__device__ __forceinline__ void apply_op(float (&acc)[32],
+                                         const float (&t)[32],
+                                         const EpilogueArgs& e) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (e.op == kOpDivide)
+      acc[i] = __fdiv_rn(acc[i], t[i]);
+    else if (e.op == kOpScale)
+      acc[i] = __fmul_rn(acc[i], e.scale);
+  }
+}
+
+// fp32 C's stores: straight from the fragments, masked to (M, N),
+// column pairs as 8-byte stores where rows are 8-byte aligned
+__device__ __forceinline__ void store_direct(const float (&acc)[32],
+                                             const EpilogueArgs& e, int M,
+                                             int N, int row0, int col0) {
+  float* C = static_cast<float*>(e.out);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= M) continue;
+    float* crow = C + static_cast<size_t>(row) * e.ld;
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+      const int col = col0 + 8 * i;
+      const float x = acc[4 * i + 2 * h], y = acc[4 * i + 2 * h + 1];
+      if (e.vec && col + 1 < N) {
+        *reinterpret_cast<float2*>(crow + col) = make_float2(x, y);
+      } else {
+        if (col < N) crow[col] = x;
+        if (col + 1 < N) crow[col + 1] = y;
+      }
+    }
+  }
+}
+
+// the planes epilogue: the block's tile of C (0 outside (M, N): the
+// planes' pad) into the ring's shared memory, then out in rows of 16 bytes
+template <int kPasses, int kEpi>
+__device__ __forceinline__ void store_planes(const float (&acc)[32],
+                                             const EpilogueArgs& e,
+                                             float* tile, int M, int N,
+                                             int m0, int n0, int wg, int warp,
+                                             int lane) {
+  // both warpgroups' products have read their last stage: the ring is free
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  const int r0 = wg * 64 + warp * 16 + (lane >> 2);
+  const int c0 = (lane & 3) * 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+      const int c = c0 + 8 * i;
+      float v[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = m0 + r, col = n0 + c + j;
+        v[j] = row < M && col < N ? acc[4 * i + 2 * h + j] : 0.f;
+      }
+      if constexpr (kEpi == kPlanesB) {
+        tile[c * kTilePitchT + r] = v[0];
+        tile[(c + 1) * kTilePitchT + r] = v[1];
+      } else {
+        *reinterpret_cast<float2*>(tile + r * kTilePitch + c) =
+            make_float2(v[0], v[1]);
+      }
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  const int t = threadIdx.x;
+  // 8 values of a plane row a thread a turn (an A operand's row
+  // of C, a B operand's column), split as the split pass splits them
+  auto* out = static_cast<__nv_bfloat16*>(e.out);
+  const size_t plane = static_cast<size_t>(e.out_rows) * e.ld;
+  constexpr bool kT = kEpi == kPlanesB;
+  constexpr int kRows = kT ? kBN : kBM, kChunks = (kT ? kBM : kBN) / kChunk;
+  constexpr int kPitch = kT ? kTilePitchT : kTilePitch;
+  const int row_base = kT ? n0 : m0, k_base = kT ? m0 : n0;
+  static_assert(kRows * kChunks % kConsumers == 0, "whole turns");
+#pragma unroll
+  for (int turn = 0; turn < kRows * kChunks / kConsumers; ++turn) {
+    const int q = t + turn * kConsumers;
+    const int r = q / kChunks, k = (q % kChunks) * kChunk;
+    const int row = row_base + r, kk = k_base + k;
+    if (row >= e.out_rows || kk >= e.ld) continue;
+    const float4 u = *reinterpret_cast<const float4*>(tile + r * kPitch + k);
+    const float4 w = *reinterpret_cast<const float4*>(tile + r * kPitch + k
+                                                      + 4);
+    const float v[kChunk] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
+    store8<kPasses>(out, plane, static_cast<size_t>(row) * e.ld + kk, v);
+  }
+}
+
+template <int kPasses, int kEpi>
 __global__ void __launch_bounds__(kThreads, 1)
     tier_gemm_kernel(__grid_constant__ const CUtensorMap map_a,
                      __grid_constant__ const CUtensorMap map_b,
-                     float* __restrict__ C, int M, int N, int ldc,
-                     int k_blocks, int a_lo, int b_lo) {
+                     const EpilogueArgs epi, int M, int N, int k_blocks,
+                     int a_lo, int b_lo) {
   constexpr int P = planes(kPasses);
   constexpr uint32_t kStage = stage_bytes(kPasses);
   extern __shared__ unsigned char smem[];
@@ -380,6 +553,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // two consumer warpgroups, 64 rows of C each; ping-pong products
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int col0 = n0 + (lane & 3) * 2;
+  float tv[32];
+  load_table(tv, epi, M, N, row0, col0);
   float acc[32], p0[32], p1[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = p0[i] = p1[i] = 0.f;
@@ -399,42 +577,53 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < 32; ++i) acc[i] += p0[i];
   }
 
-  const int row0 = m0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
-  const int col0 = n0 + (lane & 3) * 2;
-  const bool pairs = (ldc & 1) == 0;  // 8-byte aligned column pairs
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + 8 * h;
-    if (row >= M) continue;
-    float* crow = C + static_cast<size_t>(row) * ldc;
-#pragma unroll
-    for (int i = 0; i < kBN / 8; ++i) {
-      const int col = col0 + 8 * i;
-      const float x = acc[4 * i + 2 * h], y = acc[4 * i + 2 * h + 1];
-      if (pairs && col + 1 < N) {
-        *reinterpret_cast<float2*>(crow + col) = make_float2(x, y);
-      } else {
-        if (col < N) crow[col] = x;
-        if (col + 1 < N) crow[col + 1] = y;
-      }
-    }
+  apply_op(acc, tv, epi);
+  if constexpr (kEpi == kDirectC) {
+    store_direct(acc, epi, M, N, row0, col0);
+  } else {
+    // the ring as the tile (generic stores after the async proxy's reads
+    // of the same bytes)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    store_planes<kPasses, kEpi>(
+        acc, epi, reinterpret_cast<float*>(smem + (ring - smem_addr(smem))),
+        M, N, m0, n0, wg, warp, lane);
   }
 }
 
-template <int kPasses>
-int launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_b, float* c,
-                int M, int N, int ldc, int k_blocks, int a_lo, int b_lo,
-                cudaStream_t stream) {
+template <int kPasses, int kEpi>
+int launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                const EpilogueArgs& epi, int M, int N, int k_blocks,
+                int a_lo, int b_lo, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes(kPasses);
+  static_assert(kBM * kTilePitch * 4 <= kStages * stage_bytes(kPasses) &&
+                    kBN * kTilePitchT * 4 <= kStages * stage_bytes(kPasses),
+                "the tile fits the ring");
   // dynamic shared memory above 48 KB must be allowed per kernel
   const cudaError_t e = cudaFuncSetAttribute(
-      tier_gemm_kernel<kPasses>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      tier_gemm_kernel<kPasses, kEpi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  tier_gemm_kernel<kPasses><<<grid, kThreads, bytes, stream>>>(
-      map_a, map_b, c, M, N, ldc, k_blocks, a_lo, b_lo);
+  tier_gemm_kernel<kPasses, kEpi><<<grid, kThreads, bytes, stream>>>(
+      map_a, map_b, epi, M, N, k_blocks, a_lo, b_lo);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kPasses>
+int launch_epilogue(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                    const EpilogueArgs& epi, int kind, int M, int N,
+                    int k_blocks, int a_lo, int b_lo, cudaStream_t st) {
+  switch (kind) {
+    case kDirectC:
+      return launch_gemm<kPasses, kDirectC>(map_a, map_b, epi, M, N,
+                                            k_blocks, a_lo, b_lo, st);
+    case kPlanesA:
+      return launch_gemm<kPasses, kPlanesA>(map_a, map_b, epi, M, N,
+                                            k_blocks, a_lo, b_lo, st);
+    default:
+      return launch_gemm<kPasses, kPlanesB>(map_a, map_b, epi, M, N,
+                                            k_blocks, a_lo, b_lo, st);
+  }
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -530,22 +719,46 @@ extern "C" int tier_encode(void* map, const void* base, int rows, int kp,
   return 0;
 }
 
-// C (M, N) fp32 with row stride ldc (8-byte aligned) from the split
-// planes behind map_a (A: hi rows 0.., lo rows a_lo..; a multiple of kBM
-// rows a plane) and map_b (B transposed: hi rows 0.., lo rows b_lo..; a
-// multiple of kBN rows a plane), k_blocks k-blocks of kBK
-extern "C" int tier_gemm_tn(const void* map_a, const void* map_b, float* c,
-                            int M, int N, int ldc, int k_blocks, int a_lo,
-                            int b_lo, int passes, void* stream) {
-  if (M < 1 || N < 1 || ldc < N || k_blocks < 1 ||
-      (passes != 1 && passes != 3) || (M + kBM - 1) / kBM > 65535 ||
-      reinterpret_cast<uintptr_t>(c) % 8 != 0)
+// C (M, N) = A @ B from the split planes behind map_a (A: hi rows 0.., lo
+// rows a_lo..; a multiple of kBM rows a plane) and map_b (B transposed: hi
+// rows 0.., lo rows b_lo..; a multiple of kBN rows a plane), k_blocks
+// k-blocks of kBK, with op(C) stored by the epilogue `kind`: op 0 none, 1
+// C / table (table fp32 with row stride ldt >= N), 2 C * float32(scale);
+// kind 0 fp32 C from the fragments (out (M, N) with row stride ld >= N),
+// 1 the bf16 planes of an A operand (out (planes, out_rows, ld) with M <=
+// out_rows <= M rounded up to kBM and N <= ld <= N rounded up to kBN), 2
+// those of a B operand, transposed (N <= out_rows <= N rounded up to kBN,
+// M <= ld <= M rounded up to kBM); out_rows and ld (kp) multiples of 64,
+// every element of the planes written, 0 outside op(C); out 16-byte
+// aligned
+extern "C" int tier_gemm_tn_planes(const void* map_a, const void* map_b,
+                                   void* out, int M, int N, int ld,
+                                   int out_rows, int k_blocks, int a_lo,
+                                   int b_lo, int passes, int kind,
+                                   const float* table, int ldt, int op,
+                                   double scale, void* stream) {
+  const int gm = (M + kBM - 1) / kBM * kBM, gn = (N + kBN - 1) / kBN * kBN;
+  const bool planes_ok =
+      kind == kPlanesA
+          ? out_rows >= M && out_rows <= gm && ld >= N && ld <= gn
+          : out_rows >= N && out_rows <= gn && ld >= M && ld <= gm;
+  if (M < 1 || N < 1 || k_blocks < 1 || (passes != 1 && passes != 3) ||
+      kind < kDirectC || kind > kPlanesB || op < kOpNone || op > kOpScale ||
+      gm / kBM > 65535 ||
+      (op == kOpDivide && (table == nullptr || ldt < N)) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      (kind == kDirectC ? ld < N
+                        : !planes_ok || out_rows % 64 != 0 || ld % 64 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ma, mb;
   std::memcpy(&ma, map_a, sizeof ma);
   std::memcpy(&mb, map_b, sizeof mb);
+  const int vec = ld % 2 == 0;
+  const EpilogueArgs epi{out, ld, out_rows, table, ldt, op,
+                         static_cast<float>(scale), vec};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return passes == 3
-             ? launch_gemm<3>(ma, mb, c, M, N, ldc, k_blocks, a_lo, b_lo, st)
-             : launch_gemm<1>(ma, mb, c, M, N, ldc, k_blocks, a_lo, b_lo, st);
+  return passes == 3 ? launch_epilogue<3>(ma, mb, epi, kind, M, N, k_blocks,
+                                          a_lo, b_lo, st)
+                     : launch_epilogue<1>(ma, mb, epi, kind, M, N, k_blocks,
+                                          a_lo, b_lo, st);
 }

@@ -17,9 +17,10 @@ full-grid step, reference ch. 18, lid_driven_cavity.jl:58-118).
   stage launches, 12 GEMMs, the scalings and the rms.  The products are
   fp32 (or fp64) under poisson="fused" and split-bf16 under the precision
   tiers "fused_bf16x3" / "fused_bf16x1" (JAX's mm_precision "high" /
-  "default"; poisson/direct.sine_products: csrc/tier_gemm.cu on the GPU,
-  the sine matrices split once when the step is built, its twin on the
-  CPU, fp32 states only).
+  "default"; poisson/direct.sine_solve: csrc/tier_gemm.cu on the GPU, the
+  sine matrices split once when the step is built, each GEMM writing the
+  next one's split operand with / den and * scale folded in, so a step
+  is 3 splits and 12 GEMMs; its twin on the CPU, fp32 states only).
 * The step is differentiable with torch.autograd in the state and in a
   tensor Re (make_fused_step_fn's `re`), as the JAX package's packed step
   is with jax.grad: a stage through the kernel's backward kernel
@@ -63,6 +64,32 @@ def _check(cfg) -> None:
                          f"{(cfg.nx, cfg.ny)}")
 
 
+def make_solve_neg(cfg, dtype, device):
+    """The step's Poisson solve on the packed (P, Q) buffers: wt -> psi
+    with lap(psi) = -wt on the interior (walls and padding zero), four
+    products with the zero-extended sine matrices built here
+    (direct.sine_solve), in cfg.poisson's precision tier."""
+    nx, ny, dx, dy = cfg.nx, cfg.ny, cfg.dx, cfg.dy
+    m, n = nx - 1, ny - 1
+    P, Q = padded_extents(nx, ny)
+
+    def sine_padded(nn, size):
+        k = torch.arange(size, dtype=torch.int32, device=device)
+        s = direct._sine_entries(k[:, None] + 1, k[None, :] + 1, nn, dtype)
+        inside = (k[:, None] < nn - 1) & (k[None, :] < nn - 1)
+        return torch.where(inside, s, 0.0)
+
+    sx, sy = sine_padded(nx, P), sine_padded(ny, Q)
+    ai = torch.arange(P, device=device)[:, None]
+    bj = torch.arange(Q, device=device)[None, :]
+    kx, ky = (ai + 1).to(dtype), (bj + 1).to(dtype)
+    den = (2.0 / dx**2) * (torch.cos(math.pi * kx / nx) - 1.0) + (
+        2.0 / dy**2) * (torch.cos(math.pi * ky / ny) - 1.0)
+    neg_den = -torch.where((ai < m) & (bj < n), den, 1.0)
+    return direct.sine_solve(direct.tier_of(cfg.poisson), sx, sy, neg_den,
+                             4.0 / (nx * ny), (P, Q))
+
+
 def make_fused_step_fn(cfg, dtype=None, device="cuda", re=None):
     """Step on the packed state (w, s, rl, rh, cl, ch, rms) of `dtype` on
     `device`; the matrices are built here, once.  cfg.rhs_impl picks the
@@ -79,8 +106,8 @@ def make_fused_step_fn(cfg, dtype=None, device="cuda", re=None):
     changes: run such a step with graph=False).  The step is
     differentiable in re and in the state with torch.autograd (run it
     eagerly: loop.advance(..., graph=False)): the stage kernel through its
-    backward kernel, a tier's products through the tier product of the
-    cotangent (cuda_kernels.TierPlan), the fp32 / fp64 ones through
+    backward kernel, a tier's solve through the chained tier products of
+    the cotangent (cuda_kernels.TierSolve), the fp32 / fp64 ones through
     cuBLAS."""
     _check(cfg)
     dtype = dtype or precision.default_dtype()
@@ -98,30 +125,8 @@ def make_fused_step_fn(cfg, dtype=None, device="cuda", re=None):
     else:
         re_value = cfg.re if re is None else float(re)
     m, n = nx - 1, ny - 1
-    P, Q = padded_extents(nx, ny)
-
-    def sine_padded(nn, size):
-        k = torch.arange(size, dtype=torch.int32, device=device)
-        s = direct._sine_entries(k[:, None] + 1, k[None, :] + 1, nn, dtype)
-        inside = (k[:, None] < nn - 1) & (k[None, :] < nn - 1)
-        return torch.where(inside, s, 0.0)
-
-    sx, sy = sine_padded(nx, P), sine_padded(ny, Q)
-    ai = torch.arange(P, device=device)[:, None]
-    bj = torch.arange(Q, device=device)[None, :]
-    kx, ky = (ai + 1).to(dtype), (bj + 1).to(dtype)
-    den = (2.0 / dx**2) * (torch.cos(math.pi * kx / nx) - 1.0) + (
-        2.0 / dy**2) * (torch.cos(math.pi * ky / ny) - 1.0)
-    neg_den = -torch.where((ai < m) & (bj < n), den, 1.0)
-    scale = 4.0 / (nx * ny)
     n_nodes = float((nx + 1) * (ny + 1))
-    left, right = direct.sine_products(direct.tier_of(cfg.poisson), sx, sy,
-                                       (P, Q))
-
-    def solve_neg(wt):
-        """psi with lap(psi) = -wt on the interior (walls zero)."""
-        coeff = right(left(wt)) / neg_den
-        return right(left(coeff)) * scale
+    solve_neg = make_solve_neg(cfg, dtype, device)
 
     def stage(k, w, wt, s, walls):
         if kernel:

@@ -51,8 +51,10 @@ _CAVITY_STAGE_BACKWARD_ARGS = [_PTR] * 21 + [_INT] * 6 + [_DBL] * 4 + [_PTR]
 _TIER_SPLIT_ARGS = [_PTR] + [_INT] * 4 + [_PTR] + [_INT] * 3 + [_PTR]
 # map, base, rows, kp, role (0 A, 1 B)
 _TIER_ENCODE_ARGS = [_PTR, _PTR, _INT, _INT, _INT]
-# map_a, map_b, c, M, N, ldc, k-blocks, a_lo, b_lo, passes, stream
-_TIER_GEMM_ARGS = [_PTR] * 3 + [_INT] * 7 + [_PTR]
+# map_a, map_b, out, M, N, ld, out_rows, k-blocks, a_lo, b_lo, passes,
+# epilogue, table, ldt, op, scale, stream
+_TIER_GEMM_PLANES_ARGS = [_PTR] * 3 + [_INT] * 9 + [_PTR, _INT, _INT, _DBL,
+                                                     _PTR]
 # h, rowk, colk, out, rows, hy, nb, kx_major, scale, stream
 _VORTEX_DERIVS_ARGS = [_PTR] * 4 + [_INT] * 4 + [_DBL, _PTR]
 # in, out, n, stream
@@ -118,7 +120,7 @@ SIGNATURES = {
     **_FFT_SIGNATURES,
     "tier_split": (_INT, _TIER_SPLIT_ARGS),
     "tier_encode": (_INT, _TIER_ENCODE_ARGS),
-    "tier_gemm_tn": (_INT, _TIER_GEMM_ARGS),
+    "tier_gemm_tn_planes": (_INT, _TIER_GEMM_PLANES_ARGS),
     "cfd_cuda_error_string": (ctypes.c_char_p, [_INT]),
     "mg_edge_sweeps_per_pass": (_INT, []),
     "mg_edge_work_fields": (_INT, [_INT]),

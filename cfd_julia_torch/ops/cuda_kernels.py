@@ -52,9 +52,12 @@ Kernels (csrc/ file; TPU function replaced):
 ops/fft_plans.py counts its cuFFT executions here too, under fft_c2c and
 fft_c2r.
   tier_split, tier_matmul,        tier_gemm.cu;   XLA's bf16_3x / default
-  TierPlan                        dot of the precision tiers (direct.py:99-
+  TierPlan, TierSolve             dot of the precision tiers (direct.py:99-
                                   102, cavity_fused.py:120; not a Pallas
-                                  kernel): the operand split and the GEMM;
+                                  kernel): the operand split and the GEMM,
+                                  whose epilogue can write op(C) as the
+                                  next product's bf16 planes (a solve's
+                                  chained products: one split, four GEMMs);
                                   also their backward, the same kernels on
                                   the cotangent
 
@@ -1524,14 +1527,65 @@ def _tma_map(planes, role: str):
     return desc
 
 
+def tier_plane_extents(role: str, m: int, n: int) -> tuple[int, int]:
+    """(rows, kp) of the bf16 planes that hold an (m, n) fp32 operand of
+    the tier GEMM: as an A operand (m rows of n, rows padded to TIER_BM),
+    or as a B operand transposed (n rows of m); kp padded to TIER_BK.  A
+    TierPlan's field buffer has these extents."""
+    if role == "A":
+        return _round_up(m, TIER_BM), _round_up(n, TIER_BK)
+    return _round_up(n, TIER_BN), _round_up(m, TIER_BK)
+
+
+def _tier_op(c, table=None, scale=None):
+    """op(C) as a solve writes it between two products: C / table (an fp32
+    table of C's shape), or C * scale (a float, rounded to fp32 as torch
+    rounds a Python scalar), or C."""
+    if table is not None:
+        return c / table
+    if scale is not None:
+        return c * scale
+    return c
+
+
+def tier_gemm_planes_plain(a, b, passes: int, role: str, table=None,
+                           scale=None):
+    """Plain twin of the tier GEMM's planes epilogue (TierPlan.gemm_into,
+    csrc/tier_gemm.cu `tier_gemm_tn_planes`): op(tier_matmul_plain(a, b))
+    as fp32 C (role "C") or as the planes tier_split_plain writes of it,
+    an A operand's or a B operand's (transposed), of the extents
+    tier_plane_extents gives."""
+    c = _tier_op(tier_matmul_plain(a, b, passes), table, scale)
+    if role == "C":
+        return c
+    return tier_split_plain(c, role == "B",
+                            *tier_plane_extents(role, *c.shape), passes)
+
+
+# the GEMM's epilogues (csrc/tier_gemm.cu `Epilogue`) and the ops on C
+# (`Op`)
+_TIER_EPILOGUE = {"C": 0, "A": 1, "B": 2}
+_TIER_OP = {"none": 0, "divide": 1, "scale": 2}
+
+
 def _tier_gemm(map_a, map_b, a_lo: int, b_lo: int, m: int, n: int, kp: int,
-               passes: int, device):
-    """C (m, n) fp32 from split planes through their descriptors (the lo
-    planes from rows a_lo of A's and b_lo of B's): one tier_gemm launch."""
-    out = torch.empty((m, n), dtype=torch.float32, device=device)
-    _launch("tier_gemm", "tier_gemm_tn", device, ctypes.addressof(map_a),
-            ctypes.addressof(map_b), out.data_ptr(), m, n, n, kp // TIER_BK,
-            a_lo, b_lo, passes, outputs=(out,))
+               passes: int, device, role: str = "C", out=None, table=None,
+               scale=None):
+    """The (m, n) product of split planes through their descriptors (the
+    lo planes from rows a_lo of A's and b_lo of B's), op(C) stored by
+    epilogue `role` into `out` (fp32 C, a new buffer if None, or checked
+    planes: TierPlan.gemm_into): one tier_gemm launch."""
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float32, device=device)
+    rows, ld = (m, n) if role == "C" else out.shape[1:]
+    op = "divide" if table is not None else \
+        "scale" if scale is not None else "none"
+    _launch("tier_gemm", "tier_gemm_tn_planes", device,
+            ctypes.addressof(map_a), ctypes.addressof(map_b), out.data_ptr(),
+            m, n, ld, rows, kp // TIER_BK, a_lo, b_lo, passes,
+            _TIER_EPILOGUE[role], None if table is None else table.data_ptr(),
+            n, _TIER_OP[op], 1.0 if scale is None else float(scale),
+            outputs=(out,))
     return out
 
 
@@ -1603,11 +1657,49 @@ class TierPlan:
                    self._field.shape[2], self.passes, out=self._field)
 
     def gemm(self):
-        """The product from the planes in place (one tier_gemm launch)."""
+        """The product from the planes in place, fp32 C (one tier_gemm
+        launch)."""
+        return self.gemm_into("C")
+
+    def gemm_into(self, role: str, out=None, *, table=None, scale=None):
+        """The product from the planes in place, op(C) stored by the
+        GEMM's own epilogue (one tier_gemm launch, csrc/tier_gemm.cu
+        `tier_gemm_tn_planes`): role "C" fp32 C, "A" or "B" the bf16
+        planes tier_split would write of op(C) for the next product's A
+        operand or (transposed) B operand, every element of `out` (planes,
+        rows, kp) written, its pad 0; out defaults to a new buffer of
+        tier_plane_extents.  op: C / table for an fp32 table of C's shape,
+        or C * scale.  Bitwise equal to tier_split of op(gemm()), torch's
+        / and * for op.  On the card only (a plan's planes live there)."""
         m, n, _ = self.mnk
+        dev = self.const.device
+        if dev.type != "cuda":
+            raise ValueError("TierPlan.gemm_into runs on the card; its plain "
+                             "version is tier_gemm_planes_plain")
+        if role not in _TIER_EPILOGUE:
+            raise ValueError(f"gemm_into: role is one of "
+                             f"{' | '.join(_TIER_EPILOGUE)}, got {role!r}")
+        if table is not None:
+            if table.dtype != torch.float32 or tuple(table.shape) != (m, n) \
+                    or table.device != dev or not table.is_contiguous():
+                raise ValueError(f"gemm_into takes a contiguous fp32 table "
+                                 f"{(m, n)} on {dev}, got {table.dtype} "
+                                 f"{tuple(table.shape)} on {table.device}")
+        if role == "C":
+            want, dtype = (m, n), torch.float32
+        else:
+            want = (_planes(self.passes), *tier_plane_extents(role, m, n))
+            dtype = torch.bfloat16
+        if out is None:
+            out = torch.empty(want, dtype=dtype, device=dev)
+        if tuple(out.shape) != want or out.dtype != dtype or \
+                out.device != dev or not out.is_contiguous():
+            raise ValueError(f"gemm_into {role} writes a contiguous {dtype} "
+                             f"{want} buffer on {dev}, got {out.dtype} "
+                             f"{tuple(out.shape)} on {out.device}")
         return _tier_gemm(self._map_a, self._map_b, *self._lo, m, n,
-                          self.a_planes.shape[2], self.passes,
-                          self.const.device)
+                          self.a_planes.shape[2], self.passes, dev, role,
+                          out, table, scale)
 
     def transposed(self) -> "TierPlan":
         """The plan of the transposed constant on the same side, for
@@ -1655,6 +1747,114 @@ class _TierPlanProduct(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         return ctx.plan.transposed().product(g.contiguous()), None
+
+
+class TierSolve:
+    """A sine-matrix Poisson solve in a precision tier,
+    u = R(L(R(L(f)) / den)) * scale with L(x) = left's product (sx @ x)
+    and R(x) = right's (x @ sy), as the Poisson solves of the tiers write
+    it (poisson/direct.sine_solve).  On the CPU a call is that composition
+    of the plans' twins with torch's / and * between them.  On the GPU it
+    is five launches: the split of f into left's field buffer, then each
+    product's GEMM writing its op(C) straight into the next plan's field
+    buffer as bf16 planes (TierPlan.gemm_into: R's A operand, L's B
+    operand transposed, / den folded into the second), the last one fp32
+    u with * scale folded in; no split, copy or elementwise launch sits
+    between the GEMMs.  Bitwise equal to the plans' products with torch's
+    / and * (`products`), on every device.
+
+    Differentiable in f (_TierSolve): the backward runs the transposed
+    products in autograd's order, * scale on the cotangent (a torch op),
+    R, L, / den, R, L, chained the same way (one split, four GEMMs),
+    bitwise autograd through `products`.  Square constants of the fields'
+    shape (the solves'): every product maps that shape to itself."""
+
+    def __init__(self, left: TierPlan, right: TierPlan, den, scale: float):
+        if left.side != "left" or right.side != "right" or \
+                left.passes != right.passes:
+            raise ValueError("TierSolve takes a left and a right plan of one "
+                             "tier")
+        m, n, k = left.mnk
+        mr, nr, kr = right.mnk
+        if m != k or nr != kr or left.shape != right.shape or \
+                (m, n) != left.shape or (mr, nr) != right.shape:
+            raise ValueError(f"TierSolve: square constants of the fields' "
+                             f"shape, got {left.mnk}, {right.mnk} on "
+                             f"{left.shape}")
+        if den.dtype != torch.float32 or tuple(den.shape) != left.shape or \
+                den.device != left.const.device or not den.is_contiguous():
+            raise ValueError(f"TierSolve takes a contiguous fp32 den "
+                             f"{left.shape} on {left.const.device}, got "
+                             f"{den.dtype} {tuple(den.shape)} on {den.device}")
+        self.left, self.right, self.den = left, right, den
+        self.scale, self.shape = scale, left.shape
+
+    def products(self, f):
+        """The solve as the plans' products with torch's / and * between
+        them, differentiable through _TierPlanProduct: the CPU's route and
+        the reference of the chained one."""
+        coeff = self.right(self.left(f)) / self.den
+        return self.right(self.left(coeff)) * self.scale
+
+    def _chain(self, x, steps):
+        """x through the (plan, op) steps, outside autograd: the plans'
+        products and _tier_op on the CPU; on the GPU one split and a GEMM
+        a step, each writing the next plan's field buffer."""
+        if x.device.type == "cpu":
+            for plan, op in steps:
+                x = _tier_op(plan.product(x), **op)
+            return x
+        steps[0][0].split(x)
+        for (plan, op), (nxt, _) in zip(steps, steps[1:]):
+            plan.gemm_into("A" if nxt.side == "right" else "B", nxt._field,
+                           **op)
+        plan, op = steps[-1]
+        return plan.gemm_into("C", **op)
+
+    def forward(self, f):
+        """The solve of f, outside autograd."""
+        div = {"table": self.den}
+        return self._chain(f, [(self.left, {}), (self.right, div),
+                               (self.left, {}),
+                               (self.right, {"scale": self.scale})])
+
+    def backward(self, g):
+        """The solve's adjoint applied to the cotangent g."""
+        rt, lt = self.right.transposed(), self.left.transposed()
+        div = {"table": self.den}
+        return self._chain(g * self.scale, [(rt, {}), (lt, div), (rt, {}),
+                                            (lt, {})])
+
+    def __call__(self, f):
+        if tuple(f.shape) != self.shape or f.device != self.den.device:
+            raise ValueError(f"TierSolve takes fields {self.shape} on "
+                             f"{self.den.device}, got {tuple(f.shape)} on "
+                             f"{f.device}")
+        if torch.is_grad_enabled():
+            _refuse_const_grad(self.left.const)
+            _refuse_const_grad(self.right.const)
+            if self.den.requires_grad:
+                raise ValueError("a TierSolve's den (folded into a GEMM's "
+                                 "epilogue) takes no gradient, and this one "
+                                 "requires grad")
+            if f.requires_grad:
+                return _TierSolve.apply(f, self)
+        return self.forward(f)
+
+
+class _TierSolve(torch.autograd.Function):
+    """A TierSolve, linear in f: the backward is its adjoint, the chain of
+    the transposed products (TierSolve.backward)."""
+
+    @staticmethod
+    def forward(ctx, f, solve):
+        ctx.solve = solve
+        return solve.forward(f)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return ctx.solve.backward(g.contiguous()), None
 
 
 def _refuse_const_grad(const) -> None:

@@ -13,9 +13,10 @@ Wraps ops.spectral with the reference's full-grid conventions:
   (torch.matmul, full fp32) or, in a precision tier of the TPU's matrix
   unit (`tier`, the JAX package's `mm_precision`), split-bf16 products
   (ops/cuda_kernels.TierPlan: csrc/tier_gemm.cu on the GPU, the sine
-  matrices split once at build; its plain twin on the CPU, so a tier
-  computes the TPU's arithmetic on every device where JAX's CPU backend
-  ignores the precision and runs fp32).
+  matrices split once at build, the four products chained by
+  cuda_kernels.TierSolve; its plain twin on the CPU, so a tier computes
+  the TPU's arithmetic on every device where JAX's CPU backend ignores
+  the precision and runs fp32).
 
 PyTorch runs eagerly, so each `make_*` builds its eigenvalue denominator
 (and the sine matrices or transform weights) once and returns the solve
@@ -163,15 +164,22 @@ def tier_of(poisson: str) -> str | None:
     return None
 
 
-def sine_products(tier: str | None, sx, sy, shape):
-    """(left, right) of a sine-matrix Poisson solve on fields of `shape`:
-    left(g) = sx @ g and right(h) = h @ sy.  tier=None: torch.matmul (full
-    precision, JAX's mm_precision="highest"); "bf16x3" ("high") or "bf16x1"
-    ("default"): the split-bf16 products, one cuda_kernels.TierPlan each,
-    which split sx and sy once, here; fp32 only, so a tier never runs
+def sine_solve(tier: str | None, sx, sy, den, scale: float, shape):
+    """The sine-matrix solve f -> (sx ((sx f sy) / den) sy) * scale on
+    fields of `shape`.  tier=None: torch.matmul (full precision, JAX's
+    mm_precision="highest") and torch's / and *; "bf16x3" ("high") or
+    "bf16x1" ("default"): a cuda_kernels.TierSolve over the split-bf16
+    products, one TierPlan a sine matrix (split once, here), whose GEMMs on
+    the GPU write the next product's split operand themselves with / den
+    and * scale folded in (one split and four GEMMs a solve), bitwise the
+    plans' products with torch's / and *; fp32 only, so a tier never runs
     silently at another precision."""
     if tier is None:
-        return (lambda g: torch.matmul(sx, g)), (lambda h: torch.matmul(h, sy))
+        def solve(f):
+            coeff = torch.matmul(torch.matmul(sx, f), sy) / den
+            return torch.matmul(torch.matmul(sx, coeff), sy) * scale
+
+        return solve
     if tier not in cuda_kernels.TIER_PASSES:
         raise ValueError(f"unknown precision tier {tier!r} "
                          f"({' | '.join(cuda_kernels.TIER_PASSES)})")
@@ -179,8 +187,9 @@ def sine_products(tier: str | None, sx, sy, shape):
         raise ValueError(f"the {tier} tier splits fp32 operands into bf16 "
                          f"parts and takes fp32 only, got {sx.dtype}")
     passes = cuda_kernels.TIER_PASSES[tier]
-    return (cuda_kernels.TierPlan(sx, passes, "left", shape),
-            cuda_kernels.TierPlan(sy, passes, "right", shape))
+    return cuda_kernels.TierSolve(
+        cuda_kernels.TierPlan(sx, passes, "left", shape),
+        cuda_kernels.TierPlan(sy, passes, "right", shape), den, scale)
 
 
 def make_fst_matmul_interior(nx: int, ny: int, dx: float, dy: float,
@@ -192,7 +201,9 @@ def make_fst_matmul_interior(nx: int, ny: int, dx: float, dy: float,
     exactly-zero boundary ring.  With S the unscaled interior sine matrix,
     u = S((S g S) / den) S * 4/(nx ny): S^2 = (n/2) I on the interior, and
     FFTW's RODFT00 pair scales by 2nx * 2ny.  tier: None (fp32 or fp64
-    products), "bf16x3" or "bf16x1" (fp32 only; sine_products)."""
+    products), "bf16x3" or "bf16x1" (fp32 only; sine_solve).
+    solve.interior is the solve of the interior alone, (nx-1, ny-1) ->
+    (nx-1, ny-1): sine_solve's (a cuda_kernels.TierSolve in a tier)."""
     def sine_interior(n):
         k = torch.arange(1, n, dtype=torch.int32, device=device)
         return _sine_entries(k[:, None], k[None, :], n, dtype)
@@ -204,15 +215,13 @@ def make_fst_matmul_interior(nx: int, ny: int, dx: float, dy: float,
     den = (2.0 / dx**2) * (torch.cos(math.pi * kx[:, None] / nx) - 1.0) + (
         2.0 / dy**2
     ) * (torch.cos(math.pi * ky[None, :] / ny) - 1.0)
-    scale = 4.0 / (nx * ny)
-    left, right = sine_products(tier, sx, sy, (nx - 1, ny - 1))
+    inner = sine_solve(tier, sx, sy, den, 4.0 / (nx * ny), (nx - 1, ny - 1))
 
     def solve(f):
         # the interior is read in place (a tier's split takes strided rows)
-        coeff = right(left(f[1:nx, 1:ny])) / den
-        u = right(left(coeff)) * scale
-        return F.pad(u, (1, 1, 1, 1))
+        return F.pad(inner(f[1:nx, 1:ny]), (1, 1, 1, 1))
 
+    solve.interior = inner
     return solve
 
 

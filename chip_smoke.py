@@ -58,7 +58,16 @@ Phases, one line each:
      on split planes, a plan's product and tier_matmul, each beside its
      bound (tensor-core flops over 989 TFLOP/s, or bytes), the twins, the
      fp32 torch.matmul it stands in for and torch.mm on bf16 operands
-     split beforehand (the library yardstick); the Euler RHS at (3, 8192),
+     split beforehand (the library yardstick); the GEMM's planes epilogue
+     (tier_gemm_tn_planes: op(C), C / table or C * scale, stored as the
+     next product's A or transposed B planes, or as fp32 C) bitwise
+     tier_split(op(its fp32 C)) at every shape above, 1 and 3 passes, each
+     epilogue of a solve's chain at the 1024^2 packed cavity within 1e-5
+     of its plain version (beyond the planes' own rounding) and timed
+     beside it, its bound, today's GEMM + op + split and the library
+     yardstick, and the chained solve (1 split + 4 GEMMs)
+     bitwise and timed beside the per-product one; the Euler RHS at (3,
+     8192),
      (3, 257), nx = 3,
      4, 5 and a block's cells - 1, + 0, + 1 in fp32 and fp64 for roe,
      hllc, rusanov/roe and rusanov/spectral, on random physical states and
@@ -161,10 +170,12 @@ Phases, one line each:
      CLI's `run heat_cn` and `run burgers_crweno_periodic` (fp32);
  15. the bf16 precision tiers (the JAX package's TPU configurations):
      matmul_bf16x3, matmul_bf16x1, fused_bf16x3 and fused_bf16x1 in phase
-     3's configuration, 12 launches a step of the tier GEMM and of the
-     split pass: graphed and eager, each 100 steps and on to 2000, against
-     both cavity anchors, bitwise equal with equal launch counts (24000
-     tier_gemm, 24000 tier_split, and 6000 Arakawa or stage launches);
+     3's configuration, 12 launches a step of the tier GEMM and 3 of the
+     split pass (a solve splits its input; each GEMM writes the next
+     product's planes): graphed and eager, each 100 steps and on to 2000,
+     against both cavity anchors, bitwise equal with equal launch counts
+     (24000 tier_gemm, 6000 tier_split, and 6000 Arakawa or stage
+     launches);
      max|psi_tier - psi_fp32| of the same
      formulation after 2000 steps (bf16x3 within 1e-4 of max|psi|, bf16x1
      printed); steps/s beside phases 3, 11 and 13 (--profile: the
@@ -200,9 +211,10 @@ Phases, one line each:
      forward's; the fp32 `fused`, `fused_bf16x3`, `fused_bf16x1`,
      `matmul_bf16x3` and `matmul_bf16x1` d/dRe against the fp64 one (fp32
      and bf16x3 rel 1e-3 and 2e-3, bf16x1 finite, the same sign, within
-     0.5) beside the loss's own difference, the tier products' backward
-     the tier GEMM on the cotangent (as many tier_split and tier_gemm
-     launches backward as forward); seconds and peak memory of each;
+     0.5) beside the loss's own difference, the tier solves' backward
+     the chained tier GEMMs on the cotangent (as many tier_split and
+     tier_gemm launches backward as forward: 3 and 12 a step); seconds and
+     peak memory of each;
  17. the user surface (cfd_julia_torch/cli.py, examples/, utils/debug.py):
      `list` (29 presets) and `validate` (7 checks, all PASS) as processes
      on the card; `run-all` in this process through cli.main (the quick
@@ -536,13 +548,18 @@ def ptxas_lines(log, pattern=None):
     return out
 
 
-def kernel_alone(call, kernel, calls=20):
+def kernel_alone(call, kernel, calls=20, windows=3):
     """(device us a launch of the kernels whose names hold `kernel`, the
     device kernels recorded a call, the other kernels' names) over `calls`
     calls of call() under torch.profiler; (None, 0.0, names) if it records
     none of them.  The profiler can drop a few events of a window, so the
-    count a call may read below 1."""
-    events, _ = profiled_kernels(lambda: [call() for _ in range(calls)])
+    count a call may read below 1, and now and then a whole window: a
+    window with no device event at all is profiled again, up to `windows`
+    in all (one that records any kernel is the one read)."""
+    for _ in range(windows):
+        events, _ = profiled_kernels(lambda: [call() for _ in range(calls)])
+        if events:
+            break
     mine = [e for e in events if kernel in e.name]
     if not mine:
         return None, 0.0, sorted({e.name for e in events})
@@ -1955,10 +1972,234 @@ def phase_tier_kernel():
               f"{split_bd['bound_ms']:.4f} ms by {split_bd['bound_by']}, "
               f"{100 * split_bd['share_of_bound']:.1f}% of it), plain "
               f"{split_plain_ms:.4f} ms")
+    planes = tier_planes_kernel()
+    for passes in (1, 3):
+        # the main path's GEMM launches are the planes entry's: the record
+        # times its most frequent epilogue (the next product's A planes,
+        # twice a solve) and keeps fp32 C's beside it
+        rec, ep = records[passes]["gemm"], planes[passes]
+        a = ep["by_role"]["A"]
+        rec |= {"fp32_c_ms": rec["ms"], "fp32_c_bound_ms": rec["bound_ms"],
+                "ms": a["ms"], "bound_ms": a["bound_ms"],
+                "bound_by": a["bound_by"],
+                "share_of_bound": a["share_of_bound"],
+                "plain_ms": ep["plain_ms"], "epilogues": ep}
     gemm, split = records[3]["gemm"], records[3]["split"]
     gemm["passes_1"] = records[1]["gemm"]
     split["passes_1"] = records[1]["split"]
     return gemm, split
+
+
+# the GEMM's epilogues as a solve's chain uses them: the next product's A
+# operand (G1, G3), its B operand transposed with / den (G2), fp32 u with
+# * scale (G4)
+TIER_EPILOGUES = (("A", "none"), ("B", "divide"), ("C", "scale"))
+
+
+# the planes' representation error of op(C), relative to |op(C)|: bf16's
+# unit roundoff for 1 pass (hi alone); 3 passes, lo = bf16(x - hi) with
+# |x - hi| <= 2^-8 |x|, so hi + lo is within 2^-16 |x|; fp32 C (role
+# "C") none
+TIER_PLANES_U = {"C": 0.0, 1: 2.0**-8, 3: 2.0**-16}
+
+
+def tier_planes_err(out, c, role, passes, table=None, scale=None):
+    """An epilogue's output against the plain version: c the plain fp32 C
+    before op, op / table or * scale (cuda_kernels._tier_op).  The kernel's
+    C is within TIER_TOL max|C| of c, which op scales by w = 1/|table| or
+    |scale| an element; fp32 C then differs from op(c) by that and the
+    op's own rounding (2^-24 each side), bf16 planes (hi + lo in fp32; A,
+    or B transposed) by u |op(C)| more.  Returns
+    max((|out - op(c)| - (u + 2^-23) |op(c)|) / ((1 + u) max|C| w)), which
+    holds at TIER_TOL."""
+    from cfd_julia_torch.ops import cuda_kernels as ck
+
+    want = ck._tier_op(c, table, scale)
+    m, n = c.shape
+    if role == "C":
+        got, u = out, TIER_PLANES_U["C"]
+    else:
+        got = out.float().sum(0)
+        got = got[:m, :n] if role == "A" else got[:n, :m].t()
+        u = TIER_PLANES_U[passes]
+    w = 1.0 / table.abs() if table is not None else \
+        abs(scale) if scale is not None else 1.0
+    excess = (got - want).abs() - (u + 2.0**-23) * want.abs()
+    unit = (1.0 + u) * float(c.abs().max()) * w
+    return max(float((excess / unit).max()), 0.0)
+
+
+def tier_bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def tier_planes_kernel():
+    """The GEMM's planes epilogue (TierPlan.gemm_into, csrc/tier_gemm.cu
+    tier_gemm_tn_planes) bitwise tier_split(op(its fp32 C)) at every
+    TIER_SHAPES shape, 1 and 3 passes, through plans on either side, in
+    each epilogue (A and B planes, fp32 C) with each op (none, / table,
+    * scale), one launch a call, two calls bitwise; then, at the 1024^2
+    packed cavity's solve (its plans, its -den, its scale; a random
+    field), each epilogue of the chain held against its plain version
+    (tier_planes_err within TIER_TOL) and timed beside it, beside its
+    bound (tensor flops, or the bytes: the planes in once, the
+    table once, the planes or C out once), beside today's GEMM + torch op
+    + split pass for the same product, and beside bf16 torch.mm on
+    pre-split operands (1 pass: row 8's library yardstick); and the
+    solve chained (1 split + 4 GEMMs) against the per-product one (4
+    splits, 4 GEMMs, / and *), bitwise, both timed.  Returns {passes:
+    record}."""
+    import dataclasses
+
+    from cfd_julia_torch.models import cavity, cavity_fused
+    from cfd_julia_torch.ops import cuda_kernels as ck
+
+    dev = torch.device("cuda")
+    for m, n, k in TIER_SHAPES:
+        rng = np.random.default_rng(m * 13 + n * 5 + k)
+
+        def rand(shape):
+            return torch.as_tensor(rng.standard_normal(shape),
+                                   dtype=torch.float32, device=dev)
+
+        table = (rand((m, n)).abs() + 0.5) * torch.where(
+            rand((m, n)) > 0, 1.0, -1.0)
+        scale = 4.0 / (m * n + 17)
+        for passes in (1, 3):
+            ok, n_calls = True, 0
+            for side, const, field in (("left", rand((m, k)), rand((k, n))),
+                                       ("right", rand((k, n)),
+                                        rand((m, k)))):
+                plan = ck.TierPlan(const, passes, side, tuple(field.shape))
+                plan.split(field)
+                c = plan.gemm()
+                for role in ("A", "B", "C"):
+                    for kw in ({}, {"table": table}, {"scale": scale}):
+                        want = ck._tier_op(c, **kw)
+                        if role != "C":
+                            want = ck.tier_split(
+                                want, role == "B",
+                                *ck.tier_plane_extents(role, m, n), passes)
+                        before = ck.LAUNCHES["tier_gemm"]
+                        got = plan.gemm_into(role, **kw)
+                        again = plan.gemm_into(role, **kw)
+                        torch.cuda.synchronize()
+                        n_calls += 1
+                        ok &= (ck.LAUNCHES["tier_gemm"] == before + 2
+                               and torch.equal(tier_bits(got),
+                                               tier_bits(want))
+                               and torch.equal(tier_bits(got),
+                                               tier_bits(again)))
+            line = (f"phase 2 kernel tier_gemm_tn_planes {m}x{n}x{k} passes "
+                    f"{passes}: {n_calls} epilogue x op cases (A and B "
+                    f"planes, fp32 C; none, / table, * scale; plans on "
+                    f"both sides) bitwise tier_split(op(fp32 C)), one "
+                    f"launch a call, two calls bitwise: "
+                    f"{ok} {'ok' if ok else 'FAIL'}")
+            print(line)
+            check(ok, line)
+
+    records = {}
+    cfg = cavity.CavityConfig(nx=NX, ny=NX)
+    for passes in (1, 3):
+        tier = "bf16x3" if passes == 3 else "bf16x1"
+        solve = cavity_fused.make_solve_neg(
+            dataclasses.replace(cfg, poisson=f"fused_{tier}"), torch.float32,
+            dev)
+        left, right, den = solve.left, solve.right, solve.den
+        m, n, k = left.mnk
+        rng = np.random.default_rng(passes)
+        f = torch.as_tensor(rng.standard_normal(solve.shape),
+                            dtype=torch.float32, device=dev)
+        left.split(f)
+        c_left = left.gemm()
+        right.split(c_left)
+        c_right = right.gemm()
+        flops = passes * 2 * m * n * k
+        a_ext = ck.tier_plane_extents("A", m, n)
+        b_ext = ck.tier_plane_extents("B", m, n)
+        cases = {
+            # (the epilogue's call, today's GEMM + op + split, bytes, the
+            # product's plain operands and op)
+            "A": (lambda: left.gemm_into("A", right._field),
+                  lambda: ck.tier_split(left.gemm(), False, *a_ext, passes,
+                                        out=right._field),
+                  nbytes(left.a_planes, left.b_planes, right._field),
+                  (left.const, f), {}),
+            "B": (lambda: right.gemm_into("B", left._field, table=den),
+                  lambda: ck.tier_split(right.gemm() / den, True, *b_ext,
+                                        passes, out=left._field),
+                  nbytes(right.a_planes, right.b_planes, den, left._field),
+                  (c_left, right.const), {"table": den}),
+            "C": (lambda: right.gemm_into("C", scale=solve.scale),
+                  lambda: right.gemm() * solve.scale,
+                  nbytes(right.a_planes, right.b_planes, c_right),
+                  (c_left, right.const), {"scale": solve.scale}),
+        }
+        # restore the planes each case reads before it is timed
+        left.split(f)
+        right.split(c_left)
+        rec, plain_ok = {}, True
+        for (role, _), (call, today, n_bytes, (a, b), kw) in zip(
+                TIER_EPILOGUES, cases.values()):
+            ms, _ = median_ms(call)
+            got = call().clone()
+            today_ms, _ = median_ms(today)
+            plain_ms, _ = median_ms(lambda: ck.tier_gemm_planes_plain(
+                a, b, passes, role, **kw))
+            err = tier_planes_err(got, ck.tier_matmul_plain(a, b, passes),
+                                  role, passes, **kw)
+            plain_ok &= err <= TIER_TOL
+            bd = bound(n_bytes, flops, ms, BF16_FLOP_PER_S)
+            rec[role] = {"ms": ms, "gemm_op_split_ms": today_ms,
+                         "plain_ms": plain_ms, "plain_err": err, **bd}
+            left.split(f)
+            right.split(c_left)
+        gemm_ms, _ = median_ms(right.gemm)
+        sine, field = tier_sines(NX), torch.as_tensor(
+            rng.standard_normal((NX, NX)), dtype=torch.float32, device=dev)
+        lib_ms, _ = median_ms(tier_library(sine, field, passes))
+        got, want = solve(f), solve.products(f)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        ck.reset_launch_counts()
+        solve(f)
+        counts = (ck.LAUNCHES["tier_split"], ck.LAUNCHES["tier_gemm"])
+        solve_ms, _ = median_ms(lambda: solve(f))
+        products_ms, _ = median_ms(lambda: solve.products(f))
+        ok = same and counts == (1, 4) and plain_ok
+        errs = ", ".join(f"{role} {rec[role]['plain_err']:.3e}"
+                         for role, _ in TIER_EPILOGUES)
+        line = (f"phase 2 tier solve {NX}^2 fused_{tier}: each epilogue "
+                f"against its plain version (tier_gemm_planes_plain; "
+                f"excess over the twin tolerance's unit, tier_planes_err) "
+                f"{errs} (tol {TIER_TOL:g}); chained (1 split + "
+                f"4 GEMMs, / den and * scale in the epilogues) bitwise the "
+                f"per-product solve (4 splits, 4 GEMMs, / and *): {same}; "
+                f"launches split {counts[0]}, GEMM {counts[1]} (want 1, 4); "
+                f"device time chained {solve_ms:.4f} ms, per-product "
+                f"{products_ms:.4f} ms (medians of 30 calls, CUDA events) "
+                f"{'ok' if ok else 'FAIL'}")
+        print(line)
+        check(ok, line)
+        for role, op in TIER_EPILOGUES:
+            r = rec[role]
+            print(f"phase 2 kernel tier_gemm_tn_planes {m}^3 passes {passes} "
+                  f"epilogue {role} (op {op}): device time {r['ms']:.4f} ms ("
+                  f"{100 * r['share_of_bound']:.1f}% of its bound "
+                  f"{r['bound_ms']:.4f} ms by {r['bound_by']}); today's GEMM "
+                  f"+ op + split {r['gemm_op_split_ms']:.4f} ms; plain "
+                  f"{r['plain_ms']:.4f} ms; the GEMM "
+                  f"alone (fp32 C) {gemm_ms:.4f} ms; library (bf16 torch.mm "
+                  f"on pre-split operands + adds) {lib_ms:.4f} ms (medians of "
+                  f"30 calls, CUDA events, warm L2)")
+        records[passes] = {"passes": passes, "by_role": rec,
+                           "gemm_ms": gemm_ms,
+                           "plain_ms": rec["A"]["plain_ms"],
+                           "library_ms": lib_ms, "solve_chained_ms": solve_ms,
+                           "solve_per_product_ms": products_ms}
+        del solve, left, right, den
+    return records
 
 
 def bf16_ulp(x):
@@ -3360,7 +3601,9 @@ def tier_path(tier):
     finite = all(bool(torch.isfinite(x).all()) for x in (*state[:2], rms))
     diff = max_diff((*first, *state, rms), (*e_first, *e_state, e_rms))
     want = dict.fromkeys(launches, 0)
-    want["tier_gemm"] = want["tier_split"] = 12 * STEPS_TOTAL
+    # a solve: one split (its input) and four GEMMs, each writing the next
+    # product's planes
+    want["tier_gemm"], want["tier_split"] = 12 * STEPS_TOTAL, 3 * STEPS_TOTAL
     want["cavity_fused_stage" if fused else "arakawa_rhs"] = 3 * STEPS_TOTAL
     ok = finite and diff == 0.0 and launches == want and e_launches == launches
     line = (f"{label} {NX}^2 fp32: {n} steps (from step {STEPS_FIRST}) "
@@ -3449,17 +3692,18 @@ def phase_tiers(rates, matmul_psi, fused_psi, ghia_fp32, profile):
                     profile_rhs(by_name, "cavity_stage_kernel", 20)
                     profile_stages(by_name, 20)
                     total = sum(v[0] for v in by_name.values())
-                    for kernels in (("tier_gemm_kernel",),
-                                    ("split_cols_kernel",
-                                     "split_rows_kernel")):
+                    for kernels, per_step in ((("tier_gemm_kernel",), 12),
+                                              (("split_cols_kernel",
+                                                "split_rows_kernel"), 3)):
                         us, n = kernel_sums(by_name, *kernels)
                         line = (f"profile {' + '.join(kernels)}: {n} device "
                                 f"launches in 20 steps = {n / 20:.2f} a step "
-                                f"(want 12), {us / 20:.2f} us/step, "
+                                f"(want {per_step}), {us / 20:.2f} us/step, "
                                 f"{100 * us / total:.1f}% of the step's "
                                 f"device time")
-                        print(line + (" ok" if n == 12 * 20 else " FAIL"))
-                        check(n == 12 * 20, line)
+                        ok = n == per_step * 20
+                        print(line + (" ok" if ok else " FAIL"))
+                        check(ok, line)
         del step, state
     print(f"phase 15 cavity {NX}^2 fp32 steps/s by Poisson solve, graphed / "
           f"eager, one run of this script: " + ", ".join(
@@ -4111,7 +4355,8 @@ def phase_packed_gradients(matmul_grad):
     formulation's d loss/dRe against the fp64 one beside its loss's own
     rel. difference, with as many backward stage (or RHS) launches as
     forward ones and, for a tier, as many tier_split and tier_gemm
-    launches in the backward as in the forward (12 + 12 a step).  Returns
+    launches in the backward as in the forward (3 + 12 a step: a solve's
+    chain, forward or backward, is one split and four GEMMs).  Returns
     the fp64 fused run's backward launches."""
     from cfd_julia_torch.models import cavity, cavity_fused
 
@@ -4168,12 +4413,14 @@ def phase_packed_gradients(matmul_grad):
         rhs, rhs_back = (("cavity_fused_stage", "cavity_stage_backward")
                          if poisson.startswith("fused") else
                          ("arakawa_rhs", "arakawa_rhs_backward"))
-        tiers = 0 if poisson == "fused" else 12 * steps
+        # a solve's chain (forward or backward): 1 split, 4 GEMMs
+        gemms = 0 if poisson == "fused" else 12 * steps
+        splits = gemms // 4
         ok = (math.isfinite(r["grad"]) and rel <= tol
               and math.copysign(1.0, r["grad"]) == math.copysign(1.0, g)
               and fwd[rhs] == bwd[rhs_back] == 3 * steps
-              and fwd["tier_gemm"] == bwd["tier_gemm"] == tiers
-              and fwd["tier_split"] == bwd["tier_split"] == tiers)
+              and fwd["tier_gemm"] == bwd["tier_gemm"] == gemms
+              and fwd["tier_split"] == bwd["tier_split"] == splits)
         line = (f"phase 18 gradient (b) {poisson} {NX}^2 fp32: d(1e6 mean "
                 f"psi^2)/dRe = {r['grad']!r}, rel {rel:.3e} of the fp64 "
                 f"fused gradient (tol {tol:g}{', finite, the same sign' if tol == 0.5 else ''}); "
@@ -4181,7 +4428,8 @@ def phase_packed_gradients(matmul_grad):
                 f"forward / backward: {rhs} {fwd[rhs]} / {rhs_back} "
                 f"{bwd[rhs_back]}, tier_split {fwd['tier_split']} / "
                 f"{bwd['tier_split']}, tier_gemm {fwd['tier_gemm']} / "
-                f"{bwd['tier_gemm']} (want {3 * steps} and {tiers}); "
+                f"{bwd['tier_gemm']} (want {3 * steps}, {splits} and "
+                f"{gemms}); "
                 f"{r['seconds']:.2f} s, {r['peak_gb']:.2f} GB peak "
                 f"{'ok' if ok else 'FAIL'}")
         print(line)

@@ -32,7 +32,16 @@ rounds):
     (`tier product`: a TierPlan call, the field's split and the GEMM; on
     a tree with the earlier ABI, whose one kernel split both operands in
     its main loop, that kernel), the GEMM alone on split planes, the split
-    pass alone in both roles, and tier_matmul on raw operands;
+    pass alone in both roles, and tier_matmul on raw operands; the
+    tier solve (`tier solve`: chained on a tree with the planes
+    epilogue, tier_gemm_tn_planes, else per product; `tier solve per
+    product` on every tree) and each epilogue of the chain (`tier
+    epilogue A | B | C`, on a tree without it today's GEMM +
+    torch op + split; `tier GEMM + op + split` on every tree);
+  - the 1024^2 fused_bf16x3 cavity step, graphed, under torch.profiler on
+    each tree's library (`profile tier step`): device us and kernels a
+    step, the tier GEMM's and the split's share (a tree without the
+    planes epilogue solves per product);
   - the vortex step's derivative pass in its buffer mode
     (csrc/vortex_stage.cu) at 2048^2 fp32, into the ps23 and ps32
     inverses' buffers (chip_smoke.planned_inputs);
@@ -99,11 +108,22 @@ def folded(lib):
     return has(lib, "arakawa_rhs_backward_constant")
 
 
+# the fp32-C tier GEMM entry of a tree from before the planes epilogue
+# (map_a, map_b, c, M, N, ldc, k-blocks, a_lo, b_lo, passes, stream), whose
+# calls the planes entry's epilogue 0 (fp32 C, no op) stands in for
+_TIER_GEMM_TN_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
+    [ctypes.c_void_p]
+
+
 def bind(path: Path) -> ctypes.CDLL:
     """Load a kernel library and set the signatures of the symbols it has
     (a tree may hold only some of the sources); a tree from before the fold
-    gets its backward entries' earlier signatures."""
+    gets its backward entries' earlier signatures, one from before the
+    planes epilogue its tier_gemm_tn's."""
     lib = ctypes.CDLL(str(path))
+    if has(lib, "tier_gemm_tn"):
+        lib.tier_gemm_tn.restype = ctypes.c_int
+        lib.tier_gemm_tn.argtypes = _TIER_GEMM_TN_ARGS
     for name, (restype, argtypes) in _cuda_build.SIGNATURES.items():
         fn = getattr(lib, name, None)
         if fn is not None:
@@ -122,21 +142,32 @@ def has(lib, symbol):
 
 @contextlib.contextmanager
 def use(lib):
-    """The port's wrappers on `lib`: its load_library, and for a tree from
-    before the fold no counters and a launch that drops their argument."""
+    """The port's wrappers on `lib`: its load_library; for a tree from
+    before the fold no counters and a launch that drops their argument; for
+    one from before the planes epilogue, fp32 C through its tier_gemm_tn
+    (any other epilogue raises there)."""
     launch = ck._launch
+    planes = has(lib, "tier_gemm_tn_planes")
 
     def legacy(name, symbol, device, *args, outputs=()):
         k = _FOLD_COUNTER_ARG.get(name)
-        if k is not None:
+        if k is not None and not folded(lib):
             args = args[:k] + args[k + 1:]
+        if symbol == "tier_gemm_tn_planes" and not planes:
+            (ma, mb, out, m, n, ld, _, kb, a_lo, b_lo, passes, kind, _, _,
+             op, _) = args
+            if kind != 0 or op != 0:
+                raise RuntimeError("this tree has no planes epilogue")
+            symbol, args = "tier_gemm_tn", (ma, mb, out, m, n, ld, kb, a_lo,
+                                            b_lo, passes)
         return launch(name, symbol, device, *args, outputs=outputs)
 
     with contextlib.ExitStack() as stack:
         stack.enter_context(mock.patch.object(_cuda_build, "load_library",
                                               lambda: lib))
-        if not folded(lib):
+        if not folded(lib) or not planes:
             stack.enter_context(mock.patch.object(ck, "_launch", legacy))
+        if not folded(lib):
             stack.enter_context(mock.patch.object(ck, "_fold_counters",
                                                   lambda device: None))
         yield
@@ -197,7 +228,7 @@ def tier_cases(dev):
 
             out[f"tier product S@g {tag}"] = [
                 (per_library(lambda plan=plan: lambda p=plan(): p(g)),
-                 plain, None, "tier_gemm_tn"),
+                 plain, None, "tier_encode"),
                 (lambda passes=passes: legacy_tier(sine, g, passes), plain,
                  None, "tier_gemm")]
 
@@ -207,12 +238,13 @@ def tier_cases(dev):
                 return p.gemm
 
             out[f"tier gemm on split planes {tag}"] = [
-                (per_library(gemm_only), plain, None, "tier_gemm_tn")]
+                (per_library(gemm_only), plain, None, "tier_encode")]
             out[f"tier_matmul raw operands {tag}"] = [
                 (lambda passes=passes: ck.tier_matmul(sine, g, passes),
-                 plain, None, "tier_gemm_tn"),
+                 plain, None, "tier_encode"),
                 (lambda passes=passes: legacy_tier(sine, g, passes), plain,
                  None, "tier_gemm")]
+            out.update(tier_solve_cases(n, passes, dev))
             kp = ck._round_up(n, ck.TIER_BK)
             for role, transpose, rows in (("A", False, ck.TIER_BM),
                                           ("B", True, ck.TIER_BN)):
@@ -225,6 +257,195 @@ def tier_cases(dev):
                                         kp, passes),
                     None, "tier_split")]
     return out
+
+
+def tier_solve(n, passes, dev):
+    """The tier solve of the 1024^2 cavity (built with the library in
+    use): the packed step's solve_neg on 1024^2 buffers (n = 1024), or the
+    interior solve of the full-grid step (n = 1023), with a field."""
+    from cfd_julia_torch.models import cavity, cavity_fused
+    from cfd_julia_torch.poisson import direct
+
+    tier = "bf16x3" if passes == 3 else "bf16x1"
+    if n == cs.NX:
+        solve = cavity_fused.make_solve_neg(
+            cavity.CavityConfig(nx=cs.NX, ny=cs.NX, poisson=f"fused_{tier}"),
+            torch.float32, dev)
+    else:
+        solve = direct.make_fst_matmul_interior(
+            cs.NX, cs.NX, 1 / cs.NX, 1 / cs.NX, torch.float32, dev,
+            tier).interior
+    f = torch.as_tensor(np.random.default_rng(n + passes).standard_normal(
+        (n, n)), dtype=torch.float32, device=dev)
+    return solve, f
+
+
+def tier_solve_cases(n, passes, dev):
+    """label -> alternatives: the tier solve chained (one split, four
+    GEMMs writing each other's planes; a tree with tier_gemm_tn_planes)
+    or per product (four splits, four GEMMs, torch's / and *: every
+    tree), and each epilogue of the chain at 1024^3 (fused) beside
+    today's GEMM + torch op + split of the same product."""
+    tag = f"{n}^2 passes {passes}"
+    ref = {}
+
+    def plain():
+        if "u" not in ref:
+            solve, f = tier_solve(n, passes, dev)
+            mm = ck.tier_matmul_plain
+            sx, sy = solve.left.const, solve.right.const
+            coeff = mm(mm(sx, f, passes), sy, passes) / solve.den
+            ref["u"] = mm(mm(sx, coeff, passes), sy, passes) * solve.scale
+        return ref["u"]
+
+    def made(route):
+        def make():
+            solve, f = tier_solve(n, passes, dev)
+            return (lambda: solve(f)) if route == "chained" else \
+                (lambda: solve.products(f))
+        return per_library(make)
+
+    out = {f"tier solve {tag}": [
+        (made("chained"), plain, None, "tier_gemm_tn_planes"),
+        (made("per product"), plain, None, "tier_encode")],
+        f"tier solve per product {tag}": [
+        (made("per product"), plain, None, "tier_encode")]}
+    if n != cs.NX:
+        return out
+
+    def epilogue(role, today):
+        """A call of the chain's GEMM that writes role's output (today:
+        the GEMM, the torch op and the split pass instead), its planes
+        in place."""
+        def make():
+            solve, f = tier_solve(n, passes, dev)
+            left, right, den = solve.left, solve.right, solve.den
+            left.split(f)
+            right.split(left.gemm())
+            m = left.mnk[0]
+            if role == "A":
+                ext = ck.tier_plane_extents("A", m, m)
+                return ((lambda: ck.tier_split(left.gemm(), False, *ext,
+                                               passes, out=right._field))
+                        if today else
+                        (lambda: left.gemm_into("A", right._field)))
+            if role == "B":
+                ext = ck.tier_plane_extents("B", m, m)
+                return ((lambda: ck.tier_split(right.gemm() / den, True,
+                                               *ext, passes,
+                                               out=left._field))
+                        if today else
+                        (lambda: right.gemm_into("B", left._field,
+                                                 table=den)))
+            return ((lambda: right.gemm() * solve.scale) if today else
+                    (lambda: right.gemm_into(role, scale=solve.scale)))
+        return per_library(make)
+
+    def epilogue_plain(role):
+        def call():
+            solve, f = tier_solve(n, passes, dev)
+            c = ck.tier_matmul_plain(solve.left.const, f, passes)
+            if role == "A":
+                return ck.tier_split_plain(
+                    c, False, *ck.tier_plane_extents("A", n, n), passes
+                ).float()
+            c = ck.tier_matmul_plain(c, solve.right.const, passes)
+            if role == "B":
+                return ck.tier_split_plain(
+                    c / solve.den, True, *ck.tier_plane_extents("B", n, n),
+                    passes).float()
+            return c * solve.scale
+        return call
+
+    def variant(role, op):
+        """The chain's epilogue `role` with another op (a solve's den as
+        the table), to tell the op's cost from the layout's."""
+        def make():
+            solve, f = tier_solve(n, passes, dev)
+            left, right = solve.left, solve.right
+            left.split(f)
+            right.split(left.gemm())
+            kw = {"none": {}, "divide": {"table": solve.den},
+                  "scale": {"scale": solve.scale}}[op]
+            out = right._field if role == "A" else left._field
+            plan = left if role == "A" else right
+            return lambda: plan.gemm_into(role, out, **kw)
+        return per_library(make)
+
+    def variant_plain(role, op):
+        def call():
+            solve, f = tier_solve(n, passes, dev)
+            c = ck.tier_matmul_plain(solve.left.const, f, passes)
+            if role == "B":
+                c = ck.tier_matmul_plain(c, solve.right.const, passes)
+            kw = {"none": {}, "divide": {"table": solve.den},
+                  "scale": {"scale": solve.scale}}[op]
+            return ck.tier_split_plain(
+                ck._tier_op(c, **kw), role == "B",
+                *ck.tier_plane_extents(role, n, n), passes).float()
+        return call
+
+    for role, op in (("A", "divide"), ("B", "none"), ("B", "scale")):
+        out[f"tier epilogue variant {role} {op} {tag}"] = [
+            (variant(role, op), variant_plain(role, op), None,
+             "tier_gemm_tn_planes")]
+    for role in ("A", "B", "C"):
+        out[f"tier epilogue {role} {tag}"] = [
+            (epilogue(role, False), epilogue_plain(role), None,
+             "tier_gemm_tn_planes"),
+            (epilogue(role, True), epilogue_plain(role), None,
+             "tier_encode")]
+        out[f"tier GEMM + op + split {role} {tag}"] = [
+            (epilogue(role, True), epilogue_plain(role), None,
+             "tier_encode")]
+    return out
+
+
+def tier_step_profiles(libs, rounds):
+    """The 1024^2 fused_bf16x3 cavity step, graphed (20-step windows), on
+    each library in turns under torch.profiler: device us a step, kernels
+    a step, and the tier kernels' share; a tree without
+    tier_gemm_tn_planes runs its solves per product (four splits, four
+    GEMMs, / and *)."""
+    from cfd_julia_torch.models import cavity, cavity_fused
+    from cfd_julia_torch.stepping import loop
+
+    cfg = cavity.CavityConfig(nx=cs.NX, ny=cs.NX, dt=2e-5, re=cs.RE,
+                              bc_order=2, poisson="fused_bf16x3")
+    for r in range(rounds):
+        for name, lib in (libs if r % 2 == 0 else libs[::-1]):
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(use(lib))
+                if not has(lib, "tier_gemm_tn_planes"):
+                    stack.enter_context(mock.patch.object(
+                        ck.TierSolve, "__call__",
+                        lambda self, f: self.products(f)))
+                step = cavity_fused.make_fused_step_fn(cfg, torch.float32,
+                                                       "cuda")
+                state = cavity_fused.init_state(cfg, torch.float32, "cuda")
+                state, _ = loop.run_steps(step, state, 100)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = loop.run_steps(step, state, 100)
+                torch.cuda.synchronize()
+                step_s = (time.perf_counter() - t0) / 100
+                by_name = cs.phase_profile(
+                    f"ab tier step fused_bf16x3 {name} (graphed, "
+                    f"{1 / step_s:.2f} steps/s unprofiled)",
+                    lambda: loop.run_steps(step, state, 20), 20, step_s)
+            if not by_name:
+                continue
+            total = sum(us for us, _ in by_name.values())
+            n_all = sum(c for _, c in by_name.values())
+            gemm = cs.kernel_sums(by_name, "tier_gemm_kernel")
+            split = cs.kernel_sums(by_name, "split_cols_kernel",
+                                   "split_rows_kernel")
+            print(f"ab tier step {name}: device {total / 20:.2f} us/step in "
+                  f"{n_all / 20:.1f} kernels/step; tier GEMM "
+                  f"{gemm[0] / 20:.2f} us in {gemm[1] / 20:.1f}, split "
+                  f"{split[0] / 20:.2f} us in {split[1] / 20:.1f}, the rest "
+                  f"{(total - gemm[0] - split[0]) / 20:.2f} us in "
+                  f"{(n_all - gemm[1] - split[1]) / 20:.1f}")
 
 
 # the kernels whose registers and SASS are reported
@@ -579,6 +800,8 @@ def main(argv=None):
                                     f", wall vectors {rest_d:.3e}"))
     if not only or only.search("off"):
         off_profiles(libs, args.rounds)
+    if not only or only.search("profile tier step"):
+        tier_step_profiles(libs, args.rounds)
     if not only or only.search("profile cavity_stage_backward"):
         stage_backward_profiles(libs)
     if not only or only.search("profile arakawa_rhs_backward"):

@@ -1440,7 +1440,8 @@ def test_tier_backward_is_the_product_of_the_cotangent(cuda_device, passes):
 def test_graphed_fused_tier_with_reynolds_tensor_is_unchanged(cuda_device):
     """A graphed no-grad fused_bf16x3 run is the eager run of a step built
     with an Re tensor that requires no grad, bit for bit, with the same
-    launches (3 stage, 12 + 12 tier a step) and no backward launch; the
+    launches (3 stage, 12 tier GEMM and 3 split a step) and no backward
+    launch; the
     graphed loop refuses a step built with an Re tensor (its value is read
     once on the host, which a replay would keep) and a packed state that
     requires grad, each naming graph=False."""
@@ -1461,7 +1462,9 @@ def test_graphed_fused_tier_with_reynolds_tensor_is_unchanged(cuda_device):
     _assert_same(a, b)
     assert na == nb
     assert na["cavity_fused_stage"] == 180
-    assert na["tier_gemm"] == na["tier_split"] == 720
+    # a solve: one split (its input) and four GEMMs writing the next
+    # product's planes themselves
+    assert na["tier_gemm"] == 720 and na["tier_split"] == 180
     assert na["cavity_stage_backward"] == 0
     with pytest.raises(ValueError, match="graph=False"):
         loop.run_steps(re_step, state, 5)
@@ -1654,13 +1657,152 @@ def test_tier_gemm_wrapper_raises_on_cuda_misuse(cuda_device):
         plan(a.cpu())
 
 
+def _bits(t):
+    """A tensor to compare bitwise: bf16 planes as their int16 bits."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("role", ["A", "B", "C"])
+@pytest.mark.parametrize("shape", TIER_SHAPES)
+def test_tier_gemm_planes_is_split_of_op(cuda_device, shape, role, passes):
+    """The GEMM's planes epilogue (TierPlan.gemm_into) bitwise tier_split of
+    op(the plain GEMM's C), op torch's / and * by a table or a scale,
+    through a plan on either side: the next product's A operand, its B
+    operand transposed (every element of the padded planes, the pad's
+    zeros too), or fp32 op(C) (op cuda_kernels._tier_op: / table,
+    * scale, or none); one tier_gemm launch a
+    call, two calls bitwise, a buffer passed in written in full."""
+    m, n, k = shape
+    rng = np.random.default_rng(m + 3 * n + k + passes)
+    rand = lambda sh: torch.as_tensor(rng.standard_normal(sh),
+                                      dtype=torch.float32,
+                                      device=cuda_device)
+    table = (rand((m, n)).abs() + 0.5) * torch.where(
+        rand((m, n)) > 0, 1.0, -1.0)
+    scale = 4.0 / (m * n + 17)
+    for side, (const, field) in (("left", (rand((m, k)), rand((k, n)))),
+                                 ("right", (rand((k, n)), rand((m, k))))):
+        plan = cuda_kernels.TierPlan(const, passes, side, tuple(field.shape))
+        plan.split(field)
+        c = plan.gemm()
+        for kw in ({}, {"table": table}, {"scale": scale}):
+            want = cuda_kernels._tier_op(c, **kw)
+            if role != "C":
+                want = cuda_kernels.tier_split(
+                    want, role == "B",
+                    *cuda_kernels.tier_plane_extents(role, m, n), passes)
+            before = cuda_kernels.LAUNCHES["tier_gemm"]
+            got = plan.gemm_into(role, **kw)
+            out = torch.full_like(got, float("nan"))
+            again = plan.gemm_into(role, out, **kw)
+            torch.cuda.synchronize()
+            assert cuda_kernels.LAUNCHES["tier_gemm"] == before + 2
+            assert again is out
+            _assert_same(_bits(got), _bits(want))
+            _assert_same(_bits(again), _bits(got))
+
+
+def _solve_on_card(form, passes, device):
+    """A tier solve of the 1024^2 cavity's shapes: the packed step's
+    (1024^2 buffers, fused) or the interior one (1023^2, matmul)."""
+    tier = {3: "bf16x3", 1: "bf16x1"}[passes]
+    if form == "fused":
+        cfg = cavity.CavityConfig(nx=1024, ny=1024, poisson=f"fused_{tier}")
+        return cavity_fused.make_solve_neg(cfg, torch.float32, device)
+    return direct.make_fst_matmul_interior(
+        1024, 1024, 1 / 1024, 1 / 1024, torch.float32, device, tier).interior
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("form", ["fused", "matmul"])
+def test_tier_solve_is_the_per_product_solve(cuda_device, form, passes):
+    """A chained tier solve on the card (one split, four GEMMs writing each
+    other's planes, / den and * scale folded in) bitwise the plans'
+    products with torch's / and * between them, in 5 launches where those
+    take 8 and 2 elementwise ones; a strided field read in place; a CUDA
+    graph's replay bitwise the eager call; under autograd the same psi."""
+    solve = _solve_on_card(form, passes, cuda_device)
+    shape = solve.shape
+    rng = np.random.default_rng(passes)
+    full = torch.as_tensor(rng.standard_normal((shape[0] + 2, shape[1] + 2)),
+                           dtype=torch.float32, device=cuda_device)
+    for f in (full[1:-1, 1:-1], full[1:-1, 1:-1].contiguous()):
+        want = solve.products(f)
+        cuda_kernels.reset_launch_counts()
+        got = solve(f)
+        torch.cuda.synchronize()
+        assert cuda_kernels.LAUNCHES["tier_split"] == 1
+        assert cuda_kernels.LAUNCHES["tier_gemm"] == 4
+        _assert_same(got, want)
+    x = f.clone().requires_grad_()
+    _assert_same(solve(x).detach(), want)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = solve(f)
+    f.copy_(torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=cuda_device))
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_same(out, solve.products(f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["matmul_bf16x3", "matmul_bf16x1",
+                                  "fused_bf16x3", "fused_bf16x1"])
+def test_chained_tier_gradient_is_the_per_product_one(cuda_device, tier,
+                                                      monkeypatch):
+    """d loss/dRe and d loss/d(w0) through 5 fp32 steps at 64^2 on the card,
+    the chained solve's backward (one split, four GEMMs) bitwise the
+    per-product solve's (a _TierPlanProduct a product, torch's / and *),
+    as many tier launches backward as forward."""
+    cfg = cavity.CavityConfig(nx=64, ny=64, dt=1e-3, poisson=tier)
+
+    def grads():
+        re_t = torch.tensor(100.0, device=cuda_device, requires_grad=True)
+        if tier.startswith("fused"):
+            step = cavity_fused.make_fused_step_fn(cfg, torch.float32,
+                                                   cuda_device, re=re_t)
+            state = cavity_fused.init_state(cfg, torch.float32, cuda_device)
+        else:
+            step = cavity.make_step_fn(cfg, torch.float32, cuda_device,
+                                       re=re_t)
+            state = cavity.initial_state(cfg, torch.float32, cuda_device)
+        rng = np.random.default_rng(4)
+        w0 = torch.as_tensor(0.1 * rng.standard_normal(
+            tuple(state[0].shape)), dtype=torch.float32,
+            device=cuda_device).requires_grad_()
+        cuda_kernels.reset_launch_counts()
+        final = loop.advance(step, (w0, *state[1:]), 5, graph=False)
+        loss = 1e6 * torch.mean(final[1] ** 2)
+        fwd = dict(cuda_kernels.LAUNCHES)
+        cuda_kernels.reset_launch_counts()
+        got = torch.autograd.grad(loss, (re_t, w0))
+        torch.cuda.synchronize()
+        return (loss.detach(), *got), fwd, dict(cuda_kernels.LAUNCHES)
+
+    chained, fwd, bwd = grads()
+    assert fwd["tier_gemm"] == bwd["tier_gemm"] == 12 * 5
+    assert fwd["tier_split"] == bwd["tier_split"] == 3 * 5
+    monkeypatch.setattr(cuda_kernels.TierSolve, "__call__",
+                        lambda self, f: self.products(f))
+    per_product, fwd_p, _ = grads()
+    assert fwd_p["tier_split"] == 12 * 5
+    _assert_same(chained, per_product)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", ["matmul_bf16x3", "matmul_bf16x1",
                                   "fused_bf16x3", "fused_bf16x1"])
 def test_graphed_tier_cavity_equals_eager(cuda_device, tier):
     """60 fp32 steps of a tier at 64^2, twice on one step function: the
     graphed state and rms history are the eager ones bit for bit, with 12
-    tier_gemm and 12 tier_split launches a step either way."""
+    tier_gemm and 3 tier_split launches a step either way (a solve splits
+    its input once; each GEMM writes the next product's planes)."""
     cfg = cavity.CavityConfig(nx=64, ny=64, dt=1e-3, poisson=tier)
     if tier.startswith("fused"):
         step = cavity_fused.make_fused_step_fn(cfg, torch.float32,
@@ -1679,7 +1821,8 @@ def test_graphed_tier_cavity_equals_eager(cuda_device, tier):
     assert all(bool(torch.isfinite(t).all()) for t in eager)
     _assert_same(graphed, eager)
     assert n_graph == n_eager
-    assert n_graph["tier_gemm"] == n_graph["tier_split"] == 12 * 120
+    assert n_graph["tier_gemm"] == 12 * 120
+    assert n_graph["tier_split"] == 3 * 120
 
 
 @pytest.mark.cuda

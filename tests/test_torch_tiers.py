@@ -389,6 +389,344 @@ def test_swizzle_is_a_bijection_and_matches_the_descriptors(passes):
             assert (swizzled == _tma_sw128(row[:, 0], 16 * j + kk)).all()
 
 
+# ------------------------------------------- the GEMM's planes epilogue
+
+def _epilogue_constants():
+    """csrc/tier_gemm.cu's planes tile pitches and its Epilogue / Op
+    enums."""
+    src = (_cuda_build.CSRC / "tier_gemm.cu").read_text()
+    c = _kernel_constants()
+    out = {name: c[base] + int(re.search(
+        rf"constexpr int {name} = {base} \+ (\d+);", src).group(1))
+        for name, base in (("kTilePitch", "kBN"), ("kTilePitchT", "kBM"))}
+    for enum in ("Epilogue", "Op"):
+        body = re.search(rf"enum {enum} : int {{([^}}]*)}}", src).group(1)
+        out[enum] = {k: int(v) for k, v in
+                     re.findall(r"(\w+) = (\d+)", body)}
+    return out
+
+
+def _np_op(c, op):
+    """The epilogue's op on fp32 values in numpy (IEEE / and *)."""
+    kind, value = op
+    if kind == "divide":
+        return (c / value).astype(np.float32)
+    if kind == "scale":
+        return (c * np.float32(value)).astype(np.float32)
+    return c
+
+
+def _emulate_epilogue(c, role, passes, op=("none", None)):
+    """tier_gemm_tn_planes's epilogue in numpy, fed the accumulators' values
+    c (M, N) (NaN past C: the zero-padded planes' products, which the
+    epilogue must not store): a block per (kBM, kBN) tile, the wgmma
+    fragments of its two warpgroups with op applied, stored straight from
+    the fragments for role C, else written (0 past C) into the tile in the
+    ring (transposed for role B), from which each consumer thread reads
+    back its turns' chunks, 8 values of a plane row split as split8 splits
+    them.  Returns the destination (bf16 planes as uint16 bits, from
+    0xFFFF; fp32 C from NaN) and how often each element was stored;
+    asserts that the read phase reads only tile slots written once."""
+    k, e = _kernel_constants(), _epilogue_constants()
+    BM, BN, chunk, threads = k["kBM"], k["kBN"], k["kChunk"], k["kConsumers"]
+    M, N = c.shape
+    gm, gn = -(-M // BM) * BM, -(-N // BN) * BN
+    planes = 2 if passes == 3 else 1
+    if role == "C":
+        dest = np.full((M, N), np.nan, np.float32)
+    else:
+        rows, kp = cuda_kernels.tier_plane_extents(role, M, N)
+        dest = np.full((planes, rows, kp), 0xFFFF, np.uint16)
+    stores = np.zeros(dest.shape, int)
+    t = np.arange(threads)
+    wg, warp, lane = t >> 7, (t >> 5) & 3, t & 31
+    opv = _np_op(c, op)
+    transposed = role == "B"
+    pitch = e["kTilePitchT"] if transposed else e["kTilePitch"]
+    for m0 in range(0, gm, BM):
+        for n0 in range(0, gn, BN):
+            tile = np.full((BN if transposed else BM) * pitch, np.nan,
+                           np.float32)
+            written = np.zeros(tile.shape, int)
+            for h in range(2):
+                for i in range(BN // 8):
+                    for j in range(2):
+                        r = wg * 64 + warp * 16 + (lane >> 2) + 8 * h
+                        cc = 8 * i + 2 * (lane & 3) + j
+                        row, col = m0 + r, n0 + cc
+                        inside = (row < M) & (col < N)
+                        v = np.where(inside, opv[np.minimum(row, M - 1),
+                                                 np.minimum(col, N - 1)],
+                                     np.float32(0))
+                        if role == "C":
+                            dest[row[inside], col[inside]] = v[inside]
+                            np.add.at(stores, (row[inside], col[inside]), 1)
+                            continue
+                        slot = cc * pitch + r if transposed else \
+                            r * pitch + cc
+                        tile[slot] = v
+                        np.add.at(written, slot, 1)
+            if role == "C":
+                continue
+            assert written.max() == 1
+            n_rows = BN if transposed else BM
+            chunks = (BM if transposed else BN) // chunk
+            row_base, k_base = (n0, m0) if transposed else (m0, n0)
+            for turn in range(n_rows * chunks // threads):
+                q = t + turn * threads
+                r, kk = q // chunks, (q % chunks) * chunk
+                row, col = row_base + r, k_base + kk
+                ok = (row < dest.shape[1]) & (col < dest.shape[2])
+                slot = (r[ok] * pitch + kk[ok])[:, None] + np.arange(chunk)
+                assert (written[slot] == 1).all()
+                hi, lo = _split_chunk(tile[slot])
+                cols = col[ok][:, None] + np.arange(chunk)
+                for pl, bits in enumerate((hi, lo)[:planes]):
+                    dest[pl, row[ok][:, None], cols] = bits
+                    np.add.at(stores, (pl, row[ok][:, None], cols), 1)
+    return dest, stores
+
+
+EPILOGUE_ROLES = ["A", "B", "C"]
+EPILOGUE_OPS = ["none", "divide", "scale"]
+
+
+def _epilogue_case(shape, op, seed):
+    """C of a random product (with 0, -0 and subnormal entries, as GEMM
+    outputs may hold) and the op's table or scale."""
+    m, n, k = shape
+    a, b = _operands(m, n, k, seed)
+    rng = np.random.default_rng(seed + 1)
+    c = np.array(_mm_emulated(a, b, 3))
+    flat = c.reshape(-1)
+    specials = np.array([0.0, -0.0, 1e-40, -3e-39, 1e-45], np.float32)
+    flat[rng.choice(flat.size, min(flat.size, specials.size),
+                    replace=False)] = specials[:min(flat.size,
+                                                    specials.size)]
+    table = (rng.uniform(0.5, 2.0, (m, n)) * rng.choice([-1, 1], (m, n))
+             ).astype(np.float32)
+    value = {"none": None, "divide": table, "scale": 4.0 / (m * n + 17)}[op]
+    return c, value
+
+
+def _torch_op(c, op, value):
+    """op as the solve writes it in torch: / table, * scale."""
+    if op == "divide":
+        return c / torch.from_numpy(value)
+    if op == "scale":
+        return c * value
+    return c
+
+
+@pytest.mark.parametrize("op", EPILOGUE_OPS)
+@pytest.mark.parametrize("role", EPILOGUE_ROLES)
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_planes_epilogue_emulation_is_split_of_op(shape, role, op):
+    """The planes epilogue's index map, emulated from the wgmma fragments
+    through the tile in the ring to each destination slot: every element of the
+    destination's padded extents stored exactly once (from 0xFFFF / NaN),
+    the pad 0, and the result bitwise tier_split_plain(op(C)) (A: the next
+    product's A operand, B: its B operand transposed) or op(C) itself (C,
+    from the fragments), op torch's / or * on the same C (zeros and
+    subnormals included), for 1 and 3 passes."""
+    c, value = _epilogue_case(shape, op, seed=sum(shape) + len(role))
+    ref32 = _torch_op(torch.from_numpy(c), op, value)
+    for passes in (1, 3):
+        got, stores = _emulate_epilogue(c, role, passes, (op, value))
+        assert (stores == 1).all()
+        if role == "C":
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          ref32.numpy().view(np.uint32))
+            continue
+        ref = cuda_kernels.tier_split_plain(
+            ref32, role == "B",
+            *cuda_kernels.tier_plane_extents(role, *c.shape), passes)
+        assert (ref.view(torch.int16).numpy().view(np.uint16) == got).all()
+
+
+def test_epilogue_enums_match_the_wrapper():
+    """The wrapper's epilogue and op codes are the kernel's enums; the
+    planes tiles fit a ring stage of 1 pass and keep their float4 reads
+    16-byte aligned."""
+    c, e = _kernel_constants(), _epilogue_constants()
+    assert e["Epilogue"] == {"kDirectC": 0, "kPlanesA": 1, "kPlanesB": 2}
+    assert list(e["Epilogue"].values()) == \
+        [cuda_kernels._TIER_EPILOGUE[r] for r in ("C", "A", "B")]
+    assert e["Op"] == {"kOpNone": 0, "kOpDivide": 1, "kOpScale": 2}
+    assert list(e["Op"].values()) == list(cuda_kernels._TIER_OP.values())
+    ring_1pass = c["kStages"] * (c["kBM"] + c["kBN"]) * c["kBK"] * 2
+    assert c["kBM"] * e["kTilePitch"] * 4 <= ring_1pass
+    assert c["kBN"] * e["kTilePitchT"] * 4 <= ring_1pass
+    assert e["kTilePitch"] % 4 == 0 and e["kTilePitchT"] % 4 == 0
+
+
+@pytest.mark.parametrize("op", EPILOGUE_OPS)
+@pytest.mark.parametrize("role", ["A", "B", "C"])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (15, 17, 13), (130, 131, 129)])
+def test_planes_plain_is_split_of_op_of_the_twin(shape, role, op):
+    """tier_gemm_planes_plain is tier_split_plain(op(tier_matmul_plain))
+    bitwise, op torch's / or *, for 1 and 3 passes."""
+    m, n, k = shape
+    a, b = (torch.from_numpy(x) for x in _operands(m, n, k, seed=m + k))
+    _, value = _epilogue_case(shape, op, seed=n)
+    kw = {"none": {}, "divide": {"table": value},
+          "scale": {"scale": value}}[op]
+    kw = {key: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+          for key, v in kw.items()}
+    for passes in (1, 3):
+        got = cuda_kernels.tier_gemm_planes_plain(a, b, passes, role, **kw)
+        c = _torch_op(cuda_kernels.tier_matmul_plain(a, b, passes), op,
+                      value)
+        want = c if role == "C" else cuda_kernels.tier_split_plain(
+            c, role == "B", *cuda_kernels.tier_plane_extents(role, m, n),
+            passes)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# ------------------------------------------------------- the chained solve
+
+def _sine(n, size=None):
+    size = size or n - 1
+    k = torch.arange(1, size + 1, dtype=torch.int32)
+    return torch.where((k[:, None] < n) & (k[None, :] < n),
+                       direct._sine_entries(k[:, None], k[None, :], n, F32),
+                       0.0)
+
+
+def _solve_parts(shape, passes, seed):
+    """Plans of two symmetric sine matrices over fields of `shape`, a
+    negative den and a field."""
+    p, q = shape
+    sx, sy = _sine(p + 1), _sine(q + 1)
+    rng = np.random.default_rng(seed)
+    den = torch.from_numpy(-rng.uniform(1.0, 50.0, shape).astype(np.float32))
+    f = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    plans = (cuda_kernels.TierPlan(sx, passes, "left", shape),
+             cuda_kernels.TierPlan(sy, passes, "right", shape))
+    return plans, den, f
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("shape", [(16, 16), (31, 40), (64, 128)])
+def test_tier_solve_on_cpu_is_the_composition(shape, passes):
+    """A TierSolve on the CPU is the plans' products with torch's / and *
+    between them, bitwise (without grad and under autograd, the same psi),
+    the same as tier_matmul_plain written out; its gradient is autograd of
+    that composition, bitwise."""
+    (left, right), den, f = _solve_parts(shape, passes, seed=sum(shape))
+    scale = 4.0 / ((shape[0] + 1) * (shape[1] + 1))
+    solve = cuda_kernels.TierSolve(left, right, den, scale)
+    mm = cuda_kernels.tier_matmul_plain
+    coeff = mm(mm(left.const, f, passes), right.const, passes) / den
+    want = mm(mm(left.const, coeff, passes), right.const, passes) * scale
+    assert torch.equal(solve(f), want)
+    assert torch.equal(solve.products(f), want)
+    x = f.clone().requires_grad_()
+    out = solve(x)
+    assert out.grad_fn is not None and torch.equal(out.detach(), want)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        shape).astype(np.float32))
+    (got,) = torch.autograd.grad(out, x, g)
+    y = f.clone().requires_grad_()
+    (ref,) = torch.autograd.grad(solve.products(y), y, g)
+    assert torch.equal(got, ref)
+
+
+def test_tier_solve_refuses_bad_parts():
+    (left, right), den, f = _solve_parts((16, 16), 3, seed=1)
+    with pytest.raises(ValueError, match="left and a right"):
+        cuda_kernels.TierSolve(right, left, den, 1.0)
+    with pytest.raises(ValueError, match="den"):
+        cuda_kernels.TierSolve(left, right, den[:, :8], 1.0)
+    with pytest.raises(ValueError, match="den"):
+        cuda_kernels.TierSolve(left, right, den.double(), 1.0)
+    other = cuda_kernels.TierPlan(_sine(17), 1, "right", (16, 16))
+    with pytest.raises(ValueError, match="one tier"):
+        cuda_kernels.TierSolve(left, other, den, 1.0)
+    wide = cuda_kernels.TierPlan(torch.ones(16, 8), 3, "left", (8, 16))
+    with pytest.raises(ValueError, match="square"):
+        cuda_kernels.TierSolve(wide, right, den, 1.0)
+    solve = cuda_kernels.TierSolve(left, right, den, 1.0)
+    with pytest.raises(ValueError, match="fields"):
+        solve(f[:, :8])
+    grad_den = cuda_kernels.TierSolve(left, right,
+                                      den.clone().requires_grad_(), 1.0)
+    with pytest.raises(ValueError, match="no gradient"):
+        grad_den(f)
+    with pytest.raises(ValueError, match="on the card"):
+        left.gemm_into("A")
+
+
+# the tier solves against the JAX package's fp32 solve (JAX's CPU backend
+# ignores mm_precision): rel. to max|u|, the trajectories' bounds
+# (measured 1.07e-5 and 1.16e-5 for bf16x3, 7.2e-3 and 8.3e-3 for bf16x1,
+# the matmul and fused forms alike)
+SOLVE_TOL = {"bf16x3": 5e-5, "bf16x1": 1e-2}
+
+
+@pytest.mark.parametrize("tier", ["bf16x3", "bf16x1"])
+@pytest.mark.parametrize("form", ["matmul", "fused"])
+@pytest.mark.parametrize("nx,ny", [(33, 47), (64, 64)])
+def test_tier_solve_matches_jax_fp32_solve(nx, ny, form, tier):
+    """The matmul tiers' interior solve (make_fst_matmul_interior) and the
+    fused tiers' packed solve_neg (cavity_fused.make_solve_neg) against
+    the JAX package's solve_fst_matmul_interior(mm_precision="high"), on
+    a seeded field: within SOLVE_TOL of max|u|."""
+    rng = np.random.default_rng(nx * ny)
+    f = np.zeros((nx + 1, ny + 1), np.float32)
+    f[1:-1, 1:-1] = rng.standard_normal((nx - 1, ny - 1))
+    dx, dy = 1.0 / nx, 1.0 / ny
+    ref = np.asarray(jax_direct.solve_fst_matmul_interior(
+        jnp.asarray(f), nx, ny, dx, dy, mm_precision="high"))
+    ft = torch.from_numpy(f)
+    if form == "matmul":
+        got = direct.make_fst_matmul_interior(nx, ny, dx, dy, F32, "cpu",
+                                              tier=tier)(ft).numpy()
+    else:
+        cfg = cavity.CavityConfig(nx=nx, ny=ny, poisson=f"fused_{tier}")
+        P, Q = cavity_fused.padded_extents(nx, ny)
+        wt = torch.zeros((P, Q), dtype=F32)
+        wt[:nx - 1, :ny - 1] = -ft[1:-1, 1:-1]
+        psi = cavity_fused.make_solve_neg(cfg, F32, "cpu")(wt)
+        assert not psi[nx - 1:].any() and not psi[:, ny - 1:].any()
+        got = np.zeros_like(f)
+        got[1:-1, 1:-1] = psi[:nx - 1, :ny - 1].numpy()
+    assert _rel(got, ref) <= SOLVE_TOL[tier]
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_chained_solve_gradient_is_the_per_product_one(tier, monkeypatch):
+    """d loss/dRe and d loss/d(w0) through 3 fp32 steps at 24^2 with the
+    chained solve (one autograd Function a solve) bitwise the gradients
+    through the per-product solve (a _TierPlanProduct a product, torch's
+    / and * between), and the same loss."""
+    cfg = cavity.CavityConfig(nx=24, ny=24, dt=1e-3, poisson=tier)
+    rng = np.random.default_rng(3)
+
+    def grads():
+        re_t = torch.tensor(100.0, dtype=F32, requires_grad=True)
+        if tier.startswith("fused"):
+            step = cavity_fused.make_fused_step_fn(cfg, F32, "cpu", re=re_t)
+            state = cavity_fused.init_state(cfg, F32, "cpu")
+        else:
+            step = cavity.make_step_fn(cfg, F32, "cpu", re=re_t)
+            state = cavity.initial_state(cfg, F32, "cpu")
+        w0 = torch.from_numpy(0.1 * rng.standard_normal(
+            tuple(state[0].shape)).astype(np.float32)).requires_grad_()
+        final = loop.advance(step, (w0, *state[1:]), 3, graph=False)
+        loss = 1e6 * torch.mean(final[1] ** 2)
+        return (loss.detach(), *torch.autograd.grad(loss, (re_t, w0)))
+
+    chained = grads()
+    rng = np.random.default_rng(3)
+    monkeypatch.setattr(cuda_kernels.TierSolve, "__call__",
+                        lambda self, f: self.products(f))
+    per_product = grads()
+    for got, want in zip(chained, per_product):
+        assert torch.equal(got, want)
+    assert float(chained[1]) != 0.0
+
+
 # ------------------------------------------------------- the DST solve
 
 def _dst_problem(nx=512, seed=7):
