@@ -89,6 +89,8 @@ _MG_ARGS = {
         [_PTR] * 7 + [_INT, _INT, _DBL, _DBL, _INT, _PTR],
     # nr, nc, sweeps -> partial sums the ascend edge's residual sum writes
     "mg_ssq_partials": [_INT, _INT, _INT],
+    # u, f, r (or null), partials, ssq, nr, nc, 1/dx^2, 1/dy^2, stream
+    "mg_residual_ssq": [_PTR] * 5 + [_INT, _INT, _DBL, _DBL, _PTR],
 }
 # exported C symbol -> (restype, argtypes); every pointer and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints
@@ -124,6 +126,7 @@ SIGNATURES = {
     "cfd_cuda_error_string": (ctypes.c_char_p, [_INT]),
     "mg_edge_sweeps_per_pass": (_INT, []),
     "mg_edge_work_fields": (_INT, [_INT]),
+    "mg_residual_ssq_partials": (_INT, [_INT, _INT]),
     **{f"{name}_{sfx}": (_INT, args) for name, args in _MG_ARGS.items()
        for sfx in ("f32", "f64", "bf16")},
 }

@@ -30,6 +30,10 @@ Kernels (csrc/ file; TPU function replaced):
   smooth_residual_restrict_fused  multigrid.cu;   smooth_residual_restrict_fused
   residual_restrict_fused         multigrid.cu;   residual_restrict_fused
   prolong_correct_smooth_fused    multigrid.cu;   prolong_correct_smooth_fused
+  residual_ssq                    multigrid.cu;   none: the XLA-fused
+                                  residual_full + sum of r^2 of the JAX
+                                  multigrid solve (its rms0, an unfused
+                                  cycle's check, fmg_start's g)
   euler_rhs_fused                 euler_rhs.cu;   euler_rhs_fused
   cavity_fused_stage              cavity_stage.cu; the XLA-fused stage of
                                   models/cavity_fused.py:153-215 (not a
@@ -79,7 +83,8 @@ from cfd_julia_torch.poisson import iterative
 LAUNCHES = {"arakawa_rhs": 0, "arakawa_rhs_backward": 0,
             "redblack_sweeps": 0,
             "smooth_residual_restrict": 0, "residual_restrict": 0,
-            "prolong_correct_smooth": 0, "euler_rhs": 0,
+            "prolong_correct_smooth": 0, "residual_ssq": 0,
+            "euler_rhs": 0,
             "cavity_fused_stage": 0, "cavity_stage_backward": 0,
             "tier_split": 0, "tier_gemm": 0,
             "vortex_derivs_half": 0, "vortex_product": 0,
@@ -498,11 +503,36 @@ def residual_restrict_fused(u, f, dx: float, dy: float):
     return fc
 
 
+def _span(t) -> tuple[int, int]:
+    """The bytes [first, last) a tensor's elements occupy."""
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size()
+
+
+def _check_out(name: str, out, like, *inputs) -> None:
+    """An `out=` tensor must be a contiguous tensor of like's shape, dtype
+    and device that shares no byte with `inputs`."""
+    if out.dtype != like.dtype:
+        raise TypeError(f"{name}: out of {out.dtype}, want {like.dtype}")
+    if out.shape != like.shape or out.device != like.device:
+        raise ValueError(f"{name}: out of shape {tuple(out.shape)} on "
+                         f"{out.device}, want {tuple(like.shape)} on "
+                         f"{like.device}")
+    if not out.is_contiguous():
+        raise ValueError(f"{name} writes a contiguous out")
+    a0, a1 = _span(out)
+    for t in inputs:
+        b0, b1 = _span(t)
+        if a0 < b1 and b0 < a1:
+            raise ValueError(f"{name}: out overlaps an input")
+
+
 def prolong_correct_smooth_fused_plain(u, f, uc, dx: float, dy: float,
-                                       sweeps: int, want_rms: bool = False):
+                                       sweeps: int, want_rms: bool = False,
+                                       out=None):
     """Plain twin of prolong_correct_smooth_fused: reshape prolongation,
     masked add, the sweeps, and sum(r^2) of the result in the compute
-    dtype."""
+    dtype; the result copied into `out` when given."""
     from cfd_julia_torch.poisson import multigrid
 
     u32, f32 = _compute(u), _compute(f)
@@ -510,14 +540,16 @@ def prolong_correct_smooth_fused_plain(u, f, uc, dx: float, dy: float,
                                    u32.dtype, u.device)
     v = u32 + multigrid.prolongation_reshape(_compute(uc)) * mask
     v = _sweeps_plain(v, f32, dx, dy, sweeps)
+    res = v.to(u.dtype) if out is None else out.copy_(v)
     if not want_rms:
-        return v.to(u.dtype)
+        return res
     r = iterative.residual_full(f32, v, dx, dy, mask)
-    return v.to(u.dtype), torch.sum(r * r)
+    return res, torch.sum(r * r)
 
 
 def prolong_correct_smooth_fused(u, f, uc, dx: float, dy: float,
-                                 sweeps: int, want_rms: bool = False):
+                                 sweeps: int, want_rms: bool = False,
+                                 out=None):
     """The V-cycle ascend edge (mg_N.jl:94-105): bilinear prolongation of
     the coarse correction uc, added at interior nodes, then `sweeps`
     red-black sweeps; == smooth(u + prolongation(uc) * imask, f, sweeps).
@@ -525,13 +557,17 @@ def prolong_correct_smooth_fused(u, f, uc, dx: float, dy: float,
     as a 0-d fp32 tensor (fp64 for fp64 fields), summed in a fixed order
     (csrc/multigrid.cu, mg_prolong_correct_smooth_*: one pass over
     shared-memory tiles for up to 3 sweeps, and with the sum one
-    one-block reduction)."""
+    one-block reduction).  out: a contiguous tensor like u, sharing no
+    memory with u, f or uc, that the result is written into (a captured
+    V-cycle's static u); a new tensor when None."""
     _check_level("prolong_correct_smooth_fused", u, f, uc, sweeps)
+    if out is not None:
+        _check_out("prolong_correct_smooth_fused", out, u, u, f, uc)
     if _on_cpu("prolong_correct_smooth_fused", u, f, uc):
         return prolong_correct_smooth_fused_plain(u, f, uc, dx, dy, sweeps,
-                                                  want_rms)
+                                                  want_rms, out)
     nr, nc = u.shape
-    out = torch.empty_like(u)
+    out = torch.empty_like(u) if out is None else out
     work = _pass_work(u, sweeps)
     partials = ssq = None
     if want_rms:
@@ -546,6 +582,39 @@ def prolong_correct_smooth_fused(u, f, uc, dx: float, dy: float,
             _ptr(work), _ptr(partials), _ptr(ssq), nr, nc, 1.0 / dx**2,
             1.0 / dy**2, sweeps, outputs=(out, ssq))
     return (out, ssq) if want_rms else out
+
+
+def residual_ssq_plain(u, f, dx: float, dy: float, want_r: bool = False):
+    """Plain twin of residual_ssq: r = iterative.residual_full(f, u, dx,
+    dy, interior mask) in the compute dtype, and (sum(r * r), r or None)."""
+    u32, f32 = _compute(u), _compute(f)
+    mask = iterative.interior_mask(u.shape[0] - 1, u.shape[1] - 1,
+                                   u32.dtype, u.device)
+    r = iterative.residual_full(f32, u32, dx, dy, mask)
+    return torch.sum(r * r), (r.to(u.dtype) if want_r else None)
+
+
+def residual_ssq(u, f, dx: float, dy: float, want_r: bool = False):
+    """(ssq, r): the sum of the squared 5-point residual f - lap(u) over
+    the interior of an (n_rows, n_cols) level, >= 3 a side, as a 0-d
+    tensor in the compute dtype (fp32, fp64 for fp64 fields), summed in a
+    fixed order; with want_r the residual itself (0 on the boundary ring,
+    u's dtype), else None (csrc/multigrid.cu, mg_residual_ssq_*: one
+    streaming pass and a one-block reduction of its partials)."""
+    _check_level("residual_ssq", u, f, node_centred=False)
+    if _on_cpu("residual_ssq", u, f):
+        return residual_ssq_plain(u, f, dx, dy, want_r)
+    nr, nc = u.shape
+    cdt = _compute_dtype(u)
+    n = _cuda_build.load_library().mg_residual_ssq_partials(nr, nc)
+    partials = torch.empty(n, dtype=cdt, device=u.device)
+    ssq = torch.empty((), dtype=cdt, device=u.device)
+    r = torch.empty_like(u) if want_r else None
+    _launch("residual_ssq", f"mg_residual_ssq_{_SUFFIX[u.dtype]}", u.device,
+            u.data_ptr(), f.data_ptr(), _ptr(r), partials.data_ptr(),
+            ssq.data_ptr(), nr, nc, 1.0 / dx**2, 1.0 / dy**2,
+            outputs=(ssq, r))
+    return ssq, r
 
 
 # ------------------------------------------------------- Euler RHS

@@ -27,7 +27,9 @@ the ascend edge one `prolong_correct_smooth_fused` call (one launch, and
 one more for the residual sum that the finest ascend edge returns for the
 convergence check).  The coarsest-level smoother, and every smoother under
 `fused="off"`, is `redblack_sweeps_fused` (one launch for up to 3 sweeps,
-and for any sweeps on a level of at most 65^2 nodes).
+and for any sweeps on a level of at most 65^2 nodes).  A solve's rms0,
+with fmg its right-hand side g, and an unfused cycle's check are one
+`residual_ssq` call each (a streaming pass and its sum).
 
 On a CUDA device `solve` captures one V-cycle, with its rms and
 rms/rms0, as a CUDA graph (the JAX package's `lax.while_loop` body) and
@@ -35,8 +37,11 @@ replays it once a cycle; the host reads rms/rms0 once a cycle to test
 convergence, as the eager loop does.  The graph is kept per solve
 configuration (grid, dtype, device, spacing, the cycle's options), the
 four most recent ones, so repeated solves replay it; a solve copies its
-f, u0 and rms0 into the graph's static tensors.  fmg_start and the rms0
-residual run eagerly, once a solve.  graph=False keeps the eager loop.
+f, u0 and rms0 into the graph's static tensors.  A fused cycle's finest
+ascend edge writes the graph's static u itself (its `out=`), so a replay
+copies nothing back; an unfused one copies its u there.  fmg_start and
+the rms0 residual run eagerly, once a solve.  graph=False keeps the eager
+loop.
 `solve(..., mesh=)` runs the multi-device solve on a mesh of ranks (the
 last section).  Left out of the port: `cycle_dtype="bf16"` (its numerics
 stall at 4096², ROADMAP A.0), and the TPU-only halo, tile and interpret
@@ -57,7 +62,6 @@ from cfd_julia_torch.parallel import mesh as mesh_lib
 from cfd_julia_torch.poisson.iterative import (
     IterativeResult,
     _record,
-    _rms_from_full,
     chebyshev_smooth,
     interior_mask,
     residual_full,
@@ -266,17 +270,20 @@ class _EdgeOps(NamedTuple):
     prolong_correct_smooth: object
     residual_restrict: object
     redblack_sweeps: object
+    residual_ssq: object
 
 
 _OPS = {
     "kernel": _EdgeOps(cuda_kernels.smooth_residual_restrict_fused,
                        cuda_kernels.prolong_correct_smooth_fused,
                        cuda_kernels.residual_restrict_fused,
-                       cuda_kernels.redblack_sweeps_fused),
+                       cuda_kernels.redblack_sweeps_fused,
+                       cuda_kernels.residual_ssq),
     "torch": _EdgeOps(cuda_kernels.smooth_residual_restrict_fused_plain,
                       cuda_kernels.prolong_correct_smooth_fused_plain,
                       cuda_kernels.residual_restrict_fused_plain,
-                      cuda_kernels.redblack_sweeps_fused_plain),
+                      cuda_kernels.redblack_sweeps_fused_plain,
+                      cuda_kernels.residual_ssq_plain),
 }
 
 
@@ -312,14 +319,15 @@ def _fused(cfg: MGConfig) -> bool:
 
 
 def v_cycle(u, f, levels, imasks, cfg: MGConfig, impl: str,
-            want_rms: bool = False):
+            want_rms: bool = False, out=None):
     """One V-cycle over the level pyramid (mg_N.jl:53-106); `impl` is
     "kernel" or "torch" (see impl_choice).
 
     want_rms=True returns (u, ssq) where ssq is the sum of the squared
     interior residual of the RETURNED u, computed by the finest ascend
     kernel (None when that edge did not run fused, or for a single-level
-    pyramid)."""
+    pyramid).  out: where a fused finest ascend edge writes the returned
+    u (not u itself, which the descend edge reads); ignored otherwise."""
     n = len(levels)
     fused = _fused(cfg)
     sm = "cheb" if cfg.smoother == "cheb" else impl
@@ -358,7 +366,8 @@ def v_cycle(u, f, levels, imasks, cfg: MGConfig, impl: str,
         if fused:
             fine_rms = want_rms and k == 1
             res = ops.prolong_correct_smooth(us[k - 1], fs[k - 1], uc, dxp,
-                                             dyp, cfg.v3, want_rms=fine_rms)
+                                             dyp, cfg.v3, want_rms=fine_rms,
+                                             out=out if k == 1 else None)
             if fine_rms:
                 us[k - 1], ssq = res
             else:
@@ -370,14 +379,17 @@ def v_cycle(u, f, levels, imasks, cfg: MGConfig, impl: str,
     return (us[0], ssq) if want_rms else us[0]
 
 
-def fmg_start(f, u0, levels, imasks, cfg: MGConfig, impl: str):
+def fmg_start(f, u0, levels, imasks, cfg: MGConfig, impl: str, g=None):
     """Nested-iteration start: homogenize (v = u - u0 has zero boundary,
     A v = f - A u0 =: g), restrict g down the pyramid, then from the
     coarsest level up: prolong the current solution and run one V-cycle
-    of the sub-pyramid.  Returns u0 + v at ~discretization accuracy."""
+    of the sub-pyramid.  Returns u0 + v at ~discretization accuracy.
+    g: the residual of (f, u0) when the caller has it (solve's rms0
+    call), else computed here."""
     n = len(levels)
     _, _, dx0, dy0 = levels[0]
-    g = residual_full(f, u0, dx0, dy0, imasks[0])
+    if g is None:
+        g = residual_full(f, u0, dx0, dy0, imasks[0])
     restrict_fn, prolong_fn = _pick_transfers(cfg.transfers)
     ops = _OPS[impl]
     gs = [g]
@@ -413,8 +425,9 @@ class _CycleGraph:
         self.rms, self.rel = self.graph.out
 
     def _captured(self):
-        u, rms, rel = self.cycle(self.u, self.f, self.rms0)
-        self.u.copy_(u)
+        u, rms, rel = self.cycle(self.u, self.f, self.rms0, out=self.u)
+        if u is not self.u:       # an unfused cycle returns a new u
+            self.u.copy_(u)
         return rms, rel
 
     def load(self, f, u, rms0):
@@ -473,21 +486,28 @@ def solve(f, u0, dx: float, dy: float, cfg: MGConfig = MGConfig(),
     imasks = [interior_mask(l[0], l[1], d, f.device)
               for l, d in zip(levels, ldt)]
     fused_rms = len(levels) > 1 and _fused(cfg)
+    residual_ssq = _OPS[impl].residual_ssq
 
-    def cycle(u, f, rms0):
-        """One V-cycle: (u, rms, rms/rms0)."""
+    def rms_of(ssq):
+        """compute_l2norm over interior nodes (Common.jl:229-232)."""
+        return torch.sqrt(ssq / ((nx - 1) * (ny - 1))).to(f.dtype)
+
+    def cycle(u, f, rms0, out=None):
+        """One V-cycle: (u, rms, rms/rms0); a fused cycle writes u into
+        `out` when given."""
         if fused_rms:
-            u, ssq = v_cycle(u, f, levels, imasks, cfg, impl, want_rms=True)
-            rms = torch.sqrt(ssq / ((nx - 1) * (ny - 1))).to(f.dtype)
+            u, ssq = v_cycle(u, f, levels, imasks, cfg, impl, want_rms=True,
+                             out=out)
         else:
             u = v_cycle(u, f, levels, imasks, cfg, impl)
-            rms = _rms_from_full(residual_full(f, u, dx, dy, imasks[0]),
-                                 nx, ny)
+            ssq, _ = residual_ssq(u, f, dx, dy)
+        rms = rms_of(ssq)
         return u, rms, rms / rms0
 
-    rms0 = _rms_from_full(residual_full(f, u0, dx, dy, imasks[0]), nx, ny)
+    ssq0, g = residual_ssq(u0, f, dx, dy, want_r=cfg.fmg)
+    rms0 = rms_of(ssq0)
     if cfg.fmg:
-        u0 = fmg_start(f, u0, levels, imasks, cfg, impl)
+        u0 = fmg_start(f, u0, levels, imasks, cfg, impl, g=g)
     hist = torch.full((cfg.max_cycles + 1, 3), float("nan"), dtype=f.dtype,
                       device=f.device)
 

@@ -32,13 +32,15 @@ Phases, one line each:
      the kernel alone under torch.profiler (one device kernel a call with
      d/d re: the Re sum is folded into its last block), beside its ptxas
      registers and spills and an empty launch;
-     the four multigrid kernels at 4097^2 fp32 (the 4096^2
+     the five multigrid kernels at 4097^2 fp32 (the 4096^2
      solve's finest level, sweeps 2) and at 129x65, 33x65, 5x5 and the
      ragged 131x67 and 301x261 in fp32, fp64 and bf16, the two level-edge
      kernels and the smoother at sweeps 0, 1, 2, K+2 and 2K+1 (K sweeps a
-     pass) with two calls bitwise equal; the smoother also at even-sided
-     shapes and on both sides of its one-block limit, and timed at 129^2,
-     65^2 and 3x3 beside an empty launch; the packed cavity's stage kernel
+     pass) with two calls bitwise equal; the residual sum alone (a
+     solve's rms0) and with r written (fmg's g), timed at 4097^2 beside
+     its bound; the smoother and the residual sum also at even-sided
+     shapes and 3x3 and on both sides of the smoother's one-block limit,
+     the smoother timed at 129^2, 65^2 and 3x3 beside an empty launch; the packed cavity's stage kernel
      at (nx, ny) = 1024^2, 16^2, 24x16, 33x47, 34x130, 9x129, 1025^2 and
      3x3 in fp32 and fp64, every stage and both wall-BC orders, two calls
      bitwise equal, timed at 1024^2 warm and with L2 flushed; its
@@ -114,7 +116,9 @@ Phases, one line each:
      fmg, cycle_dtype="mixed" and fused="off" variants, checked alike,
      with mixed's error over the fused fp32 solve's printed (--profile:
      device launches a solve, a level edge and a smoother call, for the
-     fused solve and for the fused="off" one);
+     fused solve and for the fused="off" one; in the fused solve the
+     residual sum's us a solve beside its bound and the copies a solve,
+     failing on a torch residual chain's roll kernel);
   6. the user entry point `python -m cfd_julia_torch run poisson_mgN`
      (512^2, 9 levels) against the exact solution;
   7. the Euler path: Sod, fp32, 2000 SSP-RK3 steps at dt = 1e-4*256/nx
@@ -337,13 +341,19 @@ EULER_RUNS = [("hllc", 8192), ("rusanov", 8192), ("roe", 256)]
 EULER_STEPS = 2000
 EULER_VARIANTS = [("roe", "roe"), ("hllc", "roe"), ("rusanov", "roe"),
                   ("rusanov", "spectral")]
-# the multigrid kernels: LAUNCHES key -> the TPU kernel it replaces
+# the multigrid kernels: LAUNCHES key -> the TPU kernel it replaces (the
+# residual sum: the XLA-fused rms0 residual of the JAX solve)
 MG_KERNELS = {
     "prolong_correct_smooth": "cfd_julia_tpu/ops/pallas_kernels.py:547",
     "smooth_residual_restrict": "cfd_julia_tpu/ops/pallas_kernels.py:347",
     "residual_restrict": "cfd_julia_tpu/ops/pallas_kernels.py:417",
     "redblack_sweeps": "cfd_julia_tpu/ops/pallas_kernels.py:144",
+    "residual_ssq": "cfd_julia_tpu/poisson/multigrid.py:465",
 }
+# checked with the kernels above: the residual sum with r written (fmg's g)
+MG_CHECKED = (*MG_KERNELS, "residual_ssq_r")
+# the kernels that take any extent, held at RB_SHAPES too
+MG_ANY_EXTENT = ("redblack_sweeps", "residual_ssq", "residual_ssq_r")
 MG_EDGES = ("prolong_correct_smooth", "smooth_residual_restrict")
 # the kernels held at every sweep count of phase 2's list
 MG_SWEPT = (*MG_EDGES, "redblack_sweeps")
@@ -2228,6 +2238,13 @@ def mg_calls(u, f, uc, dx, dy, sweeps=MG_SWEEPS):
         "redblack_sweeps": (
             lambda: ck.redblack_sweeps_fused(u, f, dx, dy, sweeps),
             lambda: ck.redblack_sweeps_fused_plain(u, f, dx, dy, sweeps)),
+        # the sum alone, as a solve's rms0 and unfused checks take it
+        "residual_ssq": (
+            lambda: ck.residual_ssq(u, f, dx, dy)[0],
+            lambda: ck.residual_ssq_plain(u, f, dx, dy)[0]),
+        "residual_ssq_r": (
+            lambda: ck.residual_ssq(u, f, dx, dy, want_r=True),
+            lambda: ck.residual_ssq_plain(u, f, dx, dy, want_r=True)),
     }
 
 
@@ -2244,19 +2261,21 @@ def mg_work(name, u, f, uc, outs, sweeps):
             + nc * FLOPS_RESTRICT,
         "residual_restrict": n * FLOPS_RESIDUAL + nc * FLOPS_RESTRICT,
         "redblack_sweeps": n * FLOPS_RELAX * sweeps,
+        "residual_ssq": n * FLOPS_SQ_RESIDUAL,
+        "residual_ssq_r": n * FLOPS_SQ_RESIDUAL,
     }[name]
     return nbytes(*ins, *outs), flops
 
 
 def compare_outputs(got, ref, dtype):
-    """(ok, text, max field error) for a kernel's outputs against its
-    twin's.  Fields: 1e-5 of max|twin| in fp32 (FMA contraction and
+    """(ok, text, max field error, or the sum's error where no field is
+    compared) for a kernel's outputs against its twin's.  Fields: 1e-5 of max|twin| in fp32 (FMA contraction and
     operation order), 1e-12 in fp64, one bf16 ulp of max|twin| in bf16
     (both round an fp32 result once).  A residual sum (0-d) is held to
     rel 1e-5 (fp32 sums, fp32 and bf16 fields) or 1e-12 (fp64)."""
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
-    ok, parts, field_err = True, [], 0.0
+    ok, parts, field_err, sum_err = True, [], None, 0.0
     for g, r in zip(got, ref):
         if g.dtype != r.dtype or g.shape != r.shape:
             return False, f"dtype/shape {g.dtype}{tuple(g.shape)} vs " \
@@ -2266,6 +2285,7 @@ def compare_outputs(got, ref, dtype):
         if r.dim() == 0:
             rel = 1e-12 if dtype == torch.float64 else 1e-5
             tol, how = rel * scale, f"{rel:g}*|p|"
+            sum_err = max(sum_err, err)
             parts.append(f"ssq |k-p|={err:.3e} |p|={scale:.6e} tol={how}")
         else:
             if dtype == torch.bfloat16:
@@ -2273,11 +2293,11 @@ def compare_outputs(got, ref, dtype):
             else:
                 rel = 1e-12 if dtype == torch.float64 else 1e-5
                 tol, how = rel * scale, f"{rel:g}*max|p|"
-            field_err = max(field_err, err)
+            field_err = max(field_err or 0.0, err)
             parts.append(f"{tuple(r.shape)} max|k-p|={err:.3e} "
                          f"max|p|={scale:.3e} tol={how}")
         ok = ok and err <= tol
-    return ok, "; ".join(parts), field_err
+    return ok, "; ".join(parts), sum_err if field_err is None else field_err
 
 
 def phase_mg_kernels():
@@ -2309,7 +2329,7 @@ def phase_mg_kernels():
         for dtype in dtypes:
             u, f, uc = (torch.as_tensor(a, device=dev).to(dtype)
                         for a in arrays)
-            names = ["redblack_sweeps"] if shape in RB_SHAPES else MG_KERNELS
+            names = MG_ANY_EXTENT if shape in RB_SHAPES else MG_CHECKED
             for name in names:
                 results = []
                 for sweeps in edge_sweeps if name in MG_SWEPT \
@@ -2323,8 +2343,15 @@ def phase_mg_kernels():
                     same = all(torch.equal(a, b) for a, b in zip(got, again))
                     results.append((sweeps, ok and same, text, err, same))
                     if shape == big and sweeps == MG_SWEEPS:
-                        records[name], timed = mg_record(
-                            name, kernel, plain, got, u, f, uc, err)
+                        rec, timed = mg_record(name, kernel, plain, got, u,
+                                               f, uc, err)
+                        if name == "residual_ssq_r":   # fmg's call
+                            records["residual_ssq"]["with_r"] = {
+                                k: rec[k] for k in ("ms", "plain_ms",
+                                                    "bound_ms",
+                                                    "max_abs_err")}
+                        else:
+                            records[name] = rec
                 bad = [r for r in results if not r[1]]
                 worst = bad[0] if bad else max(results, key=lambda r: r[3])
                 line = (f"phase 2 kernel {name} {shape[0]}x{shape[1]} "
@@ -2338,7 +2365,8 @@ def phase_mg_kernels():
                     line += "; " + timed
                 print(line)
                 check(not bad, line)
-                if shape in RB_TIMED and dtype == torch.float32:
+                if shape in RB_TIMED and dtype == torch.float32 and \
+                        name == "redblack_sweeps":
                     small[shape] = median_ms(
                         mg_calls(u, f, uc, dx, dy)["redblack_sweeps"][0])[0]
             del u, f, uc
@@ -2367,7 +2395,7 @@ def mg_record(name, kernel, plain, got, u, f, uc, err):
             f"events)")
     return {"name": name, "route": "cuda",
             "source": "cfd_julia_torch/csrc/multigrid.cu",
-            "replaces": MG_KERNELS[name], "launches": None,
+            "replaces": MG_KERNELS.get(name), "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
             "library_ms": None}, text
 
@@ -2589,8 +2617,9 @@ def profile_edges(by_name, calls, solves):
     smoother call one, and kernel 4's restrict_kernel stays out of the
     fused solve."""
     down = kernel_sums(by_name, "smooth_restrict_tile_kernel")[1]
-    up = kernel_sums(by_name, "sweep_tile_kernel", "sum_kernel")[1]
-    n_sum = kernel_sums(by_name, "sum_kernel")[1]
+    # sum_kernel also ends each residual_ssq call
+    n_sum = kernel_sums(by_name, "sum_kernel")[1] - calls["residual_ssq"]
+    up = kernel_sums(by_name, "sweep_tile_kernel")[1] + n_sum
     n_restrict = kernel_sums(by_name, "restrict_kernel")[1]
     n_down = calls["smooth_residual_restrict"]
     n_up = calls["prolong_correct_smooth"]
@@ -2606,6 +2635,35 @@ def profile_edges(by_name, calls, solves):
           and rb_ok)
     print(line + (" ok" if ok else " FAIL"))
     check(ok, line)
+    line, ok = profile_residual(by_name, calls, solves)
+    print(line + (" ok" if ok else " FAIL"))
+    check(ok, line)
+
+
+def profile_residual(by_name, calls, solves):
+    """The residual sum's device us a solve (its pass and its share of
+    sum_kernel's launches) beside its bound at 4097^2 fp32 and twice it;
+    the copies a solve; and whether the fused solve is free of a torch
+    residual chain (no roll kernel) with one residual_ssq pass a call."""
+    us, n = kernel_sums(by_name, "residual_ssq_kernel")
+    sum_us, n_sum = kernel_sums(by_name, "sum_kernel")
+    n_calls = calls["residual_ssq"]
+    sums_us = sum_us / max(n_sum, 1) * n_calls
+    # u and f read once, fp32
+    bound_us = 2 * (MG_NX + 1) ** 2 * 4 / HBM_BYTES_PER_S * 1e6
+    # device-to-device copies: cudaMemcpy's and torch's copy kernels
+    copies = [v for name, v in by_name.items()
+              if re.search(r"Memcpy DtoD|direct_copy", name)]
+    rolls = [v for name, v in by_name.items() if "roll" in name]
+    line = (f"profile multigrid {MG_NX}^2 rms0: residual_ssq_kernel "
+            f"{us / solves:.2f} us/solve in {n} launches / {n_calls} calls, "
+            f"its sums ~{sums_us / solves:.2f} us/solve (sum_kernel's mean "
+            f"launch); {(us + sums_us) / solves:.2f} us/solve against a "
+            f"bound of {bound_us:.2f} us a call (2x {2 * bound_us:.2f}); "
+            f"copies {sum(u for u, _ in copies) / solves:.2f} us/solve in "
+            f"{sum(c for _, c in copies) / solves:.1f} launches; roll "
+            f"kernels {sum(c for _, c in rolls)}")
+    return line, n == n_calls and n_calls > 0 and not rolls
 
 
 def profile_off(by_name, calls, solves):
@@ -2734,10 +2792,13 @@ def cli_runs(preset, extras, timeout=900, outdirs=None):
 def expected_launches(n_levels, cycles, fused, fmg):
     """Wrapper calls the pyramid implies: a fused V-cycle over m levels
     calls each edge kernel m-1 times and the smoother once (coarsest); an
-    unfused one calls the smoother 2(m-1)+1 times.  FMG restricts its
+    unfused one calls the smoother 2(m-1)+1 times and the residual sum
+    once (its check).  A solve's rms0 is one residual-sum call (with fmg
+    the same call gives its right-hand side).  FMG restricts its
     right-hand side down n-1 edges (fused), smooths the coarsest level,
     and runs one V-cycle of each sub-pyramid on the way up."""
     e = dict.fromkeys(MG_KERNELS, 0)
+    e["residual_ssq"] = 1 + (0 if fused else cycles)
 
     def v_cycle(m):
         if fused:
@@ -4445,12 +4506,16 @@ def phase_packed_gradients(matmul_grad):
 # the relaxation Poisson solves)
 MG_PATH = ("smooth_residual_restrict", "prolong_correct_smooth",
            "redblack_sweeps")
+# multigrid.solve also takes its rms0 through the residual sum (MG-CG
+# keeps its own residuals)
+MG_SOLVE_PATH = (*MG_PATH, "residual_ssq")
 RUN_ALL_KERNELS = {
     "cavity": ("arakawa_rhs",), "vortex_merger_fdm": ("arakawa_rhs",),
     "tgv": ("arakawa_rhs",), "vortex_merger_ps23": VORTEX_PLANNED,
     "vortex_merger_ps32": (*VORTEX_PLANNED, "vortex_truncate_32"),
-    "vortex_merger_hybrid": ("vortex_cn_combine",), "poisson_mg2": MG_PATH,
-    "poisson_mgcg": MG_PATH, "poisson_mgN": MG_PATH,
+    "vortex_merger_hybrid": ("vortex_cn_combine",),
+    "poisson_mg2": MG_SOLVE_PATH, "poisson_mgcg": MG_PATH,
+    "poisson_mgN": MG_SOLVE_PATH,
     "euler_roe": ("euler_rhs",), "euler_hllc": ("euler_rhs",),
     "euler_rusanov": ("euler_rhs",),
 }

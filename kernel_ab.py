@@ -23,9 +23,11 @@ rounds):
     ones in fp64), for the trees that have them;
   - euler_rhs at (3, 8192) fp32 on the Sod state after 100 steps, for
     hllc, roe, rusanov/roe and rusanov/spectral;
-  - the two multigrid level edges at 4097^2 fp32, 2 sweeps, for the trees
-    that have them, and the smoother (redblack_sweeps) on every level of
-    the 4096^2 pyramid (4097^2 down to 3x3), fp32, 2 sweeps;
+  - the two multigrid level edges at 4097^2 fp32, 2 sweeps, and the
+    residual sum (residual_ssq: alone, as a solve's rms0, and with r
+    written, as fmg's g) at 4097^2 fp32, for the trees that have them, and
+    the smoother (redblack_sweeps) on every level of the 4096^2 pyramid
+    (4097^2 down to 3x3), fp32, 2 sweeps;
   - the tier GEMM (csrc/tier_gemm.cu) at 1024^3 and 1023^3 (the fused
     and matmul tiers' shapes), 1 and 3 passes, on the cavity's sine
     matrix and a random field: a product as the Poisson solve makes it
@@ -67,8 +69,8 @@ rounds):
     and the smoother kernels' (every kernel whose name starts with rb_,
     and convert_kernel) time and launches.
 Each call is also held against its plain twin (max|kernel - twin| is
-printed), and each tree's RHS, stage and tier kernels' ptxas registers
-and spills are printed; --sass also counts the CALL instructions (the
+printed), and each tree's RHS, smoother, residual-sum, stage and tier
+kernels' ptxas registers and spills are printed; --sass also counts the CALL instructions (the
 slow paths of IEEE division, reciprocal and square root) in their SASS
 (cuobjdump).  A tree that does not build is reported with nvcc's output
 and left out; the first tree must build.  A tree from before the fold
@@ -449,7 +451,7 @@ def tier_step_profiles(libs, rounds):
 
 
 # the kernels whose registers and SASS are reported
-KERNELS = "arakawa|euler|rb_|tier|split|cavity_stage"
+KERNELS = "arakawa|euler|rb_|residual_ssq|tier|split|cavity_stage"
 
 
 def sass_calls(path: Path):
@@ -539,10 +541,15 @@ def cases(dev):
                     for shape in ((n, n), (n, n), coarse))
         h = 1.0 / (n - 1)
         for name, (kernel, plain) in cs.mg_calls(u, f, uc, h, h).items():
-            if (name in cs.MG_EDGES and n == cs.MG_NX + 1
+            finest = n == cs.MG_NX + 1
+            if (name in cs.MG_EDGES and finest
+                    or name.startswith("residual_ssq") and finest
                     or name == "redblack_sweeps"):
-                symbol = "rb_sweeps" if name == "redblack_sweeps" else name
-                out[f"{name} {n}^2 fp32 sweeps {cs.MG_SWEEPS}"] = (
+                symbol = {"redblack_sweeps": "rb_sweeps",
+                          "residual_ssq_r": "residual_ssq"}.get(name, name)
+                swept = "" if name.startswith("residual_ssq") else \
+                    f" sweeps {cs.MG_SWEEPS}"
+                out[f"{name} {n}^2 fp32{swept}"] = (
                     kernel, plain, None, f"mg_{symbol}_f32")
     return out
 

@@ -665,6 +665,87 @@ def test_multigrid_kernels_match_plain(cuda_device, shape, dtype, sweeps):
             _assert_rel(g, r, REL[dtype])
 
 
+# the residual sum's blocks (csrc/multigrid.cu): kResidCols columns by
+# kResidRows rows, one partial each
+RESID_BLOCK = tuple(
+    int(re.search(rf"constexpr int {name} = (\d+);",
+                  (_cuda_build.CSRC / "multigrid.cu").read_text()).group(1))
+    for name in ("kResidCols", "kResidRows"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_r", [False, True], ids=["ssq", "ssq_r"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape", [(129, 65), (33, 65), (5, 5), (131, 67),
+                                   (301, 261), (3, 3), (4, 6)])
+def test_residual_ssq_kernel_matches_plain(cuda_device, shape, dtype,
+                                           want_r):
+    """The residual sum (and r) against its twin: the sum rel 1e-5 (fp32
+    sums of fp32 and bf16 fields) or 1e-12 (fp64), r 1e-5 / 1e-12 of its
+    scale, one bf16 ulp in bf16; two calls bitwise equal; one count a
+    call."""
+    u, f = (interop.field_from_numpy(a, dtype, cuda_device)
+            for a in _fields(shape, seed=20))
+    dx, dy = _spacing(shape)
+    before = cuda_kernels.LAUNCHES["residual_ssq"]
+    got = cuda_kernels.residual_ssq(u, f, dx, dy, want_r=want_r)
+    again = cuda_kernels.residual_ssq(u, f, dx, dy, want_r=want_r)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["residual_ssq"] == before + 2
+    ref = cuda_kernels.residual_ssq_plain(u, f, dx, dy, want_r=want_r)
+    cdt = torch.float64 if dtype == torch.float64 else torch.float32
+    assert got[0].dtype == cdt and got[0].dim() == 0
+    assert torch.equal(got[0], again[0]), "two sums differ"
+    rel = 1e-12 if dtype == torch.float64 else 1e-5
+    assert abs(float(got[0]) - float(ref[0])) <= rel * abs(float(ref[0]))
+    if not want_r:
+        assert got[1] is None
+        return
+    assert got[1].dtype == dtype and got[1].shape == u.shape
+    assert torch.equal(got[1], again[1]), "two residuals differ"
+    _assert_rel(got[1], ref[1], REL[dtype])
+
+
+@pytest.mark.cuda
+def test_residual_ssq_partials_match_the_grid(cuda_device):
+    """One partial a kResidCols x kResidRows block of the level."""
+    lib = _cuda_build.load_library()
+    cols, rows = RESID_BLOCK
+    for nr, nc in [(4097, 4097), (3, 3), (131, 67), (rows, cols),
+                   (rows + 1, cols + 1)]:
+        assert lib.mg_residual_ssq_partials(nr, nc) == \
+            -(-nr // rows) * -(-nc // cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("sweeps", [2, 5])
+def test_prolong_out_is_the_fresh_output(cuda_device, sweeps, dtype):
+    """The ascend edge into a caller's out= (a captured cycle's static u):
+    the fresh call's output and residual sum bit for bit, out itself
+    returned, and a refusal of an out that is u."""
+    shape = (131, 67)
+    u, f = (interop.field_from_numpy(a, dtype, cuda_device)
+            for a in _fields(shape, seed=21))
+    (uc,) = _fields(((shape[0] - 1) // 2 + 1, (shape[1] - 1) // 2 + 1),
+                    seed=22, n=1)
+    uc = interop.field_from_numpy(uc, dtype, cuda_device)
+    dx, dy = _spacing(shape)
+    out = torch.full_like(u, float("nan"))
+    got, ssq = cuda_kernels.prolong_correct_smooth_fused(
+        u, f, uc, dx, dy, sweeps, want_rms=True, out=out)
+    ref, ref_ssq = cuda_kernels.prolong_correct_smooth_fused(
+        u, f, uc, dx, dy, sweeps, want_rms=True)
+    torch.cuda.synchronize()
+    assert got is out
+    assert torch.equal(out, ref) and torch.equal(ssq, ref_ssq)
+    with pytest.raises(ValueError):
+        cuda_kernels.prolong_correct_smooth_fused(u, f, uc, dx, dy, sweeps,
+                                                  out=u)
+
+
 # the smoother takes a level of up to 65^2 nodes whole into one block,
 # else tiles: even sides, and shapes on both sides of that limit (65x65
 # and 33x128 on it, 65x66 and 33x129 past it)
@@ -885,7 +966,10 @@ def test_graphed_vortex_equals_eager(cuda_device, solver):
 def test_graphed_multigrid_equals_eager(cuda_device, opts):
     """The 256^2 poly solve, fp32: the captured V-cycle gives the eager
     solve's u, cycle count, history and records bit for bit, with the
-    same kernel launches; a second solve replays the cached graph."""
+    same kernel launches (a fused cycle writing the graph's static u
+    through the ascend edge's out=, an unfused one copying it); a second
+    solve replays the cached graph.  The residual sum runs once a solve
+    (rms0, and fmg's right-hand side) and once an unfused cycle."""
     cfg = poisson2d.PoissonConfig(nx=256, ny=256, solver="multigrid",
                                   problem="poly")
     _, _, _, _, ue, f = poisson2d.build_problem(cfg, torch.float32,
@@ -906,6 +990,8 @@ def test_graphed_multigrid_equals_eager(cuda_device, opts):
     _assert_same(graphed[:4], eager[:4])
     assert graphed[4:] == eager[4:] and eager[4] > 1
     assert n_graph == n_eager
+    fused = opts.get("fused") != "off" and opts.get("smoother") != "cheb"
+    assert n_graph["residual_ssq"] == 2 * (1 + (0 if fused else eager[4]))
 
 
 @pytest.mark.cuda
